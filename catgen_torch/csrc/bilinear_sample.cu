@@ -1,0 +1,128 @@
+// Edge-clamped bilinear sampling of an NHWC image at normalized (y; x)
+// coordinate rows: the forward of the spatial transformers' sampler.
+//
+// Replaces the TPU kernel catgen/kernels/pallas_bilinear_v4.py,
+// bilinear_sample_rows -> _forward: both its separable body (_fwd_kernel,
+// taken for H*W > 256, the 32x32x3 input transformer) and its dense body
+// (_dense_fwd_kernel_mxu / _dense_fwd_kernel, H*W <= 256, the three branch
+// transformers on 16x16x64 with their grids stacked to 48x16). On the TPU
+// those are two matrix-unit formulations of one operation; on Hopper the
+// operation is a gather, and one kernel serves both shapes.
+//
+// What bounds it: memory traffic. Per output pixel it reads two
+// coordinates and four taps of C floats and writes C floats, with three
+// lerps per value, far below the arithmetic the card can do per byte.
+// This first version is the simple one:
+//   * C >= 32: one thread per output value (n, p, c), c fastest, so the
+//     threads of a warp read neighbouring channels of one tap (coalesced)
+//     and share that pixel's coordinates (one broadcast load);
+//   * C < 32 (the 32x32x3 input): one thread per output pixel, looping
+//     over its C channels.
+// Taps that neighbouring output pixels share are re-read through L1/L2;
+// reusing them from shared memory, and vectorised loads, are later work.
+//
+// Arithmetic is f32 and follows catgen/nn/spatial_transformer.py,
+// bilinear_sample (and _weights_rows of the TPU kernel): clip the pixel
+// coordinate to [0, size-1], first tap floor() clipped to [0, size-2], so
+// the weight reaches 1.0 at the far edge. It does not reproduce the TPU
+// kernel's bf16 operand rounding. The library is built with --fmad=false
+// so that the lerps round as the plain PyTorch version's separate
+// multiplies and adds do. No atomics: each output value is written by
+// exactly one thread, so the result is deterministic.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Taps {
+  int64_t p00, p01, p10, p11;  // pixel indices y*w + x of the four taps
+  float wy, wx;
+};
+
+__device__ __forceinline__ Taps make_taps(float yn, float xn, int h, int w) {
+  float fy = (yn + 1.0f) * 0.5f * (float)(h - 1);
+  float fx = (xn + 1.0f) * 0.5f * (float)(w - 1);
+  fy = fminf(fmaxf(fy, 0.0f), (float)(h - 1));
+  fx = fminf(fmaxf(fx, 0.0f), (float)(w - 1));
+  const int y0 = h > 1 ? min(max((int)floorf(fy), 0), h - 2) : 0;
+  const int x0 = w > 1 ? min(max((int)floorf(fx), 0), w - 2) : 0;
+  const int y1 = min(y0 + 1, h - 1);
+  const int x1 = min(x0 + 1, w - 1);
+  Taps t;
+  t.p00 = (int64_t)y0 * w + x0;
+  t.p01 = (int64_t)y0 * w + x1;
+  t.p10 = (int64_t)y1 * w + x0;
+  t.p11 = (int64_t)y1 * w + x1;
+  t.wy = fy - (float)y0;
+  t.wx = fx - (float)x0;
+  return t;
+}
+
+__device__ __forceinline__ float lerp2(const float* __restrict__ base,
+                                       const Taps& t, int c) {
+  const float v00 = __ldg(base + t.p00 * c);
+  const float v01 = __ldg(base + t.p01 * c);
+  const float v10 = __ldg(base + t.p10 * c);
+  const float v11 = __ldg(base + t.p11 * c);
+  const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
+  const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
+  return top * (1.0f - t.wy) + bot * t.wy;
+}
+
+// img (n, h, w, c), crd (n, 2, p), out (n, p, c); all contiguous f32.
+__global__ void sample_rows_per_value(const float* __restrict__ img,
+                                      const float* __restrict__ crd,
+                                      float* __restrict__ out, int n, int h,
+                                      int w, int c, int p) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)n * p * c) return;
+  const int ch = (int)(i % c);
+  const int64_t pix = i / c;
+  const int pi = (int)(pix % p);
+  const int ni = (int)(pix / p);
+  const float* cr = crd + (int64_t)ni * 2 * p;
+  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  out[i] = lerp2(img + (int64_t)ni * h * w * c + ch, t, c);
+}
+
+__global__ void sample_rows_per_pixel(const float* __restrict__ img,
+                                      const float* __restrict__ crd,
+                                      float* __restrict__ out, int n, int h,
+                                      int w, int c, int p) {
+  const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= (int64_t)n * p) return;
+  const int pi = (int)(pix % p);
+  const int ni = (int)(pix / p);
+  const float* cr = crd + (int64_t)ni * 2 * p;
+  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float* base = img + (int64_t)ni * h * w * c;
+  float* o = out + pix * c;
+  for (int ch = 0; ch < c; ++ch) o[ch] = lerp2(base + ch, t, c);
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() as an int (0 = the
+// launch was accepted). Does not synchronise and allocates nothing.
+extern "C" int catgen_bilinear_sample_rows_f32(const float* img,
+                                               const float* crd, float* out,
+                                               int n, int h, int w, int c,
+                                               int p, void* stream) {
+  const int threads = 256;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c >= 32) {
+    const int64_t total = (int64_t)n * p * c;
+    if (total == 0) return 0;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    sample_rows_per_value<<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
+                                                     c, p);
+  } else {
+    const int64_t total = (int64_t)n * p;
+    if (total == 0) return 0;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    sample_rows_per_pixel<<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
+                                                     c, p);
+  }
+  return (int)cudaGetLastError();
+}

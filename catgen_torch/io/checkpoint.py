@@ -1,0 +1,131 @@
+"""Reader and writer of catgen's checkpoint format, numpy only.
+
+A catgen checkpoint (``catgen/io/checkpoint.py``) is an ``.npz`` of pytree
+leaves keyed by their tree paths as ``jax.tree_util.keystr`` spells them,
+for example ``.d_params['05_FusedSTBranches']['loc0']['01_Conv']['kernel']``,
+plus a JSON metadata blob stored as uint8 under ``__meta__``. This module
+reads and writes that format without jax: keys are parsed and spelled by
+``parse_key`` and ``key``. Saving is atomic and keeps the predecessor as
+``<file>.old``, as catgen's does.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+FORMAT_VERSION = 2
+
+_ATTR = re.compile(r"^\.(\w+)")
+_KEY = re.compile(r"^\.(\w+)((?:\['[^']*'\])*)$")
+_SEGMENT = re.compile(r"\['([^']*)'\]")
+
+
+def key(attr: str, path: Tuple[str, ...]) -> str:
+    """``key('g_params', ('03_UpsampleConv', 'kernel'))`` ->
+    ``".g_params['03_UpsampleConv']['kernel']"``."""
+    return "." + attr + "".join(f"['{p}']" for p in path)
+
+
+def attr_of(k: str) -> str:
+    """The top-level field of a key: ``.d_opt.mu[...]`` -> ``d_opt``."""
+    m = _ATTR.match(k)
+    if m is None:
+        raise ValueError(f"not a catgen checkpoint key: {k!r}")
+    return m.group(1)
+
+
+def parse_key(k: str) -> Tuple[str, Tuple[str, ...]]:
+    """Inverse of ``key`` (a field, then dict keys only); raises ValueError
+    on any other spelling."""
+    m = _KEY.match(k)
+    if m is None:
+        raise ValueError(f"not a catgen checkpoint key: {k!r}")
+    return m.group(1), tuple(_SEGMENT.findall(m.group(2)))
+
+
+def tree_to_leaves(attr: str, tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Nested dict of arrays -> {key: array}, keys under ``.attr``."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            out[key(attr, path)] = np.asarray(node)
+
+    walk(tree, ())
+    return out
+
+
+def leaves_to_tree(attr: str, leaves: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """{key: array} -> nested dict of the leaves under ``.attr``."""
+    tree: Dict[str, Any] = {}
+    for k, v in leaves.items():
+        a, path = parse_key(k)
+        if a != attr:
+            continue
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return tree
+
+
+def save(path: str, leaves: Dict[str, np.ndarray],
+         meta: Optional[Dict[str, Any]] = None) -> None:
+    """Atomically writes leaves + metadata; keeps the previous file as
+    ``.old``."""
+    meta = dict(meta or {})
+    meta.setdefault("format_version", FORMAT_VERSION)
+    buf = io.BytesIO()
+    np.savez(buf, __meta__=np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8), **leaves)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    if os.path.exists(path):
+        os.replace(path, path + ".old")
+    os.replace(tmp, path)
+
+
+def load_meta(path: str) -> Dict[str, Any]:
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
+
+
+def load(path: str, attrs: Tuple[str, ...]
+         ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Returns ({key: array} for the keys under ``attrs``, meta). Leaves
+    under other attributes, such as the optimizer states ``.g_opt`` and
+    ``.d_opt`` and the gate buffer, are not read.
+
+    Raises ValueError on an archive written before catgen's round-3 D
+    restructure (an ``00_SpatialTransformer`` key): catgen migrates those
+    keys on load (``catgen.io.checkpoint.load``); re-save such a
+    checkpoint with catgen first."""
+    with np.load(path) as z:
+        if any("00_SpatialTransformer" in k for k in z.files):
+            raise ValueError(
+                f"checkpoint {path} predates catgen's round-3 D layout "
+                f"(it has '00_SpatialTransformer' keys); load and re-save "
+                f"it with catgen, whose loader migrates the old keys")
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        leaves = {}
+        for k in z.files:
+            if k == "__meta__":
+                continue
+            if attr_of(k) in attrs:
+                leaves[k] = z[k]
+    return leaves, meta
+
+
+def adversarial_filename() -> str:
+    return "adversarial.ckpt"

@@ -1,0 +1,8 @@
+from catgen_torch.models.zoo import (  # noqa: F401
+    D_REGISTRY,
+    G_REGISTRY,
+    create_D,
+    create_D32_st3,
+    create_G,
+    create_G_decoder_upsampling32c,
+)

@@ -1,0 +1,239 @@
+"""Core layers on NHWC tensors: the counterparts of ``catgen/nn/layers.py``.
+
+Every layer takes and returns catgen's layout, images ``(N, H, W, C)`` and
+features ``(N, F)``. Convolutions and pools run on a permuted view
+``(N, C, H, W)`` of the NHWC tensor, which PyTorch treats as channels_last,
+so no layout copy is made on the way in or out. ``Flatten`` and
+``Reshape`` work in NHWC element order, so Dense weights line up with a
+catgen checkpoint.
+
+Parameter names: Conv and Dense hold ``weight`` (PyTorch's OIHW and
+(out, in) layouts) and ``bias``; BatchNorm holds ``scale`` and ``bias``
+with running statistics ``mean`` and ``var`` as buffers; PReLU holds
+``alpha``. ``catgen_torch.io.convert`` maps them onto catgen's leaves.
+
+``training`` (``module.train()`` / ``module.eval()``) selects train or
+eval semantics, as catgen's ``train=`` flag does. The stochastic layers
+draw their masks from an explicit ``torch.Generator`` set on the layer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from catgen_torch.core import initializers
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# parametric layers
+# ---------------------------------------------------------------------------
+
+
+class Dense(nn.Module):
+    """Linear layer; weight (out, in), heuristic init by default."""
+
+    def __init__(self, in_features: int, features: int,
+                 init: str = "heuristic"):
+        super().__init__()
+        self.in_features = in_features
+        self.features = features
+        self.init_method = init
+        self.weight = nn.Parameter(torch.zeros(features, in_features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        initializers.uniform_fan(self.init_method)(
+            self.weight, self.in_features, self.features, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class Conv(nn.Module):
+    """2-D 'same' convolution (odd kernel, stride 1, padding (k-1)/2 per
+    side), NHWC in and out, weight (O, I, kh, kw)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int] = (3, 3),
+                 init: str = "heuristic"):
+        super().__init__()
+        if kernel_size[0] % 2 != 1 or kernel_size[1] % 2 != 1:
+            raise ValueError(f"kernel size must be odd, got {kernel_size}")
+        self.in_channels = in_channels
+        self.features = features
+        self.kernel_size = tuple(kernel_size)
+        self.padding = ((kernel_size[0] - 1) // 2, (kernel_size[1] - 1) // 2)
+        self.init_method = init
+        self.weight = nn.Parameter(
+            torch.zeros(features, in_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        kh, kw = self.kernel_size
+        initializers.uniform_fan(self.init_method)(
+            self.weight, self.in_channels * kh * kw,
+            self.features * kh * kw, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(to_nchw(x), self.weight, self.bias,
+                     padding=self.padding)
+        return to_nhwc(y)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over every axis but the last. Eval: ``x*scale + shift``
+    with ``scale = gamma*rsqrt(var+eps)`` from the running statistics.
+    Train: normalizes with the biased batch variance and moves the running
+    mean and the unbiased running variance by ``momentum``."""
+
+    momentum = 0.1
+    eps = 1e-5
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            mean_sq = (xf * xf).mean(dim=dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
+            n = math.prod(x.shape[:-1])
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(1 - m).add_(m * mean)
+                self.var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var.float() + self.eps)
+        scale = (self.scale * inv).to(x.dtype)
+        shift = (self.bias - self.scale * mean * inv).to(x.dtype)
+        return x * scale + shift
+
+
+class PReLU(nn.Module):
+    """PReLU with one shared slope of shape (1,), init 0.25."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+# ---------------------------------------------------------------------------
+# stateless layers
+# ---------------------------------------------------------------------------
+
+
+class LeakyReLU(nn.Module):
+    """LeakyReLU with the reference's slope 1/3."""
+
+    negative_slope = 1.0 / 3.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope * x)
+
+
+class Sigmoid(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x)
+
+
+class _MaskedDropout(nn.Module):
+    """Inverted dropout: identity in eval; in train keeps each unit of
+    ``mask_shape(x)`` with probability 1-rate and scales by 1/(1-rate).
+    The mask comes from ``self.generator``, which the caller sets."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError(f"{type(self).__name__} in train mode needs a "
+                             f"torch.Generator (set .generator)")
+        keep = 1.0 - self.rate
+        u = torch.rand(self.mask_shape(x), generator=self.generator,
+                       device=self.generator.device).to(x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+class Dropout(_MaskedDropout):
+    """Inverted dropout, default p=0.5."""
+
+
+class SpatialDropout(_MaskedDropout):
+    """Drops whole feature maps: NHWC mask of shape (N, 1, 1, C)."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (x.shape[0], 1, 1, x.shape[-1])
+
+
+class MaxPool(nn.Module):
+    """Non-overlapping ``window`` x ``window`` pooling."""
+
+    def __init__(self, window: int = 2):
+        super().__init__()
+        self.window = window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return to_nhwc(F.max_pool2d(to_nchw(x), self.window))
+
+
+class AvgPool(nn.Module):
+    """Non-overlapping ``window`` x ``window`` pooling."""
+
+    def __init__(self, window: int = 2):
+        super().__init__()
+        self.window = window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return to_nhwc(F.avg_pool2d(to_nchw(x), self.window))
+
+
+class Flatten(nn.Module):
+    """(N, H, W, C) -> (N, H*W*C) in NHWC element order."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)
+
+
+class Reshape(nn.Module):
+    """Per-sample reshape; ``shape`` excludes the batch and is NHWC."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        super().__init__()
+        self.shape = tuple(shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape((x.shape[0],) + self.shape)

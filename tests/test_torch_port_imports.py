@@ -1,0 +1,48 @@
+"""The port stands alone: no module of catgen_torch, and not chip_smoke.py,
+imports jax or the catgen package (the machine with the card runs the
+port without them)."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "catgen"}
+
+
+def _port_sources():
+    return sorted((ROOT / "catgen_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_with_jax_and_catgen_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['catgen'] = None\n"
+        "import importlib, pkgutil, catgen_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    catgen_torch.__path__, 'catgen_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_no_source_names_jax_or_catgen():
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            bad = FORBIDDEN.intersection(roots)
+            assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} " \
+                            f"imports {sorted(bad)}"
