@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: dataset flags, the corpus, and the device."""
+"""Shared CLI plumbing: dataset flags, the reference's common flags, the
+corpus, and the device (catgen's ``--platform`` becomes ``--device``)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import os
 
 import torch
 
+from catgen_torch.data.fixture import write_fixture_dataset
 from catgen_torch.data.loader import ImageDataset
 
 
@@ -14,9 +16,30 @@ def add_dataset_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset", nargs="*", default=None,
                    help="directories of 64x64 JPEGs")
     p.add_argument("--fixture", type=int, default=0,
-                   help="catgen's flag for the training CLIs; sampling "
-                        "reads an existing <save>/fixture and never writes "
-                        "one")
+                   help="training: if >0 and no --dataset, write N synthetic "
+                        "cat faces to <save>/fixture and train on them; "
+                        "sampling reads an existing <save>/fixture and never "
+                        "writes one")
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    """The reference's common flags (catgen/cli/common.py), with --device
+    for --platform. Multi-host flags are refused: ROADMAP Queue A item 11."""
+    p.add_argument("--save", default="logs", help="artifact directory")
+    p.add_argument("--scale", type=int, default=32)
+    p.add_argument("--colorSpace", default="rgb",
+                   choices=["rgb", "yuv", "hsl", "y"])
+    p.add_argument("--noiseDim", type=int, default=100)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--batchSize", type=int, default=32)
+    p.add_argument("--N_epoch", type=int, default=1000)
+    p.add_argument("--devices", type=int, default=1,
+                   help="data-parallel size (only 1 is ported)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator (not ported)")
+    p.add_argument("--numProcesses", type=int, default=None)
+    p.add_argument("--processId", type=int, default=None)
+    add_device_arg(p)
 
 
 def add_device_arg(p: argparse.ArgumentParser):
@@ -34,18 +57,28 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_dataset(args, device: torch.device) -> ImageDataset:
+def build_dataset(args, device: torch.device,
+                  create_fixture: bool = False) -> ImageDataset:
     """The corpus of ``--dataset``, else the fixture under <save>/fixture.
-    A missing fixture is not synthesized: NN statistics against a toy
+    Only training (``create_fixture``) synthesizes a missing fixture (of
+    ``--fixture`` images, 64 by default): NN statistics against a toy
     corpus mean nothing for a checkpoint trained on a real dataset."""
     dirs = args.dataset
     if not dirs:
         fixture_dir = os.path.join(args.save, "fixture")
-        if not os.path.isdir(fixture_dir) or not os.listdir(fixture_dir):
+        missing = not os.path.isdir(fixture_dir) or not os.listdir(
+            fixture_dir)
+        if missing and create_fixture:
+            n = args.fixture or 64
+            print(f"[data] no --dataset given; writing {n} synthetic cat "
+                  f"faces to {fixture_dir}")
+            write_fixture_dataset(fixture_dir, n=n)
+        elif missing:
             raise SystemExit(
                 f"no --dataset given and no fixture corpus at "
                 f"{fixture_dir}: pass --dataset <dirs> (the training "
                 f"corpus path is not recorded in checkpoints)")
         dirs = [fixture_dir]
     return ImageDataset(dirs, scale=args.scale, colorspace=args.colorSpace,
-                        seed=args.seed, device=device)
+                        seed=args.seed, device=device,
+                        normalize=getattr(args, "normalize", False))

@@ -33,31 +33,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilinear_taps.cuh"
+
 namespace {
-
-struct Taps {
-  int64_t p00, p01, p10, p11;  // pixel indices y*w + x of the four taps
-  float wy, wx;
-};
-
-__device__ __forceinline__ Taps make_taps(float yn, float xn, int h, int w) {
-  float fy = (yn + 1.0f) * 0.5f * (float)(h - 1);
-  float fx = (xn + 1.0f) * 0.5f * (float)(w - 1);
-  fy = fminf(fmaxf(fy, 0.0f), (float)(h - 1));
-  fx = fminf(fmaxf(fx, 0.0f), (float)(w - 1));
-  const int y0 = h > 1 ? min(max((int)floorf(fy), 0), h - 2) : 0;
-  const int x0 = w > 1 ? min(max((int)floorf(fx), 0), w - 2) : 0;
-  const int y1 = min(y0 + 1, h - 1);
-  const int x1 = min(x0 + 1, w - 1);
-  Taps t;
-  t.p00 = (int64_t)y0 * w + x0;
-  t.p01 = (int64_t)y0 * w + x1;
-  t.p10 = (int64_t)y1 * w + x0;
-  t.p11 = (int64_t)y1 * w + x1;
-  t.wy = fy - (float)y0;
-  t.wx = fx - (float)x0;
-  return t;
-}
 
 __device__ __forceinline__ float lerp2(const float* __restrict__ base,
                                        const Taps& t, int c) {

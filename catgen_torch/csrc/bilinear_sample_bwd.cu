@@ -1,0 +1,218 @@
+// Backward of the edge-clamped bilinear sampler (bilinear_sample.cu): the
+// gradients with respect to the image (d_img) and to the normalized (y; x)
+// coordinate rows (d_coords), given the gradient g of the sampled output.
+//
+// Replaces the TPU kernel catgen/kernels/pallas_bilinear_v4.py, _bwd: the
+// separable bodies (_bwd_kernel, _bwd_kernel_dimg, _bwd_kernel_dcrd,
+// _bwd_kernel_res_dimg) and the dense ones (_dense_bwd_kernel,
+// _dense_bwd_kernel_mxu{,_dimg,_dcrd}, _dense_bwd_kernel_res_dimg). On the
+// TPU those are matrix-unit formulations (one-hot weight masks contracted
+// against the image and g); on Hopper both are one gather per output pixel,
+// and one pair of kernels serves both shapes, as the forward does. The two
+// gradients are two kernels, so that a caller that needs no d_img launches
+// none (the D-phase input transformer samples data; catgen reaches the
+// same by CATGEN_V4_SPLIT_BWD and dead-code elimination).
+//
+// d_coords[n, 0, p] = in_y * 0.5 (h-1) * sum_c g[p,c] (bot - top)
+// d_coords[n, 1, p] = in_x * 0.5 (w-1) * sum_c g[p,c] ((1-wy)(v01-v00)
+//                                                     + wy (v11-v10))
+// (top, bot: the x-lerps of the forward; v.. the four taps). One output
+// pixel per warp for C >= 32: lanes take channels lane, lane+32, ..., and
+// the partial sums meet in a butterfly of warp shuffles, a fixed order. One
+// thread per pixel for C < 32, summing its channels in order.
+//
+// d_img[n, tap, c] += g[p,c] * weight(tap, p) over the output pixels p.
+// Many output pixels reach one input pixel, at positions only the
+// coordinates decide, so this is a scatter. It is made deterministic, with
+// no atomics: one block per (sample, slab of up to 32 channels) keeps that
+// slab of d_img in shared memory, and each thread owns one channel column
+// of it, walking the output pixels in order. No two threads touch one
+// address, so the adds happen in one fixed order on every run (the
+// original Torch sampler was pinned to the CPU for its non-determinism;
+// catgen pins same-seed steps bit-identical). Shared memory per block is
+// h*w*min(C, 32)*4 bytes: 12 KB for 32x32x3, 32 KB for 16x16x64.
+//
+// What bounds it: d_coords reads the four taps of C floats and g per pixel
+// (memory traffic, like the forward); d_img is bound by latency, not by
+// bytes: each thread runs through all P output pixels serially, with few
+// threads per SM (C < 32 leaves most lanes of the block idle). That is the
+// simple design; splitting the pixel walk over per-warp copies summed in a
+// fixed order is the later step.
+//
+// Arithmetic is f32 and rounds each tap's product as the plain PyTorch
+// version's autograd does (built with --fmad=false); the sums over C and
+// over output pixels run in another order, so the results agree to f32
+// rounding, not bit for bit.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bilinear_taps.cuh"
+
+namespace {
+
+struct TapGrad {
+  float dy, dx;  // d out / d wy and d out / d wx for one channel
+};
+
+__device__ __forceinline__ TapGrad tap_grad(const float* __restrict__ base,
+                                            const Taps& t, int c) {
+  const float v00 = __ldg(base + t.p00 * c);
+  const float v01 = __ldg(base + t.p01 * c);
+  const float v10 = __ldg(base + t.p10 * c);
+  const float v11 = __ldg(base + t.p11 * c);
+  const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
+  const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
+  TapGrad r;
+  r.dy = bot - top;
+  r.dx = (1.0f - t.wy) * (v01 - v00) + t.wy * (v11 - v10);
+  return r;
+}
+
+__device__ __forceinline__ void store_dcoords(float* __restrict__ dcrd,
+                                              const Taps& t, float sy,
+                                              float sx, int h, int w, int p,
+                                              int ni, int pi) {
+  float* d = dcrd + (int64_t)ni * 2 * p;
+  d[pi] = sy * t.in_y * (0.5f * (float)(h - 1));
+  d[p + pi] = sx * t.in_x * (0.5f * (float)(w - 1));
+}
+
+// img (n, h, w, c), crd (n, 2, p), g (n, p, c), dcrd (n, 2, p).
+__global__ void dcoords_per_warp(const float* __restrict__ img,
+                                 const float* __restrict__ crd,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ dcrd, int n, int h,
+                                 int w, int c, int p) {
+  const int64_t pix = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (pix >= (int64_t)n * p) return;  // warp-uniform: whole warps leave
+  const int pi = (int)(pix % p);
+  const int ni = (int)(pix / p);
+  const float* cr = crd + (int64_t)ni * 2 * p;
+  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float* base = img + (int64_t)ni * h * w * c;
+  const float* gp = g + pix * c;
+  float sy = 0.0f, sx = 0.0f;
+  for (int ch = lane; ch < c; ch += 32) {
+    const TapGrad r = tap_grad(base + ch, t, c);
+    const float gv = __ldg(gp + ch);
+    sy += gv * r.dy;
+    sx += gv * r.dx;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    sy += __shfl_xor_sync(0xffffffffu, sy, off);
+    sx += __shfl_xor_sync(0xffffffffu, sx, off);
+  }
+  if (lane == 0) store_dcoords(dcrd, t, sy, sx, h, w, p, ni, pi);
+}
+
+__global__ void dcoords_per_pixel(const float* __restrict__ img,
+                                  const float* __restrict__ crd,
+                                  const float* __restrict__ g,
+                                  float* __restrict__ dcrd, int n, int h,
+                                  int w, int c, int p) {
+  const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= (int64_t)n * p) return;
+  const int pi = (int)(pix % p);
+  const int ni = (int)(pix / p);
+  const float* cr = crd + (int64_t)ni * 2 * p;
+  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float* base = img + (int64_t)ni * h * w * c;
+  const float* gp = g + pix * c;
+  float sy = 0.0f, sx = 0.0f;
+  for (int ch = 0; ch < c; ++ch) {
+    const TapGrad r = tap_grad(base + ch, t, c);
+    const float gv = __ldg(gp + ch);
+    sy += gv * r.dy;
+    sx += gv * r.dx;
+  }
+  store_dcoords(dcrd, t, sy, sx, h, w, p, ni, pi);
+}
+
+constexpr int kSlab = 32;  // channels per d_img block
+
+// Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
+// h*w*cs floats, cs = the slab's width. dimg (n, h, w, c).
+__global__ void dimg_per_channel(const float* __restrict__ crd,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ dimg, int n, int h,
+                                 int w, int c, int p) {
+  extern __shared__ float acc[];
+  const int ni = blockIdx.x;
+  const int c0 = blockIdx.y * kSlab;
+  const int cs = min(kSlab, c - c0);
+  const int lane = threadIdx.x;
+  if (lane >= cs) return;  // no barrier below: each thread owns a column
+  const int hw = h * w;
+  for (int i = 0; i < hw; ++i) acc[i * cs + lane] = 0.0f;
+  const float* cr = crd + (int64_t)ni * 2 * p;
+  const float* gp = g + (int64_t)ni * p * c + c0 + lane;
+#pragma unroll 4
+  for (int pi = 0; pi < p; ++pi) {
+    const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+    const float gv = __ldg(gp + (int64_t)pi * c);
+    const float top = gv * (1.0f - t.wy);
+    const float bot = gv * t.wy;
+    acc[t.p00 * cs + lane] += top * (1.0f - t.wx);
+    acc[t.p01 * cs + lane] += top * t.wx;
+    acc[t.p10 * cs + lane] += bot * (1.0f - t.wx);
+    acc[t.p11 * cs + lane] += bot * t.wx;
+  }
+  float* out = dimg + (int64_t)ni * hw * c + c0 + lane;
+  for (int i = 0; i < hw; ++i) out[(int64_t)i * c] = acc[i * cs + lane];
+}
+
+}  // namespace
+
+// Both entry points launch on `stream` and return cudaGetLastError() as an
+// int (0 = the launch was accepted). They do not synchronise and allocate
+// nothing; all arrays are contiguous f32.
+
+extern "C" int catgen_bilinear_dcoords_f32(const float* img, const float* crd,
+                                           const float* g, float* dcrd, int n,
+                                           int h, int w, int c, int p,
+                                           void* stream) {
+  const int threads = 256;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t pixels = (int64_t)n * p;
+  if (pixels == 0) return 0;
+  if (c >= 32) {
+    const unsigned blocks = (unsigned)((pixels * 32 + threads - 1) / threads);
+    dcoords_per_warp<<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h, w,
+                                                 c, p);
+  } else {
+    const unsigned blocks = (unsigned)((pixels + threads - 1) / threads);
+    dcoords_per_pixel<<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h, w,
+                                                  c, p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The shared memory one d_img block needs, in bytes.
+extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
+  return (int64_t)h * w * (c < kSlab ? c : kSlab) * (int64_t)sizeof(float);
+}
+
+extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,
+                                        float* dimg, int n, int h, int w,
+                                        int c, int p, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)n * h * w * c == 0) return 0;
+  const int64_t smem = catgen_bilinear_dimg_smem_bytes(h, w, c);
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(dimg_per_channel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
+  dimg_per_channel<<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n, h, w, c,
+                                                      p);
+  return (int)cudaGetLastError();
+}

@@ -112,3 +112,12 @@ def colorspace_to_rgb(images: torch.Tensor, colorspace: str) -> torch.Tensor:
 def channels(colorspace: str) -> int:
     return 1 if colorspace == "y" else 3
 
+
+def normalize(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> [-1, 1] with clamping (training's ``--normalize``)."""
+    return torch.clamp(images * 2.0 - 1.0, -1.0, 1.0)
+
+
+def denormalize(images: torch.Tensor) -> torch.Tensor:
+    return torch.clamp((images + 1.0) * 0.5, 0.0, 1.0)
+

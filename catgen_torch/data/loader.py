@@ -1,17 +1,20 @@
-"""Image corpus loader, the inference part of ``catgen/data/loader.py``.
+"""Image corpus loader: the counterpart of ``catgen/data/loader.py``.
 
-Each JPEG is decoded once (PIL) into a uint8 host cache; ``load_images``
-and ``load_random_images`` move a slice or a random sample to the device
-and there convert it to float NHWC in [0, 1] at the model's scale and
-color space. File order is one global sort, as catgen's; a random sample
-draws from the same numpy stream as catgen's for the same seed. catgen's
-native multithreaded decoder and the per-epoch training batches are not
-ported yet (ROADMAP Queue A item 5).
+Each JPEG is decoded once (PIL) into a uint8 host cache; ``load_images``,
+``load_random_images`` and ``epoch_batches`` move a slice, a random sample
+or one epoch of training batches to the device in one copy and there
+convert it to float NHWC in [0, 1] (in [-1, 1] with ``normalize``) at the
+model's scale and color space. File order is one global sort, as
+catgen's; random samples draw from the same numpy stream as catgen's for
+the same seed, so both packages train on the same reals. catgen's native
+multithreaded decoder and multi-host sharding are not ported yet (ROADMAP
+Queue A items 5 and 11).
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -52,11 +55,13 @@ class ImageDataset:
     def __init__(self, dirs: Sequence[str], ext: str = "jpg",
                  scale: int = 32, colorspace: str = "rgb",
                  source_size: int = 64, seed: int = 1,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 normalize: bool = False):
         self.paths = scan_paths(dirs, ext)
         self.scale = scale
         self.colorspace = colorspace
         self.source_size = source_size
+        self.normalize = normalize        # --normalize: [0,1] -> [-1,1]
         self.device = torch.device(device) if device is not None else \
             torch.device("cpu")
         self._rng = np.random.RandomState(seed)
@@ -64,6 +69,18 @@ class ImageDataset:
 
     def __len__(self) -> int:
         return len(self.paths)
+
+    def family_ids(self, start: int, count: int) -> np.ndarray:
+        """Source-image family id per file in [start, start+count): files
+        named ``{img_idx}_{aug_idx}.jpg`` (the offline augmentation's
+        naming) share a family iff their img_idx matches; any other name
+        gets an id of its own."""
+        ids = []
+        for i, p in enumerate(self.paths[start:start + count]):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            m = re.fullmatch(r"(\d+)_(\d+)", stem)
+            ids.append(int(m.group(1)) if m else -(i + 1))
+        return np.asarray(ids, np.int64)
 
     def _ensure_cache(self) -> np.ndarray:
         if self._cache is None:
@@ -96,10 +113,22 @@ class ImageDataset:
                     f"needs the bilinear resize, not ported yet (ROADMAP "
                     f"Queue A item 7); only exact 2x downscales are")
             x = ops.downscale2(x)
-        return colorlib.rgb_to_colorspace(x, self.colorspace)
+        x = colorlib.rgb_to_colorspace(x, self.colorspace)
+        return colorlib.normalize(x) if self.normalize else x
 
     def load_random_images(self, count: int) -> torch.Tensor:
         return self.postprocess(self.sample_uint8(count))
 
     def load_images(self, start: int, count: int) -> torch.Tensor:
         return self.postprocess(self.slice_uint8(start, count))
+
+    def epoch_batches(self, n_examples: int, half_batch: int,
+                      d_iterations: int = 1) -> torch.Tensor:
+        """One epoch of training reals in one host-to-device copy:
+        (n_examples // half_batch, d_iterations * half_batch, H, W, C).
+        Each step takes ``d_iterations`` fresh half-batches, as the
+        reference's D_iterations loop refills its reals."""
+        nb = max(n_examples // half_batch, 1)
+        per_step = d_iterations * half_batch
+        x = self.postprocess(self.sample_uint8(nb * per_step))
+        return x.reshape((nb, per_step) + tuple(x.shape[1:]))

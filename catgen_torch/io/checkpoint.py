@@ -2,11 +2,13 @@
 
 A catgen checkpoint (``catgen/io/checkpoint.py``) is an ``.npz`` of pytree
 leaves keyed by their tree paths as ``jax.tree_util.keystr`` spells them,
-for example ``.d_params['05_FusedSTBranches']['loc0']['01_Conv']['kernel']``,
-plus a JSON metadata blob stored as uint8 under ``__meta__``. This module
-reads and writes that format without jax: keys are parsed and spelled by
-``parse_key`` and ``key``. Saving is atomic and keeps the predecessor as
-``<file>.old``, as catgen's does.
+for example ``.d_params['05_FusedSTBranches']['loc0']['01_Conv']['kernel']``
+or, inside a train state's optimizer, ``.d_opt.m['06_Dense']['kernel']``
+and ``.d_opt.step``, plus a JSON metadata blob stored as uint8 under
+``__meta__``. This module reads and writes that format without jax: keys
+are parsed and spelled by ``parse_key`` and ``key``. Saving is atomic and
+keeps the predecessor as ``<file>.old``, as catgen's does. ``load_like``
+is catgen's ``load`` against a template, lenient leaves included.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import io
 import json
 import os
 import re
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -22,13 +25,14 @@ import numpy as np
 FORMAT_VERSION = 2
 
 _ATTR = re.compile(r"^\.(\w+)")
-_KEY = re.compile(r"^\.(\w+)((?:\['[^']*'\])*)$")
+_KEY = re.compile(r"^\.(\w+(?:\.\w+)*)((?:\['[^']*'\])*)$")
 _SEGMENT = re.compile(r"\['([^']*)'\]")
 
 
 def key(attr: str, path: Tuple[str, ...]) -> str:
     """``key('g_params', ('03_UpsampleConv', 'kernel'))`` ->
-    ``".g_params['03_UpsampleConv']['kernel']"``."""
+    ``".g_params['03_UpsampleConv']['kernel']"``; ``attr`` may name a
+    field of a field (``'g_opt.m'``)."""
     return "." + attr + "".join(f"['{p}']" for p in path)
 
 
@@ -41,7 +45,7 @@ def attr_of(k: str) -> str:
 
 
 def parse_key(k: str) -> Tuple[str, Tuple[str, ...]]:
-    """Inverse of ``key`` (a field, then dict keys only); raises ValueError
+    """Inverse of ``key`` (fields, then dict keys only); raises ValueError
     on any other spelling."""
     m = _KEY.match(k)
     if m is None:
@@ -101,6 +105,14 @@ def load_meta(path: str) -> Dict[str, Any]:
         return json.loads(bytes(z["__meta__"]).decode())
 
 
+def _refuse_legacy(path: str, z) -> None:
+    if any("00_SpatialTransformer" in k for k in z.files):
+        raise ValueError(
+            f"checkpoint {path} predates catgen's round-3 D layout (it has "
+            f"'00_SpatialTransformer' keys); load and re-save it with "
+            f"catgen, whose loader migrates the old keys")
+
+
 def load(path: str, attrs: Tuple[str, ...]
          ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """Returns ({key: array} for the keys under ``attrs``, meta). Leaves
@@ -112,11 +124,7 @@ def load(path: str, attrs: Tuple[str, ...]
     keys on load (``catgen.io.checkpoint.load``); re-save such a
     checkpoint with catgen first."""
     with np.load(path) as z:
-        if any("00_SpatialTransformer" in k for k in z.files):
-            raise ValueError(
-                f"checkpoint {path} predates catgen's round-3 D layout "
-                f"(it has '00_SpatialTransformer' keys); load and re-save "
-                f"it with catgen, whose loader migrates the old keys")
+        _refuse_legacy(path, z)
         meta = json.loads(bytes(z["__meta__"]).decode())
         leaves = {}
         for k in z.files:
@@ -127,5 +135,48 @@ def load(path: str, attrs: Tuple[str, ...]
     return leaves, meta
 
 
+def load_like(path: str, template: Dict[str, np.ndarray],
+              lenient: Tuple[str, ...] = ()
+              ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """catgen's ``load(path, template, lenient)`` over leaves: returns the
+    file's value of every key of ``template`` and the metadata. A key
+    missing from the file, or of another shape, raises KeyError or
+    ValueError, unless it contains one of the ``lenient`` substrings: then
+    the template's value is kept (with a warning, and the key listed under
+    ``meta['_reinitialized']``). Keys the template lacks are not read."""
+    with np.load(path) as z:
+        _refuse_legacy(path, z)
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        out, reinit = {}, []
+        for k, want in template.items():
+            ok = k in z.files and tuple(z[k].shape) == tuple(want.shape)
+            if ok:
+                out[k] = z[k]
+            elif any(s in k for s in lenient):
+                out[k] = want
+                reinit.append(k)
+            elif k not in z.files:
+                raise KeyError(f"checkpoint {path} missing leaf {k}")
+            else:
+                raise ValueError(f"checkpoint leaf {k} shape {z[k].shape} "
+                                 f"!= template {want.shape}")
+    if reinit:
+        warnings.warn(f"checkpoint {path}: re-initialized {len(reinit)} "
+                      f"lenient leaves from the template: {reinit[:4]}...")
+        meta["_reinitialized"] = reinit
+    return out, meta
+
+
 def adversarial_filename() -> str:
     return "adversarial.ckpt"
+
+
+def v_filename(channels: int, height: int, width: int) -> str:
+    """The V checkpoint's name (train_v.lua's v_CxHxW)."""
+    return f"v_{channels}x{height}x{width}.ckpt"
+
+
+def g_pretrained_filename(channels: int, height: int, width: int,
+                          noise_dim: int) -> str:
+    """The pretrained G's name (pretrain_g.lua's g_pretrained_CxHxW_nd<N>)."""
+    return f"g_pretrained_{channels}x{height}x{width}_nd{noise_dim}.ckpt"

@@ -11,6 +11,15 @@ map as follows:
   * every other leaf (``bias``, BatchNorm's ``scale``, ``mean``, ``var``,
     PReLU's ``alpha``) keeps its name and layout; ``mean`` and ``var`` are
     catgen ``state``, the rest ``params``.
+
+A whole train state (``catgen_torch.train.gan.TrainState``) maps onto
+catgen's ``TrainState`` leaves: G's and D's weights as above; each
+optimizer field that holds one tensor per parameter (adam's ``m``, ``v``,
+adagrad's ``accum``, sgd's ``momentum_buf``, rmsprop's ``ms``) as a tree
+shaped like ``params`` under ``.g_opt.<field>`` / ``.d_opt.<field>``, with
+the same layout conversion; step counters, the gate's ``acc_buffer``,
+``acc_count``, ``acc_index``, ``step`` and ``epoch`` as int32 / f32
+arrays of catgen's shapes.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from catgen_torch.io.checkpoint import leaves_to_tree, tree_to_leaves
+from catgen_torch.io.checkpoint import key, leaves_to_tree, tree_to_leaves
 
 STATE_LEAVES = ("mean", "var")
 
@@ -103,3 +112,52 @@ def state_dict_to_catgen(sd: Dict[str, torch.Tensor]
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(arr)
     return params, state
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def train_state_to_leaves(state) -> Dict[str, np.ndarray]:
+    """A port train state -> catgen ``TrainState`` checkpoint leaves."""
+    leaves = gan_to_leaves(state.g, state.d)
+    for attr, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        for field, value in zip(opt._fields, opt):
+            name = f"{attr}.{field}"
+            if isinstance(value, dict):
+                tree = state_dict_to_catgen(value)[0]
+                leaves.update(tree_to_leaves(name, tree))
+            else:
+                leaves[key(name, ())] = _host(value).astype(np.int32)
+    leaves[key("acc_buffer", ())] = _host(state.acc_buffer).astype(
+        np.float32)
+    for name in ("acc_count", "acc_index", "step", "epoch"):
+        leaves[key(name, ())] = np.asarray(getattr(state, name), np.int32)
+    return leaves
+
+
+def train_state_from_leaves(state, leaves: Dict[str, np.ndarray]) -> None:
+    """Loads catgen ``TrainState`` leaves into the port train state ``state``
+    in place (its modules and tensors keep their devices). Every leaf the
+    state has must be present with its shape; others are ignored."""
+    gan_from_leaves(state.g, state.d, leaves)
+    for attr in ("g_opt", "d_opt"):
+        opt = getattr(state, attr)
+        fields = []
+        for field, value in zip(opt._fields, opt):
+            name = f"{attr}.{field}"
+            if isinstance(value, dict):
+                sd = catgen_to_state_dict(leaves_to_tree(name, leaves), {})
+                if set(sd) != set(value):
+                    raise KeyError(f"{name}: checkpoint leaves "
+                                   f"{sorted(set(sd) ^ set(value))} do not "
+                                   f"match the parameters")
+                fields.append({k: sd[k].to(value[k]) for k in value})
+            else:
+                fields.append(torch.as_tensor(
+                    leaves[key(name, ())]).to(value))
+        setattr(state, attr, type(opt)(*fields))
+    state.acc_buffer = torch.as_tensor(
+        leaves[key("acc_buffer", ())]).to(state.acc_buffer)
+    for name in ("acc_count", "acc_index", "step", "epoch"):
+        setattr(state, name, int(leaves[key(name, ())]))

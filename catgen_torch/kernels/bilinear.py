@@ -1,17 +1,21 @@
-"""Bilinear sampling at coordinate rows: the Hopper kernel and its plain
+"""Bilinear sampling at coordinate rows: the Hopper kernels and their plain
 PyTorch version.
 
 ``bilinear_sample_rows(img, coords_rows, out_hw)`` samples an NHWC image at
 normalized (y; x) coordinate rows ``(N, 2, Ho*Wo)`` with edge-clamped
 bilinear interpolation (align-corners: -1 is pixel 0, +1 is pixel size-1)
-and returns ``(N, Ho, Wo, C)``. It is the counterpart of
+and returns ``(N, Ho, Wo, C)``, differentiable with respect to both
+inputs. It is the counterpart of
 ``catgen/kernels/pallas_bilinear_v4.py::bilinear_sample_rows``; the CUDA
-kernel is ``catgen_torch/csrc/bilinear_sample.cu``.
+kernels are ``catgen_torch/csrc/bilinear_sample.cu`` (forward) and
+``catgen_torch/csrc/bilinear_sample_bwd.cu`` (d_img and d_coords).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs ``bilinear_sample_rows_plain``, the gather-and-lerp formulation of
-``catgen/nn/spatial_transformer.py::bilinear_sample``. The kernel is
-forward only: its backward belongs to the training slice.
+On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
+tensor it runs ``bilinear_sample_rows_plain``, the gather-and-lerp
+formulation of ``catgen/nn/spatial_transformer.py::bilinear_sample``,
+under autograd. Both follow the TPU kernel at exact edges: the derivative
+of the coordinate clip is 1 on the edge itself (``torch.clamp``; v4's
+inclusive masks), where catgen's XLA path (``jnp.clip``) gives 0.5.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import torch
 
 from catgen_torch.kernels.build import load_library
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
-LAUNCHES = 0
+# Launches of each CUDA kernel since import (or since a caller reset them).
+LAUNCHES = 0              # forward
+DCOORDS_LAUNCHES = 0      # backward, d_coords
+DIMG_LAUNCHES = 0         # backward, d_img
 
 
 def bilinear_sample_rows_plain(img: torch.Tensor, coords_rows: torch.Tensor,
@@ -57,6 +63,20 @@ def bilinear_sample_rows_plain(img: torch.Tensor, coords_rows: torch.Tensor,
     return (top * (1 - wy) + bot * wy).to(img.dtype).reshape(n, ho, wo, c)
 
 
+def bilinear_sample_rows_backward_plain(img, coords_rows, grad_out, out_hw,
+                                        need_img=True, need_coords=True):
+    """Plain backward: (d_img, d_coords) of the plain version by autograd,
+    each None where not asked for."""
+    with torch.enable_grad():
+        img = img.detach().requires_grad_(need_img)
+        crd = coords_rows.detach().requires_grad_(need_coords)
+        out = bilinear_sample_rows_plain(img, crd, out_hw)
+        wrt = [t for t, need in ((img, need_img), (crd, need_coords)) if need]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out))
+    return (next(grads) if need_img else None,
+            next(grads) if need_coords else None)
+
+
 def _check(img: torch.Tensor, coords_rows: torch.Tensor, out_hw) -> None:
     if img.dtype != torch.float32 or coords_rows.dtype != torch.float32:
         raise TypeError(f"bilinear_sample_rows kernel takes float32, got "
@@ -80,10 +100,29 @@ def _check(img: torch.Tensor, coords_rows: torch.Tensor, out_hw) -> None:
                          f"{coords_rows.device}")
 
 
+def _check_grad(img: torch.Tensor, grad_out: torch.Tensor, out_hw) -> None:
+    n, _, _, c = img.shape
+    want = (n, out_hw[0], out_hw[1], c)
+    if grad_out.dtype != torch.float32:
+        raise TypeError(f"bilinear sampler backward takes a float32 "
+                        f"gradient, got {grad_out.dtype}")
+    if tuple(grad_out.shape) != want or not grad_out.is_contiguous():
+        raise ValueError(f"the sampled output's gradient must be a "
+                         f"contiguous {want}, got {tuple(grad_out.shape)}")
+    if grad_out.device != img.device:
+        raise ValueError(f"gradient on {grad_out.device}, img on "
+                         f"{img.device}")
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+
+
 def launch(img: torch.Tensor, coords_rows: torch.Tensor,
            out_hw) -> torch.Tensor:
-    """Runs the CUDA kernel on the current stream; raises on bad inputs or
-    a refused launch. Counts each launch in ``LAUNCHES``."""
+    """Runs the forward kernel on the current stream; raises on bad inputs
+    or a refused launch. Counts each launch in ``LAUNCHES``."""
     global LAUNCHES
     _check(img, coords_rows, out_hw)
     lib = load_library()
@@ -95,30 +134,82 @@ def launch(img: torch.Tensor, coords_rows: torch.Tensor,
         err = lib.catgen_bilinear_sample_rows_f32(
             img.data_ptr(), coords_rows.data_ptr(), out.data_ptr(),
             n, h, w, c, ho * wo, stream)
-    if err != 0:
-        raise RuntimeError(f"bilinear_sample_rows kernel launch failed: "
-                           f"cudaError_t {err}")
+    _launched(err, "bilinear_sample_rows")
     LAUNCHES += 1
     return out
+
+
+def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
+                   grad_out: torch.Tensor, out_hw) -> torch.Tensor:
+    """Runs the d_coords kernel: (N, 2, P), the gradient with respect to
+    the coordinate rows. Counts each launch in ``DCOORDS_LAUNCHES``."""
+    global DCOORDS_LAUNCHES
+    _check(img, coords_rows, out_hw)
+    _check_grad(img, grad_out, out_hw)
+    lib = load_library()
+    n, h, w, c = img.shape
+    dcrd = torch.empty_like(coords_rows)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.catgen_bilinear_dcoords_f32(
+            img.data_ptr(), coords_rows.data_ptr(), grad_out.data_ptr(),
+            dcrd.data_ptr(), n, h, w, c, out_hw[0] * out_hw[1], stream)
+    _launched(err, "bilinear sampler d_coords")
+    DCOORDS_LAUNCHES += 1
+    return dcrd
+
+
+def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
+                grad_out: torch.Tensor, out_hw) -> torch.Tensor:
+    """Runs the d_img kernel: (N, H, W, C), the gradient with respect to
+    the image (``img`` gives its shape and device; its values are not
+    read). Deterministic: no atomics. Counts each launch in
+    ``DIMG_LAUNCHES``."""
+    global DIMG_LAUNCHES
+    _check(img, coords_rows, out_hw)
+    _check_grad(img, grad_out, out_hw)
+    lib = load_library()
+    n, h, w, c = img.shape
+    dimg = torch.empty_like(img)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.catgen_bilinear_dimg_f32(
+            coords_rows.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(),
+            n, h, w, c, out_hw[0] * out_hw[1], stream)
+    # a block holds h*w*min(c, 32) floats; an image too large for the
+    # card's shared memory is refused with cudaErrorInvalidValue
+    _launched(err, f"bilinear sampler d_img (a block needs "
+                   f"{lib.catgen_bilinear_dimg_smem_bytes(h, w, c)} bytes of "
+                   f"shared memory)")
+    DIMG_LAUNCHES += 1
+    return dimg
 
 
 class _BilinearSampleRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, coords_rows, out_hw):
+        ctx.out_hw = out_hw
+        ctx.save_for_backward(img, coords_rows)
         return launch(img, coords_rows, out_hw)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the CUDA bilinear sampler has no backward yet: it is ROADMAP "
-            "Queue B item 2 (the v4 sampler backward, training slice)")
+        img, coords_rows = ctx.saved_tensors
+        g = grad_out.contiguous()
+        # no d_img work where the image needs no gradient (the D-phase
+        # input transformer samples data)
+        d_img = (launch_dimg(img, coords_rows, g, ctx.out_hw)
+                 if ctx.needs_input_grad[0] else None)
+        d_crd = (launch_dcoords(img, coords_rows, g, ctx.out_hw)
+                 if ctx.needs_input_grad[1] else None)
+        return d_img, d_crd, None
 
 
 def bilinear_sample_rows(img: torch.Tensor, coords_rows: torch.Tensor,
                          out_hw) -> torch.Tensor:
     """img (N, H, W, C); coords_rows (N, 2, Ho*Wo) normalized (y; x) rows.
     Returns (N, Ho, Wo, C). CPU tensors take the plain version; CUDA
-    tensors take the kernel."""
+    tensors take the kernels, forward and backward."""
     if img.device.type == "cpu" and coords_rows.device.type == "cpu":
         return bilinear_sample_rows_plain(img, coords_rows, out_hw)
     return _BilinearSampleRows.apply(img, coords_rows, tuple(out_hw))

@@ -1,12 +1,13 @@
 """Builds the port's CUDA sources into one shared library and loads it.
 
-Every ``catgen_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ``catgen_torch/_build/libcatgen_torch_<hash>.so``, a
-library with a plain C interface that the kernel wrappers call through
-``ctypes``. The file name carries a hash of the sources and the flags, so
-an edited source builds anew and an unchanged one is reused. The build
-runs at first use, never at import: the CPU tests import every module on
-machines without a CUDA toolkit.
+Every ``catgen_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process for Hopper (``sm_90a``), all of them at once, and the objects are
+linked into ``catgen_torch/_build/libcatgen_torch_<hash>.so``, a library
+with a plain C interface that the kernel wrappers call through ``ctypes``.
+The file name carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one is reused. The build runs at first use, never at import: the
+CPU tests import every module on machines without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -25,13 +26,28 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 # --fmad=false: the lerps round like the plain PyTorch version's separate
 # multiplies and adds; -Xptxas=-v writes registers and spills to the log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# (name, argument types, return type) of every C entry point
+SIGNATURES = (
+    ("catgen_bilinear_sample_rows_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+     _I),
+    ("catgen_bilinear_dcoords_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+     _I),
+    ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
+)
 
 
 def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -55,31 +71,50 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcatgen_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, log: list) -> None:
+    """Runs the commands at once and waits for all; appends their output
+    to ``log``; raises RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outputs = [p.communicate() for p in procs]
+    log.extend(o + e for o, e in outputs)
+    for cmd, p, (o, e) in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}: "
+                               f"{' '.join(cmd)}\n{o}{e}")
+
+
 def build_library() -> Path:
-    """Compiles the sources unless a library of the same hash exists.
-    Raises RuntimeError with nvcc's output when the build fails."""
+    """Compiles the sources (one nvcc each, in parallel) and links them,
+    unless a library of the same hash exists. Raises RuntimeError with
+    nvcc's output when the build fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    log: list = []
+    try:
+        _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objects)], log)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]],
+                 log)
+        os.replace(tmp, out)   # atomic: a loader never sees half a file
+    finally:
+        out.with_suffix(".log").write_text("".join(log))
+        for path in objects + [tmp]:
+            path.unlink(missing_ok=True)
     return out
 
 
@@ -87,9 +122,8 @@ def build_library() -> Path:
 def load_library() -> ctypes.CDLL:
     """The built library, with argument and return types declared."""
     lib = ctypes.CDLL(str(build_library()))
-    fn = lib.catgen_bilinear_sample_rows_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes, restype in SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

@@ -14,7 +14,7 @@ with running statistics ``mean`` and ``var`` as buffers; PReLU holds
 
 ``training`` (``module.train()`` / ``module.eval()``) selects train or
 eval semantics, as catgen's ``train=`` flag does. The stochastic layers
-draw their masks from an explicit ``torch.Generator`` set on the layer.
+draw their masks from the ``Draws`` set on the layer (``set_draws``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from catgen_torch.core import initializers
+from catgen_torch.core.random import Draws
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -164,14 +165,16 @@ class Sigmoid(nn.Module):
 class _MaskedDropout(nn.Module):
     """Inverted dropout: identity in eval; in train keeps each unit of
     ``mask_shape(x)`` with probability 1-rate and scales by 1/(1-rate).
-    The mask comes from ``self.generator``, which the caller sets."""
+    The mask comes from ``self.draws`` (a ``catgen_torch.core.random.Draws``
+    or a stand-in that hands in masks drawn elsewhere), which the caller
+    sets; see ``set_draws``."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
         if not 0.0 <= rate < 1.0:
             raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
         self.rate = rate
-        self.generator: Optional[torch.Generator] = None
+        self.draws: Optional[Draws] = None
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
@@ -179,13 +182,12 @@ class _MaskedDropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.generator is None:
-            raise ValueError(f"{type(self).__name__} in train mode needs a "
-                             f"torch.Generator (set .generator)")
+        if self.draws is None:
+            raise ValueError(f"{type(self).__name__} in train mode needs "
+                             f"random draws (set .draws)")
         keep = 1.0 - self.rate
-        u = torch.rand(self.mask_shape(x), generator=self.generator,
-                       device=self.generator.device).to(x.device)
-        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+        mask = self.draws.bernoulli(keep, self.mask_shape(x)).to(x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Dropout(_MaskedDropout):
@@ -197,6 +199,14 @@ class SpatialDropout(_MaskedDropout):
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return (x.shape[0], 1, 1, x.shape[-1])
+
+
+def set_draws(module: nn.Module, draws: Optional[Draws]) -> None:
+    """Points every dropout layer of ``module`` at ``draws``. The layers
+    draw in the order the forward reaches them, which is catgen's."""
+    for m in module.modules():
+        if isinstance(m, _MaskedDropout):
+            m.draws = draws
 
 
 class MaxPool(nn.Module):

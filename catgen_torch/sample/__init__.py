@@ -4,6 +4,8 @@ from catgen_torch.sample.sampler import (  # noqa: F401
     interleave_pairs,
     nearest_neighbours,
     neighbours_of_best,
+    nn_l2_mean,
     rank_by_d,
     sample_and_rank,
+    self_nn_mean,
 )

@@ -59,6 +59,28 @@ def nearest_neighbours(queries: torch.Tensor, corpus: torch.Tensor
     return idx, dist
 
 
+def nn_l2_mean(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Mean L2 distance of each query to its nearest corpus image."""
+    return torch.sqrt(dist2_matrix(queries, corpus).min(dim=1).values).mean()
+
+
+def self_nn_mean(images: torch.Tensor, families=None) -> torch.Tensor:
+    """Mean leave-one-out nearest-neighbour distance of a set to itself,
+    the normalizer of the harness's ``nn_l2_ratio``. ``families``
+    (integer array (N,)) excludes same-family pairs too: on an offline-
+    augmented corpus each crop's nearest neighbour is one of its own warp
+    variants."""
+    d2 = dist2_matrix(images, images)
+    if families is not None:
+        fam = torch.as_tensor(families, device=d2.device)
+        same = fam[:, None] == fam[None, :]
+    else:
+        same = torch.eye(images.shape[0], dtype=torch.bool,
+                         device=d2.device)
+    d2 = torch.where(same, torch.full_like(d2, float("inf")), d2)
+    return torch.sqrt(d2.min(dim=1).values).mean()
+
+
 def sample_and_rank(g: nn.Module, d: nn.Module, generator: torch.Generator,
                     noise_dim: int = 100, count: int = 1024, top: int = 64,
                     device: Optional[torch.device] = None) -> dict:

@@ -1,0 +1,282 @@
+"""The GAN training harness: the part of ``catgen/train/harness.py`` that
+``cli.train`` runs (``HarnessConfig``, ``GanHarness``).
+
+It owns the corpus, G and D with their train state, the epoch loop with
+its per-epoch artifacts (sample grids stamped with the epoch, the two
+sanity probes, the NaN check and the nearest-neighbour distance to the
+corpus), the JSONL metrics, and checkpoints in catgen's format, filename
+and cadence, resume and ``--rebuildOptstate`` included. Each epoch's reals
+reach the device in one copy, and the epoch's metrics come back in one.
+
+Not ported yet, and refused rather than ignored: data parallelism
+(``n_devices > 1``, ROADMAP Queue A item 11), the collapse detector and
+activation grids (item 4), the V rating (item 8) and the pickup of a
+pretrained G (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from catgen_torch import models
+from catgen_torch.core.module import reset_parameters
+from catgen_torch.core.random import Draws
+from catgen_torch.data import color as colorlib
+from catgen_torch.data.loader import ImageDataset
+from catgen_torch.eval.collapse import per_pixel_std, sat_fraction
+from catgen_torch.io import checkpoint as ckpt
+from catgen_torch.io.convert import (train_state_from_leaves,
+                                     train_state_to_leaves)
+from catgen_torch.io.grids import save_grid
+from catgen_torch.io.metrics import MetricsLogger, confusion_summary
+from catgen_torch.sample.sampler import nn_l2_mean, self_nn_mean
+from catgen_torch.train import gan
+
+
+@dataclasses.dataclass
+class HarnessConfig:
+    """catgen's harness knobs, field for field: checkpoints store them
+    under ``config`` and both packages read them back."""
+    save_dir: str = "logs"
+    save_freq: int = 30
+    n_epoch: int = 1000           # examples per epoch
+    scale: int = 32
+    colorspace: str = "rgb"
+    noise_dim: int = 100
+    seed: int = 1
+    n_devices: int = 1
+    g_model: str = "default"
+    d_model: str = "default"
+    v_model: str = "default"
+    epochs: Optional[int] = None  # None: run forever, like train.lua
+    weights_vis_freq: int = 0
+    vis_freq: int = 1             # grids and probes every N epochs
+    normalize: bool = False       # [-1, 1] inputs
+    collapse_detect: bool = False
+
+    @property
+    def image_shape(self):
+        return (self.scale, self.scale, colorlib.channels(self.colorspace))
+
+
+def _acc_window(n_epoch: int, batch_size: int) -> int:
+    """train.lua: max(20, min(N_epoch/batchSize, 250))."""
+    return int(max(20, min(n_epoch / batch_size, 250)))
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for machinery that is not ported yet, naming its item."""
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue A "
+                               f"item {item}")
+
+
+class GanHarness:
+    """``th train.lua``: G and D trained on ``dataset`` on ``device``."""
+
+    def __init__(self, hc: HarnessConfig, gc: gan.GanConfig,
+                 dataset: ImageDataset, device: torch.device,
+                 logger: Optional[MetricsLogger] = None):
+        if hc.n_devices > 1:
+            raise not_ported("data parallelism (n_devices > 1)", "11")
+        if hc.collapse_detect:
+            raise not_ported("the collapse detector", "4")
+        if hc.weights_vis_freq:
+            raise not_ported("D activation grids (weights_vis_freq)", "4")
+        h, w, c = hc.image_shape
+        if os.path.exists(os.path.join(hc.save_dir,
+                                       ckpt.v_filename(c, h, w))):
+            raise not_ported(f"the V rating of {ckpt.v_filename(c, h, w)} "
+                              f"in {hc.save_dir}", "8")
+        pretrained = ckpt.g_pretrained_filename(c, h, w, hc.noise_dim)
+        if os.path.exists(os.path.join(hc.save_dir, pretrained)):
+            raise not_ported(f"the pickup of a pretrained G ({pretrained} "
+                              f"in {hc.save_dir})", "9")
+        self.hc = hc
+        self.gc = dataclasses.replace(
+            gc, noise_dim=hc.noise_dim,
+            acc_window=_acc_window(hc.n_epoch, gc.batch_size))
+        self.dataset = dataset
+        self.device = device
+        self.logger = logger or MetricsLogger(
+            os.path.join(hc.save_dir, "train_metrics.jsonl"))
+        g = models.G_REGISTRY[hc.g_model](hc.image_shape, hc.noise_dim)
+        d = models.D_REGISTRY[hc.d_model](hc.image_shape)
+        init = torch.Generator().manual_seed(hc.seed)  # same on any device
+        reset_parameters(g, init)
+        reset_parameters(d, init)
+        self.state = gan.init_state(g.to(device), d.to(device), self.gc)
+        self.epoch_fn = gan.make_train_epoch(self.state.g, self.state.d,
+                                             self.gc)
+        # fixed visualization noise
+        self.vis_noise = gan.uniform_noise(
+            torch.Generator().manual_seed(hc.seed + 1), 100, hc.noise_dim,
+            device)
+        self.plot_data = []
+        self._viz_corpus = None
+        self._nn_baseline = None
+        self.logger.log("setup", g_params=_count(self.state.g),
+                        d_params=_count(self.state.d),
+                        acc_window=self.gc.acc_window,
+                        n_devices=hc.n_devices, device=str(device))
+
+    # -- checkpoints ---------------------------------------------------
+
+    def _ckpt_path(self) -> str:
+        return os.path.join(self.hc.save_dir, ckpt.adversarial_filename())
+
+    def save(self, path: Optional[str] = None) -> None:
+        norm = 0.5 if self.hc.normalize else None
+        meta = {"epoch": self.state.epoch,
+                "plot_data": self.plot_data,
+                "normalize_mean": norm, "normalize_std": norm,
+                "config": dataclasses.asdict(self.hc),
+                "gan_config": dataclasses.asdict(self.gc)}
+        path = path or self._ckpt_path()
+        ckpt.save(path, train_state_to_leaves(self.state), meta)
+        self.logger.log("checkpoint_saved", path=path, epoch=self.state.epoch)
+
+    def resume(self, path: Optional[str] = None,
+               rebuild_optstate: bool = False) -> None:
+        """Restores the train state from a catgen-format checkpoint. The
+        gate's leaves load leniently (a checkpoint of another
+        ``acc_window`` re-initializes the window); with
+        ``rebuild_optstate`` the optimizer states are rebuilt too."""
+        path = path or self._ckpt_path()
+        lenient = ("acc_buffer", "acc_count", "acc_index")
+        if rebuild_optstate:
+            lenient += ("g_opt", "d_opt")
+        leaves, meta = ckpt.load_like(path, train_state_to_leaves(self.state),
+                                      lenient)
+        train_state_from_leaves(self.state, leaves)
+        self.plot_data = list(meta.get("plot_data", []))
+        if rebuild_optstate:
+            d_optim, g_optim = self.gc.make_optimizers()
+            self.state.g_opt = g_optim.init(gan.params_of(self.state.g))
+            self.state.d_opt = d_optim.init(gan.params_of(self.state.d))
+        if meta.get("_reinitialized"):
+            self.logger.log("resume_reinit", leaves=meta["_reinitialized"])
+        self.logger.log("resumed", path=path, epoch=self.state.epoch)
+
+    # -- epoch loop ----------------------------------------------------
+
+    def _draws(self) -> Draws:
+        """The epoch's draws, seeded by (seed, epoch): a resumed run draws
+        what the uninterrupted run would have."""
+        gen = torch.Generator(self.device)
+        gen.manual_seed(self.hc.seed * 1_000_003 + self.state.epoch)
+        return Draws(gen)
+
+    def run_epoch(self) -> dict:
+        t0 = time.time()
+        half = self.gc.batch_size // 2
+        batches = self.dataset.epoch_batches(self.hc.n_epoch, half,
+                                             self.gc.d_iterations)
+        m = self.epoch_fn(self.state, batches, self._draws())
+        # one device-to-host fetch for every epoch scalar; the clock stops
+        # after it
+        loss_d, loss_g, acc_d, trained, tp, tn, fp, fn = torch.stack([
+            m.loss_d.mean(), m.loss_g.mean(), m.acc_d.mean(),
+            m.d_trained.mean(), *(x.sum().float() for x in
+                                  (m.tp_real, m.tn_fake, m.fp, m.fn))
+        ]).tolist()
+        dt = time.time() - t0
+        n_seen = batches.shape[0] * batches.shape[1]
+        summary = {
+            "epoch": self.state.epoch - 1,
+            "loss_d": loss_d,
+            "loss_g": loss_g,
+            "acc_d": acc_d,
+            "d_trained_frac": trained,
+            "sec": round(dt, 3),
+            "ms_per_sample": round(1000 * dt / max(n_seen, 1), 4),
+            "imgs_per_sec": round(n_seen / dt, 1),
+        }
+        self.logger.log("epoch", **summary)
+        print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
+        return summary
+
+    def _to_rgb(self, x: torch.Tensor) -> torch.Tensor:
+        if self.hc.normalize:
+            x = colorlib.denormalize(x)
+        return colorlib.colorspace_to_rgb(x, self.hc.colorspace)
+
+    def visualize(self) -> dict:
+        """The per-epoch artifacts: 100 fixed-noise samples, the D-ranked
+        best and worst 50, 16 reals, D's scores of a diagonal pattern and
+        of a real image, and the samples' mean nearest-neighbour distance
+        to a fixed slice of the corpus (over the slice's own, the
+        ``nn_l2_ratio``)."""
+        epoch = self.state.epoch
+        if self._viz_corpus is None:
+            k = min(512, len(self.dataset))
+            self._viz_corpus = self._to_rgb(self.dataset.load_images(0, k))
+            if k >= 2:
+                self._nn_baseline = float(self_nn_mean(
+                    self._viz_corpus, self.dataset.family_ids(0, k)))
+        reals = self.dataset.load_random_images(16)
+        imgs = gan.generate(self.state.g, self.vis_noise)
+        order = torch.argsort(-gan.discriminate(self.state.d, imgs),
+                              stable=True)
+        h, w = reals.shape[1], reals.shape[2]
+        idx = torch.arange(h, device=reals.device)[:, None] + torch.arange(
+            w, device=reals.device)[None, :]
+        pattern = ((idx % 4) < 2).to(imgs.dtype)[..., None].expand(
+            reals.shape[1:])
+        probes = gan.discriminate(self.state.d,
+                                  torch.stack([pattern, reals[0]]))
+        with torch.inference_mode():
+            rgb = colorlib.colorspace_to_rgb(imgs, self.hc.colorspace)
+            nn_l2 = nn_l2_mean(rgb, self._viz_corpus)
+            rgb_reals = self._to_rgb(reals)
+        rgb, order, probes, rgb_reals = (
+            t.cpu().numpy() for t in (rgb, order, probes, rgb_reals))
+        if not np.isfinite(rgb).all():
+            self.logger.log("nan_detected", epoch=epoch)
+        base = self.hc.save_dir
+        name = f"epoch_{epoch:06d}.png"
+        save_grid(os.path.join(base, "images", name), rgb, epoch=epoch)
+        save_grid(os.path.join(base, "images_good", name), rgb[order[:50]],
+                  epoch=epoch)
+        save_grid(os.path.join(base, "images_bad", name), rgb[order[-50:]],
+                  epoch=epoch)
+        save_grid(os.path.join(base, "images_real", name), rgb_reals,
+                  epoch=epoch)
+        fields = {"epoch": epoch,
+                  "d_probe_pattern": float(probes[0]),
+                  "d_probe_real": float(probes[1]),
+                  "sample_sat": sat_fraction(rgb),
+                  "sample_std": per_pixel_std(rgb)}
+        if self._nn_baseline:
+            fields["nn_l2"] = float(nn_l2)
+            fields["nn_l2_ratio"] = fields["nn_l2"] / self._nn_baseline
+        self.logger.log("viz", **fields)
+        return fields
+
+    def train(self, epochs: Optional[int] = None) -> str:
+        """The reference's epoch loop: visualize every ``vis_freq`` epochs
+        (and before the first), train, save every ``save_freq`` epochs and
+        at the end."""
+        epochs = epochs if epochs is not None else self.hc.epochs
+        done = 0
+        while epochs is None or done < epochs:
+            if done == 0 or self.state.epoch % self.hc.vis_freq == 0:
+                self.visualize()
+            self.run_epoch()
+            done += 1
+            if self.state.epoch % self.hc.save_freq == 0:
+                self.save()
+        # final save, unless the cadence save just wrote this state (a
+        # duplicate would rotate the real previous snapshot out of .old)
+        if done == 0 or self.state.epoch % self.hc.save_freq != 0:
+            self.save()
+        return "completed"
+
+
+def _count(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

@@ -1,9 +1,12 @@
 """The port's bilinear sampler (catgen_torch/kernels/bilinear.py) on the
-CPU: its plain version against catgen's, and the wrapper's contract.
+CPU: its plain version, forward and backward, against catgen's XLA
+sampler and v4 Pallas kernel, and the wrappers' contract.
 
-The CUDA kernel itself runs only on a card (chip_smoke.py holds it
-against the plain version there); here the wrapper must take the plain
-version for CPU tensors and refuse anything else it cannot launch.
+The CUDA kernels run only on a card (chip_smoke.py and
+test_torch_port_cuda.py hold them against the plain version there); here
+the wrapper must take the plain version for CPU tensors and refuse
+anything else it cannot launch, and the autograd Function is exercised
+with its launch functions stubbed by the plain versions.
 
 Shapes are the two the sampling path gives the sampler, at N=2: the input
 ST (32x32x3 -> 32x32, catgen's separable v4 body) and the three branch STs
@@ -14,6 +17,7 @@ stacked (16x16x64 -> 48x16, the dense v4 body). Coordinates span
 import os
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,9 +120,126 @@ def test_launch_checks_inputs(bad):
     assert "needs CUDA tensors" not in str(info.value)
 
 
-def test_backward_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
-        bilinear._BilinearSampleRows.backward(None, torch.zeros(1))
+@pytest.mark.parametrize("needs", [(True, True), (False, True),
+                                   (True, False)])
+def test_backward_wiring(monkeypatch, needs):
+    # the autograd Function on CPU tensors, with the three launch
+    # functions stubbed by the plain versions here in the test only: the
+    # backward asks for d_img only where the image needs a gradient, and
+    # returns gradients of the inputs' shapes and dtypes
+    calls = []
+
+    def fwd(img, crd, out_hw):
+        calls.append("fwd")
+        return bilinear.bilinear_sample_rows_plain(img, crd, out_hw)
+
+    def dimg(img, crd, g, out_hw):
+        calls.append("dimg")
+        return bilinear.bilinear_sample_rows_backward_plain(
+            img, crd, g, out_hw, need_coords=False)[0]
+
+    def dcrd(img, crd, g, out_hw):
+        calls.append("dcoords")
+        return bilinear.bilinear_sample_rows_backward_plain(
+            img, crd, g, out_hw, need_img=False)[1]
+
+    monkeypatch.setattr(bilinear, "launch", fwd)
+    monkeypatch.setattr(bilinear, "launch_dimg", dimg)
+    monkeypatch.setattr(bilinear, "launch_dcoords", dcrd)
+    img, rows = (torch.tensor(a) for a in _inputs(SHAPES[1]))
+    img.requires_grad_(needs[0])
+    rows.requires_grad_(needs[1])
+    out = bilinear._BilinearSampleRows.apply(img, rows, (48, 16))
+    g = torch.rand(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(g)
+    want = ["fwd"] + ["dimg"] * needs[0] + ["dcoords"] * needs[1]
+    assert calls == want
+    ref_img, ref_crd = bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, (48, 16))
+    for t, ref, need in ((img, ref_img, needs[0]), (rows, ref_crd, needs[1])):
+        if need:
+            assert t.grad.shape == t.shape and t.grad.dtype == torch.float32
+            assert torch.equal(t.grad, ref)
+        else:
+            assert t.grad is None
+
+
+def _cotangent(shape, seed):
+    # cotangents of the size a train step passes back (BCE over a batch)
+    n, h, w, c, ho, wo = shape
+    rng = np.random.RandomState(seed)
+    return rng.uniform(-0.1, 0.1, (n, ho, wo, c)).astype(np.float32)
+
+
+def _port_grads(img, rows, g, out_hw):
+    d_img, d_crd = bilinear.bilinear_sample_rows_backward_plain(
+        torch.tensor(img), torch.tensor(rows), torch.tensor(g), out_hw)
+    return d_img.numpy(), d_crd.numpy()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_catgen_vjp(shape):
+    # catgen's XLA sampler (its CPU path) under jax.vjp; coordinates in
+    # [-1.2, 1.2]: inside, outside (clamped) and never exactly on an edge.
+    # f32 on both sides, sums in another order: atol 1e-5
+    n, h, w, c, ho, wo = shape
+    img, rows = _inputs(shape, seed=2)
+    g = _cotangent(shape, seed=3)
+    _, vjp = jax.vjp(jax_sample, jnp.asarray(img),
+                     jnp.asarray(_grid(rows, ho, wo)))
+    want_img, want_grid = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    want_crd = want_grid.reshape(n, ho * wo, 2).transpose(0, 2, 1)
+    got_img, got_crd = _port_grads(img, rows, g, (ho, wo))
+    np.testing.assert_allclose(got_img, want_img, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_crd, want_crd, rtol=0, atol=1e-5)
+    assert (got_crd == 0).any() and (got_crd != 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_catgen_v4_interpret(shape):
+    # the TPU kernel's _bwd in interpret mode rounds image, g and its
+    # weight masks to bf16 (8 bits of mantissa): max abs err within 2e-2
+    # of the largest gradient
+    n, h, w, c, ho, wo = shape
+    img, rows = _inputs(shape, seed=4)
+    g = _cotangent(shape, seed=5)
+    _, vjp = jax.vjp(lambda a, b: v4_sample_rows(a, b, (ho, wo), True),
+                     jnp.asarray(img), jnp.asarray(rows))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    for got, ref in zip(_port_grads(img, rows, g, (ho, wo)), want):
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def test_exact_edge_gradient_follows_v4():
+    # an identity grid puts every border pixel exactly on the edge (-1 or
+    # +1). There catgen's two paths disagree: jnp.clip's derivative on the
+    # bound is 0.5 (XLA bilinear_sample), v4's inclusive masks give 1. The
+    # port follows v4, the path that ran on the TPU
+    n, h, w, c = 2, 8, 8, 4
+    rng = np.random.RandomState(6)
+    img = rng.rand(n, h, w, c).astype(np.float32)
+    gy, gx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w),
+                         indexing="ij")
+    rows = np.broadcast_to(np.stack([gy.ravel(), gx.ravel()]),
+                           (n, 2, h * w)).astype(np.float32).copy()
+    g = rng.uniform(-0.1, 0.1, (n, h, w, c)).astype(np.float32)
+    _, got = _port_grads(img, rows, g, (h, w))
+    _, vjp4 = jax.vjp(lambda a, b: v4_sample_rows(a, b, (h, w), True),
+                      jnp.asarray(img), jnp.asarray(rows))
+    v4_crd = np.asarray(vjp4(jnp.asarray(g))[1])
+    _, vjp = jax.vjp(jax_sample, jnp.asarray(img),
+                     jnp.asarray(_grid(rows, h, w)))
+    xla_crd = np.asarray(vjp(jnp.asarray(g))[1]).reshape(
+        n, h * w, 2).transpose(0, 2, 1)
+    edge_y = np.abs(rows[:, 0]) == 1.0             # (n, P)
+    assert edge_y.any() and (~edge_y).any()
+    np.testing.assert_allclose(got, v4_crd, rtol=0,
+                               atol=2e-2 * np.abs(v4_crd).max())
+    ratio = got[:, 0][edge_y] / xla_crd[:, 0][edge_y]
+    np.testing.assert_allclose(ratio, 2.0, rtol=1e-5)
+    np.testing.assert_allclose(got[:, 0][~edge_y], xla_crd[:, 0][~edge_y],
+                               rtol=0, atol=1e-6)
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -25,6 +25,7 @@ from catgen.nn import spatial_transformer as cst
 from catgen_torch.core import initializers as tinit
 from catgen_torch.core.module import Sequential as TSequential
 from catgen_torch.core.module import reset_parameters
+from catgen_torch.core.random import Draws
 from catgen_torch.data import color as tcolor
 from catgen_torch.data import fixture as tfixture
 from catgen_torch.data import ops as tops
@@ -120,9 +121,9 @@ def test_dropout_train_semantics(cls, mask_axes):
     # compared; the inverted-dropout semantics are
     layer = cls(0.25).train()
     x = torch.rand(8, 4, 4, 16) + 0.5
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="draws"):
         layer(x)
-    layer.generator = torch.Generator().manual_seed(0)
+    layer.draws = Draws(torch.Generator().manual_seed(0))
     y = layer(x)
     kept = y != 0
     torch.testing.assert_close(y[kept], (x / 0.75)[kept])
@@ -130,7 +131,7 @@ def test_dropout_train_semantics(cls, mask_axes):
     if mask_axes:       # one decision per (sample, channel)
         assert torch.equal(kept, kept[:, :1, :1, :].expand_as(kept))
     again = cls(0.25).train()
-    again.generator = torch.Generator().manual_seed(0)
+    tl.set_draws(again, Draws(torch.Generator().manual_seed(0)))
     assert torch.equal(again(x), y)
 
 

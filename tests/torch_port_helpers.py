@@ -15,6 +15,10 @@ fresh BatchNorm statistics would hide:
 
 from __future__ import annotations
 
+import contextlib
+import os
+from unittest import mock
+
 import jax
 import numpy as np
 import torch
@@ -27,14 +31,23 @@ IMG = (32, 32, 3)
 NOISE_DIM = 100
 WEIGHT_GAIN = 4.0
 
+# The suite runs in several pytest-xdist workers at once. torch's intra-op
+# pool defaults to one thread per core in each of them, which oversubscribes
+# the cores and slows the port's side several-fold; each worker takes its
+# share of the cores instead.
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 
 def np_tree(tree):
     """A jax tree as writable numpy copies."""
     return jax.tree_util.tree_map(lambda x: np.array(x), tree)
 
 
-def perturb(variables, rng: np.random.RandomState) -> None:
-    """Perturbs a catgen variables tree (numpy leaves) in place."""
+def perturb(variables, rng: np.random.RandomState,
+            gain: float = WEIGHT_GAIN) -> None:
+    """Perturbs a catgen variables tree (numpy leaves) in place; kernels
+    are scaled by ``gain``."""
 
     def walk(params, state, path):
         for k, v in params.items():
@@ -48,7 +61,7 @@ def perturb(variables, rng: np.random.RandomState) -> None:
                              ).astype(np.float32)
                 continue
             if "kernel" in v:
-                v["kernel"] = (v["kernel"] * WEIGHT_GAIN).astype(np.float32)
+                v["kernel"] = (v["kernel"] * gain).astype(np.float32)
             if "mean" in st:
                 st["mean"] = rng.normal(0.0, 0.1, st["mean"].shape
                                         ).astype(np.float32)
@@ -81,3 +94,93 @@ def port_pair(gv, dv):
     d.load_state_dict(catgen_to_state_dict(dv["params"], dv["state"]),
                       strict=True)
     return g.eval(), d.eval()
+
+
+# ---------------------------------------------------------------------------
+# training parity: JAX's draws handed to the port, gradients captured
+# ---------------------------------------------------------------------------
+
+_DRAW_KINDS = ("uniform", "bernoulli", "normal")
+
+
+@contextlib.contextmanager
+def record_jax_draws():
+    """Runs the body eagerly (``jax.disable_jit``) and records, in order,
+    every ``jax.random.uniform`` / ``bernoulli`` / ``normal`` result as
+    (kind, numpy array): the noise, augmentation draws and dropout masks
+    catgen takes, in the order it takes them."""
+    records = []
+    real = {k: getattr(jax.random, k) for k in _DRAW_KINDS}
+
+    def wrap(kind):
+        def draw(*args, **kwargs):
+            out = real[kind](*args, **kwargs)
+            records.append((kind, np.asarray(out)))
+            return out
+        return draw
+
+    with mock.patch.multiple(jax.random, **{k: wrap(k) for k in real}), \
+            jax.disable_jit():
+        yield records
+
+
+class ReplayDraws:
+    """Stands in for ``catgen_torch.core.random.Draws``: hands out the
+    recorded JAX draws in order, checking kind and shape."""
+
+    def __init__(self, records):
+        self.records = list(records)
+
+    def _next(self, kind, shape):
+        assert self.records, f"the port drew {kind} {tuple(shape)} more " \
+                             f"often than catgen"
+        got_kind, arr = self.records.pop(0)
+        assert (got_kind, arr.shape) == (kind, tuple(shape)), (
+            f"port draws {kind} {tuple(shape)}, catgen drew {got_kind} "
+            f"{arr.shape}")
+        return torch.tensor(arr)
+
+    def uniform(self, shape, low=0.0, high=1.0):
+        return self._next("uniform", shape)
+
+    def bernoulli(self, p, shape):
+        return self._next("bernoulli", shape)
+
+    def normal(self, shape):
+        return self._next("normal", shape)
+
+
+@contextlib.contextmanager
+def capture_grads(module, into: list, to_port=None):
+    """Records the gradients handed to ``module.clamp_and_penalize`` (each
+    optimizer update's raw gradients), converted by ``to_port``."""
+    real = module.clamp_and_penalize
+
+    def spy(grads, *args, **kwargs):
+        into.append(to_port(grads) if to_port else grads)
+        return real(grads, *args, **kwargs)
+
+    with mock.patch.object(module, "clamp_and_penalize", spy):
+        yield into
+
+
+def catgen_grads_to_port(grads):
+    """A catgen gradient tree -> {port parameter name: numpy array}."""
+    return {k: v.numpy() for k, v in
+            catgen_to_state_dict(np_tree(grads), {}).items()}
+
+
+def port_grads_to_numpy(grads):
+    return {k: v.detach().cpu().numpy() for k, v in grads.items()}
+
+
+def assert_grads_close(port, catgen, rel=1e-4, floor=1e-6):
+    """Per leaf: max abs difference within ``rel`` of the leaf's max |g|,
+    plus ``floor`` x the largest |g| of the update, for leaves whose
+    gradient is zero up to rounding (a bias in front of a BatchNorm)."""
+    assert set(port) == set(catgen)
+    top = max(np.abs(v).max() for v in catgen.values())
+    for k, want in catgen.items():
+        bound = rel * np.abs(want).max() + floor * top
+        err = np.abs(port[k] - want).max()
+        assert err <= bound, f"{k}: {err} > {bound}"
