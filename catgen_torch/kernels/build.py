@@ -25,7 +25,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # --fmad=false: the lerps round like the plain PyTorch version's separate
-# multiplies and adds; -Xptxas=-v writes registers and spills to the log.
+# multiplies and adds (the upsample-conv kernels' inner products call
+# fmaf, which the flag does not split); -Xptxas=-v writes registers and
+# spills to the log.
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -39,6 +41,12 @@ SIGNATURES = (
      _I),
     ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
+    ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),
+    ("catgen_upsample_conv_fwd_f32", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 11
+     + [_P], _I),
+    ("catgen_upsample_conv_dck_splits", [_I] * 7, _I),
+    ("catgen_upsample_conv_dx_f32", [_P] * 11 + [_I] * 11 + [_P], _I),
+    ("catgen_upsample_conv_dck_f32", [_P] * 11 + [_I] * 11 + [_P], _I),
 )
 
 

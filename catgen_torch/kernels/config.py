@@ -1,0 +1,118 @@
+"""Selection of G's upsample-conv implementation: the counterpart of the
+upsample selectors of ``catgen/kernels/config.py``.
+
+The same environment variables, with the same names and values, pick the
+same route in both packages:
+
+    CATGEN_UPSAMPLE_IMPL=auto|collapsed|pallas|naive   (default auto)
+    CATGEN_FUSED_LADDER=1|0                            (default 1)
+    CATGEN_UPSAMPLE_BWD=collapsed|pallas|hybrid|naive  (default collapsed)
+    CATGEN_LADDER_BWD=xla_vjp|xla|pallas               (default xla_vjp)
+
+In the port the words keep catgen's meaning with PyTorch in place of XLA:
+
+  * ``collapsed``: the four collapsed parity convolutions on cuDNN
+    (``kernels/upsample_conv.py::upsample2_conv``); ``auto`` resolves to it,
+    as catgen's does;
+  * ``naive``: nearest-2x upsample, then the k x k conv (the reference);
+  * ``pallas``: the hand-written CUDA kernels of
+    ``kernels/fused_upsample_conv.py`` (``csrc/upsample_conv.cu`` and
+    ``csrc/upsample_conv_bwd.cu``); on CPU tensors their plain versions;
+  * ``fused_ladder`` (with ``pallas``): G's ``[UpsampleConv, BatchNorm,
+    PReLU]`` stages run as boundary-fused blocks (``nn/fused.py``);
+  * ``upsample_bwd``, the per-layer backward: ``pallas`` is the dX and dCK
+    kernels, ``hybrid`` the dX kernel with autograd's dW and db;
+    ``collapsed``/``naive`` autograd through that formulation;
+  * ``ladder_bwd``, the ladder block's backward: ``pallas`` is the fused
+    block-backward kernels; ``xla`` and ``xla_vjp`` both mean autograd
+    through the plain block (catgen's hand-written ``xla`` variant works
+    around XLA relayouts that PyTorch does not make).
+
+Selection is process-global. Set it before a run, through the environment
+or the setters; ``using`` sets and restores around a block.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+
+_UPSAMPLE_IMPLS = ("auto", "collapsed", "pallas", "naive")
+_UPSAMPLE_BWDS = ("collapsed", "pallas", "hybrid", "naive")
+_LADDER_BWDS = ("xla_vjp", "xla", "pallas")
+
+
+def _check(name: str, value, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(
+            f"{name}={value!r} is not a valid choice; pick one of {allowed}")
+
+
+def _env_choice(var: str, default: str, allowed) -> str:
+    """Env-sourced selector with validation: a typo fails loudly at import
+    instead of falling through to some default implementation."""
+    v = os.environ.get(var, default)
+    _check(var, v, allowed)
+    return v
+
+
+upsample_impl = _env_choice("CATGEN_UPSAMPLE_IMPL", "auto", _UPSAMPLE_IMPLS)
+fused_ladder = os.environ.get("CATGEN_FUSED_LADDER", "1") == "1"
+upsample_bwd = _env_choice("CATGEN_UPSAMPLE_BWD", "collapsed", _UPSAMPLE_BWDS)
+ladder_bwd = _env_choice("CATGEN_LADDER_BWD", "xla_vjp", _LADDER_BWDS)
+
+
+def resolve_upsample_impl() -> str:
+    """'auto' -> the collapsed parity convolutions, as in catgen. Whether
+    the kernels should be the default on Hopper is for a measured change
+    to decide."""
+    if upsample_impl != "auto":
+        return upsample_impl
+    return "collapsed"
+
+
+def set_upsample_impl(name: str) -> None:
+    global upsample_impl
+    _check("upsample_impl", name, _UPSAMPLE_IMPLS)
+    upsample_impl = name
+
+
+def set_fused_ladder(on: bool) -> None:
+    global fused_ladder
+    fused_ladder = bool(on)
+
+
+def set_upsample_bwd(name: str) -> None:
+    global upsample_bwd
+    _check("upsample_bwd", name, _UPSAMPLE_BWDS)
+    upsample_bwd = name
+
+
+def set_ladder_bwd(name: str) -> None:
+    global ladder_bwd
+    _check("ladder_bwd", name, _LADDER_BWDS)
+    ladder_bwd = name
+
+
+_SETTERS = {"upsample_impl": set_upsample_impl,
+            "fused_ladder": set_fused_ladder,
+            "upsample_bwd": set_upsample_bwd,
+            "ladder_bwd": set_ladder_bwd}
+
+
+@contextlib.contextmanager
+def using(**choices):
+    """Sets the named selectors for the block and restores them after:
+    ``with using(upsample_impl="pallas", ladder_bwd="pallas"): ...``."""
+    unknown = set(choices) - set(_SETTERS)
+    if unknown:
+        raise KeyError(f"unknown selectors {sorted(unknown)}; known: "
+                       f"{sorted(_SETTERS)}")
+    saved = {k: globals()[k] for k in choices}
+    try:
+        for k, v in choices.items():
+            _SETTERS[k](v)
+        yield
+    finally:
+        for k, v in saved.items():
+            globals()[k] = v

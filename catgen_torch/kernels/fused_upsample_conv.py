@@ -1,0 +1,445 @@
+"""Nearest-2x upsample + conv on the kernel route: the Hopper kernels and
+their plain PyTorch versions. The counterpart of
+``catgen/kernels/pallas_upsample_conv.py`` and
+``catgen/kernels/pallas_upsample_conv_bwd.py``, with their public names:
+
+  * ``upsample2_conv_fused(x, weight, bias, prelu_alpha)``: upsample + conv
+    (+ bias, + PReLU) in one pass (catgen's row 3 kernel);
+  * ``upsample2_conv_block_fused(..., with_stats)``: the ladder block,
+    prelu(x * scale + shift, alpha) -> upsample + conv + bias, with the
+    per-channel [sum y, sum y^2] (row 4);
+  * ``upsample2_conv_backward``: (dx, dweight, dbias) of row 3 (row 5);
+  * ``fused_block_backward``: the six cotangents of row 4, with the stats
+    cotangents folded in (row 6);
+  * ``upsample2_conv_bias`` and ``upsample2_conv_block``: the autograd
+    Functions around them; their backwards follow ``config.upsample_bwd``
+    and ``config.ladder_bwd``.
+
+The kernels are ``catgen_torch/csrc/upsample_conv.cu`` (forward) and
+``catgen_torch/csrc/upsample_conv_bwd.cu`` (dX, dCK). The weight collapse
+into the 4-parity stack, the dCK -> dW chain through the collapse
+matrices and the per-layer dbias stay PyTorch ops here, as catgen keeps
+them outside its ``pallas_call``s.
+
+On CPU tensors every function runs its plain version: the input
+transform, the port's ``upsample2_conv`` (the collapsed parity convs),
+bias and the sums; each backward is autograd of that forward. On CUDA
+tensors it launches the kernels or raises. Weights are OIHW (the port's
+layout), images NHWC, everything float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from catgen_torch.kernels import config
+from catgen_torch.kernels.build import load_library
+from catgen_torch.kernels.upsample_conv import (_collapse_matrix, _collapse_on,
+                                                collapse_weights,
+                                                upsample2_conv,
+                                                upsample2_conv_reference)
+
+# Launches of each CUDA kernel since import (or since reset_launches()).
+LAUNCHES = 0              # row 3: upsample2_conv_fused
+BLOCK_LAUNCHES = 0        # row 4: upsample2_conv_block_fused
+DX_LAUNCHES = 0           # row 5: dX of upsample2_conv_backward
+DCK_LAUNCHES = 0          # row 5: dCK of upsample2_conv_backward
+BLOCK_DX_LAUNCHES = 0     # row 6: dX, dscale, dshift, dalpha
+BLOCK_DCK_LAUNCHES = 0    # row 6: dCK and dbias
+COUNTERS = ("LAUNCHES", "BLOCK_LAUNCHES", "DX_LAUNCHES", "DCK_LAUNCHES",
+            "BLOCK_DX_LAUNCHES", "BLOCK_DCK_LAUNCHES")
+
+
+def reset_launches() -> None:
+    for name in COUNTERS:
+        globals()[name] = 0
+
+
+def launches() -> dict:
+    return {name: globals()[name] for name in COUNTERS}
+
+
+def _count(name: str) -> None:
+    globals()[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def in_transform(x, scale, shift, alpha):
+    """The previous stage's BatchNorm affine and PReLU."""
+    xt = x * scale + shift
+    return torch.where(xt >= 0, xt, alpha * xt)
+
+
+def block_plain(x, weight, bias=None, in_scale=None, in_shift=None,
+                in_alpha=None, prelu_alpha=None):
+    """Plain forward: [in-transform ->] upsample2_conv [+ bias] [-> PReLU]."""
+    if in_scale is not None:
+        x = in_transform(x, in_scale, in_shift, in_alpha)
+    y = upsample2_conv(x, weight)
+    if bias is not None:
+        y = y + bias
+    if prelu_alpha is not None:
+        y = torch.where(y >= 0, y, prelu_alpha * y)
+    return y
+
+
+def stats_plain(y):
+    """Per-channel [sum y, sum y^2] over (N, 2H, 2W)."""
+    return y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))
+
+
+def _vjp(fn, inputs, needs, cotangent):
+    """Autograd of ``fn(*inputs)``: the gradients of the inputs whose
+    ``needs`` is true, in order."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        return torch.autograd.grad(
+            out, [t for t, n in zip(leaves, needs) if n], cotangent)
+
+
+def upsample2_conv_backward_plain(x, weight, g, fn=upsample2_conv,
+                                  need_x=True):
+    """(dx, dweight, dbias) of ``fn(x, weight) + bias`` by autograd; dx is
+    None unless ``need_x``."""
+    bias = torch.zeros(weight.shape[0], dtype=g.dtype, device=g.device)
+    grads = _vjp(lambda x_, w_, b_: fn(x_, w_) + b_, (x, weight, bias),
+                 (need_x, True, True), g)
+    return (grads[0], grads[1], grads[2]) if need_x else (None, *grads)
+
+
+def fused_block_backward_plain(x, in_scale, in_shift, in_alpha, weight, bias,
+                               y, gy, gs1, gs2):
+    """The six cotangents of the block by autograd of ``block_plain``, the
+    stats cotangents folded into g; dalpha per input channel."""
+    g = gy + gs1 + 2.0 * y * gs2
+    alpha = in_alpha.reshape(-1).expand(x.shape[-1])
+    return _vjp(lambda *a: block_plain(a[0], a[4], a[5], a[1], a[2], a[3]),
+                (x, in_scale, in_shift, alpha, weight, bias), (True,) * 6, g)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def _check(name: str, t: torch.Tensor, device, shape=None) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"upsample-conv kernel takes float32 {name}, got "
+                        f"{t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, x on {device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"upsample-conv kernel takes a contiguous {name}")
+
+
+def _geometry(x: torch.Tensor, weight: torch.Tensor):
+    """Checks x and the weight; returns (n, h, w, cin, cout, k_h, k_w)."""
+    if not x.is_cuda:
+        raise ValueError(f"upsample-conv kernel needs CUDA tensors, x is on "
+                         f"{x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
+    _check("x", x, x.device)
+    if weight.dim() != 4 or weight.shape[1] != x.shape[3]:
+        raise ValueError(f"weight must be (Cout, {x.shape[3]}, k, k), got "
+                         f"{tuple(weight.shape)}")
+    if weight.shape[2] % 2 != 1 or weight.shape[3] % 2 != 1:
+        raise ValueError(f"kernel size must be odd, got "
+                         f"{tuple(weight.shape[2:])}")
+    if weight.dtype != torch.float32 or weight.device != x.device:
+        raise ValueError(f"weight must be float32 on {x.device}, got "
+                         f"{weight.dtype} on {weight.device}")
+    n, h, w, cin = x.shape
+    return n, h, w, cin, weight.shape[0], weight.shape[2], weight.shape[3]
+
+
+def _umins(k_h: int, k_w: int) -> tuple:
+    """Tap 0's offset for parities 0 and 1 of each axis."""
+    return (_collapse_matrix(k_h, 0)[1], _collapse_matrix(k_h, 1)[1],
+            _collapse_matrix(k_w, 0)[1], _collapse_matrix(k_w, 1)[1])
+
+
+def parity_stack(weight: torch.Tensor) -> torch.Tensor:
+    """The four collapsed kernels of an OIHW weight in parity order (d, e)
+    as (4, kh', kw', Cin, Cout), the layout the kernels read."""
+    cks = [collapse_weights(weight, d, e)[0] for d in (0, 1) for e in (0, 1)]
+    return torch.stack([ck.permute(2, 3, 1, 0) for ck in cks]).contiguous()
+
+
+def dweight_from_dck(dck: torch.Tensor, k_h: int, k_w: int) -> torch.Tensor:
+    """dW = collapse^T(dCK): (4, kh', kw', Cin, Cout) -> (Cout, Cin, k_h,
+    k_w)."""
+    dw = None
+    for p in range(4):
+        d, e = divmod(p, 2)
+        mh = _collapse_on(k_h, d, dck.device, dck.dtype)[0]
+        mw = _collapse_on(k_w, e, dck.device, dck.dtype)[0]
+        term = torch.einsum("ua,vb,uvio->oiab", mh, mw, dck[p])
+        dw = term if dw is None else dw + term
+    return dw
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
+                    in_shift=None, in_alpha=None, with_stats=False):
+    """Runs the forward kernel; returns y, or (y, s1, s2) with stats."""
+    n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
+    dev = x.device
+    if bias is not None:
+        _check("bias", bias, dev, (cout,))
+    prelu_n = 0
+    if prelu_alpha is not None:
+        prelu_alpha = prelu_alpha.reshape(-1)
+        prelu_n = prelu_alpha.numel()
+        if prelu_n not in (1, cout):
+            raise ValueError(f"prelu_alpha must hold 1 or {cout} slopes, got "
+                             f"{prelu_n}")
+        _check("prelu_alpha", prelu_alpha, dev)
+    if in_scale is not None:
+        _check("in_scale", in_scale, dev, (cin,))
+        _check("in_shift", in_shift, dev, (cin,))
+        if in_alpha.numel() not in (1, cin):
+            raise ValueError(f"in_alpha must hold 1 or {cin} slopes, got "
+                             f"{in_alpha.numel()}")
+        _check("in_alpha", in_alpha, dev)
+        in_alpha = in_alpha.reshape(-1).expand(cin).contiguous()
+    lib = load_library()
+    wst = parity_stack(weight)
+    y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
+    partial = stats = None
+    if with_stats:
+        rows = 4 * lib.catgen_upsample_conv_partial_rows(n, h, w)
+        partial = torch.empty((rows, 2, cout), dtype=torch.float32,
+                              device=dev)
+        stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.catgen_upsample_conv_fwd_f32(
+            x.data_ptr(), wst.data_ptr(), _ptr(bias), _ptr(prelu_alpha),
+            prelu_n, _ptr(in_scale), _ptr(in_shift), _ptr(in_alpha),
+            y.data_ptr(), _ptr(partial), _ptr(stats), n, h, w, cin, cout,
+            wst.shape[1], wst.shape[2], *_umins(k_h, k_w), _stream(dev))
+    _launched(err, "upsample-conv forward")
+    return (y, stats[0], stats[1]) if with_stats else y
+
+
+def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
+               in_alpha=None):
+    """Runs the dX kernel; with the transform, returns (dx, dtr (3, cin))."""
+    n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
+    dev = x.device
+    _check("g", g, dev, (n, 2 * h, 2 * w, cout))
+    lib = load_library()
+    wt = parity_stack(weight).transpose(3, 4).contiguous()
+    dx = torch.empty_like(x)
+    partial = dtr = None
+    if in_scale is not None:
+        rows = lib.catgen_upsample_conv_partial_rows(n, h, w)
+        partial = torch.empty((rows, 3, cin), dtype=torch.float32, device=dev)
+        dtr = torch.empty((3, cin), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.catgen_upsample_conv_dx_f32(
+            g.data_ptr(), _ptr(y), _ptr(gs), wt.data_ptr(),
+            x.data_ptr() if in_scale is not None else None, _ptr(in_scale),
+            _ptr(in_shift), _ptr(in_alpha), dx.data_ptr(), _ptr(partial),
+            _ptr(dtr), n, h, w, cin, cout, wt.shape[1], wt.shape[2],
+            *_umins(k_h, k_w), _stream(dev))
+    _launched(err, "upsample-conv dX")
+    return dx if dtr is None else (dx, dtr)
+
+
+def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
+                in_alpha=None):
+    """Runs the dCK kernel; returns dCK (4, kh', kw', Cin, Cout), and with
+    the fold also dbias (Cout,)."""
+    n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
+    dev = x.device
+    _check("g", g, dev, (n, 2 * h, 2 * w, cout))
+    lib = load_library()
+    kp_h, kp_w = _collapse_matrix(k_h, 0)[0].shape[0], \
+        _collapse_matrix(k_w, 0)[0].shape[0]
+    splits = lib.catgen_upsample_conv_dck_splits(n, h, w, cin, cout, kp_h,
+                                                 kp_w)
+    partial = torch.empty((splits, 4, kp_h, kp_w, cin, cout),
+                          dtype=torch.float32, device=dev)
+    dck = torch.empty((4, kp_h, kp_w, cin, cout), dtype=torch.float32,
+                      device=dev)
+    db_partial = dbias = None
+    if y is not None:
+        db_partial = torch.empty((splits * 4, cout), dtype=torch.float32,
+                                 device=dev)
+        dbias = torch.empty((cout,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.catgen_upsample_conv_dck_f32(
+            x.data_ptr(), _ptr(in_scale), _ptr(in_shift), _ptr(in_alpha),
+            g.data_ptr(), _ptr(y), _ptr(gs), partial.data_ptr(),
+            dck.data_ptr(), _ptr(db_partial), _ptr(dbias), n, h, w, cin,
+            cout, kp_h, kp_w, *_umins(k_h, k_w), _stream(dev))
+    _launched(err, "upsample-conv dCK")
+    return dck if dbias is None else (dck, dbias)
+
+
+# ---------------------------------------------------------------------------
+# public functions
+# ---------------------------------------------------------------------------
+
+
+def upsample2_conv_fused(x, weight, bias=None, prelu_alpha=None):
+    """Nearest-2x upsample + same conv (+ bias) (+ PReLU, one slope or one
+    per output channel) in one pass. x (N, H, W, Cin), weight (Cout, Cin,
+    k, k) odd k; returns (N, 2H, 2W, Cout)."""
+    if _on_cpu(x, weight, bias, prelu_alpha):
+        return block_plain(x, weight, bias, prelu_alpha=prelu_alpha)
+    y = _launch_forward(x, weight, bias, prelu_alpha=prelu_alpha)
+    _count("LAUNCHES")
+    return y
+
+
+def upsample2_conv_block_fused(x, weight, bias, in_scale, in_shift, in_alpha,
+                               with_stats: bool = True):
+    """prelu(x * in_scale + in_shift, in_alpha) -> upsample2 -> conv ->
+    + bias in one pass; with ``with_stats`` also the per-channel [sum y,
+    sum y^2] over (N, 2H, 2W). in_scale, in_shift (Cin,); in_alpha (Cin,)
+    or (1,). Returns y, or (y, s1, s2)."""
+    if _on_cpu(x, weight, bias, in_scale, in_shift, in_alpha):
+        y = block_plain(x, weight, bias, in_scale, in_shift, in_alpha)
+        return (y, *stats_plain(y)) if with_stats else y
+    out = _launch_forward(x, weight, bias, in_scale=in_scale,
+                          in_shift=in_shift, in_alpha=in_alpha,
+                          with_stats=with_stats)
+    _count("BLOCK_LAUNCHES")
+    return out
+
+
+def upsample2_conv_dx(x, weight, g):
+    """dx of ``upsample2_conv(x, weight)`` for the cotangent g: the dX
+    kernel alone (the ``hybrid`` backward)."""
+    if _on_cpu(x, weight, g):
+        return upsample2_conv_backward_plain(x, weight, g)[0]
+    dx = _launch_dx(x, weight, g)
+    _count("DX_LAUNCHES")
+    return dx
+
+
+def upsample2_conv_backward(x, weight, g):
+    """(dx, dweight, dbias) of ``upsample2_conv(x, weight) + bias`` for the
+    cotangent g (N, 2H, 2W, Cout)."""
+    if _on_cpu(x, weight, g):
+        return upsample2_conv_backward_plain(x, weight, g)
+    dx = upsample2_conv_dx(x, weight, g)
+    dck = _launch_dck(x, weight, g)
+    _count("DCK_LAUNCHES")
+    dw = dweight_from_dck(dck, weight.shape[2], weight.shape[3])
+    return dx, dw, g.sum(dim=(0, 1, 2))
+
+
+def fused_block_backward(x, in_scale, in_shift, in_alpha, weight, y, gy,
+                         gs1, gs2):
+    """The full VJP of ``upsample2_conv_block``: returns (dx, dscale,
+    dshift, dalpha (Cin,), dweight, dbias); the caller sums dalpha for a
+    shared slope."""
+    if _on_cpu(x, in_scale, in_shift, in_alpha, weight, y, gy, gs1, gs2):
+        bias = torch.zeros(weight.shape[0], dtype=x.dtype, device=x.device)
+        return fused_block_backward_plain(x, in_scale, in_shift, in_alpha,
+                                          weight, bias, y, gy, gs1, gs2)
+    cin = x.shape[-1]
+    alpha = in_alpha.reshape(-1).expand(cin).contiguous()
+    gs = torch.stack([gs1, gs2]).contiguous()
+    _check("y", y, x.device, gy.shape)
+    _check("gs", gs, x.device, (2, weight.shape[0]))
+    for name, t in (("in_scale", in_scale), ("in_shift", in_shift),
+                    ("in_alpha", alpha)):
+        _check(name, t, x.device, (cin,))
+    dx, dtr = _launch_dx(x, weight, gy, y, gs, in_scale, in_shift, alpha)
+    _count("BLOCK_DX_LAUNCHES")
+    dck, dbias = _launch_dck(x, weight, gy, y, gs, in_scale, in_shift, alpha)
+    _count("BLOCK_DCK_LAUNCHES")
+    dw = dweight_from_dck(dck, weight.shape[2], weight.shape[3])
+    return dx, dtr[0], dtr[1], dtr[2], dw, dbias
+
+
+class _UpsampleConvBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return upsample2_conv_fused(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.contiguous()
+        impl = config.upsample_bwd
+        if impl == "pallas":
+            return upsample2_conv_backward(x, weight, g)
+        if impl == "hybrid":
+            # the dX kernel, and autograd's dW and db through the
+            # collapsed parity convs
+            _, dw, db = upsample2_conv_backward_plain(x, weight, g,
+                                                      need_x=False)
+            return upsample2_conv_dx(x, weight, g), dw, db
+        fn = (upsample2_conv if impl == "collapsed"
+              else upsample2_conv_reference)
+        return upsample2_conv_backward_plain(x, weight, g, fn)
+
+
+def upsample2_conv_bias(x, weight, bias):
+    """Differentiable ``upsample2_conv_fused(x, weight, bias)``; the
+    backward follows ``config.upsample_bwd``."""
+    return _UpsampleConvBias.apply(x, weight, bias)
+
+
+class _UpsampleConvBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, in_scale, in_shift, in_alpha, weight, bias):
+        y, s1, s2 = upsample2_conv_block_fused(x, weight, bias, in_scale,
+                                               in_shift, in_alpha, True)
+        ctx.save_for_backward(x, in_scale, in_shift, in_alpha, weight, bias,
+                              y)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, in_scale, in_shift, in_alpha, weight, bias, y = ctx.saved_tensors
+        gy = gy.contiguous()
+        if config.ladder_bwd == "pallas":
+            dx, dsc, dsh, dal, dw, db = fused_block_backward(
+                x, in_scale, in_shift, in_alpha, weight, y, gy, gs1, gs2)
+        else:
+            # "xla_vjp" and "xla": autograd through the plain block
+            dx, dsc, dsh, dal, dw, db = fused_block_backward_plain(
+                x, in_scale, in_shift, in_alpha, weight, bias, y, gy, gs1,
+                gs2)
+        if in_alpha.numel() == 1:     # shared slope: sum over channels
+            dal = dal.sum()
+        return dx, dsc, dsh, dal.reshape(in_alpha.shape), dw, db
+
+
+def upsample2_conv_block(x, in_scale, in_shift, in_alpha, weight, bias):
+    """Differentiable ladder block: returns (y, s1, s2) as
+    ``upsample2_conv_block_fused(..., with_stats=True)``; the backward
+    takes (gy, gs1, gs2) and follows ``config.ladder_bwd``."""
+    return _UpsampleConvBlock.apply(x, in_scale, in_shift, in_alpha, weight,
+                                    bias)

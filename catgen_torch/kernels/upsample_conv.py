@@ -4,10 +4,13 @@ counterpart of ``catgen/kernels/upsample_conv.py``.
 The upsampled image U[q, r] = x[q//2, r//2] has only H*W distinct pixels,
 so for each output parity (d, e) the k x k conv collapses onto a smaller
 kernel over x (k=3 -> 2x2, k=5 -> 3x3). The four parity convs run on the
-original H x W image and their outputs interleave into 2H x 2W. These are
-plain convolutions, left to cuDNN here as catgen leaves them to XLA; the
-single-pass kernel (catgen/kernels/pallas_upsample_conv.py) is still to be
-ported. Weights are the plain conv's, so checkpoints are interchangeable.
+original H x W image and their outputs interleave into 2H x 2W. Here
+they are plain convolutions, left to cuDNN as catgen leaves them to XLA:
+the default ``collapsed`` route. ``UpsampleConv`` follows
+``kernels/config.py``: ``pallas`` takes the hand-written single-pass
+kernels (``kernels/fused_upsample_conv.py``), ``naive`` the unfused
+reference. Weights are the plain conv's, so checkpoints are
+interchangeable.
 
 Weights are OIHW (PyTorch's layout); images NHWC.
 """
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from catgen_torch.core import initializers
+from catgen_torch.kernels import config
 from catgen_torch.nn.layers import to_nchw, to_nhwc
 
 
@@ -101,9 +105,9 @@ def upsample2_conv_reference(x: torch.Tensor,
 
 
 class UpsampleConv(nn.Module):
-    """Nearest-2x upsample fused with a k x k same conv, always on the
-    collapsed path. Parameters are the plain conv's ``weight`` and
-    ``bias``."""
+    """Nearest-2x upsample fused with a k x k same conv, on the route
+    ``config.resolve_upsample_impl()`` names. Parameters are the plain
+    conv's ``weight`` and ``bias``."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int] = (3, 3),
@@ -127,4 +131,13 @@ class UpsampleConv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2_conv(x, self.weight) + self.bias.to(x.dtype)
+        # imported here: fused_upsample_conv builds on this module
+        from catgen_torch.kernels import fused_upsample_conv
+
+        impl = config.resolve_upsample_impl()
+        if impl == "pallas":
+            return fused_upsample_conv.upsample2_conv_bias(x, self.weight,
+                                                           self.bias)
+        fn = upsample2_conv if impl == "collapsed" else \
+            upsample2_conv_reference
+        return fn(x, self.weight) + self.bias.to(x.dtype)

@@ -4,9 +4,11 @@
 
 Drives catgen_torch's two paths on the card, sampling (G32up-c generates,
 D32_st3 ranks, the best 16 are searched against a corpus) and training
-(G32up-c against D32_st3 through the training CLI), and checks them phase
-by phase; any failure ends the run with a non-zero exit code and no
-result.
+(G32up-c against D32_st3 through the training CLI), on the default route
+(G's upsample-convs on cuDNN) and on the kernel route (the hand-written
+upsample-conv kernels, as the ladder and per layer), and checks them
+phase by phase; any failure ends the run with a non-zero exit code and
+no result.
 
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
@@ -26,15 +28,35 @@ result.
      20 steps at batch 64 with augmentation; checks the epochs, grids and
      checkpoint, the kernel launches per step, and that the sample CLI
      reads the checkpoint on the card;
-  9. one train step at batch 8 on the card and on the CPU from the same
-     weights and draws, compared;
+  9. one train step at batch 8 on the card (cuDNN's deterministic
+     algorithms) and on the CPU from the same weights and draws,
+     compared;
  10. training times at batch 640 with augmentation (bench.py's training
      configuration): the step, its D and G phases and the optimizer, the
-     sampler kernels against their plain versions at the training shapes,
-     whether same-seed steps are bit-identical, and a profiled step.
+     sampler kernels against their plain versions and grid_sample at the
+     training shapes, whether same-seed steps are bit-identical, and a
+     profiled step;
+ 11. the upsample-conv kernels against their plain versions at G32up-c's
+     three stage shapes, N=640 and N=320; repeats bit-identical;
+ 12. the sampling CLI on the ladder route (CATGEN_UPSAMPLE_IMPL=pallas,
+     CATGEN_FUSED_LADDER=1): 3 block launches per G batch, the same
+     images as phase 5;
+ 13. the training CLI on the ladder route with the block backward
+     kernels (CATGEN_LADDER_BWD=pallas): launches per step and per
+     visualization; the sample CLI reads its checkpoint;
+ 14. one train step on the per-layer route (CATGEN_FUSED_LADDER=0) with
+     CATGEN_UPSAMPLE_BWD=pallas and =hybrid: launches, and losses equal
+     to the default route's;
+ 15. one train step on the ladder route, card against CPU (the CPU runs
+     the kernels' plain versions), within phase 9's bounds;
+ 16. at batch 640: each upsample-conv kernel against its plain version,
+     the cuDNN collapsed route and its bound, at each stage shape; the
+     train step on the ladder and per-layer routes, profiled.
 
-It prints a JSON line describing the kernels, the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}.
+Each phase on the kernel route sets the selectors through
+catgen_torch.kernels.config.using and restores them; phases 1-10 run the
+default route. It prints a JSON line describing the kernels, the card's
+name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -277,9 +299,41 @@ def check_finite(result: dict) -> None:
 
 
 def reset_counts() -> None:
-    from catgen_torch.kernels import bilinear
+    from catgen_torch.kernels import bilinear, fused_upsample_conv
 
     bilinear.LAUNCHES = bilinear.DCOORDS_LAUNCHES = bilinear.DIMG_LAUNCHES = 0
+    fused_upsample_conv.reset_launches()
+
+
+def upsample_counts() -> dict:
+    """Launches of each upsample-conv kernel since the last reset."""
+    from catgen_torch.kernels import fused_upsample_conv
+
+    return fused_upsample_conv.launches()
+
+
+def expected_upsample(route, steps: int, g_evals: int) -> dict:
+    """The upsample-conv launches the design gives for ``steps`` train steps
+    and ``g_evals`` eval-mode G batches on ``route`` (None: the default,
+    collapsed route, which launches none). A step runs G three times per
+    stage count: forward in the D phase (no gradient) and forward and
+    backward in the G phase; G32up-c has three upsample-conv stages."""
+    from catgen_torch.kernels import fused_upsample_conv
+
+    want = dict.fromkeys(fused_upsample_conv.COUNTERS, 0)
+    if route is None:
+        return want
+    if route["fused_ladder"]:
+        want["BLOCK_LAUNCHES"] = 3 * (2 * steps + g_evals)
+        if route["ladder_bwd"] == "pallas":
+            want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = 3 * steps
+    else:
+        want["LAUNCHES"] = 3 * (2 * steps + g_evals)
+        if route["upsample_bwd"] in ("pallas", "hybrid"):
+            want["DX_LAUNCHES"] = 3 * steps
+        if route["upsample_bwd"] == "pallas":
+            want["DCK_LAUNCHES"] = 3 * steps
+    return want
 
 
 def read_counts() -> tuple:
@@ -295,6 +349,9 @@ def slice_on_card(save: str) -> tuple:
     reset_counts()
     result = run_cli(save, "cuda", COUNT, out)
     counts = read_counts()
+    require(upsample_counts() == expected_upsample(None, 0, 0),
+            f"upsample-conv kernels launched on the default route: "
+            f"{upsample_counts()}")
     launches = counts[0]
     expected = 2 * COUNT // 256
     print(f"sampler kernel launches during the CLI run: {launches} "
@@ -315,7 +372,7 @@ def slice_on_card(save: str) -> tuple:
           f"std {s.std().item():.6f}; NN distances mean "
           f"{result['neighbours']['distances'].mean().item():.4f}")
     require(s.std().item() > 1e-3, "D scores are flat")
-    return counts
+    return counts, result
 
 
 def card_vs_cpu(save: str) -> None:
@@ -489,27 +546,34 @@ def backward_vs_plain() -> dict:
     return worst
 
 
-def train_on_card(save: str) -> tuple:
-    """The training CLI on the card; returns its (fwd, d_coords, d_img)
+def train_on_card(save: str, route=None) -> tuple:
+    """The training CLI on the card, on the default route or on ``route``
+    (upsample-conv selectors, set around the run and restored); returns
+    its (fwd, d_coords, d_img) sampler launch counts, its upsample-conv
     launch counts and the number of steps."""
     from catgen_torch.cli import sample as sample_cli
     from catgen_torch.cli import train as train_cli
+    from catgen_torch.kernels import config as upconfig
 
     reset_counts()
-    harness = train_cli.main(TRAIN_ARGS + ["--device", "cuda", "--save",
-                                           save])
-    counts = read_counts()
+    with upconfig.using(**(route or {})):
+        harness = train_cli.main(TRAIN_ARGS + ["--device", "cuda", "--save",
+                                               save])
+    counts, up = read_counts(), upsample_counts()
     steps, vizzes = harness.state.step, 2
     # per step: augmentation 1 + D phase 2 + G phase 2 forwards; d_coords
     # at all 4 transformer sites; d_img at 3 (not the D phase's input ST,
     # which samples data). Each visualization runs D twice (samples,
-    # probes), 2 forwards each
+    # probes), 2 forwards each, and G once in eval
     expected = (5 * steps + 4 * vizzes, 4 * steps, 3 * steps)
     print(f"training CLI: {steps} steps; kernel launches (fwd, d_coords, "
           f"d_img) {counts}, expected {expected}: per step "
           f"{(counts[0] - 4 * vizzes) / steps:g} / {counts[1] / steps:g} / "
           f"{counts[2] / steps:g}")
     require(counts == expected, "the training path's kernel launches")
+    want_up = expected_upsample(route, steps, vizzes)
+    print(f"upsample-conv launches {up}, expected {want_up}")
+    require(up == want_up, "the training path's upsample-conv launches")
     with open(os.path.join(save, "train_metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
     epochs = [e for e in events if e["event"] == "epoch"]
@@ -527,14 +591,15 @@ def train_on_card(save: str) -> tuple:
             require(os.path.getsize(path) > 0, f"missing grid {path}")
     ckpt = os.path.join(save, "adversarial.ckpt")
     require(os.path.getsize(ckpt) > 0, "no checkpoint written")
-    runs = sample_cli.main(["--save", save, "--count", "256", "--device",
-                            "cuda", "--neighbours"])
+    with upconfig.using(**(route or {})):
+        runs = sample_cli.main(["--save", save, "--count", "256",
+                                "--device", "cuda", "--neighbours"])
     check_finite(runs[0])
     require(runs[0]["images"].is_cuda, "sampled images not on the card")
     print(f"sample CLI read {ckpt} on the card: 256 images, D scores "
           f"{runs[0]['scores'].min().item():.4f}..."
           f"{runs[0]['scores'].max().item():.4f}")
-    return counts, steps
+    return counts, up, steps
 
 
 class RecordingDraws:
@@ -587,15 +652,18 @@ def seeded_pair(seed: int, g_gain: float, d_gain: float):
     return g, d
 
 
-def step_card_vs_cpu() -> dict:
+def step_card_vs_cpu(route=None) -> dict:
     """One train step at batch 8 with augmentation on the CPU and on the
     card, from the same weights and the same draws: losses, gradients and
-    parameters after the step."""
+    parameters after the step. With ``route`` (upsample-conv selectors)
+    both run that route: the card its kernels, the CPU their plain
+    versions."""
     import copy
 
     import torch
     from catgen_torch import optim
     from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
     from catgen_torch.train import gan
 
     config = gan.GanConfig(batch_size=8, augment=True)
@@ -618,13 +686,26 @@ def step_card_vs_cpu() -> dict:
         else:
             draws = ReplayedDraws(recorded.taken, dev)
         optim.clamp_and_penalize = spy
+        reset_counts()
+        # cuDNN's default backward algorithms sum in a different order
+        # from run to run, and that noise reaches G's shared PReLU slopes
+        # (a sum that cancels) at up to ~1.4e-3 of the leaf: compare with
+        # its deterministic algorithms; phase 10 reports the noise
+        torch.backends.cudnn.deterministic = dev == "cuda"
         try:
-            m = gan.make_train_step(gd, dd, config)(state, reals.to(dev),
-                                                     draws)
+            with upconfig.using(**(route or {})):
+                m = gan.make_train_step(gd, dd, config)(
+                    state, reals.to(dev), draws)
         finally:
             optim.clamp_and_penalize = real_cap
+            torch.backends.cudnn.deterministic = False
         if dev == "cpu":
             recorded = draws
+        else:
+            up = upsample_counts()
+            print(f"upsample-conv launches on the card: {up}")
+            require(up == expected_upsample(route, 1, 0),
+                    "the step's upsample-conv launches")
         out[dev] = (m, grads, {**{f"g.{k}": v.cpu() for k, v in
                                   gd.state_dict().items()},
                                **{f"d.{k}": v.cpu() for k, v in
@@ -750,34 +831,55 @@ def train_times(card_name: str) -> dict:
         out[f"bit_identical_deterministic_{deterministic}"] = same
     torch.backends.cudnn.deterministic = False
 
-    # the sampler kernels against their plain versions, training shapes
-    out["fwd"], out["fwd_plain"] = [], []
-    out["dcoords"], out["dcoords_plain"] = [], []
-    out["dimg"], out["dimg_plain"] = [], []
+    # the sampler kernels against their plain versions and against
+    # PyTorch's grid_sample (align_corners, border padding; NCHW input, as
+    # that call takes it), forward and backward, at the training shapes
+    import torch.nn.functional as F
+
+    for key in ("fwd", "dcoords", "dimg"):
+        out[key], out[f"{key}_plain"], out[f"{key}_library"] = [], [], []
     for i, shape in enumerate(TRAIN_SHAPES):
         img, rows, out_hw = sampler_inputs(shape, seed=60 + i)
         gcot = torch.rand((shape[0], *out_hw, shape[3]), device=device)
+        inp = img.permute(0, 3, 1, 2).contiguous()
+        gn = gcot.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([rows[:, 1], rows[:, 0]], dim=-1).reshape(
+            shape[0], *out_hw, 2).contiguous()
+
+        def grid_bwd(mask, gn=gn, inp=inp, grid=grid):
+            # (g, input, grid, bilinear, border, align_corners, outputs)
+            return torch.ops.aten.grid_sampler_2d_backward(
+                gn, inp, grid, 0, 1, True, mask)
+
         pairs = {
             "fwd": (lambda: bilinear.launch(img, rows, out_hw),
                     lambda: bilinear.bilinear_sample_rows_plain(
-                        img, rows, out_hw)),
+                        img, rows, out_hw),
+                    lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                          padding_mode="border",
+                                          align_corners=True)),
             "dcoords": (lambda: bilinear.launch_dcoords(img, rows, gcot,
                                                         out_hw),
                         lambda: bilinear.bilinear_sample_rows_backward_plain(
-                            img, rows, gcot, out_hw, need_img=False)),
+                            img, rows, gcot, out_hw, need_img=False),
+                        lambda: grid_bwd([False, True])),
             "dimg": (lambda: bilinear.launch_dimg(img, rows, gcot, out_hw),
                      lambda: bilinear.bilinear_sample_rows_backward_plain(
-                         img, rows, gcot, out_hw, need_coords=False)),
+                         img, rows, gcot, out_hw, need_coords=False),
+                     lambda: grid_bwd([True, False])),
         }
-        for name, (kern, plain) in pairs.items():
+        for name, (kern, plain, library) in pairs.items():
             p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
             k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+            lib = cuda_ms(library, inner=10)
             out[name].append(min(k1, k2))
             out[f"{name}_plain"].append(min(p1, p2))
+            out[f"{name}_library"].append(lib)
             print(f"sampler {name} {shape}: kernel {min(k1, k2):.4f} ms, "
-                  f"plain {min(p1, p2):.4f} ms (CUDA events, median of 20 "
-                  f"timings of 10 back-to-back calls, order plain-kernel-"
-                  f"kernel-plain, best of the two medians); {card_name}")
+                  f"plain {min(p1, p2):.4f} ms, grid_sample {lib:.4f} ms "
+                  f"(CUDA events, median of 20 timings of 10 back-to-back "
+                  f"calls, order plain-kernel-kernel-plain-library, best "
+                  f"of the two medians); {card_name}")
 
     from torch.profiler import ProfilerActivity, profile
     step(state, reals, draws)
@@ -808,6 +910,391 @@ def train_times(card_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# G's upsample-conv stages on the kernel route (phases 11-16)
+# ---------------------------------------------------------------------------
+
+F32_FLOPS = 67e12          # H100 SXM: f32 outside the tensor cores
+HBM_BYTES = 3.35e12        # H100 SXM: HBM3 bytes per second
+G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
+    (512, 512, 3, 4), (512, 256, 3, 8), (256, 128, 5, 16)]
+# kernel against plain: y and dx are sums of at most 4 * 4 * 512 products,
+# summed in another order (1e-5 of the largest plain value); the stats,
+# dweight, dbias, dscale, dshift and dalpha are sums over every output
+# pixel, up to 640 * 32 * 32 = 655,360 terms (1e-4)
+UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
+LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
+PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
+                 upsample_bwd="pallas")
+UP_KERNELS = (   # key, name, counter, TPU kernel, CUDA source
+    ("fwd", "upsample2_conv_fused", "LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv.py:193", "upsample_conv.cu"),
+    ("block", "upsample2_conv_block_fused", "BLOCK_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv.py:332", "upsample_conv.cu"),
+    ("dx", "upsample2_conv_backward_dx", "DX_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv_bwd.py:105",
+     "upsample_conv_bwd.cu"),
+    ("dck", "upsample2_conv_backward_dck", "DCK_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv_bwd.py:105", "upsample_conv_bwd.cu"),
+    ("block_dx", "fused_block_backward_dx", "BLOCK_DX_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv_bwd.py:343", "upsample_conv_bwd.cu"),
+    ("block_dck", "fused_block_backward_dck", "BLOCK_DCK_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv_bwd.py:343", "upsample_conv_bwd.cu"),
+)
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(least ms, what bounds it): the larger of the f32 operations over
+    the card's f32 rate and the bytes over its memory rate."""
+    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sampler_bound(key: str, shape) -> tuple:
+    """Bound of a sampler kernel at (N, H, W, C, Ho, Wo): each input read
+    once, each output written once, ~8-12 flops per sampled value."""
+    n, h, w, c, ho, wo = shape
+    img, rows, sampled = n * h * w * c * 4, n * 2 * ho * wo * 4, \
+        n * ho * wo * c * 4
+    nbytes = {"fwd": img + rows + sampled,
+              "dcoords": img + rows + sampled + rows,
+              "dimg": rows + sampled + img}[key]
+    ops = {"fwd": 8, "dcoords": 12, "dimg": 8}[key] * sampled / 4
+    return bound(ops, nbytes)
+
+
+def stage_shape(i: int, n: int) -> tuple:
+    cin, cout, k, hw = G_STAGES[i]
+    return (n, hw, hw, cin, cout, k)
+
+
+def upsample_inputs(shape, seed: int) -> dict:
+    import torch
+
+    n, h, w, cin, cout, k = shape
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*size, scale=1.0):
+        return torch.randn(size, generator=gen, device="cuda") * scale
+
+    def rand(*size, scale=1.0, low=0.0):
+        return torch.rand(size, generator=gen, device="cuda") * scale + low
+
+    return dict(x=randn(n, h, w, cin),
+                weight=randn(cout, cin, k, k,
+                             scale=1 / math.sqrt(cin * k * k)),
+                bias=randn(cout, scale=0.1), scale=rand(cin, low=0.5),
+                shift=randn(cin, scale=0.3), alpha=rand(1, scale=0.5),
+                alpha_c=rand(cin, scale=0.5), prelu_c=rand(cout, scale=0.5),
+                gy=randn(n, 2 * h, 2 * w, cout), gs1=randn(cout, scale=0.01),
+                gs2=randn(cout, scale=0.01))
+
+
+def upsample_vs_plain() -> dict:
+    """Each upsample-conv kernel against its plain version at G32up-c's
+    three stage shapes at N=640 and at stage 3 at N=320 (the D phase's
+    half batch): forward with a scalar and a per-channel PReLU slope, the
+    block with and without stats, (dx, dweight, dbias) of the per-layer
+    backward and the six outputs of the block backward. Every kernel runs
+    twice; the repeats must be bit-identical. Returns the largest absolute
+    error of each kernel and, under "<key>_rel", the largest error over
+    the largest plain value of its output."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    worst = {key: 0.0 for key, *_ in UP_KERNELS}
+    worst.update({f"{key}_rel": 0.0 for key, *_ in UP_KERNELS})
+    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
+    shapes.append(stage_shape(2, TRAIN_B // 2))
+    for s, shape in enumerate(shapes):
+        v = upsample_inputs(shape, seed=70 + s)
+        x, w, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
+        sc, sh = v["scale"], v["shift"]
+        groups = []     # (key, names, rels, kernel fn, plain fn)
+        for a in ("alpha", "prelu_c"):
+            groups.append(("fwd", (f"y (PReLU {a})",), (UP_TIGHT,),
+                           lambda a=a: (fuc.upsample2_conv_fused(
+                               x, w, b, v[a]),),
+                           lambda a=a: (fuc.block_plain(
+                               x, w, b, prelu_alpha=v[a]),)))
+        groups.append((
+            "block", ("y", "s1", "s2"), (UP_TIGHT, UP_LOOSE, UP_LOOSE),
+            lambda: fuc.upsample2_conv_block_fused(x, w, b, sc, sh,
+                                                   v["alpha_c"]),
+            lambda: (lambda y: (y, *fuc.stats_plain(y)))(
+                fuc.block_plain(x, w, b, sc, sh, v["alpha_c"]))))
+        groups.append((
+            "block", ("y (no stats)",), (UP_TIGHT,),
+            lambda: (fuc.upsample2_conv_block_fused(
+                x, w, b, sc, sh, v["alpha"], with_stats=False),),
+            lambda: (fuc.block_plain(x, w, b, sc, sh, v["alpha"]),)))
+        groups.append((
+            ("dx", "dck", "dck"), ("dx", "dweight", "dbias"),
+            (UP_TIGHT, UP_LOOSE, UP_LOOSE),
+            lambda: fuc.upsample2_conv_backward(x, w, gy),
+            lambda: fuc.upsample2_conv_backward_plain(x, w, gy)))
+        y = fuc.block_plain(x, w, b, sc, sh, v["alpha"])
+        args = (x, sc, sh, v["alpha"], w, y, gy, v["gs1"], v["gs2"])
+        groups.append((
+            ("block_dx",) * 4 + ("block_dck",) * 2,
+            ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"),
+            (UP_TIGHT,) + (UP_LOOSE,) * 5,
+            lambda: fuc.fused_block_backward(*args),
+            lambda: fuc.fused_block_backward_plain(*args[:5], b, *args[5:])))
+        for keys, names, rels, kern, plain in groups:
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            want = plain()
+            if isinstance(keys, str):
+                keys = (keys,) * len(names)
+            for key, name, rel, a, a2, p in zip(keys, names, rels, got,
+                                                again, want):
+                require(a.shape == p.shape, f"{key} {name} shape "
+                        f"{tuple(a.shape)} != {tuple(p.shape)}")
+                err = (a - p).abs().max().item()
+                top = p.abs().max().item()
+                same = torch.equal(a, a2)
+                print(f"{shape} {key} {name}: max_abs_err {err:.3e} "
+                      f"(tolerance {rel} x max |plain| {top:.4g}); repeat "
+                      f"bit-identical: {same}")
+                require(err <= rel * max(top, 1e-6),
+                        f"{key} {name} disagrees with plain at {shape}")
+                require(same, f"{key} {name} not deterministic at {shape}")
+                worst[key] = max(worst[key], err)
+                worst[f"{key}_rel"] = max(worst[f"{key}_rel"],
+                                          err / max(top, 1e-6))
+        del groups, y, args, v
+    return worst
+
+
+def slice_on_ladder(save: str, default: dict) -> dict:
+    """The sampling CLI on the ladder route, 1024 samples from the same
+    checkpoint and seed as phase 5: 3 block launches per G batch of 256,
+    no backward, the sampler as in phase 5; images and D scores equal to
+    phase 5's default-route run within SLICE_ATOL."""
+    from catgen_torch.kernels import config as upconfig
+
+    reset_counts()
+    with upconfig.using(**LADDER):
+        result = run_cli(save, "cuda", COUNT, os.path.join(save, "ladder"))
+    counts, up = read_counts(), upsample_counts()
+    want = expected_upsample(LADDER, 0, COUNT // 256)
+    print(f"ladder route: upsample-conv launches {up}, expected {want}; "
+          f"sampler launches {counts}")
+    require(up == want, "the ladder route's launches while sampling")
+    require(counts == (2 * COUNT // 256, 0, 0), "sampler launches")
+    check_finite(result)
+    img_err = (result["images"] - default["images"]).abs().max().item()
+    score_err = (result["scores"] - default["scores"]).abs().max().item()
+    print(f"ladder route against the default route: images max_abs_err "
+          f"{img_err:.3e}, D scores {score_err:.3e} (tolerance "
+          f"{SLICE_ATOL})")
+    require(img_err <= SLICE_ATOL and score_err <= SLICE_ATOL,
+            "the ladder route's samples differ from the default route's")
+    return up
+
+
+def per_layer_steps() -> dict:
+    """One train step at batch 64 on the per-layer route, with the dX and
+    dCK kernels (upsample_bwd=pallas) and with the dX kernel alone
+    (hybrid): launches as designed, losses equal to the default route's
+    step from the same weights and draws. Returns the launches of each."""
+    import copy
+
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import gan
+
+    device = torch.device("cuda")
+    config = gan.GanConfig(batch_size=64, augment=True)
+    g, d = seeded_pair(8, G_GAIN, D_GAIN)
+    g, d = g.to(device), d.to(device)
+    reals = torch.rand((32, 32, 32, 3), device=device,
+                       generator=torch.Generator(device).manual_seed(2))
+    out = {}
+    for name, route in (("default", None),
+                        ("pallas", PER_LAYER),
+                        ("hybrid", dict(PER_LAYER, upsample_bwd="hybrid"))):
+        gs, ds = copy.deepcopy(g), copy.deepcopy(d)
+        state = gan.init_state(gs, ds, config)
+        reset_counts()
+        with upconfig.using(**(route or {})):
+            m = gan.make_train_step(gs, ds, config)(
+                state, reals, Draws(torch.Generator(device).manual_seed(3)))
+            torch.cuda.synchronize()
+        up = upsample_counts()
+        want = expected_upsample(route, 1, 0)
+        losses = (float(m.loss_d), float(m.loss_g))
+        print(f"per-layer step ({name}): losses {losses}; upsample-conv "
+              f"launches {up}, expected {want}")
+        require(up == want, f"per-layer route ({name}) launches")
+        require(all(math.isfinite(v) for v in losses), "non-finite losses")
+        out[name] = (up, losses)
+    for name in ("pallas", "hybrid"):
+        for a, b in zip(out[name][1], out["default"][1]):
+            require(abs(a - b) <= 1e-4 * abs(b),
+                    f"per-layer ({name}) losses differ from the default "
+                    f"route's: {out[name][1]} vs {out['default'][1]}")
+    return {k: v[0] for k, v in out.items()}
+
+
+def upsample_times(card_name: str) -> dict:
+    """At each G32up-c stage shape at B=640: each upsample-conv kernel
+    (CUDA events), its plain version, the cuDNN collapsed route's share
+    of the same work (the library route: upsample2_conv, its autograd dX
+    or dW), and the bound. Returns {key: [per-stage dict]}."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+    from catgen_torch.kernels.upsample_conv import upsample2_conv
+
+    out = {key: [] for key, *_ in UP_KERNELS}
+    for s in range(3):
+        shape = stage_shape(s, TRAIN_B)
+        n, h, w, cin, cout, k = shape
+        v = upsample_inputs(shape, seed=90 + s)
+        x, wt, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
+        sc, sh, al = v["scale"], v["shift"], v["alpha"]
+        alc = al.expand(cin).contiguous()
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        y = fuc.block_plain(x, wt, b, sc, sh, al)
+        xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
+        lib_y = upsample2_conv(xr, wr)
+        kp = (k + 1) // 2
+        flops = 2.0 * n * h * w * 4 * kp * kp * cin * cout
+        xb, yb = x.numel() * 4, gy.numel() * 4
+        wb = 4 * kp * kp * cin * cout * 4
+
+        def gfold():
+            return gy + v["gs1"] + 2.0 * y * v["gs2"]
+
+        lib_fwd = lambda: upsample2_conv(x, wt)                  # noqa: E731
+        lib_dx = lambda: torch.autograd.grad(                    # noqa: E731
+            lib_y, [xr], gy, retain_graph=True)
+        lib_dw = lambda: torch.autograd.grad(                    # noqa: E731
+            lib_y, [wr], gy, retain_graph=True)
+        runs = {
+            "fwd": (lambda: fuc.upsample2_conv_fused(x, wt, b),
+                    lambda: fuc.block_plain(x, wt, b), lib_fwd,
+                    xb + wb + yb),
+            "block": (lambda: fuc.upsample2_conv_block_fused(
+                          x, wt, b, sc, sh, al),
+                      lambda: fuc.stats_plain(
+                          fuc.block_plain(x, wt, b, sc, sh, al)),
+                      lib_fwd, xb + wb + yb),
+            "dx": (lambda: fuc.upsample2_conv_dx(x, wt, gy),
+                   lambda: fuc._vjp(upsample2_conv, (x, wt), (True, False),
+                                    gy),
+                   lib_dx, yb + wb + xb),
+            "dck": (lambda: fuc._launch_dck(x, wt, gy),
+                    lambda: fuc._vjp(upsample2_conv, (x, wt), (False, True),
+                                     gy),
+                    lib_dw, xb + yb + wb),
+            "block_dx": (lambda: fuc._launch_dx(x, wt, gy, y, gs, sc, sh,
+                                                alc),
+                         lambda: fuc._vjp(
+                             lambda x_, s_, h_, a_: fuc.block_plain(
+                                 x_, wt, b, s_, h_, a_),
+                             (x, sc, sh, alc), (True,) * 4, gfold()),
+                         lib_dx, xb + 2 * yb + wb + xb),
+            "block_dck": (lambda: fuc._launch_dck(x, wt, gy, y, gs, sc, sh,
+                                                  alc),
+                          lambda: fuc._vjp(
+                              lambda w_, b_: fuc.block_plain(
+                                  x, w_, b_, sc, sh, al),
+                              (wt, b), (True, True), gfold()),
+                          lib_dw, xb + 2 * yb + wb),
+        }
+        for key, (kern, plain, library, nbytes) in runs.items():
+            k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+            p = cuda_ms(plain, reps=5, inner=3, warmup=2)
+            lib = cuda_ms(library, reps=5, inner=3, warmup=2)
+            k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+            b_ms, b_by = bound(flops, nbytes)
+            row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by)
+            out[key].append(row)
+            print(f"{key} {shape}: kernel {row['ms']:.4f} ms ({k1:.4f} / "
+                  f"{k2:.4f}), plain {p:.4f} ms, cuDNN collapsed route "
+                  f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+                  f"{flops / row['ms'] / 1e9:.2f} TFLOP/s (CUDA events, "
+                  f"median of 5 timings of 3 back-to-back calls, order "
+                  f"kernel-plain-library-kernel); {card_name}")
+        del runs, lib_y, xr, wr, y, v
+    return out
+
+
+def route_train_times(card_name: str, name: str, route) -> dict:
+    """The train step at B=640 with augmentation on ``route``: the step,
+    its D and G phases, and one profiled step with each upsample-conv
+    kernel's device time per launch."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import gan
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda")
+    config = gan.GanConfig(batch_size=TRAIN_B, augment=True)
+    g, d = seeded_pair(6, G_GAIN, D_GAIN)
+    g, d = g.to(device), d.to(device)
+    state = gan.init_state(g, d, config)
+    step = gan.make_train_step(g, d, config)
+    reals = torch.rand((TRAIN_B // 2, 32, 32, 3), device=device)
+    draws = Draws(torch.Generator(device).manual_seed(0))
+    out = {}
+    with upconfig.using(**route):
+        med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=12)
+        out.update(step_ms=med, images_per_s=2 * TRAIN_B / med * 1e3)
+        print(f"train step on the {name} route, batch {TRAIN_B}: median "
+              f"{med:.3f} ms of 12 (min {lo:.3f}, max {hi:.3f}) = "
+              f"{out['images_per_s']:.1f} images/s; {card_name}")
+        for ph, fn in (("D phase", lambda: step.d_phase(state, reals,
+                                                         draws)),
+                       ("G phase", lambda: step.g_phase(state, draws,
+                                                        device))):
+            pm, plo, phi = wall_ms(fn, reps=10)
+            out[ph] = pm
+            print(f"  {ph}: median {pm:.3f} ms of 10 (min {plo:.3f}, max "
+                  f"{phi:.3f})")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, reals, draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [(e, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(us for _, us in kernels)
+    if busy == 0:
+        print("profiler: no device time seen; breakdown not measured")
+        return out
+    out["idle_share"] = 1 - busy / 1e6 / wall
+    print(f"profiled step ({name}): wall {wall * 1e3:.3f} ms, device "
+          f"kernels {busy / 1e3:.3f} ms, idle share {out['idle_share']:.3f}")
+    for e, us in sorted(kernels, key=lambda k: -k[1])[:12]:
+        print(f"  {us / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+    device_ms = {}
+    for e, us in kernels:
+        if "upsample_conv" in e.key or "sum_rows" in e.key:
+            print(f"  upsample-conv kernel in the step: {e.key[:90]} "
+                  f"x{e.count}, {us / 1e3:.4f} ms in all, "
+                  f"{us / e.count / 1e3:.4f} ms per launch; {card_name}")
+            device_ms[e.key] = (us / 1e3, e.count)
+    out["device_ms"] = device_ms
+    return out
+
+
+def device_step_ms(times: dict, pattern: str):
+    """Device ms per step of the kernel whose profiler name holds
+    ``pattern`` (its three stage launches together), or None."""
+    hits = [ms for key, (ms, _) in times.get("device_ms", {}).items()
+            if pattern in key]
+    return sum(hits) if hits else None
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -831,21 +1318,45 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save:
         write_checkpoint(save)
         phase(5, f"the sampling slice through the CLI, {COUNT} samples")
-        sample_counts = slice_on_card(save)
+        sample_counts, sample_result = slice_on_card(save)
         phase(6, "the sampling slice at count 64, card against CPU")
         card_vs_cpu(save)
         phase(7, "sampling times on the card")
         t = times(save, card_name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save:
         phase(8, "the training slice through the CLI")
-        train_counts, steps = train_on_card(save)
+        train_counts, _, steps = train_on_card(save)
     phase(9, "one train step, card against CPU")
     step_card_vs_cpu()
     phase(10, f"training times on the card, batch {TRAIN_B}")
     tt = train_times(card_name)
+    phase(11, "the upsample-conv kernels against their plain versions")
+    up_err = upsample_vs_plain()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
+        write_checkpoint(save)      # the same seeded weights as phase 5
+        phase(12, f"the sampling slice on the ladder route, {COUNT} "
+                  f"samples")
+        ladder_sample = slice_on_ladder(save, sample_result)
+    del sample_result
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
+        phase(13, "the training slice through the CLI on the ladder route")
+        _, ladder_train, _ = train_on_card(save, LADDER)
+    phase(14, "one train step on the per-layer route")
+    per_layer = per_layer_steps()
+    phase(15, "one train step on the ladder route, card against CPU")
+    step_card_vs_cpu(LADDER)
+    phase(16, f"upsample-conv times on the card, batch {TRAIN_B}")
+    ut = upsample_times(card_name)
+    rt = {name: route_train_times(card_name, name, route)
+          for name, route in (("ladder", LADDER),
+                              ("per-layer", PER_LAYER))}
+    print(f"train step, batch {TRAIN_B}: default route "
+          f"{tt['step_ms']:.3f} ms, ladder route {rt['ladder']['step_ms']:.3f}"
+          f" ms, per-layer route {rt['per-layer']['step_ms']:.3f} ms (same "
+          f"run); {card_name}")
 
-    def by_shape(values):
-        return dict(zip(map(str, TRAIN_SHAPES), values))
+    def by_shape(values, shapes=TRAIN_SHAPES):
+        return dict(zip(map(str, shapes), values))
 
     source_fwd = "catgen_torch/csrc/bilinear_sample.cu"
     source_bwd = "catgen_torch/csrc/bilinear_sample_bwd.cu"
@@ -856,6 +1367,7 @@ def main(argv=None) -> int:
              bwd_err["dcoords"]),
             ("bilinear_sample_rows_bwd_dimg", source_bwd, bwd_err["dimg"]))):
         key = ("fwd", "dcoords", "dimg")[i]
+        bounds = [sampler_bound(key, shape) for shape in TRAIN_SHAPES]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": ("catgen/kernels/pallas_bilinear_v4.py:799" if i == 0
@@ -865,13 +1377,58 @@ def main(argv=None) -> int:
                                  "train": train_counts[i]},
             "max_abs_err": err,
             "ms": sum(tt[key]), "plain_ms": sum(tt[f"{key}_plain"]),
+            "bound_ms": sum(b for b, _ in bounds), "bound_by": "bytes",
+            "library_ms": sum(tt[f"{key}_library"]),
             "ms_by_shape": by_shape(tt[key]),
             "plain_ms_by_shape": by_shape(tt[f"{key}_plain"]),
+            "library_ms_by_shape": by_shape(tt[f"{key}_library"]),
+            "bound_ms_by_shape": by_shape([b for b, _ in bounds]),
         })
     kernels[0]["sampling_ms_by_shape"] = dict(zip(map(str, SAMPLER_SHAPES),
                                                   t["kernel_ms"]))
     kernels[0]["sampling_plain_ms_by_shape"] = dict(
         zip(map(str, SAMPLER_SHAPES), t["plain_ms"]))
+    # rows 4 and 6 run on the ladder training CLI's path (phase 13), rows
+    # 3 and 5 on the per-layer route's train step (phase 14)
+    main_path = {"LAUNCHES": per_layer["pallas"],
+                 "DX_LAUNCHES": per_layer["pallas"],
+                 "DCK_LAUNCHES": per_layer["pallas"]}
+    stages = [stage_shape(i, TRAIN_B) for i in range(3)]
+    patterns = {"fwd": "upsample_conv_fwd<false", "block":
+                "upsample_conv_fwd<true", "dx": "upsample_conv_dx<false",
+                "dck": "upsample_conv_dck<false", "block_dx":
+                "upsample_conv_dx<true", "block_dck":
+                "upsample_conv_dck<true"}
+    for key, name, counter, replaces, source in UP_KERNELS:
+        rows = ut[key]
+        path = main_path.get(counter, ladder_train)
+        profiled = rt["per-layer" if counter in main_path else "ladder"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"catgen_torch/csrc/{source}", "replaces": replaces,
+            "launches": path[counter],
+            "launches_by_path": {
+                "sample_ladder": ladder_sample[counter],
+                "train_ladder": ladder_train[counter],
+                "step_per_layer_pallas": per_layer["pallas"][counter],
+                "step_per_layer_hybrid": per_layer["hybrid"][counter]},
+            "max_abs_err": up_err[key],
+            "max_rel_err": up_err[f"{key}_rel"],
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if all(
+                r["bound_by"] == "operations" for r in rows) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "device_ms_per_step": device_step_ms(profiled, patterns[key]),
+            "ms_by_shape": by_shape([r["ms"] for r in rows], stages),
+            "plain_ms_by_shape": by_shape([r["plain_ms"] for r in rows],
+                                          stages),
+            "library_ms_by_shape": by_shape([r["library_ms"] for r in rows],
+                                            stages),
+            "bound_ms_by_shape": by_shape([r["bound_ms"] for r in rows],
+                                          stages),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
-"""The CUDA bilinear sampler (catgen_torch/csrc/bilinear_sample.cu and
-bilinear_sample_bwd.cu) on a card: the forward and backward kernels
-against their plain PyTorch version, and the wrapper's contract on CUDA
-tensors. Every test here needs an NVIDIA GPU and nvcc; on
-a machine without a card each one skips. Run them on the card with
+"""The CUDA kernels on a card: the bilinear sampler (catgen_torch/csrc/
+bilinear_sample.cu and bilinear_sample_bwd.cu) and the upsample-conv
+kernels (upsample_conv.cu, upsample_conv_bwd.cu; at the end of the file),
+forward and backward, against their plain PyTorch versions, and the
+wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
+and nvcc; on a machine without a card each one skips. Run them on the
+card with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
 (``--noconftest``: this file needs neither jax nor catgen).
 
-Shapes: the two of the sampling path at a small batch, and edge cases of
-the kernel's own arithmetic: one-pixel rows and columns (no second tap),
-the switch from one thread per pixel (C < 32) to one per value (C >= 32),
-and odd sizes that leave a ragged last block. Coordinates span [-1.2, 1.2]
+Sampler shapes: the two of the sampling path at a small batch, and edge
+cases of the kernel's own arithmetic: one-pixel rows and columns (no
+second tap), the switch from one thread per pixel (C < 32) to one per
+value (C >= 32), and odd sizes that leave a ragged last block. Coordinates span [-1.2, 1.2]
 (inside, outside and clamped). Tolerance: forward atol 1e-5, as in
 chip_smoke.py (the library is built with --fmad=false, so the kernel
 rounds its lerps as the plain version does); backward 1e-5 + 1e-5 x the
@@ -158,3 +160,178 @@ def test_no_image_gradient_launches_no_dimg(cuda):
     assert (bilinear.DIMG_LAUNCHES, bilinear.DCOORDS_LAUNCHES) == (
         before[0], before[1] + 1)
     assert rows.grad is not None and img.grad is None
+
+
+# ---------------------------------------------------------------------------
+# the upsample-conv kernels (csrc/upsample_conv.cu, upsample_conv_bwd.cu)
+# against their plain versions (kernels/fused_upsample_conv.py). TF32 off
+# for the plain version's cuDNN convolutions. Tolerances: y and dx within
+# 1e-5 of the largest plain value (sums of at most a few thousand
+# products, in another order); the stats, dweight, dbias, dscale, dshift
+# and dalpha within 1e-4 (sums over every output pixel).
+# ---------------------------------------------------------------------------
+
+from catgen_torch.kernels import config as upconfig  # noqa: E402
+from catgen_torch.kernels import fused_upsample_conv as fuc  # noqa: E402
+
+UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
+UP_SHAPES = [                  # (N, H, W, Cin, Cout, k)
+    (2, 4, 5, 9, 11, 3),       # odd sizes, one ragged tile
+    (3, 5, 3, 17, 70, 5),      # Cout over one tile, ragged
+    (1, 3, 4, 65, 33, 7),      # Cin over one tile, k = 7
+    (2, 4, 4, 512, 512, 3),    # G32up-c stage 1
+    (2, 16, 16, 256, 128, 5),  # G32up-c stage 3
+]
+
+
+@pytest.fixture
+def f32_cuda(cuda):
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _up_inputs(shape, device, seed=0, alpha_n=1):
+    n, h, w, cin, cout, k = shape
+    r = np.random.RandomState(seed)
+    f = np.float32
+    t = lambda a: torch.tensor(a.astype(f), device=device)  # noqa: E731
+    return dict(
+        x=t(r.randn(n, h, w, cin)),
+        weight=t(r.randn(cout, cin, k, k) / np.sqrt(cin * k * k)),
+        bias=t(r.randn(cout) * 0.1), scale=t(r.rand(cin) + 0.5),
+        shift=t(r.randn(cin) * 0.3), alpha=t(r.rand(alpha_n) * 0.5),
+        gy=t(r.randn(n, 2 * h, 2 * w, cout)), gs1=t(r.randn(cout) * 0.01),
+        gs2=t(r.randn(cout) * 0.01))
+
+
+def _up_close(got, want, rel, name):
+    assert got.shape == want.shape and got.is_cuda, name
+    err = (got - want).abs().max().item()
+    bound = rel * max(want.abs().max().item(), 1e-6)
+    assert err <= bound, f"{name}: {err} > {bound}"
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_upsample_forward_kernel_matches_plain(f32_cuda, shape, alpha):
+    cout = shape[4]
+    v = _up_inputs(shape, f32_cuda, alpha_n=1 if alpha == "scalar" else cout)
+    before = fuc.LAUNCHES
+    got = fuc.upsample2_conv_fused(v["x"], v["weight"], v["bias"],
+                                   v["alpha"])
+    torch.cuda.synchronize()
+    assert fuc.LAUNCHES == before + 1
+    want = fuc.block_plain(v["x"], v["weight"], v["bias"],
+                           prelu_alpha=v["alpha"])
+    _up_close(got, want, UP_TIGHT, "y")
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES)
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_upsample_block_kernel_matches_plain(f32_cuda, shape, with_stats):
+    v = _up_inputs(shape, f32_cuda, seed=1, alpha_n=shape[3])
+    args = (v["x"], v["weight"], v["bias"], v["scale"], v["shift"],
+            v["alpha"])
+    before = fuc.BLOCK_LAUNCHES
+    got = fuc.upsample2_conv_block_fused(*args, with_stats=with_stats)
+    torch.cuda.synchronize()
+    assert fuc.BLOCK_LAUNCHES == before + 1
+    y = fuc.block_plain(v["x"], v["weight"], v["bias"], v["scale"],
+                        v["shift"], v["alpha"])
+    if not with_stats:
+        _up_close(got, y, UP_TIGHT, "y")
+        return
+    for name, a, b, rel in zip(("y", "s1", "s2"), got,
+                               (y, *fuc.stats_plain(y)),
+                               (UP_TIGHT, UP_LOOSE, UP_LOOSE)):
+        _up_close(a, b, rel, name)
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES)
+def test_upsample_backward_kernels_match_plain(f32_cuda, shape):
+    v = _up_inputs(shape, f32_cuda, seed=2)
+    before = (fuc.DX_LAUNCHES, fuc.DCK_LAUNCHES)
+    got = fuc.upsample2_conv_backward(v["x"], v["weight"], v["gy"])
+    torch.cuda.synchronize()
+    assert (fuc.DX_LAUNCHES, fuc.DCK_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = fuc.upsample2_conv_backward_plain(v["x"], v["weight"], v["gy"])
+    for name, a, b, rel in zip(("dx", "dweight", "dbias"), got, want,
+                               (UP_TIGHT, UP_LOOSE, UP_LOOSE)):
+        _up_close(a, b, rel, name)
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_block_backward_kernels_match_plain(f32_cuda, shape, alpha):
+    v = _up_inputs(shape, f32_cuda, seed=3,
+                   alpha_n=1 if alpha == "scalar" else shape[3])
+    y = fuc.upsample2_conv_block_fused(v["x"], v["weight"], v["bias"],
+                                       v["scale"], v["shift"], v["alpha"],
+                                       with_stats=False)
+    args = (v["x"], v["scale"], v["shift"], v["alpha"], v["weight"], y,
+            v["gy"], v["gs1"], v["gs2"])
+    before = (fuc.BLOCK_DX_LAUNCHES, fuc.BLOCK_DCK_LAUNCHES)
+    got = fuc.fused_block_backward(*args)
+    torch.cuda.synchronize()
+    assert (fuc.BLOCK_DX_LAUNCHES, fuc.BLOCK_DCK_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = fuc.fused_block_backward_plain(*args[:5], v["bias"], *args[5:])
+    for name, a, b, rel in zip(
+            ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"), got,
+            want, (UP_TIGHT,) + (UP_LOOSE,) * 5):
+        _up_close(a, b, rel, name)
+
+
+def test_upsample_kernels_are_deterministic(f32_cuda):
+    v = _up_inputs(UP_SHAPES[4], f32_cuda, seed=4, alpha_n=UP_SHAPES[4][3])
+    y = fuc.upsample2_conv_block_fused(v["x"], v["weight"], v["bias"],
+                                       v["scale"], v["shift"], v["alpha"])
+    runs = []
+    for _ in range(2):
+        runs.append(
+            list(fuc.upsample2_conv_block_fused(
+                v["x"], v["weight"], v["bias"], v["scale"], v["shift"],
+                v["alpha"]))
+            + list(fuc.upsample2_conv_backward(v["x"], v["weight"], v["gy"]))
+            + list(fuc.fused_block_backward(
+                v["x"], v["scale"], v["shift"], v["alpha"], v["weight"],
+                y[0], v["gy"], v["gs1"], v["gs2"])))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "cpu_bias",
+                                 "bad_scale"])
+def test_upsample_cuda_tensors_never_fall_back(f32_cuda, bad):
+    v = _up_inputs(UP_SHAPES[0], f32_cuda, alpha_n=UP_SHAPES[0][3])
+    err = ValueError
+    if bad == "float64":
+        v["x"], err = v["x"].double(), TypeError
+    elif bad == "non_contiguous":
+        v["x"] = v["x"].transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "cpu_bias":
+        v["bias"] = v["bias"].cpu()
+    else:
+        v["scale"] = v["scale"][:-1]
+    before = fuc.launches()
+    with pytest.raises(err):
+        fuc.upsample2_conv_block_fused(v["x"], v["weight"], v["bias"],
+                                       v["scale"], v["shift"], v["alpha"])
+    assert fuc.launches() == before
+
+
+def test_upsample_route_selects_the_kernels(f32_cuda):
+    from catgen_torch.kernels.upsample_conv import UpsampleConv
+
+    layer = UpsampleConv(9, 11).to(f32_cuda)
+    x = _up_inputs(UP_SHAPES[0], f32_cuda)["x"].requires_grad_()
+    fuc.reset_launches()
+    layer(x).sum().backward()                   # default: collapsed, cuDNN
+    assert sum(fuc.launches().values()) == 0
+    with upconfig.using(upsample_impl="pallas", upsample_bwd="pallas"):
+        layer(x).sum().backward()
+    assert fuc.launches() == dict(fuc.launches(), LAUNCHES=1, DX_LAUNCHES=1,
+                                  DCK_LAUNCHES=1)
+    assert sum(fuc.launches().values()) == 3

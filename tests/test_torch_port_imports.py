@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "catgen"}
 
@@ -32,6 +34,24 @@ def test_every_module_imports_with_jax_and_catgen_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 25
+
+
+@pytest.mark.parametrize("module", [
+    "catgen_torch.kernels.config", "catgen_torch.kernels.fused_upsample_conv",
+    "catgen_torch.kernels.upsample_conv", "catgen_torch.nn.fused"])
+def test_kernel_route_modules_import_alone(module):
+    """The upsample-conv kernel route's modules, each in a fresh process
+    with jax and catgen blocked, build nothing at import (no nvcc here)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['catgen'] = None\n"
+        f"import {module}\n"
+        "from catgen_torch.kernels import build\n"
+        "assert not build.load_library.cache_info().currsize\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_no_source_names_jax_or_catgen():

@@ -1,5 +1,7 @@
 """Shared set-up of the PyTorch port's parity tests (test_torch_port_*.py):
-the flagship pair built on both sides with the same weights.
+the flagship pair built on both sides with the same weights, JAX's draws
+replayed in the port, and the inputs and selectors of the upsample-conv
+kernel route.
 
 Weights start from catgen's init and are then perturbed with seeded numpy
 noise, so that the comparison exercises what zero-initialised heads and
@@ -21,11 +23,12 @@ from unittest import mock
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from catgen import models as cmodels
 from catgen_torch import models as tmodels
-from catgen_torch.io.convert import catgen_to_state_dict
+from catgen_torch.io.convert import catgen_to_state_dict, kernel_to_weight
 
 IMG = (32, 32, 3)
 NOISE_DIM = 100
@@ -184,3 +187,64 @@ def assert_grads_close(port, catgen, rel=1e-4, floor=1e-6):
         bound = rel * np.abs(want).max() + floor * top
         err = np.abs(port[k] - want).max()
         assert err <= bound, f"{k}: {err} > {bound}"
+
+
+# ---------------------------------------------------------------------------
+# G's upsample-convs on the kernel route (catgen's Pallas route, run in
+# interpret mode on the CPU, against the port's plain versions)
+# ---------------------------------------------------------------------------
+
+LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
+PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
+                 upsample_bwd="pallas")
+# (n, h, w, cin, cout, k): odd sizes, H != W, channels off any tile
+UPSAMPLE_SHAPES = [(2, 4, 5, 8, 12, 3), (3, 5, 4, 12, 8, 5),
+                   (2, 4, 6, 9, 11, 7)]
+
+
+@pytest.fixture
+def catgen_route(monkeypatch):
+    """Sets catgen's kernel selectors for this test only (no other test in
+    the xdist worker sees them), with its Pallas kernels in interpret
+    mode: ``catgen_route(upsample_impl="pallas", ...)``."""
+    from catgen.kernels import config as kconfig
+
+    monkeypatch.setattr(kconfig, "pallas_interpret", True)
+
+    def use(**choices):
+        for k, v in choices.items():
+            monkeypatch.setattr(kconfig, k, v)
+    return use
+
+
+def upsample_inputs(seed, n, h, w, cin, cout, k, alpha_n=1):
+    """numpy inputs of one upsample-conv block: x, an HWIO kernel, bias, the
+    input transform (scale, shift, alpha_n slopes) and the cotangents."""
+    r = np.random.RandomState(seed)
+    f = np.float32
+    return dict(
+        x=r.randn(n, h, w, cin).astype(f),
+        kern=(r.randn(k, k, cin, cout) * 0.2).astype(f),
+        bias=(r.randn(cout) * 0.1).astype(f),
+        scale=(r.rand(cin) + 0.5).astype(f),
+        shift=(r.randn(cin) * 0.3).astype(f),
+        alpha=(r.rand(alpha_n) * 0.5).astype(f),
+        gy=r.randn(n, 2 * h, 2 * w, cout).astype(f),
+        gs1=(r.randn(cout) * 0.01).astype(f),
+        gs2=(r.randn(cout) * 0.01).astype(f))
+
+
+def port_tensors(v):
+    """``upsample_inputs`` as torch tensors, the kernel as an OIHW weight."""
+    return {k: torch.tensor(kernel_to_weight(a) if k == "kern" else a)
+            for k, a in v.items()}
+
+
+def assert_rel_close(got, want, rel, name=""):
+    """max |got - want| within ``rel`` of max |want|."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    bound = rel * max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max())
+    assert err <= bound, f"{name}: {err} > {bound}"
