@@ -1,5 +1,5 @@
-// Edge-clamped bilinear sampling of an NHWC image at normalized (y; x)
-// coordinate rows: the forward of the spatial transformers' sampler.
+// Edge-clamped bilinear sampling of an NHWC image at normalized (y, x)
+// coordinates: the forward of the spatial transformers' sampler.
 //
 // Replaces the TPU kernel catgen/kernels/pallas_bilinear_v4.py,
 // bilinear_sample_rows -> _forward: both its separable body (_fwd_kernel,
@@ -8,6 +8,16 @@
 // transformers on 16x16x64 with their grids stacked to 48x16). On the TPU
 // those are two matrix-unit formulations of one operation; on Hopper the
 // operation is a gather, and one kernel serves both shapes.
+//
+// The same kernel, instantiated for the (N, Ho, Wo, 2) grid layout of the
+// coordinates (GridLayout, bilinear_taps.cuh), replaces the TPU kernels of
+// the three earlier generations: catgen/kernels/pallas_bilinear.py,
+// _forward (v1, a dense one-hot matrix times the image),
+// pallas_bilinear_v2.py, _forward (v2, separable A img B^T) and
+// pallas_bilinear_v3.py, _forward (v3, v2 batched over the block). They
+// compute one function and differ only in how they fed the TPU's matrix
+// unit; a gather reads the four taps directly. The rows instantiation (v4)
+// is the code it was before the layouts were templated.
 //
 // What bounds it: memory traffic. Per output pixel it reads two
 // coordinates and four taps of C floats and writes C floats, with three
@@ -37,70 +47,78 @@
 
 namespace {
 
-__device__ __forceinline__ float lerp2(const float* __restrict__ base,
-                                       const Taps& t, int c) {
-  const float v00 = __ldg(base + t.p00 * c);
-  const float v01 = __ldg(base + t.p01 * c);
-  const float v10 = __ldg(base + t.p10 * c);
-  const float v11 = __ldg(base + t.p11 * c);
-  const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
-  const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
-  return top * (1.0f - t.wy) + bot * t.wy;
-}
-
-// img (n, h, w, c), crd (n, 2, p), out (n, p, c); all contiguous f32.
-__global__ void sample_rows_per_value(const float* __restrict__ img,
-                                      const float* __restrict__ crd,
-                                      float* __restrict__ out, int n, int h,
-                                      int w, int c, int p) {
+// img (n, h, w, c), coordinates in layout L, out (n, p, c); all contiguous
+// f32.
+template <class L>
+__global__ void sample_per_value(const float* __restrict__ img,
+                                 const float* __restrict__ crd,
+                                 float* __restrict__ out, int n, int h, int w,
+                                 int c, int p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)n * p * c) return;
   const int ch = (int)(i % c);
   const int64_t pix = i / c;
   const int pi = (int)(pix % p);
   const int ni = (int)(pix / p);
-  const float* cr = crd + (int64_t)ni * 2 * p;
-  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
-  out[i] = lerp2(img + (int64_t)ni * h * w * c + ch, t, c);
+  const float2 yx = L::load(crd, ni, pi, p);
+  const Taps t = make_taps(yx.x, yx.y, h, w);
+  out[i] = lerp_taps(img + (int64_t)ni * h * w * c + ch, t, c);
 }
 
-__global__ void sample_rows_per_pixel(const float* __restrict__ img,
-                                      const float* __restrict__ crd,
-                                      float* __restrict__ out, int n, int h,
-                                      int w, int c, int p) {
+template <class L>
+__global__ void sample_per_pixel(const float* __restrict__ img,
+                                 const float* __restrict__ crd,
+                                 float* __restrict__ out, int n, int h, int w,
+                                 int c, int p) {
   const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= (int64_t)n * p) return;
   const int pi = (int)(pix % p);
   const int ni = (int)(pix / p);
-  const float* cr = crd + (int64_t)ni * 2 * p;
-  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float2 yx = L::load(crd, ni, pi, p);
+  const Taps t = make_taps(yx.x, yx.y, h, w);
   const float* base = img + (int64_t)ni * h * w * c;
   float* o = out + pix * c;
-  for (int ch = 0; ch < c; ++ch) o[ch] = lerp2(base + ch, t, c);
+  for (int ch = 0; ch < c; ++ch) o[ch] = lerp_taps(base + ch, t, c);
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() as an int (0 = the
-// launch was accepted). Does not synchronise and allocates nothing.
-extern "C" int catgen_bilinear_sample_rows_f32(const float* img,
-                                               const float* crd, float* out,
-                                               int n, int h, int w, int c,
-                                               int p, void* stream) {
+template <class L>
+int launch_sample(const float* img, const float* crd, float* out, int n,
+                  int h, int w, int c, int p, void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c >= 32) {
     const int64_t total = (int64_t)n * p * c;
     if (total == 0) return 0;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sample_rows_per_value<<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
-                                                     c, p);
+    sample_per_value<L><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w, c,
+                                                   p);
   } else {
     const int64_t total = (int64_t)n * p;
     if (total == 0) return 0;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sample_rows_per_pixel<<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
-                                                     c, p);
+    sample_per_pixel<L><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w, c,
+                                                   p);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both launch on `stream` and return cudaGetLastError() as an int (0 = the
+// launch was accepted). They do not synchronise and allocate nothing.
+
+// crd: (n, 2, p) coordinate rows.
+extern "C" int catgen_bilinear_sample_rows_f32(const float* img,
+                                               const float* crd, float* out,
+                                               int n, int h, int w, int c,
+                                               int p, void* stream) {
+  return launch_sample<RowsLayout>(img, crd, out, n, h, w, c, p, stream);
+}
+
+// crd: (n, p, 2) coordinate grid, 8-byte aligned.
+extern "C" int catgen_bilinear_sample_grid_f32(const float* img,
+                                               const float* crd, float* out,
+                                               int n, int h, int w, int c,
+                                               int p, void* stream) {
+  return launch_sample<GridLayout>(img, crd, out, n, h, w, c, p, stream);
 }

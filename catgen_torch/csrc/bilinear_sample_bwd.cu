@@ -13,6 +13,14 @@
 // none (the D-phase input transformer samples data; catgen reaches the
 // same by CATGEN_V4_SPLIT_BWD and dead-code elimination).
 //
+// Instantiated for the (N, Ho, Wo, 2) grid layout of the coordinates
+// (GridLayout, bilinear_taps.cuh), the same kernels replace the backward
+// TPU kernels of the three earlier generations: catgen/kernels/
+// pallas_bilinear.py, _backward (v1), pallas_bilinear_v2.py, _bwd (v2) and
+// pallas_bilinear_v3.py, _bwd (v3). Their masks are inclusive too, so the
+// derivative on the edge itself is 1, as below. d_coords is then written
+// as one (dy, dx) pair per pixel.
+//
 // d_coords[n, 0, p] = in_y * 0.5 (h-1) * sum_c g[p,c] (bot - top)
 // d_coords[n, 1, p] = in_x * 0.5 (w-1) * sum_c g[p,c] ((1-wy)(v01-v00)
 //                                                     + wy (v11-v10))
@@ -69,16 +77,17 @@ __device__ __forceinline__ TapGrad tap_grad(const float* __restrict__ base,
   return r;
 }
 
+template <class L>
 __device__ __forceinline__ void store_dcoords(float* __restrict__ dcrd,
                                               const Taps& t, float sy,
                                               float sx, int h, int w, int p,
                                               int ni, int pi) {
-  float* d = dcrd + (int64_t)ni * 2 * p;
-  d[pi] = sy * t.in_y * (0.5f * (float)(h - 1));
-  d[p + pi] = sx * t.in_x * (0.5f * (float)(w - 1));
+  L::store(dcrd, ni, pi, p, sy * t.in_y * (0.5f * (float)(h - 1)),
+           sx * t.in_x * (0.5f * (float)(w - 1)));
 }
 
-// img (n, h, w, c), crd (n, 2, p), g (n, p, c), dcrd (n, 2, p).
+// img (n, h, w, c), coordinates and dcrd in layout L, g (n, p, c).
+template <class L>
 __global__ void dcoords_per_warp(const float* __restrict__ img,
                                  const float* __restrict__ crd,
                                  const float* __restrict__ g,
@@ -89,8 +98,8 @@ __global__ void dcoords_per_warp(const float* __restrict__ img,
   if (pix >= (int64_t)n * p) return;  // warp-uniform: whole warps leave
   const int pi = (int)(pix % p);
   const int ni = (int)(pix / p);
-  const float* cr = crd + (int64_t)ni * 2 * p;
-  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float2 yx = L::load(crd, ni, pi, p);
+  const Taps t = make_taps(yx.x, yx.y, h, w);
   const float* base = img + (int64_t)ni * h * w * c;
   const float* gp = g + pix * c;
   float sy = 0.0f, sx = 0.0f;
@@ -104,9 +113,10 @@ __global__ void dcoords_per_warp(const float* __restrict__ img,
     sy += __shfl_xor_sync(0xffffffffu, sy, off);
     sx += __shfl_xor_sync(0xffffffffu, sx, off);
   }
-  if (lane == 0) store_dcoords(dcrd, t, sy, sx, h, w, p, ni, pi);
+  if (lane == 0) store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
 }
 
+template <class L>
 __global__ void dcoords_per_pixel(const float* __restrict__ img,
                                   const float* __restrict__ crd,
                                   const float* __restrict__ g,
@@ -116,8 +126,8 @@ __global__ void dcoords_per_pixel(const float* __restrict__ img,
   if (pix >= (int64_t)n * p) return;
   const int pi = (int)(pix % p);
   const int ni = (int)(pix / p);
-  const float* cr = crd + (int64_t)ni * 2 * p;
-  const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+  const float2 yx = L::load(crd, ni, pi, p);
+  const Taps t = make_taps(yx.x, yx.y, h, w);
   const float* base = img + (int64_t)ni * h * w * c;
   const float* gp = g + pix * c;
   float sy = 0.0f, sx = 0.0f;
@@ -127,13 +137,14 @@ __global__ void dcoords_per_pixel(const float* __restrict__ img,
     sy += gv * r.dy;
     sx += gv * r.dx;
   }
-  store_dcoords(dcrd, t, sy, sx, h, w, p, ni, pi);
+  store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
 }
 
 constexpr int kSlab = 32;  // channels per d_img block
 
 // Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
 // h*w*cs floats, cs = the slab's width. dimg (n, h, w, c).
+template <class L>
 __global__ void dimg_per_channel(const float* __restrict__ crd,
                                  const float* __restrict__ g,
                                  float* __restrict__ dimg, int n, int h,
@@ -146,11 +157,11 @@ __global__ void dimg_per_channel(const float* __restrict__ crd,
   if (lane >= cs) return;  // no barrier below: each thread owns a column
   const int hw = h * w;
   for (int i = 0; i < hw; ++i) acc[i * cs + lane] = 0.0f;
-  const float* cr = crd + (int64_t)ni * 2 * p;
   const float* gp = g + (int64_t)ni * p * c + c0 + lane;
 #pragma unroll 4
   for (int pi = 0; pi < p; ++pi) {
-    const Taps t = make_taps(__ldg(cr + pi), __ldg(cr + p + pi), h, w);
+    const float2 yx = L::load(crd, ni, pi, p);
+    const Taps t = make_taps(yx.x, yx.y, h, w);
     const float gv = __ldg(gp + (int64_t)pi * c);
     const float top = gv * (1.0f - t.wy);
     const float bot = gv * t.wy;
@@ -163,43 +174,36 @@ __global__ void dimg_per_channel(const float* __restrict__ crd,
   for (int i = 0; i < hw; ++i) out[(int64_t)i * c] = acc[i * cs + lane];
 }
 
-}  // namespace
-
-// Both entry points launch on `stream` and return cudaGetLastError() as an
-// int (0 = the launch was accepted). They do not synchronise and allocate
-// nothing; all arrays are contiguous f32.
-
-extern "C" int catgen_bilinear_dcoords_f32(const float* img, const float* crd,
-                                           const float* g, float* dcrd, int n,
-                                           int h, int w, int c, int p,
-                                           void* stream) {
+template <class L>
+int launch_dcoords(const float* img, const float* crd, const float* g,
+                   float* dcrd, int n, int h, int w, int c, int p,
+                   void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)n * p;
   if (pixels == 0) return 0;
   if (c >= 32) {
     const unsigned blocks = (unsigned)((pixels * 32 + threads - 1) / threads);
-    dcoords_per_warp<<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h, w,
-                                                 c, p);
+    dcoords_per_warp<L><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
+                                                    w, c, p);
   } else {
     const unsigned blocks = (unsigned)((pixels + threads - 1) / threads);
-    dcoords_per_pixel<<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h, w,
-                                                  c, p);
+    dcoords_per_pixel<L><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
+                                                     w, c, p);
   }
   return (int)cudaGetLastError();
 }
 
-// The shared memory one d_img block needs, in bytes.
-extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
+int64_t dimg_smem_bytes(int h, int w, int c) {
   return (int64_t)h * w * (c < kSlab ? c : kSlab) * (int64_t)sizeof(float);
 }
 
-extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,
-                                        float* dimg, int n, int h, int w,
-                                        int c, int p, void* stream) {
+template <class L>
+int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
+                int w, int c, int p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w * c == 0) return 0;
-  const int64_t smem = catgen_bilinear_dimg_smem_bytes(h, w, c);
+  const int64_t smem = dimg_smem_bytes(h, w, c);
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -207,12 +211,51 @@ extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   if (smem > optin) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(dimg_per_channel,
+  err = cudaFuncSetAttribute(dimg_per_channel<L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
-  dimg_per_channel<<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n, h, w, c,
-                                                      p);
+  dimg_per_channel<L><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n, h,
+                                                         w, c, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points launch on `stream` and return cudaGetLastError() as an
+// int (0 = the launch was accepted). They do not synchronise and allocate
+// nothing; all arrays are contiguous f32. The _rows_ forms take (n, 2, p)
+// coordinate rows; the _grid_ forms an (n, p, 2) grid, 8-byte aligned.
+
+extern "C" int catgen_bilinear_dcoords_f32(const float* img, const float* crd,
+                                           const float* g, float* dcrd, int n,
+                                           int h, int w, int c, int p,
+                                           void* stream) {
+  return launch_dcoords<RowsLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
+}
+
+extern "C" int catgen_bilinear_grid_dcoords_f32(const float* img,
+                                                const float* crd,
+                                                const float* g, float* dcrd,
+                                                int n, int h, int w, int c,
+                                                int p, void* stream) {
+  return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
+}
+
+// The shared memory one d_img block needs, in bytes.
+extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
+  return dimg_smem_bytes(h, w, c);
+}
+
+extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,
+                                        float* dimg, int n, int h, int w,
+                                        int c, int p, void* stream) {
+  return launch_dimg<RowsLayout>(crd, g, dimg, n, h, w, c, p, stream);
+}
+
+extern "C" int catgen_bilinear_grid_dimg_f32(const float* crd, const float* g,
+                                             float* dimg, int n, int h, int w,
+                                             int c, int p, void* stream) {
+  return launch_dimg<GridLayout>(crd, g, dimg, n, h, w, c, p, stream);
 }

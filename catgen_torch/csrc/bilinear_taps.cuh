@@ -1,6 +1,7 @@
-// The four taps and two weights of one edge-clamped bilinear sample, shared
-// by the sampler's forward (bilinear_sample.cu) and backward
-// (bilinear_sample_bwd.cu) kernels.
+// The four taps and two weights of one edge-clamped bilinear sample, and the
+// two layouts of its coordinates, shared by the sampler's forward
+// (bilinear_sample.cu) and backward (bilinear_sample_bwd.cu) kernels and by
+// the fused ST-conv kernel (st_conv.cu).
 //
 // Follows catgen/nn/spatial_transformer.py, bilinear_sample, and
 // _weights_rows of catgen/kernels/pallas_bilinear_v4.py: the pixel
@@ -40,3 +41,47 @@ __device__ __forceinline__ Taps make_taps(float yn, float xn, int h, int w) {
   t.in_x = (fx_raw >= 0.0f && fx_raw <= (float)(w - 1)) ? 1.0f : 0.0f;
   return t;
 }
+
+// The lerp of one channel: x first, then y, each product rounded on its
+// own (the library is built with --fmad=false), as the plain version does.
+__device__ __forceinline__ float lerp_taps(const float* __restrict__ base,
+                                           const Taps& t, int c) {
+  const float v00 = __ldg(base + t.p00 * c);
+  const float v01 = __ldg(base + t.p01 * c);
+  const float v10 = __ldg(base + t.p10 * c);
+  const float v11 = __ldg(base + t.p11 * c);
+  const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
+  const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
+  return top * (1.0f - t.wy) + bot * t.wy;
+}
+
+// Where the normalized (y, x) coordinate of output pixel `pi` of sample
+// `ni` lies, for `p` output pixels per sample, and where its gradient goes.
+// Rows: (n, 2, p), a row of y then a row of x (the v4 kernel's layout).
+struct RowsLayout {
+  __device__ static float2 load(const float* __restrict__ crd, int ni,
+                                int pi, int p) {
+    const float* cr = crd + (int64_t)ni * 2 * p;
+    return make_float2(__ldg(cr + pi), __ldg(cr + p + pi));
+  }
+  __device__ static void store(float* __restrict__ d, int ni, int pi, int p,
+                               float dy, float dx) {
+    float* o = d + (int64_t)ni * 2 * p;
+    o[pi] = dy;
+    o[p + pi] = dx;
+  }
+};
+
+// Grid: (n, p, 2), one (y, x) pair per pixel (the layout of catgen's
+// affine_grid and of its v1-v3 kernels); one 8-byte load and store each.
+// The wrapper checks that the array is 8-byte aligned.
+struct GridLayout {
+  __device__ static float2 load(const float* __restrict__ crd, int ni,
+                                int pi, int p) {
+    return __ldg(reinterpret_cast<const float2*>(crd) + (int64_t)ni * p + pi);
+  }
+  __device__ static void store(float* __restrict__ d, int ni, int pi, int p,
+                               float dy, float dx) {
+    reinterpret_cast<float2*>(d)[(int64_t)ni * p + pi] = make_float2(dy, dx);
+  }
+};

@@ -10,8 +10,10 @@ import math
 import torch
 
 from catgen_torch.core.random import Draws
-from catgen_torch.kernels.bilinear import bilinear_sample_rows
-from catgen_torch.nn.spatial_transformer import affine_grid_rows
+from catgen_torch.kernels import config as kconfig
+from catgen_torch.kernels.bilinear import (affine_grid_rows,
+                                           bilinear_sample_rows)
+from catgen_torch.nn.spatial_transformer import affine_grid, bilinear_sample
 
 
 def downscale2(images: torch.Tensor) -> torch.Tensor:
@@ -41,8 +43,10 @@ def augment_batch(draws: Draws, images: torch.Tensor,
     """One random augmentation per image, on the images' device.
 
     images (N, H, W, C) in [0, 1]. The affine part (flip, scale, rotation,
-    translation) is one bilinear warp through the sampler (the Hopper
-    kernel on CUDA tensors); brightness and noise are elementwise. Draws
+    translation) is one bilinear warp, routed as catgen's: the v4 rows
+    sampler under ``mxu`` with ``v4`` (the default), else
+    ``bilinear_sample`` on the grid (each the Hopper kernel on CUDA
+    tensors); brightness and noise are elementwise. Draws
     are taken in catgen's order: scale, angle, ty, tx, flip, brightness,
     noise."""
     n, h, w, _ = images.shape
@@ -69,8 +73,13 @@ def augment_batch(draws: Draws, images: torch.Tensor,
     row0 = torch.stack([cos, -sin * flip, ty], dim=-1)
     row1 = torch.stack([sin, cos * flip, tx], dim=-1)
     theta = torch.stack([row0, row1], dim=1)            # (N, 2, 3)
-    rows = affine_grid_rows(theta, h, w).to(images.dtype)
-    out = bilinear_sample_rows(images.contiguous(), rows, (h, w))
+    if (kconfig.resolve_sampler_impl() == "mxu"
+            and kconfig.sampler_kernel == "v4"):
+        rows = affine_grid_rows(theta, h, w).to(images.dtype)
+        out = bilinear_sample_rows(images.contiguous(), rows, (h, w))
+    else:
+        out = bilinear_sample(images.contiguous(),
+                              affine_grid(theta, h, w).to(images.dtype))
 
     # multiplicative brightness +-15%
     bri = draws.uniform((n, 1, 1, 1), -config.brightness,

@@ -1,6 +1,7 @@
 """Bilinear sampling at coordinate rows: the Hopper kernels and their plain
 PyTorch version.
 
+``affine_grid_rows(theta, h, w)`` makes the rows of an affine grid, and
 ``bilinear_sample_rows(img, coords_rows, out_hw)`` samples an NHWC image at
 normalized (y; x) coordinate rows ``(N, 2, Ho*Wo)`` with edge-clamped
 bilinear interpolation (align-corners: -1 is pixel 0, +1 is pixel size-1)
@@ -20,6 +21,9 @@ inclusive masks), where catgen's XLA path (``jnp.clip``) gives 0.5.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from catgen_torch.kernels.build import load_library
@@ -28,6 +32,30 @@ from catgen_torch.kernels.build import load_library
 LAUNCHES = 0              # forward
 DCOORDS_LAUNCHES = 0      # backward, d_coords
 DIMG_LAUNCHES = 0         # backward, d_img
+
+
+@functools.lru_cache(maxsize=32)
+def base_rows(height: int, width: int, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """(3, H*W) rows [gy; gx; 1] of the normalized output grid. Made with
+    numpy, so that every device gets the same values, and once per shape
+    and device: a copy from host memory on every call would make the host
+    wait for the card. Made outside inference mode, so that autograd may
+    save it."""
+    gy, gx = np.meshgrid(np.linspace(-1.0, 1.0, height),
+                         np.linspace(-1.0, 1.0, width), indexing="ij")
+    base = np.stack([gy.reshape(-1), gx.reshape(-1),
+                     np.ones(height * width)]).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.from_numpy(base).to(device, dtype)
+
+
+def affine_grid_rows(theta: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """(B, 2, 3) affine matrices -> (B, 2, H*W) normalized (y; x) rows, the
+    layout the sampler kernel takes."""
+    return torch.matmul(theta, base_rows(height, width, theta.device,
+                                         theta.dtype))
 
 
 def bilinear_sample_rows_plain(img: torch.Tensor, coords_rows: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Selection of G's upsample-conv implementation: the counterpart of the
-upsample selectors of ``catgen/kernels/config.py``.
+"""Selection of the kernel routes: the counterpart of the upsample, sampler
+and ST-conv selectors of ``catgen/kernels/config.py``.
 
 The same environment variables, with the same names and values, pick the
 same route in both packages:
@@ -8,6 +8,9 @@ same route in both packages:
     CATGEN_FUSED_LADDER=1|0                            (default 1)
     CATGEN_UPSAMPLE_BWD=collapsed|pallas|hybrid|naive  (default collapsed)
     CATGEN_LADDER_BWD=xla_vjp|xla|pallas               (default xla_vjp)
+    CATGEN_SAMPLER_IMPL=auto|xla|mxu                   (default auto)
+    CATGEN_SAMPLER_KERNEL=v1|v2|v3|v4                  (default v4)
+    CATGEN_ST_CONV=auto|fused|split                    (default auto)
 
 In the port the words keep catgen's meaning with PyTorch in place of XLA:
 
@@ -26,7 +29,17 @@ In the port the words keep catgen's meaning with PyTorch in place of XLA:
   * ``ladder_bwd``, the ladder block's backward: ``pallas`` is the fused
     block-backward kernels; ``xla`` and ``xla_vjp`` both mean autograd
     through the plain block (catgen's hand-written ``xla`` variant works
-    around XLA relayouts that PyTorch does not make).
+    around XLA relayouts that PyTorch does not make);
+  * ``sampler_impl``, the spatial transformers' sampler: ``mxu`` is the
+    kernel generation named by ``sampler_kernel`` (``v4``: the coordinate
+    rows kernel of ``kernels/bilinear.py``; ``v1``-``v3``: the grid-layout
+    kernel of ``kernels/bilinear_grid.py`` under catgen's three names);
+    ``xla`` is catgen's gather formulation on ``(N, Ho, Wo, 2)``
+    coordinates, which on a CUDA tensor is the grid-layout kernel too.
+    ``auto`` resolves to ``mxu``, as catgen's does on its accelerator;
+  * ``st_conv_impl``, D's ``[input ST -> conv3x3 -> PReLU]`` prefix:
+    ``fused`` is the kernel of ``kernels/st_conv.py``, ``split`` the three
+    layers in turn; ``auto`` resolves to ``split``, as catgen's does.
 
 Selection is process-global. Set it before a run, through the environment
 or the setters; ``using`` sets and restores around a block.
@@ -37,9 +50,14 @@ from __future__ import annotations
 import contextlib
 import os
 
+from catgen_torch.kernels import bilinear_grid
+
 _UPSAMPLE_IMPLS = ("auto", "collapsed", "pallas", "naive")
 _UPSAMPLE_BWDS = ("collapsed", "pallas", "hybrid", "naive")
 _LADDER_BWDS = ("xla_vjp", "xla", "pallas")
+_SAMPLER_IMPLS = ("auto", "xla", "mxu")
+_SAMPLER_KERNELS = ("v1", "v2", "v3", "v4")
+_ST_CONV_IMPLS = ("auto", "fused", "split")
 
 
 def _check(name: str, value, allowed) -> None:
@@ -60,6 +78,9 @@ upsample_impl = _env_choice("CATGEN_UPSAMPLE_IMPL", "auto", _UPSAMPLE_IMPLS)
 fused_ladder = os.environ.get("CATGEN_FUSED_LADDER", "1") == "1"
 upsample_bwd = _env_choice("CATGEN_UPSAMPLE_BWD", "collapsed", _UPSAMPLE_BWDS)
 ladder_bwd = _env_choice("CATGEN_LADDER_BWD", "xla_vjp", _LADDER_BWDS)
+sampler_impl = _env_choice("CATGEN_SAMPLER_IMPL", "auto", _SAMPLER_IMPLS)
+sampler_kernel = _env_choice("CATGEN_SAMPLER_KERNEL", "v4", _SAMPLER_KERNELS)
+st_conv_impl = _env_choice("CATGEN_ST_CONV", "auto", _ST_CONV_IMPLS)
 
 
 def resolve_upsample_impl() -> str:
@@ -69,6 +90,30 @@ def resolve_upsample_impl() -> str:
     if upsample_impl != "auto":
         return upsample_impl
     return "collapsed"
+
+
+def resolve_sampler_impl() -> str:
+    """'auto' -> the kernels (``mxu``), what catgen picks on its
+    accelerator and what the card runs."""
+    if sampler_impl != "auto":
+        return sampler_impl
+    return "mxu"
+
+
+def resolve_st_conv_impl() -> str:
+    """'auto' -> the split prefix, as in catgen."""
+    if st_conv_impl != "auto":
+        return st_conv_impl
+    return "split"
+
+
+def get_mxu_sampler():
+    """The grid-layout sampler under the name of the generation that
+    ``sampler_kernel`` picks (v1-v3; v4 samples coordinate rows, see
+    ``nn/spatial_transformer.py``)."""
+    return {"v1": bilinear_grid.bilinear_sample_mxu,
+            "v2": bilinear_grid.bilinear_sample_sep,
+            "v3": bilinear_grid.bilinear_sample_batched}[sampler_kernel]
 
 
 def set_upsample_impl(name: str) -> None:
@@ -94,10 +139,31 @@ def set_ladder_bwd(name: str) -> None:
     ladder_bwd = name
 
 
+def set_sampler_impl(name: str) -> None:
+    global sampler_impl
+    _check("sampler_impl", name, _SAMPLER_IMPLS)
+    sampler_impl = name
+
+
+def set_sampler_kernel(name: str) -> None:
+    global sampler_kernel
+    _check("sampler_kernel", name, _SAMPLER_KERNELS)
+    sampler_kernel = name
+
+
+def set_st_conv_impl(name: str) -> None:
+    global st_conv_impl
+    _check("st_conv_impl", name, _ST_CONV_IMPLS)
+    st_conv_impl = name
+
+
 _SETTERS = {"upsample_impl": set_upsample_impl,
             "fused_ladder": set_fused_ladder,
             "upsample_bwd": set_upsample_bwd,
-            "ladder_bwd": set_ladder_bwd}
+            "ladder_bwd": set_ladder_bwd,
+            "sampler_impl": set_sampler_impl,
+            "sampler_kernel": set_sampler_kernel,
+            "st_conv_impl": set_st_conv_impl}
 
 
 @contextlib.contextmanager

@@ -1,0 +1,179 @@
+"""D's input prefix [spatial transformer -> 3x3 'same' conv -> PReLU] in
+one kernel, and its plain PyTorch version: the counterpart of
+``catgen/kernels/pallas_st_conv.py``.
+
+``st_conv_prelu(img, theta, kernel, bias, alpha)`` takes catgen's layouts:
+img NHWC ``(N, H, W, C)``; theta ``(N, 2, 3)``, the affine matrices in
+(y, x) rows (``nn/spatial_transformer.py::affine_matrix``); kernel HWIO
+``(3, 3, C, F)``; bias ``(F,)``; alpha ``(1,)`` (a shared slope) or
+``(F,)``. It returns ``(N, H, W, F)``: the image sampled at the affine grid
+(edge-clamped bilinear, align-corners), convolved with zero padding of the
+sampled image, plus bias, through PReLU.
+
+On CUDA tensors the wrapper launches ``csrc/st_conv.cu`` (counted in
+``LAUNCHES``) or raises; on CPU tensors it runs ``st_conv_prelu_plain``,
+the split composition, under autograd. The kernel writes the sampled image
+and the pre-activation z only where autograd will need them.
+
+The backward mirrors catgen's ``_vjp_bwd``: dz and dalpha from the saved
+z; the conv's input and weight gradients (dS, dkernel) and dbias from the
+saved sampled image in one ``aten.convolution_backward`` (catgen does that
+part in XLA, outside Pallas); then the sampler's backward kernels at the
+grid's coordinate rows, d_coords always and d_img only where the image
+needs a gradient (in the D phase it is data); ``dtheta = d_rows @ base^T``.
+On CPU tensors the same Function runs with the plain forward and the plain
+sampler backward, which is how the tests reach its formula.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from catgen_torch.kernels import bilinear
+from catgen_torch.kernels.bilinear import (_launched, affine_grid_rows,
+                                           base_rows,
+                                           bilinear_sample_rows_plain)
+from catgen_torch.kernels.build import load_library
+
+LAUNCHES = 0   # forward kernel launches since import or a caller's reset
+
+
+def _slope(alpha: torch.Tensor) -> torch.Tensor:
+    return alpha if alpha.numel() == 1 else alpha.reshape(1, 1, 1, -1)
+
+
+def _forward_plain(img, theta, kernel, bias, alpha):
+    """(out, samp, z) of the split composition in f32: affine grid rows,
+    gathers, zero-padded 3x3 conv, bias, PReLU; samp and z NHWC."""
+    n, h, w, c = img.shape
+    rows = affine_grid_rows(theta.float(), h, w)
+    samp = bilinear_sample_rows_plain(img.float(), rows, (h, w))
+    z = F.conv2d(samp.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias,
+                 padding=1).permute(0, 2, 3, 1)
+    return torch.where(z >= 0, z, _slope(alpha) * z), samp, z
+
+
+def st_conv_prelu_plain(img, theta, kernel, bias, alpha) -> torch.Tensor:
+    """Plain version: the split [ST -> conv -> PReLU] composition in f32."""
+    return _forward_plain(img, theta, kernel, bias, alpha)[0]
+
+
+def _check(img, theta, kernel, bias, alpha) -> None:
+    named = {"img": img, "theta": theta, "kernel": kernel, "bias": bias,
+             "alpha": alpha}
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"st_conv_prelu kernel takes float32, got "
+                            f"{name} {t.dtype}")
+    if img.dim() != 4:
+        raise ValueError(f"img must be (N, H, W, C), got {tuple(img.shape)}")
+    n, _, _, c = img.shape
+    f = kernel.shape[-1]
+    want = {"theta": (n, 2, 3), "kernel": (3, 3, c, f), "bias": (f,)}
+    for name, shape in want.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(named[name].shape)}")
+    if tuple(alpha.shape) not in ((1,), (f,)):
+        raise ValueError(f"alpha must be (1,) or ({f},), got "
+                         f"{tuple(alpha.shape)}")
+    for name, t in named.items():
+        if not t.is_contiguous():
+            raise ValueError(f"st_conv_prelu kernel takes contiguous "
+                             f"tensors; {name} is not")
+    for name, t in named.items():
+        if not t.is_cuda or t.device != img.device:
+            raise ValueError(f"st_conv_prelu kernel needs CUDA tensors on "
+                             f"one device, got {name} on {t.device}")
+
+
+def launch(img, theta, kernel, bias, alpha, save: bool = True):
+    """Runs the forward kernel on the current stream and returns (out,
+    samp, z), NHWC; samp and z are None unless ``save``. Raises on bad
+    inputs or a refused launch. Counts each launch in ``LAUNCHES``."""
+    global LAUNCHES
+    _check(img, theta, kernel, bias, alpha)
+    lib = load_library()
+    n, h, w, c = img.shape
+    f = kernel.shape[-1]
+    base = base_rows(h, w, img.device, torch.float32)
+    out = torch.empty((n, h, w, f), dtype=img.dtype, device=img.device)
+    samp = torch.empty_like(img) if save else None
+    z = torch.empty_like(out) if save else None
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.catgen_st_conv_prelu_f32(
+            img.data_ptr(), theta.data_ptr(), base.data_ptr(),
+            kernel.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
+            alpha.numel(), out.data_ptr(),
+            samp.data_ptr() if save else None, z.data_ptr() if save else None,
+            n, h, w, c, f, stream)
+    # a band of the sampled image is held in shared memory: a width and
+    # channel count too large for 48 KB are refused (cudaErrorInvalidValue)
+    _launched(err, "st_conv_prelu")
+    LAUNCHES += 1
+    return out, samp, z
+
+
+def _sampler_vjp(img, rows, ds, need_img: bool):
+    """(d_img or None, d_rows) of the sampler at ``rows`` for the sampled
+    image's gradient ``ds``: its kernels on the card, the plain backward
+    on CPU tensors."""
+    out_hw = img.shape[1:3]
+    if not img.is_cuda:
+        return bilinear.bilinear_sample_rows_backward_plain(
+            img, rows, ds, out_hw, need_img=need_img)
+    d_rows = bilinear.launch_dcoords(img, rows, ds, out_hw)
+    d_img = bilinear.launch_dimg(img, rows, ds, out_hw) if need_img else None
+    return d_img, d_rows
+
+
+class _STConvPReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, theta, kernel, bias, alpha):
+        if img.is_cuda:
+            out, samp, z = launch(img, theta, kernel, bias, alpha)
+        else:
+            out, samp, z = _forward_plain(img, theta, kernel, bias, alpha)
+        ctx.save_for_backward(img, theta, kernel, alpha, samp, z)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        img, theta, kernel, alpha, samp, z = ctx.saved_tensors
+        n, h, w, c = img.shape
+        f = kernel.shape[-1]
+        need = ctx.needs_input_grad
+        dz = torch.where(z >= 0, g, _slope(alpha) * g)
+        neg = torch.where(z < 0, g * z, 0.0)
+        dalpha = (neg.sum() if alpha.numel() == 1
+                  else neg.sum(dim=(0, 1, 2))).reshape(alpha.shape)
+        ds, dw, dbias = torch.ops.aten.convolution_backward(
+            dz.permute(0, 3, 1, 2), samp.permute(0, 3, 1, 2),
+            kernel.permute(3, 2, 0, 1), [f], [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [True, need[2], need[3]])
+        dkernel = dw.permute(2, 3, 1, 0) if need[2] else None
+        rows = affine_grid_rows(theta, h, w)
+        d_img, d_rows = _sampler_vjp(img, rows,
+                                     ds.permute(0, 2, 3, 1).contiguous(),
+                                     need[0])
+        dtheta = torch.matmul(d_rows, base_rows(h, w, theta.device,
+                                                theta.dtype).T)
+        return d_img, dtheta, dkernel, dbias, dalpha
+
+
+def st_conv_prelu(img, theta, kernel, bias, alpha) -> torch.Tensor:
+    """img (N, H, W, C), theta (N, 2, 3), kernel (3, 3, C, F), bias (F,),
+    alpha (1,) or (F,). Returns (N, H, W, F). CPU tensors take the plain
+    version; CUDA tensors the kernel, which skips writing what the backward
+    reads when no gradient will be taken."""
+    args = (img, theta, kernel, bias, alpha)
+    if all(t.device.type == "cpu" for t in args):
+        return st_conv_prelu_plain(*args)
+    # the parameters are small: a contiguous copy costs nothing; the image
+    # must come contiguous
+    args = (img,) + tuple(t.contiguous() for t in args[1:])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _STConvPReLU.apply(*args)
+    return launch(*args, save=False)[0]

@@ -9,22 +9,30 @@ Conventions (catgen's, which follow torch-stn, not ``F.affine_grid``):
     scaling, [tx, ty] if translation; the head starts at the identity;
   * sampling clamps to the border.
 
-The transformers sample through ``catgen_torch.kernels.bilinear``: the
-Hopper kernel on CUDA tensors, its plain version on CPU tensors.
+The transformers sample through the kernels that catgen's selectors pick
+(``kernels/config.py``, ``CATGEN_SAMPLER_IMPL`` and
+``CATGEN_SAMPLER_KERNEL``), as catgen's do: under ``mxu`` with ``v4`` (the
+default) ``kernels/bilinear.py`` at coordinate rows; otherwise an
+``(N, Ho, Wo, 2)`` grid through ``kernels/bilinear_grid.py``, under the
+name of the v1-v3 generation (``mxu``) or as ``bilinear_sample``
+(``xla``). D's prefix takes ``kernels/st_conv.py`` under
+``CATGEN_ST_CONV=fused``. Each is its Hopper kernel on CUDA tensors and its
+plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from catgen_torch.core.module import Sequential
-from catgen_torch.kernels.bilinear import (bilinear_sample_rows,
-                                           bilinear_sample_rows_plain)
+from catgen_torch.kernels import config
+from catgen_torch.kernels.bilinear import (affine_grid_rows,
+                                           bilinear_sample_rows)
+from catgen_torch.kernels.bilinear_grid import bilinear_sample_grid
+from catgen_torch.kernels.st_conv import st_conv_prelu
 from catgen_torch.nn.layers import AvgPool, Conv, Dense, Flatten, LeakyReLU
 
 Flags = Tuple[bool, bool, bool]   # (rotation, scaling, translation)
@@ -63,42 +71,40 @@ def affine_matrix(params: torch.Tensor, allow_rotation: bool,
     return torch.stack([row0, row1], dim=1)
 
 
-@functools.lru_cache(maxsize=32)
-def _base_rows(height: int, width: int, device: torch.device,
-               dtype: torch.dtype) -> torch.Tensor:
-    """(3, H*W) rows [gy; gx; 1] of the normalized output grid. Made with
-    numpy, so that every device gets the same values, and once per shape
-    and device: a copy from host memory on every call would make the host
-    wait for the card. Made outside inference mode, so that autograd may
-    save it."""
-    gy, gx = np.meshgrid(np.linspace(-1.0, 1.0, height),
-                         np.linspace(-1.0, 1.0, width), indexing="ij")
-    base = np.stack([gy.reshape(-1), gx.reshape(-1),
-                     np.ones(height * width)]).astype(np.float32)
-    with torch.inference_mode(False):
-        return torch.from_numpy(base).to(device, dtype)
-
-
-def affine_grid_rows(theta: torch.Tensor, height: int,
-                     width: int) -> torch.Tensor:
-    """(B, 2, 3) affine matrices -> (B, 2, H*W) normalized (y; x) rows, the
-    layout the sampler kernel takes."""
-    return torch.matmul(theta, _base_rows(height, width, theta.device,
-                                          theta.dtype))
-
-
 def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(B, 2, 3) affine matrices -> (B, H, W, 2) normalized (y, x) coords."""
+    """(B, 2, 3) affine matrices -> (B, H, W, 2) normalized (y, x) coords,
+    contiguous (the layout the grid sampler kernel reads)."""
     rows = affine_grid_rows(theta, height, width)
-    return rows.permute(0, 2, 1).reshape(theta.shape[0], height, width, 2)
+    return rows.permute(0, 2, 1).reshape(theta.shape[0], height, width,
+                                         2).contiguous()
 
 
 def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Samples NHWC ``img`` at normalized (y, x) ``coords`` (B, Ho, Wo, 2):
-    border-clamped bilinear gathers and lerps, on any device."""
-    b, ho, wo, _ = coords.shape
-    rows = coords.reshape(b, ho * wo, 2).permute(0, 2, 1)
-    return bilinear_sample_rows_plain(img, rows, (ho, wo))
+    border-clamped bilinear gathers and lerps (catgen's ``xla`` sampler);
+    the grid-layout kernel on CUDA tensors."""
+    return bilinear_sample_grid(img, coords)
+
+
+def sample_affine(x: torch.Tensor, thetas) -> torch.Tensor:
+    """Samples ``x`` (N, H, W, C) at the affine grids of the (N, 2, 3)
+    ``thetas``, stacked along the rows: (N, len(thetas)*H, W, C), on
+    the sampler the selectors pick (catgen's ``SpatialTransformer`` and
+    ``FusedSTBranches`` routing)."""
+    h, w = x.shape[1:3]
+    x = x.contiguous()
+
+    def stack(grids, dim):
+        return (grids[0] if len(grids) == 1 else torch.cat(grids, dim)).to(
+            x.dtype)
+
+    impl = config.resolve_sampler_impl()
+    if impl == "mxu" and config.sampler_kernel == "v4":
+        rows = stack([affine_grid_rows(t, h, w) for t in thetas], 2)
+        return bilinear_sample_rows(x, rows, (len(thetas) * h, w))
+    grid = stack([affine_grid(t, h, w) for t in thetas], 1)
+    sampler = config.get_mxu_sampler() if impl == "mxu" else bilinear_sample
+    return sampler(x, grid)
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +170,12 @@ class SpatialTransformer(nn.Module):
         self.loc = _localization_net(c, h, w)
         self.head = AffineParamHead(64, *self.flags)
 
+    def theta(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 2, 3) affine matrices of the input ``x``."""
+        return affine_matrix(self.head(self.loc(x)).float(), *self.flags)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        theta = affine_matrix(self.head(self.loc(x)).float(), *self.flags)
-        h, w = x.shape[1], x.shape[2]
-        rows = affine_grid_rows(theta, h, w).to(x.dtype)
-        return bilinear_sample_rows(x.contiguous(), rows, (h, w))
+        return sample_affine(x, [self.theta(x)])
 
 
 class FusedSTBranches(nn.Module):
@@ -176,9 +183,10 @@ class FusedSTBranches(nn.Module):
     one plain conv branch on the same feature map, concatenated along
     channels (tails 0..n-1, then plain).
 
-    The branches' grids are stacked along the pixel axis, (N, 2, n*H*W),
-    so the sampler runs once at out_hw (n*H, W); its output is split by
-    rows, H per branch. Children ``loc{i}``, ``head{i}``, ``tail{i}`` and
+    The branches' grids are stacked along the rows, (N, n*H, W) pixels
+    (coordinate rows (N, 2, n*H*W) for v4, a grid (N, n*H, W, 2) for the
+    others), so the sampler runs once; its output is split by rows, H per
+    branch. Children ``loc{i}``, ``head{i}``, ``tail{i}`` and
     ``plain``. The localization nets run one per branch (catgen's
     ``CATGEN_JOINT_LOC=0`` path; its default joint path is the same
     arithmetic reassociated)."""
@@ -199,15 +207,11 @@ class FusedSTBranches(nn.Module):
         self.plain = plain
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, h, w, _ = x.shape
-        x = x.contiguous()
-        grids = []
-        for i in range(self.n_tails):
-            params = getattr(self, f"head{i}")(getattr(self, f"loc{i}")(x))
-            theta = affine_matrix(params.float(), *self.flags)
-            grids.append(affine_grid_rows(theta, h, w))
-        stacked = torch.cat(grids, dim=2).to(x.dtype)   # (N, 2, n_tails*P)
-        sampled = bilinear_sample_rows(x, stacked, (self.n_tails * h, w))
+        h = x.shape[1]
+        thetas = [affine_matrix(getattr(self, f"head{i}")(
+            getattr(self, f"loc{i}")(x)).float(), *self.flags)
+            for i in range(self.n_tails)]
+        sampled = sample_affine(x, thetas)
         outs = [getattr(self, f"tail{i}")(sampled[:, i * h:(i + 1) * h])
                 for i in range(self.n_tails)]
         outs.append(self.plain(x))
@@ -216,14 +220,25 @@ class FusedSTBranches(nn.Module):
 
 class FusedSTConvPReLU(nn.Module):
     """D's input prefix [SpatialTransformer -> Conv -> PReLU], children
-    ``st``, ``conv`` and ``act``. catgen's single-pass Pallas version
-    (kernels/pallas_st_conv.py) is off by default there; this is its split
-    path."""
+    ``st``, ``conv`` and ``act`` (a ``PReLU``). Under ``CATGEN_ST_CONV=
+    fused`` it runs as one kernel (``kernels/st_conv.py``) where catgen's
+    ``_can_fuse`` allows (a 3x3 'same' conv, an image larger than 2x2);
+    otherwise, and by default, as the three layers in turn."""
 
     def __init__(self, st: SpatialTransformer, conv: nn.Module,
                  act: nn.Module):
         super().__init__()
         self.st, self.conv, self.act = st, conv, act
 
+    def _can_fuse(self, x: torch.Tensor) -> bool:
+        # the port's Conv is always stride 1 with a bias
+        return (self.conv.kernel_size == (3, 3)
+                and self.conv.padding == (1, 1)
+                and x.shape[1] > 2 and x.shape[2] > 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if config.resolve_st_conv_impl() == "fused" and self._can_fuse(x):
+            return st_conv_prelu(x.contiguous(), self.st.theta(x),
+                                 self.conv.weight.permute(2, 3, 1, 0),
+                                 self.conv.bias, self.act.alpha)
         return self.act(self.conv(self.st(x)))

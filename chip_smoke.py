@@ -5,8 +5,10 @@
 Drives catgen_torch's two paths on the card, sampling (G32up-c generates,
 D32_st3 ranks, the best 16 are searched against a corpus) and training
 (G32up-c against D32_st3 through the training CLI), on the default route
-(G's upsample-convs on cuDNN) and on the kernel route (the hand-written
-upsample-conv kernels, as the ladder and per layer), and checks them
+(G's upsample-convs on cuDNN, D's spatial transformers on the v4 sampler
+kernels), on G's kernel route (the hand-written upsample-conv kernels, as
+the ladder and per layer), on D's fused-prefix route (the ST-conv kernel)
+and on the grid-sampler route (the v1-v3 generations), and checks them
 phase by phase; any failure ends the run with a non-zero exit code and
 no result.
 
@@ -51,9 +53,25 @@ no result.
      the kernels' plain versions), within phase 9's bounds;
  16. at batch 640: each upsample-conv kernel against its plain version,
      the cuDNN collapsed route and its bound, at each stage shape; the
-     train step on the ladder and per-layer routes, profiled.
+     train step on the ladder and per-layer routes, profiled;
+ 17. the fused ST-conv kernel against its plain version at D32_st3's
+     prefix, N=640 and 256, shared and per-channel slope: out, samp and z;
+     repeats bit-identical;
+ 18. D's fused-prefix route (CATGEN_ST_CONV=fused): the sampling CLI (1
+     ST-conv and 1 v4 launch per D batch, the same images and scores as
+     phase 5), the training CLI (per step 2 ST-conv, 3 v4 forwards, 4
+     d_coords, 3 d_img), one train step card against CPU;
+ 19. the grid-layout sampler kernels against their plain versions at both
+     training shapes; the grid route (CATGEN_SAMPLER_IMPL=mxu,
+     CATGEN_SAMPLER_KERNEL=v1): the sampling CLI (2 grid forwards per D
+     batch, no v4 launch) and the training CLI (per step 5 grid forwards,
+     4 d_coords, 3 d_img); one train step each on v2 and v3;
+ 20. times at batch 640: the ST-conv kernel, its plain version, the split
+     route and its bound; the grid kernels, their plain versions,
+     grid_sample and the bound; the train step on the fused-prefix, v1
+     and default routes, profiled.
 
-Each phase on the kernel route sets the selectors through
+Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 run the
 default route. It prints a JSON line describing the kernels, the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
@@ -299,10 +317,58 @@ def check_finite(result: dict) -> None:
 
 
 def reset_counts() -> None:
-    from catgen_torch.kernels import bilinear, fused_upsample_conv
+    from catgen_torch.kernels import (bilinear, bilinear_grid,
+                                      fused_upsample_conv, st_conv)
 
     bilinear.LAUNCHES = bilinear.DCOORDS_LAUNCHES = bilinear.DIMG_LAUNCHES = 0
+    st_conv.LAUNCHES = 0
+    bilinear_grid.reset_launches()
     fused_upsample_conv.reset_launches()
+
+
+# D's routes off the default (phases 17-20): catgen's selectors
+FUSED = dict(st_conv_impl="fused")
+GRID = {v: dict(sampler_impl="mxu", sampler_kernel=v)
+        for v in ("v1", "v2", "v3")}
+
+
+def sampler_counts() -> dict:
+    """Launches of D's kernels since the last reset: the v4 sampler (rows),
+    the ST-conv kernel, the grid sampler and its generations' names."""
+    from catgen_torch.kernels import bilinear, bilinear_grid, st_conv
+
+    return {"fwd": bilinear.LAUNCHES, "dcoords": bilinear.DCOORDS_LAUNCHES,
+            "dimg": bilinear.DIMG_LAUNCHES, "st_conv": st_conv.LAUNCHES,
+            **bilinear_grid.launches()}
+
+
+def expected_sampler(route, steps: int, d_evals: int) -> dict:
+    """D's kernel launches the design gives for ``steps`` train steps with
+    augmentation and ``d_evals`` eval-mode D batches on ``route``. A D
+    forward samples twice (the input ST; the three branch STs stacked),
+    and a step runs D forward in both phases: with the augmentation 5
+    forwards; d_coords at all 4 sites; d_img at 3 (not the D phase's input
+    ST, which samples data). The fused prefix takes the input ST's
+    forward; its backward is the same d_coords and d_img. The grid route
+    takes every site, the augmentation as bilinear_sample (no
+    generation's name)."""
+    from catgen_torch.kernels import bilinear_grid
+
+    route = route or {}
+    want = {"fwd": 0, "dcoords": 4 * steps, "dimg": 3 * steps, "st_conv": 0,
+            **dict.fromkeys(bilinear_grid.COUNTERS, 0)}
+    gen = route.get("sampler_kernel", "v4")
+    if route.get("sampler_impl", "auto") != "xla" and gen == "v4":
+        if route.get("st_conv_impl") == "fused":
+            want.update(fwd=3 * steps + d_evals, st_conv=2 * steps + d_evals)
+        else:
+            want.update(fwd=5 * steps + 2 * d_evals)
+        return want
+    want.update(dcoords=0, dimg=0, LAUNCHES=5 * steps + 2 * d_evals,
+                DCOORDS_LAUNCHES=4 * steps, DIMG_LAUNCHES=3 * steps)
+    if route.get("sampler_impl", "auto") != "xla":
+        want[f"{gen.upper()}_LAUNCHES"] = 4 * steps + 2 * d_evals
+    return want
 
 
 def upsample_counts() -> dict:
@@ -321,7 +387,7 @@ def expected_upsample(route, steps: int, g_evals: int) -> dict:
     from catgen_torch.kernels import fused_upsample_conv
 
     want = dict.fromkeys(fused_upsample_conv.COUNTERS, 0)
-    if route is None:
+    if route is None or route.get("upsample_impl") != "pallas":
         return want
     if route["fused_ladder"]:
         want["BLOCK_LAUNCHES"] = 3 * (2 * steps + g_evals)
@@ -359,6 +425,9 @@ def slice_on_card(save: str) -> tuple:
     require(launches == expected, "the path did not go through the kernel")
     require(counts[1:] == (0, 0), f"backward kernels launched while "
             f"sampling: {counts}")
+    require(sampler_counts() == expected_sampler(None, 0, COUNT // 256),
+            f"D's other kernels launched on the default route: "
+            f"{sampler_counts()}")
     require(tuple(result["images"].shape) == (COUNT, 32, 32, 3),
             f"images {tuple(result['images'].shape)}")
     require(result["images"].is_cuda, "images not on the card")
@@ -492,7 +561,7 @@ def times(save: str, card_name: str) -> dict:
     for e, us in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  {us / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     for e, us in kernels:
-        if "sample_rows" in e.key:
+        if "sample_per" in e.key:
             print(f"sampler kernel in the pipeline: {e.key[:60]} "
                   f"{us / e.count / 1e3:.4f} ms device time per launch "
                   f"(x{e.count}); {card_name}")
@@ -546,30 +615,29 @@ def backward_vs_plain() -> dict:
     return worst
 
 
-def train_on_card(save: str, route=None) -> tuple:
+def train_on_card(save: str, route=None, n_epochs: int = 2) -> tuple:
     """The training CLI on the card, on the default route or on ``route``
-    (upsample-conv selectors, set around the run and restored); returns
-    its (fwd, d_coords, d_img) sampler launch counts, its upsample-conv
-    launch counts and the number of steps."""
+    (kernel selectors, set around the run and restored), for ``n_epochs``
+    epochs of 20 steps; returns D's kernel launch counts (see
+    ``sampler_counts``), the upsample-conv launch counts and the number of
+    steps."""
     from catgen_torch.cli import sample as sample_cli
     from catgen_torch.cli import train as train_cli
     from catgen_torch.kernels import config as upconfig
 
+    args = list(TRAIN_ARGS)
+    args[args.index("--epochs") + 1] = str(n_epochs)
     reset_counts()
     with upconfig.using(**(route or {})):
-        harness = train_cli.main(TRAIN_ARGS + ["--device", "cuda", "--save",
-                                               save])
-    counts, up = read_counts(), upsample_counts()
-    steps, vizzes = harness.state.step, 2
-    # per step: augmentation 1 + D phase 2 + G phase 2 forwards; d_coords
-    # at all 4 transformer sites; d_img at 3 (not the D phase's input ST,
-    # which samples data). Each visualization runs D twice (samples,
-    # probes), 2 forwards each, and G once in eval
-    expected = (5 * steps + 4 * vizzes, 4 * steps, 3 * steps)
-    print(f"training CLI: {steps} steps; kernel launches (fwd, d_coords, "
-          f"d_img) {counts}, expected {expected}: per step "
-          f"{(counts[0] - 4 * vizzes) / steps:g} / {counts[1] / steps:g} / "
-          f"{counts[2] / steps:g}")
+        harness = train_cli.main(args + ["--device", "cuda", "--save", save])
+    counts, up = sampler_counts(), upsample_counts()
+    steps, vizzes = harness.state.step, n_epochs
+    # each visualization runs D twice (samples, probes) and G once in eval
+    expected = expected_sampler(route, steps, 2 * vizzes)
+    shown = {k: v for k, v in counts.items() if v or expected[k]}
+    print(f"training CLI: {steps} steps, {vizzes} visualizations; D's "
+          f"kernel launches {shown}, expected "
+          f"{ {k: expected[k] for k in shown} }")
     require(counts == expected, "the training path's kernel launches")
     want_up = expected_upsample(route, steps, vizzes)
     print(f"upsample-conv launches {up}, expected {want_up}")
@@ -582,10 +650,11 @@ def train_on_card(save: str, route=None) -> tuple:
               f"{e['loss_g']:.5f} acc_d {e['acc_d']:.4f} "
               f"{e['imgs_per_sec']} imgs/s (CLI clock, first epoch "
               f"includes warm-up)")
-    require(len(epochs) == 2, f"{len(epochs)} epoch lines, not 2")
+    require(len(epochs) == vizzes, f"{len(epochs)} epoch lines, not "
+            f"{vizzes}")
     require(all(math.isfinite(e[k]) for e in epochs
                 for k in ("loss_d", "loss_g")), "non-finite losses")
-    for epoch in (1, 2):
+    for epoch in range(1, vizzes + 1):
         for d in ("images", "images_good", "images_bad", "images_real"):
             path = os.path.join(save, d, f"epoch_{epoch:06d}.png")
             require(os.path.getsize(path) > 0, f"missing grid {path}")
@@ -702,10 +771,14 @@ def step_card_vs_cpu(route=None) -> dict:
         if dev == "cpu":
             recorded = draws
         else:
-            up = upsample_counts()
-            print(f"upsample-conv launches on the card: {up}")
+            up, d_counts = upsample_counts(), sampler_counts()
+            print(f"launches on the card: upsample-conv {up}; D's kernels "
+                  f"{ {k: v for k, v in d_counts.items() if v} }")
             require(up == expected_upsample(route, 1, 0),
                     "the step's upsample-conv launches")
+            require(d_counts == expected_sampler(route, 1, 0),
+                    f"the step's D kernel launches, expected "
+                    f"{expected_sampler(route, 1, 0)}")
         out[dev] = (m, grads, {**{f"g.{k}": v.cpu() for k, v in
                                   gd.state_dict().items()},
                                **{f"d.{k}": v.cpu() for k, v in
@@ -751,7 +824,8 @@ def step_card_vs_cpu(route=None) -> dict:
           f"{PARAM_FLIP_SHARE:g} of them, each <= {PARAM_FLIP_MAX})")
     require(worst <= PARAM_FLIP_MAX, "parameters differ by more than 2*lr")
     require(beyond <= PARAM_FLIP_SHARE * n, "too many parameters differ")
-    return {"grad_rel": worst_grad, "param_abs": worst}
+    return {"grad_rel": worst_grad, "param_abs": worst,
+            "launches": d_counts}
 
 
 def train_times(card_name: str) -> dict:
@@ -903,7 +977,7 @@ def train_times(card_name: str) -> dict:
     for e, us in sorted(kernels, key=lambda k: -k[1])[:15]:
         print(f"  {us / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     for e, us in kernels:
-        if "sample_rows" in e.key or "dcoords" in e.key or "dimg" in e.key:
+        if "sample_per" in e.key or "dcoords" in e.key or "dimg" in e.key:
             print(f"sampler kernel in the step: {e.key[:70]} "
                   f"{us / e.count / 1e3:.4f} ms device time per launch "
                   f"(x{e.count}); {card_name}")
@@ -1068,31 +1142,35 @@ def upsample_vs_plain() -> dict:
     return worst
 
 
-def slice_on_ladder(save: str, default: dict) -> dict:
-    """The sampling CLI on the ladder route, 1024 samples from the same
-    checkpoint and seed as phase 5: 3 block launches per G batch of 256,
-    no backward, the sampler as in phase 5; images and D scores equal to
-    phase 5's default-route run within SLICE_ATOL."""
+def slice_on_route(save: str, name: str, route: dict, default: dict):
+    """The sampling CLI on ``route``, 1024 samples from the same checkpoint
+    and seed as phase 5: the launches the design gives (ladder: 3 block
+    launches per G batch of 256; D's routes: ``expected_sampler``), no
+    backward; images and D scores equal to phase 5's default-route run
+    within SLICE_ATOL. Returns (D's kernel launches, upsample-conv
+    launches)."""
     from catgen_torch.kernels import config as upconfig
 
     reset_counts()
-    with upconfig.using(**LADDER):
-        result = run_cli(save, "cuda", COUNT, os.path.join(save, "ladder"))
-    counts, up = read_counts(), upsample_counts()
-    want = expected_upsample(LADDER, 0, COUNT // 256)
-    print(f"ladder route: upsample-conv launches {up}, expected {want}; "
-          f"sampler launches {counts}")
-    require(up == want, "the ladder route's launches while sampling")
-    require(counts == (2 * COUNT // 256, 0, 0), "sampler launches")
+    with upconfig.using(**route):
+        result = run_cli(save, "cuda", COUNT, os.path.join(save, name))
+    counts, up = sampler_counts(), upsample_counts()
+    want, want_d = (expected_upsample(route, 0, COUNT // 256),
+                    expected_sampler(route, 0, COUNT // 256))
+    print(f"{name} route: upsample-conv launches {up}, expected {want}; D's "
+          f"kernel launches { {k: v for k, v in counts.items() if v} }, "
+          f"expected { {k: v for k, v in want_d.items() if v} }")
+    require(up == want, f"the {name} route's launches while sampling")
+    require(counts == want_d, f"the {name} route's D kernel launches")
     check_finite(result)
     img_err = (result["images"] - default["images"]).abs().max().item()
     score_err = (result["scores"] - default["scores"]).abs().max().item()
-    print(f"ladder route against the default route: images max_abs_err "
+    print(f"{name} route against the default route: images max_abs_err "
           f"{img_err:.3e}, D scores {score_err:.3e} (tolerance "
           f"{SLICE_ATOL})")
     require(img_err <= SLICE_ATOL and score_err <= SLICE_ATOL,
-            "the ladder route's samples differ from the default route's")
-    return up
+            f"the {name} route's samples differ from the default route's")
+    return counts, up
 
 
 def per_layer_steps() -> dict:
@@ -1278,8 +1356,9 @@ def route_train_times(card_name: str, name: str, route) -> dict:
         print(f"  {us / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
     device_ms = {}
     for e, us in kernels:
-        if "upsample_conv" in e.key or "sum_rows" in e.key:
-            print(f"  upsample-conv kernel in the step: {e.key[:90]} "
+        if any(k in e.key for k in ("upsample_conv", "sum_rows", "st_conv",
+                                    "Layout>")):
+            print(f"  port kernel in the step: {e.key[:90]} "
                   f"x{e.count}, {us / 1e3:.4f} ms in all, "
                   f"{us / e.count / 1e3:.4f} ms per launch; {card_name}")
             device_ms[e.key] = (us / 1e3, e.count)
@@ -1287,12 +1366,271 @@ def route_train_times(card_name: str, name: str, route) -> dict:
     return out
 
 
-def device_step_ms(times: dict, pattern: str):
+def device_step_ms(times: dict, pattern):
     """Device ms per step of the kernel whose profiler name holds
-    ``pattern`` (its three stage launches together), or None."""
+    ``pattern`` (a string, or a tuple of strings that must all appear; its
+    launches at every shape together), or None."""
+    patterns = (pattern,) if isinstance(pattern, str) else pattern
     hits = [ms for key, (ms, _) in times.get("device_ms", {}).items()
-            if pattern in key]
+            if all(p in key for p in patterns)]
     return sum(hits) if hits else None
+
+
+# ---------------------------------------------------------------------------
+# D's fused prefix and the grid-layout sampler (phases 17-20)
+# ---------------------------------------------------------------------------
+
+ST_SHAPES = [              # D32_st3's prefix (N, H, W, C, F): train, sample
+    (TRAIN_B, 32, 32, 3, 64), (N_SAMPLER, 32, 32, 3, 64)]
+# ST-conv kernel against plain: out and z are 27-term sums in another
+# order, from coordinates that may differ from the plain matmul's in the
+# last bit (1e-5 of the largest plain value); samp is a lerp of values in
+# [0, 1] (1e-5 absolute)
+ST_TOL = 1e-5
+
+
+def st_inputs(shape, seed: int, channelwise: bool) -> tuple:
+    """(img, theta, kernel, bias, alpha) on the card: rotations of up to
+    +-17 degrees, scales 0.85-1.15 and shifts that take samples past the
+    edges, as D's input transformer makes them."""
+    import torch
+
+    n, h, w, c, f = shape
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def rand(*size):
+        return torch.rand(size, generator=gen, device="cuda")
+
+    ang, scale = (rand(n) - 0.5) * 0.6, 0.85 + 0.3 * rand(n)
+    cos, sin = torch.cos(ang) * scale, torch.sin(ang) * scale
+    ty, tx = (rand(n) - 0.5) * 0.3, (rand(n) - 0.5) * 0.3
+    theta = torch.stack([torch.stack([cos, -sin, ty], -1),
+                         torch.stack([sin, cos, tx], -1)], 1).contiguous()
+    return (rand(n, h, w, c), theta,
+            torch.randn((3, 3, c, f), generator=gen, device="cuda") * 0.3,
+            torch.randn((f,), generator=gen, device="cuda") * 0.1,
+            rand(f if channelwise else 1) * 0.5)
+
+
+def st_conv_vs_plain() -> dict:
+    """The ST-conv kernel against its plain version at D32_st3's prefix,
+    N=640 and 256, with a shared and a per-channel slope: out, samp and z;
+    every launch twice, bit-identical; without samp and z (the sampling
+    path) the same out. Returns the largest errors."""
+    import torch
+    from catgen_torch.kernels import st_conv
+
+    worst = {"out": 0.0, "out_rel": 0.0, "samp": 0.0, "z_rel": 0.0}
+    for i, shape in enumerate(ST_SHAPES):
+        for channelwise in (False, True):
+            args = st_inputs(shape, 100 + i, channelwise)
+            got, again = st_conv.launch(*args), st_conv.launch(*args)
+            light = st_conv.launch(*args, save=False)
+            torch.cuda.synchronize()
+            want = st_conv._forward_plain(*args)
+            for name, a, a2, p in zip(("out", "samp", "z"), got, again,
+                                      want):
+                err = (a - p).abs().max().item()
+                top = p.abs().max().item()
+                tol = ST_TOL if name == "samp" else ST_TOL * top
+                same = torch.equal(a, a2)
+                print(f"st_conv {shape} {'per-channel' if channelwise else 'shared'}"
+                      f" slope, {name}: max_abs_err {err:.3e} (tolerance "
+                      f"{tol:.3e}; max |plain| {top:.4f}); repeat "
+                      f"bit-identical: {same}")
+                require(err <= tol, f"st_conv {name} disagrees at {shape}")
+                require(same, f"st_conv {name} not deterministic at {shape}")
+                if name == "samp":
+                    worst["samp"] = max(worst["samp"], err)
+                else:
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    worst[f"{name}_rel"] = max(worst[f"{name}_rel"],
+                                               err / top)
+            require(light[1] is None and light[2] is None
+                    and torch.equal(light[0], got[0]),
+                    "the kernel without samp and z gives another out")
+    return worst
+
+
+def grid_vs_plain() -> dict:
+    """The grid-layout sampler kernels against their plain versions at the
+    training shapes: forward (KERNEL_TOL), d_coords and d_img (BWD_ATOL +
+    BWD_RTOL x max |plain|); repeats bit-identical. Returns the largest
+    absolute error of each."""
+    import torch
+    from catgen_torch.kernels import bilinear_grid as bg
+
+    worst = {"fwd": 0.0, "dcoords": 0.0, "dimg": 0.0}
+    for i, shape in enumerate(TRAIN_SHAPES):
+        img, rows, (ho, wo) = sampler_inputs(shape, seed=110 + i)
+        grid = rows.permute(0, 2, 1).reshape(shape[0], ho, wo, 2).contiguous()
+        g = (torch.rand((shape[0], ho, wo, shape[3]), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(i))
+             * 2 - 1)
+        runs = [(bg.launch(img, grid), bg.launch_dcoords(img, grid, g),
+                 bg.launch_dimg(img, grid, g)) for _ in range(2)]
+        torch.cuda.synchronize()
+        want = (bg.bilinear_sample_grid_plain(img, grid),
+                *bg.bilinear_sample_grid_backward_plain(img, grid, g)[::-1])
+        for name, a, a2, p in zip(("fwd", "dcoords", "dimg"), *runs, want):
+            err = (a - p).abs().max().item()
+            tol = (KERNEL_TOL if name == "fwd"
+                   else BWD_ATOL + BWD_RTOL * p.abs().max().item())
+            same = torch.equal(a, a2)
+            print(f"grid {name} {shape}: max_abs_err {err:.3e} (tolerance "
+                  f"{tol:.3e}); repeat bit-identical: {same}")
+            require(a.shape == p.shape, f"grid {name} shape")
+            require(err <= tol, f"grid {name} disagrees at {shape}")
+            require(same, f"grid {name} not deterministic at {shape}")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def generation_steps() -> dict:
+    """One train step at batch 64 on the default route and on the v2 and
+    v3 grid routes, from the same weights and draws: each route's launches
+    as designed, losses equal to the default route's (the kernels compute
+    the same f32 arithmetic). Returns the launches of each."""
+    import copy
+
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as kconfig
+    from catgen_torch.train import gan
+
+    device = torch.device("cuda")
+    config = gan.GanConfig(batch_size=64, augment=True)
+    g, d = seeded_pair(8, G_GAIN, D_GAIN)
+    g, d = g.to(device), d.to(device)
+    reals = torch.rand((32, 32, 32, 3), device=device,
+                       generator=torch.Generator(device).manual_seed(2))
+    out = {}
+    for name, route in (("default", None), ("v2", GRID["v2"]),
+                        ("v3", GRID["v3"])):
+        gs, ds = copy.deepcopy(g), copy.deepcopy(d)
+        state = gan.init_state(gs, ds, config)
+        reset_counts()
+        with kconfig.using(**(route or {})):
+            m = gan.make_train_step(gs, ds, config)(
+                state, reals, Draws(torch.Generator(device).manual_seed(3)))
+            torch.cuda.synchronize()
+        counts, want = sampler_counts(), expected_sampler(route, 1, 0)
+        losses = (float(m.loss_d), float(m.loss_g))
+        print(f"train step ({name}): losses {losses}; D's kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        require(counts == want, f"{name} route's launches, expected {want}")
+        require(all(math.isfinite(v) for v in losses), "non-finite losses")
+        out[name] = (counts, losses)
+    for name in ("v2", "v3"):
+        for a, b in zip(out[name][1], out["default"][1]):
+            require(abs(a - b) <= 1e-5 * abs(b),
+                    f"{name} losses differ from the default route's: "
+                    f"{out[name][1]} vs {out['default'][1]}")
+    return {k: v[0] for k, v in out.items()}
+
+
+def st_conv_times(card_name: str) -> dict:
+    """At D32_st3's prefix: the ST-conv kernel as the training path runs it
+    (writing samp and z) at B=640 and as the sampling path runs it (out
+    alone) at N=256, its plain version, the split route the default path
+    runs (the v4 sampler kernel, cuDNN's conv2d and the PReLU; no single
+    PyTorch call computes the function), and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch.kernels import bilinear, st_conv
+
+    out = {}
+    for shape, save in ((ST_SHAPES[0], True), (ST_SHAPES[1], False)):
+        n, h, w, c, f = shape
+        args = st_inputs(shape, 120, False)
+        img, theta, kernel, bias, alpha = args
+
+        def split(img=img, theta=theta, kernel=kernel, bias=bias,
+                  alpha=alpha, h=h, w=w):
+            rows = bilinear.affine_grid_rows(theta, h, w)
+            sampled = bilinear.launch(img, rows, (h, w))
+            z = F.conv2d(sampled.permute(0, 3, 1, 2),
+                         kernel.permute(3, 2, 0, 1), bias,
+                         padding=1).permute(0, 2, 3, 1)
+            return torch.where(z >= 0, z, alpha * z)
+
+        kern = (lambda args=args, save=save:
+                st_conv.launch(*args, save=save))
+        plain = lambda args=args: st_conv._forward_plain(*args)  # noqa: E731
+        p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
+        k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+        lib = cuda_ms(split, inner=10)
+        px = n * h * w
+        nbytes = 4 * (px * c + n * 6 + 9 * c * f + 2 * f + px * f
+                      + (px * (c + f) if save else 0))
+        ops = 2.0 * 9 * c * f * px + 8.0 * c * px
+        b_ms, b_by = bound(ops, nbytes)
+        row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                   bound_ms=b_ms, bound_by=b_by)
+        out["train" if save else "sample"] = row
+        print(f"st_conv {shape} ({'samp and z written' if save else 'out alone'}):"
+              f" kernel {row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, split route (v4 kernel + cuDNN "
+              f"conv2d + PReLU) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+              f"{nbytes / row['ms'] / 1e6:.1f} GB/s (CUDA events, median of "
+              f"20 timings of 10 back-to-back calls, order plain-kernel-"
+              f"kernel-plain-split); {card_name}")
+    return out
+
+
+def grid_times(card_name: str) -> dict:
+    """The grid-layout sampler kernels against their plain versions and
+    PyTorch's grid_sample and its backward (align_corners, border; NCHW
+    input), at the training shapes, as phase 10 times the rows kernels."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch.kernels import bilinear_grid as bg
+
+    out = {}
+    for key in ("fwd", "dcoords", "dimg"):
+        out[key], out[f"{key}_plain"], out[f"{key}_library"] = [], [], []
+    for i, shape in enumerate(TRAIN_SHAPES):
+        n, h, w, c, ho, wo = shape
+        img, rows, _ = sampler_inputs(shape, seed=130 + i)
+        grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
+        gcot = torch.rand((n, ho, wo, c), device="cuda")
+        inp = img.permute(0, 3, 1, 2).contiguous()
+        gn = gcot.permute(0, 3, 1, 2).contiguous()
+        xy = grid.flip(-1).contiguous()           # grid_sample takes (x, y)
+
+        def grid_bwd(mask, gn=gn, inp=inp, xy=xy):
+            return torch.ops.aten.grid_sampler_2d_backward(
+                gn, inp, xy, 0, 1, True, mask)
+
+        pairs = {
+            "fwd": (lambda: bg.launch(img, grid),
+                    lambda: bg.bilinear_sample_grid_plain(img, grid),
+                    lambda: F.grid_sample(inp, xy, mode="bilinear",
+                                          padding_mode="border",
+                                          align_corners=True)),
+            "dcoords": (lambda: bg.launch_dcoords(img, grid, gcot),
+                        lambda: bg.bilinear_sample_grid_backward_plain(
+                            img, grid, gcot, need_img=False),
+                        lambda: grid_bwd([False, True])),
+            "dimg": (lambda: bg.launch_dimg(img, grid, gcot),
+                     lambda: bg.bilinear_sample_grid_backward_plain(
+                         img, grid, gcot, need_coords=False),
+                     lambda: grid_bwd([True, False])),
+        }
+        for name, (kern, plain, library) in pairs.items():
+            p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
+            k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+            lib = cuda_ms(library, inner=10)
+            out[name].append(min(k1, k2))
+            out[f"{name}_plain"].append(min(p1, p2))
+            out[f"{name}_library"].append(lib)
+            print(f"grid sampler {name} {shape}: kernel {min(k1, k2):.4f} "
+                  f"ms, plain {min(p1, p2):.4f} ms, grid_sample {lib:.4f} ms"
+                  f", bound {sampler_bound(name, shape)[0]:.4f} ms (CUDA "
+                  f"events, median of 20 timings of 10 back-to-back calls, "
+                  f"order plain-kernel-kernel-plain-library); {card_name}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1336,8 +1674,8 @@ def main(argv=None) -> int:
         write_checkpoint(save)      # the same seeded weights as phase 5
         phase(12, f"the sampling slice on the ladder route, {COUNT} "
                   f"samples")
-        ladder_sample = slice_on_ladder(save, sample_result)
-    del sample_result
+        _, ladder_sample = slice_on_route(save, "ladder", LADDER,
+                                          sample_result)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
         phase(13, "the training slice through the CLI on the ladder route")
         _, ladder_train, _ = train_on_card(save, LADDER)
@@ -1354,6 +1692,43 @@ def main(argv=None) -> int:
           f"{tt['step_ms']:.3f} ms, ladder route {rt['ladder']['step_ms']:.3f}"
           f" ms, per-layer route {rt['per-layer']['step_ms']:.3f} ms (same "
           f"run); {card_name}")
+    phase(17, "the ST-conv kernel against its plain version")
+    st_err = st_conv_vs_plain()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d_") as save:
+        write_checkpoint(save)      # the same seeded weights as phase 5
+        phase(18, f"D's fused-prefix route: the sampling slice, {COUNT} "
+                  f"samples")
+        fused_sample, _ = slice_on_route(save, "fused-prefix", FUSED,
+                                         sample_result)
+        phase(19, f"the grid-sampler kernels against their plain versions; "
+                  f"the v1 grid route: the sampling slice, {COUNT} samples")
+        grid_err = grid_vs_plain()
+        grid_sample, _ = slice_on_route(save, "grid-v1", GRID["v1"],
+                                        sample_result)
+    del sample_result
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d_") as save:
+        phase(18, "D's fused-prefix route: the training slice through the "
+                  "CLI, one epoch")
+        fused_train, _, _ = train_on_card(save, FUSED, n_epochs=1)
+    phase(18, "one train step on the fused-prefix route, card against CPU")
+    fused_step = step_card_vs_cpu(FUSED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_d_") as save:
+        phase(19, "the v1 grid route: the training slice through the CLI, "
+                  "one epoch")
+        grid_train, _, _ = train_on_card(save, GRID["v1"], n_epochs=1)
+    phase(19, "one train step on the v2 and v3 grid routes")
+    gen_steps = generation_steps()
+    phase(20, f"D's kernel times on the card, batch {TRAIN_B}")
+    st_t = st_conv_times(card_name)
+    gt = grid_times(card_name)
+    rd = {name: route_train_times(card_name, name, route)
+          for name, route in (("default", {}), ("fused-prefix", FUSED),
+                              ("grid-v1", GRID["v1"]))}
+    print(f"train step, batch {TRAIN_B}: default route "
+          f"{rd['default']['step_ms']:.3f} ms, fused-prefix route "
+          f"{rd['fused-prefix']['step_ms']:.3f} ms, v1 grid route "
+          f"{rd['grid-v1']['step_ms']:.3f} ms (same run, in that order); "
+          f"{card_name}")
 
     def by_shape(values, shapes=TRAIN_SHAPES):
         return dict(zip(map(str, shapes), values))
@@ -1372,9 +1747,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": ("catgen/kernels/pallas_bilinear_v4.py:799" if i == 0
                          else "catgen/kernels/pallas_bilinear_v4.py:917"),
-            "launches": train_counts[i],
+            "launches": train_counts[key],
             "launches_by_path": {"sample": sample_counts[i],
-                                 "train": train_counts[i]},
+                                 "train": train_counts[key],
+                                 "sample_fused_prefix": fused_sample[key],
+                                 "train_fused_prefix": fused_train[key]},
             "max_abs_err": err,
             "ms": sum(tt[key]), "plain_ms": sum(tt[f"{key}_plain"]),
             "bound_ms": sum(b for b, _ in bounds), "bound_by": "bytes",
@@ -1428,6 +1805,61 @@ def main(argv=None) -> int:
                                             stages),
             "bound_ms_by_shape": by_shape([r["bound_ms"] for r in rows],
                                           stages),
+        })
+    st_row, st_sample = st_t["train"], st_t["sample"]
+    kernels.append({
+        "name": "st_conv_prelu", "route": "cuda",
+        "source": "catgen_torch/csrc/st_conv.cu",
+        "replaces": "catgen/kernels/pallas_st_conv.py:154",
+        "launches": fused_train["st_conv"],
+        "launches_by_path": {
+            "sample_fused_prefix": fused_sample["st_conv"],
+            "train_fused_prefix": fused_train["st_conv"],
+            "step_card_vs_cpu": fused_step["launches"]["st_conv"]},
+        "max_abs_err": st_err["out"], "max_rel_err": st_err["out_rel"],
+        "z_max_rel_err": st_err["z_rel"], "samp_max_abs_err": st_err["samp"],
+        "ms": st_row["ms"], "plain_ms": st_row["plain_ms"],
+        "bound_ms": st_row["bound_ms"], "bound_by": st_row["bound_by"],
+        "library_ms": st_row["library_ms"],
+        "library": "split route: v4 sampler kernel + cuDNN conv2d + PReLU",
+        "device_ms_per_step": device_step_ms(rd["fused-prefix"],
+                                             "st_conv_prelu_kernel"),
+        "shape": str(ST_SHAPES[0]),
+        "sampling_path": {"shape": str(ST_SHAPES[1]), **st_sample},
+    })
+    also = {"fwd": ["catgen/kernels/pallas_bilinear_v2.py:135",
+                    "catgen/kernels/pallas_bilinear_v3.py:126"],
+            "bwd": ["catgen/kernels/pallas_bilinear_v2.py:171",
+                    "catgen/kernels/pallas_bilinear_v3.py:162"]}
+    for key, name, counter, pattern in (
+            ("fwd", "bilinear_sample_grid", "LAUNCHES", "sample_per"),
+            ("dcoords", "bilinear_sample_grid_bwd_dcoords",
+             "DCOORDS_LAUNCHES", "dcoords_per"),
+            ("dimg", "bilinear_sample_grid_bwd_dimg", "DIMG_LAUNCHES",
+             "dimg_per")):
+        bounds = [sampler_bound(key, shape) for shape in TRAIN_SHAPES]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": source_fwd if key == "fwd" else source_bwd,
+            "replaces": ("catgen/kernels/pallas_bilinear.py:72" if key == "fwd"
+                         else "catgen/kernels/pallas_bilinear.py:171"),
+            "also_replaces": also["fwd" if key == "fwd" else "bwd"],
+            "launches": grid_train[counter],
+            "launches_by_path": {
+                "sample_v1": grid_sample[counter],
+                "train_v1": grid_train[counter],
+                "step_v2": gen_steps["v2"][counter],
+                "step_v3": gen_steps["v3"][counter]},
+            "max_abs_err": grid_err[key],
+            "ms": sum(gt[key]), "plain_ms": sum(gt[f"{key}_plain"]),
+            "bound_ms": sum(b for b, _ in bounds), "bound_by": "bytes",
+            "library_ms": sum(gt[f"{key}_library"]),
+            "device_ms_per_step": device_step_ms(
+                rd["grid-v1"], (pattern, "GridLayout")),
+            "ms_by_shape": by_shape(gt[key]),
+            "plain_ms_by_shape": by_shape(gt[f"{key}_plain"]),
+            "library_ms_by_shape": by_shape(gt[f"{key}_library"]),
+            "bound_ms_by_shape": by_shape([b for b, _ in bounds]),
         })
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit

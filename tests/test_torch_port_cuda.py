@@ -1,8 +1,9 @@
 """The CUDA kernels on a card: the bilinear sampler (catgen_torch/csrc/
-bilinear_sample.cu and bilinear_sample_bwd.cu) and the upsample-conv
-kernels (upsample_conv.cu, upsample_conv_bwd.cu; at the end of the file),
-forward and backward, against their plain PyTorch versions, and the
-wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
+bilinear_sample.cu and bilinear_sample_bwd.cu) at coordinate rows, the
+upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), and, at
+the end of the file, the same sampler kernels on an (N, Ho, Wo, 2) grid
+and the fused ST-conv kernel (st_conv.cu), forward and backward, against
+their plain PyTorch versions, and the wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
 and nvcc; on a machine without a card each one skips. Run them on the
 card with
 
@@ -335,3 +336,220 @@ def test_upsample_route_selects_the_kernels(f32_cuda):
     assert fuc.launches() == dict(fuc.launches(), LAUNCHES=1, DX_LAUNCHES=1,
                                   DCK_LAUNCHES=1)
     assert sum(fuc.launches().values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# the sampler kernels on an (N, Ho, Wo, 2) grid (kernels/bilinear_grid.py):
+# the same tolerances as the rows layout above; d_coords comes back as
+# (dy, dx) pairs and equals the rows layout's bit for bit
+# ---------------------------------------------------------------------------
+
+from catgen_torch.kernels import bilinear_grid  # noqa: E402
+from catgen_torch.kernels import st_conv  # noqa: E402
+
+GRID_SHAPES = [                 # (N, H, W, C, Ho, Wo)
+    (2, 32, 32, 3, 32, 32),     # input ST
+    (2, 16, 16, 64, 48, 16),    # three branch STs, stacked
+    (3, 1, 5, 3, 4, 7),         # one row
+    (2, 7, 1, 31, 3, 3),        # one column, last per-pixel width
+    (2, 4, 4, 32, 2, 2),        # first per-value width
+    (1, 9, 11, 33, 5, 13),      # odd sizes, ragged last block
+]
+
+
+def _grid_inputs(shape, device, seed=0):
+    img, rows, (ho, wo) = _inputs(shape, device, seed)
+    grid = rows.permute(0, 2, 1).reshape(shape[0], ho, wo, 2).contiguous()
+    return img, grid
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_grid_kernels_match_plain(cuda, shape):
+    img, grid = _grid_inputs(shape, cuda)
+    g = _cotangent(shape, cuda)
+    bilinear_grid.reset_launches()
+    img.requires_grad_(True)
+    grid.requires_grad_(True)
+    out = bilinear_grid.bilinear_sample_grid(img, grid)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert bilinear_grid.launches() == dict(
+        bilinear_grid.launches(), LAUNCHES=1, DCOORDS_LAUNCHES=1,
+        DIMG_LAUNCHES=1)
+    want = bilinear_grid.bilinear_sample_grid_plain(img, grid)
+    assert out.shape == want.shape and out.is_cuda
+    assert (out - want).abs().max().item() <= ATOL
+    want_img, want_grid = bilinear_grid.bilinear_sample_grid_backward_plain(
+        img, grid, g)
+    _bwd_close(img.grad, want_img)
+    _bwd_close(grid.grad, want_grid)
+    rows = grid.detach().reshape(shape[0], -1, 2).permute(0, 2, 1)
+    d_rows = bilinear.launch_dcoords(img.detach(), rows.contiguous(), g,
+                                     shape[4:])
+    assert torch.equal(grid.grad, d_rows.permute(0, 2, 1).reshape(
+        grid.shape))
+
+
+def test_grid_kernels_are_deterministic(cuda):
+    img, grid = _grid_inputs(GRID_SHAPES[1], cuda, seed=5)
+    g = _cotangent(GRID_SHAPES[1], cuda, seed=6)
+    runs = [(bilinear_grid.launch(img, grid),
+             bilinear_grid.launch_dimg(img, grid, g),
+             bilinear_grid.launch_dcoords(img, grid, g)) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("gen, counter", [
+    ("bilinear_sample_mxu", "V1_LAUNCHES"),
+    ("bilinear_sample_sep", "V2_LAUNCHES"),
+    ("bilinear_sample_batched", "V3_LAUNCHES")])
+def test_generation_names_count_their_launches(cuda, gen, counter):
+    img, grid = _grid_inputs(GRID_SHAPES[0], cuda)
+    bilinear_grid.reset_launches()
+    out = getattr(bilinear_grid, gen)(img, grid)
+    torch.cuda.synchronize()
+    assert bilinear_grid.launches() == dict(
+        dict.fromkeys(bilinear_grid.COUNTERS, 0), LAUNCHES=1, **{counter: 1})
+    assert torch.equal(out, bilinear_grid.launch(img, grid))
+
+
+@pytest.mark.parametrize("bad", ["float64", "cpu_grid", "misaligned",
+                                 "non_contiguous"])
+def test_grid_cuda_tensors_never_fall_back(cuda, bad):
+    img, grid = _grid_inputs(GRID_SHAPES[0], cuda)
+    err = ValueError
+    if bad == "float64":
+        img, grid, err = img.double(), grid.double(), TypeError
+    elif bad == "cpu_grid":
+        grid = grid.cpu()
+    elif bad == "misaligned":
+        # one float in: each (y, x) pair would straddle 8-byte words
+        flat = torch.empty(grid.numel() + 1, device=cuda)
+        grid = flat[1:].view(grid.shape).copy_(grid)
+    else:
+        grid = grid.transpose(1, 2)
+    bilinear_grid.reset_launches()
+    with pytest.raises(err):
+        bilinear_grid.bilinear_sample_mxu(img, grid)
+    assert sum(bilinear_grid.launches().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the fused ST-conv kernel (kernels/st_conv.py). Tolerances as chip_smoke.py
+# holds it: out and z within 1e-5 of the largest plain value (27-term sums
+# in another order; a coordinate may differ from the plain matmul's in its
+# last bit), samp within 1e-5 absolute. The backward (the Function) within
+# 1e-4 of each gradient's largest: a z within rounding of 0 can take the
+# other side of the PReLU's kink, which moves dalpha, dbias and what
+# follows by that element's cotangent.
+# ---------------------------------------------------------------------------
+
+ST_SHAPES = [                   # (N, H, W, C, F)
+    (3, 32, 32, 3, 64),         # D32_st3's prefix
+    (2, 12, 16, 3, 31),         # H != W, F under a warp
+    (2, 9, 7, 3, 33),           # odd sizes, F over a warp, ragged band
+    (1, 5, 6, 1, 70),           # one channel, F over one x-block
+    (2, 8, 8, 5, 16),           # C over 4: weights from global memory
+]
+
+
+def _st_inputs(shape, device, seed=0, channelwise=False):
+    n, h, w, c, f = shape
+    r = np.random.RandomState(seed)
+    ang = r.uniform(-0.5, 0.5, n)
+    scale = r.uniform(0.8, 1.2, n)
+    cos, sin = np.cos(ang) * scale, np.sin(ang) * scale
+    theta = np.stack([np.stack([cos, -sin, r.uniform(-0.2, 0.2, n)], -1),
+                      np.stack([sin, cos, r.uniform(-0.2, 0.2, n)], -1)], 1)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32),  # noqa: E731
+                               device=device)
+    return (t(r.rand(n, h, w, c)), t(theta), t(r.randn(3, 3, c, f) * 0.3),
+            t(r.randn(f) * 0.1), t(r.rand(f if channelwise else 1) * 0.5))
+
+
+def _st_close(got, want, tol, name):
+    assert got.shape == want.shape and got.is_cuda, name
+    err = (got - want).abs().max().item()
+    assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("shape", ST_SHAPES)
+@pytest.mark.parametrize("channelwise", [False, True])
+def test_st_conv_kernel_matches_plain(f32_cuda, shape, channelwise):
+    args = _st_inputs(shape, f32_cuda, channelwise=channelwise)
+    before = st_conv.LAUNCHES
+    out, samp, z = st_conv.launch(*args)
+    light = st_conv.launch(*args, save=False)
+    torch.cuda.synchronize()
+    assert st_conv.LAUNCHES == before + 2
+    assert light[1] is None and light[2] is None
+    assert torch.equal(light[0], out)
+    want = st_conv._forward_plain(*args)
+    for name, a, b, tol in zip(("out", "samp", "z"), (out, samp, z), want,
+                               (None, 1e-5, None)):
+        _st_close(a, b.contiguous(), tol or 1e-5 * b.abs().max().item(),
+                  name)
+
+
+def test_st_conv_kernel_is_deterministic(f32_cuda):
+    args = _st_inputs(ST_SHAPES[0], f32_cuda, seed=1, channelwise=True)
+    first, again = st_conv.launch(*args), st_conv.launch(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("image_grad", [True, False])
+def test_st_conv_backward_matches_plain(f32_cuda, image_grad):
+    args = [a.requires_grad_(i > 0 or image_grad) for i, a in
+            enumerate(_st_inputs(ST_SHAPES[1], f32_cuda, seed=2,
+                                 channelwise=True))]
+    g = torch.randn((2, 12, 16, 31), device=f32_cuda,
+                    generator=torch.Generator(f32_cuda).manual_seed(3))
+    before = (bilinear.DCOORDS_LAUNCHES, bilinear.DIMG_LAUNCHES)
+    got = torch.autograd.grad(st_conv.st_conv_prelu(*args),
+                              [a for a in args if a.requires_grad], g)
+    torch.cuda.synchronize()
+    assert (bilinear.DCOORDS_LAUNCHES, bilinear.DIMG_LAUNCHES) == (
+        before[0] + 1, before[1] + image_grad)
+    want = torch.autograd.grad(st_conv.st_conv_prelu_plain(*args),
+                               [a for a in args if a.requires_grad], g)
+    for a, b in zip(got, want):
+        _st_close(a, b, 1e-4 * b.abs().max().item(), "gradient")
+
+
+@pytest.mark.parametrize("bad", ["cpu_theta", "non_contiguous", "float64"])
+def test_st_conv_cuda_tensors_never_fall_back(f32_cuda, bad):
+    img, theta, kernel, bias, alpha = _st_inputs(ST_SHAPES[1], f32_cuda)
+    err = ValueError
+    if bad == "cpu_theta":
+        theta = theta.cpu()
+    elif bad == "non_contiguous":
+        img = img.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        img, err = img.double(), TypeError
+    before = st_conv.LAUNCHES
+    with pytest.raises(err):
+        st_conv.st_conv_prelu(img, theta, kernel, bias, alpha)
+    assert st_conv.LAUNCHES == before
+
+
+def test_st_conv_route_launches_the_kernel(f32_cuda):
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.nn import layers
+    from catgen_torch.nn.spatial_transformer import (FusedSTConvPReLU,
+                                                     SpatialTransformer)
+
+    prefix = FusedSTConvPReLU(SpatialTransformer((32, 32, 3), True, False,
+                                                 False),
+                              layers.Conv(3, 64, (3, 3)), layers.PReLU())
+    reset_parameters(prefix, torch.Generator().manual_seed(0))
+    prefix = prefix.to(f32_cuda)
+    x = torch.rand((2, 32, 32, 3), device=f32_cuda)
+    before = (st_conv.LAUNCHES, bilinear.LAUNCHES)
+    split = prefix(x)
+    with upconfig.using(st_conv_impl="fused"):
+        fused = prefix(x)
+    torch.cuda.synchronize()
+    assert (st_conv.LAUNCHES, bilinear.LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert (fused - split).abs().max().item() <= \
+        1e-5 * split.abs().max().item()

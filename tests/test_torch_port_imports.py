@@ -38,10 +38,13 @@ def test_every_module_imports_with_jax_and_catgen_blocked():
 
 @pytest.mark.parametrize("module", [
     "catgen_torch.kernels.config", "catgen_torch.kernels.fused_upsample_conv",
-    "catgen_torch.kernels.upsample_conv", "catgen_torch.nn.fused"])
+    "catgen_torch.kernels.upsample_conv", "catgen_torch.nn.fused",
+    "catgen_torch.kernels.st_conv", "catgen_torch.kernels.bilinear_grid",
+    "catgen_torch.nn.spatial_transformer"])
 def test_kernel_route_modules_import_alone(module):
-    """The upsample-conv kernel route's modules, each in a fresh process
-    with jax and catgen blocked, build nothing at import (no nvcc here)."""
+    """The kernel routes' modules (upsample-conv, ST-conv, grid sampler),
+    each in a fresh process with jax and catgen blocked, build nothing at
+    import (no nvcc here)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
