@@ -24,10 +24,26 @@
 // d_coords[n, 0, p] = in_y * 0.5 (h-1) * sum_c g[p,c] (bot - top)
 // d_coords[n, 1, p] = in_x * 0.5 (w-1) * sum_c g[p,c] ((1-wy)(v01-v00)
 //                                                     + wy (v11-v10))
-// (top, bot: the x-lerps of the forward; v.. the four taps). One output
-// pixel per warp for C >= 32: lanes take channels lane, lane+32, ..., and
-// the partial sums meet in a butterfly of warp shuffles, a fixed order. One
-// thread per pixel for C < 32, summing its channels in order.
+// (top, bot: the x-lerps of the forward; v.. the four taps). The TPU kernels
+// (_bwd_kernel_dcrd, _dense_bwd_kernel_mxu_dcrd) contract one-hot weight
+// masks against the image on the matrix unit; here it is a gather, bound
+// by bytes: each output pixel reads its coordinates and C values of g, and
+// its four taps of C values come from the sample's image. Three kernels,
+// chosen by shape alone (dcoords_kind), the same way on every run:
+//   * staged, for C % 4 == 0, C >= 32 and an image that fits one block's
+//     opt-in shared memory (h w C 4 bytes: 64 KB at 16x16x64): one block
+//     per sample and range of at most 256 output pixels stages the
+//     sample's image in shared memory once (16-byte cp.async), so the 4
+//     taps of every pixel are read there, not gathered again from L2 (at
+//     the branch shape each image value is a tap of 12 outputs). g streams
+//     in as float4, 16 lanes per pixel (two pixels per warp and step), and
+//     the 16 partial sums meet in 4 butterfly rounds: a fixed order.
+//     Arrays that are not 16-byte aligned take the per-warp kernel;
+//   * per warp, for other C >= 32 (odd channel counts, a 32x32x64 image
+//     of 256 KB): lanes take channels lane, lane+32, ..., gathered from
+//     global memory, and meet in a butterfly of warp shuffles;
+//   * per pixel, for C < 32 (the input ST at C = 3), summing its channels
+//     in order.
 //
 // d_img[n, tap, c] += g[p,c] * weight(tap, p) over the output pixels p.
 // Many output pixels reach one input pixel, at positions only the
@@ -40,10 +56,9 @@
 // catgen pins same-seed steps bit-identical). Shared memory per block is
 // h*w*min(C, 32)*4 bytes: 12 KB for 32x32x3, 32 KB for 16x16x64.
 //
-// What bounds it: d_coords reads the four taps of C floats and g per pixel
-// (memory traffic, like the forward); d_img is bound by latency, not by
-// bytes: each thread runs through all P output pixels serially, with few
-// threads per SM (C < 32 leaves most lanes of the block idle). That is the
+// What bounds d_img: latency, not bytes: each thread runs through all P
+// output pixels serially, with few threads per SM (C < 32 leaves most
+// lanes of the block idle). That is the
 // simple design; splitting the pixel walk over per-warp copies summed in a
 // fixed order is the later step.
 //
@@ -140,6 +155,102 @@ __global__ void dcoords_per_pixel(const float* __restrict__ img,
   store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
 }
 
+constexpr int kStagedThreads = 512;  // 16 warps, 32 pixels per step
+constexpr int kStagedPixels = 256;   // most output pixels per block
+
+// Which d_coords kernel a shape takes (see the note at the top).
+enum DcoordsKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2 };
+
+int64_t staged_smem_bytes(int h, int w, int c) {
+  return (int64_t)h * w * c * (int64_t)sizeof(float);
+}
+
+// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
+// shared memory could not be read
+int dcoords_kind(int h, int w, int c) {
+  if (c < 32) return kPerPixel;
+  if (c % 4 != 0) return kPerWarp;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return -(int)err;
+  return staged_smem_bytes(h, w, c) <= optin ? kStaged : kPerWarp;
+}
+
+// Grid: n * per_sample blocks, the blocks of one sample adjacent; block
+// (ni, part) covers output pixels [part * span, (part + 1) * span) of
+// sample ni. img and g 16-byte aligned, c % 4 == 0; dynamic shared memory
+// h*w*c floats.
+template <class L>
+__global__ void __launch_bounds__(kStagedThreads)
+dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
+               const float* __restrict__ g, float* __restrict__ dcrd, int h,
+               int w, int c, int p, int per_sample, int span) {
+  extern __shared__ float4 simg[];   // the sample's image, (h w, c / 4)
+  const int ni = blockIdx.x / per_sample;
+  const int p0 = (blockIdx.x - ni * per_sample) * span;
+  const int p1 = min(p0 + span, p);
+  const int c4 = c >> 2, chunks = h * w * c4;
+  const float4* src =
+      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(simg + k)),
+                 "l"(src + k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // both halves of a warp run every step, so the shuffles see all lanes
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = lane & 15;
+  const int warps = blockDim.x >> 5;
+  for (int base = p0 + 2 * warp; base < p1; base += 2 * warps) {
+    const int pi = base + (lane >> 4);
+    const bool active = pi < p1;
+    float sy = 0.0f, sx = 0.0f;
+    Taps t = {};
+    if (active) {
+      const float2 yx = L::load(crd, ni, pi, p);
+      t = make_taps(yx.x, yx.y, h, w);
+      const float4* gp =
+          reinterpret_cast<const float4*>(g) + ((int64_t)ni * p + pi) * c4;
+      const int o00 = (int)t.p00 * c4, o01 = (int)t.p01 * c4;
+      const int o10 = (int)t.p10 * c4, o11 = (int)t.p11 * c4;
+      for (int k = l; k < c4; k += 16) {
+        const float4 gv = __ldg(gp + k);
+        const float4 a = simg[o00 + k], b = simg[o01 + k];
+        const float4 e = simg[o10 + k], f = simg[o11 + k];
+        const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float v00[4] = {a.x, a.y, a.z, a.w};
+        const float v01[4] = {b.x, b.y, b.z, b.w};
+        const float v10[4] = {e.x, e.y, e.z, e.w};
+        const float v11[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // tap_grad's arithmetic, channel by channel
+          const float top = v00[j] * (1.0f - t.wx) + v01[j] * t.wx;
+          const float bot = v10[j] * (1.0f - t.wx) + v11[j] * t.wx;
+          const float dy = bot - top;
+          const float dx =
+              (1.0f - t.wy) * (v01[j] - v00[j]) + t.wy * (v11[j] - v10[j]);
+          sy += gs[j] * dy;
+          sx += gs[j] * dx;
+        }
+      }
+    }
+    for (int off = 8; off > 0; off >>= 1) {   // within each half-warp
+      sy += __shfl_xor_sync(0xffffffffu, sy, off);
+      sx += __shfl_xor_sync(0xffffffffu, sx, off);
+    }
+    if (active && l == 0) store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
+  }
+}
+
 constexpr int kSlab = 32;  // channels per d_img block
 
 // Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
@@ -182,7 +293,22 @@ int launch_dcoords(const float* img, const float* crd, const float* g,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)n * p;
   if (pixels == 0) return 0;
-  if (c >= 32) {
+  int kind = dcoords_kind(h, w, c);
+  if (kind < 0) return -kind;
+  const bool aligned = ((uintptr_t)img & 15u) == 0 &&
+                       ((uintptr_t)g & 15u) == 0;
+  if (kind == kStaged && !aligned) kind = kPerWarp;
+  if (kind == kStaged) {
+    const int smem = (int)staged_smem_bytes(h, w, c);
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcoords_staged<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per_sample = (p + kStagedPixels - 1) / kStagedPixels;
+    const int span = (p + per_sample - 1) / per_sample;
+    dcoords_staged<L><<<(unsigned)((int64_t)n * per_sample), kStagedThreads,
+                        smem, s>>>(img, crd, g, dcrd, h, w, c, p, per_sample,
+                                   span);
+  } else if (kind == kPerWarp) {
     const unsigned blocks = (unsigned)((pixels * 32 + threads - 1) / threads);
     dcoords_per_warp<L><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
                                                     w, c, p);
@@ -241,6 +367,12 @@ extern "C" int catgen_bilinear_grid_dcoords_f32(const float* img,
                                                 int n, int h, int w, int c,
                                                 int p, void* stream) {
   return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
+}
+
+// Which d_coords kernel (h, w, c) takes with 16-byte aligned arrays: 0 per
+// pixel, 1 per warp, 2 staged; a negative cudaError_t on failure.
+extern "C" int catgen_bilinear_dcoords_kind(int h, int w, int c) {
+  return dcoords_kind(h, w, c);
 }
 
 // The shared memory one d_img block needs, in bytes.

@@ -30,8 +30,55 @@
 // second kernel adds the splits in a fixed order. No atomics anywhere, so
 // two calls on the same inputs give the same bits.
 //
-// What bounds them: f32 arithmetic, as the forward (each is one forward's
-// MACs); the same 64 x 64 tiles and 4 x 4 register blocks.
+// dX: f32 on the CUDA cores, as the forward (64 x 64 tiles, 4 x 4
+// register blocks; upsample_conv_tile.cuh).
+//
+// dCK (upsample_conv_dck below) replaces _dw_kernel and the dCK part of
+// _fused_block_bwd_kernel. The TPU kernel holds a block of x in VMEM and
+// slices it for every parity and tap against one plane of g, so each
+// byte comes from HBM once. Here one block owns one (parity, tap, 128 cin
+// x 128 cout) tile and one pixel range; the blocks that share a range run
+// in the same wave (the grid's fastest index is the tap, then the cout
+// and cin tiles), so the taps' and tiles' re-reads of x and g hit L2.
+//
+// What bounds dCK: multiply-adds. f32 on the CUDA cores gives 67 TFLOP/s,
+// and cuDNN's f32 wgrad comes within ~88% of that. The tensor cores run
+// TF32 at 495 TFLOP/s, but TF32 keeps 10 mantissa bits (one TF32 product
+// misses the 1e-4 bound on dW), so the kernel runs 3xTF32: each f32
+// operand is split in registers into hi = cvt.rna.tf32(a) and lo =
+// cvt.rna.tf32(a - hi), and lo*hi + hi*lo + hi*hi (CUTLASS's order) is
+// accumulated in f32 by mma.sync.m16n8k8 TF32: three tensor-core products
+// per f32 product, a bound of 3 * 2 * MACs / 495e12 s. lo*lo and the
+// rounding of lo leave ~2^-22 of each product. The tensor cores add into
+// their accumulators with truncation, whose bias grows with the length
+// of the sum, so each 32-pixel step starts fresh accumulators and the
+// steps are added in f32, rounding to nearest.
+//
+// The design, against that bound:
+//   * mma.sync, where each thread loads its own fragment elements from
+//     shared memory, so the split (and the transform and fold) happen
+//     wherever the data is, whatever its layout. wgmma reads TF32
+//     operands K-major from shared memory, and the contraction here runs
+//     over pixels while x and g are pixel-major: each stage would need a
+//     transposing, swizzled conversion pass first. That is the next step
+//     if this kernel stays above cuDNN.
+//   * a ring of kStages stages in dynamic shared memory, filled by 16-byte
+//     cp.async copies that zero-fill rows outside the image or the range;
+//     the product of one 32-pixel step overlaps the copies of the next
+//     three, with one __syncthreads per step. Channel counts that are not
+//     multiples of 4, or unaligned arrays, take 4-byte copies per element
+//     (kVec = false), in the same kernel.
+//   * each thread copies four consecutive pixel rows of one 4-channel
+//     column of each tile; the rows' (n, i, j) advance by increments (no
+//     division in the loop) and address by 32-bit pixel indices.
+//   * the input transform and the cotangent fold run once per staged
+//     element, by the thread that copied it, as soon as its copies land,
+//     with the channel constants in registers. The rows' masks go with
+//     them: a halo pixel is 0 after the transform (prelu(shift) is not 0)
+//     and a row past the range folds to 0.
+//   * 8 warps of 64 x 32 (4 x 4 fragments of m16n8); the block's partial
+//     is stored once; splits, partials and sum_rows keep it deterministic,
+//     and the fold's bias sums go the same way (db_partial).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,92 +192,388 @@ upsample_conv_dx(const float* __restrict__ g, Fold fold,
   }
 }
 
-// x (n, h, w, cin) (+ transform); g (n, 2h, 2w, cout) (+ fold). Grid:
-// (cout tiles, kh kw x cin tiles, 4 parities x splits); split sp covers
-// pixels [sp * chunk, (sp + 1) * chunk). partial (splits, 4, kh, kw, cin,
-// cout). With kFold, the blocks of cin tile 0 at tap 0 also write the
-// column sums of g over their pixels to db_partial (splits * 4, cout).
-template <bool kFold, bool kTransform>
-__global__ void __launch_bounds__(kThreads)
+namespace dck {
+
+constexpr int kTileCin = 128;    // tile rows: input channels
+constexpr int kTileCout = 128;   // tile columns: output channels
+constexpr int kStep = 32;        // pixels per stage
+constexpr int kStages = 4;       // cp.async ring depth
+constexpr int kDckThreads = 256; // 8 warps: 2 (cin) x 4 (cout), 64 x 32 each
+constexpr int kLd = kTileCin + 8;  // row stride in floats; 136 = 8 (mod 32
+                                   // banks): conflict-free fragment loads
+constexpr int kRows = 4;         // pixel rows each thread copies per stage
+static_assert(kTileCin == kTileCout, "one loader layout serves x and g");
+static_assert(kStep * kTileCin / 4 == kDckThreads * kRows, "loaders");
+static_assert(kStages * 8 <= 32, "row masks of all stages in one word");
+
+__host__ __device__ constexpr int stage_floats(bool fold) {
+  return (fold ? 3 : 2) * kStep * kLd;   // x, g (and the fold's y) tiles
+}
+
+// Dynamic shared memory: the ring, then the tile's channel constants
+// (scale, shift, alpha of cin; gs1, gs2 of cout)
+__host__ __device__ constexpr int smem_floats(bool fold) {
+  return kStages * stage_floats(fold) + 5 * kTileCin;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// src_bytes < size zero-fills the rest (0: the whole chunk)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// hi = rna(a), lo = rna(a - hi), both TF32 bit patterns
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                          uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  const float rest = a - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// d += a * b: one m16n8k8 TF32 product, f32 accumulators (not volatile:
+// the compiler may interleave the products with the loads)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b: the same product into fresh accumulators
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// A pixel (n, i, j) of the (n, h, w) grid, and a step of s pixels split as
+// s = dn h w + di w + dj with di < h, dj < w, so one carry per axis.
+struct Pix {
+  int n, i, j;
+};
+struct Step {
+  int dn, di, dj;
+};
+
+__device__ __forceinline__ Step make_step(int s, int h, int w) {
+  const int hw = h * w;
+  const int r = s % hw;
+  return {s / hw, r / w, r % w};
+}
+
+__device__ __forceinline__ void advance(Pix& p, const Step& s, int h, int w) {
+  p.j += s.dj;
+  if (p.j >= w) { p.j -= w; ++p.i; }
+  p.i += s.di;
+  if (p.i >= h) { p.i -= h; ++p.n; }
+  p.n += s.dn;
+}
+
+// Copies four channels (one 16-byte chunk, or 4 single floats) of a row
+template <bool kVec>
+__device__ __forceinline__ void copy_chunk(float* dst, const float* base,
+                                           int64_t off, bool row_ok, int c,
+                                           int count) {
+  if (kVec) {
+    const bool ok = row_ok && c < count;
+    cp_async16(dst, ok ? base + off : base, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = row_ok && c + q < count;
+      cp_async4(dst + q, ok ? base + off + q : base, ok ? 4 : 0);
+    }
+  }
+}
+
+}  // namespace dck
+
+// x (n, h, w, cin) (+ transform); g (n, 2h, 2w, cout) (+ fold, y the
+// same). One block per (tap, cout tile, cin tile, parity, split), in that
+// order from fastest to slowest in blockIdx.x; split sp covers pixels
+// [sp * chunk, (sp + 1) * chunk). partial (splits, 4, kh, kw, cin, cout).
+// With kFold, the blocks of cin tile 0 at tap 0 also write the column
+// sums of the folded g over their pixels to db_partial (splits * 4,
+// cout). Dynamic shared memory: smem_floats(kFold) floats.
+template <bool kFold, bool kTransform, bool kVec>
+__global__ void __launch_bounds__(dck::kDckThreads, 1)
 upsample_conv_dck(const float* __restrict__ x, Transform tr,
                   const float* __restrict__ g, Fold fold,
                   float* __restrict__ partial,
-                  float* __restrict__ db_partial, Geometry gm,
-                  int64_t chunk) {
-  __shared__ Tiles s;
-  __shared__ float red[16][kBN];
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int p = blockIdx.z & 3, sp = blockIdx.z >> 2;
+                  float* __restrict__ db_partial, Geometry gm, int chunk) {
+  using namespace dck;
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x;
+  const int taps = gm.kh * gm.kw;
+  const int co_tiles = (int)ceil_div(gm.cout, kTileCout);
+  const int ci_tiles = (int)ceil_div(gm.cin, kTileCin);
+  int b = blockIdx.x;
+  const int tap = b % taps;
+  b /= taps;
+  const int co0 = (b % co_tiles) * kTileCout;
+  b /= co_tiles;
+  const int ci_tile = b % ci_tiles;
+  const int ci0 = ci_tile * kTileCin;
+  b /= ci_tiles;
+  const int p = b & 3, sp = b >> 2;
   const int d = p >> 1, e = p & 1;
-  const int ctiles = (int)ceil_div(gm.cin, kBM);
-  const int tap = blockIdx.y / ctiles;
-  const int c0 = (blockIdx.y - tap * ctiles) * kBM;
   const int u = tap / gm.kw, v = tap - u * gm.kw;
-  const int n0 = blockIdx.x * kBN;
-  const int64_t hw = (int64_t)gm.h * gm.w, m_total = (int64_t)gm.n * hw;
-  const int64_t kb0 = (int64_t)sp * chunk;
-  const int64_t kb1 = kb0 + chunk < m_total ? kb0 + chunk : m_total;
-  const bool bias_block = kFold && blockIdx.y == 0;
+  const int sh = gm.umin_h[d] + u, sw = gm.umin_w[e] + v;
+  const int pixels = gm.n * gm.h * gm.w;
+  const int kb0 = sp * chunk;
+  const int kb1 = min(kb0 + chunk, pixels);
+  const int steps = kb1 > kb0 ? (kb1 - kb0 + kStep - 1) / kStep : 0;
+  const bool bias_block = kFold && tap == 0 && ci_tile == 0;
+  constexpr bool kFix = kTransform || kFold;   // a pass over staged data
 
-  // both loaders: one pixel of the step, four consecutive channels
-  const int lk = t >> 4, l4 = (t & 15) * 4;
-  float acc[4][4] = {};
-  float db[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t kb = kb0; kb < kb1; kb += kBK) {
-    const int64_t m = kb + lk;
-    const bool valid = m < kb1;
-    int nn = 0, i = 0, j = 0;
-    if (valid) {
-      nn = (int)(m / hw);
-      const int r = (int)(m - (int64_t)nn * hw);
-      i = r / gm.w;
-      j = r - i * gm.w;
-    }
-    const int si = i + gm.umin_h[d] + u, sj = j + gm.umin_w[e] + v;
-    const bool inb = valid && si >= 0 && si < gm.h && sj >= 0 && sj < gm.w;
-    const int64_t xoff =
-        inb ? (((int64_t)nn * gm.h + si) * gm.w + sj) * gm.cin : 0;
-    const int64_t goff =
-        valid ? (((int64_t)nn * 2 * gm.h + 2 * i + d) * 2 * gm.w + 2 * j +
-                 e) * gm.cout
-              : 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + l4 + q;
-      s.a[lk][l4 + q] = (inb && c < gm.cin)
-                            ? load_x<kTransform>(x + xoff + c, tr, c)
-                            : 0.0f;
-      const int co = n0 + l4 + q;
-      const float gv =
-          (valid && co < gm.cout) ? load_g<kFold>(g, fold, goff + co, co)
-                                  : 0.0f;
-      s.b[lk][l4 + q] = gv;
-      if (bias_block) db[q] += gv;
-    }
-    __syncthreads();
-    mma_tile(s, acc, ty, tx);
-    __syncthreads();
+  // the loader's share: rows rg*4 .. rg*4+3 of every stage, channels
+  // 4q .. 4q+3 of both tiles (a warp copies 512 contiguous bytes a row)
+  const int q = t & 31, rg = t >> 5;
+  const int cx = ci0 + 4 * q, cg = co0 + 4 * q;
+  Step one = {}, stride = {};
+  Pix next = {};                    // row rg*4 of the next stage to load
+  if (steps > 0) {                  // (an empty image has no h w to divide)
+    const int m = kb0 + rg * kRows, hw = gm.h * gm.w;
+    one = make_step(1, gm.h, gm.w);
+    stride = make_step(kStep, gm.h, gm.w);
+    next.n = m / hw;
+    next.i = (m - next.n * hw) / gm.w;
+    next.j = m - next.n * hw - next.i * gm.w;
   }
+  uint32_t masks = 0;               // per stage: 4 x-row bits, 4 g-row bits
 
-  float* out = partial +
-               ((((int64_t)sp * 4 + p) * gm.kh + u) * gm.kw + v) * gm.cin *
-                   gm.cout;
+  // the tile's per-channel constants, in shared memory (registers go to
+  // the accumulators); 0 past the last channel
+  float* consts = smem + kStages * stage_floats(kFold);
+  if (kFix && t < kTileCin) {
+    const bool okx = kTransform && ci0 + t < gm.cin;
+    consts[t] = okx ? __ldg(tr.scale + ci0 + t) : 0.0f;
+    consts[kTileCin + t] = okx ? __ldg(tr.shift + ci0 + t) : 0.0f;
+    consts[2 * kTileCin + t] = okx ? __ldg(tr.alpha + ci0 + t) : 0.0f;
+    const bool okg = kFold && co0 + t < gm.cout;
+    consts[3 * kTileCin + t] = okg ? __ldg(fold.gs + co0 + t) : 0.0f;
+    consts[4 * kTileCin + t] =
+        okg ? __ldg(fold.gs + gm.cout + co0 + t) : 0.0f;
+  }
+  if (kFix) __syncthreads();
+  float db[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  auto load_stage = [&](int kt) {
+    const int slot = kt % kStages;
+    float* sx = smem + slot * stage_floats(kFold);
+    float* sg = sx + kStep * kLd;
+    Pix pr = next;
+    int m = kb0 + kt * kStep + rg * kRows;
+    uint32_t bits = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= gm.cin) continue;
+    for (int r = 0; r < kRows; ++r) {
+      const int row = rg * kRows + r;
+      const bool valid = m < kb1;
+      const int si = pr.i + sh, sj = pr.j + sw;
+      const bool inb = valid && si >= 0 && si < gm.h && sj >= 0 && sj < gm.w;
+      const int xpix = (pr.n * gm.h + si) * gm.w + sj;
+      const int gpix =
+          (pr.n * 2 * gm.h + 2 * pr.i + d) * 2 * gm.w + 2 * pr.j + e;
+      copy_chunk<kVec>(sx + row * kLd + 4 * q, x, (int64_t)xpix * gm.cin + cx,
+                       inb, cx, gm.cin);
+      const int64_t goff = (int64_t)gpix * gm.cout + cg;
+      copy_chunk<kVec>(sg + row * kLd + 4 * q, g, goff, valid, cg, gm.cout);
+      if (kFold) {
+        copy_chunk<kVec>(sg + kStep * kLd + row * kLd + 4 * q, fold.y, goff,
+                         valid, cg, gm.cout);
+      }
+      bits |= ((uint32_t)inb << r) | ((uint32_t)valid << (kRows + r));
+      advance(pr, one, gm.h, gm.w);
+      ++m;
+    }
+    masks = (masks & ~(0xffu << (8 * slot))) | (bits << (8 * slot));
+    advance(next, stride, gm.h, gm.w);
+  };
+
+  // the transform of x and the fold of g on this thread's own chunks of
+  // stage kt, once its copies have landed
+  auto fix_stage = [&](int kt) {
+    const int slot = kt % kStages;
+    float* sx = smem + slot * stage_floats(kFold);
+    float* sg = sx + kStep * kLd;
+    const uint32_t bits = masks >> (8 * slot);
+    const float4* c4 = reinterpret_cast<const float4*>(consts) + q;
+    const int n4 = kTileCin / 4;
+    const float4 sc4 = c4[0], sh4 = c4[n4], al4 = c4[2 * n4];
+    const float4 s14 = c4[3 * n4], s24 = c4[4 * n4];
+    const float tsc[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+    const float tsh[4] = {sh4.x, sh4.y, sh4.z, sh4.w};
+    const float tal[4] = {al4.x, al4.y, al4.z, al4.w};
+    const float fs1[4] = {s14.x, s14.y, s14.z, s14.w};
+    const float fs2[4] = {s24.x, s24.y, s24.z, s24.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx * 4 + j;
-      if (co < gm.cout) out[(int64_t)c * gm.cout + co] = acc[i][j];
+    for (int r = 0; r < kRows; ++r) {
+      const int row = rg * kRows + r;
+      if (kTransform) {
+        float4* px = reinterpret_cast<float4*>(sx + row * kLd + 4 * q);
+        float xv[4] = {px->x, px->y, px->z, px->w};
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // prelu(x * scale + shift), rounded as the plain version's
+          const float xt = xv[k] * tsc[k] + tsh[k];
+          xv[k] = inb ? (xt >= 0.0f ? xt : tal[k] * xt) : 0.0f;
+        }
+        *px = make_float4(xv[0], xv[1], xv[2], xv[3]);
+      }
+      if (kFold) {
+        float4* pg = reinterpret_cast<float4*>(sg + row * kLd + 4 * q);
+        const float4 y4 =
+            *reinterpret_cast<const float4*>(sg + (kStep + row) * kLd + 4 * q);
+        float gv[4] = {pg->x, pg->y, pg->z, pg->w};
+        const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+        const bool valid = (bits >> (kRows + r)) & 1u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // (gy + gs1) + (2 y) gs2, in the plain version's order
+          const float tk = (2.0f * yv[k]) * fs2[k];
+          gv[k] = valid ? (gv[k] + fs1[k]) + tk : 0.0f;
+          if (bias_block) db[k] += gv[k];
+        }
+        *pg = make_float4(gv[0], gv[1], gv[2], gv[3]);
+      }
+    }
+  };
+
+  // the warp's 64 x 32 share of the tile: 4 x 4 m16n8 fragments. The
+  // tensor cores add into acc with truncation, which biases a long sum;
+  // so acc holds one step's 32 pixels, and sum adds the steps in f32
+  // with round-to-nearest.
+  const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  float acc[4][4][4], sum[4][4][4] = {};
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of stage kt
+    if (kFix) fix_stage(kt);
+    __syncthreads();                // everyone's stage kt; stage kt-1 free
+    if (kt + kStages - 1 < steps) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    const float* sx = smem + (kt % kStages) * stage_floats(kFold);
+    const float* sg = sx + kStep * kLd;
+#pragma unroll
+    for (int k0 = 0; k0 < kStep; k0 += 8) {
+      const float* x0 = sx + (k0 + tig) * kLd + wm + gid;
+      const float* x1 = x0 + 4 * kLd;
+      const float* g0 = sg + (k0 + tig) * kLd + wn + gid;
+      const float* g1 = g0 + 4 * kLd;
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        split_tf32(x0[mt * 16], ah[mt][0], al[mt][0]);
+        split_tf32(x0[mt * 16 + 8], ah[mt][1], al[mt][1]);
+        split_tf32(x1[mt * 16], ah[mt][2], al[mt][2]);
+        split_tf32(x1[mt * 16 + 8], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        split_tf32(g0[nt * 8], bh[nt][0], bl[nt][0]);
+        split_tf32(g1[nt * 8], bh[nt][1], bl[nt][1]);
+      }
+      // three passes over the 16 fragments (lo*hi, hi*lo, hi*hi), so that
+      // 16 independent products separate two into one accumulator
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (k0 == 0) {
+            mma_tf32_first(acc[mt][nt], al[mt], bh[nt]);
+          } else {
+            mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sum[mt][nt][k] += acc[mt][nt][k];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + ((((int64_t)sp * 4 + p) * gm.kh + u) * gm.kw + v) *
+                             gm.cin * gm.cout;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = ci0 + wm + mt * 16 + gid + 8 * half;
+      if (c >= gm.cin) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = co0 + wn + nt * 8 + 2 * tig;
+        float* o = out + (int64_t)c * gm.cout + co;
+        if (co < gm.cout) o[0] = sum[mt][nt][2 * half];
+        if (co + 1 < gm.cout) o[1] = sum[mt][nt][2 * half + 1];
+      }
     }
   }
   if (bias_block) {
-    // thread (lk, l4 / 4) holds column sums over pixel rows lk of each
-    // step: the loader's layout is block_column_sum's (ty, tx)
-    block_column_sum(red, db, ty, tx,
-                     db_partial + ((int64_t)sp * 4 + p) * gm.cout + n0,
-                     gm.cout - n0);
+    // thread (rg, q) holds column sums over its rows of every stage; the 8
+    // row groups are added in order
+    __syncthreads();                // the ring is free: reuse it
+    float* red = smem;              // (8, kTileCout)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) red[rg * kTileCout + 4 * q + k] = db[k];
+    __syncthreads();
+    if (t < kTileCout && co0 + t < gm.cout) {
+      float s = 0.0f;
+      for (int r = 0; r < kDckThreads / 32; ++r) s += red[r * kTileCout + t];
+      db_partial[((int64_t)sp * 4 + p) * gm.cout + co0 + t] = s;
+    }
   }
 }
 
@@ -245,37 +588,73 @@ cudaError_t launch_dx(const float* g, Fold fold, const float* wt,
   return cudaGetLastError();
 }
 
-template <bool kFold, bool kTransform>
+template <bool kFold, bool kTransform, bool kVec>
 cudaError_t launch_dck(const float* x, Transform tr, const float* g,
                        Fold fold, float* partial, float* db_partial,
-                       const Geometry& gm, int splits, int64_t chunk,
+                       const Geometry& gm, int splits, int chunk,
                        cudaStream_t s) {
-  const dim3 grid((unsigned)ceil_div(gm.cout, kBN),
-                  (unsigned)(gm.kh * gm.kw * ceil_div(gm.cin, kBM)),
-                  (unsigned)(4 * splits));
-  upsample_conv_dck<kFold, kTransform><<<grid, kThreads, 0, s>>>(
-      x, tr, g, fold, partial, db_partial, gm, chunk);
+  const int smem = dck::smem_floats(kFold) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_dck<kFold, kTransform, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (int64_t)gm.kh * gm.kw *
+                         ceil_div(gm.cout, dck::kTileCout) *
+                         ceil_div(gm.cin, dck::kTileCin) * 4 * splits;
+  upsample_conv_dck<kFold, kTransform, kVec>
+      <<<(unsigned)blocks, dck::kDckThreads, smem, s>>>(x, tr, g, fold, partial,
+                                                     db_partial, gm, chunk);
   return cudaGetLastError();
 }
 
-int64_t dck_chunk(int64_t pixels, int splits) {
-  return ceil_div(ceil_div(pixels, splits), kBK) * kBK;
+template <bool kFold, bool kTransform>
+cudaError_t launch_dck(bool vec, const float* x, Transform tr, const float* g,
+                       Fold fold, float* partial, float* db_partial,
+                       const Geometry& gm, int splits, int chunk,
+                       cudaStream_t s) {
+  return vec ? launch_dck<kFold, kTransform, true>(
+                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s)
+             : launch_dck<kFold, kTransform, false>(
+                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s);
+}
+
+int dck_chunk(int64_t pixels, int splits) {
+  return (int)(ceil_div(ceil_div(pixels, splits), dck::kStep) * dck::kStep);
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
 }
 
 }  // namespace
 
-// How many pixel ranges the dCK kernel cuts the batch into: enough blocks
-// to give each of the card's multiprocessors about eight, at least 512
-// pixels per range. The wrapper sizes the scratch from it.
+// How many pixel ranges the dCK kernel cuts the batch into. One block of
+// dCK's fills an SM (its registers), so the blocks run in waves of 132
+// (the H100's SMs): the fewest splits whose blocks fill their waves to
+// 95% or more, else the fullest waves, with at least 256 pixels
+// (8 steps) per range and at most 64 ranges. The wrapper sizes the
+// scratch from it.
 extern "C" int catgen_upsample_conv_dck_splits(int n, int h, int w, int cin,
                                                int cout, int kh, int kw) {
   const int64_t pixels = (int64_t)n * h * w;
-  const int64_t tiles =
-      ceil_div(cout, kBN) * (int64_t)kh * kw * ceil_div(cin, kBM) * 4;
-  int64_t splits = ceil_div(132 * 8, tiles);
-  const int64_t most = pixels / 512 > 1 ? pixels / 512 : 1;
-  if (splits > most) splits = most;
-  return (int)(splits < 1 ? 1 : splits);
+  const int64_t tiles = ceil_div(cout, dck::kTileCout) * (int64_t)kh * kw *
+                        ceil_div(cin, dck::kTileCin) * 4;
+  const int64_t slots = 132;
+  int64_t most = pixels / 256;
+  most = most < 1 ? 1 : (most > 64 ? 64 : most);
+  int best = 1;
+  double best_fill = -1.0;
+  for (int64_t s = 1; s <= most; ++s) {
+    const int64_t blocks = tiles * s;
+    const double fill =
+        (double)blocks / (double)(ceil_div(blocks, slots) * slots);
+    if (fill >= 0.95) return (int)s;
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = (int)s;
+    }
+  }
+  return best;
 }
 
 // dX. g (n, 2h, 2w, cout) and wt (4, kh, kw, cout, cin) are required.
@@ -318,7 +697,8 @@ extern "C" int catgen_upsample_conv_dx_f32(
 // and then also write dbias (cout) through db_partial (splits * 4, cout)
 // of scratch. partial holds (splits, 4, kh, kw, cin, cout) floats of
 // scratch, splits from catgen_upsample_conv_dck_splits; dck receives (4,
-// kh, kw, cin, cout). Launches on `stream`; returns cudaGetLastError().
+// kh, kw, cin, cout). Pixel indices are 32-bit: n * 2h * 2w must stay
+// below 2^31. Launches on `stream`; returns cudaGetLastError().
 extern "C" int catgen_upsample_conv_dck_f32(
     const float* x, const float* tscale, const float* tshift,
     const float* talpha, const float* g, const float* y, const float* gs,
@@ -327,27 +707,33 @@ extern "C" int catgen_upsample_conv_dck_f32(
     int uw0, int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cin == 0 || cout == 0) return 0;
+  if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry gm =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
   const Fold fold = {y, gs, cout};
   const Transform tr = {tscale, tshift, talpha};
   const int splits = catgen_upsample_conv_dck_splits(n, h, w, cin, cout, kh,
                                                      kw);
-  const int64_t chunk = dck_chunk((int64_t)n * h * w, splits);
+  const int chunk = dck_chunk((int64_t)n * h * w, splits);
   const bool f = y != nullptr, tf = tscale != nullptr;
+  // 16-byte copies where every row of x, g and y starts 16-byte aligned
+  const bool vec = cin % 4 == 0 && cout % 4 == 0 && aligned16(x) &&
+                   aligned16(g) && aligned16(y);
   cudaError_t err;
   if (f && tf) {
-    err = launch_dck<true, true>(x, tr, g, fold, partial, db_partial, gm,
-                                 splits, chunk, s);
+    err = launch_dck<true, true>(vec, x, tr, g, fold, partial, db_partial,
+                                 gm, splits, chunk, s);
   } else if (f) {
-    err = launch_dck<true, false>(x, tr, g, fold, partial, db_partial, gm,
-                                  splits, chunk, s);
+    err = launch_dck<true, false>(vec, x, tr, g, fold, partial, db_partial,
+                                  gm, splits, chunk, s);
   } else if (tf) {
-    err = launch_dck<false, true>(x, tr, g, fold, partial, db_partial, gm,
-                                  splits, chunk, s);
+    err = launch_dck<false, true>(vec, x, tr, g, fold, partial, db_partial,
+                                  gm, splits, chunk, s);
   } else {
-    err = launch_dck<false, false>(x, tr, g, fold, partial, db_partial, gm,
-                                   splits, chunk, s);
+    err = launch_dck<false, false>(vec, x, tr, g, fold, partial, db_partial,
+                                   gm, splits, chunk, s);
   }
   if (err != cudaSuccess) return (int)err;
   err = launch_sum_rows(partial, dck, splits,

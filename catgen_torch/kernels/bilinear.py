@@ -187,6 +187,20 @@ def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
     return dcrd
 
 
+DCOORDS_KINDS = ("per_pixel", "per_warp", "staged")
+
+
+def dcoords_kind(h: int, w: int, c: int) -> str:
+    """Which d_coords kernel an (h, w, c) image takes on the current card
+    (16-byte aligned arrays): ``per_pixel`` (c < 32), ``staged`` (the
+    image in shared memory: c % 4 == 0 and it fits) or ``per_warp``."""
+    kind = load_library().catgen_bilinear_dcoords_kind(h, w, c)
+    if kind < 0:
+        raise RuntimeError(f"reading the card's shared memory failed: "
+                           f"cudaError_t {-kind}")
+    return DCOORDS_KINDS[kind]
+
+
 def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
                 grad_out: torch.Tensor, out_hw) -> torch.Tensor:
     """Runs the d_img kernel: (N, H, W, C), the gradient with respect to

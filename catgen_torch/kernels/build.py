@@ -41,6 +41,7 @@ SIGNATURES = (
      _I),
     ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
+    ("catgen_bilinear_dcoords_kind", [_I, _I, _I], _I),
     ("catgen_bilinear_sample_grid_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
      _I),
     ("catgen_bilinear_grid_dcoords_f32", [_P] * 4 + [_I] * 5 + [_P], _I),

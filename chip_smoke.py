@@ -14,12 +14,15 @@ no result.
 
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
-     source, in parallel);
+     source, in parallel); the dCK kernels' SASS holds TF32 tensor-core
+     products (cuobjdump);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256;
   4. the sampler's backward kernels (d_img, d_coords) against the plain
-     version's autograd at both shapes of the training path, N=640;
-     repeats bit-identical; no d_img work where the image needs none;
+     version's autograd at both shapes of the training path, N=640, and
+     at a 32x32x64 image, N=64, with the d_coords kernel each shape
+     takes (per pixel, staged, per warp); repeats bit-identical; no d_img
+     work where the image needs none;
   5. the sampling slice through catgen_torch.cli.sample.main: 1024 samples
      from a seeded checkpoint, nearest neighbours against a fixture corpus;
      checks that the D batches went through the kernel;
@@ -37,9 +40,12 @@ no result.
      configuration): the step, its D and G phases and the optimizer, the
      sampler kernels against their plain versions and grid_sample at the
      training shapes, whether same-seed steps are bit-identical, and a
-     profiled step;
+     profiled step; d_coords' device time against
+     grid_sampler_2d_backward's;
  11. the upsample-conv kernels against their plain versions at G32up-c's
-     three stage shapes, N=640 and N=320; repeats bit-identical;
+     three stage shapes, N=640 and N=320, dCK in all four fold/transform
+     variants; repeats bit-identical; dCK and the plain version against
+     float64 at N=640;
  12. the sampling CLI on the ladder route (CATGEN_UPSAMPLE_IMPL=pallas,
      CATGEN_FUSED_LADDER=1): 3 block launches per G batch, the same
      images as phase 5;
@@ -52,8 +58,9 @@ no result.
  15. one train step on the ladder route, card against CPU (the CPU runs
      the kernels' plain versions), within phase 9's bounds;
  16. at batch 640: each upsample-conv kernel against its plain version,
-     the cuDNN collapsed route and its bound, at each stage shape; the
-     train step on the ladder and per-layer routes, profiled;
+     the cuDNN collapsed route and its bound (dCK: 3xTF32 and f32), at
+     each stage shape; the train step on the ladder and per-layer routes,
+     profiled;
  17. the fused ST-conv kernel against its plain version at D32_st3's
      prefix, N=640 and 256, shared and per-channel slope: out, samp and z;
      repeats bit-identical;
@@ -61,15 +68,15 @@ no result.
      ST-conv and 1 v4 launch per D batch, the same images and scores as
      phase 5), the training CLI (per step 2 ST-conv, 3 v4 forwards, 4
      d_coords, 3 d_img), one train step card against CPU;
- 19. the grid-layout sampler kernels against their plain versions at both
-     training shapes; the grid route (CATGEN_SAMPLER_IMPL=mxu,
+ 19. the grid-layout sampler kernels against their plain versions at
+     phase 4's shapes; the grid route (CATGEN_SAMPLER_IMPL=mxu,
      CATGEN_SAMPLER_KERNEL=v1): the sampling CLI (2 grid forwards per D
      batch, no v4 launch) and the training CLI (per step 5 grid forwards,
      4 d_coords, 3 d_img); one train step each on v2 and v3;
  20. times at batch 640: the ST-conv kernel, its plain version, the split
      route and its bound; the grid kernels, their plain versions,
-     grid_sample and the bound; the train step on the fused-prefix, v1
-     and default routes, profiled.
+     grid_sample and the bound (d_coords also in device time); the train
+     step on the fused-prefix, v1 and default routes, profiled.
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 run the
@@ -101,6 +108,11 @@ TRAIN_SHAPES = [           # the sampler in a training D batch of 640
     (TRAIN_B, 32, 32, 3, 32, 32),
     (TRAIN_B, 16, 16, 64, 48, 16),
 ]
+# the d_coords kernel each shape takes (kernels.bilinear.dcoords_kind): the
+# input ST per pixel, the branch shape staged, and a 32x32x64 image (256
+# KB, over the shared memory of a block) per warp
+DCOORDS_SHAPES = TRAIN_SHAPES + [(64, 32, 32, 64, 32, 32)]
+DCOORDS_KINDS = ("per_pixel", "staged", "per_warp")
 KERNEL_TOL = 1e-5          # kernel vs plain, f32 (both round alike)
 # backward kernels vs plain: the kernels sum over channels and output
 # pixels in another order than autograd's reductions and scatter-adds, so
@@ -169,6 +181,57 @@ def cuda_ms(fn, reps: int = 20, inner: int = 50, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, warmup: int = 3) -> tuple:
+    """(ms per call, names of the kernels, source) of ``fn``: the device
+    time of every kernel it launches, from the profiler, over ``calls``
+    calls after warm-up. Unlike an event pair this leaves out the host's
+    work between launches. The profiler now and then records no device
+    activity, or only part of it, for a short session: a session counts
+    only if some kernel was seen once per call; it is asked up to three
+    times, and then the time comes from CUDA events (source "events", no
+    names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels)
+        if busy > 0 and max(e.count for e in kernels) >= calls:
+            return busy / calls / 1e3, [e.key for e in kernels], "profiler"
+    return cuda_ms(fn, inner=calls), [], "events"
+
+
+def dcoords_device_line(layout: str, shape, kern, library,
+                        card_name: str) -> tuple:
+    """Prints the d_coords kernel's device time beside
+    grid_sampler_2d_backward's (its grid output alone) in the same run,
+    and their ratio; returns (kernel ms, library ms)."""
+    from catgen_torch.kernels import bilinear
+
+    k1, names, src1 = device_ms(kern)
+    lib_ms, _, src_lib = device_ms(library)
+    k2, _, src2 = device_ms(kern)
+    k_ms = min(k1, k2)
+    print(f"dcoords {layout} {shape}: kernel "
+          f"{bilinear.dcoords_kind(*shape[1:4])} "
+          f"({names[0][:60] if names else '-'}) device {k_ms:.4f} ms, "
+          f"grid_sampler_2d_backward device {lib_ms:.4f} ms, ratio "
+          f"{k_ms / lib_ms:.3f}, bound "
+          f"{sampler_bound('dcoords', shape)[0]:.4f} ms (20 calls, order "
+          f"kernel-library-kernel, best of the two kernel readings; from "
+          f"{src1}/{src_lib}/{src2}); {card_name}")
+    return k_ms, lib_ms
+
+
 def wall_ms(fn, reps: int = 10, warmup: int = 3):
     """(median, min, max) in ms of ``reps`` host-clock timings of ``fn``
     followed by a synchronize, after warm-up."""
@@ -217,6 +280,31 @@ def build() -> None:
     log = path.with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
+    tensor_core_check(path)
+
+
+def tensor_core_check(path) -> None:
+    """Requires the dCK kernels' machine code (cuobjdump -sass) to hold
+    TF32 tensor-core products (HMMA ... TF32), and prints their count and
+    the first one of each instantiation."""
+    from torch.utils import cpp_extension
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        cpp_extension.CUDA_HOME or "", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = 0
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if "upsample_conv_dck" not in name:
+            continue
+        mma = [ln.strip() for ln in block.splitlines()
+               if "HMMA" in ln and "TF32" in ln]
+        print(f"SASS {name}: {len(mma)} TF32 HMMA instructions, e.g. "
+              f"{mma[0] if mma else 'none'}")
+        require(mma, f"{name} has no TF32 tensor-core instruction")
+        found += 1
+    require(found == 8, f"{found} dCK instantiations in the SASS, not 8")
 
 
 def sampler_inputs(shape, seed):
@@ -568,16 +656,29 @@ def times(save: str, card_name: str) -> dict:
     return out
 
 
+def dcoords_kinds() -> None:
+    """Prints the d_coords kernel each shape of DCOORDS_SHAPES takes, and
+    requires the designed one."""
+    from catgen_torch.kernels import bilinear
+
+    for shape, want in zip(DCOORDS_SHAPES, DCOORDS_KINDS):
+        kind = bilinear.dcoords_kind(*shape[1:4])
+        print(f"d_coords kernel at {shape}: {kind} (designed: {want})")
+        require(kind == want, f"d_coords at {shape} took {kind}")
+
+
 def backward_vs_plain() -> dict:
     """The d_img and d_coords kernels against the plain version's autograd
-    at the training shapes; repeats bit-identical; a sampled image that
-    needs no gradient launches no d_img kernel. Returns the max abs errors
-    {'dimg': ..., 'dcoords': ...}."""
+    at the training shapes and at a shape of the per-warp d_coords kernel;
+    repeats bit-identical; a sampled image that needs no gradient launches
+    no d_img kernel. Returns the max abs errors {'dimg': ...,
+    'dcoords': ...}."""
     import torch
     from catgen_torch.kernels import bilinear
 
+    dcoords_kinds()
     worst = {"dimg": 0.0, "dcoords": 0.0}
-    for i, shape in enumerate(TRAIN_SHAPES):
+    for i, shape in enumerate(DCOORDS_SHAPES):
         img, rows, out_hw = sampler_inputs(shape, seed=30 + i)
         gen = torch.Generator().manual_seed(40 + i)
         g = (torch.rand((shape[0], *out_hw, shape[3]), generator=gen)
@@ -942,6 +1043,9 @@ def train_times(card_name: str) -> dict:
                          img, rows, gcot, out_hw, need_coords=False),
                      lambda: grid_bwd([True, False])),
         }
+        out.setdefault("dcoords_device", []).append(dcoords_device_line(
+            "rows", shape, pairs["dcoords"][0], pairs["dcoords"][2],
+            card_name))
         for name, (kern, plain, library) in pairs.items():
             p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
             k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
@@ -989,6 +1093,7 @@ def train_times(card_name: str) -> dict:
 # ---------------------------------------------------------------------------
 
 F32_FLOPS = 67e12          # H100 SXM: f32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM: TF32 on the tensor cores, dense
 HBM_BYTES = 3.35e12        # H100 SXM: HBM3 bytes per second
 G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
     (512, 512, 3, 4), (512, 256, 3, 8), (256, 128, 5, 16)]
@@ -998,6 +1103,9 @@ G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
 # pixel, up to 640 * 32 * 32 = 655,360 terms (1e-4)
 UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
 LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
+# dCK's time over cuDNN wgrad's per stage with the CUDA-core f32 kernel
+# that the 3xTF32 kernel replaced (PERF.md, section 6)
+DCK_RATIO_BEFORE = {"dck": (1.15, 1.23, 2.68), "block_dck": (1.74, 1.76, 4.12)}
 PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
                  upsample_bwd="pallas")
 UP_KERNELS = (   # key, name, counter, TPU kernel, CUDA source
@@ -1021,6 +1129,14 @@ def bound(ops: float, nbytes: float) -> tuple:
     """(least ms, what bounds it): the larger of the f32 operations over
     the card's f32 rate and the bytes over its memory rate."""
     t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_3xtf32(flops: float, nbytes: float) -> tuple:
+    """The bound of an f32 product run as 3xTF32 on the tensor cores: three
+    TF32 products per f32 product, against the bytes."""
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1110,6 +1226,24 @@ def upsample_vs_plain() -> dict:
             lambda: fuc.upsample2_conv_backward_plain(x, w, gy)))
         y = fuc.block_plain(x, w, b, sc, sh, v["alpha"])
         args = (x, sc, sh, v["alpha"], w, y, gy, v["gs1"], v["gs2"])
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        alc = v["alpha"].expand(shape[3]).contiguous()
+        gfold = gy + v["gs1"] + 2.0 * y * v["gs2"]
+        k = shape[5]
+        # the dCK kernel's two other variants (the routes run fold with
+        # transform, and neither): the fold alone, the transform alone
+        groups.append((
+            "dck", ("dweight (fold)", "dbias (fold)"), (UP_LOOSE,) * 2,
+            lambda: (lambda r: (fuc.dweight_from_dck(r[0], k, k), r[1]))(
+                fuc._launch_dck(x, w, gy, y, gs)),
+            lambda: fuc.upsample2_conv_backward_plain(
+                x, w, gfold, need_x=False)[1:]))
+        groups.append((
+            "dck", ("dweight (transform)",), (UP_LOOSE,),
+            lambda: (fuc.dweight_from_dck(fuc._launch_dck(
+                x, w, gy, in_scale=sc, in_shift=sh, in_alpha=alc), k, k),),
+            lambda: fuc._vjp(lambda w_: fuc.block_plain(
+                x, w_, None, sc, sh, v["alpha"]), (w,), (True,), gy)))
         groups.append((
             ("block_dx",) * 4 + ("block_dck",) * 2,
             ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"),
@@ -1138,7 +1272,58 @@ def upsample_vs_plain() -> dict:
                 worst[key] = max(worst[key], err)
                 worst[f"{key}_rel"] = max(worst[f"{key}_rel"],
                                           err / max(top, 1e-6))
-        del groups, y, args, v
+        del groups, y, args, v, gfold
+    return worst
+
+
+def dck_vs_float64() -> dict:
+    """The dCK kernel (3xTF32) and the plain version (cuDNN in f32) against
+    float64 autograd (cuDNN in double) at G32up-c's three stage shapes at
+    N=640, without and with the fold and transform: dweight's largest
+    error over its largest value. The kernel must be within UP_TIGHT: the
+    plain version's own f32 error is what its UP_LOOSE comparison
+    measures. Returns the kernel's worst per key ("dck", "block_dck")."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    worst = {"dck": 0.0, "block_dck": 0.0}
+    for s in range(3):
+        shape = stage_shape(s, TRAIN_B)
+        k = shape[5]
+        v = upsample_inputs(shape, seed=140 + s)
+        x, w, gy, sc, sh, al = (v[a] for a in ("x", "weight", "gy", "scale",
+                                                 "shift", "alpha"))
+        y = fuc.block_plain(x, w, v["bias"], sc, sh, al)
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        for key in ("dck", "block_dck"):
+            block = key == "block_dck"
+            g = gy + v["gs1"] + 2.0 * y * v["gs2"] if block else gy
+            if block:
+                dck, _ = fuc._launch_dck(x, w, gy, y, gs, sc, sh,
+                                         al.expand(shape[3]).contiguous())
+            else:
+                dck = fuc._launch_dck(x, w, gy)
+            got = fuc.dweight_from_dck(dck, k, k)
+
+            def plain(dtype, block=block, g=g):
+                xd, wd = x.to(dtype), w.to(dtype)
+                fn = ((lambda w_: fuc.block_plain(
+                    xd, w_, None, sc.to(dtype), sh.to(dtype), al.to(dtype)))
+                      if block else (lambda w_: fuc.upsample2_conv(xd, w_)))
+                return fuc._vjp(fn, (wd,), (True,), g.to(dtype))[0]
+
+            exact = plain(torch.float64)
+            top = exact.abs().max().item()
+            err = (got.double() - exact).abs().max().item() / top
+            err32 = (plain(torch.float32).double() - exact).abs().max(
+                ).item() / top
+            print(f"{key} dweight {shape} against float64: kernel {err:.3e}, "
+                  f"plain (cuDNN f32) {err32:.3e} of the largest value "
+                  f"{top:.4g} (kernel tolerance {UP_TIGHT})")
+            require(err <= UP_TIGHT, f"{key} is not f32-accurate at {shape}")
+            worst[key] = max(worst[key], err)
+            del exact, got, dck
+        del v, y, gs
     return worst
 
 
@@ -1292,6 +1477,17 @@ def upsample_times(card_name: str) -> dict:
             b_ms, b_by = bound(flops, nbytes)
             row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
                        bound_ms=b_ms, bound_by=b_by)
+            if key in ("dck", "block_dck"):
+                # the dCK kernel runs 3xTF32 on the tensor cores
+                row["bound_f32_ms"] = b_ms
+                row["bound_ms"], row["bound_by"] = bound_3xtf32(flops,
+                                                                nbytes)
+                print(f"{key} stage {s + 1} {shape}: kernel {row['ms']:.4f} "
+                      f"ms, cuDNN wgrad (collapsed route) {lib:.4f} ms, "
+                      f"ratio {row['ms'] / lib:.3f} (CUDA-core kernel: "
+                      f"{DCK_RATIO_BEFORE[key][s]}); bound 3xTF32 "
+                      f"{row['bound_ms']:.4f} ms, f32 {b_ms:.4f} ms; "
+                      f"{card_name}")
             out[key].append(row)
             print(f"{key} {shape}: kernel {row['ms']:.4f} ms ({k1:.4f} / "
                   f"{k2:.4f}), plain {p:.4f} ms, cuDNN collapsed route "
@@ -1300,6 +1496,20 @@ def upsample_times(card_name: str) -> dict:
                   f"{flops / row['ms'] / 1e9:.2f} TFLOP/s (CUDA events, "
                   f"median of 5 timings of 3 back-to-back calls, order "
                   f"kernel-plain-library-kernel); {card_name}")
+        # what the block backward's fix-ups cost: dCK with the fold alone
+        # and with the transform alone, beside the two variants above
+        singles = {
+            "fold": lambda: fuc._launch_dck(x, wt, gy, y, gs),
+            "transform": lambda: fuc._launch_dck(x, wt, gy, in_scale=sc,
+                                                 in_shift=sh, in_alpha=alc)}
+        times = {f: cuda_ms(fn, reps=5, inner=3, warmup=2)
+                 for f, fn in singles.items()}
+        print(f"dck variants stage {s + 1} {shape}: neither "
+              f"{out['dck'][-1]['ms']:.4f} ms, fold alone "
+              f"{times['fold']:.4f}, transform alone "
+              f"{times['transform']:.4f}, both "
+              f"{out['block_dck'][-1]['ms']:.4f} (CUDA events); "
+              f"{card_name}")
         del runs, lib_y, xr, wr, y, v
     return out
 
@@ -1454,14 +1664,16 @@ def st_conv_vs_plain() -> dict:
 
 def grid_vs_plain() -> dict:
     """The grid-layout sampler kernels against their plain versions at the
-    training shapes: forward (KERNEL_TOL), d_coords and d_img (BWD_ATOL +
-    BWD_RTOL x max |plain|); repeats bit-identical. Returns the largest
-    absolute error of each."""
+    training shapes and at a shape of the per-warp d_coords kernel:
+    forward (KERNEL_TOL), d_coords and d_img (BWD_ATOL + BWD_RTOL x max
+    |plain|); repeats bit-identical. Returns the largest absolute error of
+    each."""
     import torch
     from catgen_torch.kernels import bilinear_grid as bg
 
+    dcoords_kinds()
     worst = {"fwd": 0.0, "dcoords": 0.0, "dimg": 0.0}
-    for i, shape in enumerate(TRAIN_SHAPES):
+    for i, shape in enumerate(DCOORDS_SHAPES):
         img, rows, (ho, wo) = sampler_inputs(shape, seed=110 + i)
         grid = rows.permute(0, 2, 1).reshape(shape[0], ho, wo, 2).contiguous()
         g = (torch.rand((shape[0], ho, wo, shape[3]), device="cuda",
@@ -1618,6 +1830,9 @@ def grid_times(card_name: str) -> dict:
                          img, grid, gcot, need_coords=False),
                      lambda: grid_bwd([True, False])),
         }
+        out.setdefault("dcoords_device", []).append(dcoords_device_line(
+            "grid", shape, pairs["dcoords"][0], pairs["dcoords"][2],
+            card_name))
         for name, (kern, plain, library) in pairs.items():
             p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
             k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
@@ -1670,6 +1885,7 @@ def main(argv=None) -> int:
     tt = train_times(card_name)
     phase(11, "the upsample-conv kernels against their plain versions")
     up_err = upsample_vs_plain()
+    dck_exact = dck_vs_float64()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
         write_checkpoint(save)      # the same seeded weights as phase 5
         phase(12, f"the sampling slice on the ladder route, {COUNT} "
@@ -1763,6 +1979,10 @@ def main(argv=None) -> int:
         })
     kernels[0]["sampling_ms_by_shape"] = dict(zip(map(str, SAMPLER_SHAPES),
                                                   t["kernel_ms"]))
+    kernels[1]["device_ms_by_shape"] = by_shape(
+        [k for k, _ in tt["dcoords_device"]])
+    kernels[1]["library_device_ms_by_shape"] = by_shape(
+        [lib for _, lib in tt["dcoords_device"]])
     kernels[0]["sampling_plain_ms_by_shape"] = dict(
         zip(map(str, SAMPLER_SHAPES), t["plain_ms"]))
     # rows 4 and 6 run on the ladder training CLI's path (phase 13), rows
@@ -1791,11 +2011,17 @@ def main(argv=None) -> int:
                 "step_per_layer_hybrid": per_layer["hybrid"][counter]},
             "max_abs_err": up_err[key],
             "max_rel_err": up_err[f"{key}_rel"],
+            **({"max_rel_err_vs_float64": dck_exact[key]}
+               if key in dck_exact else {}),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "operations" if all(
                 r["bound_by"] == "operations" for r in rows) else "bytes",
+            **({"bound_f32_ms": sum(r["bound_f32_ms"] for r in rows),
+                "bound_note": "3xTF32 on the tensor cores: 3 x 2 x MACs "
+                              "/ 495e12; bound_f32_ms: 2 x MACs / 67e12"}
+               if key in ("dck", "block_dck") else {}),
             "library_ms": sum(r["library_ms"] for r in rows),
             "device_ms_per_step": device_step_ms(profiled, patterns[key]),
             "ms_by_shape": by_shape([r["ms"] for r in rows], stages),
@@ -1834,7 +2060,7 @@ def main(argv=None) -> int:
     for key, name, counter, pattern in (
             ("fwd", "bilinear_sample_grid", "LAUNCHES", "sample_per"),
             ("dcoords", "bilinear_sample_grid_bwd_dcoords",
-             "DCOORDS_LAUNCHES", "dcoords_per"),
+             "DCOORDS_LAUNCHES", "dcoords_"),
             ("dimg", "bilinear_sample_grid_bwd_dimg", "DIMG_LAUNCHES",
              "dimg_per")):
         bounds = [sampler_bound(key, shape) for shape in TRAIN_SHAPES]
@@ -1861,6 +2087,11 @@ def main(argv=None) -> int:
             "library_ms_by_shape": by_shape(gt[f"{key}_library"]),
             "bound_ms_by_shape": by_shape([b for b, _ in bounds]),
         })
+        if key == "dcoords":
+            kernels[-1]["device_ms_by_shape"] = by_shape(
+                [k for k, _ in gt["dcoords_device"]])
+            kernels[-1]["library_device_ms_by_shape"] = by_shape(
+                [lib for _, lib in gt["dcoords_device"]])
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

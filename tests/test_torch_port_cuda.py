@@ -1,9 +1,11 @@
 """The CUDA kernels on a card: the bilinear sampler (catgen_torch/csrc/
 bilinear_sample.cu and bilinear_sample_bwd.cu) at coordinate rows, the
-upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), and, at
-the end of the file, the same sampler kernels on an (N, Ho, Wo, 2) grid
-and the fused ST-conv kernel (st_conv.cu), forward and backward, against
-their plain PyTorch versions, and the wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
+upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), the
+same sampler kernels on an (N, Ho, Wo, 2) grid and the fused ST-conv
+kernel (st_conv.cu), and, at the end of the file, the dCK kernel's four
+fold/transform variants and the choice between the d_coords kernels,
+forward and backward, against their plain PyTorch versions, and the
+wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
 and nvcc; on a machine without a card each one skips. Run them on the
 card with
 
@@ -553,3 +555,152 @@ def test_st_conv_route_launches_the_kernel(f32_cuda):
                                                      before[1] + 1)
     assert (fused - split).abs().max().item() <= \
         1e-5 * split.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the dCK kernel (3xTF32 on the tensor cores) in all four of its variants:
+# the cotangent fold (g + gs1 + 2 y gs2) and the input transform
+# prelu(x * scale + shift) each on or off; the routes run both or neither.
+# dweight and dbias within 1e-4 of their largest plain value, as above.
+# ---------------------------------------------------------------------------
+
+VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+# UP_SHAPES, and a shape whose pixels (5 * 9 * 13 = 585) are a multiple
+# neither of the 32-pixel step nor of the split's range (2 splits of 320)
+DCK_SHAPES = UP_SHAPES + [(5, 9, 13, 12, 20, 3)]
+
+
+def _dck_run(v, fold, transform):
+    """(dweight, dbias or None) from the dCK kernel."""
+    k = v["weight"].shape[2]
+    y = v["y"] if fold else None
+    gs = torch.stack([v["gs1"], v["gs2"]]) if fold else None
+    tr = ({"in_scale": v["scale"], "in_shift": v["shift"],
+           "in_alpha": v["alpha"].expand(v["x"].shape[3]).contiguous()}
+          if transform else {})
+    out = fuc._launch_dck(v["x"], v["weight"], v["gy"], y, gs, **tr)
+    dck, db = out if fold else (out, None)
+    return fuc.dweight_from_dck(dck, k, k), db
+
+
+def _dck_plain(v, fold, transform, halo=None):
+    """(dweight, dbias) of the plain block: autograd through the transform
+    (if any) and upsample2_conv, for the folded cotangent (if any). With
+    ``halo`` (Cin,), the transformed image is padded with it instead of
+    zeros: what a kernel that transforms its zero halo would compute."""
+    g = (v["gy"] + v["gs1"] + 2.0 * v["y"] * v["gs2"]) if fold else v["gy"]
+    sc, sh, al = v["scale"], v["shift"], v["alpha"]
+
+    def forward(w_):
+        x = fuc.in_transform(v["x"], sc, sh, al) if transform else v["x"]
+        if halo is None:
+            return fuc.upsample2_conv(x, w_)
+        r = w_.shape[2] // 2
+        up = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        n, h2, w2, c = up.shape
+        pad = halo.expand(n, h2 + 2 * r, w2 + 2 * r, c).clone()
+        pad[:, r:r + h2, r:r + w2] = up
+        return torch.nn.functional.conv2d(
+            pad.permute(0, 3, 1, 2), w_).permute(0, 2, 3, 1)
+
+    return fuc._vjp(forward, (v["weight"],), (True,), g)[0], g.sum((0, 1, 2))
+
+
+def _dck_inputs(shape, device, seed, shift=None):
+    v = _up_inputs(shape, device, seed=seed, alpha_n=1)
+    if shift is not None:
+        v["shift"] = torch.full_like(v["shift"], shift)
+    n, h, w, _, cout, _ = shape
+    v["y"] = torch.randn((n, 2 * h, 2 * w, cout), device=device,
+                         generator=torch.Generator(device).manual_seed(seed))
+    return v
+
+
+@pytest.mark.parametrize("shape", DCK_SHAPES)
+@pytest.mark.parametrize("fold, transform", VARIANTS)
+def test_dck_variants_match_plain(f32_cuda, shape, fold, transform):
+    v = _dck_inputs(shape, f32_cuda, seed=5)
+    dw, db = _dck_run(v, fold, transform)
+    torch.cuda.synchronize()
+    want_dw, want_db = _dck_plain(v, fold, transform)
+    _up_close(dw, want_dw, UP_LOOSE, "dweight")
+    if fold:
+        _up_close(db, want_db, UP_LOOSE, "dbias")
+    else:
+        assert db is None
+
+
+def test_dck_ragged_shape_splits_its_pixels(f32_cuda):
+    from catgen_torch.kernels.build import load_library
+
+    n, h, w, cin, cout, k = DCK_SHAPES[-1]
+    kp = (k + 1) // 2
+    splits = load_library().catgen_upsample_conv_dck_splits(
+        n, h, w, cin, cout, kp, kp)
+    pixels = n * h * w
+    chunk = (-(-pixels // splits) + 31) // 32 * 32     # the kernel's range
+    assert splits > 1 and pixels % 32
+    assert (pixels - (splits - 1) * chunk) % 32    # a ragged last range
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_dck_halo_is_zero_after_the_transform(f32_cuda, fold):
+    # shift 4: every halo value would be prelu(4) = 4, not 0; the plain
+    # version with that halo misses the tolerance by far, the kernel not
+    shape = (2, 4, 5, 16, 12, 3)
+    v = _dck_inputs(shape, f32_cuda, seed=6, shift=4.0)
+    dw, _ = _dck_run(v, fold, True)
+    want, _ = _dck_plain(v, fold, True)
+    halo = fuc.in_transform(torch.zeros(shape[3], device=f32_cuda),
+                            v["scale"], v["shift"], v["alpha"])
+    wrong, _ = _dck_plain(v, fold, True, halo=halo)
+    bound = UP_LOOSE * want.abs().max().item()
+    assert (wrong - want).abs().max().item() > 100 * bound
+    _up_close(dw, want, UP_LOOSE, "dweight")
+
+
+@pytest.mark.parametrize("fold, transform", [(False, False), (True, True)])
+def test_dck_repeats_are_bit_identical(f32_cuda, fold, transform):
+    v = _dck_inputs(UP_SHAPES[4], f32_cuda, seed=7)
+    first, again = _dck_run(v, fold, transform), _dck_run(v, fold, transform)
+    assert torch.equal(first[0], again[0])
+    if fold:
+        assert torch.equal(first[1], again[1])
+
+
+# ---------------------------------------------------------------------------
+# the staged d_coords kernel (the sample's image in shared memory) and the
+# choice between the three d_coords kernels
+# ---------------------------------------------------------------------------
+
+STAGED_SHAPES = [(2, 16, 16, 64, 48, 16), (2, 8, 8, 128, 8, 8)]
+
+
+@pytest.mark.parametrize("hwc, kind", [
+    ((16, 16, 64), "staged"), ((8, 8, 128), "staged"), ((7, 1, 32), "staged"),
+    ((32, 32, 64), "per_warp"), ((9, 11, 33), "per_warp"),
+    ((32, 32, 3), "per_pixel"), ((4, 4, 31), "per_pixel")])
+def test_dcoords_kernel_choice(cuda, hwc, kind):
+    assert bilinear.dcoords_kind(*hwc) == kind
+
+
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_staged_dcoords_matches_plain(cuda, shape, layout):
+    assert bilinear.dcoords_kind(*shape[1:4]) == "staged"
+    img, rows, out_hw = _inputs(shape, cuda, seed=8)
+    g = _cotangent(shape, cuda, seed=9)
+    if layout == "rows":
+        runs = [bilinear.launch_dcoords(img, rows, g, out_hw)
+                for _ in range(2)]
+        want = bilinear.bilinear_sample_rows_backward_plain(
+            img, rows, g, out_hw, need_img=False)[1]
+    else:
+        grid = rows.permute(0, 2, 1).reshape(shape[0], *out_hw, 2)
+        grid = grid.contiguous()
+        runs = [bilinear_grid.launch_dcoords(img, grid, g) for _ in range(2)]
+        want = bilinear_grid.bilinear_sample_grid_backward_plain(
+            img, grid, g, need_img=False)[1]
+    torch.cuda.synchronize()
+    _bwd_close(runs[0], want)
+    assert torch.equal(runs[0], runs[1])

@@ -1,0 +1,92 @@
+"""The precision argument of the dCK kernel (catgen_torch/csrc/
+upsample_conv_bwd.cu), on the CPU: the kernel computes its f32 products
+on the tensor cores as 3xTF32 (each f32 operand split into a TF32 hi and
+lo, lo·hi + hi·lo + hi·hi summed in f32), which TF32 rounding emulated in
+numpy reproduces (torch_port_helpers.tf32_round).
+
+  * at G32up-c's last stage widths (Cin 256, Cout 128) over 4096 pixels,
+    3xTF32 is within 1e-5 of the largest value of the float64 product,
+    and one TF32 product is not within 1e-4 (the tolerance of dW);
+  * the emulated 3xTF32 dCK of small stages, chained to dW by the port's
+    ``dweight_from_dck``, matches catgen's ``upsample2_conv_backward``
+    (its Pallas kernels in interpret mode) within 1e-4 of dW's largest
+    value, the tolerance of test_torch_port_upsample_kernels.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from catgen.kernels import pallas_upsample_conv_bwd as cpu_conv_bwd
+from catgen_torch.io.convert import kernel_to_weight
+from catgen_torch.kernels import fused_upsample_conv as fuc
+from catgen_torch.kernels.upsample_conv import _collapse_matrix
+
+from torch_port_helpers import UPSAMPLE_SHAPES as SHAPES
+from torch_port_helpers import (assert_rel_close, matmul_3xtf32, matmul_tf32,
+                                tf32_round, upsample_inputs)
+
+LOOSE = 1e-4
+
+
+@pytest.mark.parametrize("value, want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),        # a tie: away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -12, 1.0),                      # below half: down
+    (1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -10),     # above half: up
+    (3.0, 3.0)])
+def test_tf32_round_is_nearest_ties_away(value, want):
+    assert tf32_round(np.float32(value)) == np.float32(want)
+
+
+def _stage3_operands(seed=0):
+    r = np.random.RandomState(seed)
+    return (r.randn(4096, 256).astype(np.float32),
+            r.randn(4096, 128).astype(np.float32))
+
+
+@pytest.mark.parametrize("form, rel, within", [
+    ("3xtf32", 1e-5, True), ("tf32", 1e-4, False)])
+def test_split_product_accuracy(form, rel, within):
+    x, g = _stage3_operands()
+    exact = (torch.from_numpy(x).double().T
+             @ torch.from_numpy(g).double()).numpy()
+    got = matmul_3xtf32(x, g) if form == "3xtf32" else matmul_tf32(x, g)
+    err = np.abs(got - exact).max() / np.abs(exact).max()
+    assert (err <= rel) == within, err
+
+
+def _dck_3xtf32(x, g, k):
+    """dCK (4, kp, kp, Cin, Cout) of x (n, h, w, Cin) against g (n, 2h,
+    2w, Cout) as the kernel computes it: per parity and tap, the shifted
+    image (0 outside) against the parity plane of g, in 3xTF32."""
+    n, h, w, cin = x.shape
+    cout = g.shape[-1]
+    kp = _collapse_matrix(k, 0)[0].shape[0]
+    umin = fuc._umins(k, k)
+    pad = 2 * kp
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    dck = np.zeros((4, kp, kp, cin, cout), np.float32)
+    for p in range(4):
+        d, e = divmod(p, 2)
+        plane = g[:, d::2, e::2].reshape(-1, cout)
+        for u in range(kp):
+            for v in range(kp):
+                i0, j0 = pad + umin[d] + u, pad + umin[2 + e] + v
+                xs = xp[:, i0:i0 + h, j0:j0 + w].reshape(-1, cin)
+                dck[p, u, v] = matmul_3xtf32(xs, plane)
+    return dck
+
+
+@pytest.mark.parametrize("shape", SHAPES[:1])
+def test_emulated_dck_matches_catgen(shape):
+    n, h, w, cin, cout, k = shape
+    v = upsample_inputs(3, n, h, w, cin, cout, k)
+    want = cpu_conv_bwd.upsample2_conv_backward(
+        jnp.asarray(v["x"]), jnp.asarray(v["kern"]), jnp.asarray(v["gy"]),
+        interpret=True)[1]
+    dck = _dck_3xtf32(v["x"], v["gy"], k)
+    dw = fuc.dweight_from_dck(torch.tensor(dck), k, k)
+    assert_rel_close(dw, kernel_to_weight(np.asarray(want)), LOOSE,
+                     "dweight")

@@ -248,3 +248,44 @@ def assert_rel_close(got, want, rel, name=""):
     bound = rel * max(float(np.abs(want).max()), 1e-6)
     err = float(np.abs(got - want).max())
     assert err <= bound, f"{name}: {err} > {bound}"
+
+
+# ---------------------------------------------------------------------------
+# TF32 arithmetic as the tensor cores do it, emulated in numpy: the dCK
+# kernel (csrc/upsample_conv_bwd.cu) runs its f32 product as 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def tf32_round(a):
+    """float32 ``a`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the last
+    kept bit to the magnitude and clear the 13 dropped bits."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_tf32(a):
+    """(hi, lo): hi = rna(a), lo = rna(a - hi), both TF32 values."""
+    a = np.asarray(a, dtype=np.float32)
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
+def _mm_t(a, b):
+    """aᵀ b in float32 (torch's CPU GEMM: numpy's is slow here)."""
+    return (torch.from_numpy(np.ascontiguousarray(a)).T
+            @ torch.from_numpy(np.ascontiguousarray(b))).numpy()
+
+
+def matmul_3xtf32(a, b):
+    """aᵀ b over the leading axis in 3xTF32: lo·hi + hi·lo + hi·hi, each
+    TF32 product exact, summed in float32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (_mm_t(al, bh) + _mm_t(ah, bl)) + _mm_t(ah, bh)
+
+
+def matmul_tf32(a, b):
+    """aᵀ b with one TF32 product per f32 product (what 3xTF32 avoids)."""
+    return _mm_t(tf32_round(a), tf32_round(b))
