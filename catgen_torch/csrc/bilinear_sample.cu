@@ -21,15 +21,33 @@
 //
 // What bounds it: memory traffic. Per output pixel it reads two
 // coordinates and four taps of C floats and writes C floats, with three
-// lerps per value, far below the arithmetic the card can do per byte.
-// This first version is the simple one:
-//   * C >= 32: one thread per output value (n, p, c), c fastest, so the
-//     threads of a warp read neighbouring channels of one tap (coalesced)
-//     and share that pixel's coordinates (one broadcast load);
-//   * C < 32 (the 32x32x3 input): one thread per output pixel, looping
-//     over its C channels.
-// Taps that neighbouring output pixels share are re-read through L1/L2;
-// reusing them from shared memory, and vectorised loads, are later work.
+// lerps per value, far below the arithmetic the card can do per byte. At
+// the branch shape (640 samples of 16x16x64 at 768 points) that is 42 MB
+// of images and 126 MB of output, 0.0513 ms at 3.35 TB/s; each image
+// value is a tap of ~12 outputs. Three kernels, chosen by shape alone
+// (sampler_kind, bilinear_taps.cuh, shared with d_coords), the same way
+// on every run:
+//   * staged (sample_per_pixel_staged), for C % 4 == 0, C >= 32, an image
+//     that fits one block's opt-in shared memory and 16-byte aligned
+//     arrays: one block per sample and range of output pixels copies the
+//     sample's image into shared memory once (16-byte cp.async), so the
+//     ~12 reads of each value come from there, not from L2 again. 16
+//     lanes serve one output pixel, each lane a float4 of channels (one
+//     pixel per half-warp and step at C = 64, looping for larger C): the
+//     coordinates and taps are computed once per pixel, not per value,
+//     and the output leaves as coalesced float4 streaming stores (it is
+//     not read again here). The ranges per sample are the fewest whose
+//     blocks fill the card's waves to 90% (staged_per_sample): at the
+//     branch shape 3 blocks of 256 pixels, so each image is staged 3
+//     times, from L2 after the first;
+//   * per value (sample_per_value), for other C >= 32 (odd channel
+//     counts, a 32x32x64 image of 256 KB): one thread per output value
+//     (n, p, c), c fastest, so a warp reads neighbouring channels of one
+//     tap (coalesced) and shares the pixel's coordinates;
+//   * per pixel (sample_per_pixel), for C < 32 (the 32x32x3 input): one
+//     thread per output pixel, looping over its C channels.
+// All three compute each value with lerp_taps's multiplies and adds in
+// the same order, so they give the same bits.
 //
 // Arithmetic is f32 and follows catgen/nn/spatial_transformer.py,
 // bilinear_sample (and _weights_rows of the TPU kernel): clip the pixel
@@ -81,12 +99,122 @@ __global__ void sample_per_pixel(const float* __restrict__ img,
   for (int ch = 0; ch < c; ++ch) o[ch] = lerp_taps(base + ch, t, c);
 }
 
+constexpr int kStagedThreads = 256;  // 16 half-warps: 16 pixels per step
+
+// Grid: n * per_sample blocks, the blocks of one sample adjacent; block
+// (ni, part) covers output pixels [part * span, (part + 1) * span) of
+// sample ni. img and out 16-byte aligned, c % 4 == 0, p * c < 2^31;
+// dynamic shared memory h*w*c floats.
+template <class L>
+__global__ void __launch_bounds__(kStagedThreads)
+sample_per_pixel_staged(const float* __restrict__ img,
+                        const float* __restrict__ crd,
+                        float* __restrict__ out, int h, int w, int c, int p,
+                        int per_sample, int span) {
+  extern __shared__ float4 simg[];   // the sample's image, (h w, c / 4)
+  const int ni = blockIdx.x / per_sample;
+  const int p0 = (blockIdx.x - ni * per_sample) * span;
+  const int p1 = min(p0 + span, p);
+  const int c4 = c >> 2, chunks = h * w * c4;
+  const float4* src =
+      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(simg + k)),
+                 "l"(src + k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  float4* dst = reinterpret_cast<float4*>(out) + (int64_t)ni * p * c4;
+  const int l = threadIdx.x & 15, groups = blockDim.x >> 4;
+  for (int pi = p0 + (threadIdx.x >> 4); pi < p1; pi += groups) {
+    const float2 yx = L::load(crd, ni, pi, p);
+    const Taps t = make_taps(yx.x, yx.y, h, w);
+    const int o00 = (int)t.p00 * c4, o01 = (int)t.p01 * c4;
+    const int o10 = (int)t.p10 * c4, o11 = (int)t.p11 * c4;
+    for (int k = l; k < c4; k += 16) {
+      const float4 a = simg[o00 + k], b = simg[o01 + k];
+      const float4 e = simg[o10 + k], f = simg[o11 + k];
+      __stcs(dst + pi * c4 + k,
+             make_float4(lerp_values(a.x, b.x, e.x, f.x, t),
+                         lerp_values(a.y, b.y, e.y, f.y, t),
+                         lerp_values(a.z, b.z, e.z, f.z, t),
+                         lerp_values(a.w, b.w, e.w, f.w, t)));
+    }
+  }
+}
+
+// Ranges per sample of the staged kernel: the fewest whose n * per_sample
+// blocks fill their waves (blocks resident per SM x SMs) to 90% or more,
+// else the fullest, with at least 32 output pixels per range. Depends on
+// the shape and the card alone.
+template <class L>
+cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
+  int device = 0, sms = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, sample_per_pixel_staged<L>, kStagedThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t slots = (int64_t)(resident > 0 ? resident : 1) * sms;
+  const int most = p / 32 > 1 ? p / 32 : 1;
+  best = 1;
+  double best_fill = -1.0;
+  for (int s = 1; s <= most; ++s) {
+    const int64_t blocks = (int64_t)n * s;
+    const double fill =
+        (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
+    if (fill >= 0.9) {
+      best = s;
+      return cudaSuccess;
+    }
+    if (fill > best_fill) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  return cudaSuccess;
+}
+
+// The kind (h, w, c) takes with these arrays: sampler_kind, then kPerWarp
+// (one thread per value) for unaligned arrays or p * c past 32 bits.
+int forward_kind(const float* img, const float* out, int h, int w, int c,
+                 int p) {
+  const int kind = sampler_kind(h, w, c);
+  const bool fits = ((uintptr_t)img & 15u) == 0 &&
+                    ((uintptr_t)out & 15u) == 0 &&
+                    (int64_t)p * c < ((int64_t)1 << 31);
+  return kind == kStaged && !fits ? kPerWarp : kind;
+}
+
 template <class L>
 int launch_sample(const float* img, const float* crd, float* out, int n,
                   int h, int w, int c, int p, void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c >= 32) {
+  const int kind = forward_kind(img, out, h, w, c, p);
+  if (kind < 0) return -kind;
+  if (kind == kStaged) {
+    if ((int64_t)n * p == 0) return 0;
+    const int smem = (int)staged_smem_bytes(h, w, c);
+    cudaError_t err = cudaFuncSetAttribute(
+        sample_per_pixel_staged<L>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int per_sample = 1;
+    if (err == cudaSuccess) err = staged_per_sample<L>(n, p, smem, per_sample);
+    if (err != cudaSuccess) return (int)err;
+    const int span = (p + per_sample - 1) / per_sample;
+    sample_per_pixel_staged<L><<<(unsigned)((int64_t)n * per_sample),
+                                 kStagedThreads, smem, s>>>(
+        img, crd, out, h, w, c, p, per_sample, span);
+  } else if (kind == kPerWarp) {
     const int64_t total = (int64_t)n * p * c;
     if (total == 0) return 0;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);

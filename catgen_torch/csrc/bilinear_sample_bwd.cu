@@ -29,7 +29,8 @@
 // masks against the image on the matrix unit; here it is a gather, bound
 // by bytes: each output pixel reads its coordinates and C values of g, and
 // its four taps of C values come from the sample's image. Three kernels,
-// chosen by shape alone (dcoords_kind), the same way on every run:
+// chosen by shape alone (sampler_kind, bilinear_taps.cuh, which the
+// forward shares), the same way on every run:
 //   * staged, for C % 4 == 0, C >= 32 and an image that fits one block's
 //     opt-in shared memory (h w C 4 bytes: 64 KB at 16x16x64): one block
 //     per sample and range of at most 256 output pixels stages the
@@ -158,27 +159,6 @@ __global__ void dcoords_per_pixel(const float* __restrict__ img,
 constexpr int kStagedThreads = 512;  // 16 warps, 32 pixels per step
 constexpr int kStagedPixels = 256;   // most output pixels per block
 
-// Which d_coords kernel a shape takes (see the note at the top).
-enum DcoordsKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2 };
-
-int64_t staged_smem_bytes(int h, int w, int c) {
-  return (int64_t)h * w * c * (int64_t)sizeof(float);
-}
-
-// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
-// shared memory could not be read
-int dcoords_kind(int h, int w, int c) {
-  if (c < 32) return kPerPixel;
-  if (c % 4 != 0) return kPerWarp;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return -(int)err;
-  return staged_smem_bytes(h, w, c) <= optin ? kStaged : kPerWarp;
-}
 
 // Grid: n * per_sample blocks, the blocks of one sample adjacent; block
 // (ni, part) covers output pixels [part * span, (part + 1) * span) of
@@ -293,7 +273,7 @@ int launch_dcoords(const float* img, const float* crd, const float* g,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)n * p;
   if (pixels == 0) return 0;
-  int kind = dcoords_kind(h, w, c);
+  int kind = sampler_kind(h, w, c);
   if (kind < 0) return -kind;
   const bool aligned = ((uintptr_t)img & 15u) == 0 &&
                        ((uintptr_t)g & 15u) == 0;
@@ -369,10 +349,11 @@ extern "C" int catgen_bilinear_grid_dcoords_f32(const float* img,
   return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
 }
 
-// Which d_coords kernel (h, w, c) takes with 16-byte aligned arrays: 0 per
-// pixel, 1 per warp, 2 staged; a negative cudaError_t on failure.
-extern "C" int catgen_bilinear_dcoords_kind(int h, int w, int c) {
-  return dcoords_kind(h, w, c);
+// Which kernel (h, w, c) takes with 16-byte aligned arrays, forward and
+// d_coords alike: 0 per pixel, 1 per warp (d_coords) or per value
+// (forward), 2 staged; a negative cudaError_t on failure.
+extern "C" int catgen_bilinear_sampler_kind(int h, int w, int c) {
+  return sampler_kind(h, w, c);
 }
 
 // The shared memory one d_img block needs, in bytes.

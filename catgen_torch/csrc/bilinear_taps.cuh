@@ -13,6 +13,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 struct Taps {
@@ -42,17 +43,21 @@ __device__ __forceinline__ Taps make_taps(float yn, float xn, int h, int w) {
   return t;
 }
 
-// The lerp of one channel: x first, then y, each product rounded on its
-// own (the library is built with --fmad=false), as the plain version does.
-__device__ __forceinline__ float lerp_taps(const float* __restrict__ base,
-                                           const Taps& t, int c) {
-  const float v00 = __ldg(base + t.p00 * c);
-  const float v01 = __ldg(base + t.p01 * c);
-  const float v10 = __ldg(base + t.p10 * c);
-  const float v11 = __ldg(base + t.p11 * c);
+// The lerp of one channel's four tap values: x first, then y, each
+// product rounded on its own (the library is built with --fmad=false), as
+// the plain version does.
+__device__ __forceinline__ float lerp_values(float v00, float v01, float v10,
+                                             float v11, const Taps& t) {
   const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
   const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
   return top * (1.0f - t.wy) + bot * t.wy;
+}
+
+// The same, reading the taps of one channel from global memory.
+__device__ __forceinline__ float lerp_taps(const float* __restrict__ base,
+                                           const Taps& t, int c) {
+  return lerp_values(__ldg(base + t.p00 * c), __ldg(base + t.p01 * c),
+                     __ldg(base + t.p10 * c), __ldg(base + t.p11 * c), t);
 }
 
 // Where the normalized (y, x) coordinate of output pixel `pi` of sample
@@ -85,3 +90,36 @@ struct GridLayout {
     reinterpret_cast<float2*>(d)[(int64_t)ni * p + pi] = make_float2(dy, dx);
   }
 };
+
+// Which kernel a sampler shape takes, forward (bilinear_sample.cu) and
+// d_coords (bilinear_sample_bwd.cu) alike, decided by (h, w, c) alone so
+// that every run of one shape takes the same kernel:
+//   * kPerPixel for C < 32 (the input transformer's C = 3);
+//   * kStaged for C % 4 == 0 whose image (h w C floats) fits one block's
+//     opt-in shared memory (64 KB at the branch shape 16x16x64): the
+//     sample's image is staged there once per block and read as float4;
+//   * kPerWarp otherwise (odd C, a 32x32x64 image of 256 KB): one warp
+//     (d_coords) or one thread (forward) per channel group, from global
+//     memory.
+// A launcher also needs 16-byte aligned arrays for kStaged, and takes
+// kPerWarp where they are not.
+enum SamplerKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2 };
+
+static inline int64_t staged_smem_bytes(int h, int w, int c) {
+  return (int64_t)h * w * c * (int64_t)sizeof(float);
+}
+
+// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
+// shared memory could not be read
+static inline int sampler_kind(int h, int w, int c) {
+  if (c < 32) return kPerPixel;
+  if (c % 4 != 0) return kPerWarp;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return -(int)err;
+  return staged_smem_bytes(h, w, c) <= optin ? kStaged : kPerWarp;
+}

@@ -1,7 +1,7 @@
 // Nearest-2x upsample + k x k 'same' conv as four collapsed parity convs in
 // one pass, with the optional pieces of both TPU forms:
 //   * an input transform prelu(x * scale + shift, alpha), the previous
-//     ladder stage's BatchNorm affine and PReLU, applied as x is loaded;
+//     ladder stage's BatchNorm affine and PReLU, applied as x is staged;
 //     a halo element outside the image is 0, not the transform of 0, as
 //     the unfused BN -> PReLU -> upsample -> zero-padded conv gives;
 //   * bias, and a PReLU epilogue (one slope or one per output channel);
@@ -18,20 +18,62 @@
 //     xn[n, i + umin_h[d] + u, j + umin_w[e] + v, c] * ck[d, e, u, v, c, co]
 // is, for each parity, a GEMM of (n h w pixels) x (kh kw cin) by
 // (kh kw cin) x (cout), whose A operand is gathered from x on the fly
-// (implicit GEMM). Grid: (pixel tiles, cout tiles, 4 parities).
+// (implicit GEMM). x is NHWC, so A is already contiguous along the
+// contraction (cin within one tap).
 //
-// What bounds it: f32 arithmetic. G32up-c's three stages at batch 640 are
+// What bounds it: multiply-adds. G32up-c's three stages at batch 640 are
 // 43 / 86 / 193 GMAC against ~0.3 GB of traffic, far above the card's
-// f32 balance point, and TF32 is off (the port equals the f32 reference),
-// so the tensor cores are out and the limit is the CUDA cores' f32 FMA
-// rate. The design keeps the FMA units fed: each thread holds a 4 x 4
-// register block and reads its operands as float4 from shared memory, 16
-// multiply-adds per 8 shared loads. Not yet done: double-buffered tiles
-// (cp.async) and larger register blocks, which a later change can add.
+// balance point. f32 on the CUDA cores gives 67 TFLOP/s (the CUDA-core
+// version of this kernel reached 14-23, cuDNN's f32 ~29); the tensor
+// cores run TF32 at 495, so the kernel runs 3xTF32 as dCK does
+// (upsample_conv_bwd.cu): each f32 operand becomes hi = rna(a) and lo =
+// rna(a - hi) in TF32, and lo*hi + hi*lo + hi*hi is summed by the tensor
+// cores with f32 accumulators, a bound of 3 * 2 * MACs / 495e12 s. They
+// add into their accumulators with truncation, which biases a long sum,
+// so each 32-deep step starts fresh accumulators and the steps are added
+// in f32, rounding to nearest.
+//
+// The design, against that bound:
+//   * wgmma (m64n128k8, TF32): each of the block's two warpgroups owns 64
+//     pixels x 128 output channels of its 128 x 128 tile, and the tensor
+//     cores read both operands from shared memory, asynchronously: the
+//     products of step k run while the threads prepare step k+1. (mma.sync
+//     needs every fragment loaded through registers and measured slower
+//     here: 16.74 against 12.81 ms for G32up-c's three stages.)
+//   * A step is one tap and 32 input channels: A, 128 pixels x 32
+//     channels of x gathered with the tap's offset, and B, the matching
+//     32 x 128 slice of the parity stack. Both are K-major, one 128-byte
+//     row per pixel or output channel, in wgmma's 128-byte swizzle. x is
+//     NHWC, so a 16-byte copy of 4 channels lands A in place; B's copies
+//     hold 4 output channels each and land in a raw tile. 16-byte
+//     cp.async copies, zero-filled for rows outside the image; the
+//     copies of step k+2 are in flight during step k. Channel counts that
+//     are not multiples of 4, or unaligned arrays, take 4-byte copies per
+//     element (kVec = false), in the same kernel.
+//   * The split happens once per staged element: when a step's copies
+//     land, the thread that copied an element applies the input
+//     transform and the halo mask (0 outside the image, after the
+//     transform), splits it and stores hi in place and lo beside it; for
+//     B, the thread holds 4 channels x 4 output channels and stores them
+//     transposed. Rounding to TF32 is two integer operations
+//     (rna_tf32): the conversion instruction runs on a slower pipe.
+//   * Shared memory: A hi x 3 (one in flight, one being split, one being
+//     multiplied), A lo, B hi, B lo and B raw x 2: 176 KB, one block of 8
+//     warps per SM (64 accumulators and 64 step sums a thread). One
+//     __syncthreads per step. G32up-c's stages give 1280 / 2560 / 5120
+//     blocks: 97-99% full waves of 132. The blocks of one pixel tile (4
+//     parities x cout tiles) are adjacent in launch order, so its x stays
+//     in L2.
+// What is left: the split pass and the step sums do not overlap the next
+// step's products (one accumulator set fits the registers); a producer
+// warpgroup with setmaxnreg, and a second accumulator set for the
+// consumers, would.
 //
 // The statistics are deterministic without atomics: each block writes the
-// column sums of its tile to its own row of a scratch array, and a second
-// kernel adds the rows in a fixed order.
+// column sums of its tile to its own row of a scratch array (a fixed
+// butterfly over the rows of a warp, then the two row-warps in order),
+// and a second kernel adds the rows in a fixed order. No atomics
+// anywhere: two calls on the same inputs give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,131 +84,457 @@ namespace {
 
 using namespace upconv;
 
+namespace fwd {
+
+constexpr int kTileM = 128;     // output pixels of one parity per block
+constexpr int kTileN = 128;     // output channels per block
+constexpr int kStep = 32;       // contraction per stage: 32 channels, 1 tap
+constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
+constexpr int kTile = kTileM * kStep * 4;     // bytes of one A or B tile
+static_assert(kTileM == kTileN, "one tile size for A and B");
+static_assert(kStep * 4 == 128, "a tile row is one 128-byte swizzle row");
+// Shared memory, in tiles of kTile bytes, 1024-aligned: A (hi, and the
+// raw copy it replaces) x 3 stages, A lo x 2, B hi x 2, B lo x 2, B's raw
+// copy x 2
+constexpr int kAHi = 0, kALo = 3, kBHi = 5, kBLo = 7, kBRaw = 9;
+constexpr int kSmemBytes = 11 * kTile + 1024;   // + room to align
+static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
+
+// Byte offset of 16-byte chunk c (channels 4c .. 4c+3) of row r in a
+// tile: rows of 128 bytes, chunks XOR-swizzled by the row (wgmma's
+// 128-byte swizzle, so its operand reads and the split's stores hit 8
+// different bank groups per 8 chunks)
+__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile in the
+// 128-byte swizzle: start address, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t tile_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= A * B over one 8-deep step: 64 rows x 128 columns, f32
+// accumulators (64 a thread), A and B TF32 in shared memory; accumulate
+// into d unless `fresh`
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, bool fresh) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"((int)fresh));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for this warpgroup's products; d may be read after it
+__device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               :
+               : "memory");
+}
+
+// makes this thread's st.shared visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 split4(const float (&v)[4], uint4& lo) {
+  uint4 hi;
+  split_tf32(v[0], hi.x, lo.x);
+  split_tf32(v[1], hi.y, lo.y);
+  split_tf32(v[2], hi.z, lo.z);
+  split_tf32(v[3], hi.w, lo.w);
+  return hi;
+}
+
+// Copies one chunk: 4 floats (16 bytes, or 4 single floats), zero where
+// !ok (or, per element, past `count` of the element's index c); `base`
+// stands in for the source of a zero-fill, which reads nothing
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* base, bool ok, int c,
+                                      int count) {
+  if (kVec) {
+    cp_async16(dst, ok ? src : base, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool okq = ok && c + q < count;
+      cp_async4(dst + q, okq ? src + q : base, okq ? 4 : 0);
+    }
+  }
+}
+
+}  // namespace fwd
+
 // x (n, h, w, cin); wst (4, kh, kw, cin, cout); y (n, 2h, 2w, cout);
-// partial (4 * gridDim.x, 2, cout) when kStats.
-template <bool kTransform, bool kStats>
-__global__ void __launch_bounds__(kThreads)
+// partial (4 * m_tiles, 2, cout) when kStats. Blocks in order parity,
+// cout tile, pixel tile (fastest to slowest).
+template <bool kTransform, bool kStats, bool kVec>
+__global__ void __launch_bounds__(fwd::kThreads, 1)
 upsample_conv_fwd(const float* __restrict__ x, const float* __restrict__ wst,
                   const float* __restrict__ bias,
                   const float* __restrict__ prelu, int prelu_n, Transform tr,
                   float* __restrict__ y, float* __restrict__ partial,
                   Geometry g) {
-  __shared__ Tiles s;
-  __shared__ float red[16][kBN];
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int p = blockIdx.z, d = p >> 1, e = p & 1;
-  const int64_t hw = (int64_t)g.h * g.w, m_total = (int64_t)g.n * hw;
-  const int64_t m0 = (int64_t)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  using namespace fwd;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the tiles start at the first 1024-byte boundary (the swizzle's period)
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
+  auto tile = [&](int t) { return smem + t * kTile; };
 
-  // A loader: one pixel, four consecutive channels
-  const int lm = t >> 2, lc = (t & 3) * 4;
-  const int64_t am = m0 + lm;
-  const bool a_row = am < m_total;
-  int an = 0, ai = 0, aj = 0;
-  if (a_row) {
-    an = (int)(am / hw);
-    const int r = (int)(am - (int64_t)an * hw);
-    ai = r / g.w;
-    aj = r - ai * g.w;
+  const int tid = threadIdx.x;
+  const int co_tiles = (int)ceil_div(g.cout, kTileN);
+  const int m_tiles = (int)ceil_div((int64_t)g.n * g.h * g.w, kTileM);
+  int b = blockIdx.x;
+  const int p = b & 3;
+  b >>= 2;
+  const int co0 = (b % co_tiles) * kTileN;
+  const int mtile = b / co_tiles;
+  const int d = p >> 1, e = p & 1;
+  const int hw = g.h * g.w;
+  const int64_t m_total = (int64_t)g.n * hw;
+  const int64_t m0 = (int64_t)mtile * kTileM;
+  const int csteps = (g.cin + kStep - 1) / kStep;
+  const int steps = g.kh * g.kw * csteps;
+
+  // A loader: rows 32 r + (tid >> 3), chunk tid & 7 (channels 4 (tid & 7)
+  // .. +3) of each stage, copied into place in the A tile; the rows'
+  // pixels are decoded once
+  const int acq = tid & 7, arow = tid >> 3;
+  int apix[4], ai[4], aj[4];
+  uint32_t avalid = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t m = m0 + 32 * r + arow;
+    const bool ok = m < m_total;
+    const int nn = ok ? (int)(m / hw) : 0;
+    const int rem = ok ? (int)(m - (int64_t)nn * hw) : 0;
+    ai[r] = rem / g.w;
+    aj[r] = rem - ai[r] * g.w;
+    apix[r] = ok ? (int)m : 0;      // (nn h + i) w + j
+    avalid |= (uint32_t)ok << r;
   }
-  // B loader: one contraction row, four consecutive output channels
-  const int bk = t >> 4, bn = (t & 15) * 4;
+  // B loader: contraction rows 4 (tid & 7) + r (chunk tid & 7 of the
+  // K-major B tile), output channels co0 + 4 (tid >> 3) .. +3, into B's
+  // raw tile; the split transposes them
+  const int bc = tid & 7, bnq = tid >> 3;
+  const int bco = co0 + 4 * bnq;
 
-  float acc[4][4] = {};
-  for (int u = 0; u < g.kh; ++u) {
-    for (int v = 0; v < g.kw; ++v) {
-      const int si = ai + g.umin_h[d] + u, sj = aj + g.umin_w[e] + v;
-      const bool inb = a_row && si >= 0 && si < g.h && sj >= 0 && sj < g.w;
-      const int64_t xoff =
-          inb ? (((int64_t)an * g.h + si) * g.w + sj) * g.cin : 0;
-      const float* wtap =
-          wst + (((int64_t)p * g.kh + u) * g.kw + v) * g.cin * g.cout;
-      for (int c0 = 0; c0 < g.cin; c0 += kBK) {
+  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
+  int ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
+
+  auto load_stage = [&](int kt) {
+    float* a_dst = reinterpret_cast<float*>(tile(kAHi + kt % 3));
+    float* b_dst = reinterpret_cast<float*>(tile(kBRaw + (kt & 1)));
+    const int c0 = ld_cs * kStep;
+    const int du = g.umin_h[d] + ld_u, dv = g.umin_w[e] + ld_v;
+    uint32_t bits = 0;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = c0 + lc + q;
-          s.a[lc + q][lm] = (inb && c < g.cin)
-                                ? load_x<kTransform>(x + xoff + c, tr, c)
-                                : 0.0f;
-        }
-        const int c = c0 + bk;
+    for (int r = 0; r < 4; ++r) {
+      const int si = ai[r] + du, sj = aj[r] + dv;
+      const bool inb = ((avalid >> r) & 1u) && si >= 0 && si < g.h &&
+                       sj >= 0 && sj < g.w;
+      const int c = c0 + 4 * acq;
+      const float* src =
+          x + ((int64_t)apix[r] + du * g.w + dv) * g.cin + c;
+      copy4<kVec>(a_dst + chunk_at(32 * r + arow, acq) / 4, src, x,
+                  inb && (!kVec || c < g.cin), c, g.cin);
+      bits |= (uint32_t)inb << r;
+    }
+    const float* wtap =
+        wst + (((int64_t)p * g.kh + ld_u) * g.kw + ld_v) * g.cin * g.cout;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int co = n0 + bn + q;
-          s.b[bk][bn + q] = (c < g.cin && co < g.cout)
-                                ? __ldg(wtap + (int64_t)c * g.cout + co)
-                                : 0.0f;
-        }
-        __syncthreads();
-        mma_tile(s, acc, ty, tx);
-        __syncthreads();
+    for (int r = 0; r < 4; ++r) {
+      const int k = c0 + 4 * bc + r;
+      const float* src = wtap + (int64_t)k * g.cout + bco;
+      copy4<kVec>(b_dst + 4 * (r * kThreads + tid), src, wst,
+                  k < g.cin && (!kVec || bco < g.cout), bco, g.cout);
+    }
+    const int slot = kt % 3;
+    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
+    if (++ld_cs == csteps) {
+      ld_cs = 0;
+      if (++ld_v == g.kw) {
+        ld_v = 0;
+        ++ld_u;
       }
     }
-  }
+  };
 
-  float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // stage kt's own chunks, once they have landed (the channel constants
+  // are read while the copies finish): A's transform and halo in place,
+  // then hi in place and lo beside it; B transposed to K-major hi and lo
+  // tiles. Then visible to wgmma. Stage kt + 1's copies may still be in
+  // flight.
+  auto split_stage = [&](int kt) {
+    uint8_t* a_hi = tile(kAHi + kt % 3);
+    uint8_t* a_lo = tile(kALo + (kt & 1));
+    const uint32_t bits = masks >> (4 * (kt % 3));
+    const int c = (kt % csteps) * kStep + 4 * acq;
+    float sc[4], sh[4], al[4];
+    if (kTransform) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty * 4 + i;
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = c + q < g.cin;
+        sc[q] = ok ? __ldg(tr.scale + c + q) : 0.0f;
+        sh[q] = ok ? __ldg(tr.shift + c + q) : 0.0f;
+        al[q] = ok ? __ldg(tr.alpha + c + q) : 0.0f;
+      }
+    }
+    cp_async_wait<1>();             // this thread's copies of stage kt
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t off = chunk_at(32 * r + arow, acq);
+      const float4 c4 = *reinterpret_cast<const float4*>(a_hi + off);
+      float v[4] = {c4.x, c4.y, c4.z, c4.w};
+      if (kTransform) {
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // prelu(x * scale + shift), rounded as the plain version's
+          const float xt = v[q] * sc[q] + sh[q];
+          v[q] = inb ? (xt >= 0.0f ? xt : al[q] * xt) : 0.0f;
+        }
+      }
+      uint4 lo;
+      *reinterpret_cast<uint4*>(a_hi + off) = split4(v, lo);
+      *reinterpret_cast<uint4*>(a_lo + off) = lo;
+    }
+    const float4* b_raw =
+        reinterpret_cast<const float4*>(tile(kBRaw + (kt & 1)));
+    float bv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 c4 = b_raw[r * kThreads + tid];
+      bv[r][0] = c4.x;
+      bv[r][1] = c4.y;
+      bv[r][2] = c4.z;
+      bv[r][3] = c4.w;
+    }
+    uint8_t* b_hi = tile(kBHi + (kt & 1));
+    uint8_t* b_lo = tile(kBLo + (kt & 1));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v[4] = {bv[0][q], bv[1][q], bv[2][q], bv[3][q]};
+      uint4 lo;
+      const uint4 hi = split4(v, lo);
+      const uint32_t off = chunk_at(4 * bnq + q, bc);
+      *reinterpret_cast<uint4*>(b_hi + off) = hi;
+      *reinterpret_cast<uint4*>(b_lo + off) = lo;
+    }
+    fence_async_shared();
+  };
+
+  // warpgroup wg owns rows 64 wg .. +63 of the tile. acc holds one step's
+  // 32 channels; sum adds the steps in f32.
+  const int wg = tid >> 7;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
+
+  // stages 0 and 1 in flight, stage 0 split; then per step: the copies
+  // of stage kt + 2, the products of stage kt started (asynchronous), the
+  // split of stage kt + 1 beside them, the wait for the products and
+  // their sum, one barrier
+  if (steps > 0) load_stage(0);
+  cp_async_commit();
+  if (steps > 1) load_stage(1);
+  cp_async_commit();
+  if (steps > 0) split_stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < steps; ++kt) {
+    if (kt + 2 < steps) load_stage(kt + 2);
+    cp_async_commit();
+    const uint32_t a_hi = sbase + (kAHi + kt % 3) * kTile + wg * 64 * 128;
+    const uint32_t a_lo = sbase + (kALo + (kt & 1)) * kTile + wg * 64 * 128;
+    const uint32_t b_hi = sbase + (kBHi + (kt & 1)) * kTile;
+    const uint32_t b_lo = sbase + (kBLo + (kt & 1)) * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {   // 8 channels each, 32 bytes a row
+      wgmma_tf32(acc, tile_desc(a_lo + 32 * s), tile_desc(b_hi + 32 * s),
+                 s == 0);
+      wgmma_tf32(acc, tile_desc(a_hi + 32 * s), tile_desc(b_lo + 32 * s),
+                 false);
+      wgmma_tf32(acc, tile_desc(a_hi + 32 * s), tile_desc(b_hi + 32 * s),
+                 false);
+    }
+    wgmma_commit();
+    if (kt + 1 < steps) split_stage(kt + 1);
+    wgmma_wait(acc);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
+    __syncthreads();                // stage kt + 1 split; kt's tiles free
+  }
+  cp_async_wait<0>();
+
+  // epilogue: bias, PReLU, the interleaved store, the column sums. Thread
+  // (g, t) of warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8
+  // of the warpgroup's 64, columns 2t, 2t+1 of each 8-column group.
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16;
+  float s1[16][2] = {}, s2[16][2] = {};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t m = m0 + wrow + gid + 8 * hf;
     if (m >= m_total) continue;
     const int nn = (int)(m / hw);
-    const int r = (int)(m - (int64_t)nn * hw);
-    const int oi = r / g.w, oj = r - oi * g.w;
+    const int rem = (int)(m - (int64_t)nn * hw);
+    const int oi = rem / g.w, oj = rem - oi * g.w;
     float* out = y + (((int64_t)nn * 2 * g.h + 2 * oi + d) * 2 * g.w +
                       2 * oj + e) * g.cout;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx * 4 + j;
-      if (co >= g.cout) continue;
-      float val = acc[i][j];
-      if (bias != nullptr) val += __ldg(bias + co);
-      if (prelu != nullptr) {
-        const float a = __ldg(prelu + (prelu_n == 1 ? 0 : co));
-        val = val >= 0.0f ? val : a * val;
+    for (int j = 0; j < 16; ++j) {
+      const int co = co0 + 8 * j + 2 * tig;
+      float val[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = sum[4 * j + 2 * hf + q];
+        if (co + q < g.cout) {
+          if (bias != nullptr) v += __ldg(bias + co + q);
+          if (prelu != nullptr) {
+            const float a = __ldg(prelu + (prelu_n == 1 ? 0 : co + q));
+            v = v >= 0.0f ? v : a * v;
+          }
+          if (kStats) {
+            s1[j][q] += v;
+            s2[j][q] += v * v;
+          }
+        }
+        val[q] = v;
       }
-      out[co] = val;
-      if (kStats) {
-        s1[j] += val;
-        s2[j] += val * val;
+      if (co + 1 < g.cout && (g.cout & 1) == 0) {
+        *reinterpret_cast<float2*>(out + co) = make_float2(val[0], val[1]);
+      } else if (co < g.cout) {
+        out[co] = val[0];
+        if (co + 1 < g.cout) out[co + 1] = val[1];
       }
     }
   }
   if (kStats) {
-    const int64_t row = (int64_t)p * gridDim.x + blockIdx.x;
-    float* dst = partial + row * 2 * g.cout + n0;
-    block_column_sum(red, s1, ty, tx, dst, g.cout - n0);
-    block_column_sum(red, s2, ty, tx, dst + g.cout, g.cout - n0);
+    // the 8 rows g of a warp in a fixed butterfly, then the 8 warps in
+    // order; the A tiles are free to hold them
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s1[j][q] += __shfl_xor_sync(0xffffffffu, s1[j][q], off);
+          s2[j][q] += __shfl_xor_sync(0xffffffffu, s2[j][q], off);
+        }
+      }
+    }
+    float* red = reinterpret_cast<float*>(smem);   // (8 warps, 2, 128)
+    const int warp = tid >> 5;
+    if (gid == 0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tig + q;
+          red[(warp * 2 + 0) * kTileN + col] = s1[j][q];
+          red[(warp * 2 + 1) * kTileN + col] = s2[j][q];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < kTileN && co0 + tid < g.cout) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        t1 += red[(w * 2 + 0) * kTileN + tid];
+        t2 += red[(w * 2 + 1) * kTileN + tid];
+      }
+      float* dst = partial + ((int64_t)p * m_tiles + mtile) * 2 * g.cout;
+      dst[co0 + tid] = t1;
+      dst[g.cout + co0 + tid] = t2;
+    }
   }
 }
 
-template <bool kTransform, bool kStats>
+template <bool kTransform, bool kStats, bool kVec>
 cudaError_t launch_fwd(const float* x, const float* wst, const float* bias,
                        const float* prelu, int prelu_n, Transform tr,
                        float* y, float* partial, const Geometry& g,
                        cudaStream_t s) {
-  const dim3 grid((unsigned)ceil_div((int64_t)g.n * g.h * g.w, kBM),
-                  (unsigned)ceil_div(g.cout, kBN), 4);
-  upsample_conv_fwd<kTransform, kStats><<<grid, kThreads, 0, s>>>(
-      x, wst, bias, prelu, prelu_n, tr, y, partial, g);
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_fwd<kTransform, kStats, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = 4 * ceil_div(g.cout, fwd::kTileN) *
+                         ceil_div((int64_t)g.n * g.h * g.w, fwd::kTileM);
+  upsample_conv_fwd<kTransform, kStats, kVec>
+      <<<(unsigned)blocks, fwd::kThreads, fwd::kSmemBytes, s>>>(
+          x, wst, bias, prelu, prelu_n, tr, y, partial, g);
   return cudaGetLastError();
+}
+
+template <bool kTransform, bool kStats>
+cudaError_t launch_fwd(bool vec, const float* x, const float* wst,
+                       const float* bias, const float* prelu, int prelu_n,
+                       Transform tr, float* y, float* partial,
+                       const Geometry& g, cudaStream_t s) {
+  return vec ? launch_fwd<kTransform, kStats, true>(
+                   x, wst, bias, prelu, prelu_n, tr, y, partial, g, s)
+             : launch_fwd<kTransform, kStats, false>(
+                   x, wst, bias, prelu, prelu_n, tr, y, partial, g, s);
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
 }
 
 }  // namespace
 
-// Rows of per-block partial sums the kernels of this family write for an
-// input of n x h x w pixels, per parity: one per tile of pixels.
+// Rows of per-block partial sums the CUDA-core kernels of this family (dX)
+// write for an input of n x h x w pixels, per parity: one per tile of kBM
+// pixels.
 extern "C" int catgen_upsample_conv_partial_rows(int n, int h, int w) {
   return (int)ceil_div((int64_t)n * h * w, kBM);
+}
+
+// Rows of per-block partial sums the forward writes, per parity: one per
+// tile of 128 pixels.
+extern "C" int catgen_upsample_conv_fwd_partial_rows(int n, int h, int w) {
+  return (int)ceil_div((int64_t)n * h * w, fwd::kTileM);
 }
 
 // The forward. x (n, h, w, cin) and wst (4, kh, kw, cin, cout), the
 // collapsed parity kernels, are required; bias (cout), prelu (prelu_n
 // slopes: 1 or cout) and the input transform tscale / tshift / talpha
 // (cin each) may be null. With stats non-null, partial holds
-// (4 * partial_rows, 2, cout) floats of scratch and stats receives
-// [sum y, sum y^2] as (2, cout). Launches on `stream`, allocates nothing,
-// returns cudaGetLastError() (0 = accepted).
+// (4 * fwd_partial_rows, 2, cout) floats of scratch and stats receives
+// [sum y, sum y^2] as (2, cout). Pixel indices are 32-bit: n * h * w must
+// stay below 2^31. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (0 = accepted).
 extern "C" int catgen_upsample_conv_fwd_f32(
     const float* x, const float* wst, const float* bias, const float* prelu,
     int prelu_n, const float* tscale, const float* tshift,
@@ -175,25 +543,31 @@ extern "C" int catgen_upsample_conv_fwd_f32(
     int uw0, int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w == 0 || cout == 0) return 0;
+  if ((int64_t)n * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry g =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
   const Transform tr = {tscale, tshift, talpha};
   const bool with_stats = stats != nullptr;
+  // 16-byte copies where every row of x and wst starts 16-byte aligned
+  const bool vec = cin % 4 == 0 && cout % 4 == 0 && aligned16(x) &&
+                   aligned16(wst);
   cudaError_t err;
   if (tscale != nullptr) {
     err = with_stats
-              ? launch_fwd<true, true>(x, wst, bias, prelu, prelu_n, tr, y,
-                                       partial, g, s)
-              : launch_fwd<true, false>(x, wst, bias, prelu, prelu_n, tr, y,
-                                        partial, g, s);
+              ? launch_fwd<true, true>(vec, x, wst, bias, prelu, prelu_n, tr,
+                                       y, partial, g, s)
+              : launch_fwd<true, false>(vec, x, wst, bias, prelu, prelu_n,
+                                        tr, y, partial, g, s);
   } else {
     err = with_stats
-              ? launch_fwd<false, true>(x, wst, bias, prelu, prelu_n, tr, y,
-                                        partial, g, s)
-              : launch_fwd<false, false>(x, wst, bias, prelu, prelu_n, tr, y,
-                                         partial, g, s);
+              ? launch_fwd<false, true>(vec, x, wst, bias, prelu, prelu_n, tr,
+                                        y, partial, g, s)
+              : launch_fwd<false, false>(vec, x, wst, bias, prelu, prelu_n,
+                                         tr, y, partial, g, s);
   }
   if (err != cudaSuccess || !with_stats) return (int)err;
-  const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);
+  const int rows = 4 * catgen_upsample_conv_fwd_partial_rows(n, h, w);
   return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);
 }

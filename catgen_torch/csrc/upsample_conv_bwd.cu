@@ -45,8 +45,9 @@
 // and cuDNN's f32 wgrad comes within ~88% of that. The tensor cores run
 // TF32 at 495 TFLOP/s, but TF32 keeps 10 mantissa bits (one TF32 product
 // misses the 1e-4 bound on dW), so the kernel runs 3xTF32: each f32
-// operand is split in registers into hi = cvt.rna.tf32(a) and lo =
-// cvt.rna.tf32(a - hi), and lo*hi + hi*lo + hi*hi (CUTLASS's order) is
+// operand is split in registers into hi = rna(a) and lo = rna(a - hi),
+// TF32 rounded to nearest (rna_tf32, upsample_conv_tile.cuh), and
+// lo*hi + hi*lo + hi*hi (CUTLASS's order) is
 // accumulated in f32 by mma.sync.m16n8k8 TF32: three tensor-core products
 // per f32 product, a bound of 3 * 2 * MACs / 495e12 s. lo*lo and the
 // rounding of lo leave ~2^-22 of each product. The tensor cores add into
@@ -214,42 +215,6 @@ __host__ __device__ constexpr int stage_floats(bool fold) {
 // (scale, shift, alpha of cin; gs1, gs2 of cout)
 __host__ __device__ constexpr int smem_floats(bool fold) {
   return kStages * stage_floats(fold) + 5 * kTileCin;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// src_bytes < size zero-fills the rest (0: the whole chunk)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// hi = rna(a), lo = rna(a - hi), both TF32 bit patterns
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                          uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
-  const float rest = a - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
 // d += a * b: one m16n8k8 TF32 product, f32 accumulators (not volatile:

@@ -1,15 +1,18 @@
 // Shared pieces of the upsample-conv kernels (upsample_conv.cu, forward;
-// upsample_conv_bwd.cu, dX and dCK): the tile shape, the register-blocked
-// product of two shared-memory tiles, the loaders' input transform and
-// cotangent fold, and the fixed-order sums that make every reduction
-// deterministic without atomics.
+// upsample_conv_bwd.cu, dX and dCK): the CUDA-core tile shape and its
+// register-blocked product, the loaders' input transform and cotangent
+// fold, the tensor-core pieces of the 3xTF32 kernels, and the
+// fixed-order sums that make every reduction deterministic without
+// atomics.
 //
-// Every kernel of the family is an implicit GEMM in f32 on the CUDA cores:
-// a block of kThreads threads owns a kBM x kBN tile of its output, walks
-// the contraction in steps of kBK, gathers each step's A (kBK x kBM) and B
-// (kBK x kBN) slices into shared memory, and each thread accumulates a 4x4
-// block of the tile in registers with fmaf (the library is built with
+// dX is an implicit GEMM in f32 on the CUDA cores: a block of kThreads
+// threads owns a kBM x kBN tile of its output, walks the contraction in
+// steps of kBK, gathers each step's A (kBK x kBM) and B (kBK x kBN)
+// slices into shared memory, and each thread accumulates a 4x4 block of
+// the tile in registers with fmaf (the library is built with
 // --fmad=false, which would otherwise split every multiply-add in two).
+// The forward and dCK run 3xTF32 on the tensor cores (their sources say
+// how).
 
 #pragma once
 
@@ -54,17 +57,6 @@ struct __align__(16) Tiles {
   float a[kBK][kBM + kPad];
   float b[kBK][kBN + kPad];
 };
-
-// prelu(v * scale + shift, alpha) for channel c, rounded as the plain
-// PyTorch version's separate multiply and add.
-template <bool kTransform>
-__device__ __forceinline__ float load_x(const float* p, const Transform& t,
-                                        int c) {
-  const float v = __ldg(p);
-  if (!kTransform) return v;
-  const float xt = v * __ldg(t.scale + c) + __ldg(t.shift + c);
-  return xt >= 0.0f ? xt : __ldg(t.alpha + c) * xt;
-}
 
 // The cotangent at flat index idx (channel co), with the stats fold in
 // the plain version's order: (gy + gs1) + (2 y) gs2.
@@ -143,6 +135,51 @@ static inline cudaError_t launch_sum_rows(const float* in, float* out,
   const dim3 grid((unsigned)((cols + 31) / 32));
   sum_rows<<<grid, block, 0, s>>>(in, out, rows, cols);
   return cudaGetLastError();
+}
+
+// Pieces of the 3xTF32 kernels (the forward and dCK): cp.async copies
+// into shared memory, and the split of an f32 value into TF32 hi and lo.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// src_bytes < size zero-fills the rest (0: the whole chunk)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// a rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// cvt.rna.tf32.f32's result for every value but a NaN, in two integer
+// operations (the conversion runs on a slower pipe)
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = rna(a), lo = rna(a - hi), both TF32 bit patterns
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = rna_tf32(a);
+  lo = rna_tf32(a - __uint_as_float(hi));
 }
 
 __host__ __device__ __forceinline__ int64_t ceil_div(int64_t a, int64_t b) {

@@ -9,7 +9,9 @@ and returns ``(N, Ho, Wo, C)``, differentiable with respect to both
 inputs. It is the counterpart of
 ``catgen/kernels/pallas_bilinear_v4.py::bilinear_sample_rows``; the CUDA
 kernels are ``catgen_torch/csrc/bilinear_sample.cu`` (forward) and
-``catgen_torch/csrc/bilinear_sample_bwd.cu`` (d_img and d_coords).
+``catgen_torch/csrc/bilinear_sample_bwd.cu`` (d_img and d_coords). Which
+forward and d_coords kernel a shape takes is decided by the shape alone
+(``forward_kind``, ``dcoords_kind``).
 
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
 tensor it runs ``bilinear_sample_rows_plain``, the gather-and-lerp
@@ -188,17 +190,30 @@ def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
 
 
 DCOORDS_KINDS = ("per_pixel", "per_warp", "staged")
+FORWARD_KINDS = ("per_pixel", "per_value", "staged")
+
+
+def _kind(h: int, w: int, c: int, names) -> str:
+    code = load_library().catgen_bilinear_sampler_kind(h, w, c)
+    if code < 0:
+        raise RuntimeError(f"reading the card's shared memory failed: "
+                           f"cudaError_t {-code}")
+    return names[code]
 
 
 def dcoords_kind(h: int, w: int, c: int) -> str:
     """Which d_coords kernel an (h, w, c) image takes on the current card
     (16-byte aligned arrays): ``per_pixel`` (c < 32), ``staged`` (the
     image in shared memory: c % 4 == 0 and it fits) or ``per_warp``."""
-    kind = load_library().catgen_bilinear_dcoords_kind(h, w, c)
-    if kind < 0:
-        raise RuntimeError(f"reading the card's shared memory failed: "
-                           f"cudaError_t {-kind}")
-    return DCOORDS_KINDS[kind]
+    return _kind(h, w, c, DCOORDS_KINDS)
+
+
+def forward_kind(h: int, w: int, c: int) -> str:
+    """Which forward kernel an (h, w, c) image takes on the current card,
+    rows or grid layout, by the d_coords kernels' rule: ``per_pixel`` (c <
+    32), ``staged`` (c % 4 == 0 and the image fits shared memory; arrays
+    that are not 16-byte aligned take ``per_value``) or ``per_value``."""
+    return _kind(h, w, c, FORWARD_KINDS)
 
 
 def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,

@@ -232,7 +232,7 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
     y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     partial = stats = None
     if with_stats:
-        rows = 4 * lib.catgen_upsample_conv_partial_rows(n, h, w)
+        rows = 4 * lib.catgen_upsample_conv_fwd_partial_rows(n, h, w)
         partial = torch.empty((rows, 2, cout), dtype=torch.float32,
                               device=dev)
         stats = torch.empty((2, cout), dtype=torch.float32, device=dev)

@@ -14,10 +14,13 @@ no result.
 
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
-     source, in parallel); the dCK kernels' SASS holds TF32 tensor-core
-     products (cuobjdump);
+     source, in parallel); the SASS of every instantiation of the dCK and
+     forward upsample-conv kernels holds TF32 tensor-core products
+     (cuobjdump: HMMA for dCK's mma.sync, HGMMA for the forward's wgmma);
   3. the sampler's forward kernel against its plain PyTorch version at
-     both shapes of the sampling path, N=256;
+     both shapes of the sampling path, N=256, with the forward kernel each
+     shape takes (per pixel, staged); the staged kernel bit for bit
+     against the plain version and the per-value kernel;
   4. the sampler's backward kernels (d_img, d_coords) against the plain
      version's autograd at both shapes of the training path, N=640, and
      at a 32x32x64 image, N=64, with the d_coords kernel each shape
@@ -32,20 +35,24 @@ no result.
   8. the training slice through catgen_torch.cli.train.main: 2 epochs of
      20 steps at batch 64 with augmentation; checks the epochs, grids and
      checkpoint, the kernel launches per step, and that the sample CLI
-     reads the checkpoint on the card;
+     reads the checkpoint on the card; then the CLI twice from one seed,
+     one epoch each, started with TF32 on and cuDNN nondeterministic: the
+     CLI sets full f32 and deterministic cuDNN, and the two checkpoints
+     hold the same bits;
   9. one train step at batch 8 on the card (cuDNN's deterministic
      algorithms) and on the CPU from the same weights and draws,
      compared;
  10. training times at batch 640 with augmentation (bench.py's training
-     configuration): the step, its D and G phases and the optimizer, the
-     sampler kernels against their plain versions and grid_sample at the
+     configuration): the step with and without cuDNN's deterministic
+     algorithms, its D and G phases and the optimizer, the sampler
+     kernels against their plain versions and grid_sample at the
      training shapes, whether same-seed steps are bit-identical, and a
-     profiled step; d_coords' device time against
-     grid_sampler_2d_backward's;
+     profiled step; each sampler kernel's device time against its library
+     call's (grid_sample, grid_sampler_2d_backward);
  11. the upsample-conv kernels against their plain versions at G32up-c's
      three stage shapes, N=640 and N=320, dCK in all four fold/transform
-     variants; repeats bit-identical; dCK and the plain version against
-     float64 at N=640;
+     variants; repeats bit-identical; the forward (rows 3 and 4), dCK and
+     the plain version against float64 at N=640;
  12. the sampling CLI on the ladder route (CATGEN_UPSAMPLE_IMPL=pallas,
      CATGEN_FUSED_LADDER=1): 3 block launches per G batch, the same
      images as phase 5;
@@ -58,9 +65,9 @@ no result.
  15. one train step on the ladder route, card against CPU (the CPU runs
      the kernels' plain versions), within phase 9's bounds;
  16. at batch 640: each upsample-conv kernel against its plain version,
-     the cuDNN collapsed route and its bound (dCK: 3xTF32 and f32), at
-     each stage shape; the train step on the ladder and per-layer routes,
-     profiled;
+     the cuDNN collapsed route and its bound (forward and dCK: 3xTF32 and
+     f32), at each stage shape; the train step on the ladder and
+     per-layer routes, profiled;
  17. the fused ST-conv kernel against its plain version at D32_st3's
      prefix, N=640 and 256, shared and per-channel slope: out, samp and z;
      repeats bit-identical;
@@ -69,18 +76,22 @@ no result.
      phase 5), the training CLI (per step 2 ST-conv, 3 v4 forwards, 4
      d_coords, 3 d_img), one train step card against CPU;
  19. the grid-layout sampler kernels against their plain versions at
-     phase 4's shapes; the grid route (CATGEN_SAMPLER_IMPL=mxu,
+     phase 4's shapes (the staged forward bit for bit); the grid route
+     (CATGEN_SAMPLER_IMPL=mxu,
      CATGEN_SAMPLER_KERNEL=v1): the sampling CLI (2 grid forwards per D
      batch, no v4 launch) and the training CLI (per step 5 grid forwards,
      4 d_coords, 3 d_img); one train step each on v2 and v3;
  20. times at batch 640: the ST-conv kernel, its plain version, the split
      route and its bound; the grid kernels, their plain versions,
-     grid_sample and the bound (d_coords also in device time); the train
-     step on the fused-prefix, v1 and default routes, profiled.
+     grid_sample and the bound (each also in device time beside its
+     library call's); the train step on the fused-prefix, v1 and default
+     routes, profiled.
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 run the
-default route. It prints a JSON line describing the kernels, the card's
+default route. From phase 5 on, everything runs in the numeric mode the
+CLIs set (full f32, cuDNN deterministic); each train step is timed with
+and without cuDNN's deterministic algorithms. It prints a JSON line describing the kernels, the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
@@ -113,6 +124,9 @@ TRAIN_SHAPES = [           # the sampler in a training D batch of 640
 # KB, over the shared memory of a block) per warp
 DCOORDS_SHAPES = TRAIN_SHAPES + [(64, 32, 32, 64, 32, 32)]
 DCOORDS_KINDS = ("per_pixel", "staged", "per_warp")
+# the forward kernel the same shapes take (kernels.bilinear.forward_kind):
+# the staged kernel, like d_coords', gives the plain version's bits
+FORWARD_KINDS = ("per_pixel", "staged", "per_value")
 KERNEL_TOL = 1e-5          # kernel vs plain, f32 (both round alike)
 # backward kernels vs plain: the kernels sum over channels and output
 # pixels in another order than autograd's reductions and scatter-adds, so
@@ -210,23 +224,31 @@ def device_ms(fn, calls: int = 20, warmup: int = 3) -> tuple:
     return cuda_ms(fn, inner=calls), [], "events"
 
 
-def dcoords_device_line(layout: str, shape, kern, library,
+# each sampler kernel's library call (one output of the backward)
+SAMPLER_LIBRARY = {"fwd": "grid_sample",
+                   "dcoords": "grid_sampler_2d_backward (grid output)",
+                   "dimg": "grid_sampler_2d_backward (input output)"}
+
+
+def sampler_device_line(key: str, layout: str, shape, kern, library,
                         card_name: str) -> tuple:
-    """Prints the d_coords kernel's device time beside
-    grid_sampler_2d_backward's (its grid output alone) in the same run,
-    and their ratio; returns (kernel ms, library ms)."""
+    """Prints a sampler kernel's device time (key: fwd, dcoords or dimg)
+    beside its library call's (grid_sample, or grid_sampler_2d_backward
+    with the one output the kernel computes) in the same run, and their
+    ratio; returns (kernel ms, library ms)."""
     from catgen_torch.kernels import bilinear
 
     k1, names, src1 = device_ms(kern)
     lib_ms, _, src_lib = device_ms(library)
     k2, _, src2 = device_ms(kern)
     k_ms = min(k1, k2)
-    print(f"dcoords {layout} {shape}: kernel "
-          f"{bilinear.dcoords_kind(*shape[1:4])} "
+    kind = {"fwd": bilinear.forward_kind, "dcoords": bilinear.dcoords_kind,
+            "dimg": lambda *a: "per_channel"}[key](*shape[1:4])
+    print(f"{key} {layout} {shape}: kernel {kind} "
           f"({names[0][:60] if names else '-'}) device {k_ms:.4f} ms, "
-          f"grid_sampler_2d_backward device {lib_ms:.4f} ms, ratio "
+          f"{SAMPLER_LIBRARY[key]} device {lib_ms:.4f} ms, ratio "
           f"{k_ms / lib_ms:.3f}, bound "
-          f"{sampler_bound('dcoords', shape)[0]:.4f} ms (20 calls, order "
+          f"{sampler_bound(key, shape)[0]:.4f} ms (20 calls, order "
           f"kernel-library-kernel, best of the two kernel readings; from "
           f"{src1}/{src_lib}/{src2}); {card_name}")
     return k_ms, lib_ms
@@ -247,6 +269,89 @@ def wall_ms(fn, reps: int = 10, warmup: int = 3):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(walls), min(walls), max(walls)
+
+
+# the numeric mode the CLIs set (catgen_torch/cli/common.py::resolve_device)
+CLI_MODE = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+            "cudnn.deterministic": True, "cudnn.benchmark": False}
+
+
+def numeric_mode() -> dict:
+    import torch
+
+    b = torch.backends
+    return {"cudnn.allow_tf32": b.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": b.cuda.matmul.allow_tf32,
+            "cudnn.deterministic": b.cudnn.deterministic,
+            "cudnn.benchmark": b.cudnn.benchmark}
+
+
+def step_modes(fn, what: str, card_name: str) -> dict:
+    """The train step ``fn`` timed (wall_ms, 12 steps) with cuDNN's
+    deterministic algorithms, the CLIs' mode, and without, in that order;
+    the mode it found is restored. step_ms and images_per_s are the
+    deterministic reading, step_ms_nondeterministic the other."""
+    import torch
+
+    mode = torch.backends.cudnn.deterministic
+    out = {}
+    try:
+        for deterministic in (True, False):
+            torch.backends.cudnn.deterministic = deterministic
+            med, lo, hi = wall_ms(fn, reps=12)
+            ips = 2 * TRAIN_B / med * 1e3
+            print(f"{what}, cudnn.deterministic={deterministic}: median "
+                  f"{med:.3f} ms of 12 (min {lo:.3f}, max {hi:.3f}) = "
+                  f"{ips:.1f} images/s (2 x batch per step, bench.py's "
+                  f"accounting); {card_name}")
+            if deterministic:
+                out.update(step_ms=med, images_per_s=ips)
+            else:
+                out["step_ms_nondeterministic"] = med
+    finally:
+        torch.backends.cudnn.deterministic = mode
+    print(f"{what}: cuDNN's deterministic algorithms cost "
+          f"{out['step_ms'] - out['step_ms_nondeterministic']:+.3f} ms per "
+          f"step (same run); {card_name}")
+    return out
+
+
+def cli_repeats(root: str) -> None:
+    """The training CLI twice on the card from one seed, one epoch each on
+    the default route, each started in the opposite numeric mode (TF32 on,
+    cuDNN free to pick and autotune): the CLI must set TF32 off for cuDNN
+    and matmuls and cuDNN deterministic without autotuning, and the two
+    checkpoints must hold the same bits."""
+    import numpy as np
+    import torch
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.data.fixture import write_fixture_dataset
+
+    corpus = write_fixture_dataset(os.path.join(root, "corpus"), n=256)
+    args = list(TRAIN_ARGS[2:])                # no --fixture: one corpus
+    args[args.index("--epochs") + 1] = "1"
+    b = torch.backends
+    leaves = []
+    for run in range(2):
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = True
+        b.cudnn.deterministic, b.cudnn.benchmark = False, True
+        save = os.path.join(root, f"run{run}")
+        train_cli.main(args + ["--dataset", corpus, "--device", "cuda",
+                               "--save", save, "--seed", "5"])
+        mode = numeric_mode()
+        print(f"after training CLI run {run + 1}: {mode}")
+        require(mode == CLI_MODE, f"the CLI left {mode}, not {CLI_MODE}")
+        with np.load(os.path.join(save, "adversarial.ckpt")) as z:
+            leaves.append({k: z[k] for k in z.files if k != "__meta__"})
+    a, c = leaves
+    differ = sorted(k for k in a if k not in c or a[k].dtype != c[k].dtype
+                    or a[k].shape != c[k].shape
+                    or a[k].tobytes() != c[k].tobytes())
+    print(f"two same-seed training CLI runs (one epoch, default route): "
+          f"{len(a)} checkpoint arrays, {len(differ)} differ in any bit"
+          f"{': ' + ', '.join(differ[:5]) if differ else ''}")
+    require(a.keys() == c.keys() and not differ,
+            "same-seed CLI runs wrote different checkpoints")
 
 
 def environment() -> None:
@@ -283,28 +388,40 @@ def build() -> None:
     tensor_core_check(path)
 
 
+# the 3xTF32 kernels (mangled-name stem) and their instantiations: fold x
+# transform x 16-byte copies (dCK, mma.sync: HMMA), transform x stats x
+# 16-byte copies (the forward, wgmma: HGMMA)
+TENSOR_CORE_KERNELS = {"upsample_conv_dck": 8, "upsample_conv_fwd": 8}
+
+
 def tensor_core_check(path) -> None:
-    """Requires the dCK kernels' machine code (cuobjdump -sass) to hold
-    TF32 tensor-core products (HMMA ... TF32), and prints their count and
-    the first one of each instantiation."""
+    """Requires the machine code (cuobjdump -sass) of every instantiation
+    of the dCK and forward upsample-conv kernels to hold TF32 tensor-core
+    products (HMMA ... TF32 from mma.sync, HGMMA ... TF32 from wgmma), and
+    prints their count and the first one of each instantiation."""
     from torch.utils import cpp_extension
 
     tool = shutil.which("cuobjdump") or os.path.join(
         cpp_extension.CUDA_HOME or "", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    found = 0
+    found = {stem: 0 for stem in TENSOR_CORE_KERNELS}
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
-        if "upsample_conv_dck" not in name:
+        stem = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+        if stem is None:
             continue
         mma = [ln.strip() for ln in block.splitlines()
-               if "HMMA" in ln and "TF32" in ln]
-        print(f"SASS {name}: {len(mma)} TF32 HMMA instructions, e.g. "
-              f"{mma[0] if mma else 'none'}")
+               if ("HMMA" in ln or "HGMMA" in ln) and "TF32" in ln]
+        print(f"SASS {name}: {len(mma)} TF32 tensor-core instructions, "
+              f"e.g. {mma[0] if mma else 'none'}")
         require(mma, f"{name} has no TF32 tensor-core instruction")
-        found += 1
-    require(found == 8, f"{found} dCK instantiations in the SASS, not 8")
+        found[stem] += 1
+    for stem, want in TENSOR_CORE_KERNELS.items():
+        print(f"{stem}: {found[stem]} instantiations, each with TF32 "
+              f"tensor-core instructions")
+        require(found[stem] == want, f"{found[stem]} {stem} instantiations "
+                                     f"in the SASS, not {want}")
 
 
 def sampler_inputs(shape, seed):
@@ -317,20 +434,57 @@ def sampler_inputs(shape, seed):
     return img.cuda(), rows.cuda(), (ho, wo)
 
 
+def forward_kinds(shapes) -> None:
+    """Prints the forward kernel each shape takes, and requires the
+    designed one (FORWARD_KINDS, by the image's channel count and size)."""
+    from catgen_torch.kernels import bilinear
+
+    for shape in shapes:
+        kind = bilinear.forward_kind(*shape[1:4])
+        want = dict(zip((s[1:4] for s in DCOORDS_SHAPES),
+                        FORWARD_KINDS))[shape[1:4]]
+        print(f"forward kernel at {shape}: {kind} (designed: {want})")
+        require(kind == want, f"the forward at {shape} took {kind}")
+
+
+def misaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary:
+    the staged kernels need 16-byte aligned arrays, so it takes the
+    per-value forward (per-warp d_coords)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def kernel_vs_plain() -> float:
+    """The forward kernel against its plain version at the sampling path's
+    shapes: within KERNEL_TOL, and bit for bit where the staged kernel
+    runs (the branch shape), which must also give the per-value kernel's
+    bits (a misaligned copy of the image takes that one)."""
     import torch
     from catgen_torch.kernels import bilinear
 
+    forward_kinds(SAMPLER_SHAPES)
     worst = 0.0
     for i, shape in enumerate(SAMPLER_SHAPES):
         img, rows, out_hw = sampler_inputs(shape, seed=10 + i)
         got = bilinear.launch(img, rows, out_hw)
+        per_value = bilinear.launch(misaligned(img), rows, out_hw)
         torch.cuda.synchronize()
         want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
         require(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
         err = (got - want).abs().max().item()
-        print(f"{shape}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL})")
+        staged = bilinear.forward_kind(*shape[1:4]) == "staged"
+        same = torch.equal(got, want) and torch.equal(got, per_value)
+        print(f"{shape}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL}); "
+              f"bits equal to the plain version's and to the per-value "
+              f"kernel's (misaligned image): {same}"
+              f"{' (required: staged)' if staged else ''}")
         require(err <= KERNEL_TOL, f"kernel disagrees with plain at {shape}")
+        require(same or not staged, f"the staged forward's bits at {shape}")
         worst = max(worst, err)
     return worst
 
@@ -861,6 +1015,7 @@ def step_card_vs_cpu(route=None) -> dict:
         # from run to run, and that noise reaches G's shared PReLU slopes
         # (a sum that cancels) at up to ~1.4e-3 of the leaf: compare with
         # its deterministic algorithms; phase 10 reports the noise
+        mode = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = dev == "cuda"
         try:
             with upconfig.using(**(route or {})):
@@ -868,7 +1023,7 @@ def step_card_vs_cpu(route=None) -> dict:
                     state, reals.to(dev), draws)
         finally:
             optim.clamp_and_penalize = real_cap
-            torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.deterministic = mode
         if dev == "cpu":
             recorded = draws
         else:
@@ -950,12 +1105,9 @@ def train_times(card_name: str) -> dict:
     draws = Draws(torch.Generator(device).manual_seed(0))
     out = {}
 
-    med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=12)
-    ips = 2 * TRAIN_B / med * 1e3
-    print(f"train step, batch {TRAIN_B}, augment: median {med:.3f} ms of "
-          f"12 (min {lo:.3f}, max {hi:.3f}) = {ips:.1f} images/s "
-          f"(2 x batch per step, bench.py's accounting); {card_name}")
-    out.update(step_ms=med, images_per_s=ips)
+    out.update(step_modes(lambda: step(state, reals, draws),
+                          f"train step, batch {TRAIN_B}, augment",
+                          card_name))
     split = {
         "D phase (G forward, D forward+backward, its Adam update)":
             lambda: step.d_phase(state, reals, draws),
@@ -989,6 +1141,7 @@ def train_times(card_name: str) -> dict:
     # of the state; the dropout layers let go of the step's draws first)
     set_draws(g, None)
     set_draws(d, None)
+    mode = torch.backends.cudnn.deterministic
     for deterministic in (False, True):
         torch.backends.cudnn.deterministic = deterministic
         runs = []
@@ -1004,7 +1157,7 @@ def train_times(card_name: str) -> dict:
               f"cudnn.deterministic={deterministic}, cudnn.benchmark="
               f"{torch.backends.cudnn.benchmark}: {same}")
         out[f"bit_identical_deterministic_{deterministic}"] = same
-    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.deterministic = mode
 
     # the sampler kernels against their plain versions and against
     # PyTorch's grid_sample (align_corners, border padding; NCHW input, as
@@ -1043,9 +1196,9 @@ def train_times(card_name: str) -> dict:
                          img, rows, gcot, out_hw, need_coords=False),
                      lambda: grid_bwd([True, False])),
         }
-        out.setdefault("dcoords_device", []).append(dcoords_device_line(
-            "rows", shape, pairs["dcoords"][0], pairs["dcoords"][2],
-            card_name))
+        for key, (kern, _, library) in pairs.items():
+            out.setdefault(f"{key}_device", []).append(sampler_device_line(
+                key, "rows", shape, kern, library, card_name))
         for name, (kern, plain, library) in pairs.items():
             p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
             k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
@@ -1103,9 +1256,12 @@ G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
 # pixel, up to 640 * 32 * 32 = 655,360 terms (1e-4)
 UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
 LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
-# dCK's time over cuDNN wgrad's per stage with the CUDA-core f32 kernel
-# that the 3xTF32 kernel replaced (PERF.md, section 6)
-DCK_RATIO_BEFORE = {"dck": (1.15, 1.23, 2.68), "block_dck": (1.74, 1.76, 4.12)}
+# the kernels that run 3xTF32 on the tensor cores, and their time over the
+# cuDNN collapsed route's (forward, wgrad) per stage with the CUDA-core f32
+# kernels they replaced (PERF.md, section 6)
+TF32_KEYS = ("fwd", "block", "dck", "block_dck")
+RATIO_BEFORE = {"fwd": (1.14, 1.29, 1.40), "block": (1.39, 1.55, 1.66),
+                "dck": (1.15, 1.23, 2.68), "block_dck": (1.74, 1.76, 4.12)}
 PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
                  upsample_bwd="pallas")
 UP_KERNELS = (   # key, name, counter, TPU kernel, CUDA source
@@ -1273,6 +1429,52 @@ def upsample_vs_plain() -> dict:
                 worst[f"{key}_rel"] = max(worst[f"{key}_rel"],
                                           err / max(top, 1e-6))
         del groups, y, args, v, gfold
+    return worst
+
+
+F64_TOL = 1e-6             # the 3xTF32 forward against float64
+
+
+def fwd_vs_float64() -> dict:
+    """The forward kernel (3xTF32) as row 3 (bias, per-channel PReLU) and
+    as row 4 (the input transform, bias) against float64 (cuDNN in
+    double) at G32up-c's three stage shapes at N=640: y's largest error
+    over y's largest value, within F64_TOL, printed beside the plain
+    version's own (cuDNN in f32). Returns the kernel's worst per key
+    ("fwd", "block")."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    worst = {"fwd": 0.0, "block": 0.0}
+    for s in range(3):
+        shape = stage_shape(s, TRAIN_B)
+        v = upsample_inputs(shape, seed=150 + s)
+        x, w, b = v["x"], v["weight"], v["bias"]
+        runs = {
+            "fwd": (lambda: fuc.upsample2_conv_fused(x, w, b, v["prelu_c"]),
+                    lambda t: fuc.block_plain(
+                        x.to(t), w.to(t), b.to(t),
+                        prelu_alpha=v["prelu_c"].to(t))),
+            "block": (lambda: fuc.upsample2_conv_block_fused(
+                          x, w, b, v["scale"], v["shift"], v["alpha_c"],
+                          with_stats=False),
+                      lambda t: fuc.block_plain(
+                          x.to(t), w.to(t), b.to(t), v["scale"].to(t),
+                          v["shift"].to(t), v["alpha_c"].to(t)))}
+        for key, (kern, plain) in runs.items():
+            got = kern()
+            exact = plain(torch.float64)
+            top = exact.abs().max().item()
+            err = (got.double() - exact).abs().max().item() / top
+            err32 = (plain(torch.float32).double() - exact).abs().max(
+                ).item() / top
+            print(f"{key} y {shape} against float64: kernel {err:.3e}, "
+                  f"plain (cuDNN f32) {err32:.3e} of the largest value "
+                  f"{top:.4g} (kernel tolerance {F64_TOL})")
+            require(err <= F64_TOL, f"{key} is not f32-accurate at {shape}")
+            worst[key] = max(worst[key], err)
+            del got, exact
+        del v, runs
     return worst
 
 
@@ -1477,15 +1679,15 @@ def upsample_times(card_name: str) -> dict:
             b_ms, b_by = bound(flops, nbytes)
             row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
                        bound_ms=b_ms, bound_by=b_by)
-            if key in ("dck", "block_dck"):
-                # the dCK kernel runs 3xTF32 on the tensor cores
+            if key in TF32_KEYS:
                 row["bound_f32_ms"] = b_ms
                 row["bound_ms"], row["bound_by"] = bound_3xtf32(flops,
                                                                 nbytes)
                 print(f"{key} stage {s + 1} {shape}: kernel {row['ms']:.4f} "
-                      f"ms, cuDNN wgrad (collapsed route) {lib:.4f} ms, "
-                      f"ratio {row['ms'] / lib:.3f} (CUDA-core kernel: "
-                      f"{DCK_RATIO_BEFORE[key][s]}); bound 3xTF32 "
+                      f"ms, cuDNN {'wgrad' if 'dck' in key else 'forward'} "
+                      f"(collapsed route) {lib:.4f} ms, ratio "
+                      f"{row['ms'] / lib:.3f} (CUDA-core kernel: "
+                      f"{RATIO_BEFORE[key][s]}); bound 3xTF32 "
                       f"{row['bound_ms']:.4f} ms, f32 {b_ms:.4f} ms; "
                       f"{card_name}")
             out[key].append(row)
@@ -1534,11 +1736,9 @@ def route_train_times(card_name: str, name: str, route) -> dict:
     draws = Draws(torch.Generator(device).manual_seed(0))
     out = {}
     with upconfig.using(**route):
-        med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=12)
-        out.update(step_ms=med, images_per_s=2 * TRAIN_B / med * 1e3)
-        print(f"train step on the {name} route, batch {TRAIN_B}: median "
-              f"{med:.3f} ms of 12 (min {lo:.3f}, max {hi:.3f}) = "
-              f"{out['images_per_s']:.1f} images/s; {card_name}")
+        out.update(step_modes(lambda: step(state, reals, draws),
+                              f"train step on the {name} route, batch "
+                              f"{TRAIN_B}", card_name))
         for ph, fn in (("D phase", lambda: step.d_phase(state, reals,
                                                          draws)),
                        ("G phase", lambda: step.g_phase(state, draws,
@@ -1665,13 +1865,15 @@ def st_conv_vs_plain() -> dict:
 def grid_vs_plain() -> dict:
     """The grid-layout sampler kernels against their plain versions at the
     training shapes and at a shape of the per-warp d_coords kernel:
-    forward (KERNEL_TOL), d_coords and d_img (BWD_ATOL + BWD_RTOL x max
-    |plain|); repeats bit-identical. Returns the largest absolute error of
-    each."""
+    forward (KERNEL_TOL, and bit for bit where the staged kernel runs),
+    d_coords and d_img (BWD_ATOL + BWD_RTOL x max |plain|); repeats
+    bit-identical. Returns the largest absolute error of each."""
     import torch
+    from catgen_torch.kernels import bilinear
     from catgen_torch.kernels import bilinear_grid as bg
 
     dcoords_kinds()
+    forward_kinds(DCOORDS_SHAPES)
     worst = {"fwd": 0.0, "dcoords": 0.0, "dimg": 0.0}
     for i, shape in enumerate(DCOORDS_SHAPES):
         img, rows, (ho, wo) = sampler_inputs(shape, seed=110 + i)
@@ -1684,16 +1886,21 @@ def grid_vs_plain() -> dict:
         torch.cuda.synchronize()
         want = (bg.bilinear_sample_grid_plain(img, grid),
                 *bg.bilinear_sample_grid_backward_plain(img, grid, g)[::-1])
+        staged = bilinear.forward_kind(*shape[1:4]) == "staged"
         for name, a, a2, p in zip(("fwd", "dcoords", "dimg"), *runs, want):
             err = (a - p).abs().max().item()
             tol = (KERNEL_TOL if name == "fwd"
                    else BWD_ATOL + BWD_RTOL * p.abs().max().item())
             same = torch.equal(a, a2)
+            bits = name == "fwd" and staged
             print(f"grid {name} {shape}: max_abs_err {err:.3e} (tolerance "
-                  f"{tol:.3e}); repeat bit-identical: {same}")
+                  f"{tol:.3e}{'; the staged forward: 0, bit for bit' if bits else ''}"
+                  f"); repeat bit-identical: {same}")
             require(a.shape == p.shape, f"grid {name} shape")
             require(err <= tol, f"grid {name} disagrees at {shape}")
             require(same, f"grid {name} not deterministic at {shape}")
+            require(not bits or torch.equal(a, p),
+                    f"the staged grid forward's bits at {shape}")
             worst[name] = max(worst[name], err)
     return worst
 
@@ -1830,9 +2037,9 @@ def grid_times(card_name: str) -> dict:
                          img, grid, gcot, need_coords=False),
                      lambda: grid_bwd([True, False])),
         }
-        out.setdefault("dcoords_device", []).append(dcoords_device_line(
-            "grid", shape, pairs["dcoords"][0], pairs["dcoords"][2],
-            card_name))
+        for key, (kern, _, library) in pairs.items():
+            out.setdefault(f"{key}_device", []).append(sampler_device_line(
+                key, "grid", shape, kern, library, card_name))
         for name, (kern, plain, library) in pairs.items():
             p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
             k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
@@ -1879,13 +2086,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save:
         phase(8, "the training slice through the CLI")
         train_counts, _, steps = train_on_card(save)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repeat_") as root:
+        phase(8, "the training CLI twice from one seed: its numeric mode, "
+                 "the same checkpoint bits")
+        cli_repeats(root)
     phase(9, "one train step, card against CPU")
     step_card_vs_cpu()
     phase(10, f"training times on the card, batch {TRAIN_B}")
     tt = train_times(card_name)
     phase(11, "the upsample-conv kernels against their plain versions")
     up_err = upsample_vs_plain()
-    dck_exact = dck_vs_float64()
+    exact = {**fwd_vs_float64(), **dck_vs_float64()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
         write_checkpoint(save)      # the same seeded weights as phase 5
         phase(12, f"the sampling slice on the ladder route, {COUNT} "
@@ -1946,6 +2157,8 @@ def main(argv=None) -> int:
           f"{rd['grid-v1']['step_ms']:.3f} ms (same run, in that order); "
           f"{card_name}")
 
+    from catgen_torch.kernels import bilinear
+
     def by_shape(values, shapes=TRAIN_SHAPES):
         return dict(zip(map(str, shapes), values))
 
@@ -1979,10 +2192,13 @@ def main(argv=None) -> int:
         })
     kernels[0]["sampling_ms_by_shape"] = dict(zip(map(str, SAMPLER_SHAPES),
                                                   t["kernel_ms"]))
-    kernels[1]["device_ms_by_shape"] = by_shape(
-        [k for k, _ in tt["dcoords_device"]])
-    kernels[1]["library_device_ms_by_shape"] = by_shape(
-        [lib for _, lib in tt["dcoords_device"]])
+    for i, key in enumerate(("fwd", "dcoords", "dimg")):
+        kernels[i]["device_ms_by_shape"] = by_shape(
+            [k for k, _ in tt[f"{key}_device"]])
+        kernels[i]["library_device_ms_by_shape"] = by_shape(
+            [lib for _, lib in tt[f"{key}_device"]])
+    kernels[0]["kind_by_shape"] = by_shape(
+        [bilinear.forward_kind(*shape[1:4]) for shape in TRAIN_SHAPES])
     kernels[0]["sampling_plain_ms_by_shape"] = dict(
         zip(map(str, SAMPLER_SHAPES), t["plain_ms"]))
     # rows 4 and 6 run on the ladder training CLI's path (phase 13), rows
@@ -2011,8 +2227,8 @@ def main(argv=None) -> int:
                 "step_per_layer_hybrid": per_layer["hybrid"][counter]},
             "max_abs_err": up_err[key],
             "max_rel_err": up_err[f"{key}_rel"],
-            **({"max_rel_err_vs_float64": dck_exact[key]}
-               if key in dck_exact else {}),
+            **({"max_rel_err_vs_float64": exact[key]}
+               if key in exact else {}),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
@@ -2021,7 +2237,7 @@ def main(argv=None) -> int:
             **({"bound_f32_ms": sum(r["bound_f32_ms"] for r in rows),
                 "bound_note": "3xTF32 on the tensor cores: 3 x 2 x MACs "
                               "/ 495e12; bound_f32_ms: 2 x MACs / 67e12"}
-               if key in ("dck", "block_dck") else {}),
+               if key in TF32_KEYS else {}),
             "library_ms": sum(r["library_ms"] for r in rows),
             "device_ms_per_step": device_step_ms(profiled, patterns[key]),
             "ms_by_shape": by_shape([r["ms"] for r in rows], stages),
@@ -2087,11 +2303,10 @@ def main(argv=None) -> int:
             "library_ms_by_shape": by_shape(gt[f"{key}_library"]),
             "bound_ms_by_shape": by_shape([b for b, _ in bounds]),
         })
-        if key == "dcoords":
-            kernels[-1]["device_ms_by_shape"] = by_shape(
-                [k for k, _ in gt["dcoords_device"]])
-            kernels[-1]["library_device_ms_by_shape"] = by_shape(
-                [lib for _, lib in gt["dcoords_device"]])
+        kernels[-1]["device_ms_by_shape"] = by_shape(
+            [k for k, _ in gt[f"{key}_device"]])
+        kernels[-1]["library_device_ms_by_shape"] = by_shape(
+            [lib for _, lib in gt[f"{key}_device"]])
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

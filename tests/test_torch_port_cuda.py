@@ -3,9 +3,11 @@ bilinear_sample.cu and bilinear_sample_bwd.cu) at coordinate rows, the
 upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), the
 same sampler kernels on an (N, Ho, Wo, 2) grid and the fused ST-conv
 kernel (st_conv.cu), and, at the end of the file, the dCK kernel's four
-fold/transform variants and the choice between the d_coords kernels,
-forward and backward, against their plain PyTorch versions, and the
-wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
+fold/transform variants, the choice between the d_coords kernels, the
+staged sampler forward and the choice between the forward kernels, and
+the 3xTF32 upsample-conv forward at ragged shapes, forward and backward,
+against their plain PyTorch versions, and the wrappers' contract on CUDA
+tensors. Every test here needs an NVIDIA GPU
 and nvcc; on a machine without a card each one skips. Run them on the
 card with
 
@@ -704,3 +706,163 @@ def test_staged_dcoords_matches_plain(cuda, shape, layout):
     torch.cuda.synchronize()
     _bwd_close(runs[0], want)
     assert torch.equal(runs[0], runs[1])
+
+
+# ---------------------------------------------------------------------------
+# the staged sampler forward (the sample's image in shared memory, float4
+# channels) and the choice between the three forward kernels, by shape
+# alone: it gives the plain version's bits and the per-value kernel's (a
+# misaligned image takes that one), both layouts
+# ---------------------------------------------------------------------------
+
+# the branch shape at full batch, and shapes whose output pixels are not a
+# multiple of the block's range (77 and 117 per sample)
+STAGED_FWD_SHAPES = [(640, 16, 16, 64, 48, 16), (3, 16, 16, 64, 7, 11),
+                     (5, 8, 8, 128, 13, 9)]
+
+
+def _misaligned(t):
+    """A copy of ``t`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _forward_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("shape", STAGED_FWD_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_staged_forward_gives_the_plain_bits(cuda, shape, layout):
+    assert bilinear.forward_kind(*shape[1:4]) == "staged"
+    img, rows, out_hw = _inputs(shape, cuda, seed=10)
+    if layout == "rows":
+        run = lambda im: bilinear.launch(im, rows, out_hw)  # noqa: E731
+        want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    else:
+        grid = rows.permute(0, 2, 1).reshape(shape[0], *out_hw, 2)
+        grid = grid.contiguous()
+        run = lambda im: bilinear_grid.launch(im, grid)  # noqa: E731
+        want = bilinear_grid.bilinear_sample_grid_plain(img, grid)
+    staged, again, per_value = run(img), run(img), run(_misaligned(img))
+    torch.cuda.synchronize()
+    assert torch.equal(staged, want)
+    assert torch.equal(staged, again)
+    assert torch.equal(staged, per_value)
+
+
+@pytest.mark.parametrize("hwc, kind", [
+    ((32, 32, 3), "per_pixel"), ((9, 11, 33), "per_value"),
+    ((16, 16, 64), "staged"), ((32, 32, 64), "per_value")])
+def test_forward_kernel_choice(cuda, hwc, kind):
+    assert bilinear.forward_kind(*hwc) == kind
+
+
+@pytest.mark.parametrize("aligned, name", [(True, "sample_per_pixel_staged"),
+                                           (False, "sample_per_value")])
+def test_forward_kernel_of_a_view(cuda, aligned, name):
+    img, rows, out_hw = _inputs(STAGED_FWD_SHAPES[1], cuda, seed=11)
+    im = img if aligned else _misaligned(img)
+    names = _forward_kernel_names(lambda: bilinear.launch(im, rows, out_hw))
+    assert len(names) == 1 and name + "<" in names[0], names
+
+
+# ---------------------------------------------------------------------------
+# the upsample-conv forward (3xTF32 on the tensor cores) at ragged shapes:
+# input channels not a multiple of 4 (4-byte copies), output channels not
+# a multiple of 8 or of the 128-wide tile, pixels not a multiple of the
+# 128-pixel tile, a one-pixel image; a misaligned x (4-byte copies); the
+# halo after the transform; repeats bit for bit. y within 1e-5 of its
+# largest plain value, the stats within 1e-4, as above.
+# ---------------------------------------------------------------------------
+
+FWD_SHAPES = [                 # (N, H, W, Cin, Cout, k)
+    (2, 4, 5, 9, 11, 3),       # Cin % 4 != 0, Cout % 8 != 0
+    (1, 1, 1, 8, 130, 3),      # one pixel; Cout over one tile, ragged
+    (3, 7, 9, 32, 136, 5),     # 189 pixels; Cout % 128 != 0
+    (2, 3, 5, 6, 7, 1),        # k = 1, all ragged
+]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_tf32_forward_at_ragged_shapes(f32_cuda, shape, alpha):
+    cout = shape[4]
+    v = _up_inputs(shape, f32_cuda, seed=12,
+                   alpha_n=1 if alpha == "scalar" else cout)
+    got = fuc.upsample2_conv_fused(v["x"], v["weight"], v["bias"],
+                                   v["alpha"])
+    again = fuc.upsample2_conv_fused(v["x"], v["weight"], v["bias"],
+                                     v["alpha"])
+    torch.cuda.synchronize()
+    want = fuc.block_plain(v["x"], v["weight"], v["bias"],
+                           prelu_alpha=v["alpha"])
+    _up_close(got, want, UP_TIGHT, "y")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_tf32_block_at_ragged_shapes(f32_cuda, shape, with_stats):
+    v = _up_inputs(shape, f32_cuda, seed=13, alpha_n=shape[3])
+    args = (v["x"], v["weight"], v["bias"], v["scale"], v["shift"],
+            v["alpha"])
+    got = fuc.upsample2_conv_block_fused(*args, with_stats=with_stats)
+    again = fuc.upsample2_conv_block_fused(*args, with_stats=with_stats)
+    torch.cuda.synchronize()
+    y = fuc.block_plain(*args)
+    got, again = (got, again) if with_stats else ((got,), (again,))
+    want = (y, *fuc.stats_plain(y)) if with_stats else (y,)
+    for name, a, b, a2, rel in zip(("y", "s1", "s2"), got, want, again,
+                                   (UP_TIGHT, UP_LOOSE, UP_LOOSE)):
+        _up_close(a, b, rel, name)
+        assert torch.equal(a, a2), name
+
+
+def test_tf32_forward_of_a_misaligned_x(f32_cuda):
+    v = _up_inputs(UP_SHAPES[4], f32_cuda, seed=14, alpha_n=1)
+    x = _misaligned(v["x"])
+    got = fuc.upsample2_conv_block_fused(x, v["weight"], v["bias"],
+                                         v["scale"], v["shift"], v["alpha"])
+    torch.cuda.synchronize()
+    y = fuc.block_plain(v["x"], v["weight"], v["bias"], v["scale"],
+                        v["shift"], v["alpha"])
+    for name, a, b, rel in zip(("y", "s1", "s2"), got,
+                               (y, *fuc.stats_plain(y)),
+                               (UP_TIGHT, UP_LOOSE, UP_LOOSE)):
+        _up_close(a, b, rel, name)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 5, 16, 12, 3), (2, 3, 3, 9, 20, 5)])
+def test_tf32_forward_halo_is_zero_after_the_transform(f32_cuda, shape):
+    # shift 4: a halo of prelu(4) = 4 instead of 0 misses the tolerance by
+    # far in the plain version, the kernel not
+    v = _up_inputs(shape, f32_cuda, seed=15, alpha_n=1)
+    v["shift"] = torch.full_like(v["shift"], 4.0)
+    args = (v["x"], v["weight"], v["bias"], v["scale"], v["shift"],
+            v["alpha"])
+    got = fuc.upsample2_conv_block_fused(*args, with_stats=False)
+    torch.cuda.synchronize()
+    want = fuc.block_plain(*args)
+    xn = fuc.in_transform(v["x"], v["scale"], v["shift"], v["alpha"])
+    halo = fuc.in_transform(torch.zeros(shape[3], device=f32_cuda),
+                            v["scale"], v["shift"], v["alpha"])
+    k = shape[5]
+    r = k // 2
+    up = xn.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    n, h2, w2, c = up.shape
+    pad = halo.expand(n, h2 + 2 * r, w2 + 2 * r, c).clone()
+    pad[:, r:r + h2, r:r + w2] = up
+    wrong = torch.nn.functional.conv2d(
+        pad.permute(0, 3, 1, 2), v["weight"]).permute(0, 2, 3, 1) + v["bias"]
+    bound = UP_TIGHT * want.abs().max().item()
+    assert (wrong - want).abs().max().item() > 100 * bound
+    _up_close(got, want, UP_TIGHT, "y")

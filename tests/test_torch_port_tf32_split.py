@@ -1,8 +1,9 @@
-"""The precision argument of the dCK kernel (catgen_torch/csrc/
-upsample_conv_bwd.cu), on the CPU: the kernel computes its f32 products
-on the tensor cores as 3xTF32 (each f32 operand split into a TF32 hi and
-lo, lo·hi + hi·lo + hi·hi summed in f32), which TF32 rounding emulated in
-numpy reproduces (torch_port_helpers.tf32_round).
+"""The precision argument of the dCK and forward upsample-conv kernels
+(catgen_torch/csrc/upsample_conv_bwd.cu, upsample_conv.cu), on the CPU:
+the kernels compute their f32 products on the tensor cores as 3xTF32
+(each f32 operand split into a TF32 hi and lo, lo·hi + hi·lo + hi·hi
+summed in f32), which TF32 rounding emulated in numpy reproduces
+(torch_port_helpers.tf32_round).
 
   * at G32up-c's last stage widths (Cin 256, Cout 128) over 4096 pixels,
     3xTF32 is within 1e-5 of the largest value of the float64 product,
@@ -10,7 +11,14 @@ numpy reproduces (torch_port_helpers.tf32_round).
   * the emulated 3xTF32 dCK of small stages, chained to dW by the port's
     ``dweight_from_dck``, matches catgen's ``upsample2_conv_backward``
     (its Pallas kernels in interpret mode) within 1e-4 of dW's largest
-    value, the tolerance of test_torch_port_upsample_kernels.py.
+    value, the tolerance of test_torch_port_upsample_kernels.py;
+  * the emulated 3xTF32 forward of a small stage with the input transform
+    (shift 4, so a halo of prelu(shift) would show), split once per
+    element after the transform and the zero halo, with fresh sums per
+    32-deep step added in f32 as the kernel does, is within 1e-6 of the
+    largest value of its float64 counterpart, and one TF32 product per
+    f32 product is not within 1e-4; the float64 forward is the port's
+    plain version within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -25,7 +33,7 @@ from catgen_torch.kernels.upsample_conv import _collapse_matrix
 
 from torch_port_helpers import UPSAMPLE_SHAPES as SHAPES
 from torch_port_helpers import (assert_rel_close, matmul_3xtf32, matmul_tf32,
-                                tf32_round, upsample_inputs)
+                                port_tensors, tf32_round, upsample_inputs)
 
 LOOSE = 1e-4
 
@@ -90,3 +98,54 @@ def test_emulated_dck_matches_catgen(shape):
     dw = fuc.dweight_from_dck(torch.tensor(dck), k, k)
     assert_rel_close(dw, kernel_to_weight(np.asarray(want)), LOOSE,
                      "dweight")
+
+
+FWD_SHAPES = [(2, 4, 4, 64, 32, 3), (2, 4, 4, 64, 32, 5)]
+STEP = 32       # the forward kernel's contraction per stage
+
+
+def _forward_by_steps(xn, wst, k, product):
+    """The four parity planes (4, n, h, w, Cout) of the collapsed parity
+    convs of xn (n, h, w, Cin; 0 outside the image) with the parity stack
+    wst (4, kp, kp, Cin, Cout), as the kernel sums them: per tap and
+    32-channel step, ``product`` of the step's operands, the steps added
+    in the operands' dtype."""
+    n, h, w, cin = xn.shape
+    kp = wst.shape[1]
+    umin = fuc._umins(k, k)
+    pad = 2 * kp
+    xp = np.pad(xn, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    out = np.zeros((4, n * h * w, wst.shape[-1]), xn.dtype)
+    for p in range(4):
+        d, e = divmod(p, 2)
+        for u in range(kp):
+            for v in range(kp):
+                i0, j0 = pad + umin[d] + u, pad + umin[2 + e] + v
+                xs = xp[:, i0:i0 + h, j0:j0 + w].reshape(-1, cin)
+                for c0 in range(0, cin, STEP):
+                    out[p] += product(xs[:, c0:c0 + STEP].T,
+                                      wst[p, u, v, c0:c0 + STEP])
+    return out.reshape(4, n, h, w, -1)
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES)
+def test_emulated_forward_is_f32_accurate(shape):
+    n, h, w, cin, cout, k = shape
+    t = port_tensors(upsample_inputs(4, n, h, w, cin, cout, k, alpha_n=cin))
+    t["shift"] = torch.full_like(t["shift"], 4.0)
+    xn = fuc.in_transform(t["x"], t["scale"], t["shift"], t["alpha"])
+    wst = fuc.parity_stack(t["kern"])
+    xn32, wst32 = xn.numpy(), wst.numpy()
+    exact = _forward_by_steps(xn32.astype(np.float64),
+                              wst32.astype(np.float64), k,
+                              lambda a, b: a.T @ b)
+    # the float64 planes, interleaved, are the port's plain block
+    plain = fuc.block_plain(t["x"], t["kern"], None, t["scale"], t["shift"],
+                            t["alpha"]).numpy()
+    planes = plain.reshape(n, h, 2, w, 2, cout).transpose(2, 4, 0, 1, 3, 5)
+    assert_rel_close(planes.reshape(exact.shape), exact, 1e-5, "plain")
+    top = np.abs(exact).max()
+    three = _forward_by_steps(xn32, wst32, k, matmul_3xtf32)
+    one = _forward_by_steps(xn32, wst32, k, matmul_tf32)
+    assert np.abs(three - exact).max() <= 1e-6 * top
+    assert np.abs(one - exact).max() > 1e-4 * top
