@@ -49,19 +49,31 @@
 // d_img[n, tap, c] += g[p,c] * weight(tap, p) over the output pixels p.
 // Many output pixels reach one input pixel, at positions only the
 // coordinates decide, so this is a scatter. It is made deterministic, with
-// no atomics: one block per (sample, slab of up to 32 channels) keeps that
-// slab of d_img in shared memory, and each thread owns one channel column
-// of it, walking the output pixels in order. No two threads touch one
-// address, so the adds happen in one fixed order on every run (the
-// original Torch sampler was pinned to the CPU for its non-determinism;
-// catgen pins same-seed steps bit-identical). Shared memory per block is
-// h*w*min(C, 32)*4 bytes: 12 KB for 32x32x3, 32 KB for 16x16x64.
-//
-// What bounds d_img: latency, not bytes: each thread runs through all P
-// output pixels serially, with few threads per SM (C < 32 leaves most
-// lanes of the block idle). That is the
-// simple design; splitting the pixel walk over per-warp copies summed in a
-// fixed order is the later step.
+// no atomics (the original Torch sampler was pinned to the CPU for its
+// non-determinism; catgen pins same-seed steps bit-identical). Two
+// kernels, chosen by shape alone (dimg_kind), the same way on every run:
+//   * per sample, for C < 32 whose h w C slab fits four times in a block's
+//     opt-in shared memory (the input ST, 32x32x3: 12 KB): one block per
+//     sample, of up to 8 warps, each owning a private slab of d_img in
+//     shared memory and the output pixels of every warps-th chunk of 32,
+//     one lane per pixel. For each of the 4 taps in turn, the lanes that
+//     hit the same input pixel (__match_any_sync on its index: a zoomed-in
+//     transform sends several outputs to one tap) are summed in lane
+//     order by shuffles, and the lowest of them adds the sum into the
+//     slab; __syncwarp orders the rounds. Then the slabs are added in warp
+//     order and written with coalesced stores. Every sum has one order,
+//     fixed by the shape: lanes within a round, rounds and chunks within a
+//     slab, slabs by warp. The work is 1024 pixels a sample spread over
+//     256 lanes, where the per-channel kernel walked them on 3 lanes;
+//   * per channel, otherwise (the branch shape, 16x16x64): one block per
+//     (sample, slab of up to 32 channels) keeps that slab in shared memory,
+//     and each thread owns one channel column of it, walking the output
+//     pixels in order; no two threads touch one address. Shared memory per
+//     block is h*w*min(C, 32)*4 bytes: 32 KB at 16x16x64.
+// What bounds d_img: latency, not bytes (0.0063 ms of traffic at the input
+// ST at batch 640): the per-channel kernel runs a P-long dependent chain
+// per thread; the per-sample kernel a P / (32 warps)-long one per warp, in
+// rounds of match, shuffle and shared-memory add.
 //
 // Arithmetic is f32 and rounds each tap's product as the plain PyTorch
 // version's autograd does (built with --fmad=false); the sums over C and
@@ -300,8 +312,104 @@ int launch_dcoords(const float* img, const float* crd, const float* g,
   return (int)cudaGetLastError();
 }
 
+constexpr int kSampleWarps = 8;   // most warps (slabs) of a per-sample block
+constexpr int kSampleMinSlabs = 4;
+
+// Grid n, 32 * warps threads; dynamic shared memory warps * h*w*c floats.
+// dimg (n, h, w, c).
+template <class L>
+__global__ void dimg_per_sample(const float* __restrict__ crd,
+                                const float* __restrict__ g,
+                                float* __restrict__ dimg, int h, int w,
+                                int c, int p) {
+  extern __shared__ float slabs[];
+  const int ni = blockIdx.x;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int vals = h * w * c;
+  for (int i = threadIdx.x; i < warps * vals; i += blockDim.x) slabs[i] = 0.0f;
+  __syncthreads();
+  float* slab = slabs + warp * vals;
+  const float* gs = g + (int64_t)ni * p * c;
+  for (int base = 32 * warp; base < p; base += 32 * warps) {
+    const int pi = base + lane;
+    const bool active = pi < p;
+    Taps t = {};
+    if (active) {
+      const float2 yx = L::load(crd, ni, pi, p);
+      t = make_taps(yx.x, yx.y, h, w);
+    }
+    const float* gp = gs + (int64_t)pi * c;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t tap = k == 0 ? t.p00 : k == 1 ? t.p01 : k == 2 ? t.p10
+                                                                   : t.p11;
+      // the lanes that add into this tap; an idle lane matches none
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, active ? (int)tap : -1 - lane);
+      const bool leader = active && lane == __ffs(peers) - 1;
+      for (int ch = 0; ch < c; ++ch) {
+        float v = 0.0f;
+        if (active) {
+          // the weight's rounding of the plain version's autograd
+          const float gv = __ldg(gp + ch);
+          const float gy = (k < 2) ? gv * (1.0f - t.wy) : gv * t.wy;
+          v = (k & 1) ? gy * t.wx : gy * (1.0f - t.wx);
+        }
+        // the group's values in lane order, the lowest lane first
+        float s = 0.0f;
+        unsigned rest = peers;
+        while (__any_sync(0xffffffffu, rest != 0u)) {
+          const int src = rest ? __ffs(rest) - 1 : lane;
+          const float o = __shfl_sync(0xffffffffu, v, src);
+          if (rest) {
+            s += o;
+            rest &= rest - 1u;
+          }
+        }
+        if (leader) slab[tap * c + ch] += s;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  float* out = dimg + (int64_t)ni * vals;
+  for (int i = threadIdx.x; i < vals; i += blockDim.x) {
+    float s = 0.0f;
+    for (int k = 0; k < warps; ++k) s += slabs[k * vals + i];
+    out[i] = s;
+  }
+}
+
+enum DimgKind { kDimgPerChannel = 0, kDimgPerSample = 1 };
+
+// Slabs (warps) of a per-sample block at (h, w, c): as many as fit, up to
+// kSampleWarps; 0 where the shape takes the per-channel kernel (c >= 32,
+// or fewer than kSampleMinSlabs fit); a negative cudaError_t on failure.
+int dimg_sample_warps(int h, int w, int c) {
+  if (c >= 32) return 0;
+  const int optin = optin_smem();
+  if (optin < 0) return optin;
+  const int64_t slab = (int64_t)h * w * c * (int64_t)sizeof(float);
+  if (slab == 0) return kSampleWarps;
+  const int64_t fit = optin / slab;
+  if (fit < kSampleMinSlabs) return 0;
+  return fit < kSampleWarps ? (int)fit : kSampleWarps;
+}
+
+// kDimgPerChannel or kDimgPerSample; a negative cudaError_t on failure
+int dimg_kind(int h, int w, int c) {
+  const int warps = dimg_sample_warps(h, w, c);
+  return warps < 0 ? warps : (warps > 0 ? kDimgPerSample : kDimgPerChannel);
+}
+
+// The shared memory of the d_img block (h, w, c) takes, in bytes, or a
+// negative cudaError_t
 int64_t dimg_smem_bytes(int h, int w, int c) {
-  return (int64_t)h * w * (c < kSlab ? c : kSlab) * (int64_t)sizeof(float);
+  const int warps = dimg_sample_warps(h, w, c);
+  if (warps < 0) return warps;
+  const int64_t cs = warps > 0 ? (int64_t)warps * c : (c < kSlab ? c : kSlab);
+  return (int64_t)h * w * cs * (int64_t)sizeof(float);
 }
 
 template <class L>
@@ -309,17 +417,24 @@ int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
                 int w, int c, int p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w * c == 0) return 0;
+  const int warps = dimg_sample_warps(h, w, c);
+  if (warps < 0) return -warps;
   const int64_t smem = dimg_smem_bytes(h, w, c);
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
+  const int optin = optin_smem();
+  if (optin < 0) return -optin;
   if (smem > optin) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(dimg_per_channel<L>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (warps > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dimg_per_sample<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dimg_per_sample<L><<<(unsigned)n, 32 * warps, (size_t)smem, s>>>(
+        crd, g, dimg, h, w, c, p);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      dimg_per_channel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
   dimg_per_channel<L><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n, h,
@@ -356,9 +471,16 @@ extern "C" int catgen_bilinear_sampler_kind(int h, int w, int c) {
   return sampler_kind(h, w, c);
 }
 
-// The shared memory one d_img block needs, in bytes.
+// The shared memory one d_img block of (h, w, c) needs, in bytes (a
+// negative cudaError_t if the card's shared memory could not be read).
 extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
   return dimg_smem_bytes(h, w, c);
+}
+
+// Which d_img kernel (h, w, c) takes: 0 per channel, 1 per sample; a
+// negative cudaError_t on failure.
+extern "C" int catgen_bilinear_dimg_kind(int h, int w, int c) {
+  return dimg_kind(h, w, c);
 }
 
 extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,

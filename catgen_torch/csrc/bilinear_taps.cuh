@@ -109,17 +109,24 @@ static inline int64_t staged_smem_bytes(int h, int w, int c) {
   return (int64_t)h * w * c * (int64_t)sizeof(float);
 }
 
-// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
-// shared memory could not be read
-static inline int sampler_kind(int h, int w, int c) {
-  if (c < 32) return kPerPixel;
-  if (c % 4 != 0) return kPerWarp;
+// The current card's opt-in shared memory per block, in bytes; a negative
+// cudaError_t if it could not be read
+static inline int optin_smem() {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  if (err != cudaSuccess) return -(int)err;
+  return err == cudaSuccess ? optin : -(int)err;
+}
+
+// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
+// shared memory could not be read
+static inline int sampler_kind(int h, int w, int c) {
+  if (c < 32) return kPerPixel;
+  if (c % 4 != 0) return kPerWarp;
+  const int optin = optin_smem();
+  if (optin < 0) return optin;
   return staged_smem_bytes(h, w, c) <= optin ? kStaged : kPerWarp;
 }

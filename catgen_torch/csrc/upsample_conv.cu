@@ -86,7 +86,7 @@ using namespace upconv;
 
 namespace fwd {
 
-constexpr int kTileM = 128;     // output pixels of one parity per block
+constexpr int kTileM = kTilePixels;   // output pixels of one parity per block
 constexpr int kTileN = 128;     // output channels per block
 constexpr int kStep = 32;       // contraction per stage: 32 channels, 1 tap
 constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
@@ -99,96 +99,6 @@ static_assert(kStep * 4 == 128, "a tile row is one 128-byte swizzle row");
 constexpr int kAHi = 0, kALo = 3, kBHi = 5, kBLo = 7, kBRaw = 9;
 constexpr int kSmemBytes = 11 * kTile + 1024;   // + room to align
 static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
-
-// Byte offset of 16-byte chunk c (channels 4c .. 4c+3) of row r in a
-// tile: rows of 128 bytes, chunks XOR-swizzled by the row (wgmma's
-// 128-byte swizzle, so its operand reads and the split's stores hit 8
-// different bank groups per 8 chunks)
-__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-// wgmma's shared-memory matrix descriptor of a K-major tile in the
-// 128-byte swizzle: start address, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t tile_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d (+)= A * B over one 8-deep step: 64 rows x 128 columns, f32
-// accumulators (64 a thread), A and B TF32 in shared memory; accumulate
-// into d unless `fresh`
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
-                                           uint64_t db, bool fresh) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"((int)fresh));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits for this warpgroup's products; d may be read after it
-__device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-               :
-               : "memory");
-}
-
-// makes this thread's st.shared visible to wgmma's (async proxy) reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint4 split4(const float (&v)[4], uint4& lo) {
-  uint4 hi;
-  split_tf32(v[0], hi.x, lo.x);
-  split_tf32(v[1], hi.y, lo.y);
-  split_tf32(v[2], hi.z, lo.z);
-  split_tf32(v[3], hi.w, lo.w);
-  return hi;
-}
-
-// Copies one chunk: 4 floats (16 bytes, or 4 single floats), zero where
-// !ok (or, per element, past `count` of the element's index c); `base`
-// stands in for the source of a zero-fill, which reads nothing
-template <bool kVec>
-__device__ __forceinline__ void copy4(float* dst, const float* src,
-                                      const float* base, bool ok, int c,
-                                      int count) {
-  if (kVec) {
-    cp_async16(dst, ok ? src : base, ok ? 16 : 0);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const bool okq = ok && c + q < count;
-      cp_async4(dst + q, okq ? src + q : base, okq ? 4 : 0);
-    }
-  }
-}
 
 }  // namespace fwd
 
@@ -508,30 +418,19 @@ cudaError_t launch_fwd(bool vec, const float* x, const float* wst,
                    x, wst, bias, prelu, prelu_n, tr, y, partial, g, s);
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || ((uintptr_t)p & 15u) == 0;
-}
-
 }  // namespace
 
-// Rows of per-block partial sums the CUDA-core kernels of this family (dX)
-// write for an input of n x h x w pixels, per parity: one per tile of kBM
-// pixels.
+// Rows of per-block partial sums the forward (per parity) and dX write for
+// an input of n x h x w pixels: one per tile of kTilePixels pixels.
 extern "C" int catgen_upsample_conv_partial_rows(int n, int h, int w) {
-  return (int)ceil_div((int64_t)n * h * w, kBM);
-}
-
-// Rows of per-block partial sums the forward writes, per parity: one per
-// tile of 128 pixels.
-extern "C" int catgen_upsample_conv_fwd_partial_rows(int n, int h, int w) {
-  return (int)ceil_div((int64_t)n * h * w, fwd::kTileM);
+  return (int)ceil_div((int64_t)n * h * w, kTilePixels);
 }
 
 // The forward. x (n, h, w, cin) and wst (4, kh, kw, cin, cout), the
 // collapsed parity kernels, are required; bias (cout), prelu (prelu_n
 // slopes: 1 or cout) and the input transform tscale / tshift / talpha
 // (cin each) may be null. With stats non-null, partial holds
-// (4 * fwd_partial_rows, 2, cout) floats of scratch and stats receives
+// (4 * partial_rows, 2, cout) floats of scratch and stats receives
 // [sum y, sum y^2] as (2, cout). Pixel indices are 32-bit: n * h * w must
 // stay below 2^31. Launches on `stream`, allocates nothing, returns
 // cudaGetLastError() (0 = accepted).
@@ -568,6 +467,6 @@ extern "C" int catgen_upsample_conv_fwd_f32(
                                          tr, y, partial, g, s);
   }
   if (err != cudaSuccess || !with_stats) return (int)err;
-  const int rows = 4 * catgen_upsample_conv_fwd_partial_rows(n, h, w);
+  const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);
   return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);
 }

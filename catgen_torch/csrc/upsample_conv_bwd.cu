@@ -17,8 +17,7 @@
 //     g[n, 2 (q - umin_h[d] - u) + d, 2 (r - umin_w[e] - v) + e, co]
 // (terms whose source pixel lies outside the image drop out): an implicit
 // GEMM of (n h w pixels) x (4 kh kw cout) by (4 kh kw cout) x (cin), the
-// forward's shape with cin and cout swapped; the wrapper hands it the
-// kernel stack transposed, (4, kh, kw, cout, cin).
+// forward's shape with cin and cout swapped.
 //
 // dCK[d, e, u, v, c, co] = sum_{n, i, j}
 //     xn[n, i + umin_h[d] + u, j + umin_w[e] + v, c] * g[n, 2i+d, 2j+e, co]
@@ -30,8 +29,34 @@
 // second kernel adds the splits in a fixed order. No atomics anywhere, so
 // two calls on the same inputs give the same bits.
 //
-// dX: f32 on the CUDA cores, as the forward (64 x 64 tiles, 4 x 4
-// register blocks; upsample_conv_tile.cuh).
+// dX (upsample_conv_dx below) replaces _dx_kernel and the dX part of
+// _fused_block_bwd_kernel. What bounds it: multiply-adds, the forward's
+// (43 / 86 / 193 GMAC at G32up-c's stages at batch 640). It is the
+// forward's 3xTF32 wgmma design (upsample_conv.cu), and what differs:
+//   * A step is one (parity, tap) pair and 32 output channels: A, the 128
+//     pixels' g at their source pixels (n, 2 (q - umin_h[d] - u) + d,
+//     2 (r - umin_w[e] - v) + e), 128 contiguous bytes of NHWC g each, and
+//     B, the matching 32 output channels of 128 input-channel rows of the
+//     parity stack (4, kh, kw, cin, cout), whose rows hold cout
+//     contiguously: B is K-major as it lies, so both operands' 16-byte
+//     copies land in place and no transposing pass is needed (the forward
+//     stores its B transposed). A source pixel outside the image is a
+//     zero-filled copy.
+//   * With the fold, y is staged in a tile of its own beside g, and the
+//     split computes (gy + gs1) + (2 y) gs2, in the plain version's order,
+//     and masks the halo after it: 0 outside the image, not the fold of 0
+//     (gs1 makes that nonzero).
+//   * The epilogue writes dx from the step sums (NHWC, cin contiguous);
+//     with the transform it reads x at its pixels and writes the
+//     transform's backward, and the column sums of dscale, dshift and
+//     dalpha go as the forward's statistics: a fixed butterfly over the
+//     rows of each warp, the 8 warps in order, one partial row per block,
+//     added by sum_rows.
+//   * Shared memory: A hi x 3, A lo x 2, B hi x 3, B lo x 2, and y x 2
+//     with the fold: 160 KB or 192 KB, one block of 8 warps per SM. Blocks
+//     are ordered cin tile, pixel tile (fastest to slowest), so the tiles
+//     of one pixel tile share its g in L2. G32up-c's stages give 320 /
+//     1280 / 2560 blocks (stage 1 fills 2.4 waves of 132: 81%).
 //
 // dCK (upsample_conv_dck below) replaces _dw_kernel and the dCK part of
 // _fused_block_bwd_kernel. The TPU kernel holds a block of x in VMEM and
@@ -90,106 +115,305 @@ namespace {
 
 using namespace upconv;
 
-// g (n, 2h, 2w, cout) (+ fold); wt (4, kh, kw, cout, cin); dx (n, h, w,
-// cin). With kTransform: x (n, h, w, cin), tr, and partial (gridDim.x, 3,
-// cin) receives each block's [dscale, dshift, dalpha] column sums.
-template <bool kFold, bool kTransform>
-__global__ void __launch_bounds__(kThreads)
+namespace dxk {
+
+constexpr int kTileM = kTilePixels;   // input pixels per block
+constexpr int kTileN = 128;     // input channels per block
+constexpr int kStep = 32;       // contraction per stage: 32 output channels
+constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
+constexpr int kTile = kTileM * kStep * 4;     // bytes of one A or B tile
+static_assert(kTileM == kTileN, "one loader layout for A and B");
+static_assert(kStep * 4 == 128, "a tile row is one 128-byte swizzle row");
+// Shared memory, in tiles of kTile bytes, 1024-aligned: A hi (and the raw
+// g it replaces) x 3 stages, A lo x 2, B hi (and its raw copy) x 3, B lo
+// x 2, and with the fold y's raw copy x 2
+constexpr int kAHi = 0, kALo = 3, kBHi = 5, kBLo = 8, kY = 10;
+__host__ __device__ constexpr int smem_bytes(bool fold) {
+  return (fold ? 12 : 10) * kTile + 1024;     // + room to align
+}
+static_assert(smem_bytes(true) <= 232448,
+              "over the H100's opt-in shared memory");
+
+}  // namespace dxk
+
+// g (n, 2h, 2w, cout) (+ fold, y the same); wst (4, kh, kw, cin, cout);
+// dx (n, h, w, cin). With kTransform: x (n, h, w, cin), tr, and partial
+// (m_tiles, 3, cin) receives each block's [dscale, dshift, dalpha] column
+// sums. Blocks in order cin tile, pixel tile (fastest to slowest).
+template <bool kFold, bool kTransform, bool kVec>
+__global__ void __launch_bounds__(dxk::kThreads, 1)
 upsample_conv_dx(const float* __restrict__ g, Fold fold,
-                 const float* __restrict__ wt, const float* __restrict__ x,
+                 const float* __restrict__ wst, const float* __restrict__ x,
                  Transform tr, float* __restrict__ dx,
                  float* __restrict__ partial, Geometry gm) {
-  __shared__ Tiles s;
-  __shared__ float red[16][kBN];
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int64_t hw = (int64_t)gm.h * gm.w, m_total = (int64_t)gm.n * hw;
-  const int64_t m0 = (int64_t)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  using namespace dxk;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the tiles start at the first 1024-byte boundary (the swizzle's period)
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
+  auto tile = [&](int t) { return smem + t * kTile; };
 
-  const int lm = t >> 2, lc = (t & 3) * 4;
-  const int64_t am = m0 + lm;
-  const bool a_row = am < m_total;
-  int an = 0, ai = 0, aj = 0;
-  if (a_row) {
-    an = (int)(am / hw);
-    const int r = (int)(am - (int64_t)an * hw);
-    ai = r / gm.w;
-    aj = r - ai * gm.w;
+  const int tid = threadIdx.x;
+  const int ci_tiles = (int)ceil_div(gm.cin, kTileN);
+  const int c0 = (blockIdx.x % ci_tiles) * kTileN;
+  const int mtile = blockIdx.x / ci_tiles;
+  const int hw = gm.h * gm.w;
+  const int m_total = gm.n * hw;          // the launcher checks < 2^31
+  const int m0 = mtile * kTileM;
+  const int csteps = (gm.cout + kStep - 1) / kStep;
+  const int steps = 4 * gm.kh * gm.kw * csteps;
+
+  // loaders: rows 32 r + (tid >> 3), chunk tid & 7 (output channels
+  // 4 (tid & 7) .. +3 of the step) of A and of B; A's rows' pixels are
+  // decoded once, as g's pixel index of (n, 0, 0) and (q, r)
+  const int acq = tid & 7, arow = tid >> 3;
+  int gbase[4], ai[4], aj[4];
+  uint32_t avalid = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + 32 * r + arow;
+    const bool ok = m < m_total;
+    const int nn = ok ? m / hw : 0;
+    const int rem = ok ? m - nn * hw : 0;
+    ai[r] = rem / gm.w;
+    aj[r] = rem - ai[r] * gm.w;
+    gbase[r] = nn * 4 * hw;
+    avalid |= (uint32_t)ok << r;
   }
-  const int bk = t >> 4, bn = (t & 15) * 4;
 
-  float acc[4][4] = {};
-  for (int p = 0; p < 4; ++p) {
-    const int d = p >> 1, e = p & 1;
-    for (int u = 0; u < gm.kh; ++u) {
-      for (int v = 0; v < gm.kw; ++v) {
-        const int si = ai - gm.umin_h[d] - u, sj = aj - gm.umin_w[e] - v;
-        const bool inb =
-            a_row && si >= 0 && si < gm.h && sj >= 0 && sj < gm.w;
-        const int64_t goff =
-            inb ? (((int64_t)an * 2 * gm.h + 2 * si + d) * 2 * gm.w +
-                   2 * sj + e) * gm.cout
-                : 0;
-        const float* wtap =
-            wt + (((int64_t)p * gm.kh + u) * gm.kw + v) * gm.cout * gm.cin;
-        for (int k0 = 0; k0 < gm.cout; k0 += kBK) {
+  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
+  int ld_p = 0, ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
+
+  auto load_stage = [&](int kt) {
+    const int slot = kt % 3;
+    float* a_dst = reinterpret_cast<float*>(tile(kAHi + slot));
+    float* b_dst = reinterpret_cast<float*>(tile(kBHi + slot));
+    float* y_dst = reinterpret_cast<float*>(tile(kY + (kt & 1)));
+    const int d = ld_p >> 1, e = ld_p & 1;
+    const int co = ld_cs * kStep + 4 * acq;
+    const int oh = gm.umin_h[d] + ld_u, ow = gm.umin_w[e] + ld_v;
+    uint32_t bits = 0;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int co = k0 + lc + q;
-            s.a[lc + q][lm] = (inb && co < gm.cout)
-                                  ? load_g<kFold>(g, fold, goff + co, co)
-                                  : 0.0f;
-          }
-          const int co = k0 + bk;
+    for (int r = 0; r < 4; ++r) {
+      const int si = ai[r] - oh, sj = aj[r] - ow;
+      const bool inb = ((avalid >> r) & 1u) && si >= 0 && si < gm.h &&
+                       sj >= 0 && sj < gm.w;
+      const int gpix = gbase[r] + (2 * si + d) * 2 * gm.w + 2 * sj + e;
+      const int64_t off = (int64_t)gpix * gm.cout + co;
+      const bool ok = inb && (!kVec || co < gm.cout);
+      const uint32_t at = chunk_at(32 * r + arow, acq) / 4;
+      copy4<kVec>(a_dst + at, g + off, g, ok, co, gm.cout);
+      if (kFold) copy4<kVec>(y_dst + at, fold.y + off, fold.y, ok, co, gm.cout);
+      bits |= (uint32_t)inb << r;
+    }
+    const float* wtap =
+        wst + (((int64_t)ld_p * gm.kh + ld_u) * gm.kw + ld_v) * gm.cin *
+                  gm.cout;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int c = n0 + bn + q;
-            s.b[bk][bn + q] = (co < gm.cout && c < gm.cin)
-                                  ? __ldg(wtap + (int64_t)co * gm.cin + c)
-                                  : 0.0f;
-          }
-          __syncthreads();
-          mma_tile(s, acc, ty, tx);
-          __syncthreads();
+    for (int r = 0; r < 4; ++r) {
+      const int c = c0 + 32 * r + arow;
+      copy4<kVec>(b_dst + chunk_at(32 * r + arow, acq) / 4,
+                  wtap + (int64_t)c * gm.cout + co, wst,
+                  c < gm.cin && (!kVec || co < gm.cout), co, gm.cout);
+    }
+    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
+    if (++ld_cs == csteps) {
+      ld_cs = 0;
+      if (++ld_v == gm.kw) {
+        ld_v = 0;
+        if (++ld_u == gm.kh) {
+          ld_u = 0;
+          ++ld_p;
+        }
+      }
+    }
+  };
+
+  // stage kt's own chunks, once they have landed (the fold's constants are
+  // read while the copies finish): A's fold and halo mask in place, then
+  // each of A and B split, hi in place and lo beside it. Then visible to
+  // wgmma. Stage kt + 1's copies may still be in flight.
+  auto split_stage = [&](int kt) {
+    const int slot = kt % 3;
+    uint8_t* a_hi = tile(kAHi + slot);
+    uint8_t* a_lo = tile(kALo + (kt & 1));
+    uint8_t* b_hi = tile(kBHi + slot);
+    uint8_t* b_lo = tile(kBLo + (kt & 1));
+    const uint8_t* ys = tile(kY + (kt & 1));
+    const uint32_t bits = masks >> (4 * slot);
+    const int co = (kt % csteps) * kStep + 4 * acq;
+    float s1[4], s2[4];
+    if (kFold) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = co + q < gm.cout;
+        s1[q] = ok ? __ldg(fold.gs + co + q) : 0.0f;
+        s2[q] = ok ? __ldg(fold.gs + gm.cout + co + q) : 0.0f;
+      }
+    }
+    cp_async_wait<1>();             // this thread's copies of stage kt
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t off = chunk_at(32 * r + arow, acq);
+      const float4 c4 = *reinterpret_cast<const float4*>(a_hi + off);
+      float v[4] = {c4.x, c4.y, c4.z, c4.w};
+      if (kFold) {
+        const float4 y4 = *reinterpret_cast<const float4*>(ys + off);
+        const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // (gy + gs1) + (2 y) gs2, in the plain version's order; 0 in
+          // the halo after the fold
+          const float t = (2.0f * yv[q]) * s2[q];
+          v[q] = inb ? (v[q] + s1[q]) + t : 0.0f;
+        }
+      }
+      uint4 lo;
+      *reinterpret_cast<uint4*>(a_hi + off) = split4(v, lo);
+      *reinterpret_cast<uint4*>(a_lo + off) = lo;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t off = chunk_at(32 * r + arow, acq);
+      const float4 c4 = *reinterpret_cast<const float4*>(b_hi + off);
+      const float v[4] = {c4.x, c4.y, c4.z, c4.w};
+      uint4 lo;
+      *reinterpret_cast<uint4*>(b_hi + off) = split4(v, lo);
+      *reinterpret_cast<uint4*>(b_lo + off) = lo;
+    }
+    fence_async_shared();
+  };
+
+  // warpgroup wg owns rows 64 wg .. +63 of the tile. acc holds one step's
+  // 32 channels; sum adds the steps in f32.
+  const int wg = tid >> 7;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
+
+  // the forward's pipeline: stages 0 and 1 in flight, stage 0 split; then
+  // per step the copies of stage kt + 2, the products of stage kt
+  // (asynchronous), the split of stage kt + 1 beside them, the wait and
+  // the step's sum, one barrier
+  if (steps > 0) load_stage(0);
+  cp_async_commit();
+  if (steps > 1) load_stage(1);
+  cp_async_commit();
+  if (steps > 0) split_stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < steps; ++kt) {
+    if (kt + 2 < steps) load_stage(kt + 2);
+    cp_async_commit();
+    const uint32_t a_hi = sbase + (kAHi + kt % 3) * kTile + wg * 64 * 128;
+    const uint32_t a_lo = sbase + (kALo + (kt & 1)) * kTile + wg * 64 * 128;
+    const uint32_t b_hi = sbase + (kBHi + kt % 3) * kTile;
+    const uint32_t b_lo = sbase + (kBLo + (kt & 1)) * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {   // 8 channels each, 32 bytes a row
+      wgmma_tf32(acc, tile_desc(a_lo + 32 * s), tile_desc(b_hi + 32 * s),
+                 s == 0);
+      wgmma_tf32(acc, tile_desc(a_hi + 32 * s), tile_desc(b_lo + 32 * s),
+                 false);
+      wgmma_tf32(acc, tile_desc(a_hi + 32 * s), tile_desc(b_hi + 32 * s),
+                 false);
+    }
+    wgmma_commit();
+    if (kt + 1 < steps) split_stage(kt + 1);
+    wgmma_wait(acc);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
+    __syncthreads();                // stage kt + 1 split; kt's tiles free
+  }
+  cp_async_wait<0>();
+
+  // epilogue: dx, and with the transform its backward and the column
+  // sums. Thread (g, t) of warp w of the warpgroup holds rows 16 w + g and
+  // 16 w + g + 8 of the warpgroup's 64, columns 2t, 2t+1 of each 8-column
+  // group. The A tiles are free to hold the sums: (8 warps, 3, 128).
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int warp = tid >> 5;
+  const int wrow = wg * 64 + (warp & 3) * 16;
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = c0 + 8 * j + 2 * tig;
+    float sc[2], sh[2], al[2];
+    float dsc[2] = {0.0f, 0.0f}, dsh[2] = {0.0f, 0.0f}, dal[2] = {0.0f, 0.0f};
+    if (kTransform) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool ok = c + q < gm.cin;
+        sc[q] = ok ? __ldg(tr.scale + c + q) : 0.0f;
+        sh[q] = ok ? __ldg(tr.shift + c + q) : 0.0f;
+        al[q] = ok ? __ldg(tr.alpha + c + q) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + wrow + gid + 8 * hf;
+      if (m >= m_total) continue;
+      const int64_t idx = (int64_t)m * gm.cin + c;
+      float val[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float dxn = sum[4 * j + 2 * hf + q];
+        val[q] = dxn;
+        if (kTransform && c + q < gm.cin) {
+          // the transform's backward, as the plain version's autograd:
+          // xt = x * scale + shift; xn = xt >= 0 ? xt : alpha * xt
+          const float xv = __ldg(x + idx + q);
+          const float xt = xv * sc[q] + sh[q];
+          const bool pos = xt >= 0.0f;
+          const float dxt = pos ? dxn : dxn * al[q];
+          val[q] = dxt * sc[q];
+          dsc[q] += dxt * xv;
+          dsh[q] += dxt;
+          dal[q] += pos ? 0.0f : dxn * xt;
+        }
+      }
+      if (c + 1 < gm.cin && (gm.cin & 1) == 0) {
+        *reinterpret_cast<float2*>(dx + idx) = make_float2(val[0], val[1]);
+      } else if (c < gm.cin) {
+        dx[idx] = val[0];
+        if (c + 1 < gm.cin) dx[idx + 1] = val[1];
+      }
+    }
+    if (kTransform) {
+      // the 8 rows g of the warp in a fixed butterfly
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          dsc[q] += __shfl_xor_sync(0xffffffffu, dsc[q], off);
+          dsh[q] += __shfl_xor_sync(0xffffffffu, dsh[q], off);
+          dal[q] += __shfl_xor_sync(0xffffffffu, dal[q], off);
+        }
+        if (gid == 0) {
+          const int col = 8 * j + 2 * tig + q;
+          red[(warp * 3 + 0) * kTileN + col] = dsc[q];
+          red[(warp * 3 + 1) * kTileN + col] = dsh[q];
+          red[(warp * 3 + 2) * kTileN + col] = dal[q];
         }
       }
     }
   }
-
-  float dsc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dsh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float dal[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty * 4 + i;
-    if (m >= m_total) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx * 4 + j;
-      if (c >= gm.cin) continue;
-      const int64_t idx = m * gm.cin + c;
-      const float dxn = acc[i][j];
-      if (!kTransform) {
-        dx[idx] = dxn;
-        continue;
-      }
-      // the transform's backward, as the plain version's autograd:
-      // xt = x * scale + shift; xn = xt >= 0 ? xt : alpha * xt
-      const float xv = __ldg(x + idx);
-      const float sc = __ldg(tr.scale + c);
-      const float xt = xv * sc + __ldg(tr.shift + c);
-      const bool pos = xt >= 0.0f;
-      const float dxt = pos ? dxn : dxn * __ldg(tr.alpha + c);
-      dx[idx] = dxt * sc;
-      dsc[j] += dxt * xv;
-      dsh[j] += dxt;
-      dal[j] += pos ? 0.0f : dxn * xt;
-    }
-  }
   if (kTransform) {
-    float* dst = partial + (int64_t)blockIdx.x * 3 * gm.cin + n0;
-    block_column_sum(red, dsc, ty, tx, dst, gm.cin - n0);
-    block_column_sum(red, dsh, ty, tx, dst + gm.cin, gm.cin - n0);
-    block_column_sum(red, dal, ty, tx, dst + 2 * gm.cin, gm.cin - n0);
+    // the 8 warps in order, one row of partial sums per block
+    __syncthreads();
+    if (tid < kTileN && c0 + tid < gm.cin) {
+      float* dst = partial + (int64_t)mtile * 3 * gm.cin + c0 + tid;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float t = 0.0f;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          t += red[(w * 3 + k) * kTileN + tid];
+        }
+        dst[k * gm.cin] = t;
+      }
+    }
   }
 }
 
@@ -261,23 +485,6 @@ __device__ __forceinline__ void advance(Pix& p, const Step& s, int h, int w) {
   p.i += s.di;
   if (p.i >= h) { p.i -= h; ++p.n; }
   p.n += s.dn;
-}
-
-// Copies four channels (one 16-byte chunk, or 4 single floats) of a row
-template <bool kVec>
-__device__ __forceinline__ void copy_chunk(float* dst, const float* base,
-                                           int64_t off, bool row_ok, int c,
-                                           int count) {
-  if (kVec) {
-    const bool ok = row_ok && c < count;
-    cp_async16(dst, ok ? base + off : base, ok ? 16 : 0);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const bool ok = row_ok && c + q < count;
-      cp_async4(dst + q, ok ? base + off + q : base, ok ? 4 : 0);
-    }
-  }
 }
 
 }  // namespace dck
@@ -368,13 +575,14 @@ upsample_conv_dck(const float* __restrict__ x, Transform tr,
       const int xpix = (pr.n * gm.h + si) * gm.w + sj;
       const int gpix =
           (pr.n * 2 * gm.h + 2 * pr.i + d) * 2 * gm.w + 2 * pr.j + e;
-      copy_chunk<kVec>(sx + row * kLd + 4 * q, x, (int64_t)xpix * gm.cin + cx,
-                       inb, cx, gm.cin);
+      copy4<kVec>(sx + row * kLd + 4 * q, x + (int64_t)xpix * gm.cin + cx, x,
+                  inb && (!kVec || cx < gm.cin), cx, gm.cin);
       const int64_t goff = (int64_t)gpix * gm.cout + cg;
-      copy_chunk<kVec>(sg + row * kLd + 4 * q, g, goff, valid, cg, gm.cout);
+      const bool gok = valid && (!kVec || cg < gm.cout);
+      copy4<kVec>(sg + row * kLd + 4 * q, g + goff, g, gok, cg, gm.cout);
       if (kFold) {
-        copy_chunk<kVec>(sg + kStep * kLd + row * kLd + 4 * q, fold.y, goff,
-                         valid, cg, gm.cout);
+        copy4<kVec>(sg + kStep * kLd + row * kLd + 4 * q, fold.y + goff,
+                    fold.y, gok, cg, gm.cout);
       }
       bits |= ((uint32_t)inb << r) | ((uint32_t)valid << (kRows + r));
       advance(pr, one, gm.h, gm.w);
@@ -542,15 +750,31 @@ upsample_conv_dck(const float* __restrict__ x, Transform tr,
   }
 }
 
-template <bool kFold, bool kTransform>
-cudaError_t launch_dx(const float* g, Fold fold, const float* wt,
+template <bool kFold, bool kTransform, bool kVec>
+cudaError_t launch_dx(const float* g, Fold fold, const float* wst,
                       const float* x, Transform tr, float* dx, float* partial,
                       const Geometry& gm, cudaStream_t s) {
-  const dim3 grid((unsigned)ceil_div((int64_t)gm.n * gm.h * gm.w, kBM),
-                  (unsigned)ceil_div(gm.cin, kBN));
-  upsample_conv_dx<kFold, kTransform><<<grid, kThreads, 0, s>>>(
-      g, fold, wt, x, tr, dx, partial, gm);
+  const int smem = dxk::smem_bytes(kFold);
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_dx<kFold, kTransform, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = ceil_div(gm.cin, dxk::kTileN) *
+                         ceil_div((int64_t)gm.n * gm.h * gm.w, dxk::kTileM);
+  upsample_conv_dx<kFold, kTransform, kVec>
+      <<<(unsigned)blocks, dxk::kThreads, smem, s>>>(g, fold, wst, x, tr, dx,
+                                                     partial, gm);
   return cudaGetLastError();
+}
+
+template <bool kFold, bool kTransform>
+cudaError_t launch_dx(bool vec, const float* g, Fold fold, const float* wst,
+                      const float* x, Transform tr, float* dx, float* partial,
+                      const Geometry& gm, cudaStream_t s) {
+  return vec ? launch_dx<kFold, kTransform, true>(g, fold, wst, x, tr, dx,
+                                                  partial, gm, s)
+             : launch_dx<kFold, kTransform, false>(g, fold, wst, x, tr, dx,
+                                                   partial, gm, s);
 }
 
 template <bool kFold, bool kTransform, bool kVec>
@@ -587,10 +811,6 @@ int dck_chunk(int64_t pixels, int splits) {
   return (int)(ceil_div(ceil_div(pixels, splits), dck::kStep) * dck::kStep);
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || ((uintptr_t)p & 15u) == 0;
-}
-
 }  // namespace
 
 // How many pixel ranges the dCK kernel cuts the batch into. One block of
@@ -622,39 +842,51 @@ extern "C" int catgen_upsample_conv_dck_splits(int n, int h, int w, int cin,
   return best;
 }
 
-// dX. g (n, 2h, 2w, cout) and wt (4, kh, kw, cout, cin) are required.
-// With y and gs (2, cout) non-null, g is folded with the stats
-// cotangents. With x non-null, dx is the gradient through the input
-// transform tscale / tshift / talpha (cin each), partial holds
-// (partial_rows, 3, cin) floats of scratch and dtr receives [dscale,
-// dshift, dalpha] as (3, cin); else dx is the gradient of the conv's
-// input. Launches on `stream`; returns cudaGetLastError().
+// dX. g (n, 2h, 2w, cout) and wst (4, kh, kw, cin, cout), the parity
+// stack as the forward takes it, are required. With y and gs (2, cout)
+// non-null, g is folded with the stats cotangents. With x non-null, dx is
+// the gradient through the input transform tscale / tshift / talpha (cin
+// each), partial holds (catgen_upsample_conv_partial_rows, 3, cin) floats
+// of scratch and dtr
+// receives [dscale, dshift, dalpha] as (3, cin); else dx is the gradient
+// of the conv's input. Pixel indices are 32-bit: n * 2h * 2w must stay
+// below 2^31. Launches on `stream`; returns cudaGetLastError().
 extern "C" int catgen_upsample_conv_dx_f32(
-    const float* g, const float* y, const float* gs, const float* wt,
+    const float* g, const float* y, const float* gs, const float* wst,
     const float* x, const float* tscale, const float* tshift,
     const float* talpha, float* dx, float* partial, float* dtr, int n, int h,
     int w, int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0,
     int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w == 0 || cin == 0) return 0;
+  if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry gm =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
   const Fold fold = {y, gs, cout};
   const Transform tr = {tscale, tshift, talpha};
   const bool f = y != nullptr, tf = x != nullptr;
+  // 16-byte copies where every row of g, y and wst starts 16-byte aligned
+  const bool vec = cin % 4 == 0 && cout % 4 == 0 && aligned16(g) &&
+                   aligned16(y) && aligned16(wst);
   cudaError_t err;
   if (f && tf) {
-    err = launch_dx<true, true>(g, fold, wt, x, tr, dx, partial, gm, s);
+    err = launch_dx<true, true>(vec, g, fold, wst, x, tr, dx, partial, gm, s);
   } else if (f) {
-    err = launch_dx<true, false>(g, fold, wt, x, tr, dx, partial, gm, s);
+    err = launch_dx<true, false>(vec, g, fold, wst, x, tr, dx, partial, gm,
+                                 s);
   } else if (tf) {
-    err = launch_dx<false, true>(g, fold, wt, x, tr, dx, partial, gm, s);
+    err = launch_dx<false, true>(vec, g, fold, wst, x, tr, dx, partial, gm,
+                                 s);
   } else {
-    err = launch_dx<false, false>(g, fold, wt, x, tr, dx, partial, gm, s);
+    err = launch_dx<false, false>(vec, g, fold, wst, x, tr, dx, partial, gm,
+                                  s);
   }
   if (err != cudaSuccess || !tf) return (int)err;
-  const int rows = (int)ceil_div((int64_t)n * h * w, kBM);
-  return (int)launch_sum_rows(partial, dtr, rows, 3 * (int64_t)cin, s);
+  return (int)launch_sum_rows(partial, dtr,
+                              (int)ceil_div((int64_t)n * h * w, dxk::kTileM),
+                              3 * (int64_t)cin, s);
 }
 
 // dCK. x (n, h, w, cin) and g (n, 2h, 2w, cout) are required; tscale /

@@ -1,18 +1,9 @@
 // Shared pieces of the upsample-conv kernels (upsample_conv.cu, forward;
-// upsample_conv_bwd.cu, dX and dCK): the CUDA-core tile shape and its
-// register-blocked product, the loaders' input transform and cotangent
-// fold, the tensor-core pieces of the 3xTF32 kernels, and the
-// fixed-order sums that make every reduction deterministic without
-// atomics.
-//
-// dX is an implicit GEMM in f32 on the CUDA cores: a block of kThreads
-// threads owns a kBM x kBN tile of its output, walks the contraction in
-// steps of kBK, gathers each step's A (kBK x kBM) and B (kBK x kBN)
-// slices into shared memory, and each thread accumulates a 4x4 block of
-// the tile in registers with fmaf (the library is built with
-// --fmad=false, which would otherwise split every multiply-add in two).
-// The forward and dCK run 3xTF32 on the tensor cores (their sources say
-// how).
+// upsample_conv_bwd.cu, dX and dCK), which all run 3xTF32 on the tensor
+// cores: the geometry, the input transform and cotangent fold, cp.async
+// copies, the split of an f32 value into TF32 hi and lo, the wgmma pieces
+// of the forward and dX (their sources say how), and the fixed-order sums
+// that make every reduction deterministic without atomics.
 
 #pragma once
 
@@ -23,11 +14,9 @@
 // gets its own copy, so the linked library holds no duplicate symbols.
 namespace upconv {
 
-constexpr int kBM = 64;        // tile rows (output pixels, or dCK's channels)
-constexpr int kBN = 64;        // tile columns (output channels)
-constexpr int kBK = 16;        // contraction step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kPad = 4;        // row padding; keeps rows 16-byte aligned
+// Pixels per block of the wgmma kernels (the forward and dX): each block
+// writes one row of partial column sums per tile of kTilePixels pixels.
+constexpr int kTilePixels = 128;
 
 // Shapes of one upsample-conv: x (n, h, w, cin) -> y (n, 2h, 2w, cout),
 // collapsed taps kh x kw per parity; umin_h[d] / umin_w[e] is the offset
@@ -52,58 +41,6 @@ struct Fold {
   const float* gs;
   int cout;
 };
-
-struct __align__(16) Tiles {
-  float a[kBK][kBM + kPad];
-  float b[kBK][kBN + kPad];
-};
-
-// The cotangent at flat index idx (channel co), with the stats fold in
-// the plain version's order: (gy + gs1) + (2 y) gs2.
-template <bool kFold>
-__device__ __forceinline__ float load_g(const float* g, const Fold& f,
-                                        int64_t idx, int co) {
-  const float v = __ldg(g + idx);
-  if (!kFold) return v;
-  const float t = (2.0f * __ldg(f.y + idx)) * __ldg(f.gs + f.cout + co);
-  return (v + __ldg(f.gs + co)) + t;
-}
-
-// acc[i][j] += sum_k a[k][4 ty + i] * b[k][4 tx + j]
-__device__ __forceinline__ void mma_tile(const Tiles& s, float (&acc)[4][4],
-                                         int ty, int tx) {
-#pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&s.a[k][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&s.b[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-// Column sums of a tile: thread (ty, tx) holds v[j] for columns 4 tx + j;
-// the 16 rows of threads are added in order and thread t < valid writes
-// column t to dst[t]. Every thread of the block must call it.
-__device__ __forceinline__ void block_column_sum(float (&red)[16][kBN],
-                                                 const float (&v)[4], int ty,
-                                                 int tx, float* dst,
-                                                 int valid) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty][tx * 4 + j] = v[j];
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < kBN && t < valid) {
-    float s = 0.0f;
-    for (int y = 0; y < 16; ++y) s += red[y][t];
-    dst[t] = s;
-  }
-  __syncthreads();
-}
 
 // out[c] = sum over rows r of in[r * cols + c], in a fixed order: thread
 // (x, y) adds rows y, y + blockDim.y, ... in turn, then row 0 of threads
@@ -137,8 +74,8 @@ static inline cudaError_t launch_sum_rows(const float* in, float* out,
   return cudaGetLastError();
 }
 
-// Pieces of the 3xTF32 kernels (the forward and dCK): cp.async copies
-// into shared memory, and the split of an f32 value into TF32 hi and lo.
+// Pieces of the 3xTF32 kernels: cp.async copies into shared memory, and
+// the split of an f32 value into TF32 hi and lo.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -182,8 +119,108 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
   lo = rna_tf32(a - __uint_as_float(hi));
 }
 
+// Pieces of the wgmma kernels (the forward and dX): tiles of 128-byte
+// rows (32 TF32 values, the contraction of one step) in wgmma's 128-byte
+// swizzle, and the products.
+
+// Byte offset of 16-byte chunk c (channels 4c .. 4c+3) of row r in a
+// tile: rows of 128 bytes, chunks XOR-swizzled by the row (wgmma's
+// 128-byte swizzle, so its operand reads and the split's stores hit 8
+// different bank groups per 8 chunks)
+__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile in the
+// 128-byte swizzle: start address, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t tile_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= A * B over one 8-deep step: 64 rows x 128 columns, f32
+// accumulators (64 a thread), A and B TF32 in shared memory; accumulate
+// into d unless `fresh`
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, bool fresh) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"((int)fresh));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for this warpgroup's products; d may be read after it
+__device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               :
+               : "memory");
+}
+
+// makes this thread's st.shared visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 split4(const float (&v)[4], uint4& lo) {
+  uint4 hi;
+  split_tf32(v[0], hi.x, lo.x);
+  split_tf32(v[1], hi.y, lo.y);
+  split_tf32(v[2], hi.z, lo.z);
+  split_tf32(v[3], hi.w, lo.w);
+  return hi;
+}
+
+// Copies one chunk: 4 floats (16 bytes, or 4 single floats), zero where
+// !ok (or, per element, past `count` of the element's index c); `base`
+// stands in for the source of a zero-fill, which reads nothing
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      const float* base, bool ok, int c,
+                                      int count) {
+  if (kVec) {
+    cp_async16(dst, ok ? src : base, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool okq = ok && c + q < count;
+      cp_async4(dst + q, okq ? src + q : base, okq ? 4 : 0);
+    }
+  }
+}
+
 __host__ __device__ __forceinline__ int64_t ceil_div(int64_t a, int64_t b) {
   return (a + b - 1) / b;
+}
+
+// null, or 16-byte aligned: every row of an array whose row length is a
+// multiple of 4 floats can take 16-byte copies
+static inline bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
 }
 
 static inline Geometry make_geometry(int n, int h, int w, int cin, int cout,

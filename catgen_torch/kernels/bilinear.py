@@ -10,8 +10,8 @@ inputs. It is the counterpart of
 ``catgen/kernels/pallas_bilinear_v4.py::bilinear_sample_rows``; the CUDA
 kernels are ``catgen_torch/csrc/bilinear_sample.cu`` (forward) and
 ``catgen_torch/csrc/bilinear_sample_bwd.cu`` (d_img and d_coords). Which
-forward and d_coords kernel a shape takes is decided by the shape alone
-(``forward_kind``, ``dcoords_kind``).
+forward, d_coords and d_img kernel a shape takes is decided by the shape
+alone (``forward_kind``, ``dcoords_kind``, ``dimg_kind``).
 
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
 tensor it runs ``bilinear_sample_rows_plain``, the gather-and-lerp
@@ -191,10 +191,12 @@ def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
 
 DCOORDS_KINDS = ("per_pixel", "per_warp", "staged")
 FORWARD_KINDS = ("per_pixel", "per_value", "staged")
+DIMG_KINDS = ("per_channel", "per_sample")
 
 
-def _kind(h: int, w: int, c: int, names) -> str:
-    code = load_library().catgen_bilinear_sampler_kind(h, w, c)
+def _kind(h: int, w: int, c: int, names,
+          entry: str = "catgen_bilinear_sampler_kind") -> str:
+    code = getattr(load_library(), entry)(h, w, c)
     if code < 0:
         raise RuntimeError(f"reading the card's shared memory failed: "
                            f"cudaError_t {-code}")
@@ -216,6 +218,14 @@ def forward_kind(h: int, w: int, c: int) -> str:
     return _kind(h, w, c, FORWARD_KINDS)
 
 
+def dimg_kind(h: int, w: int, c: int) -> str:
+    """Which d_img kernel an (h, w, c) image takes on the current card,
+    rows or grid layout: ``per_sample`` (c < 32 and four h*w*c slabs fit
+    one block's shared memory: a block per sample, one slab per warp) or
+    ``per_channel``."""
+    return _kind(h, w, c, DIMG_KINDS, "catgen_bilinear_dimg_kind")
+
+
 def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
                 grad_out: torch.Tensor, out_hw) -> torch.Tensor:
     """Runs the d_img kernel: (N, H, W, C), the gradient with respect to
@@ -233,7 +243,8 @@ def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
         err = lib.catgen_bilinear_dimg_f32(
             coords_rows.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(),
             n, h, w, c, out_hw[0] * out_hw[1], stream)
-    # a block holds h*w*min(c, 32) floats; an image too large for the
+    # a block holds up to 8 slabs of h*w*c floats (per sample) or
+    # h*w*min(c, 32) floats (per channel); an image too large for the
     # card's shared memory is refused with cudaErrorInvalidValue
     _launched(err, f"bilinear sampler d_img (a block needs "
                    f"{lib.catgen_bilinear_dimg_smem_bytes(h, w, c)} bytes of "

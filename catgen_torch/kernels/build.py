@@ -42,6 +42,7 @@ SIGNATURES = (
     ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
     ("catgen_bilinear_sampler_kind", [_I, _I, _I], _I),
+    ("catgen_bilinear_dimg_kind", [_I, _I, _I], _I),
     ("catgen_bilinear_sample_grid_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
      _I),
     ("catgen_bilinear_grid_dcoords_f32", [_P] * 4 + [_I] * 5 + [_P], _I),
@@ -49,7 +50,6 @@ SIGNATURES = (
     ("catgen_st_conv_prelu_f32", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
      _I),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),
-    ("catgen_upsample_conv_fwd_partial_rows", [_I, _I, _I], _I),
     ("catgen_upsample_conv_fwd_f32", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 11
      + [_P], _I),
     ("catgen_upsample_conv_dck_splits", [_I] * 7, _I),

@@ -232,7 +232,7 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
     y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     partial = stats = None
     if with_stats:
-        rows = 4 * lib.catgen_upsample_conv_fwd_partial_rows(n, h, w)
+        rows = 4 * lib.catgen_upsample_conv_partial_rows(n, h, w)
         partial = torch.empty((rows, 2, cout), dtype=torch.float32,
                               device=dev)
         stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
@@ -253,7 +253,7 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
     dev = x.device
     _check("g", g, dev, (n, 2 * h, 2 * w, cout))
     lib = load_library()
-    wt = parity_stack(weight).transpose(3, 4).contiguous()
+    wst = parity_stack(weight)
     dx = torch.empty_like(x)
     partial = dtr = None
     if in_scale is not None:
@@ -262,10 +262,10 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
         dtr = torch.empty((3, cin), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.catgen_upsample_conv_dx_f32(
-            g.data_ptr(), _ptr(y), _ptr(gs), wt.data_ptr(),
+            g.data_ptr(), _ptr(y), _ptr(gs), wst.data_ptr(),
             x.data_ptr() if in_scale is not None else None, _ptr(in_scale),
             _ptr(in_shift), _ptr(in_alpha), dx.data_ptr(), _ptr(partial),
-            _ptr(dtr), n, h, w, cin, cout, wt.shape[1], wt.shape[2],
+            _ptr(dtr), n, h, w, cin, cout, wst.shape[1], wst.shape[2],
             *_umins(k_h, k_w), _stream(dev))
     _launched(err, "upsample-conv dX")
     return dx if dtr is None else (dx, dtr)

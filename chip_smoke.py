@@ -14,18 +14,21 @@ no result.
 
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
-     source, in parallel); the SASS of every instantiation of the dCK and
-     forward upsample-conv kernels holds TF32 tensor-core products
-     (cuobjdump: HMMA for dCK's mma.sync, HGMMA for the forward's wgmma);
+     source, in parallel); the SASS of every instantiation of the dCK, dX
+     and forward upsample-conv kernels holds TF32 tensor-core products
+     (cuobjdump: HMMA for dCK's mma.sync, HGMMA for the wgmma of the
+     forward and dX);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256, with the forward kernel each
      shape takes (per pixel, staged); the staged kernel bit for bit
      against the plain version and the per-value kernel;
   4. the sampler's backward kernels (d_img, d_coords) against the plain
-     version's autograd at both shapes of the training path, N=640, and
-     at a 32x32x64 image, N=64, with the d_coords kernel each shape
-     takes (per pixel, staged, per warp); repeats bit-identical; no d_img
-     work where the image needs none;
+     version's autograd at both shapes of the training path, N=640, at a
+     32x32x64 image, N=64, and at the input ST's shape with a zoomed-in
+     transform (many output pixels on one tap), with the d_coords and
+     d_img kernel each shape takes (d_coords per pixel, staged, per warp;
+     d_img per sample, per channel); repeats bit-identical; no d_img work
+     where the image needs none;
   5. the sampling slice through catgen_torch.cli.sample.main: 1024 samples
      from a seeded checkpoint, nearest neighbours against a fixture corpus;
      checks that the D batches went through the kernel;
@@ -48,11 +51,12 @@ no result.
      kernels against their plain versions and grid_sample at the
      training shapes, whether same-seed steps are bit-identical, and a
      profiled step; each sampler kernel's device time against its library
-     call's (grid_sample, grid_sampler_2d_backward);
+     call's (grid_sample, grid_sampler_2d_backward), from profiled sessions
+     of at least 100 calls and 20 ms;
  11. the upsample-conv kernels against their plain versions at G32up-c's
      three stage shapes, N=640 and N=320, dCK in all four fold/transform
-     variants; repeats bit-identical; the forward (rows 3 and 4), dCK and
-     the plain version against float64 at N=640;
+     variants; repeats bit-identical; the forward (rows 3 and 4), dCK, dX
+     and the plain version against float64 at N=640;
  12. the sampling CLI on the ladder route (CATGEN_UPSAMPLE_IMPL=pallas,
      CATGEN_FUSED_LADDER=1): 3 block launches per G batch, the same
      images as phase 5;
@@ -65,9 +69,9 @@ no result.
  15. one train step on the ladder route, card against CPU (the CPU runs
      the kernels' plain versions), within phase 9's bounds;
  16. at batch 640: each upsample-conv kernel against its plain version,
-     the cuDNN collapsed route and its bound (forward and dCK: 3xTF32 and
-     f32), at each stage shape; the train step on the ladder and
-     per-layer routes, profiled;
+     the cuDNN collapsed route and its bound (forward, dX and dCK: 3xTF32
+     and f32), at each stage shape, dX also in device time beside cuDNN
+     dgrad's; the train step on the ladder and per-layer routes, profiled;
  17. the fused ST-conv kernel against its plain version at D32_st3's
      prefix, N=640 and 256, shared and per-channel slope: out, samp and z;
      repeats bit-identical;
@@ -124,6 +128,13 @@ TRAIN_SHAPES = [           # the sampler in a training D batch of 640
 # KB, over the shared memory of a block) per warp
 DCOORDS_SHAPES = TRAIN_SHAPES + [(64, 32, 32, 64, 32, 32)]
 DCOORDS_KINDS = ("per_pixel", "staged", "per_warp")
+# the d_img kernel they take (kernels.bilinear.dimg_kind): the input ST's
+# 3 channels per sample (a block of 8 slabs), the 64-channel images per
+# channel
+DIMG_KINDS = ("per_sample", "per_channel", "per_channel")
+# a zoomed-in input ST: every output pixel within 0.1 of the centre, so
+# the 1024 output pixels of a sample land on a few taps (phase 4)
+ZOOM = 0.1
 # the forward kernel the same shapes take (kernels.bilinear.forward_kind):
 # the staged kernel, like d_coords', gives the plain version's bits
 FORWARD_KINDS = ("per_pixel", "staged", "per_value")
@@ -195,13 +206,17 @@ def cuda_ms(fn, reps: int = 20, inner: int = 50, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, warmup: int = 3) -> tuple:
+def device_ms(fn, calls: int = 0, warmup: int = 3) -> tuple:
     """(ms per call, names of the kernels, source) of ``fn``: the device
     time of every kernel it launches, from the profiler, over ``calls``
-    calls after warm-up. Unlike an event pair this leaves out the host's
-    work between launches. The profiler now and then records no device
-    activity, or only part of it, for a short session: a session counts
-    only if some kernel was seen once per call; it is asked up to three
+    calls after warm-up (with ``calls`` 0: at least 100, and at least 20
+    ms of them by a CUDA-event estimate). Unlike an event pair this leaves
+    out the host's work between launches. Once phase 7 has profiled the
+    sampling pipeline, every later session of the process drops a few
+    kernel records (1 to 6 of 100-1500 launches seen on the H100, more
+    late in the run): a session counts if some kernel was seen for at
+    least 90% of the calls, and each kernel adds its device time over its
+    own count, times its launches per call. A session is asked up to three
     times, and then the time comes from CUDA events (source "events", no
     names)."""
     import torch
@@ -210,6 +225,9 @@ def device_ms(fn, calls: int = 20, warmup: int = 3) -> tuple:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if calls <= 0:
+        est = cuda_ms(fn, reps=3, inner=20, warmup=0)
+        calls = min(5000, max(100, math.ceil(20.0 / max(est, 1e-4))))
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -217,10 +235,15 @@ def device_ms(fn, calls: int = 20, warmup: int = 3) -> tuple:
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.count > 0]
         busy = sum(e.self_device_time_total for e in kernels)
-        if busy > 0 and max(e.count for e in kernels) >= calls:
-            return busy / calls / 1e3, [e.key for e in kernels], "profiler"
+        if busy > 0 and max(e.count for e in kernels) >= 0.9 * calls:
+            per_call = sum(e.self_device_time_total / e.count
+                           * round(e.count / calls) for e in kernels)
+            return per_call / 1e3, [e.key for e in kernels], "profiler"
+        print(f"  profiler session of {calls} calls rejected: device "
+              f"kernels {[(e.key[:40], e.count) for e in kernels][:4]}")
     return cuda_ms(fn, inner=calls), [], "events"
 
 
@@ -243,14 +266,15 @@ def sampler_device_line(key: str, layout: str, shape, kern, library,
     k2, _, src2 = device_ms(kern)
     k_ms = min(k1, k2)
     kind = {"fwd": bilinear.forward_kind, "dcoords": bilinear.dcoords_kind,
-            "dimg": lambda *a: "per_channel"}[key](*shape[1:4])
+            "dimg": bilinear.dimg_kind}[key](*shape[1:4])
     print(f"{key} {layout} {shape}: kernel {kind} "
           f"({names[0][:60] if names else '-'}) device {k_ms:.4f} ms, "
           f"{SAMPLER_LIBRARY[key]} device {lib_ms:.4f} ms, ratio "
           f"{k_ms / lib_ms:.3f}, bound "
-          f"{sampler_bound(key, shape)[0]:.4f} ms (20 calls, order "
-          f"kernel-library-kernel, best of the two kernel readings; from "
-          f"{src1}/{src_lib}/{src2}); {card_name}")
+          f"{sampler_bound(key, shape)[0]:.4f} ms (sessions of >= 100 "
+          f"calls and >= 20 ms, order kernel-library-kernel, best of the "
+          f"two kernel readings; from {src1}/{src_lib}/{src2}); "
+          f"{card_name}")
     return k_ms, lib_ms
 
 
@@ -389,16 +413,18 @@ def build() -> None:
 
 
 # the 3xTF32 kernels (mangled-name stem) and their instantiations: fold x
-# transform x 16-byte copies (dCK, mma.sync: HMMA), transform x stats x
-# 16-byte copies (the forward, wgmma: HGMMA)
-TENSOR_CORE_KERNELS = {"upsample_conv_dck": 8, "upsample_conv_fwd": 8}
+# transform x 16-byte copies (dCK, mma.sync: HMMA; dX, wgmma: HGMMA),
+# transform x stats x 16-byte copies (the forward, wgmma: HGMMA)
+TENSOR_CORE_KERNELS = {"upsample_conv_dck": 8, "upsample_conv_fwd": 8,
+                       "upsample_conv_dx": 8}
 
 
 def tensor_core_check(path) -> None:
     """Requires the machine code (cuobjdump -sass) of every instantiation
-    of the dCK and forward upsample-conv kernels to hold TF32 tensor-core
-    products (HMMA ... TF32 from mma.sync, HGMMA ... TF32 from wgmma), and
-    prints their count and the first one of each instantiation."""
+    of the dCK, dX and forward upsample-conv kernels to hold TF32
+    tensor-core products (HMMA ... TF32 from mma.sync, HGMMA ... TF32 from
+    wgmma), and prints their count and the first one of each
+    instantiation."""
     from torch.utils import cpp_extension
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -811,29 +837,44 @@ def times(save: str, card_name: str) -> dict:
 
 
 def dcoords_kinds() -> None:
-    """Prints the d_coords kernel each shape of DCOORDS_SHAPES takes, and
-    requires the designed one."""
+    """Prints the d_coords and d_img kernels each shape of DCOORDS_SHAPES
+    takes, and requires the designed ones."""
     from catgen_torch.kernels import bilinear
 
-    for shape, want in zip(DCOORDS_SHAPES, DCOORDS_KINDS):
+    for shape, want, want_img in zip(DCOORDS_SHAPES, DCOORDS_KINDS,
+                                     DIMG_KINDS):
         kind = bilinear.dcoords_kind(*shape[1:4])
-        print(f"d_coords kernel at {shape}: {kind} (designed: {want})")
+        kind_img = bilinear.dimg_kind(*shape[1:4])
+        print(f"d_coords kernel at {shape}: {kind} (designed: {want}); "
+              f"d_img kernel: {kind_img} (designed: {want_img})")
         require(kind == want, f"d_coords at {shape} took {kind}")
+        require(kind_img == want_img, f"d_img at {shape} took {kind_img}")
 
 
 def backward_vs_plain() -> dict:
     """The d_img and d_coords kernels against the plain version's autograd
-    at the training shapes and at a shape of the per-warp d_coords kernel;
-    repeats bit-identical; a sampled image that needs no gradient launches
-    no d_img kernel. Returns the max abs errors {'dimg': ...,
-    'dcoords': ...}."""
+    at the training shapes, at a shape of the per-warp d_coords kernel and
+    at the input ST's shape zoomed in (ZOOM: the per-sample d_img kernel's
+    lanes collide on a few taps); repeats bit-identical; a sampled image
+    that needs no gradient launches no d_img kernel. Returns the max abs
+    errors {'dimg': ..., 'dcoords': ...}."""
     import torch
     from catgen_torch.kernels import bilinear
 
     dcoords_kinds()
     worst = {"dimg": 0.0, "dcoords": 0.0}
-    for i, shape in enumerate(DCOORDS_SHAPES):
+    cases = [(shape, 1.0) for shape in DCOORDS_SHAPES]
+    cases.append((TRAIN_SHAPES[0], ZOOM))
+    for i, (shape, zoom) in enumerate(cases):
         img, rows, out_hw = sampler_inputs(shape, seed=30 + i)
+        rows = rows * zoom
+        if zoom != 1.0:
+            h, w = shape[1:3]
+            tap = (torch.floor((rows[0, 0] + 1) * 0.5 * (h - 1)) * w
+                   + torch.floor((rows[0, 1] + 1) * 0.5 * (w - 1)))
+            print(f"{shape} zoomed in (coordinates x {ZOOM}): sample 0's "
+                  f"{out_hw[0] * out_hw[1]} output pixels have their first "
+                  f"tap at {torch.unique(tap).numel()} input pixels")
         gen = torch.Generator().manual_seed(40 + i)
         g = (torch.rand((shape[0], *out_hw, shape[3]), generator=gen)
              * 2 - 1).cuda()
@@ -851,7 +892,8 @@ def backward_vs_plain() -> dict:
             err = (got[name] - want[name]).abs().max().item()
             bound = BWD_ATOL + BWD_RTOL * want[name].abs().max().item()
             same = torch.equal(got[name], again[name])
-            print(f"{shape} {name}: max_abs_err {err:.3e} (tolerance "
+            print(f"{shape}{' zoomed' if zoom != 1.0 else ''} {name}: "
+                  f"max_abs_err {err:.3e} (tolerance "
                   f"{bound:.3e} = {BWD_ATOL} + {BWD_RTOL} x max |plain| "
                   f"{want[name].abs().max().item():.4f}; sum order); "
                   f"repeat bit-identical: {same}")
@@ -1257,11 +1299,14 @@ G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
 UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
 LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
 # the kernels that run 3xTF32 on the tensor cores, and their time over the
-# cuDNN collapsed route's (forward, wgrad) per stage with the CUDA-core f32
-# kernels they replaced (PERF.md, section 6)
-TF32_KEYS = ("fwd", "block", "dck", "block_dck")
+# cuDNN collapsed route's (forward, dgrad, wgrad) per stage with the
+# CUDA-core f32 kernels they replaced (PERF.md, section 6)
+TF32_KEYS = ("fwd", "block", "dx", "block_dx", "dck", "block_dck")
 RATIO_BEFORE = {"fwd": (1.14, 1.29, 1.40), "block": (1.39, 1.55, 1.66),
+                "dx": (0.78, 0.63, 1.34), "block_dx": (0.91, 0.77, 1.62),
                 "dck": (1.15, 1.23, 2.68), "block_dck": (1.74, 1.76, 4.12)}
+LIBRARY_CALL = {"fwd": "forward", "block": "forward", "dx": "dgrad",
+                "block_dx": "dgrad", "dck": "wgrad", "block_dck": "wgrad"}
 PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
                  upsample_bwd="pallas")
 UP_KERNELS = (   # key, name, counter, TPU kernel, CUDA source
@@ -1529,6 +1574,62 @@ def dck_vs_float64() -> dict:
     return worst
 
 
+def dx_vs_float64() -> dict:
+    """The dX kernel (3xTF32) and the plain version (cuDNN in f32) against
+    float64 autograd (cuDNN in double) at G32up-c's three stage shapes at
+    N=640, as row 5 (dx of the conv) and as row 6 (the fold and the
+    transform's backward): dx's largest error over its largest value,
+    within F64_TOL. Row 6's float64 counterpart takes the PReLU branch the
+    kernel takes (the sign of x * scale + shift in f32): a float64 sign of
+    an xt within an ulp of 0 would pick the other slope. Returns the
+    kernel's worst per key ("dx", "block_dx")."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    worst = {"dx": 0.0, "block_dx": 0.0}
+    for s in range(3):
+        shape = stage_shape(s, TRAIN_B)
+        v = upsample_inputs(shape, seed=160 + s)
+        x, w, gy, sc, sh, al = (v[a] for a in ("x", "weight", "gy", "scale",
+                                                 "shift", "alpha"))
+        alc = al.expand(shape[3]).contiguous()
+        y = fuc.block_plain(x, w, v["bias"], sc, sh, al)
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        pos = (x * sc + sh) >= 0
+        for key in ("dx", "block_dx"):
+            block = key == "block_dx"
+            if block:
+                got = fuc._launch_dx(x, w, gy, y, gs, sc, sh, alc)[0]
+            else:
+                got = fuc.upsample2_conv_dx(x, w, gy)
+
+            def plain(dtype, block=block):
+                t = lambda a: a.to(dtype)                     # noqa: E731
+                g = (t(gy) + t(v["gs1"]) + 2.0 * t(y) * t(v["gs2"])
+                     if block else t(gy))
+                xn = (fuc.in_transform(t(x), t(sc), t(sh), t(al)) if block
+                      else t(x))
+                dxn = fuc._vjp(lambda x_: fuc.upsample2_conv(x_, t(w)),
+                               (xn,), (True,), g)[0]
+                if not block:
+                    return dxn
+                return torch.where(pos, dxn, dxn * t(al)) * t(sc)
+
+            exact = plain(torch.float64)
+            top = exact.abs().max().item()
+            err = (got.double() - exact).abs().max().item() / top
+            err32 = (plain(torch.float32).double() - exact).abs().max(
+                ).item() / top
+            print(f"{key} dx {shape} against float64: kernel {err:.3e}, "
+                  f"plain (cuDNN f32) {err32:.3e} of the largest value "
+                  f"{top:.4g} (kernel tolerance {F64_TOL})")
+            require(err <= F64_TOL, f"{key} is not f32-accurate at {shape}")
+            worst[key] = max(worst[key], err)
+            del exact, got
+        del v, y, gs, pos
+    return worst
+
+
 def slice_on_route(save: str, name: str, route: dict, default: dict):
     """The sampling CLI on ``route``, 1024 samples from the same checkpoint
     and seed as phase 5: the launches the design gives (ladder: 3 block
@@ -1684,11 +1785,23 @@ def upsample_times(card_name: str) -> dict:
                 row["bound_ms"], row["bound_by"] = bound_3xtf32(flops,
                                                                 nbytes)
                 print(f"{key} stage {s + 1} {shape}: kernel {row['ms']:.4f} "
-                      f"ms, cuDNN {'wgrad' if 'dck' in key else 'forward'} "
+                      f"ms, cuDNN {LIBRARY_CALL[key]} "
                       f"(collapsed route) {lib:.4f} ms, ratio "
                       f"{row['ms'] / lib:.3f} (CUDA-core kernel: "
                       f"{RATIO_BEFORE[key][s]}); bound 3xTF32 "
                       f"{row['bound_ms']:.4f} ms, f32 {b_ms:.4f} ms; "
+                      f"{card_name}")
+            if key in ("dx", "block_dx"):
+                # device time beside cuDNN dgrad's, 30 calls a session
+                row["device_ms"], _, src = device_ms(kern, calls=30,
+                                                     warmup=1)
+                row["library_device_ms"], _, src_lib = device_ms(
+                    library, calls=30, warmup=1)
+                print(f"{key} stage {s + 1} {shape}: kernel device "
+                      f"{row['device_ms']:.4f} ms, cuDNN dgrad (collapsed "
+                      f"route) device {row['library_device_ms']:.4f} ms, "
+                      f"ratio {row['device_ms'] / row['library_device_ms']:.3f}"
+                      f" (30 calls a session, from {src}/{src_lib}); "
                       f"{card_name}")
             out[key].append(row)
             print(f"{key} {shape}: kernel {row['ms']:.4f} ms ({k1:.4f} / "
@@ -2096,7 +2209,7 @@ def main(argv=None) -> int:
     tt = train_times(card_name)
     phase(11, "the upsample-conv kernels against their plain versions")
     up_err = upsample_vs_plain()
-    exact = {**fwd_vs_float64(), **dck_vs_float64()}
+    exact = {**fwd_vs_float64(), **dck_vs_float64(), **dx_vs_float64()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as save:
         write_checkpoint(save)      # the same seeded weights as phase 5
         phase(12, f"the sampling slice on the ladder route, {COUNT} "
@@ -2197,8 +2310,10 @@ def main(argv=None) -> int:
             [k for k, _ in tt[f"{key}_device"]])
         kernels[i]["library_device_ms_by_shape"] = by_shape(
             [lib for _, lib in tt[f"{key}_device"]])
-    kernels[0]["kind_by_shape"] = by_shape(
-        [bilinear.forward_kind(*shape[1:4]) for shape in TRAIN_SHAPES])
+    for i, kind in ((0, bilinear.forward_kind), (1, bilinear.dcoords_kind),
+                    (2, bilinear.dimg_kind)):
+        kernels[i]["kind_by_shape"] = by_shape(
+            [kind(*shape[1:4]) for shape in TRAIN_SHAPES])
     kernels[0]["sampling_plain_ms_by_shape"] = dict(
         zip(map(str, SAMPLER_SHAPES), t["plain_ms"]))
     # rows 4 and 6 run on the ladder training CLI's path (phase 13), rows
@@ -2247,6 +2362,11 @@ def main(argv=None) -> int:
                                             stages),
             "bound_ms_by_shape": by_shape([r["bound_ms"] for r in rows],
                                           stages),
+            **({"device_ms_by_shape": by_shape(
+                    [r["device_ms"] for r in rows], stages),
+                "library_device_ms_by_shape": by_shape(
+                    [r["library_device_ms"] for r in rows], stages)}
+               if "device_ms" in rows[0] else {}),
         })
     st_row, st_sample = st_t["train"], st_t["sample"]
     kernels.append({

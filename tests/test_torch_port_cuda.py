@@ -866,3 +866,197 @@ def test_tf32_forward_halo_is_zero_after_the_transform(f32_cuda, shape):
     bound = UP_TIGHT * want.abs().max().item()
     assert (wrong - want).abs().max().item() > 100 * bound
     _up_close(got, want, UP_TIGHT, "y")
+
+
+# ---------------------------------------------------------------------------
+# the per-sample d_img kernel (C < 32: one block per sample, one slab of
+# d_img per warp, the lanes that hit one tap summed in lane order) and the
+# choice between the two d_img kernels, both layouts. Coordinates: spread
+# over [-1.2, 1.2]; zoomed in (x 0.05: a few taps per sample; x 0.01: one
+# tap for all 1024 output pixels, so a whole warp adds into one address);
+# past every edge (+-1.5: every pixel clamped to a corner). Tolerance as
+# the backward's above; repeats bit for bit.
+# ---------------------------------------------------------------------------
+
+DIMG_SHAPES = [(3, 32, 32, c, 32, 32) for c in (1, 2, 3, 4)]
+DIMG_SHAPES.append((2, 7, 12, 3, 5, 19))   # non-square, output unlike it
+DIMG_COORDS = {"spread": lambda r: r, "zoom": lambda r: r * 0.05,
+               "point": lambda r: r * 0.01,
+               "edges": lambda r: torch.sign(r) * 1.5}
+
+
+def _dimg_run(layout, img, rows, g, out_hw):
+    if layout == "rows":
+        return bilinear.launch_dimg(img, rows, g, out_hw)
+    grid = rows.permute(0, 2, 1).reshape(img.shape[0], *out_hw, 2)
+    return bilinear_grid.launch_dimg(img, grid.contiguous(), g)
+
+
+def _dimg_plain(img, rows, g, out_hw):
+    return bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, out_hw, need_coords=False)[0]
+
+
+@pytest.mark.parametrize("shape", DIMG_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(DIMG_COORDS))
+def test_per_sample_dimg_matches_plain(cuda, shape, layout, coords):
+    assert bilinear.dimg_kind(*shape[1:4]) == "per_sample"
+    img, rows, out_hw = _inputs(shape, cuda, seed=16)
+    rows = DIMG_COORDS[coords](rows).contiguous()
+    g = _cotangent(shape, cuda, seed=17)
+    first = _dimg_run(layout, img, rows, g, out_hw)
+    again = _dimg_run(layout, img, rows, g, out_hw)
+    torch.cuda.synchronize()
+    _bwd_close(first, _dimg_plain(img, rows, g, out_hw))
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_per_sample_dimg_of_an_offset_g(cuda, layout):
+    # g 4 bytes past a 16-byte boundary: the kernel reads it by value
+    shape = DIMG_SHAPES[2]
+    img, rows, out_hw = _inputs(shape, cuda, seed=18)
+    g = _cotangent(shape, cuda, seed=19)
+    aligned = _dimg_run(layout, img, rows, g, out_hw)
+    offset = _dimg_run(layout, img, rows, _misaligned(g), out_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, offset)
+
+
+@pytest.mark.parametrize("hwc, kind", [
+    ((32, 32, 3), "per_sample"), ((32, 32, 1), "per_sample"),
+    ((7, 12, 3), "per_sample"), ((4, 4, 31), "per_sample"),
+    ((16, 16, 64), "per_channel"), ((32, 32, 31), "per_channel"),
+    ((9, 11, 33), "per_channel")])
+def test_dimg_kernel_choice(cuda, hwc, kind):
+    assert bilinear.dimg_kind(*hwc) == kind
+
+
+@pytest.mark.parametrize("shape, name", [
+    ((2, 32, 32, 3, 32, 32), "dimg_per_sample"),
+    ((2, 16, 16, 64, 48, 16), "dimg_per_channel")])
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_dimg_kernel_by_shape(cuda, shape, name, layout):
+    img, rows, out_hw = _inputs(shape, cuda, seed=20)
+    g = _cotangent(shape, cuda, seed=21)
+    if layout == "rows":
+        run = lambda: bilinear.launch_dimg(img, rows, g, out_hw)  # noqa: E731
+    else:       # the grid made outside the profiled call
+        grid = rows.permute(0, 2, 1).reshape(shape[0], *out_hw, 2)
+        grid = grid.contiguous()
+        run = lambda: bilinear_grid.launch_dimg(img, grid, g)  # noqa: E731
+    names = _forward_kernel_names(run)
+    assert len(names) == 1 and name + "<" in names[0], names
+
+
+# ---------------------------------------------------------------------------
+# the dX kernel (3xTF32 on wgmma) of both forms at ragged shapes: channel
+# counts not a multiple of 4 (4-byte copies), pixels not a multiple of the
+# 128-pixel tile, input channels over one 128-wide tile, k = 1 and 5; the
+# transform with shift 4; a misaligned g (4-byte copies, the same bits);
+# the halo of the fold; repeats bit for bit. dx within 1e-5 of its largest
+# plain value, dscale, dshift and dalpha within 1e-4, as above.
+# ---------------------------------------------------------------------------
+
+DX_SHAPES = [                  # (N, H, W, Cin, Cout, k)
+    (2, 4, 5, 9, 11, 3),       # Cin, Cout % 4 != 0
+    (3, 7, 9, 32, 136, 5),     # 189 pixels; Cout over 4 steps, ragged
+    (1, 1, 1, 8, 130, 3),      # one pixel
+    (2, 5, 3, 130, 20, 3),     # Cin over one tile, ragged
+    (2, 3, 5, 6, 7, 1),        # k = 1, all ragged
+]
+
+
+def _dx_block_run(v, alpha):
+    """(dx, dscale, dshift, dalpha) from the dX kernel with the fold and
+    the transform."""
+    gs = torch.stack([v["gs1"], v["gs2"]])
+    dx, dtr = fuc._launch_dx(v["x"], v["weight"], v["gy"], v["y"], gs,
+                             v["scale"], v["shift"], alpha)
+    return (dx, *dtr)
+
+
+@pytest.mark.parametrize("shape", DX_SHAPES)
+@pytest.mark.parametrize("form", ["conv", "block"])
+def test_tf32_dx_at_ragged_shapes(f32_cuda, shape, form):
+    v = _dck_inputs(shape, f32_cuda, seed=22)
+    if form == "conv":
+        runs = [(fuc.upsample2_conv_dx(v["x"], v["weight"], v["gy"]),)
+                for _ in range(2)]
+        want = fuc.upsample2_conv_backward_plain(v["x"], v["weight"],
+                                                 v["gy"])[:1]
+    else:
+        alpha = v["alpha"].expand(shape[3]).contiguous()
+        runs = [_dx_block_run(v, alpha) for _ in range(2)]
+        want = fuc.fused_block_backward_plain(
+            v["x"], v["scale"], v["shift"], v["alpha"], v["weight"],
+            v["bias"], v["y"], v["gy"], v["gs1"], v["gs2"])[:4]
+    torch.cuda.synchronize()
+    for name, a, a2, b, rel in zip(
+            ("dx", "dscale", "dshift", "dalpha"), *runs, want,
+            (UP_TIGHT,) + (UP_LOOSE,) * 3):
+        _up_close(a, b, rel, name)
+        assert torch.equal(a, a2), name
+
+
+def test_tf32_dx_transform_with_shift_4(f32_cuda):
+    shape = (2, 6, 5, 24, 40, 5)
+    v = _dck_inputs(shape, f32_cuda, seed=23, shift=4.0)
+    got = _dx_block_run(v, v["alpha"].expand(shape[3]).contiguous())
+    torch.cuda.synchronize()
+    want = fuc.fused_block_backward_plain(
+        v["x"], v["scale"], v["shift"], v["alpha"], v["weight"], v["bias"],
+        v["y"], v["gy"], v["gs1"], v["gs2"])[:4]
+    for name, a, b, rel in zip(("dx", "dscale", "dshift", "dalpha"), got,
+                               want, (UP_TIGHT,) + (UP_LOOSE,) * 3):
+        _up_close(a, b, rel, name)
+
+
+@pytest.mark.parametrize("form", ["conv", "block"])
+def test_tf32_dx_of_a_misaligned_g(f32_cuda, form):
+    # 4-byte copies for g: the same arithmetic, so the same bits
+    v = _dck_inputs(UP_SHAPES[4], f32_cuda, seed=24)
+    gs = torch.stack([v["gs1"], v["gs2"]]) if form == "block" else None
+    y = v["y"] if form == "block" else None
+    a = fuc._launch_dx(v["x"], v["weight"], v["gy"], y, gs)
+    b = fuc._launch_dx(v["x"], v["weight"], _misaligned(v["gy"]), y, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _dx_with_g_halo(x, weight, g, halo):
+    """dx of upsample2_conv(x, weight) for the cotangent g (N, 2H, 2W,
+    Cout) extended past its edges by ``halo`` (Cout,) instead of zeros:
+    what a kernel that folds its zero halo would compute."""
+    n, h, w, cin = x.shape
+    r = weight.shape[2] // 2
+    h2, w2 = 2 * h, 2 * w
+    gp = halo.expand(n, h2 + 2 * r, w2 + 2 * r, g.shape[3]).clone()
+    gp[:, r:r + h2, r:r + w2] = g
+    # the conv's adjoint on the padded upsampled input, over the extended
+    # cotangent, cropped to the upsampled image, summed over each 2 x 2
+    dp = torch.nn.functional.conv_transpose2d(gp.permute(0, 3, 1, 2),
+                                              weight)
+    du = dp[:, :, 2 * r:2 * r + h2, 2 * r:2 * r + w2]
+    return du.reshape(n, cin, h, 2, w, 2).sum((3, 5)).permute(0, 2, 3, 1)
+
+
+def test_tf32_dx_halo_is_zero_after_the_fold(f32_cuda):
+    # gs1 of 0.5: the fold of a halo zero is gs1, not 0; the plain version
+    # with that halo misses the tolerance by far, the kernel not
+    shape = (2, 4, 5, 16, 12, 5)
+    v = _dck_inputs(shape, f32_cuda, seed=25)
+    v["gs1"] = torch.full_like(v["gs1"], 0.5)
+    gs = torch.stack([v["gs1"], v["gs2"]])
+    got = fuc._launch_dx(v["x"], v["weight"], v["gy"], v["y"], gs)
+    torch.cuda.synchronize()
+    g = v["gy"] + v["gs1"] + 2.0 * v["y"] * v["gs2"]
+    want = fuc.upsample2_conv_backward_plain(v["x"], v["weight"], g)[0]
+    zero = _dx_with_g_halo(v["x"], v["weight"], g, torch.zeros_like(
+        v["gs1"]))
+    wrong = _dx_with_g_halo(v["x"], v["weight"], g, v["gs1"])
+    bound = UP_TIGHT * want.abs().max().item()
+    assert (zero - want).abs().max().item() <= bound
+    assert (wrong - want).abs().max().item() > 100 * bound
+    _up_close(got, want, UP_TIGHT, "dx")

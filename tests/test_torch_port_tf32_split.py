@@ -1,4 +1,4 @@
-"""The precision argument of the dCK and forward upsample-conv kernels
+"""The precision argument of the dCK, dX and forward upsample-conv kernels
 (catgen_torch/csrc/upsample_conv_bwd.cu, upsample_conv.cu), on the CPU:
 the kernels compute their f32 products on the tensor cores as 3xTF32
 (each f32 operand split into a TF32 hi and lo, lo·hi + hi·lo + hi·hi
@@ -18,7 +18,17 @@ summed in f32), which TF32 rounding emulated in numpy reproduces
     32-deep step added in f32 as the kernel does, is within 1e-6 of the
     largest value of its float64 counterpart, and one TF32 product per
     f32 product is not within 1e-4; the float64 forward is the port's
-    plain version within 1e-5.
+    plain version within 1e-5;
+  * the emulated 3xTF32 dX of a small stage of each form (row 5: the
+    conv's dx; row 6: the cotangent folded with the stats cotangents,
+    then the transform's backward), each element of g split once after
+    the fold and the zero halo, with fresh sums per 32-deep (parity, tap,
+    32 output channels) step added in f32 as the kernel does, is within
+    1e-6 of the largest value of its float64 counterpart, and one TF32
+    product per f32 product is not within 1e-4; the float64 dX is the
+    port's plain version within 1e-5, and the emulated dx matches
+    catgen's ``upsample2_conv_backward`` / ``fused_block_backward``
+    (Pallas, interpret mode) within 1e-5 of its largest value.
 """
 
 import jax.numpy as jnp
@@ -149,3 +159,82 @@ def test_emulated_forward_is_f32_accurate(shape):
     one = _forward_by_steps(xn32, wst32, k, matmul_tf32)
     assert np.abs(three - exact).max() <= 1e-6 * top
     assert np.abs(one - exact).max() > 1e-4 * top
+
+
+DX_SHAPE = (2, 4, 4, 48, 64, 3)    # (n, h, w, Cin, Cout, k)
+
+
+def _dx_by_steps(g, wst, k, product):
+    """dx (n, h, w, Cin) of the collapsed parity convs with the parity
+    stack wst (4, kp, kp, Cin, Cout), for the cotangent g (n, 2h, 2w,
+    Cout; 0 outside the image), as the dX kernel sums it: per parity, tap
+    and 32-channel step of Cout, ``product`` of the step's operands (g at
+    the source pixels, the stack's slice), the steps added in the
+    operands' dtype."""
+    n, h2, w2, cout = g.shape
+    h, w = h2 // 2, w2 // 2
+    kp = wst.shape[1]
+    umin = fuc._umins(k, k)
+    pad = 2 * kp
+    out = np.zeros((n * h * w, wst.shape[3]), g.dtype)
+    for p in range(4):
+        d, e = divmod(p, 2)
+        plane = np.pad(g[:, d::2, e::2],
+                       ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+        for u in range(kp):
+            for v in range(kp):
+                i0, j0 = pad - umin[d] - u, pad - umin[2 + e] - v
+                gs = plane[:, i0:i0 + h, j0:j0 + w].reshape(-1, cout)
+                for c0 in range(0, cout, STEP):
+                    out += product(gs[:, c0:c0 + STEP].T,
+                                   wst[p, u, v, :, c0:c0 + STEP].T)
+    return out.reshape(n, h, w, -1)
+
+
+def _transform_bwd(dxn, x, scale, shift, alpha):
+    """The input transform's backward on dxn, in f32 as the kernel's
+    epilogue computes it."""
+    xt = x * scale + shift
+    return np.where(xt >= 0, dxn, dxn * alpha) * scale
+
+
+@pytest.mark.parametrize("form", ["conv", "block"])
+def test_emulated_dx_is_f32_accurate(form):
+    n, h, w, cin, cout, k = DX_SHAPE
+    v = upsample_inputs(5, n, h, w, cin, cout, k, alpha_n=cin)
+    t = port_tensors(v)
+    block = form == "block"
+    y = fuc.block_plain(t["x"], t["kern"], t["bias"], t["scale"],
+                        t["shift"], t["alpha"])
+    if block:       # (gy + gs1) + (2 y) gs2, the kernel's order
+        g = t["gy"] + t["gs1"] + 2.0 * y * t["gs2"]
+        g64 = (t["gy"].double() + t["gs1"].double()
+               + 2.0 * y.double() * t["gs2"].double())
+    else:
+        g, g64 = t["gy"], t["gy"].double()
+    wst = fuc.parity_stack(t["kern"]).numpy()
+    exact = _dx_by_steps(g64.numpy(), wst.astype(np.float64), k,
+                         lambda a, b: a.T @ b)
+    # the float64 sum is the port's plain dx (autograd of the conv)
+    plain = fuc.upsample2_conv_backward_plain(t["x"], t["kern"], g)[0]
+    assert_rel_close(plain, exact, 1e-5, "plain")
+    three = _dx_by_steps(g.numpy(), wst, k, matmul_3xtf32)
+    one = _dx_by_steps(g.numpy(), wst, k, matmul_tf32)
+    if block:
+        args = [v[a] for a in ("x", "scale", "shift", "alpha")]
+        exact = _transform_bwd(exact, *(a.astype(np.float64) for a in args))
+        three, one = (_transform_bwd(a, *args) for a in (three, one))
+    top = np.abs(exact).max()
+    assert np.abs(three - exact).max() <= 1e-6 * top
+    assert np.abs(one - exact).max() > 1e-4 * top
+    # catgen's dX (Pallas, interpret mode)
+    j = {a: jnp.asarray(b) for a, b in v.items()}
+    if block:
+        want = cpu_conv_bwd.fused_block_backward(
+            j["x"], j["scale"], j["shift"], j["alpha"], j["kern"],
+            jnp.asarray(y.numpy()), j["gy"], j["gs1"], j["gs2"],
+            interpret=True)[0]
+    else:
+        want = cpu_conv_bwd.upsample2_conv_backward(
+            j["x"], j["kern"], j["gy"], interpret=True)[0]
+    assert_rel_close(three, np.asarray(want), 1e-5, "dx")
