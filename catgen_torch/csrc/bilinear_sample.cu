@@ -24,9 +24,11 @@
 // lerps per value, far below the arithmetic the card can do per byte. At
 // the branch shape (640 samples of 16x16x64 at 768 points) that is 42 MB
 // of images and 126 MB of output, 0.0513 ms at 3.35 TB/s; each image
-// value is a tap of ~12 outputs. Three kernels, chosen by shape alone
-// (sampler_kind, bilinear_taps.cuh, shared with d_coords), the same way
-// on every run:
+// value is a tap of ~12 outputs. At the input ST (640 samples of 32x32x3
+// at 1024 points) it is 7.9 MB of images, 5.2 MB of coordinates and 7.9
+// MB of output, 0.0063 ms; each value is a tap of ~4 outputs. Four
+// kernels, chosen by shape and alignment alone (forward_kind), the same
+// way on every run:
 //   * staged (sample_per_pixel_staged), for C % 4 == 0, C >= 32, an image
 //     that fits one block's opt-in shared memory and 16-byte aligned
 //     arrays: one block per sample and range of output pixels copies the
@@ -40,13 +42,26 @@
 //     blocks fill the card's waves to 90% (staged_per_sample): at the
 //     branch shape 3 blocks of 256 pixels, so each image is staged 3
 //     times, from L2 after the first;
+//   * per quad (sample_per_quad_staged), for C < 32 (the 32x32x3 input)
+//     whose image fits one block's shared memory, h w C % 4 == 0 and
+//     16-byte aligned image, coordinates and output: one block per sample
+//     copies the sample's image (12 KB at 32x32x3) into shared memory with
+//     16-byte cp.async while each thread's first coordinates are already
+//     in flight, so the two reads from device memory overlap. A thread
+//     takes a quad of 4 neighbouring output pixels: their coordinates
+//     come as two float4 loads (rows: 4 y, then 4 x; grid: 4 (y, x)
+//     pairs), their 12 taps of C values from shared memory, and their 4 C
+//     outputs leave as C aligned float4 streaming stores. Where p % 4 != 0
+//     the quads are not aligned, and each thread loads and stores pixel by
+//     pixel instead (the same values);
 //   * per value (sample_per_value), for other C >= 32 (odd channel
 //     counts, a 32x32x64 image of 256 KB): one thread per output value
 //     (n, p, c), c fastest, so a warp reads neighbouring channels of one
 //     tap (coalesced) and shares the pixel's coordinates;
-//   * per pixel (sample_per_pixel), for C < 32 (the 32x32x3 input): one
+//   * per pixel (sample_per_pixel), for the other C < 32 (an image too
+//     large for shared memory, h w C % 4 != 0, unaligned arrays): one
 //     thread per output pixel, looping over its C channels.
-// All three compute each value with lerp_taps's multiplies and adds in
+// All four compute each value with lerp_values's multiplies and adds in
 // the same order, so they give the same bits.
 //
 // Arithmetic is f32 and follows catgen/nn/spatial_transformer.py,
@@ -146,6 +161,86 @@ sample_per_pixel_staged(const float* __restrict__ img,
   }
 }
 
+constexpr int kQuadThreads = 256;  // 1024 output pixels per pass
+
+__device__ __forceinline__ float elem(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void put(float4& v, int j, float x) {
+  if (j == 0) v.x = x;
+  else if (j == 1) v.y = x;
+  else if (j == 2) v.z = x;
+  else v.w = x;
+}
+
+// Grid n, one block per sample; thread t takes the quads of output pixels
+// [4q, 4q + 4) for q = t, t + blockDim.x, ... img, crd and out 16-byte
+// aligned, h*w*c % 4 == 0, c < 32, p * c < 2^31; dynamic shared memory
+// h*w*c floats.
+template <class L>
+__global__ void __launch_bounds__(kQuadThreads)
+sample_per_quad_staged(const float* __restrict__ img,
+                       const float* __restrict__ crd,
+                       float* __restrict__ out, int h, int w, int c, int p) {
+  extern __shared__ float4 simg4[];  // the sample's image, (h w c)
+  const float* simg = reinterpret_cast<const float*>(simg4);
+  const int ni = blockIdx.x;
+  const int chunks = (h * w * c) >> 2;
+  const float4* src =
+      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(simg4 + k)),
+                 "l"(src + k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  // p % 4 == 0: every quad is whole and 16-byte aligned in crd and out
+  const bool vec = (p & 3) == 0;
+  int q = threadIdx.x;
+  float4 ys = {}, xs = {};
+  if (vec && 4 * q < p) L::load4(crd, ni, 4 * q, p, ys, xs);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  float* o = out + (int64_t)ni * p * c;
+  for (; 4 * q < p; q += blockDim.x) {
+    float4* dst = reinterpret_cast<float4*>(o + 4 * q * c);
+    float4 buf = {};
+    int fill = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int pi = 4 * q + j;
+      if (pi >= p) break;
+      float yn = elem(ys, j), xn = elem(xs, j);
+      if (!vec) {
+        const float2 yx = L::load(crd, ni, pi, p);
+        yn = yx.x;
+        xn = yx.y;
+      }
+      const Taps t = make_taps(yn, xn, h, w);
+      const float* a = simg + (int)t.p00 * c;
+      const float* b = simg + (int)t.p01 * c;
+      const float* e = simg + (int)t.p10 * c;
+      const float* f = simg + (int)t.p11 * c;
+      for (int ch = 0; ch < c; ++ch) {
+        const float v = lerp_values(a[ch], b[ch], e[ch], f[ch], t);
+        if (!vec) {
+          o[pi * c + ch] = v;
+          continue;
+        }
+        put(buf, fill, v);
+        if (++fill == 4) {
+          __stcs(dst++, buf);
+          fill = 0;
+        }
+      }
+    }
+    const int next = q + blockDim.x;
+    if (vec && 4 * next < p) L::load4(crd, ni, 4 * next, p, ys, xs);
+  }
+}
+
 // Ranges per sample of the staged kernel: the fewest whose n * per_sample
 // blocks fill their waves (blocks resident per SM x SMs) to 90% or more,
 // else the fullest, with at least 32 output pixels per range. Depends on
@@ -183,15 +278,34 @@ cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
   return cudaSuccess;
 }
 
-// The kind (h, w, c) takes with these arrays: sampler_kind, then kPerWarp
-// (one thread per value) for unaligned arrays or p * c past 32 bits.
-int forward_kind(const float* img, const float* out, int h, int w, int c,
-                 int p) {
-  const int kind = sampler_kind(h, w, c);
+// The forward's kind at (h, w, c) with 16-byte aligned arrays: for C >= 32
+// sampler_kind's (shared with d_coords); for C < 32 kPerQuad where the
+// image fits one block's opt-in shared memory and h w C % 4 == 0 (each
+// sample's image starts on 16 bytes), else kPerPixel. A negative
+// cudaError_t if the card's shared memory could not be read.
+int forward_shape_kind(int h, int w, int c) {
+  if (c >= 32) return sampler_kind(h, w, c);
+  if ((int64_t)h * w * c % 4 != 0) return kPerPixel;
+  const int optin = optin_smem();
+  if (optin < 0) return optin;
+  return staged_smem_bytes(h, w, c) <= optin ? kPerQuad : kPerPixel;
+}
+
+// The kind (h, w, c) takes with these arrays: forward_shape_kind, then
+// kPerWarp (one thread per value) in place of kStaged for an unaligned
+// image or output, kPerPixel in place of kPerQuad for an unaligned image,
+// coordinates or output, and either for p * c past 32 bits.
+int forward_kind(const float* img, const float* crd, const float* out, int h,
+                 int w, int c, int p) {
+  const int kind = forward_shape_kind(h, w, c);
   const bool fits = ((uintptr_t)img & 15u) == 0 &&
                     ((uintptr_t)out & 15u) == 0 &&
                     (int64_t)p * c < ((int64_t)1 << 31);
-  return kind == kStaged && !fits ? kPerWarp : kind;
+  if (kind == kStaged && !fits) return kPerWarp;
+  if (kind == kPerQuad && !(fits && ((uintptr_t)crd & 15u) == 0)) {
+    return kPerPixel;
+  }
+  return kind;
 }
 
 template <class L>
@@ -199,9 +313,18 @@ int launch_sample(const float* img, const float* crd, float* out, int n,
                   int h, int w, int c, int p, void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kind = forward_kind(img, out, h, w, c, p);
+  const int kind = forward_kind(img, crd, out, h, w, c, p);
   if (kind < 0) return -kind;
-  if (kind == kStaged) {
+  if (kind == kPerQuad) {
+    if ((int64_t)n * p == 0) return 0;
+    const int smem = (int)staged_smem_bytes(h, w, c);
+    const cudaError_t err = cudaFuncSetAttribute(
+        sample_per_quad_staged<L>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sample_per_quad_staged<L><<<(unsigned)n, kQuadThreads, smem, s>>>(
+        img, crd, out, h, w, c, p);
+  } else if (kind == kStaged) {
     if ((int64_t)n * p == 0) return 0;
     const int smem = (int)staged_smem_bytes(h, w, c);
     cudaError_t err = cudaFuncSetAttribute(
@@ -234,6 +357,13 @@ int launch_sample(const float* img, const float* crd, float* out, int n,
 
 // Both launch on `stream` and return cudaGetLastError() as an int (0 = the
 // launch was accepted). They do not synchronise and allocate nothing.
+
+// Which forward kernel (h, w, c) takes with 16-byte aligned arrays: 0 per
+// pixel, 1 per value, 2 staged, 3 per quad; a negative cudaError_t on
+// failure.
+extern "C" int catgen_bilinear_forward_kind(int h, int w, int c) {
+  return forward_shape_kind(h, w, c);
+}
 
 // crd: (n, 2, p) coordinate rows.
 extern "C" int catgen_bilinear_sample_rows_f32(const float* img,

@@ -49,9 +49,10 @@
 // d_img[n, tap, c] += g[p,c] * weight(tap, p) over the output pixels p.
 // Many output pixels reach one input pixel, at positions only the
 // coordinates decide, so this is a scatter. It is made deterministic, with
-// no atomics (the original Torch sampler was pinned to the CPU for its
-// non-determinism; catgen pins same-seed steps bit-identical). Two
-// kernels, chosen by shape alone (dimg_kind), the same way on every run:
+// no atomics on floats (the original Torch sampler was pinned to the CPU
+// for its non-determinism; catgen pins same-seed steps bit-identical).
+// Three kernels, chosen by shape alone (dimg_kind), the same way on every
+// run:
 //   * per sample, for C < 32 whose h w C slab fits four times in a block's
 //     opt-in shared memory (the input ST, 32x32x3: 12 KB): one block per
 //     sample, of up to 8 warps, each owning a private slab of d_img in
@@ -64,16 +65,52 @@
 //     order and written with coalesced stores. Every sum has one order,
 //     fixed by the shape: lanes within a round, rounds and chunks within a
 //     slab, slabs by warp. The work is 1024 pixels a sample spread over
-//     256 lanes, where the per-channel kernel walked them on 3 lanes;
-//   * per channel, otherwise (the branch shape, 16x16x64): one block per
-//     (sample, slab of up to 32 channels) keeps that slab in shared memory,
-//     and each thread owns one channel column of it, walking the output
-//     pixels in order; no two threads touch one address. Shared memory per
-//     block is h*w*min(C, 32)*4 bytes: 32 KB at 16x16x64.
-// What bounds d_img: latency, not bytes (0.0063 ms of traffic at the input
-// ST at batch 640): the per-channel kernel runs a P-long dependent chain
-// per thread; the per-sample kernel a P / (32 warps)-long one per warp, in
-// rounds of match, shuffle and shared-memory add.
+//     256 lanes;
+//   * gather (dimg_gather), otherwise (the branch shape, 16x16x64, every
+//     C >= 32 and images too large for four slabs) where its block fits
+//     the card's shared memory (32 bytes per input pixel and 28 per output
+//     pixel of a pass: every image up to 79x79): the scatter turned into
+//     a gather. One block of 8 warps per sample, in passes of up to 1024
+//     output pixels (one pass at the branch shape's 768):
+//       1. bucket: each entry (output pixel pi, tap k) belongs to the bin
+//          of the input pixel it reaches. Each warp takes a contiguous
+//          range of the pass's pixels, a lane per pixel: it reads the
+//          pixel's coordinates once, keeps its weights (wy, wx) and its
+//          packed taps in shared memory, and counts its 4 entries per bin
+//          with shared-memory integer atomics (exact in any order). A
+//          block scan over (bin, warp) gives each warp its run in each
+//          bin, and each warp then places its entries in order, 32 a
+//          round, the lanes that hit one bin (__match_any_sync) in lane
+//          order. So every bin lists its entries in (pi, k) order on every
+//          run, with no sort. At the branch shape: 12 KB of entries, 9 KB
+//          of weights and taps, 8 KB of cursors;
+//       2. gather: a warp per input pixel, its lanes over channels (a
+//          float2 each at even C: one 256-byte row of g per entry at C =
+//          64) sums the bin's entries in order in registers and writes its
+//          d_img row once, coalesced. The g rows of 8 entries are fetched
+//          at once, so that a warp keeps 8 loads in flight: the kernel is
+//          bound by their latency. A warp takes the next bin when it is
+//          done with one (a shared-memory counter), so that a zoomed
+//          transform's few large bins do not all fall to one warp; which
+//          warp sums a bin does not change the sum. The next pass goes on
+//          from the sum.
+//     So d_img[n, q, c] = sum over the entries (pi, k) of bin q, in
+//     increasing pi, then k, each added in turn to the running f32 sum,
+//     starting from 0, of (g[n, pi, c] * wy') * wx', where wy' is 1 - wy
+//     for k < 2 and wy otherwise, and wx' is 1 - wx for even k and wx
+//     otherwise. No slab of d_img, no scatter, no atomics on floats; g is
+//     read once per tap (4 times), through L1.
+//   * per channel, for the rest (a few channels on more than 79x79
+//     pixels, 128x128x1 say): one block per (sample, slab of up to 32 channels)
+//     keeps that slab in shared memory, and each thread owns one channel
+//     column of it, walking the output pixels in order; no two threads
+//     touch one address. h*w*min(C, 32)*4 bytes of shared memory.
+// What bounds d_img: bytes at the branch shape (126 MB of g, 42 MB of
+// d_img, 4 MB of coordinates: 0.0513 ms at 3.35 TB/s), but each g row is
+// read 4 times, from L1 or L2, and every entry costs a few shared-memory
+// reads; latency at the input ST (0.0063 ms of traffic at batch 640),
+// where the per-sample kernel runs a P / (32 warps)-long chain per warp,
+// in rounds of match, shuffle and shared-memory add.
 //
 // Arithmetic is f32 and rounds each tap's product as the plain PyTorch
 // version's autograd does (built with --fmad=false); the sums over C and
@@ -243,40 +280,6 @@ dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
   }
 }
 
-constexpr int kSlab = 32;  // channels per d_img block
-
-// Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
-// h*w*cs floats, cs = the slab's width. dimg (n, h, w, c).
-template <class L>
-__global__ void dimg_per_channel(const float* __restrict__ crd,
-                                 const float* __restrict__ g,
-                                 float* __restrict__ dimg, int n, int h,
-                                 int w, int c, int p) {
-  extern __shared__ float acc[];
-  const int ni = blockIdx.x;
-  const int c0 = blockIdx.y * kSlab;
-  const int cs = min(kSlab, c - c0);
-  const int lane = threadIdx.x;
-  if (lane >= cs) return;  // no barrier below: each thread owns a column
-  const int hw = h * w;
-  for (int i = 0; i < hw; ++i) acc[i * cs + lane] = 0.0f;
-  const float* gp = g + (int64_t)ni * p * c + c0 + lane;
-#pragma unroll 4
-  for (int pi = 0; pi < p; ++pi) {
-    const float2 yx = L::load(crd, ni, pi, p);
-    const Taps t = make_taps(yx.x, yx.y, h, w);
-    const float gv = __ldg(gp + (int64_t)pi * c);
-    const float top = gv * (1.0f - t.wy);
-    const float bot = gv * t.wy;
-    acc[t.p00 * cs + lane] += top * (1.0f - t.wx);
-    acc[t.p01 * cs + lane] += top * t.wx;
-    acc[t.p10 * cs + lane] += bot * (1.0f - t.wx);
-    acc[t.p11 * cs + lane] += bot * t.wx;
-  }
-  float* out = dimg + (int64_t)ni * hw * c + c0 + lane;
-  for (int i = 0; i < hw; ++i) out[(int64_t)i * c] = acc[i * cs + lane];
-}
-
 template <class L>
 int launch_dcoords(const float* img, const float* crd, const float* g,
                    float* dcrd, int n, int h, int w, int c, int p,
@@ -381,11 +384,241 @@ __global__ void dimg_per_sample(const float* __restrict__ crd,
   }
 }
 
-enum DimgKind { kDimgPerChannel = 0, kDimgPerSample = 1 };
+constexpr int kGatherThreads = 256;  // 8 warps
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGatherPixels = 1024;  // most output pixels per pass
+constexpr int kGatherBatch = 8;      // entries whose g rows are in flight
+
+// The shared memory of a gather block whose passes take `pixels` output
+// pixels of an image of `hw` pixels, in bytes: each pixel's (wy, wx) and
+// packed taps, one cursor per (input pixel, warp), 4 entries per pixel,
+// the warps' sums of the scan and the bin counter.
+static inline int64_t gather_smem_bytes(int64_t hw, int64_t pixels) {
+  return pixels * (int64_t)(sizeof(float2) + sizeof(int)) +
+         (hw * kGatherWarps + 4 * pixels + kGatherWarps + 1) *
+             (int64_t)sizeof(int);
+}
+
+// In-place exclusive prefix sum of a[0, m) by the whole block (every
+// thread calls it); wsum holds one int per warp.
+__device__ void block_exclusive_scan(int* a, int m, int* wsum) {
+  const int per = (m + blockDim.x - 1) / blockDim.x;
+  const int b = min((int)threadIdx.x * per, m), e = min(b + per, m);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int own = 0;
+  for (int i = b; i < e; ++i) own += a[i];
+  int incl = own;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    int v = lane < warps ? wsum[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane < warps) wsum[lane] = v;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? wsum[warp - 1] : 0) + incl - own;
+  for (int i = b; i < e; ++i) {
+    const int x = a[i];
+    a[i] = run;
+    run += x;
+  }
+}
+
+// Input pixel of tap k of a pixel whose taps are packed as p00 << 2 |
+// (y1 - y0) << 1 | (x1 - x0), for an image w pixels wide.
+__device__ __forceinline__ int tap_pixel(int code, int k, int w) {
+  return (code >> 2) + (k & code & 1) + ((k >> 1) & (code >> 1) & 1) * w;
+}
+
+// V channels of a g row, from `gp`
+template <int V>
+__device__ __forceinline__ void load_g(const float* __restrict__ gp,
+                                       float (&gv)[V]) {
+  if constexpr (V == 2) {
+    const float2 v2 = __ldg(reinterpret_cast<const float2*>(gp));
+    gv[0] = v2.x;
+    gv[1] = v2.y;
+  } else {
+    gv[0] = __ldg(gp);
+  }
+}
+
+// Adds entry e's term to the sums, with the weight's rounding of the
+// plain version's autograd: (g * wy') * wx'.
+template <int V>
+__device__ __forceinline__ void add_entry(float (&acc)[V],
+                                          const float (&gv)[V], int e,
+                                          const float2* wts) {
+  const float2 wt = wts[e >> 2];
+  const float a = (e & 2) ? wt.x : 1.0f - wt.x;
+  const float b = (e & 1) ? wt.y : 1.0f - wt.y;
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] += (gv[v] * a) * b;
+}
+
+// Grid n, kGatherThreads threads; dynamic shared memory
+// gather_smem_bytes(h w, pixels). Each pass takes up to `pixels` output
+// pixels [p0, p0 + np) of the sample; an entry e = 4 (pi - p0) + k stands
+// for tap k of output pixel pi. V channels per lane and load: 2 (float2)
+// for even c with 8-byte aligned g and dimg, else 1. dimg (n, h, w, c).
+template <class L, int V>
+__global__ void __launch_bounds__(kGatherThreads)
+dimg_gather(const float* __restrict__ crd, const float* __restrict__ g,
+            float* __restrict__ dimg, int h, int w, int c, int p,
+            int pixels) {
+  extern __shared__ float2 wts[];                    // each pixel's (wy, wx)
+  int* code = reinterpret_cast<int*>(wts + pixels);  // its taps, packed
+  const int hw = h * w;
+  int* cur = code + pixels;               // (input pixel, warp)
+  int* ent = cur + hw * kGatherWarps;     // entries, bin by bin
+  int* wsum = ent + 4 * pixels;
+  int* next = wsum + kGatherWarps;        // the next bin to sum
+  const int ni = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* gs = g + (int64_t)ni * p * c;
+  float* out = dimg + (int64_t)ni * hw * c;
+  // at least one pass, so that p == 0 writes zeros
+  for (int p0 = 0; p0 == 0 || p0 < p; p0 += pixels) {
+    const int np = min(pixels, p - p0);
+    // the warp's pixels [pa, pb): a contiguous range of the pass's
+    const int span = (np + kGatherWarps - 1) / kGatherWarps;
+    const int pa = min(warp * span, np), pb = min(pa + span, np);
+    for (int i = threadIdx.x; i < hw * kGatherWarps; i += blockDim.x) {
+      cur[i] = 0;
+    }
+    if (threadIdx.x == 0) *next = 0;
+    __syncthreads();
+    // 1. each pixel's taps and weights, and the entries of each (input
+    //    pixel, warp): integer atomics count exactly in any order
+    for (int i = pa + lane; i < pb; i += 32) {
+      const float2 yx = L::load(crd, ni, p0 + i, p);
+      const Taps t = make_taps(yx.x, yx.y, h, w);
+      const int packed = (int)t.p00 << 2 | (t.p10 != t.p00) << 1 |
+                         (int)(t.p01 - t.p00);
+      code[i] = packed;
+      wts[i] = make_float2(t.wy, t.wx);
+      for (int k = 0; k < 4; ++k) {
+        atomicAdd(&cur[tap_pixel(packed, k, w) * kGatherWarps + warp], 1);
+      }
+    }
+    __syncthreads();
+    // 2. where each run starts: input pixel-major, then warp
+    block_exclusive_scan(cur, hw * kGatherWarps, wsum);
+    __syncthreads();
+    // 3. each warp places its entries in order, 32 a round: the lanes that
+    //    hit one input pixel take consecutive slots in lane order
+    for (int base = 4 * pa; base < 4 * pb; base += 32) {
+      const int e = base + lane;
+      const bool active = e < 4 * pb;
+      // an idle lane matches none
+      const int bin = active ? tap_pixel(code[e >> 2], e & 3, w) : -1 - lane;
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      int* run = &cur[(active ? bin : 0) * kGatherWarps + warp];
+      if (active) ent[*run + __popc(peers & ((1u << lane) - 1u))] = e;
+      __syncwarp();
+      if (active && lane == __ffs(peers) - 1) *run += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // cur[q W + k] now ends the run of (q, k), so bin q is [the end of
+    // (q - 1, W - 1), the end of (q, W - 1)).
+    // 4. a warp per input pixel, the next one whenever it is done (bins
+    //    differ in size; which warp sums a bin does not change its sum),
+    //    its lanes over channels: each sum runs over the bin's entries in
+    //    order, on from the last pass's sum; the g rows of kGatherBatch
+    //    entries are fetched at once
+    for (;;) {
+      int qi = 0;
+      if (lane == 0) qi = atomicAdd(next, 1);
+      qi = __shfl_sync(0xffffffffu, qi, 0);
+      if (qi >= hw) break;
+      const int j0 = qi > 0 ? cur[qi * kGatherWarps - 1] : 0;
+      const int j1 = cur[qi * kGatherWarps + kGatherWarps - 1];
+      for (int c0 = 0; c0 < c; c0 += 32 * V) {
+        const int ch = c0 + V * lane;
+        if (ch >= c) continue;
+        float* o = out + (int64_t)qi * c + ch;
+        float acc[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = p0 > 0 ? o[v] : 0.0f;
+        int j = j0;
+        for (; j + kGatherBatch <= j1; j += kGatherBatch) {
+          int en[kGatherBatch];
+          float gv[kGatherBatch][V];
+#pragma unroll
+          for (int u = 0; u < kGatherBatch; ++u) {
+            en[u] = ent[j + u];
+            load_g<V>(gs + (int64_t)(p0 + (en[u] >> 2)) * c + ch, gv[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kGatherBatch; ++u) {
+            add_entry<V>(acc, gv[u], en[u], wts);
+          }
+        }
+        for (; j < j1; ++j) {
+          float gv[V];
+          const int en = ent[j];
+          load_g<V>(gs + (int64_t)(p0 + (en >> 2)) * c + ch, gv);
+          add_entry<V>(acc, gv, en, wts);
+        }
+        if constexpr (V == 2) {
+          *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+        } else {
+          o[0] = acc[0];
+        }
+      }
+    }
+    __syncthreads();  // the next pass reuses the shared memory
+  }
+}
+
+constexpr int kSlab = 32;  // channels per d_img block
+
+// Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
+// h*w*cs floats, cs = the slab's width. dimg (n, h, w, c).
+template <class L>
+__global__ void dimg_per_channel(const float* __restrict__ crd,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ dimg, int n, int h,
+                                 int w, int c, int p) {
+  extern __shared__ float acc[];
+  const int ni = blockIdx.x;
+  const int c0 = blockIdx.y * kSlab;
+  const int cs = min(kSlab, c - c0);
+  const int lane = threadIdx.x;
+  if (lane >= cs) return;  // no barrier below: each thread owns a column
+  const int hw = h * w;
+  for (int i = 0; i < hw; ++i) acc[i * cs + lane] = 0.0f;
+  const float* gp = g + (int64_t)ni * p * c + c0 + lane;
+#pragma unroll 4
+  for (int pi = 0; pi < p; ++pi) {
+    const float2 yx = L::load(crd, ni, pi, p);
+    const Taps t = make_taps(yx.x, yx.y, h, w);
+    const float gv = __ldg(gp + (int64_t)pi * c);
+    const float top = gv * (1.0f - t.wy);
+    const float bot = gv * t.wy;
+    acc[t.p00 * cs + lane] += top * (1.0f - t.wx);
+    acc[t.p01 * cs + lane] += top * t.wx;
+    acc[t.p10 * cs + lane] += bot * (1.0f - t.wx);
+    acc[t.p11 * cs + lane] += bot * t.wx;
+  }
+  float* out = dimg + (int64_t)ni * hw * c + c0 + lane;
+  for (int i = 0; i < hw; ++i) out[(int64_t)i * c] = acc[i * cs + lane];
+}
+
+enum DimgKind { kDimgPerChannel = 0, kDimgPerSample = 1, kDimgGather = 2 };
 
 // Slabs (warps) of a per-sample block at (h, w, c): as many as fit, up to
-// kSampleWarps; 0 where the shape takes the per-channel kernel (c >= 32,
-// or fewer than kSampleMinSlabs fit); a negative cudaError_t on failure.
+// kSampleWarps; 0 where the shape takes another kernel (c >= 32, or fewer
+// than kSampleMinSlabs fit); a negative cudaError_t on failure.
 int dimg_sample_warps(int h, int w, int c) {
   if (c >= 32) return 0;
   const int optin = optin_smem();
@@ -397,19 +630,31 @@ int dimg_sample_warps(int h, int w, int c) {
   return fit < kSampleWarps ? (int)fit : kSampleWarps;
 }
 
-// kDimgPerChannel or kDimgPerSample; a negative cudaError_t on failure
+// The d_img kernel (h, w, c) takes: per sample where four slabs fit, else
+// gather where its block (at a full pass) fits the card's shared memory,
+// else per channel (a few channels on more than 79x79 pixels); a negative
+// cudaError_t on failure
 int dimg_kind(int h, int w, int c) {
   const int warps = dimg_sample_warps(h, w, c);
-  return warps < 0 ? warps : (warps > 0 ? kDimgPerSample : kDimgPerChannel);
+  if (warps != 0) return warps < 0 ? warps : kDimgPerSample;
+  const int optin = optin_smem();
+  if (optin < 0) return optin;
+  return gather_smem_bytes((int64_t)h * w, kGatherPixels) <= optin
+             ? kDimgGather
+             : kDimgPerChannel;
 }
 
-// The shared memory of the d_img block (h, w, c) takes, in bytes, or a
-// negative cudaError_t
+// The shared memory of the d_img block (h, w, c) takes, in bytes (the
+// gather kernel's at a full pass), or a negative cudaError_t
 int64_t dimg_smem_bytes(int h, int w, int c) {
-  const int warps = dimg_sample_warps(h, w, c);
-  if (warps < 0) return warps;
-  const int64_t cs = warps > 0 ? (int64_t)warps * c : (c < kSlab ? c : kSlab);
-  return (int64_t)h * w * cs * (int64_t)sizeof(float);
+  const int kind = dimg_kind(h, w, c);
+  if (kind < 0) return kind;
+  const int64_t hw = (int64_t)h * w;
+  if (kind == kDimgGather) return gather_smem_bytes(hw, kGatherPixels);
+  const int64_t cs = kind == kDimgPerSample
+                         ? (int64_t)dimg_sample_warps(h, w, c) * c
+                         : (c < kSlab ? c : kSlab);
+  return hw * cs * (int64_t)sizeof(float);
 }
 
 template <class L>
@@ -417,28 +662,40 @@ int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
                 int w, int c, int p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w * c == 0) return 0;
-  const int warps = dimg_sample_warps(h, w, c);
-  if (warps < 0) return -warps;
+  const int kind = dimg_kind(h, w, c);
+  if (kind < 0) return -kind;
   const int64_t smem = dimg_smem_bytes(h, w, c);
   const int optin = optin_smem();
   if (optin < 0) return -optin;
   if (smem > optin) return (int)cudaErrorInvalidValue;
-  if (warps > 0) {
+  if (kind == kDimgPerSample) {
     const cudaError_t err = cudaFuncSetAttribute(
         dimg_per_sample<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dimg_per_sample<L><<<(unsigned)n, 32 * warps, (size_t)smem, s>>>(
-        crd, g, dimg, h, w, c, p);
-    return (int)cudaGetLastError();
+    dimg_per_sample<L><<<(unsigned)n, 32 * dimg_sample_warps(h, w, c),
+                         (size_t)smem, s>>>(crd, g, dimg, h, w, c, p);
+  } else if (kind == kDimgGather) {
+    const int pixels = p < 1 ? 1 : (p < kGatherPixels ? p : kGatherPixels);
+    const int bytes = (int)gather_smem_bytes((int64_t)h * w, pixels);
+    const bool pairs = c % 2 == 0 && ((uintptr_t)g & 7u) == 0 &&
+                       ((uintptr_t)dimg & 7u) == 0;
+    void (*kernel)(const float*, const float*, float*, int, int, int, int,
+                   int) = pairs ? dimg_gather<L, 2> : dimg_gather<L, 1>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)n, kGatherThreads, (size_t)bytes, s>>>(
+        crd, g, dimg, h, w, c, p, pixels);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dimg_per_channel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
+    dimg_per_channel<L><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n,
+                                                           h, w, c, p);
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      dimg_per_channel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
-  dimg_per_channel<L><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n, h,
-                                                         w, c, p);
   return (int)cudaGetLastError();
 }
 
@@ -477,8 +734,8 @@ extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
   return dimg_smem_bytes(h, w, c);
 }
 
-// Which d_img kernel (h, w, c) takes: 0 per channel, 1 per sample; a
-// negative cudaError_t on failure.
+// Which d_img kernel (h, w, c) takes: 0 per channel, 1 per sample, 2
+// gather; a negative cudaError_t on failure.
 extern "C" int catgen_bilinear_dimg_kind(int h, int w, int c) {
   return dimg_kind(h, w, c);
 }

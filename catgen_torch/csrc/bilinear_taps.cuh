@@ -75,6 +75,14 @@ struct RowsLayout {
     o[pi] = dy;
     o[p + pi] = dx;
   }
+  // pixels pi..pi+3 as two 16-byte loads: crd 16-byte aligned, p and pi
+  // multiples of 4
+  __device__ static void load4(const float* __restrict__ crd, int ni, int pi,
+                               int p, float4& y, float4& x) {
+    const float* cr = crd + (int64_t)ni * 2 * p;
+    y = __ldg(reinterpret_cast<const float4*>(cr + pi));
+    x = __ldg(reinterpret_cast<const float4*>(cr + p + pi));
+  }
 };
 
 // Grid: (n, p, 2), one (y, x) pair per pixel (the layout of catgen's
@@ -89,6 +97,16 @@ struct GridLayout {
                                float dy, float dx) {
     reinterpret_cast<float2*>(d)[(int64_t)ni * p + pi] = make_float2(dy, dx);
   }
+  // pixels pi..pi+3 as two 16-byte loads of (y, x) pairs, the same
+  // alignment as RowsLayout::load4
+  __device__ static void load4(const float* __restrict__ crd, int ni, int pi,
+                               int p, float4& y, float4& x) {
+    const float4* cr =
+        reinterpret_cast<const float4*>(crd + 2 * ((int64_t)ni * p + pi));
+    const float4 a = __ldg(cr), b = __ldg(cr + 1);
+    y = make_float4(a.x, a.z, b.x, b.z);
+    x = make_float4(a.y, a.w, b.y, b.w);
+  }
 };
 
 // Which kernel a sampler shape takes, forward (bilinear_sample.cu) and
@@ -102,8 +120,10 @@ struct GridLayout {
 //     (d_coords) or one thread (forward) per channel group, from global
 //     memory.
 // A launcher also needs 16-byte aligned arrays for kStaged, and takes
-// kPerWarp where they are not.
-enum SamplerKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2 };
+// kPerWarp where they are not. The forward alone has a fourth kernel for
+// C < 32, kPerQuad (bilinear_sample.cu, forward_kind); d_coords keeps
+// kPerPixel there.
+enum SamplerKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2, kPerQuad = 3 };
 
 static inline int64_t staged_smem_bytes(int h, int w, int c) {
   return (int64_t)h * w * c * (int64_t)sizeof(float);

@@ -190,12 +190,11 @@ def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
 
 
 DCOORDS_KINDS = ("per_pixel", "per_warp", "staged")
-FORWARD_KINDS = ("per_pixel", "per_value", "staged")
-DIMG_KINDS = ("per_channel", "per_sample")
+FORWARD_KINDS = ("per_pixel", "per_value", "staged", "per_quad")
+DIMG_KINDS = ("per_channel", "per_sample", "gather")
 
 
-def _kind(h: int, w: int, c: int, names,
-          entry: str = "catgen_bilinear_sampler_kind") -> str:
+def _kind(h: int, w: int, c: int, names, entry: str) -> str:
     code = getattr(load_library(), entry)(h, w, c)
     if code < 0:
         raise RuntimeError(f"reading the card's shared memory failed: "
@@ -207,22 +206,28 @@ def dcoords_kind(h: int, w: int, c: int) -> str:
     """Which d_coords kernel an (h, w, c) image takes on the current card
     (16-byte aligned arrays): ``per_pixel`` (c < 32), ``staged`` (the
     image in shared memory: c % 4 == 0 and it fits) or ``per_warp``."""
-    return _kind(h, w, c, DCOORDS_KINDS)
+    return _kind(h, w, c, DCOORDS_KINDS, "catgen_bilinear_sampler_kind")
 
 
 def forward_kind(h: int, w: int, c: int) -> str:
     """Which forward kernel an (h, w, c) image takes on the current card,
-    rows or grid layout, by the d_coords kernels' rule: ``per_pixel`` (c <
-    32), ``staged`` (c % 4 == 0 and the image fits shared memory; arrays
-    that are not 16-byte aligned take ``per_value``) or ``per_value``."""
-    return _kind(h, w, c, FORWARD_KINDS)
+    rows or grid layout, with 16-byte aligned arrays: for c >= 32 the
+    d_coords kernels' rule, ``staged`` (c % 4 == 0 and the image fits
+    shared memory) or ``per_value`` (unaligned arrays take it too); for c
+    < 32 ``per_quad`` (the image staged in shared memory, four output
+    pixels a thread: h*w*c % 4 == 0 and the image fits) or ``per_pixel``
+    (unaligned arrays take it too)."""
+    return _kind(h, w, c, FORWARD_KINDS, "catgen_bilinear_forward_kind")
 
 
 def dimg_kind(h: int, w: int, c: int) -> str:
     """Which d_img kernel an (h, w, c) image takes on the current card,
     rows or grid layout: ``per_sample`` (c < 32 and four h*w*c slabs fit
-    one block's shared memory: a block per sample, one slab per warp) or
-    ``per_channel``."""
+    one block's shared memory: a block per sample, one slab per warp),
+    else ``gather`` (a block per sample buckets its output pixels' taps by
+    input pixel, then sums each input pixel's bin in order; images up to
+    79x79), else ``per_channel`` (a block per sample and slab of 32
+    channels)."""
     return _kind(h, w, c, DIMG_KINDS, "catgen_bilinear_dimg_kind")
 
 
@@ -243,8 +248,9 @@ def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
         err = lib.catgen_bilinear_dimg_f32(
             coords_rows.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(),
             n, h, w, c, out_hw[0] * out_hw[1], stream)
-    # a block holds up to 8 slabs of h*w*c floats (per sample) or
-    # h*w*min(c, 32) floats (per channel); an image too large for the
+    # a block holds up to 8 slabs of h*w*c floats (per sample), 8 cursors
+    # per input pixel and 1024 output pixels' entries and weights (gather)
+    # or h*w*min(c, 32) floats (per channel); an image too large for the
     # card's shared memory is refused with cudaErrorInvalidValue
     _launched(err, f"bilinear sampler d_img (a block needs "
                    f"{lib.catgen_bilinear_dimg_smem_bytes(h, w, c)} bytes of "

@@ -42,6 +42,7 @@ SIGNATURES = (
     ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
     ("catgen_bilinear_sampler_kind", [_I, _I, _I], _I),
+    ("catgen_bilinear_forward_kind", [_I, _I, _I], _I),
     ("catgen_bilinear_dimg_kind", [_I, _I, _I], _I),
     ("catgen_bilinear_sample_grid_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
      _I),

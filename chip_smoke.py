@@ -20,15 +20,16 @@ no result.
      forward and dX);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256, with the forward kernel each
-     shape takes (per pixel, staged); the staged kernel bit for bit
-     against the plain version and the per-value kernel;
+     shape takes (per quad, staged); both bit for bit against the plain
+     version and against the kernel a misaligned image takes (per pixel,
+     per value);
   4. the sampler's backward kernels (d_img, d_coords) against the plain
      version's autograd at both shapes of the training path, N=640, at a
      32x32x64 image, N=64, and at the input ST's shape with a zoomed-in
      transform (many output pixels on one tap), with the d_coords and
      d_img kernel each shape takes (d_coords per pixel, staged, per warp;
-     d_img per sample, per channel); repeats bit-identical; no d_img work
-     where the image needs none;
+     d_img per sample, gather, gather); repeats bit-identical; no d_img
+     work where the image needs none;
   5. the sampling slice through catgen_torch.cli.sample.main: 1024 samples
      from a seeded checkpoint, nearest neighbours against a fixture corpus;
      checks that the D batches went through the kernel;
@@ -80,7 +81,8 @@ no result.
      phase 5), the training CLI (per step 2 ST-conv, 3 v4 forwards, 4
      d_coords, 3 d_img), one train step card against CPU;
  19. the grid-layout sampler kernels against their plain versions at
-     phase 4's shapes (the staged forward bit for bit); the grid route
+     phase 4's shapes (the per-quad and staged forwards bit for bit); the
+     grid route
      (CATGEN_SAMPLER_IMPL=mxu,
      CATGEN_SAMPLER_KERNEL=v1): the sampling CLI (2 grid forwards per D
      batch, no v4 launch) and the training CLI (per step 5 grid forwards,
@@ -129,15 +131,23 @@ TRAIN_SHAPES = [           # the sampler in a training D batch of 640
 DCOORDS_SHAPES = TRAIN_SHAPES + [(64, 32, 32, 64, 32, 32)]
 DCOORDS_KINDS = ("per_pixel", "staged", "per_warp")
 # the d_img kernel they take (kernels.bilinear.dimg_kind): the input ST's
-# 3 channels per sample (a block of 8 slabs), the 64-channel images per
-# channel
-DIMG_KINDS = ("per_sample", "per_channel", "per_channel")
+# 3 channels per sample (a block of 8 slabs), the 64-channel images by the
+# gather (output pixels bucketed by input pixel, each bin summed in order)
+DIMG_KINDS = ("per_sample", "gather", "gather")
 # a zoomed-in input ST: every output pixel within 0.1 of the centre, so
 # the 1024 output pixels of a sample land on a few taps (phase 4)
 ZOOM = 0.1
 # the forward kernel the same shapes take (kernels.bilinear.forward_kind):
-# the staged kernel, like d_coords', gives the plain version's bits
-FORWARD_KINDS = ("per_pixel", "staged", "per_value")
+# the input ST per quad (its image in shared memory, four output pixels a
+# thread), the branch shape staged; both give the plain version's bits
+FORWARD_KINDS = ("per_quad", "staged", "per_value")
+BIT_EXACT_FORWARDS = ("per_quad", "staged")
+# the sampler kernels of a default-route train step by name, and their
+# launches per step (phase 10's profiled step)
+STEP_SAMPLER_KERNELS = {"sample_per_quad_staged": 3,
+                        "sample_per_pixel_staged": 2, "dimg_per_sample": 1,
+                        "dimg_gather": 2, "dcoords_per_pixel": 2,
+                        "dcoords_staged": 2}
 KERNEL_TOL = 1e-5          # kernel vs plain, f32 (both round alike)
 # backward kernels vs plain: the kernels sum over channels and output
 # pixels in another order than autograd's reductions and scatter-adds, so
@@ -476,7 +486,8 @@ def forward_kinds(shapes) -> None:
 def misaligned(t):
     """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary:
     the staged kernels need 16-byte aligned arrays, so it takes the
-    per-value forward (per-warp d_coords)."""
+    per-value forward (per-warp d_coords), or the per-pixel forward for C <
+    32."""
     import torch
 
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
@@ -487,9 +498,10 @@ def misaligned(t):
 
 def kernel_vs_plain() -> float:
     """The forward kernel against its plain version at the sampling path's
-    shapes: within KERNEL_TOL, and bit for bit where the staged kernel
-    runs (the branch shape), which must also give the per-value kernel's
-    bits (a misaligned copy of the image takes that one)."""
+    shapes: within KERNEL_TOL, and bit for bit where the per-quad or the
+    staged kernel runs (both shapes), which must also give the bits of
+    the kernel a misaligned copy of the image takes (per pixel, per
+    value)."""
     import torch
     from catgen_torch.kernels import bilinear
 
@@ -498,19 +510,19 @@ def kernel_vs_plain() -> float:
     for i, shape in enumerate(SAMPLER_SHAPES):
         img, rows, out_hw = sampler_inputs(shape, seed=10 + i)
         got = bilinear.launch(img, rows, out_hw)
-        per_value = bilinear.launch(misaligned(img), rows, out_hw)
+        other = bilinear.launch(misaligned(img), rows, out_hw)
         torch.cuda.synchronize()
         want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
         require(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
         err = (got - want).abs().max().item()
-        staged = bilinear.forward_kind(*shape[1:4]) == "staged"
-        same = torch.equal(got, want) and torch.equal(got, per_value)
+        kind = bilinear.forward_kind(*shape[1:4])
+        exact = kind in BIT_EXACT_FORWARDS
+        same = torch.equal(got, want) and torch.equal(got, other)
         print(f"{shape}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL}); "
-              f"bits equal to the plain version's and to the per-value "
-              f"kernel's (misaligned image): {same}"
-              f"{' (required: staged)' if staged else ''}")
+              f"bits equal to the plain version's and to the kernel's of a "
+              f"misaligned image: {same}{f' (required: {kind})' if exact else ''}")
         require(err <= KERNEL_TOL, f"kernel disagrees with plain at {shape}")
-        require(same or not staged, f"the staged forward's bits at {shape}")
+        require(same or not exact, f"the {kind} forward's bits at {shape}")
         worst = max(worst, err)
     return worst
 
@@ -1280,6 +1292,13 @@ def train_times(card_name: str) -> dict:
             print(f"sampler kernel in the step: {e.key[:70]} "
                   f"{us / e.count / 1e3:.4f} ms device time per launch "
                   f"(x{e.count}); {card_name}")
+    # the kernels the step's sampler launches by shape: 3 forwards at C=3
+    # (the input ST on two batches, the augmentation), 2 at the branch
+    # shape; d_img once at C=3 (G phase) and twice at the branch shape
+    for name, designed in STEP_SAMPLER_KERNELS.items():
+        seen = sum(e.count for e, _ in kernels if name + "<" in e.key)
+        print(f"{name}: {seen} launches in the profiled step (designed "
+              f"{designed}; the profiler may drop a record)")
     return out
 
 
@@ -1880,7 +1899,7 @@ def route_train_times(card_name: str, name: str, route) -> dict:
     device_ms = {}
     for e, us in kernels:
         if any(k in e.key for k in ("upsample_conv", "sum_rows", "st_conv",
-                                    "Layout>")):
+                                    "Layout")):
             print(f"  port kernel in the step: {e.key[:90]} "
                   f"x{e.count}, {us / 1e3:.4f} ms in all, "
                   f"{us / e.count / 1e3:.4f} ms per launch; {card_name}")
@@ -1978,7 +1997,8 @@ def st_conv_vs_plain() -> dict:
 def grid_vs_plain() -> dict:
     """The grid-layout sampler kernels against their plain versions at the
     training shapes and at a shape of the per-warp d_coords kernel:
-    forward (KERNEL_TOL, and bit for bit where the staged kernel runs),
+    forward (KERNEL_TOL, and bit for bit where the per-quad or the staged
+    kernel runs),
     d_coords and d_img (BWD_ATOL + BWD_RTOL x max |plain|); repeats
     bit-identical. Returns the largest absolute error of each."""
     import torch
@@ -1999,21 +2019,21 @@ def grid_vs_plain() -> dict:
         torch.cuda.synchronize()
         want = (bg.bilinear_sample_grid_plain(img, grid),
                 *bg.bilinear_sample_grid_backward_plain(img, grid, g)[::-1])
-        staged = bilinear.forward_kind(*shape[1:4]) == "staged"
+        kind = bilinear.forward_kind(*shape[1:4])
         for name, a, a2, p in zip(("fwd", "dcoords", "dimg"), *runs, want):
             err = (a - p).abs().max().item()
             tol = (KERNEL_TOL if name == "fwd"
                    else BWD_ATOL + BWD_RTOL * p.abs().max().item())
             same = torch.equal(a, a2)
-            bits = name == "fwd" and staged
+            bits = name == "fwd" and kind in BIT_EXACT_FORWARDS
             print(f"grid {name} {shape}: max_abs_err {err:.3e} (tolerance "
-                  f"{tol:.3e}{'; the staged forward: 0, bit for bit' if bits else ''}"
+                  f"{tol:.3e}{f'; the {kind} forward: 0, bit for bit' if bits else ''}"
                   f"); repeat bit-identical: {same}")
             require(a.shape == p.shape, f"grid {name} shape")
             require(err <= tol, f"grid {name} disagrees at {shape}")
             require(same, f"grid {name} not deterministic at {shape}")
             require(not bits or torch.equal(a, p),
-                    f"the staged grid forward's bits at {shape}")
+                    f"the {kind} grid forward's bits at {shape}")
             worst[name] = max(worst[name], err)
     return worst
 
@@ -2398,7 +2418,7 @@ def main(argv=None) -> int:
             ("dcoords", "bilinear_sample_grid_bwd_dcoords",
              "DCOORDS_LAUNCHES", "dcoords_"),
             ("dimg", "bilinear_sample_grid_bwd_dimg", "DIMG_LAUNCHES",
-             "dimg_per")):
+             "dimg_")):
         bounds = [sampler_bound(key, shape) for shape in TRAIN_SHAPES]
         kernels.append({
             "name": name, "route": "cuda",

@@ -4,10 +4,11 @@ upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), the
 same sampler kernels on an (N, Ho, Wo, 2) grid and the fused ST-conv
 kernel (st_conv.cu), and, at the end of the file, the dCK kernel's four
 fold/transform variants, the choice between the d_coords kernels, the
-staged sampler forward and the choice between the forward kernels, and
-the 3xTF32 upsample-conv forward at ragged shapes, forward and backward,
-against their plain PyTorch versions, and the wrappers' contract on CUDA
-tensors. Every test here needs an NVIDIA GPU
+staged sampler forward and the choice between the forward kernels, the
+3xTF32 upsample-conv forward at ragged shapes, the per-sample, gather and
+per-channel d_img kernels, the per-quad sampler forward and the 3xTF32
+dX, forward and backward, against their plain PyTorch versions, and the
+wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
 and nvcc; on a machine without a card each one skips. Run them on the
 card with
 
@@ -760,7 +761,10 @@ def test_staged_forward_gives_the_plain_bits(cuda, shape, layout):
 
 
 @pytest.mark.parametrize("hwc, kind", [
-    ((32, 32, 3), "per_pixel"), ((9, 11, 33), "per_value"),
+    ((32, 32, 3), "per_quad"), ((32, 32, 1), "per_quad"),
+    ((4, 4, 31), "per_quad"), ((7, 9, 4), "per_quad"),
+    ((9, 11, 3), "per_pixel"), ((1, 5, 1), "per_pixel"),
+    ((128, 128, 31), "per_pixel"), ((9, 11, 33), "per_value"),
     ((16, 16, 64), "staged"), ((32, 32, 64), "per_value")])
 def test_forward_kernel_choice(cuda, hwc, kind):
     assert bilinear.forward_kind(*hwc) == kind
@@ -927,15 +931,18 @@ def test_per_sample_dimg_of_an_offset_g(cuda, layout):
 @pytest.mark.parametrize("hwc, kind", [
     ((32, 32, 3), "per_sample"), ((32, 32, 1), "per_sample"),
     ((7, 12, 3), "per_sample"), ((4, 4, 31), "per_sample"),
-    ((16, 16, 64), "per_channel"), ((32, 32, 31), "per_channel"),
-    ((9, 11, 33), "per_channel")])
+    ((16, 16, 64), "gather"), ((32, 32, 31), "gather"),
+    ((9, 11, 33), "gather"), ((32, 32, 64), "gather"),
+    ((79, 79, 8), "gather"), ((80, 80, 8), "per_channel"),
+    ((128, 128, 1), "per_channel")])
 def test_dimg_kernel_choice(cuda, hwc, kind):
     assert bilinear.dimg_kind(*hwc) == kind
 
 
 @pytest.mark.parametrize("shape, name", [
     ((2, 32, 32, 3, 32, 32), "dimg_per_sample"),
-    ((2, 16, 16, 64, 48, 16), "dimg_per_channel")])
+    ((2, 16, 16, 64, 48, 16), "dimg_gather"),
+    ((1, 128, 128, 1, 8, 8), "dimg_per_channel")])
 @pytest.mark.parametrize("layout", ["rows", "grid"])
 def test_dimg_kernel_by_shape(cuda, shape, name, layout):
     img, rows, out_hw = _inputs(shape, cuda, seed=20)
@@ -948,6 +955,166 @@ def test_dimg_kernel_by_shape(cuda, shape, name, layout):
         run = lambda: bilinear_grid.launch_dimg(img, grid, g)  # noqa: E731
     names = _forward_kernel_names(run)
     assert len(names) == 1 and name + "<" in names[0], names
+
+
+# ---------------------------------------------------------------------------
+# the gather d_img kernel (a block per sample buckets each output pixel's
+# four taps by input pixel, then a warp per input pixel sums its bin in
+# (output pixel, tap) order) and the per-channel kernel it leaves for
+# images too large for its block, both layouts: within the backward's
+# tolerance of the plain version, bit for bit the sums of the CPU
+# emulation (test_torch_port_dimg_gather.py), repeats bit for bit, and
+# the same bits from an offset g (one channel a lane instead of two)
+# ---------------------------------------------------------------------------
+
+from test_torch_port_dimg_gather import gather_dimg  # noqa: E402
+
+GATHER_SHAPES = [(2, 16, 16, 64, 48, 16),   # the branch shape
+                 (2, 9, 11, 33, 7, 5),      # odd sizes and C: no float2
+                 (2, 32, 32, 31, 8, 8),     # C = 31: four slabs do not fit
+                 (2, 32, 32, 64, 32, 32),   # a 32x32x64 image
+                 (1, 9, 7, 32, 48, 48)]     # 2304 output pixels: 3 passes
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(DIMG_COORDS))
+def test_gather_dimg_matches_plain(cuda, shape, layout, coords):
+    assert bilinear.dimg_kind(*shape[1:4]) == "gather"
+    img, rows, out_hw = _inputs(shape, cuda, seed=23)
+    rows = DIMG_COORDS[coords](rows).contiguous()
+    g = _cotangent(shape, cuda, seed=24)
+    first = _dimg_run(layout, img, rows, g, out_hw)
+    again = _dimg_run(layout, img, rows, g, out_hw)
+    torch.cuda.synchronize()
+    _bwd_close(first, _dimg_plain(img, rows, g, out_hw))
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+@pytest.mark.parametrize("coords", ["spread", "point"])
+def test_gather_dimg_gives_the_emulated_bits(cuda, shape, coords):
+    n, h, w, c = shape[:4]
+    img, rows, out_hw = _inputs(shape, cuda, seed=25)
+    rows = DIMG_COORDS[coords](rows).contiguous()
+    g = _cotangent(shape, cuda, seed=26)
+    got = bilinear.launch_dimg(img, rows, g, out_hw)
+    want = gather_dimg(rows.cpu().numpy(), g.cpu().numpy().reshape(n, -1, c),
+                       (h, w))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_gather_dimg_of_an_offset_g(cuda, layout):
+    shape = GATHER_SHAPES[0]
+    img, rows, out_hw = _inputs(shape, cuda, seed=27)
+    g = _cotangent(shape, cuda, seed=28)
+    aligned = _dimg_run(layout, img, rows, g, out_hw)
+    offset = _dimg_run(layout, img, rows, _misaligned(g), out_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, offset)
+
+
+@pytest.mark.parametrize("shape", [   # gather, per sample, per channel
+    (0, 16, 16, 64, 48, 16), (0, 32, 32, 3, 32, 32), (0, 128, 128, 1, 8, 8)])
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_dimg_of_an_empty_batch(cuda, shape, layout):
+    img, rows, out_hw = _inputs(shape, cuda)
+    got = _dimg_run(layout, img, rows, _cotangent(shape, cuda), out_hw)
+    torch.cuda.synchronize()
+    assert got.shape == (0, *shape[1:4])
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_per_channel_dimg_matches_plain(cuda, layout):
+    shape = (2, 128, 128, 1, 8, 8)
+    assert bilinear.dimg_kind(*shape[1:4]) == "per_channel"
+    img, rows, out_hw = _inputs(shape, cuda, seed=29)
+    g = _cotangent(shape, cuda, seed=30)
+    first = _dimg_run(layout, img, rows, g, out_hw)
+    again = _dimg_run(layout, img, rows, g, out_hw)
+    torch.cuda.synchronize()
+    _bwd_close(first, _dimg_plain(img, rows, g, out_hw))
+    assert torch.equal(first, again)
+
+
+# ---------------------------------------------------------------------------
+# the per-quad forward (C < 32: the sample's image in shared memory, four
+# output pixels a thread, float4 coordinates and outputs) and its choice by
+# shape and alignment, both layouts: the plain version's bits; repeats bit
+# for bit; an image or coordinate array off a 16-byte boundary takes the
+# per-pixel kernel, with the same bits; coordinates spread or all within
+# one pixel; P not a multiple of 4 (pixel by pixel inside the kernel)
+# ---------------------------------------------------------------------------
+
+QUAD_SHAPES = [(640, 32, 32, 3, 32, 32),    # the input ST at batch 640
+               (3, 32, 32, 1, 32, 32),      # C = 1
+               (2, 4, 4, 31, 2, 2),         # C = 31, the widest
+               (2, 7, 9, 4, 5, 7),          # odd h and w; P = 35
+               (3, 16, 12, 3, 9, 3)]        # P = 27
+QUAD_COORDS = {"spread": lambda r: r, "point": lambda r: r * 0.01}
+
+
+def _offset(t, floats):
+    """A contiguous copy of ``t`` ``floats`` floats past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[floats:floats + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _coords(layout, rows, out_hw, shift=0):
+    """The coordinates in ``layout``, ``shift`` floats past 16 bytes."""
+    if layout == "grid":
+        rows = rows.permute(0, 2, 1).reshape(rows.shape[0], *out_hw, 2)
+    return _offset(rows, shift)
+
+
+def _forward(layout, img, crd, out_hw):
+    if layout == "rows":
+        return bilinear.launch(img, crd, out_hw)
+    return bilinear_grid.launch(img, crd)
+
+
+@pytest.mark.parametrize("shape", QUAD_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(QUAD_COORDS))
+def test_per_quad_forward_gives_the_plain_bits(cuda, shape, layout, coords):
+    assert bilinear.forward_kind(*shape[1:4]) == "per_quad"
+    img, rows, out_hw = _inputs(shape, cuda, seed=31)
+    rows = QUAD_COORDS[coords](rows).contiguous()
+    crd = _coords(layout, rows, out_hw)
+    want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    first = _forward(layout, img, crd, out_hw)
+    again = _forward(layout, img, crd, out_hw)
+    per_pixel = (_forward(layout, _misaligned(img), crd, out_hw),
+                 _forward(layout, img, _coords(layout, rows, out_hw, 2),
+                          out_hw))
+    torch.cuda.synchronize()
+    assert torch.equal(first, want)
+    assert torch.equal(first, again)
+    assert all(torch.equal(first, other) for other in per_pixel)
+
+
+@pytest.mark.parametrize("view, name", [
+    ("aligned", "sample_per_quad_staged"), ("image", "sample_per_pixel"),
+    ("coords", "sample_per_pixel")])
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_per_quad_forward_kernel_of_a_view(cuda, view, name, layout):
+    img, rows, out_hw = _inputs((2, 32, 32, 3, 32, 32), cuda, seed=32)
+    im = _misaligned(img) if view == "image" else img
+    crd = _coords(layout, rows, out_hw, 2 if view == "coords" else 0)
+    names = _forward_kernel_names(lambda: _forward(layout, im, crd, out_hw))
+    assert len(names) == 1 and name + "<" in names[0], names
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_per_quad_forward_of_an_empty_batch(cuda, layout):
+    img, rows, out_hw = _inputs((0, 32, 32, 3, 32, 32), cuda)
+    got = _forward(layout, img, _coords(layout, rows, out_hw), out_hw)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 32, 32, 3)
 
 
 # ---------------------------------------------------------------------------
