@@ -42,6 +42,13 @@ def add_common_args(p: argparse.ArgumentParser):
     add_device_arg(p)
 
 
+def refuse_multi_host(args) -> None:
+    """Raises for the multi-host flags (ROADMAP Queue A item 11)."""
+    from catgen_torch.train.harness import not_ported
+    if args.coordinator or args.numProcesses:
+        raise not_ported("multi-host data parallelism", "11")
+
+
 def add_device_arg(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; there is no "

@@ -6,7 +6,8 @@ train.lua``), with catgen's flags and ``--device`` for ``--platform``.
         --batchSize 4 --N_epoch 8 --save /tmp/run
 
 Checkpoints are catgen's ``adversarial.ckpt`` (either package resumes the
-other's). Flags whose machinery is not ported yet raise
+other's). A V checkpoint (``cli.train_v``) and a pretrained G
+(``cli.pretrain_g``) in ``--save`` are picked up by filename. Flags whose machinery is not ported yet raise
 NotImplementedError naming the ROADMAP item; none is silently ignored.
 """
 
@@ -16,7 +17,8 @@ import argparse
 from typing import List, Optional
 
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
-                                     build_dataset, resolve_device)
+                                     build_dataset, refuse_multi_host,
+                                     resolve_device)
 from catgen_torch.models import D_REGISTRY, G_REGISTRY
 from catgen_torch.train import gan
 from catgen_torch.train.harness import (GanHarness, HarnessConfig,
@@ -81,8 +83,7 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     """The flags the harness does not see (it refuses the others)."""
-    if args.coordinator or args.numProcesses:
-        raise not_ported("multi-host data parallelism", "11")
+    refuse_multi_host(args)
     if args.dtype != "f32":
         raise not_ported("bf16 compute (--dtype bf16)", "1 (the bf16 path)")
     if args.profile:

@@ -6,7 +6,7 @@ draw of a training step comes, in a fixed order, from one ``Draws``: the
 noise, the augmentation parameters and the dropout masks. ``Draws`` reads
 a ``torch.Generator`` on the device the step runs on, so no draw crosses
 from the host. JAX's threefry and torch's Philox never give the same
-numbers, so a parity test hands in an object with the same three methods
+numbers, so a parity test hands in an object with the same four methods
 that replays the numbers JAX drew, in the order catgen drew them.
 """
 
@@ -18,8 +18,8 @@ import torch
 
 
 class Draws:
-    """Uniform, Bernoulli and normal draws from ``generator``, made on the
-    generator's device."""
+    """Uniform, Bernoulli, normal and integer draws from ``generator``,
+    made on the generator's device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -38,3 +38,10 @@ class Draws:
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.generator,
                            device=self.generator.device)
+
+    def randint(self, low: int, high: int,
+                shape: Sequence[int]) -> torch.Tensor:
+        """Integers uniform in [low, high), int64."""
+        return torch.randint(low, high, tuple(shape),
+                             generator=self.generator,
+                             device=self.generator.device)

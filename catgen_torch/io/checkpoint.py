@@ -5,8 +5,11 @@ leaves keyed by their tree paths as ``jax.tree_util.keystr`` spells them,
 for example ``.d_params['05_FusedSTBranches']['loc0']['01_Conv']['kernel']``
 or, inside a train state's optimizer, ``.d_opt.m['06_Dense']['kernel']``
 and ``.d_opt.step``, plus a JSON metadata blob stored as uint8 under
-``__meta__``. This module reads and writes that format without jax: keys
-are parsed and spelled by ``parse_key`` and ``key``. Saving is atomic and
+``__meta__``. A model's variables alone (the V checkpoint, the pretrained
+G) are a dict at the root, so their keys start with the dict key:
+``['params']['00_Conv']['kernel']``, ``['state']['01_BatchNorm']['mean']``.
+This module reads and writes that format without jax: keys are parsed
+and spelled by ``parse_key`` and ``key`` (``dict_key`` for dict roots). Saving is atomic and
 keeps the predecessor as ``<file>.old``, as catgen's does. ``load_like``
 is catgen's ``load`` against a template, lenient leaves included.
 """
@@ -34,6 +37,43 @@ def key(attr: str, path: Tuple[str, ...]) -> str:
     ``".g_params['03_UpsampleConv']['kernel']"``; ``attr`` may name a
     field of a field (``'g_opt.m'``)."""
     return "." + attr + "".join(f"['{p}']" for p in path)
+
+
+def dict_key(path: Tuple[str, ...]) -> str:
+    """``dict_key(('params', '00_Conv', 'kernel'))`` ->
+    ``"['params']['00_Conv']['kernel']"``: the key of a leaf under a dict
+    root."""
+    return "".join(f"['{p}']" for p in path)
+
+
+def dict_tree_to_leaves(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Nested dict of arrays, rooted at a dict -> {key: array}."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            out[dict_key(path)] = np.asarray(node)
+
+    walk(tree, ())
+    return out
+
+
+def dict_leaves_to_tree(leaves: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Inverse of ``dict_tree_to_leaves``; raises ValueError on a key that
+    is not a chain of dict keys."""
+    tree: Dict[str, Any] = {}
+    for k, v in leaves.items():
+        path = tuple(_SEGMENT.findall(k))
+        if not path or dict_key(path) != k:
+            raise ValueError(f"not a dict-rooted checkpoint key: {k!r}")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return tree
 
 
 def attr_of(k: str) -> str:

@@ -12,6 +12,10 @@ map as follows:
     PReLU's ``alpha``) keeps its name and layout; ``mean`` and ``var`` are
     catgen ``state``, the rest ``params``.
 
+A model's variables alone, as catgen saves V and the pretrained G
+(``{"params": ..., "state": ...}``), map to dict-rooted keys
+(``variables_to_leaves``, ``variables_from_leaves``).
+
 A whole train state (``catgen_torch.train.gan.TrainState``) maps onto
 catgen's ``TrainState`` leaves: G's and D's weights as above; each
 optimizer field that holds one tensor per parameter (adam's ``m``, ``v``,
@@ -29,7 +33,9 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from catgen_torch.io.checkpoint import key, leaves_to_tree, tree_to_leaves
+from catgen_torch.io.checkpoint import (dict_leaves_to_tree,
+                                        dict_tree_to_leaves, key,
+                                        leaves_to_tree, tree_to_leaves)
 
 STATE_LEAVES = ("mean", "var")
 
@@ -93,6 +99,25 @@ def gan_from_leaves(g: torch.nn.Module, d: torch.nn.Module,
         sd = catgen_to_state_dict(leaves_to_tree(f"{prefix}_params", leaves),
                                   leaves_to_tree(f"{prefix}_state", leaves))
         module.load_state_dict(sd, strict=True)
+
+
+def variables_to_leaves(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The module's weights as the leaves of catgen's ``{"params": ...,
+    "state": ...}`` checkpoint (``['params'][...]``, ``['state'][...]``)."""
+    params, state = state_dict_to_catgen(module.state_dict())
+    tree = {"params": params}
+    if state:
+        tree["state"] = state
+    return dict_tree_to_leaves(tree)
+
+
+def variables_from_leaves(module: torch.nn.Module,
+                          leaves: Dict[str, np.ndarray]) -> None:
+    """Loads ``{"params", "state"}`` checkpoint leaves into the module, in
+    place (strict: every port weight must be there and nothing else)."""
+    tree = dict_leaves_to_tree(leaves)
+    sd = catgen_to_state_dict(tree.get("params", {}), tree.get("state", {}))
+    module.load_state_dict(sd, strict=True)
 
 
 def state_dict_to_catgen(sd: Dict[str, torch.Tensor]

@@ -1,12 +1,14 @@
-"""Model zoo: the counterparts of ``catgen/models/zoo.py`` that the
-sampling path runs, G32up-c and D32_st3.
+"""Model zoo: the counterparts of ``catgen/models/zoo.py`` that the ported
+paths run: G32up-c and D32_st3, the V validators V16 and V32, and the
+32px G autoencoder (encoder + G32up-c) of the pretrainer.
 
 Layer order, widths and child names are catgen's, so a catgen checkpoint
 loads through ``catgen_torch.io.convert``. Unlike catgen's modules, which
 learn their input widths at init, PyTorch layers are built with them, so
 each constructor states its widths.
 
-Image shapes are (H, W, C); G input is (N, noise_dim); D input (N, H, W, C).
+Image shapes are (H, W, C); G input is (N, noise_dim); D and V input
+(N, H, W, C).
 The other models of catgen's registries are ROADMAP Queue A item 10.
 """
 
@@ -18,8 +20,9 @@ from catgen_torch.core.module import Sequential
 from catgen_torch.kernels.upsample_conv import UpsampleConv
 from catgen_torch.nn.fused import FusedDecoderSequential
 from catgen_torch.nn.layers import (AvgPool, BatchNorm, Conv, Dense, Dropout,
-                                    Flatten, MaxPool, PReLU, Reshape,
-                                    Sigmoid, SpatialDropout)
+                                    Flatten, LeakyReLU, MaxPool, PReLU,
+                                    Reshape, Sigmoid, Softmax,
+                                    SpatialDropout)
 from catgen_torch.nn.spatial_transformer import (FusedSTBranches,
                                                  FusedSTConvPReLU,
                                                  SpatialTransformer)
@@ -50,6 +53,34 @@ def create_G(image: ImageShape, noise_dim: int) -> FusedDecoderSequential:
             "G16up (the 16px default G) is not ported yet: ROADMAP Queue A "
             "item 10")
     return create_G_decoder_upsampling32c(image, noise_dim)
+
+
+def create_G_encoder32(image: ImageShape, noise_dim: int) -> Sequential:
+    """'G_enc32', the pretrainer's encoder: four conv-BN-LeakyReLU stages
+    (16, 16, 32, 32 channels, the first three max-pooled), dense 1024 with
+    BN, dense to the noise."""
+    h, w, c = image
+    return Sequential([
+        Conv(c, 16, (3, 3)), BatchNorm(16), LeakyReLU(), MaxPool(2),
+        Conv(16, 16, (3, 3)), BatchNorm(16), LeakyReLU(), MaxPool(2),
+        Conv(16, 32, (3, 3)), BatchNorm(32), LeakyReLU(), MaxPool(2),
+        Conv(32, 32, (3, 3)), BatchNorm(32), LeakyReLU(),
+        Flatten(),
+        Dense((h // 8) * (w // 8) * 32, 1024), BatchNorm(1024), LeakyReLU(),
+        Dense(1024, noise_dim),
+    ], name="G_enc32")
+
+
+def create_G_autoencoder(image: ImageShape, noise_dim: int) -> Sequential:
+    """Encoder + decoder, the pretrainer's model. Child 1, the decoder, is
+    ``create_G``'s G32up-c (so the kernel routes apply to it) and is
+    exported as a standalone G."""
+    if image[0] == 16:
+        raise NotImplementedError(
+            "the 16px autoencoder (G_enc16 + G16up) is not ported yet: "
+            "ROADMAP Queue A item 10")
+    return Sequential([create_G_encoder32(image, noise_dim),
+                       create_G(image, noise_dim)], name="G_autoencoder")
 
 
 def _st_branch_tail() -> Sequential:
@@ -90,6 +121,51 @@ def create_D(image: ImageShape) -> Sequential:
     return create_D32_st3(image)
 
 
+def create_V16(image: ImageShape) -> Sequential:
+    """V16: two conv pairs (128, 256) with pools and spatial dropouts, two
+    dense 1024 layers with BN and dropout, a 2-way softmax (fake, real)."""
+    h, w, c = image
+    return Sequential([
+        Conv(c, 128, (3, 3)), LeakyReLU(),
+        Conv(128, 128, (3, 3)), BatchNorm(128), LeakyReLU(),
+        MaxPool(2), SpatialDropout(0.2),
+        Conv(128, 256, (3, 3)), LeakyReLU(),
+        Conv(256, 256, (3, 3)), BatchNorm(256), LeakyReLU(),
+        MaxPool(2), SpatialDropout(0.5),
+        Flatten(),
+        Dense((h // 4) * (w // 4) * 256, 1024), BatchNorm(1024),
+        LeakyReLU(), Dropout(0.5),
+        Dense(1024, 1024), BatchNorm(1024), LeakyReLU(), Dropout(0.5),
+        Dense(1024, 2), Softmax(),
+    ], name="V16")
+
+
+def create_V32(image: ImageShape) -> Sequential:
+    """V32, the default V at 32px: V16's layers with a pool after the
+    first conv and an elementwise dropout after the second pool."""
+    h, w, c = image
+    return Sequential([
+        Conv(c, 128, (3, 3)), LeakyReLU(), MaxPool(2),
+        Conv(128, 128, (3, 3)), BatchNorm(128), LeakyReLU(), MaxPool(2),
+        Dropout(0.5),
+        Conv(128, 256, (3, 3)), LeakyReLU(),
+        Conv(256, 256, (3, 3)), BatchNorm(256), LeakyReLU(), MaxPool(2),
+        SpatialDropout(0.5),
+        Flatten(),
+        Dense((h // 8) * (w // 8) * 256, 1024), BatchNorm(1024),
+        LeakyReLU(), Dropout(0.5),
+        Dense(1024, 1024), BatchNorm(1024), LeakyReLU(), Dropout(0.5),
+        Dense(1024, 2), Softmax(),
+    ], name="V32")
+
+
+def create_V(image: ImageShape) -> Sequential:
+    """Default V: V16 at 16px, V32 otherwise."""
+    if image[0] == 16:
+        return create_V16(image)
+    return create_V32(image)
+
+
 class _Registry(dict):
     """catgen's model registry, holding only what is ported so far."""
 
@@ -111,4 +187,10 @@ G_REGISTRY = _Registry("G", {
 D_REGISTRY = _Registry("D", {
     "d32_st3": create_D32_st3,
     "default": create_D,
+})
+
+V_REGISTRY = _Registry("V", {
+    "v16": create_V16,
+    "v32": create_V32,
+    "default": create_V,
 })

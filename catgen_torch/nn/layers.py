@@ -162,6 +162,17 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
+class Softmax(nn.Module):
+    """Softmax over ``axis`` (the last by default)."""
+
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(x, dim=self.axis)
+
+
 class _MaskedDropout(nn.Module):
     """Inverted dropout: identity in eval; in train keeps each unit of
     ``mask_shape(x)`` with probability 1-rate and scales by 1/(1-rate).

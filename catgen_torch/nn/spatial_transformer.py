@@ -86,6 +86,20 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return bilinear_sample_grid(img, coords)
 
 
+def warp_flow(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """``image.warp``-style warping (catgen's ``warp_flow``): ``flow``
+    (N, H, W, 2) holds per-output-pixel source offsets in pixels (dy, dx),
+    normalized by (h-1) and (w-1) as catgen does and sampled through
+    ``bilinear_sample`` (the grid kernel on CUDA tensors). The V
+    subsystem's warp generator uses it."""
+    n, h, w, _ = img.shape
+    gy = torch.arange(h, dtype=img.dtype, device=img.device)[None, :, None]
+    gx = torch.arange(w, dtype=img.dtype, device=img.device)[None, None, :]
+    ny = 2.0 * (gy + flow[..., 0]) / max(h - 1, 1) - 1.0
+    nx = 2.0 * (gx + flow[..., 1]) / max(w - 1, 1) - 1.0
+    return bilinear_sample(img.contiguous(), torch.stack([ny, nx], dim=-1))
+
+
 def sample_affine(x: torch.Tensor, thetas) -> torch.Tensor:
     """Samples ``x`` (N, H, W, C) at the affine grids of the (N, 2, 3)
     ``thetas``, stacked along the rows: (N, len(thetas)*H, W, C), on

@@ -1,17 +1,20 @@
-"""The GAN training harness: the part of ``catgen/train/harness.py`` that
-``cli.train`` runs (``HarnessConfig``, ``GanHarness``).
+"""The training harnesses, the counterparts of ``catgen/train/harness.py``:
+``GanHarness`` (``cli.train``), ``VHarness`` (``cli.train_v``) and
+``PretrainHarness`` (``cli.pretrain_g``).
 
-It owns the corpus, G and D with their train state, the epoch loop with
-its per-epoch artifacts (sample grids stamped with the epoch, the two
-sanity probes, the NaN check and the nearest-neighbour distance to the
-corpus), the JSONL metrics, and checkpoints in catgen's format, filename
-and cadence, resume and ``--rebuildOptstate`` included. Each epoch's reals
-reach the device in one copy, and the epoch's metrics come back in one.
+Each owns the corpus, its models with their train state, the epoch loop
+with its per-epoch artifacts, the JSONL metrics, and checkpoints in
+catgen's format, filename and cadence. The GAN harness's artifacts are
+sample grids stamped with the epoch, the two sanity probes, the NaN check,
+the nearest-neighbour distance to the corpus and, when a V checkpoint is
+in the save directory, V's rating of the samples; it picks up a pretrained
+G from the save directory by filename, resumes, and rebuilds optimizer
+states on ``--rebuildOptstate``. Each epoch's reals reach the device in
+one copy, and the epoch's metrics come back in one.
 
 Not ported yet, and refused rather than ignored: data parallelism
 (``n_devices > 1``, ROADMAP Queue A item 11), the collapse detector and
-activation grids (item 4), the V rating (item 8) and the pickup of a
-pretrained G (item 9).
+activation grids (item 4).
 """
 
 from __future__ import annotations
@@ -32,11 +35,16 @@ from catgen_torch.data.loader import ImageDataset
 from catgen_torch.eval.collapse import per_pixel_std, sat_fraction
 from catgen_torch.io import checkpoint as ckpt
 from catgen_torch.io.convert import (train_state_from_leaves,
-                                     train_state_to_leaves)
+                                     train_state_to_leaves,
+                                     variables_from_leaves,
+                                     variables_to_leaves)
 from catgen_torch.io.grids import save_grid
 from catgen_torch.io.metrics import MetricsLogger, confusion_summary
 from catgen_torch.sample.sampler import nn_l2_mean, self_nn_mean
-from catgen_torch.train import gan
+from catgen_torch.train import gan, pretrainer, synthetic, v_trainer
+
+# catgen's overlay bank for the V harness: 1000 masks of 10000 walk steps
+OVERLAY_BANK = dict(n=1000, n_points=10000)
 
 
 @dataclasses.dataclass
@@ -88,15 +96,6 @@ class GanHarness:
             raise not_ported("the collapse detector", "4")
         if hc.weights_vis_freq:
             raise not_ported("D activation grids (weights_vis_freq)", "4")
-        h, w, c = hc.image_shape
-        if os.path.exists(os.path.join(hc.save_dir,
-                                       ckpt.v_filename(c, h, w))):
-            raise not_ported(f"the V rating of {ckpt.v_filename(c, h, w)} "
-                              f"in {hc.save_dir}", "8")
-        pretrained = ckpt.g_pretrained_filename(c, h, w, hc.noise_dim)
-        if os.path.exists(os.path.join(hc.save_dir, pretrained)):
-            raise not_ported(f"the pickup of a pretrained G ({pretrained} "
-                              f"in {hc.save_dir})", "9")
         self.hc = hc
         self.gc = dataclasses.replace(
             gc, noise_dim=hc.noise_dim,
@@ -111,8 +110,12 @@ class GanHarness:
         reset_parameters(g, init)
         reset_parameters(d, init)
         self.state = gan.init_state(g.to(device), d.to(device), self.gc)
+        self._maybe_pickup_pretrained_g()
         self.epoch_fn = gan.make_train_epoch(self.state.g, self.state.d,
                                              self.gc)
+        # V is inference-only here: it rates the samples in visualize
+        self.v = None
+        self._load_v()
         # fixed visualization noise
         self.vis_noise = gan.uniform_noise(
             torch.Generator().manual_seed(hc.seed + 1), 100, hc.noise_dim,
@@ -129,6 +132,30 @@ class GanHarness:
 
     def _ckpt_path(self) -> str:
         return os.path.join(self.hc.save_dir, ckpt.adversarial_filename())
+
+    def _maybe_pickup_pretrained_g(self) -> None:
+        """If a pretrained decoder of this shape and noise size is in the
+        save directory (by filename), G starts from it."""
+        h, w, c = self.hc.image_shape
+        path = os.path.join(self.hc.save_dir, ckpt.g_pretrained_filename(
+            c, h, w, self.hc.noise_dim))
+        if not os.path.exists(path):
+            return
+        meta = load_variables(self.state.g, path)
+        self.logger.log("pretrained_g_loaded", path=path,
+                        epoch=meta.get("epoch"))
+
+    def _load_v(self) -> None:
+        """V from ``v_<C>x<H>x<W>.ckpt`` in the save directory, if there."""
+        h, w, c = self.hc.image_shape
+        path = os.path.join(self.hc.save_dir, ckpt.v_filename(c, h, w))
+        if not os.path.exists(path):
+            self.logger.log("v_missing", path=path)
+            return
+        v = models.V_REGISTRY[self.hc.v_model](self.hc.image_shape)
+        self.v = v.to(self.device).eval()
+        load_variables(self.v, path)
+        self.logger.log("v_loaded", path=path)
 
     def save(self, path: Optional[str] = None) -> None:
         norm = 0.5 if self.hc.normalize else None
@@ -209,9 +236,11 @@ class GanHarness:
     def visualize(self) -> dict:
         """The per-epoch artifacts: 100 fixed-noise samples, the D-ranked
         best and worst 50, 16 reals, D's scores of a diagonal pattern and
-        of a real image, and the samples' mean nearest-neighbour distance
-        to a fixed slice of the corpus (over the slice's own, the
-        ``nn_l2_ratio``)."""
+        of a real image, the samples' mean nearest-neighbour distance to a
+        fixed slice of the corpus (over the slice's own, the
+        ``nn_l2_ratio``) and, with a V, V's mean p(real) over all samples
+        and over D's best and worst 50 (``v_rating_*``, also appended to
+        ``plot_data``)."""
         epoch = self.state.epoch
         if self._viz_corpus is None:
             k = min(512, len(self.dataset))
@@ -234,6 +263,13 @@ class GanHarness:
             rgb = colorlib.colorspace_to_rgb(imgs, self.hc.colorspace)
             nn_l2 = nn_l2_mean(rgb, self._viz_corpus)
             rgb_reals = self._to_rgb(reals)
+        v3 = None
+        if self.v is not None:
+            p = v_trainer.v_scores(self.v, torch.cat(
+                [imgs, imgs[order[:50]], imgs[order[-50:]]]))
+            n = imgs.shape[0]
+            v3 = torch.stack([p[:n].mean(), p[n:n + 50].mean(),
+                              p[n + 50:].mean()]).tolist()
         rgb, order, probes, rgb_reals = (
             t.cpu().numpy() for t in (rgb, order, probes, rgb_reals))
         if not np.isfinite(rgb).all():
@@ -255,6 +291,10 @@ class GanHarness:
         if self._nn_baseline:
             fields["nn_l2"] = float(nn_l2)
             fields["nn_l2_ratio"] = fields["nn_l2"] / self._nn_baseline
+        if v3 is not None:
+            fields["v_rating_all"], fields["v_rating_good"], \
+                fields["v_rating_bad"] = v3
+            self.plot_data.append([epoch, *v3])
         self.logger.log("viz", **fields)
         return fields
 
@@ -280,3 +320,215 @@ class GanHarness:
 
 def _count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def load_variables(module: torch.nn.Module, path: str) -> dict:
+    """Loads a catgen ``{"params", "state"}`` checkpoint (V, a pretrained
+    G) into ``module`` in place; returns its metadata."""
+    leaves, meta = ckpt.load_like(path, variables_to_leaves(module))
+    variables_from_leaves(module, leaves)
+    return meta
+
+
+def save_variables(module: torch.nn.Module, path: str, meta: dict) -> None:
+    """Writes ``module``'s weights as a catgen ``{"params", "state"}``
+    checkpoint."""
+    ckpt.save(path, variables_to_leaves(module), meta)
+
+
+class VHarness:
+    """``th train_v.lua``: V trained on ``dataset``'s reals against the
+    synthetic fakes, on ``device``, with catgen's overlay bank for
+    ``hc.seed`` (``OVERLAY_BANK``), built on the host at start;
+    ``bank_seconds`` is how long that took."""
+
+    def __init__(self, hc: HarnessConfig, vc: v_trainer.VConfig,
+                 dataset: ImageDataset, device: torch.device,
+                 logger: Optional[MetricsLogger] = None):
+        if hc.n_devices > 1:
+            raise not_ported("data parallelism (n_devices > 1)", "11")
+        self.hc = hc
+        self.vc = vc
+        self.dataset = dataset
+        self.device = device
+        self.logger = logger or MetricsLogger(
+            os.path.join(hc.save_dir, "train_v_metrics.jsonl"))
+        v = models.V_REGISTRY[hc.v_model](hc.image_shape)
+        reset_parameters(v, torch.Generator().manual_seed(hc.seed))
+        self.state = v_trainer.init_state(v.to(device), vc)
+        h, w, _ = hc.image_shape
+        t0 = time.time()
+        bank = synthetic.build_overlay_bank(h, w, seed=hc.seed,
+                                            **OVERLAY_BANK)
+        self.bank_seconds = time.time() - t0
+        self.bank = torch.from_numpy(bank).to(device)
+        self.epoch_fn = v_trainer.make_train_epoch(
+            self.state.v, vc, self.bank, hc.image_shape)
+        self.factory = synthetic.SyntheticImageFactory(
+            self.bank, hc.image_shape, seed=hc.seed)
+        self._np = np.random.RandomState(hc.seed)
+        # each epoch's host choices (branches, sub_branches, submix)
+        self.choices = []
+        self.logger.log("setup", v_params=_count(self.state.v),
+                        bank_seconds=round(self.bank_seconds, 3),
+                        device=str(device))
+
+    def _ckpt_path(self) -> str:
+        h, w, c = self.hc.image_shape
+        return os.path.join(self.hc.save_dir, ckpt.v_filename(c, h, w))
+
+    def save(self) -> None:
+        save_variables(self.state.v, self._ckpt_path(),
+                       {"epoch": self.state.epoch})
+        self.logger.log("checkpoint_saved", path=self._ckpt_path(),
+                        epoch=self.state.epoch)
+
+    def run_epoch(self) -> dict:
+        """One epoch: 5 real half-batches per step (the V batch's reals and
+        4 generator feeds) in one copy, the host's generator choices in
+        catgen's order, the batches in turn, one metrics fetch."""
+        t0 = time.time()
+        half = self.vc.batch_size // 2
+        nb = max(self.hc.n_epoch // self.vc.batch_size, 1)
+        staged = self.dataset.postprocess(
+            self.dataset.sample_uint8(nb * 5 * half))
+        staged = staged.reshape((nb, 5, half) + tuple(staged.shape[1:]))
+        reals, gen_reals = staged[:, 0], staged[:, 1:]
+        branches = self._np.randint(0, 4, nb)
+        sub_branches = self._np.randint(0, 4, nb)
+        submix = self._np.rand(nb) < 0.33
+        gen = torch.Generator(self.device)
+        gen.manual_seed(int(self._np.randint(2 ** 31)))
+        self.choices.append((branches, sub_branches, submix))
+        m = self.epoch_fn(self.state, reals, gen_reals, branches,
+                          sub_branches, submix, Draws(gen))
+        loss, acc, tp, tn, fp, fn = torch.stack([
+            m.loss.mean(), m.acc.mean(),
+            *(x.sum().float() for x in (m.tp_real, m.tn_fake, m.fp, m.fn))
+        ]).tolist()
+        dt = time.time() - t0
+        summary = {"epoch": self.state.epoch - 1, "loss": loss, "acc": acc,
+                   "sec": round(dt, 3)}
+        self.logger.log("epoch", **summary)
+        print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
+        return summary
+
+    def visualize(self) -> dict:
+        """V judges 50 reals and 50 synthetic images; the grids of those it
+        calls real and fake (split at p(real) = 0.5), and a warning when
+        the images leave [0, 1]."""
+        epoch = self.state.epoch
+
+        def sample_reals(n):
+            return self.dataset.postprocess(self.dataset.sample_uint8(n))
+
+        reals = sample_reals(50)
+        imgs = torch.cat([reals, self.factory(50, sample_reals)])
+        lo, hi = torch.stack([imgs.min(), imgs.max()]).tolist()
+        if lo < -0.01 or hi > 1.01:
+            self.logger.log("range_warning", epoch=epoch, vmin=lo, vmax=hi)
+        scores = v_trainer.v_scores(self.state.v, imgs).cpu().numpy()
+        with torch.inference_mode():
+            rgb = colorlib.colorspace_to_rgb(
+                imgs, self.hc.colorspace).cpu().numpy()
+        base = self.hc.save_dir
+        name = f"epoch_{epoch:06d}.png"
+        good, bad = rgb[scores > 0.5], rgb[scores <= 0.5]
+        if len(good):
+            save_grid(os.path.join(base, "v_judged_real", name), good,
+                      epoch=epoch)
+        if len(bad):
+            save_grid(os.path.join(base, "v_judged_fake", name), bad,
+                      epoch=epoch)
+        fields = {"epoch": epoch,
+                  "judged_real": int((scores > 0.5).sum()),
+                  "judged_fake": int((scores <= 0.5).sum()),
+                  "mean_score_reals": float(scores[:50].mean()),
+                  "mean_score_fakes": float(scores[50:].mean())}
+        self.logger.log("viz", **fields)
+        return fields
+
+    def train(self, epochs: int, save_freq: int = 10) -> None:
+        """Train and visualize each epoch, save every ``save_freq`` epochs
+        and at the end (as train_v.lua, even just after a cadence save)."""
+        for _ in range(epochs):
+            self.run_epoch()
+            self.visualize()
+            if self.state.epoch % save_freq == 0:
+                self.save()
+        self.save()
+
+
+class PretrainHarness:
+    """``th pretrain_g.lua``: the 32px G autoencoder trained on
+    ``dataset`` on ``device``; saves the decoder as a standalone G."""
+
+    def __init__(self, hc: HarnessConfig, pc: pretrainer.PretrainConfig,
+                 dataset: ImageDataset, device: torch.device,
+                 logger: Optional[MetricsLogger] = None):
+        if hc.n_devices > 1:
+            raise not_ported("data parallelism (n_devices > 1)", "11")
+        self.hc = hc
+        self.pc = dataclasses.replace(pc, noise_dim=hc.noise_dim)
+        self.dataset = dataset
+        self.device = device
+        self.logger = logger or MetricsLogger(
+            os.path.join(hc.save_dir, "pretrain_metrics.jsonl"))
+        ae = models.create_G_autoencoder(hc.image_shape, hc.noise_dim)
+        reset_parameters(ae, torch.Generator().manual_seed(hc.seed))
+        self.state = pretrainer.init_state(ae.to(device), self.pc)
+        self.epoch_fn = pretrainer.make_train_epoch(self.state.ae, self.pc)
+        self.logger.log("setup", ae_params=_count(self.state.ae),
+                        device=str(device))
+
+    def _ckpt_path(self) -> str:
+        h, w, c = self.hc.image_shape
+        return os.path.join(self.hc.save_dir, ckpt.g_pretrained_filename(
+            c, h, w, self.hc.noise_dim))
+
+    def save(self) -> None:
+        save_variables(pretrainer.extract_decoder(self.state.ae),
+                       self._ckpt_path(), {"epoch": self.state.epoch})
+        self.logger.log("checkpoint_saved", path=self._ckpt_path(),
+                        epoch=self.state.epoch)
+
+    def run_epoch(self) -> dict:
+        """The step over max(N_epoch / batch, 1) batches of random reals,
+        staged in one copy; one metrics fetch."""
+        t0 = time.time()
+        nb = max(self.hc.n_epoch // self.pc.batch_size, 1)
+        imgs = self.dataset.load_random_images(nb * self.pc.batch_size)
+        batches = imgs.reshape((nb, self.pc.batch_size)
+                               + tuple(imgs.shape[1:]))
+        mse = float(self.epoch_fn(self.state, batches).mean())
+        dt = time.time() - t0
+        summary = {"epoch": self.state.epoch - 1, "mse": mse,
+                   "sec": round(dt, 3)}
+        self.logger.log("epoch", **summary)
+        return summary
+
+    def visualize(self) -> None:
+        """16 random reals beside their reconstructions, 8 to a row."""
+        epoch = self.state.epoch
+        originals = self.dataset.load_random_images(16)
+        recon = pretrainer.reconstruct(self.state.ae, originals)
+        pairs = torch.stack([originals, recon], dim=1).reshape(
+            (-1,) + tuple(originals.shape[1:]))
+        with torch.inference_mode():
+            rgb = colorlib.colorspace_to_rgb(pairs, self.hc.colorspace)
+        save_grid(os.path.join(self.hc.save_dir, "reconstructions",
+                               f"epoch_{epoch:06d}.png"),
+                  rgb.cpu().numpy(), nrow=8, epoch=epoch)
+
+    def train(self, epochs: int, save_freq: int = 1) -> None:
+        """Train and visualize each epoch, save every ``save_freq`` epochs,
+        and once more at the end unless the last epoch was just saved."""
+        saved_at = None
+        for _ in range(epochs):
+            self.run_epoch()
+            self.visualize()
+            if self.state.epoch % save_freq == 0:
+                self.save()
+                saved_at = self.state.epoch
+        if epochs > 0 and saved_at != self.state.epoch:
+            self.save()

@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives catgen_torch's two paths on the card, sampling (G32up-c generates,
+Drives catgen_torch's paths on the card, sampling (G32up-c generates,
 D32_st3 ranks, the best 16 are searched against a corpus) and training
 (G32up-c against D32_st3 through the training CLI), on the default route
 (G's upsample-convs on cuDNN, D's spatial transformers on the v4 sampler
 kernels), on G's kernel route (the hand-written upsample-conv kernels, as
 the ladder and per layer), on D's fused-prefix route (the ST-conv kernel)
-and on the grid-sampler route (the v1-v3 generations), and checks them
-phase by phase; any failure ends the run with a non-zero exit code and
-no result.
+and on the grid-sampler route (the v1-v3 generations), then the
+reference's workflow (the V trainer, the G pretrainer, the GAN run that
+picks up both), and checks them phase by phase; any failure ends the run
+with a non-zero exit code and no result.
 
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
@@ -91,6 +92,26 @@ no result.
      route and its bound; the grid kernels, their plain versions,
      grid_sample and the bound (each also in device time beside its
      library call's); the train step on the fused-prefix, v1 and default
+     routes, profiled;
+ 21. the grid forward kernel at the V warp generator's shape (C=3, 32x32
+     -> 32x32) against its plain version, bit for bit, at half batches of
+     16 and 320, on the generator's grids, which run past every edge;
+ 22. the V trainer through catgen_torch.cli.train_v.main: 2 epochs at the
+     reference's batch 32 with catgen's full overlay bank (its seconds
+     printed): the epochs, the grids, the V checkpoint, and one grid
+     forward launch per warp batch of the host's generator choices; one V
+     step at batch 8 on the card and on the CPU from the same weights,
+     fakes and draws, within phase 9's bounds;
+ 23. the G pretrainer through catgen_torch.cli.pretrain_g.main on the
+     default route and on the ladder route (3 block forwards, 3 dX and 3
+     dCK per step, 3 block forwards per reconstruction grid); one ladder
+     step card against CPU within phase 15's bounds;
+ 24. the workflow: the training CLI in the same --save picks up the V
+     checkpoint and the pretrained G and logs V's ratings; the sample CLI
+     reads its checkpoint;
+ 25. at the reference's batch 32 and bench.py's 640: a V batch's
+     generation (each generator, each overlay kind, the pixelwise scan's
+     host walk) and update, profiled; the pretrain step at 640 on both
      routes, profiled.
 
 Each phase off the default route sets the selectors through
@@ -2188,6 +2209,498 @@ def grid_times(card_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the V validator and the G pretrainer (phases 21-25)
+# ---------------------------------------------------------------------------
+
+V_HALVES = (16, 320)       # half V batches: the reference's 32, bench.py's 640
+V_ARGS = ["--fixture", "256", "--epochs", "2", "--batchSize", "32",
+          "--N_epoch", "640"]
+PRE_ARGS = ["--fixture", "256", "--epochs", "2", "--batchSize", "16",
+            "--N_epoch", "320"]
+WORKFLOW_ARGS = ["--fixture", "256", "--epochs", "1", "--batchSize", "64",
+                 "--N_epoch", "640", "--augment"]
+# a gradient that is zero in exact arithmetic (the bias of a layer that
+# feeds a BatchNorm) comes out of f32 sums at up to ~3e-6 of the step's
+# largest gradient, on either device: both sides within ZERO_FLOOR of it
+ZERO_FLOOR = 1e-5
+
+
+def bn_fed_biases(module, prefix: str = "") -> set:
+    """State-dict names of the biases of layers that feed a BatchNorm
+    directly, in any nested Sequential."""
+    import torch
+    from catgen_torch.nn.layers import BatchNorm
+
+    out = set()
+    children = list(module.named_children())
+    for (name, m), (_, nxt) in zip(children,
+                                   children[1:] + [(None, None)]):
+        if isinstance(nxt, BatchNorm) and isinstance(
+                getattr(m, "bias", None), torch.nn.Parameter):
+            out.add(f"{prefix}{name}.bias")
+        out |= bn_fed_biases(m, f"{prefix}{name}.")
+    return out
+
+
+def compare_steps(what: str, cpu: tuple, gpu: tuple, before: dict,
+                  penalties: tuple, zero: set, lr: float = 1e-3) -> dict:
+    """One step's (loss, raw gradients, state_dict after) on the CPU and on
+    the card, against phase 9's bounds: the loss within STEP_LOSS_RTOL;
+    each gradient leaf within GRAD_REL of its largest plus GRAD_FLOOR of
+    the step's largest, but the ``zero`` leaves, which must be rounding
+    noise on both sides (ZERO_FLOOR); the weights after the step within
+    PARAM_ATOL, except where the penalized gradient (``penalties`` = (l1,
+    l2, clamp) at the ``before`` weights) is within that gradient bound of
+    zero: Adam's first step moves a weight by about lr*sign(g), so there
+    rounding may move it the other way, by up to 2*lr."""
+    (lc, gc, pc), (lg, gg, pg) = cpu, gpu
+    a, b = float(lg), float(lc)
+    print(f"{what} loss: card {a:.7f} cpu {b:.7f} rel err "
+          f"{abs(a - b) / max(abs(b), 1e-30):.2e} (tolerance "
+          f"{STEP_LOSS_RTOL})")
+    require(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{what}: loss differs")
+    top = max(v.abs().max().item() for v in gc.values())
+    bounds, rel = {}, []
+    for k, want in gc.items():
+        if k in zero:
+            worst = max(want.abs().max().item(), gg[k].abs().max().item())
+            require(worst <= ZERO_FLOOR * top, f"{what}: {k} is not "
+                    f"rounding noise ({worst:.3e})")
+            bounds[k] = ZERO_FLOOR * top
+            continue
+        err = (gg[k] - want).abs().max().item()
+        bounds[k] = GRAD_REL * want.abs().max().item() + GRAD_FLOOR * top
+        require(err <= bounds[k], f"{what}: gradient {k}: {err:.3e} > "
+                                  f"{bounds[k]:.3e}")
+        rel.append((err / max(want.abs().max().item(), 1e-30), k))
+    rel.sort(reverse=True)
+    print(f"{what} gradients: worst per-leaf error over the leaf's largest "
+          + ", ".join(f"{k} {r:.2e}" for r, k in rel[:3])
+          + f" (tolerance {GRAD_REL}); {len(zero)} bias leaves in front of "
+            f"a BatchNorm are rounding noise on both sides")
+    l1, l2, clamp = penalties
+    worst = 0.0
+    moved = n = 0
+    for k, want in pc.items():
+        err = (pg[k] - want).abs()
+        n += err.numel()
+        worst = max(worst, err.max().item())
+        if k not in gc:                       # BatchNorm statistics
+            require(err.max().item() <= PARAM_ATOL, f"{what}: {k} differs")
+            continue
+        w = before[k]
+        g = gc[k] + l1 * w.sign() + l2 * w
+        if clamp:
+            g = g.clamp(-clamp, clamp)
+        clear = err[g.abs() > bounds[k]]
+        moved += int((err > PARAM_ATOL).sum())
+        require(clear.numel() == 0 or clear.max().item() <= PARAM_ATOL,
+                f"{what}: weights of {k} differ where the gradient's sign "
+                f"is clear")
+    require(worst <= 2 * lr + PARAM_ATOL, f"{what}: a weight moved by more "
+            f"than 2*lr")
+    print(f"{what} weights after the step: max abs err {worst:.3e}; {moved} "
+          f"of {n} beyond {PARAM_ATOL}, each where the penalized gradient's "
+          f"sign is rounding (Adam's first step, <= 2*lr)")
+    return {"loss_rel": abs(a - b) / max(abs(b), 1e-30),
+            "grad_rel": rel[0][0] if rel else 0.0, "param_abs": worst,
+            "flipped": moved}
+
+
+def warp_vs_plain() -> float:
+    """Phase 21: the grid forward kernel at the warp generator's shape (C=3,
+    32x32 -> 32x32) against its plain version, bit for bit, at half
+    batches of 16 and 320, on the grids the generator builds from a bank's
+    masks (flows up to 5 px, past every edge)."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import bilinear, bilinear_grid
+    from catgen_torch.nn import spatial_transformer as st
+    from catgen_torch.train import synthetic
+
+    bank = torch.from_numpy(synthetic.build_overlay_bank(
+        32, 32, n=64, n_points=2000, seed=3)).cuda()
+    seen, real = [], st.bilinear_sample
+
+    def spy(img, coords):
+        seen.append((img, coords))
+        return real(img, coords)
+
+    worst = 0.0
+    st.bilinear_sample = spy
+    try:
+        for n in V_HALVES:
+            draws = Draws(torch.Generator("cuda").manual_seed(n))
+            imgs = torch.rand((n, 32, 32, 3), device="cuda",
+                              generator=draws.generator)
+            seen.clear()
+            for _ in range(4):
+                synthetic.synthetic_warp(draws, imgs, bank)
+            crd = torch.cat([c for _, c in seen])
+            past = [bool((crd[..., i] < -1).any()) and
+                    bool((crd[..., i] > 1).any()) for i in (0, 1)]
+            require(all(past), f"warp grids of half batch {n} stay inside "
+                    f"the image: {past}")
+            for img, coords in seen:
+                got = bilinear_grid.launch(img, coords)
+                want = bilinear_grid.bilinear_sample_grid_plain(img, coords)
+                worst = max(worst, (got - want).abs().max().item())
+                require(torch.equal(got, want), f"the grid forward kernel "
+                        f"at the warp shape, half batch {n}, is not the "
+                        f"plain version's bits")
+            print(f"warp grids, half batch {n}: 4 warps, y in "
+                  f"[{crd[..., 0].min().item():.3f}, "
+                  f"{crd[..., 0].max().item():.3f}], x in "
+                  f"[{crd[..., 1].min().item():.3f}, "
+                  f"{crd[..., 1].max().item():.3f}]; kernel "
+                  f"{bilinear.forward_kind(32, 32, 3)} equals the plain "
+                  f"version bit for bit")
+    finally:
+        st.bilinear_sample = real
+    return worst
+
+
+def v_cli_on_card(save: str):
+    """Phase 22: cli.train_v.main on the card, 2 epochs at the reference's
+    batch 32: the epochs, the grids, the V checkpoint, and one grid
+    forward launch for every warp batch the host's choices gave (the
+    epochs' primary and recursive-mix warps, the visualizations')."""
+    from catgen_torch.cli import train_v as train_v_cli
+    from catgen_torch.io import checkpoint
+    from catgen_torch.kernels import bilinear_grid
+    from catgen_torch.train import synthetic, v_trainer
+
+    reset_counts()
+    t0 = time.perf_counter()
+    harness = train_v_cli.main(V_ARGS + ["--device", "cuda", "--save",
+                                         save])
+    wall = time.perf_counter() - t0
+    print(f"overlay bank: 1000 masks x 10000 walk steps (catgen's), built on "
+          f"the host in {harness.bank_seconds:.2f} s; the CLI took "
+          f"{wall:.2f} s in all")
+    epoch_warps = sum(v_trainer.warp_batches(*c) for c in harness.choices)
+    viz_warps = harness.factory.branches.count(synthetic.WARP)
+    got = bilinear_grid.launches()
+    want = {**dict.fromkeys(bilinear_grid.COUNTERS, 0),
+            "LAUNCHES": epoch_warps + viz_warps}
+    print(f"grid sampler launches {got}; expected {want['LAUNCHES']}: "
+          f"{epoch_warps} warp batches in {harness.state.step} steps (host "
+          f"choices) + {viz_warps} in the visualizations")
+    require(got == want, "the V path's grid forward launches")
+    require(sampler_counts()["fwd"] == 0 and not any(
+        upsample_counts().values()), "kernels of other paths launched")
+    with open(os.path.join(save, "train_v_metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    for e in epochs:
+        print(f"V epoch {e['epoch']}: loss {e['loss']:.5f} acc "
+              f"{e['acc']:.4f} {e['sec']} s (CLI clock)")
+    require(len(epochs) == 2 and all(math.isfinite(e["loss"])
+                                     for e in epochs), "V epochs")
+    for viz in (e for e in events if e["event"] == "viz"):
+        require(viz["judged_real"] + viz["judged_fake"] == 100, "V viz")
+        grids = [os.path.join(save, d, f"epoch_{viz['epoch']:06d}.png")
+                 for d in ("v_judged_real", "v_judged_fake")]
+        require(any(os.path.exists(p) for p in grids), "V grids")
+    path = os.path.join(save, checkpoint.v_filename(3, 32, 32))
+    require(checkpoint.load_meta(path)["epoch"] == 3, "V checkpoint")
+    return harness, got
+
+
+def v_step_card_vs_cpu(bank) -> dict:
+    """One V32 step at batch 8 on the CPU and on the card, from the same
+    weights, reals, warp-generated fakes and dropout masks."""
+    import copy
+
+    import torch
+    from catgen_torch import models, optim
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.core.random import Draws
+    from catgen_torch.train import synthetic, v_trainer
+
+    v = models.create_V32((32, 32, 3))
+    reset_parameters(v, torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    reals = torch.rand((4, 32, 32, 3), generator=gen)
+    fakes = synthetic.synthetic_warp(Draws(gen), torch.rand(
+        (4, 32, 32, 3), generator=gen), bank.cpu())
+    config = v_trainer.VConfig(batch_size=8)
+    out, real_cap = {}, optim.clamp_and_penalize
+    for dev in ("cpu", "cuda"):
+        vd = copy.deepcopy(v).to(dev)
+        state = v_trainer.init_state(vd, config)
+        grads = []
+
+        def spy(gr, *a, **k):
+            grads.append({n: t.detach().cpu() for n, t in gr.items()})
+            return real_cap(gr, *a, **k)
+
+        draws = (RecordingDraws(Draws(torch.Generator().manual_seed(9)))
+                 if dev == "cpu" else ReplayedDraws(recorded.taken, dev))
+        optim.clamp_and_penalize = spy
+        try:
+            m = v_trainer.make_train_step(vd, config)(
+                state, reals.to(dev), fakes.to(dev), draws)
+        finally:
+            optim.clamp_and_penalize = real_cap
+        if dev == "cpu":
+            recorded = draws
+        out[dev] = (m, grads[0], {k: t.cpu() for k, t in
+                                  vd.state_dict().items()})
+    for name in ("tp_real", "tn_fake", "fp", "fn"):
+        require(int(getattr(out["cuda"][0], name))
+                == int(getattr(out["cpu"][0], name)), f"V step {name}")
+    return compare_steps(
+        "V step (V32, batch 8)",
+        (out["cpu"][0].loss, out["cpu"][1], out["cpu"][2]),
+        (out["cuda"][0].loss, out["cuda"][1], out["cuda"][2]),
+        {k: p.detach() for k, p in v.named_parameters()},
+        (config.v_l1, config.v_l2, config.v_clamp), bn_fed_biases(v))
+
+
+def expected_pretrain(route, steps: int, vizzes: int) -> dict:
+    """Upsample-conv launches of ``steps`` autoencoder steps and
+    ``vizzes`` reconstructions (16 images, eval): a step runs the decoder
+    forward and backward once, a reconstruction forward once."""
+    from catgen_torch.kernels import fused_upsample_conv
+
+    want = dict.fromkeys(fused_upsample_conv.COUNTERS, 0)
+    if route is not None:
+        want["BLOCK_LAUNCHES"] = 3 * (steps + vizzes)
+        want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = 3 * steps
+    return want
+
+
+def pretrain_cli_on_card(save: str, route=None) -> dict:
+    """Phase 23: cli.pretrain_g.main on the card on the default route or
+    on ``route`` (the ladder): the epochs, the reconstructions, the
+    decoder checkpoint, the upsample-conv launches."""
+    from catgen_torch.cli import pretrain_g as pretrain_cli
+    from catgen_torch.io import checkpoint
+    from catgen_torch.kernels import config as upconfig
+
+    reset_counts()
+    with upconfig.using(**(route or {})):
+        harness = pretrain_cli.main(PRE_ARGS + ["--device", "cuda",
+                                                "--save", save])
+    up, steps = upsample_counts(), harness.state.step
+    want = expected_pretrain(route, steps, 2)
+    name = "ladder" if route else "default"
+    print(f"pretrain CLI ({name} route): {steps} steps; upsample-conv "
+          f"launches {up}, expected {want}")
+    require(up == want, "the pretrain path's upsample-conv launches")
+    with open(os.path.join(save, "pretrain_metrics.jsonl")) as f:
+        epochs = [e for e in map(json.loads, f) if e["event"] == "epoch"]
+    for e in epochs:
+        print(f"pretrain epoch {e['epoch']}: mse {e['mse']:.6f} {e['sec']} s "
+              f"(CLI clock)")
+    require(len(epochs) == 2 and all(math.isfinite(e["mse"])
+                                     for e in epochs), "pretrain epochs")
+    require(os.path.getsize(os.path.join(save, "reconstructions",
+                                         "epoch_000002.png")) > 0,
+            "reconstructions grid")
+    path = os.path.join(save, checkpoint.g_pretrained_filename(3, 32, 32,
+                                                               100))
+    require(checkpoint.load_meta(path)["epoch"] == 3, "pretrained G file")
+    return up
+
+
+def ladder_pretrain_card_vs_cpu() -> dict:
+    """One autoencoder step at batch 4 on the ladder route, CPU (the
+    kernels' plain versions) against the card (the kernels: 3 block
+    forwards, 3 dX, 3 dCK)."""
+    import copy
+
+    import torch
+    from catgen_torch import models, optim
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import pretrainer
+
+    ae = models.create_G_autoencoder((32, 32, 3), 100)
+    reset_parameters(ae, torch.Generator().manual_seed(10))
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(11))
+    config = pretrainer.PretrainConfig(batch_size=4)
+    out, real_cap = {}, optim.clamp_and_penalize
+    for dev in ("cpu", "cuda"):
+        aed = copy.deepcopy(ae).to(dev)
+        state = pretrainer.init_state(aed, config)
+        grads = []
+
+        def spy(gr, *a, **k):
+            grads.append({n: t.detach().cpu() for n, t in gr.items()})
+            return real_cap(gr, *a, **k)
+
+        optim.clamp_and_penalize = spy
+        reset_counts()
+        try:
+            with upconfig.using(**LADDER):
+                loss = pretrainer.make_train_step(aed, config)(state,
+                                                               x.to(dev))
+        finally:
+            optim.clamp_and_penalize = real_cap
+        if dev == "cuda":
+            up = upsample_counts()
+            require(up == expected_pretrain(LADDER, 1, 0),
+                    f"the ladder step's launches {up}")
+        out[dev] = (loss, grads[0], {k: t.cpu() for k, t in
+                                     aed.state_dict().items()})
+    return compare_steps(
+        "pretrain step (ladder route, batch 4)", out["cpu"], out["cuda"],
+        {k: p.detach() for k, p in ae.named_parameters()},
+        (config.g_l1, config.g_l2, config.g_clamp), bn_fed_biases(ae))
+
+
+def workflow_on_card(save: str) -> dict:
+    """Phase 24: cli.train in the --save of phases 22-23 picks up the V
+    checkpoint and the pretrained G, logs V's ratings; then cli.sample
+    reads its checkpoint."""
+    from catgen_torch.cli import sample as sample_cli
+    from catgen_torch.cli import train as train_cli
+
+    reset_counts()
+    harness = train_cli.main(WORKFLOW_ARGS + ["--device", "cuda", "--save",
+                                              save])
+    counts = sampler_counts()
+    want = expected_sampler(None, harness.state.step, 2)
+    require(counts == want, f"the GAN run's D kernel launches {counts}")
+    with open(os.path.join(save, "train_metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    names = [e["event"] for e in events]
+    require(names[:3] == ["pretrained_g_loaded", "v_loaded", "setup"],
+            f"the GAN run did not pick up both files: {names[:3]}")
+    viz = [e for e in events if e["event"] == "viz"][0]
+    ratings = {k: viz[k] for k in ("v_rating_all", "v_rating_good",
+                                   "v_rating_bad")}
+    require(all(0.0 <= r <= 1.0 for r in ratings.values()), "V ratings")
+    print(f"GAN run in the same --save: {names[:2]}; {ratings}; "
+          f"{harness.state.step} steps, D's launches {counts}")
+    runs = sample_cli.main(["--save", save, "--count", "256", "--device",
+                            "cuda", "--neighbours"])
+    check_finite(runs[0])
+    print("sample CLI read its checkpoint on the card: 256 images")
+    return ratings
+
+
+def v_times(card_name: str, bank) -> dict:
+    """Phase 25, V: at the reference's batch 32 and bench.py's 640, each
+    generator, the two overlay kinds (and the pixelwise scan's host walk),
+    and the V update; a V batch averaged over the branch mix (1/4 each,
+    then the recursive mix with p=0.33); one profiled V batch of each
+    generator."""
+    import torch
+    from catgen_torch import models
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.core.random import Draws
+    from catgen_torch.train import synthetic, v_trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda")
+    draws = Draws(torch.Generator(device).manual_seed(12))
+    generate = synthetic.make_batch_generator(bank, (32, 32, 3))
+    names = ("mix", "warp", "stamp", "random")
+    out = {"overlay_gaussian": wall_ms(lambda: synthetic.gaussian_overlays(
+        draws, bank, 1, 4), reps=20)[0],
+        "overlay_pixelwise": wall_ms(lambda: synthetic.pixelwise_overlays(
+            draws, 1, 32, 32), reps=20)[0],
+        "pixelwise_walk": wall_ms(lambda: synthetic._threshold_walk(
+            torch.rand(1, device=device), torch.rand(1, device=device),
+            torch.rand((1024, 1), device=device) < 0.5), reps=20)[0]}
+    overlay = (out["overlay_gaussian"] + out["overlay_pixelwise"]) / 2
+    print(f"overlays: gaussian {out['overlay_gaussian']:.3f} ms, pixelwise "
+          f"{out['overlay_pixelwise']:.3f} ms, of which the host walk "
+          f"{out['pixelwise_walk']:.3f} ms; {card_name}")
+    for batch in (32, TRAIN_B):
+        half = batch // 2
+        gen_reals = torch.rand((4, half, 32, 32, 3), device=device)
+        reals = torch.rand((half, 32, 32, 3), device=device)
+        t = {name: wall_ms(lambda: generate(draws, b, 0, False, gen_reals),
+                           reps=20)[0] for b, name in enumerate(names)}
+        mix = statistics.mean(t.values())
+        t["generation"] = mix + 0.33 * (mix + overlay)
+        v = models.create_V32((32, 32, 3))
+        reset_parameters(v, torch.Generator().manual_seed(13))
+        config = v_trainer.VConfig(batch_size=batch)
+        state = v_trainer.init_state(v.to(device), config)
+        step = v_trainer.make_train_step(state.v, config)
+        fakes = generate(draws, 1, 0, False, gen_reals)
+        t["update"] = wall_ms(lambda: step(state, reals, fakes, draws),
+                              reps=12)[0]
+        t["batch"] = t["generation"] + t["update"]
+        print(f"V batch of {batch}: generation {t['generation']:.3f} ms "
+              f"(mix {t['mix']:.3f}, warp {t['warp']:.3f}, stamp "
+              f"{t['stamp']:.3f}, random {t['random']:.3f}), update "
+              f"{t['update']:.3f} ms; {batch / t['batch'] * 1e3:.1f} "
+              f"images/s; medians of host-clock timings ending in a "
+              f"synchronize; {card_name}")
+        idle = {}
+        for b, name in enumerate(names):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                f = generate(draws, b, 0, False, gen_reals)
+                step(state, reals, f, draws)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels)
+            idle[name] = 1 - busy / 1e6 / wall if busy else None
+            print(f"profiled V batch of {batch} ({name}): wall "
+                  f"{wall * 1e3:.3f} ms, device {busy / 1e3:.3f} ms, idle "
+                  f"share {idle[name] if idle[name] is None else round(idle[name], 3)}")
+            if name == "warp":
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)[:5]:
+                    print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                          f"x{e.count:<4d} {e.key[:90]}")
+        t["idle_share"] = idle
+        out[f"batch_{batch}"] = t
+    return out
+
+
+def pretrain_times(card_name: str, route=None) -> dict:
+    """Phase 25, pretrain: the autoencoder step at batch 640 on the default
+    route or on ``route``, and one profiled step."""
+    import torch
+    from catgen_torch import models
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import pretrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device("cuda")
+    ae = models.create_G_autoencoder((32, 32, 3), 100)
+    reset_parameters(ae, torch.Generator().manual_seed(14))
+    config = pretrainer.PretrainConfig(batch_size=TRAIN_B)
+    state = pretrainer.init_state(ae.to(device), config)
+    step = pretrainer.make_train_step(state.ae, config)
+    x = torch.rand((TRAIN_B, 32, 32, 3), device=device)
+    name = "ladder" if route else "default"
+    with upconfig.using(**(route or {})):
+        med, lo, hi = wall_ms(lambda: step(state, x), reps=12)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    idle = 1 - busy / 1e6 / wall if busy else None
+    print(f"pretrain step ({name} route), batch {TRAIN_B}: median "
+          f"{med:.3f} ms of 12 (min {lo:.3f}, max {hi:.3f}) = "
+          f"{TRAIN_B / med * 1e3:.1f} images/s; profiled: wall "
+          f"{wall * 1e3:.3f} ms, device {busy / 1e3:.3f} ms, idle share "
+          f"{idle if idle is None else round(idle, 3)}; {card_name}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    return {"step_ms": med, "idle_share": idle}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -2290,6 +2803,40 @@ def main(argv=None) -> int:
           f"{rd['grid-v1']['step_ms']:.3f} ms (same run, in that order); "
           f"{card_name}")
 
+    phase(21, "the grid forward kernel at the V warp generator's shape")
+    warp_err = warp_vs_plain()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_workflow_") as save:
+        phase(22, "the V trainer through cli.train_v, batch 32, 2 epochs")
+        t0 = time.perf_counter()
+        v_harness, v_counts = v_cli_on_card(save)
+        v_step = v_step_card_vs_cpu(v_harness.bank)
+        print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+        phase(23, "the G pretrainer through cli.pretrain_g, default and "
+                  "ladder routes")
+        t0 = time.perf_counter()
+        pretrain_cli_on_card(save)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as other:
+            pre_ladder = pretrain_cli_on_card(other, LADDER)
+        pre_step = ladder_pretrain_card_vs_cpu()
+        print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+        phase(24, "the workflow: cli.train picks up V and the pretrained "
+                  "G, cli.sample reads its checkpoint")
+        t0 = time.perf_counter()
+        ratings = workflow_on_card(save)
+        print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+        phase(25, f"V and pretrain times on the card, batch {TRAIN_B}")
+        t0 = time.perf_counter()
+        vt = v_times(card_name, v_harness.bank)
+        pt = {name: pretrain_times(card_name, route)
+              for name, route in (("default", None), ("ladder", LADDER))}
+        print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"v_and_pretrain": {
+        "bank_seconds": v_harness.bank_seconds, "warp_max_abs_err": warp_err,
+        "v_step_card_vs_cpu": v_step, "pretrain_ladder_card_vs_cpu":
+        pre_step, "v_ratings": ratings, "v_times_ms": vt,
+        "pretrain_times_ms": pt, "card": card_name}}))
+    del v_harness
+
     from catgen_torch.kernels import bilinear
 
     def by_shape(values, shapes=TRAIN_SHAPES):
@@ -2359,7 +2906,8 @@ def main(argv=None) -> int:
                 "sample_ladder": ladder_sample[counter],
                 "train_ladder": ladder_train[counter],
                 "step_per_layer_pallas": per_layer["pallas"][counter],
-                "step_per_layer_hybrid": per_layer["hybrid"][counter]},
+                "step_per_layer_hybrid": per_layer["hybrid"][counter],
+                "pretrain_ladder": pre_ladder[counter]},
             "max_abs_err": up_err[key],
             "max_rel_err": up_err[f"{key}_rel"],
             **({"max_rel_err_vs_float64": exact[key]}
@@ -2431,7 +2979,8 @@ def main(argv=None) -> int:
                 "sample_v1": grid_sample[counter],
                 "train_v1": grid_train[counter],
                 "step_v2": gen_steps["v2"][counter],
-                "step_v3": gen_steps["v3"][counter]},
+                "step_v3": gen_steps["v3"][counter],
+                "train_v": v_counts[counter]},
             "max_abs_err": grid_err[key],
             "ms": sum(gt[key]), "plain_ms": sum(gt[f"{key}_plain"]),
             "bound_ms": sum(b for b, _ in bounds), "bound_by": "bytes",
@@ -2443,6 +2992,8 @@ def main(argv=None) -> int:
             "library_ms_by_shape": by_shape(gt[f"{key}_library"]),
             "bound_ms_by_shape": by_shape([b for b, _ in bounds]),
         })
+        if key == "fwd":   # phase 21: the V warp generator's grids
+            kernels[-1]["warp_shape_max_abs_err"] = warp_err
         kernels[-1]["device_ms_by_shape"] = by_shape(
             [k for k, _ in gt[f"{key}_device"]])
         kernels[-1]["library_device_ms_by_shape"] = by_shape(

@@ -1,7 +1,10 @@
 """The port's training CLI (catgen_torch/cli/train.py) on the CPU at a tiny
 size: it writes the metrics, the grids and a catgen-format checkpoint that
 catgen loads and the port's sample CLI reads; it resumes from its own
-checkpoint; and it refuses every flag whose machinery is not ported."""
+checkpoint; and it refuses every flag whose machinery is not ported. Then
+the reference's workflow in one --save: cli.train_v, cli.pretrain_g, and
+cli.train picking up both files (the overlay bank at catgen's test size,
+tests/test_v_subsystem.py, in place of the full 1000 x 10000 walk)."""
 
 import json
 import os
@@ -9,13 +12,18 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from catgen import models as cmodels
 from catgen.io import checkpoint as cckpt
 from catgen.train import gan as cgan
+from catgen_torch.cli import pretrain_g as pretrain_cli
 from catgen_torch.cli import sample as sample_cli
 from catgen_torch.cli import train as train_cli
+from catgen_torch.cli import train_v as train_v_cli
 from catgen_torch.io import checkpoint as tckpt
+from catgen_torch.train import harness as tharness
+from catgen_torch.train import pretrainer as tpre
 from torch_port_helpers import IMG
 
 ARGS = ["--device", "cpu", "--fixture", "16", "--batchSize", "4",
@@ -30,8 +38,8 @@ def trained(tmp_path_factory):
     return save, harness
 
 
-def _events(save):
-    with open(os.path.join(save, "train_metrics.jsonl")) as f:
+def _events(save, name="train_metrics.jsonl"):
+    with open(os.path.join(save, name)) as f:
         return [json.loads(line) for line in f]
 
 
@@ -91,15 +99,80 @@ def test_resume_continues_from_the_checkpoint(trained, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"], ["--dtype", "bf16"], ["--collapseDetect"],
-    ["--weightsVisFreq", "1"], ["--profile", "trace"], ["v_ckpt"],
-    ["g_pretrained"]])
+    ["--weightsVisFreq", "1"], ["--profile", "trace"]])
 def test_unported_flags_raise(tmp_path, flags):
-    if flags == ["v_ckpt"]:
-        open(tmp_path / "v_3x32x32.ckpt", "wb").close()
-        flags = []
-    elif flags == ["g_pretrained"]:
-        open(tmp_path / "g_pretrained_3x32x32_nd100.ckpt", "wb").close()
-        flags = []
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         train_cli.main(ARGS + ["--epochs", "1", "--save", str(tmp_path)]
                        + flags)
+
+
+@pytest.fixture(scope="module")
+def workflow(tmp_path_factory):
+    """cli.train_v, cli.pretrain_g, then cli.train in one --save."""
+    save = str(tmp_path_factory.mktemp("workflow"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tharness, "OVERLAY_BANK", dict(n=8, n_points=500))
+        v = train_v_cli.main(ARGS + ["--epochs", "2", "--saveFreq", "1",
+                                     "--save", save])
+    pre = pretrain_cli.main(ARGS + ["--epochs", "2", "--saveFreq", "3",
+                                    "--save", save])
+    gan = train_cli.main(ARGS + ["--epochs", "1", "--save", save])
+    return save, v, pre, gan
+
+
+def test_train_v_cli_writes_its_epochs_grids_and_checkpoint(workflow):
+    save, v, _, _ = workflow
+    events = _events(save, "train_v_metrics.jsonl")
+    assert [e["epoch"] for e in events if e["event"] == "epoch"] == [1, 2]
+    viz = [e for e in events if e["event"] == "viz"]
+    assert [e["judged_real"] + e["judged_fake"] for e in viz] == [100, 100]
+    assert any(os.path.exists(os.path.join(save, d, "epoch_000002.png"))
+               for d in ("v_judged_real", "v_judged_fake"))
+    assert tckpt.load_meta(os.path.join(save, "v_3x32x32.ckpt"))[
+        "epoch"] == 3
+    assert v.state.step == 4 and len(v.choices) == 2
+
+
+def test_pretrain_g_cli_saves_the_decoder_at_the_end(workflow):
+    save, _, pre, _ = workflow
+    events = _events(save, "pretrain_metrics.jsonl")
+    assert [e["epoch"] for e in events if e["event"] == "epoch"] == [1, 2]
+    assert os.path.getsize(os.path.join(save, "reconstructions",
+                                        "epoch_000002.png"))
+    # save_freq 3 never fires in 2 epochs: the final save writes epoch 3
+    path = os.path.join(save, "g_pretrained_3x32x32_nd100.ckpt")
+    assert tckpt.load_meta(path)["epoch"] == 3
+    assert not os.path.exists(path + ".old")
+    assert pre.state.step == 4
+
+
+def test_train_cli_picks_up_v_and_the_pretrained_g(workflow):
+    save, v, pre, gan = workflow
+    events = _events(save)
+    names = [e["event"] for e in events]
+    assert names[:3] == ["pretrained_g_loaded", "v_loaded", "setup"]
+    viz = [e for e in events if e["event"] == "viz"][0]
+    for k in ("v_rating_all", "v_rating_good", "v_rating_bad"):
+        assert 0.0 <= viz[k] <= 1.0
+    assert gan.plot_data == [[1, viz["v_rating_all"], viz["v_rating_good"],
+                              viz["v_rating_bad"]]]
+    meta = tckpt.load_meta(os.path.join(save, "adversarial.ckpt"))
+    assert meta["plot_data"] == gan.plot_data
+    for k, t in v.state.v.state_dict().items():
+        assert torch.equal(gan.v.state_dict()[k], t), k
+
+
+def test_train_cli_starts_g_from_the_pretrained_decoder(workflow, tmp_path):
+    save, _, pre, _ = workflow
+    import shutil
+    for name in ("g_pretrained_3x32x32_nd100.ckpt", "fixture"):
+        src = os.path.join(save, name)
+        (shutil.copytree if os.path.isdir(src) else shutil.copy)(
+            src, os.path.join(str(tmp_path), name))
+    gan = train_cli.main(ARGS + ["--epochs", "0", "--save", str(tmp_path)])
+    want = tpre.extract_decoder(pre.state.ae).state_dict()
+    for k, t in gan.state.g.state_dict().items():
+        assert torch.equal(t, want[k]), k
+    assert gan.v is None
+    assert [e["event"] for e in _events(str(tmp_path))][:3] == [
+        "pretrained_g_loaded", "v_missing", "setup"]

@@ -10,8 +10,11 @@ import torch
 import torch_port_helpers  # noqa: F401  (torch's threads per xdist worker)
 
 from catgen_torch.cli import common
+from catgen_torch.cli import pretrain_g as pretrain_cli
 from catgen_torch.cli import sample as sample_cli
 from catgen_torch.cli import train as train_cli
+from catgen_torch.cli import train_v as train_v_cli
+from catgen_torch.train import harness
 
 ARGS = ["--device", "cpu", "--fixture", "16", "--batchSize", "4",
         "--N_epoch", "8"]
@@ -56,10 +59,19 @@ def trained(tmp_path_factory):
     return save
 
 
-@pytest.mark.parametrize("cli", ["train", "sample"])
-def test_cli_runs_in_the_mode(trained, opposite_mode, tmp_path, cli):
+@pytest.mark.parametrize("cli", ["train", "sample", "train_v",
+                                 "pretrain_g"])
+def test_cli_runs_in_the_mode(trained, opposite_mode, tmp_path, cli,
+                              monkeypatch):
+    # the V CLI on catgen's test-size overlay bank (tests/test_v_subsystem)
+    monkeypatch.setattr(harness, "OVERLAY_BANK", dict(n=8, n_points=500))
+    flags = ARGS + ["--epochs", "1", "--save", str(tmp_path)]
     if cli == "train":
-        train_cli.main(ARGS + ["--epochs", "1", "--save", str(tmp_path)])
+        train_cli.main(flags)
+    elif cli == "train_v":
+        train_v_cli.main(flags)
+    elif cli == "pretrain_g":
+        pretrain_cli.main(flags)
     else:
         sample_cli.main(["--save", trained, "--count", "16", "--device",
                          "cpu", "--out", str(tmp_path)])

@@ -103,15 +103,29 @@ def port_pair(gv, dv):
 # training parity: JAX's draws handed to the port, gradients captured
 # ---------------------------------------------------------------------------
 
-_DRAW_KINDS = ("uniform", "bernoulli", "normal")
+_DRAW_KINDS = ("uniform", "bernoulli", "normal", "randint")
+
+
+def _python_scan(f, init, xs):
+    """``lax.scan`` as a Python loop over the leading axis (no ``length``,
+    ``reverse`` or ``unroll``): the same sequential semantics."""
+    n = jax.tree_util.tree_leaves(xs)[0].shape[0]
+    carry, ys = init, []
+    for i in range(n):
+        carry, y = f(carry, jax.tree_util.tree_map(lambda x: x[i], xs))
+        ys.append(y)
+    return carry, jax.tree_util.tree_map(lambda *a: jax.numpy.stack(a), *ys)
 
 
 @contextlib.contextmanager
 def record_jax_draws():
     """Runs the body eagerly (``jax.disable_jit``) and records, in order,
-    every ``jax.random.uniform`` / ``bernoulli`` / ``normal`` result as
-    (kind, numpy array): the noise, augmentation draws and dropout masks
-    catgen takes, in the order it takes them."""
+    every ``jax.random.uniform`` / ``bernoulli`` / ``normal`` / ``randint``
+    result as (kind, numpy array): the noise, augmentation draws, dropout
+    masks and the synthetic generators' integers catgen takes, in the
+    order it takes them. ``lax.scan`` runs as a Python loop meanwhile:
+    eager ``lax.scan`` took minutes on its first call over the V
+    generators' 1024-step pixelwise scan."""
     records = []
     real = {k: getattr(jax.random, k) for k in _DRAW_KINDS}
 
@@ -123,6 +137,7 @@ def record_jax_draws():
         return draw
 
     with mock.patch.multiple(jax.random, **{k: wrap(k) for k in real}), \
+            mock.patch.object(jax.lax, "scan", _python_scan), \
             jax.disable_jit():
         yield records
 
@@ -152,6 +167,9 @@ class ReplayDraws:
     def normal(self, shape):
         return self._next("normal", shape)
 
+    def randint(self, low, high, shape):
+        return self._next("randint", shape).long()
+
 
 @contextlib.contextmanager
 def capture_grads(module, into: list, to_port=None):
@@ -177,16 +195,70 @@ def port_grads_to_numpy(grads):
     return {k: v.detach().cpu().numpy() for k, v in grads.items()}
 
 
-def assert_grads_close(port, catgen, rel=1e-4, floor=1e-6):
+def assert_grads_close(port, catgen, rel=1e-4, floor=1e-6, zero=()):
     """Per leaf: max abs difference within ``rel`` of the leaf's max |g|,
     plus ``floor`` x the largest |g| of the update, for leaves whose
-    gradient is zero up to rounding (a bias in front of a BatchNorm)."""
+    gradient is zero up to rounding (a bias in front of a BatchNorm).
+    Leaves in ``zero`` (``bn_fed_biases``: exactly zero in exact
+    arithmetic) must be rounding noise on both sides, within
+    ``ZERO_FLOOR`` x the largest |g|."""
     assert set(port) == set(catgen)
     top = max(np.abs(v).max() for v in catgen.values())
     for k, want in catgen.items():
+        if k in zero:
+            for side, g in (("port", port[k]), ("catgen", want)):
+                assert np.abs(g).max() <= ZERO_FLOOR * top, (k, side)
+            continue
         bound = rel * np.abs(want).max() + floor * top
         err = np.abs(port[k] - want).max()
         assert err <= bound, f"{k}: {err} > {bound}"
+
+
+# a gradient that is zero in exact arithmetic, summed over a few thousand
+# products in f32, comes out at up to ~3e-6 of the update's largest
+ZERO_FLOOR = 1e-5
+
+
+def bn_fed_biases(module, prefix=""):
+    """State-dict names of the biases of layers that feed a BatchNorm
+    directly (in any nested Sequential): their gradient is exactly zero,
+    since the BatchNorm takes out the mean."""
+    from catgen_torch.nn.layers import BatchNorm
+    out = set()
+    children = list(module.named_children())
+    for (name, m), nxt in zip(children, children[1:] + [(None, None)]):
+        if isinstance(nxt[1], BatchNorm) and isinstance(
+                getattr(m, "bias", None), torch.nn.Parameter):
+            out.add(f"{prefix}{name}.bias")
+        out |= bn_fed_biases(m, f"{prefix}{name}.")
+    return out
+
+
+def assert_adam_step_close(got, want, raw_grads, before, penalties,
+                           zero=(), lr=1e-3, atol=2e-5, rel=1e-4,
+                           floor=1e-6):
+    """Parameters after one Adam step from zero moments within ``atol``,
+    except where catgen's penalized gradient (``raw_grads`` through
+    ``penalties`` = (l1, l2, clamp) at the ``before`` weights) is within
+    the gradient tolerance of zero: Adam's first step moves a weight by
+    about lr*sign(g), so there a rounding difference may move it the other
+    way, by up to 2*lr. All arguments are {port name: numpy array}."""
+    l1, l2, clamp = penalties
+    top = max(np.abs(v).max() for v in raw_grads.values())
+    assert set(got) == set(want)
+    for k in want:
+        err = np.abs(got[k] - want[k])
+        if k not in raw_grads:                     # BatchNorm statistics
+            assert err.max() <= atol, k
+            continue
+        g = raw_grads[k] + l1 * np.sign(before[k]) + l2 * before[k]
+        if clamp:
+            g = np.clip(g, -clamp, clamp)
+        bound = (ZERO_FLOOR * top if k in zero
+                 else rel * np.abs(raw_grads[k]).max() + floor * top)
+        ambiguous = np.abs(g) <= bound
+        assert err[~ambiguous].max(initial=0.0) <= atol, k
+        assert err.max() <= 2 * lr + atol, k
 
 
 # ---------------------------------------------------------------------------
