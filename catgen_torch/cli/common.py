@@ -58,19 +58,22 @@ def add_device_arg(p: argparse.ArgumentParser):
 def resolve_device(name: str) -> torch.device:
     """The requested device; raises if it is CUDA and no card is present.
 
-    Also sets the numeric mode of catgen's ``--dtype f32``, which the
-    port's parity tests assume: full f32 for cuDNN's convolutions and for
-    matmuls (no TF32), and cuDNN's deterministic algorithms with no
-    autotuning, so that a same-seed run repeats its bits as catgen's
-    compiled step does. The port's own kernels ignore these flags: the
-    3xTF32 upsample-conv kernels are f32-accurate by construction, and
-    every kernel of ``catgen_torch/csrc`` sums in a fixed order."""
+    Also sets catgen's numeric mode, which the port's parity tests
+    assume: full f32 for cuDNN's convolutions and for matmuls (no TF32);
+    bf16 matmuls that sum in f32, as XLA's bf16 dots do (cuBLAS may
+    otherwise reduce bf16 products in reduced precision); and cuDNN's
+    deterministic algorithms with no autotuning, so that a same-seed run
+    repeats its bits as catgen's compiled step does. The port's own
+    kernels ignore these flags: the 3xTF32 upsample-conv kernels are
+    f32-accurate by construction, and every kernel of
+    ``catgen_torch/csrc`` sums in a fixed order."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     return device

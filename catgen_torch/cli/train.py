@@ -16,6 +16,8 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+import torch
+
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
                                      build_dataset, refuse_multi_host,
                                      resolve_device)
@@ -61,11 +63,14 @@ def parse_args(argv=None):
                    help="comma list of top-level G children to freeze "
                         "(grads zeroed, params and BN state pinned)")
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
-                   help="compute dtype (only f32 is ported)")
-    p.add_argument("--bce", default="logits",
+                   help="activation compute dtype (bf16: the sampler "
+                        "kernels' bf16 instantiations on the default "
+                        "route; the kernel routes refuse it)")
+    p.add_argument("--bce", default=None,
                    choices=list(gan.BCE_CHOICES),
-                   help="GAN criterion: logit-space BCE (default) or the "
-                        "probability-space 'torch' / 'clip' alternates")
+                   help="GAN criterion (default: CATGEN_BCE or 'logits', "
+                        "the logit-space BCE; 'torch' / 'clip' are the "
+                        "probability-space alternates)")
     p.add_argument("--weightsVisFreq", type=int, default=0,
                    help="D activation grids every N epochs (not ported)")
     p.add_argument("--visFreq", type=int, default=1,
@@ -84,8 +89,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """The flags the harness does not see (it refuses the others)."""
     refuse_multi_host(args)
-    if args.dtype != "f32":
-        raise not_ported("bf16 compute (--dtype bf16)", "1 (the bf16 path)")
     if args.profile:
         raise not_ported("--profile", "4")
 
@@ -117,7 +120,9 @@ def main(argv: Optional[List[str]] = None) -> GanHarness:
         normalized_inputs=args.normalize,
         g_bn_advance_in_d=not args.no_G_bn_advance,
         g_frozen_children=tuple(s for s in args.G_freeze.split(",") if s),
-        bce=args.bce)
+        bce=args.bce,
+        compute_dtype=(torch.bfloat16 if args.dtype == "bf16"
+                       else torch.float32))
     dataset = build_dataset(args, device, create_fixture=True)
     harness = GanHarness(hc, gc, dataset, device)
     if args.network:

@@ -8,11 +8,21 @@ a ``torch.Generator`` on the device the step runs on, so no draw crosses
 from the host. JAX's threefry and torch's Philox never give the same
 numbers, so a parity test hands in an object with the same four methods
 that replays the numbers JAX drew, in the order catgen drew them.
+
+``remat`` (catgen's ``jax.checkpoint`` of G and D) recomputes a module's
+forward during the backward (``torch.utils.checkpoint`` with
+``remat_contexts``). JAX's recompute draws the same masks from the same
+key; here the recompute must not draw from the stream, which would move
+every later draw of the step. So each checkpointed region keeps a tape:
+its dropout layers record their masks in the first pass and replay them,
+in order, in the recompute (``remat_mask``), and BatchNorm leaves its
+running statistics alone there (``recomputing``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,3 +55,56 @@ class Draws:
         return torch.randint(low, high, tuple(shape),
                              generator=self.generator,
                              device=self.generator.device)
+
+
+class _Tape:
+    """The masks one checkpointed region drew, in order."""
+
+    def __init__(self):
+        self.masks: List[torch.Tensor] = []
+        self.next = 0
+
+
+# (tape, replaying) of the region being run, if any. A module global, not
+# a thread-local: autograd runs the recompute on its own device thread.
+_active: Optional[Tuple[_Tape, bool]] = None
+
+
+@contextlib.contextmanager
+def _on(tape: _Tape, replaying: bool):
+    global _active
+    saved, _active = _active, (tape, replaying)
+    try:
+        yield
+    finally:
+        _active = saved
+
+
+def remat_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint.checkpoint`` (with
+    ``use_reentrant=False``): the first pass records the region's masks
+    on a fresh tape, the recompute replays them."""
+    tape = _Tape()
+    return _on(tape, False), _on(tape, True)
+
+
+def recomputing() -> bool:
+    """True inside the recompute of a checkpointed region."""
+    return _active is not None and _active[1]
+
+
+def remat_mask(draw: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """A dropout mask: ``draw()`` outside a checkpointed region; inside,
+    ``draw()`` recorded on the region's tape in the first pass and the
+    recorded mask, in order, in the recompute."""
+    if _active is None:
+        return draw()
+    tape, replaying = _active
+    if not replaying:
+        tape.masks.append(draw())
+        return tape.masks[-1]
+    if tape.next >= len(tape.masks):
+        raise RuntimeError("the recompute of a remat region drew more "
+                           "masks than its first pass")
+    tape.next += 1
+    return tape.masks[tape.next - 1]

@@ -72,7 +72,23 @@
 // so that the lerps round as the plain PyTorch version's separate
 // multiplies and adds do. No atomics: each output value is written by
 // exactly one thread, so the result is deterministic.
+//
+// Every kernel is instantiated for float and for __nv_bfloat16 (catgen's
+// bf16 compute dtype: image, coordinates and output in bf16; v4 takes bf16
+// operands, accumulates in f32 and writes the image's dtype,
+// pallas_bilinear_v4.py:831,858). A bf16 kernel reads its values exactly
+// into f32, computes as the f32 kernel does and rounds each output once
+// (bilinear_taps.cuh), so it gives the bits of the plain version's upcast,
+// f32 lerps and .to(torch.bfloat16). The conditions that count in floats
+// count in bytes: a 16-byte vector holds 4 f32 or 8 bf16 values, so the
+// staged kernel needs C % 8 == 0 in bf16, stages half the bytes (32 KB at
+// the branch shape) and gives 8 lanes, not 16, to a pixel at C = 64; the
+// per-quad kernel takes groups of 8 output pixels, not 4, so that a
+// group's coordinate row and its 8 C outputs are whole 16-byte vectors.
+// In bf16 the bound halves: 21 MB of images and 63 MB of output at the
+// branch shape; 3.9 + 2.6 + 3.9 MB at the input ST.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,12 +96,12 @@
 
 namespace {
 
-// img (n, h, w, c), coordinates in layout L, out (n, p, c); all contiguous
-// f32.
-template <class L>
-__global__ void sample_per_value(const float* __restrict__ img,
-                                 const float* __restrict__ crd,
-                                 float* __restrict__ out, int n, int h, int w,
+// img (n, h, w, c), coordinates in layout L, out (n, p, c); all contiguous,
+// of element type T.
+template <class L, class T>
+__global__ void sample_per_value(const T* __restrict__ img,
+                                 const T* __restrict__ crd,
+                                 T* __restrict__ out, int n, int h, int w,
                                  int c, int p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)n * p * c) return;
@@ -95,13 +111,13 @@ __global__ void sample_per_value(const float* __restrict__ img,
   const int ni = (int)(pix / p);
   const float2 yx = L::load(crd, ni, pi, p);
   const Taps t = make_taps(yx.x, yx.y, h, w);
-  out[i] = lerp_taps(img + (int64_t)ni * h * w * c + ch, t, c);
+  stf(out + i, lerp_taps(img + (int64_t)ni * h * w * c + ch, t, c));
 }
 
-template <class L>
-__global__ void sample_per_pixel(const float* __restrict__ img,
-                                 const float* __restrict__ crd,
-                                 float* __restrict__ out, int n, int h, int w,
+template <class L, class T>
+__global__ void sample_per_pixel(const T* __restrict__ img,
+                                 const T* __restrict__ crd,
+                                 T* __restrict__ out, int n, int h, int w,
                                  int c, int p) {
   const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= (int64_t)n * p) return;
@@ -109,135 +125,155 @@ __global__ void sample_per_pixel(const float* __restrict__ img,
   const int ni = (int)(pix / p);
   const float2 yx = L::load(crd, ni, pi, p);
   const Taps t = make_taps(yx.x, yx.y, h, w);
-  const float* base = img + (int64_t)ni * h * w * c;
-  float* o = out + pix * c;
-  for (int ch = 0; ch < c; ++ch) o[ch] = lerp_taps(base + ch, t, c);
+  const T* base = img + (int64_t)ni * h * w * c;
+  T* o = out + pix * c;
+  for (int ch = 0; ch < c; ++ch) stf(o + ch, lerp_taps(base + ch, t, c));
 }
 
-constexpr int kStagedThreads = 256;  // 16 half-warps: 16 pixels per step
+constexpr int kStagedThreads = 256;
+
+// Lanes that serve one output pixel in the staged kernels: one 16-byte
+// vector each at C = 64 (16 in f32, 8 in bf16).
+template <class T>
+constexpr int kStagedLanes = 64 / Vec<T>::N;
+
+// Copies `chunks` 16-byte vectors from global `src` to shared `dst` with
+// the block's threads (cp.async; the caller commits and waits).
+__device__ __forceinline__ void stage_async(uint4* dst, const uint4* src,
+                                            int chunks) {
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst + k)),
+                 "l"(src + k));
+  }
+}
 
 // Grid: n * per_sample blocks, the blocks of one sample adjacent; block
 // (ni, part) covers output pixels [part * span, (part + 1) * span) of
-// sample ni. img and out 16-byte aligned, c % 4 == 0, p * c < 2^31;
-// dynamic shared memory h*w*c floats.
-template <class L>
+// sample ni. img and out 16-byte aligned, c a multiple of Vec<T>::N,
+// p * c < 2^31; dynamic shared memory h*w*c values of T.
+template <class L, class T>
 __global__ void __launch_bounds__(kStagedThreads)
-sample_per_pixel_staged(const float* __restrict__ img,
-                        const float* __restrict__ crd,
-                        float* __restrict__ out, int h, int w, int c, int p,
+sample_per_pixel_staged(const T* __restrict__ img, const T* __restrict__ crd,
+                        T* __restrict__ out, int h, int w, int c, int p,
                         int per_sample, int span) {
-  extern __shared__ float4 simg[];   // the sample's image, (h w, c / 4)
+  constexpr int N = Vec<T>::N, LP = kStagedLanes<T>;
+  extern __shared__ uint4 simg[];    // the sample's image, (h w, c / N)
   const int ni = blockIdx.x / per_sample;
   const int p0 = (blockIdx.x - ni * per_sample) * span;
   const int p1 = min(p0 + span, p);
-  const int c4 = c >> 2, chunks = h * w * c4;
-  const float4* src =
-      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(simg + k)),
-                 "l"(src + k));
-  }
+  const int cv = c / N, chunks = h * w * cv;
+  stage_async(simg, reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  float4* dst = reinterpret_cast<float4*>(out) + (int64_t)ni * p * c4;
-  const int l = threadIdx.x & 15, groups = blockDim.x >> 4;
-  for (int pi = p0 + (threadIdx.x >> 4); pi < p1; pi += groups) {
+  uint4* dst = reinterpret_cast<uint4*>(out) + (int64_t)ni * p * cv;
+  const int l = threadIdx.x % LP, groups = blockDim.x / LP;
+  for (int pi = p0 + threadIdx.x / LP; pi < p1; pi += groups) {
     const float2 yx = L::load(crd, ni, pi, p);
     const Taps t = make_taps(yx.x, yx.y, h, w);
-    const int o00 = (int)t.p00 * c4, o01 = (int)t.p01 * c4;
-    const int o10 = (int)t.p10 * c4, o11 = (int)t.p11 * c4;
-    for (int k = l; k < c4; k += 16) {
-      const float4 a = simg[o00 + k], b = simg[o01 + k];
-      const float4 e = simg[o10 + k], f = simg[o11 + k];
-      __stcs(dst + pi * c4 + k,
-             make_float4(lerp_values(a.x, b.x, e.x, f.x, t),
-                         lerp_values(a.y, b.y, e.y, f.y, t),
-                         lerp_values(a.z, b.z, e.z, f.z, t),
-                         lerp_values(a.w, b.w, e.w, f.w, t)));
+    const int o00 = (int)t.p00 * cv, o01 = (int)t.p01 * cv;
+    const int o10 = (int)t.p10 * cv, o11 = (int)t.p11 * cv;
+    for (int k = l; k < cv; k += LP) {
+      float a[N], b[N], e[N], f[N], r[N];
+      Vec<T>::unpack(simg[o00 + k], a);
+      Vec<T>::unpack(simg[o01 + k], b);
+      Vec<T>::unpack(simg[o10 + k], e);
+      Vec<T>::unpack(simg[o11 + k], f);
+#pragma unroll
+      for (int j = 0; j < N; ++j) r[j] = lerp_values(a[j], b[j], e[j], f[j], t);
+      __stcs(dst + pi * cv + k, Vec<T>::pack(r));
     }
   }
 }
 
-constexpr int kQuadThreads = 256;  // 1024 output pixels per pass
+constexpr int kQuadThreads = 256;
 
-__device__ __forceinline__ float elem(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void put(float4& v, int j, float x) {
-  if (j == 0) v.x = x;
-  else if (j == 1) v.y = x;
-  else if (j == 2) v.z = x;
-  else v.w = x;
-}
-
-// Grid n, one block per sample; thread t takes the quads of output pixels
-// [4q, 4q + 4) for q = t, t + blockDim.x, ... img, crd and out 16-byte
-// aligned, h*w*c % 4 == 0, c < 32, p * c < 2^31; dynamic shared memory
-// h*w*c floats.
-template <class L>
-__global__ void __launch_bounds__(kQuadThreads)
-sample_per_quad_staged(const float* __restrict__ img,
-                       const float* __restrict__ crd,
-                       float* __restrict__ out, int h, int w, int c, int p) {
-  extern __shared__ float4 simg4[];  // the sample's image, (h w c)
-  const float* simg = reinterpret_cast<const float*>(simg4);
-  const int ni = blockIdx.x;
-  const int chunks = (h * w * c) >> 2;
-  const float4* src =
-      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(simg4 + k)),
-                 "l"(src + k));
+// Sets value j (< Vec<T>::N) of the 16-byte vector v to x, rounded to T;
+// a chain of selects on j, so that v stays in registers.
+template <class T>
+__device__ __forceinline__ void put(uint4& v, int j, float x) {
+  uint32_t bits, mask;
+  int word;
+  if constexpr (sizeof(T) == 4) {
+    bits = __float_as_uint(x);
+    mask = 0xffffffffu;
+    word = j;
+  } else {
+    const int shift = (j & 1) * 16;
+    bits = Vec<T>::bits(x) << shift;
+    mask = 0xffffu << shift;
+    word = j >> 1;
   }
+  if (word == 0) v.x = (v.x & ~mask) | bits;
+  else if (word == 1) v.y = (v.y & ~mask) | bits;
+  else if (word == 2) v.z = (v.z & ~mask) | bits;
+  else v.w = (v.w & ~mask) | bits;
+}
+
+// Grid n, one block per sample; thread t takes the groups of G =
+// Vec<T>::N neighbouring output pixels [G q, G q + G) for q = t, t +
+// blockDim.x, ... (quads in f32, 8 pixels in bf16). img, crd and out
+// 16-byte aligned, h*w*c values a whole number of 16-byte vectors, c < 32,
+// p * c < 2^31; dynamic shared memory h*w*c values of T.
+template <class L, class T>
+__global__ void __launch_bounds__(kQuadThreads)
+sample_per_quad_staged(const T* __restrict__ img, const T* __restrict__ crd,
+                       T* __restrict__ out, int h, int w, int c, int p) {
+  constexpr int G = Vec<T>::N;
+  extern __shared__ uint4 simg4[];   // the sample's image, (h w c)
+  const T* simg = reinterpret_cast<const T*>(simg4);
+  const int ni = blockIdx.x;
+  const int chunks = h * w * c / G;
+  stage_async(simg4, reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
   asm volatile("cp.async.commit_group;\n" ::);
-  // p % 4 == 0: every quad is whole and 16-byte aligned in crd and out
-  const bool vec = (p & 3) == 0;
+  // p % G == 0: every group is whole and 16-byte aligned in crd and out
+  const bool vec = p % G == 0;
   int q = threadIdx.x;
-  float4 ys = {}, xs = {};
-  if (vec && 4 * q < p) L::load4(crd, ni, 4 * q, p, ys, xs);
+  float ys[G] = {}, xs[G] = {};
+  if (vec && G * q < p) L::loadv(crd, ni, G * q, p, ys, xs);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  float* o = out + (int64_t)ni * p * c;
-  for (; 4 * q < p; q += blockDim.x) {
-    float4* dst = reinterpret_cast<float4*>(o + 4 * q * c);
-    float4 buf = {};
+  T* o = out + (int64_t)ni * p * c;
+  for (; G * q < p; q += blockDim.x) {
+    uint4* dst = reinterpret_cast<uint4*>(o + G * q * c);
+    uint4 buf = {};
     int fill = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int pi = 4 * q + j;
+    for (int j = 0; j < G; ++j) {
+      const int pi = G * q + j;
       if (pi >= p) break;
-      float yn = elem(ys, j), xn = elem(xs, j);
+      float yn = ys[j], xn = xs[j];
       if (!vec) {
         const float2 yx = L::load(crd, ni, pi, p);
         yn = yx.x;
         xn = yx.y;
       }
       const Taps t = make_taps(yn, xn, h, w);
-      const float* a = simg + (int)t.p00 * c;
-      const float* b = simg + (int)t.p01 * c;
-      const float* e = simg + (int)t.p10 * c;
-      const float* f = simg + (int)t.p11 * c;
+      const T* a = simg + (int)t.p00 * c;
+      const T* b = simg + (int)t.p01 * c;
+      const T* e = simg + (int)t.p10 * c;
+      const T* f = simg + (int)t.p11 * c;
       for (int ch = 0; ch < c; ++ch) {
-        const float v = lerp_values(a[ch], b[ch], e[ch], f[ch], t);
+        const float v = lerp_values(tof(a[ch]), tof(b[ch]), tof(e[ch]),
+                                    tof(f[ch]), t);
         if (!vec) {
-          o[pi * c + ch] = v;
+          stf(o + pi * c + ch, v);
           continue;
         }
-        put(buf, fill, v);
-        if (++fill == 4) {
+        put<T>(buf, fill, v);
+        if (++fill == G) {
           __stcs(dst++, buf);
           fill = 0;
         }
       }
     }
     const int next = q + blockDim.x;
-    if (vec && 4 * next < p) L::load4(crd, ni, 4 * next, p, ys, xs);
+    if (vec && G * next < p) L::loadv(crd, ni, G * next, p, ys, xs);
   }
 }
 
@@ -245,7 +281,7 @@ sample_per_quad_staged(const float* __restrict__ img,
 // blocks fill their waves (blocks resident per SM x SMs) to 90% or more,
 // else the fullest, with at least 32 output pixels per range. Depends on
 // the shape and the card alone.
-template <class L>
+template <class L, class T>
 cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
   int device = 0, sms = 0, resident = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -255,7 +291,7 @@ cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, sample_per_pixel_staged<L>, kStagedThreads, smem);
+        &resident, sample_per_pixel_staged<L, T>, kStagedThreads, smem);
   }
   if (err != cudaSuccess) return err;
   const int64_t slots = (int64_t)(resident > 0 ? resident : 1) * sms;
@@ -278,26 +314,28 @@ cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
   return cudaSuccess;
 }
 
-// The forward's kind at (h, w, c) with 16-byte aligned arrays: for C >= 32
-// sampler_kind's (shared with d_coords); for C < 32 kPerQuad where the
-// image fits one block's opt-in shared memory and h w C % 4 == 0 (each
+// The forward's kind at (h, w, c) for elements of `elem` bytes with
+// 16-byte aligned arrays: for C >= 32 sampler_kind's (shared with
+// d_coords); for C < 32 kPerQuad where the image fits one block's opt-in
+// shared memory and h w C values fill whole 16-byte vectors (each
 // sample's image starts on 16 bytes), else kPerPixel. A negative
 // cudaError_t if the card's shared memory could not be read.
-int forward_shape_kind(int h, int w, int c) {
-  if (c >= 32) return sampler_kind(h, w, c);
-  if ((int64_t)h * w * c % 4 != 0) return kPerPixel;
+int forward_shape_kind(int h, int w, int c, int elem) {
+  if (c >= 32) return sampler_kind(h, w, c, elem);
+  if ((int64_t)h * w * c * elem % 16 != 0) return kPerPixel;
   const int optin = optin_smem();
   if (optin < 0) return optin;
-  return staged_smem_bytes(h, w, c) <= optin ? kPerQuad : kPerPixel;
+  return staged_smem_bytes(h, w, c, elem) <= optin ? kPerQuad : kPerPixel;
 }
 
 // The kind (h, w, c) takes with these arrays: forward_shape_kind, then
 // kPerWarp (one thread per value) in place of kStaged for an unaligned
 // image or output, kPerPixel in place of kPerQuad for an unaligned image,
 // coordinates or output, and either for p * c past 32 bits.
-int forward_kind(const float* img, const float* crd, const float* out, int h,
-                 int w, int c, int p) {
-  const int kind = forward_shape_kind(h, w, c);
+template <class T>
+int forward_kind(const T* img, const T* crd, const T* out, int h, int w,
+                 int c, int p) {
+  const int kind = forward_shape_kind(h, w, c, (int)sizeof(T));
   const bool fits = ((uintptr_t)img & 15u) == 0 &&
                     ((uintptr_t)out & 15u) == 0 &&
                     (int64_t)p * c < ((int64_t)1 << 31);
@@ -308,61 +346,65 @@ int forward_kind(const float* img, const float* crd, const float* out, int h,
   return kind;
 }
 
-template <class L>
-int launch_sample(const float* img, const float* crd, float* out, int n,
-                  int h, int w, int c, int p, void* stream) {
+template <class L, class T>
+int launch_sample(const T* img, const T* crd, T* out, int n, int h, int w,
+                  int c, int p, void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kind = forward_kind(img, crd, out, h, w, c, p);
   if (kind < 0) return -kind;
   if (kind == kPerQuad) {
     if ((int64_t)n * p == 0) return 0;
-    const int smem = (int)staged_smem_bytes(h, w, c);
+    const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
     const cudaError_t err = cudaFuncSetAttribute(
-        sample_per_quad_staged<L>,
+        sample_per_quad_staged<L, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sample_per_quad_staged<L><<<(unsigned)n, kQuadThreads, smem, s>>>(
+    sample_per_quad_staged<L, T><<<(unsigned)n, kQuadThreads, smem, s>>>(
         img, crd, out, h, w, c, p);
   } else if (kind == kStaged) {
     if ((int64_t)n * p == 0) return 0;
-    const int smem = (int)staged_smem_bytes(h, w, c);
+    const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
     cudaError_t err = cudaFuncSetAttribute(
-        sample_per_pixel_staged<L>,
+        sample_per_pixel_staged<L, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int per_sample = 1;
-    if (err == cudaSuccess) err = staged_per_sample<L>(n, p, smem, per_sample);
+    if (err == cudaSuccess) {
+      err = staged_per_sample<L, T>(n, p, smem, per_sample);
+    }
     if (err != cudaSuccess) return (int)err;
     const int span = (p + per_sample - 1) / per_sample;
-    sample_per_pixel_staged<L><<<(unsigned)((int64_t)n * per_sample),
-                                 kStagedThreads, smem, s>>>(
+    sample_per_pixel_staged<L, T><<<(unsigned)((int64_t)n * per_sample),
+                                    kStagedThreads, smem, s>>>(
         img, crd, out, h, w, c, p, per_sample, span);
   } else if (kind == kPerWarp) {
     const int64_t total = (int64_t)n * p * c;
     if (total == 0) return 0;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sample_per_value<L><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w, c,
-                                                   p);
+    sample_per_value<L, T><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
+                                                      c, p);
   } else {
     const int64_t total = (int64_t)n * p;
     if (total == 0) return 0;
     const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sample_per_pixel<L><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w, c,
-                                                   p);
+    sample_per_pixel<L, T><<<blocks, threads, 0, s>>>(img, crd, out, n, h, w,
+                                                      c, p);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() as an int (0 = the
-// launch was accepted). They do not synchronise and allocate nothing.
+// The launchers launch on `stream` and return cudaGetLastError() as an int
+// (0 = the launch was accepted). They do not synchronise and allocate
+// nothing. The _f32 forms take float image, coordinates and output, the
+// _bf16 forms __nv_bfloat16 ones.
 
-// Which forward kernel (h, w, c) takes with 16-byte aligned arrays: 0 per
-// pixel, 1 per value, 2 staged, 3 per quad; a negative cudaError_t on
-// failure.
-extern "C" int catgen_bilinear_forward_kind(int h, int w, int c) {
-  return forward_shape_kind(h, w, c);
+// Which forward kernel (h, w, c) takes for elements of `elem` bytes (4:
+// f32, 2: bf16) with 16-byte aligned arrays: 0 per pixel, 1 per value, 2
+// staged, 3 per quad; a negative cudaError_t on failure.
+extern "C" int catgen_bilinear_forward_kind(int h, int w, int c, int elem) {
+  return forward_shape_kind(h, w, c, elem);
 }
 
 // crd: (n, 2, p) coordinate rows.
@@ -373,10 +415,26 @@ extern "C" int catgen_bilinear_sample_rows_f32(const float* img,
   return launch_sample<RowsLayout>(img, crd, out, n, h, w, c, p, stream);
 }
 
-// crd: (n, p, 2) coordinate grid, 8-byte aligned.
+extern "C" int catgen_bilinear_sample_rows_bf16(const __nv_bfloat16* img,
+                                                const __nv_bfloat16* crd,
+                                                __nv_bfloat16* out, int n,
+                                                int h, int w, int c, int p,
+                                                void* stream) {
+  return launch_sample<RowsLayout>(img, crd, out, n, h, w, c, p, stream);
+}
+
+// crd: (n, p, 2) coordinate grid, aligned to a (y, x) pair.
 extern "C" int catgen_bilinear_sample_grid_f32(const float* img,
                                                const float* crd, float* out,
                                                int n, int h, int w, int c,
                                                int p, void* stream) {
+  return launch_sample<GridLayout>(img, crd, out, n, h, w, c, p, stream);
+}
+
+extern "C" int catgen_bilinear_sample_grid_bf16(const __nv_bfloat16* img,
+                                                const __nv_bfloat16* crd,
+                                                __nv_bfloat16* out, int n,
+                                                int h, int w, int c, int p,
+                                                void* stream) {
   return launch_sample<GridLayout>(img, crd, out, n, h, w, c, p, stream);
 }

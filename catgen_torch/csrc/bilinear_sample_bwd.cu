@@ -116,7 +116,25 @@
 // version's autograd does (built with --fmad=false); the sums over C and
 // over output pixels run in another order, so the results agree to f32
 // rounding, not bit for bit.
+//
+// Every kernel is instantiated for float and for __nv_bfloat16 (catgen's
+// bf16 compute dtype: image, coordinates, g, d_img and d_coords in bf16).
+// A bf16 kernel reads its values exactly into f32 and does the f32
+// kernel's arithmetic; d_img is summed in f32 whatever the input type (v4
+// sums it in f32 and casts once, pallas_bilinear_v4.py:1031), in shared
+// memory or registers of the f32 size, and rounded once, to nearest even,
+// where it is stored; d_coords too is an f32 sum rounded once into the
+// coordinates' type (:1032). So a bf16 result is the f32 kernel's sum
+// rounded once, and differs from the plain version's (its f32 autograd
+// rounded once) only where the two f32 sums round to neighbouring bf16
+// values. The staged d_coords kernel gives 8 lanes of 16 bytes (8 values)
+// to a pixel at C = 64 in bf16, where f32 gives 16 lanes of 4 values; the
+// gather's lanes load channel pairs (8 bytes in f32, 4 in bf16). Where a
+// gather d_img takes more than one pass over the output pixels (more than
+// 1024 per sample), the running f32 sums between passes go to a scratch
+// array the wrapper allocates, not to the bf16 output.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,12 +146,13 @@ struct TapGrad {
   float dy, dx;  // d out / d wy and d out / d wx for one channel
 };
 
-__device__ __forceinline__ TapGrad tap_grad(const float* __restrict__ base,
+template <class T>
+__device__ __forceinline__ TapGrad tap_grad(const T* __restrict__ base,
                                             const Taps& t, int c) {
-  const float v00 = __ldg(base + t.p00 * c);
-  const float v01 = __ldg(base + t.p01 * c);
-  const float v10 = __ldg(base + t.p10 * c);
-  const float v11 = __ldg(base + t.p11 * c);
+  const float v00 = ldf(base + t.p00 * c);
+  const float v01 = ldf(base + t.p01 * c);
+  const float v10 = ldf(base + t.p10 * c);
+  const float v11 = ldf(base + t.p11 * c);
   const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
   const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
   TapGrad r;
@@ -142,8 +161,8 @@ __device__ __forceinline__ TapGrad tap_grad(const float* __restrict__ base,
   return r;
 }
 
-template <class L>
-__device__ __forceinline__ void store_dcoords(float* __restrict__ dcrd,
+template <class L, class T>
+__device__ __forceinline__ void store_dcoords(T* __restrict__ dcrd,
                                               const Taps& t, float sy,
                                               float sx, int h, int w, int p,
                                               int ni, int pi) {
@@ -152,12 +171,12 @@ __device__ __forceinline__ void store_dcoords(float* __restrict__ dcrd,
 }
 
 // img (n, h, w, c), coordinates and dcrd in layout L, g (n, p, c).
-template <class L>
-__global__ void dcoords_per_warp(const float* __restrict__ img,
-                                 const float* __restrict__ crd,
-                                 const float* __restrict__ g,
-                                 float* __restrict__ dcrd, int n, int h,
-                                 int w, int c, int p) {
+template <class L, class T>
+__global__ void dcoords_per_warp(const T* __restrict__ img,
+                                 const T* __restrict__ crd,
+                                 const T* __restrict__ g,
+                                 T* __restrict__ dcrd, int n, int h, int w,
+                                 int c, int p) {
   const int64_t pix = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (pix >= (int64_t)n * p) return;  // warp-uniform: whole warps leave
@@ -165,12 +184,12 @@ __global__ void dcoords_per_warp(const float* __restrict__ img,
   const int ni = (int)(pix / p);
   const float2 yx = L::load(crd, ni, pi, p);
   const Taps t = make_taps(yx.x, yx.y, h, w);
-  const float* base = img + (int64_t)ni * h * w * c;
-  const float* gp = g + pix * c;
+  const T* base = img + (int64_t)ni * h * w * c;
+  const T* gp = g + pix * c;
   float sy = 0.0f, sx = 0.0f;
   for (int ch = lane; ch < c; ch += 32) {
     const TapGrad r = tap_grad(base + ch, t, c);
-    const float gv = __ldg(gp + ch);
+    const float gv = ldf(gp + ch);
     sy += gv * r.dy;
     sx += gv * r.dx;
   }
@@ -181,50 +200,55 @@ __global__ void dcoords_per_warp(const float* __restrict__ img,
   if (lane == 0) store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
 }
 
-template <class L>
-__global__ void dcoords_per_pixel(const float* __restrict__ img,
-                                  const float* __restrict__ crd,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ dcrd, int n, int h,
-                                  int w, int c, int p) {
+template <class L, class T>
+__global__ void dcoords_per_pixel(const T* __restrict__ img,
+                                  const T* __restrict__ crd,
+                                  const T* __restrict__ g,
+                                  T* __restrict__ dcrd, int n, int h, int w,
+                                  int c, int p) {
   const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= (int64_t)n * p) return;
   const int pi = (int)(pix % p);
   const int ni = (int)(pix / p);
   const float2 yx = L::load(crd, ni, pi, p);
   const Taps t = make_taps(yx.x, yx.y, h, w);
-  const float* base = img + (int64_t)ni * h * w * c;
-  const float* gp = g + pix * c;
+  const T* base = img + (int64_t)ni * h * w * c;
+  const T* gp = g + pix * c;
   float sy = 0.0f, sx = 0.0f;
   for (int ch = 0; ch < c; ++ch) {
     const TapGrad r = tap_grad(base + ch, t, c);
-    const float gv = __ldg(gp + ch);
+    const float gv = ldf(gp + ch);
     sy += gv * r.dy;
     sx += gv * r.dx;
   }
   store_dcoords<L>(dcrd, t, sy, sx, h, w, p, ni, pi);
 }
 
-constexpr int kStagedThreads = 512;  // 16 warps, 32 pixels per step
+constexpr int kStagedThreads = 512;  // 16 warps
 constexpr int kStagedPixels = 256;   // most output pixels per block
 
+// Lanes that serve one output pixel: one 16-byte vector each at C = 64
+// (16 in f32, two pixels per warp and step; 8 in bf16, four)
+template <class T>
+constexpr int kStagedLanes = 64 / Vec<T>::N;
 
 // Grid: n * per_sample blocks, the blocks of one sample adjacent; block
 // (ni, part) covers output pixels [part * span, (part + 1) * span) of
-// sample ni. img and g 16-byte aligned, c % 4 == 0; dynamic shared memory
-// h*w*c floats.
-template <class L>
+// sample ni. img and g 16-byte aligned, c a multiple of Vec<T>::N; dynamic
+// shared memory h*w*c values of T.
+template <class L, class T>
 __global__ void __launch_bounds__(kStagedThreads)
-dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
-               const float* __restrict__ g, float* __restrict__ dcrd, int h,
-               int w, int c, int p, int per_sample, int span) {
-  extern __shared__ float4 simg[];   // the sample's image, (h w, c / 4)
+dcoords_staged(const T* __restrict__ img, const T* __restrict__ crd,
+               const T* __restrict__ g, T* __restrict__ dcrd, int h, int w,
+               int c, int p, int per_sample, int span) {
+  constexpr int N = Vec<T>::N, LP = kStagedLanes<T>, PW = 32 / LP;
+  extern __shared__ uint4 simg[];    // the sample's image, (h w, c / N)
   const int ni = blockIdx.x / per_sample;
   const int p0 = (blockIdx.x - ni * per_sample) * span;
   const int p1 = min(p0 + span, p);
-  const int c4 = c >> 2, chunks = h * w * c4;
-  const float4* src =
-      reinterpret_cast<const float4*>(img) + (int64_t)ni * chunks;
+  const int cv = c / N, chunks = h * w * cv;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks;
   for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      (uint32_t)__cvta_generic_to_shared(simg + k)),
@@ -234,33 +258,31 @@ dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  // both halves of a warp run every step, so the shuffles see all lanes
+  // every lane of a warp runs every step, so the shuffles see all lanes
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int l = lane & 15;
+  const int l = lane % LP;
   const int warps = blockDim.x >> 5;
-  for (int base = p0 + 2 * warp; base < p1; base += 2 * warps) {
-    const int pi = base + (lane >> 4);
+  for (int base = p0 + PW * warp; base < p1; base += PW * warps) {
+    const int pi = base + lane / LP;
     const bool active = pi < p1;
     float sy = 0.0f, sx = 0.0f;
     Taps t = {};
     if (active) {
       const float2 yx = L::load(crd, ni, pi, p);
       t = make_taps(yx.x, yx.y, h, w);
-      const float4* gp =
-          reinterpret_cast<const float4*>(g) + ((int64_t)ni * p + pi) * c4;
-      const int o00 = (int)t.p00 * c4, o01 = (int)t.p01 * c4;
-      const int o10 = (int)t.p10 * c4, o11 = (int)t.p11 * c4;
-      for (int k = l; k < c4; k += 16) {
-        const float4 gv = __ldg(gp + k);
-        const float4 a = simg[o00 + k], b = simg[o01 + k];
-        const float4 e = simg[o10 + k], f = simg[o11 + k];
-        const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
-        const float v00[4] = {a.x, a.y, a.z, a.w};
-        const float v01[4] = {b.x, b.y, b.z, b.w};
-        const float v10[4] = {e.x, e.y, e.z, e.w};
-        const float v11[4] = {f.x, f.y, f.z, f.w};
+      const uint4* gp =
+          reinterpret_cast<const uint4*>(g) + ((int64_t)ni * p + pi) * cv;
+      const int o00 = (int)t.p00 * cv, o01 = (int)t.p01 * cv;
+      const int o10 = (int)t.p10 * cv, o11 = (int)t.p11 * cv;
+      for (int k = l; k < cv; k += LP) {
+        float gs[N], v00[N], v01[N], v10[N], v11[N];
+        Vec<T>::unpack(__ldg(gp + k), gs);
+        Vec<T>::unpack(simg[o00 + k], v00);
+        Vec<T>::unpack(simg[o01 + k], v01);
+        Vec<T>::unpack(simg[o10 + k], v10);
+        Vec<T>::unpack(simg[o11 + k], v11);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < N; ++j) {
           // tap_grad's arithmetic, channel by channel
           const float top = v00[j] * (1.0f - t.wx) + v01[j] * t.wx;
           const float bot = v10[j] * (1.0f - t.wx) + v11[j] * t.wx;
@@ -272,7 +294,7 @@ dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
         }
       }
     }
-    for (int off = 8; off > 0; off >>= 1) {   // within each half-warp
+    for (int off = LP / 2; off > 0; off >>= 1) {   // within the pixel's lanes
       sy += __shfl_xor_sync(0xffffffffu, sy, off);
       sx += __shfl_xor_sync(0xffffffffu, sx, off);
     }
@@ -280,37 +302,37 @@ dcoords_staged(const float* __restrict__ img, const float* __restrict__ crd,
   }
 }
 
-template <class L>
-int launch_dcoords(const float* img, const float* crd, const float* g,
-                   float* dcrd, int n, int h, int w, int c, int p,
-                   void* stream) {
+template <class L, class T>
+int launch_dcoords(const T* img, const T* crd, const T* g, T* dcrd, int n,
+                   int h, int w, int c, int p, void* stream) {
   const int threads = 256;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)n * p;
   if (pixels == 0) return 0;
-  int kind = sampler_kind(h, w, c);
+  int kind = sampler_kind(h, w, c, (int)sizeof(T));
   if (kind < 0) return -kind;
   const bool aligned = ((uintptr_t)img & 15u) == 0 &&
                        ((uintptr_t)g & 15u) == 0;
   if (kind == kStaged && !aligned) kind = kPerWarp;
   if (kind == kStaged) {
-    const int smem = (int)staged_smem_bytes(h, w, c);
+    const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
     const cudaError_t err = cudaFuncSetAttribute(
-        dcoords_staged<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        dcoords_staged<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
     const int per_sample = (p + kStagedPixels - 1) / kStagedPixels;
     const int span = (p + per_sample - 1) / per_sample;
-    dcoords_staged<L><<<(unsigned)((int64_t)n * per_sample), kStagedThreads,
-                        smem, s>>>(img, crd, g, dcrd, h, w, c, p, per_sample,
-                                   span);
+    dcoords_staged<L, T><<<(unsigned)((int64_t)n * per_sample),
+                           kStagedThreads, smem, s>>>(
+        img, crd, g, dcrd, h, w, c, p, per_sample, span);
   } else if (kind == kPerWarp) {
     const unsigned blocks = (unsigned)((pixels * 32 + threads - 1) / threads);
-    dcoords_per_warp<L><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
-                                                    w, c, p);
+    dcoords_per_warp<L, T><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
+                                                      w, c, p);
   } else {
     const unsigned blocks = (unsigned)((pixels + threads - 1) / threads);
-    dcoords_per_pixel<L><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n, h,
-                                                     w, c, p);
+    dcoords_per_pixel<L, T><<<blocks, threads, 0, s>>>(img, crd, g, dcrd, n,
+                                                       h, w, c, p);
   }
   return (int)cudaGetLastError();
 }
@@ -318,13 +340,13 @@ int launch_dcoords(const float* img, const float* crd, const float* g,
 constexpr int kSampleWarps = 8;   // most warps (slabs) of a per-sample block
 constexpr int kSampleMinSlabs = 4;
 
-// Grid n, 32 * warps threads; dynamic shared memory warps * h*w*c floats.
-// dimg (n, h, w, c).
-template <class L>
-__global__ void dimg_per_sample(const float* __restrict__ crd,
-                                const float* __restrict__ g,
-                                float* __restrict__ dimg, int h, int w,
-                                int c, int p) {
+// Grid n, 32 * warps threads; dynamic shared memory warps * h*w*c floats
+// (f32 sums whatever T is). dimg (n, h, w, c).
+template <class L, class T>
+__global__ void dimg_per_sample(const T* __restrict__ crd,
+                                const T* __restrict__ g,
+                                T* __restrict__ dimg, int h, int w, int c,
+                                int p) {
   extern __shared__ float slabs[];
   const int ni = blockIdx.x;
   const int warps = blockDim.x >> 5;
@@ -333,7 +355,7 @@ __global__ void dimg_per_sample(const float* __restrict__ crd,
   for (int i = threadIdx.x; i < warps * vals; i += blockDim.x) slabs[i] = 0.0f;
   __syncthreads();
   float* slab = slabs + warp * vals;
-  const float* gs = g + (int64_t)ni * p * c;
+  const T* gs = g + (int64_t)ni * p * c;
   for (int base = 32 * warp; base < p; base += 32 * warps) {
     const int pi = base + lane;
     const bool active = pi < p;
@@ -342,7 +364,7 @@ __global__ void dimg_per_sample(const float* __restrict__ crd,
       const float2 yx = L::load(crd, ni, pi, p);
       t = make_taps(yx.x, yx.y, h, w);
     }
-    const float* gp = gs + (int64_t)pi * c;
+    const T* gp = gs + (int64_t)pi * c;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int64_t tap = k == 0 ? t.p00 : k == 1 ? t.p01 : k == 2 ? t.p10
@@ -355,7 +377,7 @@ __global__ void dimg_per_sample(const float* __restrict__ crd,
         float v = 0.0f;
         if (active) {
           // the weight's rounding of the plain version's autograd
-          const float gv = __ldg(gp + ch);
+          const float gv = ldf(gp + ch);
           const float gy = (k < 2) ? gv * (1.0f - t.wy) : gv * t.wy;
           v = (k & 1) ? gy * t.wx : gy * (1.0f - t.wx);
         }
@@ -376,11 +398,11 @@ __global__ void dimg_per_sample(const float* __restrict__ crd,
     }
   }
   __syncthreads();
-  float* out = dimg + (int64_t)ni * vals;
+  T* out = dimg + (int64_t)ni * vals;
   for (int i = threadIdx.x; i < vals; i += blockDim.x) {
     float s = 0.0f;
     for (int k = 0; k < warps; ++k) s += slabs[k * vals + i];
-    out[i] = s;
+    stf(out + i, s);
   }
 }
 
@@ -438,7 +460,7 @@ __device__ __forceinline__ int tap_pixel(int code, int k, int w) {
   return (code >> 2) + (k & code & 1) + ((k >> 1) & (code >> 1) & 1) * w;
 }
 
-// V channels of a g row, from `gp`
+// V channels of a g row, from `gp`, in f32 (V == 2: one load of the pair)
 template <int V>
 __device__ __forceinline__ void load_g(const float* __restrict__ gp,
                                        float (&gv)[V]) {
@@ -448,6 +470,40 @@ __device__ __forceinline__ void load_g(const float* __restrict__ gp,
     gv[1] = v2.y;
   } else {
     gv[0] = __ldg(gp);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_g(const __nv_bfloat16* __restrict__ gp,
+                                       float (&gv)[V]) {
+  if constexpr (V == 2) {
+    const uint32_t v2 = __ldg(reinterpret_cast<const unsigned int*>(gp));
+    gv[0] = __uint_as_float(v2 << 16);
+    gv[1] = __uint_as_float(v2 & 0xffff0000u);
+  } else {
+    gv[0] = ldf(gp);
+  }
+}
+
+// Writes V sums from f32 to `o` (V == 2: one store of the pair)
+template <int V>
+__device__ __forceinline__ void store_sums(float* o, const float (&acc)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+  } else {
+    o[0] = acc[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_sums(__nv_bfloat16* o,
+                                           const float (&acc)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<uint32_t*>(o) =
+        Vec<__nv_bfloat16>::bits(acc[0]) |
+        Vec<__nv_bfloat16>::bits(acc[1]) << 16;
+  } else {
+    stf(o, acc[0]);
   }
 }
 
@@ -467,13 +523,16 @@ __device__ __forceinline__ void add_entry(float (&acc)[V],
 // Grid n, kGatherThreads threads; dynamic shared memory
 // gather_smem_bytes(h w, pixels). Each pass takes up to `pixels` output
 // pixels [p0, p0 + np) of the sample; an entry e = 4 (pi - p0) + k stands
-// for tap k of output pixel pi. V channels per lane and load: 2 (float2)
-// for even c with 8-byte aligned g and dimg, else 1. dimg (n, h, w, c).
-template <class L, int V>
+// for tap k of output pixel pi. V channels per lane and load: 2 (a pair)
+// for even c with g and dimg aligned to a pair, else 1. dimg (n, h, w, c).
+// `part` (n, h, w, c) f32 holds the running sums between passes: for f32
+// it is dimg itself (so neither pointer is __restrict__); for bf16 a
+// scratch array, needed only where p > pixels (null otherwise). The last
+// pass writes dimg.
+template <class L, class T, int V>
 __global__ void __launch_bounds__(kGatherThreads)
-dimg_gather(const float* __restrict__ crd, const float* __restrict__ g,
-            float* __restrict__ dimg, int h, int w, int c, int p,
-            int pixels) {
+dimg_gather(const T* __restrict__ crd, const T* __restrict__ g, T* dimg,
+            float* part, int h, int w, int c, int p, int pixels) {
   extern __shared__ float2 wts[];                    // each pixel's (wy, wx)
   int* code = reinterpret_cast<int*>(wts + pixels);  // its taps, packed
   const int hw = h * w;
@@ -483,11 +542,13 @@ dimg_gather(const float* __restrict__ crd, const float* __restrict__ g,
   int* next = wsum + kGatherWarps;        // the next bin to sum
   const int ni = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* gs = g + (int64_t)ni * p * c;
-  float* out = dimg + (int64_t)ni * hw * c;
+  const T* gs = g + (int64_t)ni * p * c;
+  T* out = dimg + (int64_t)ni * hw * c;
+  float* run_sums = part ? part + (int64_t)ni * hw * c : nullptr;
   // at least one pass, so that p == 0 writes zeros
   for (int p0 = 0; p0 == 0 || p0 < p; p0 += pixels) {
     const int np = min(pixels, p - p0);
+    const bool last = p0 + pixels >= p;
     // the warp's pixels [pa, pb): a contiguous range of the pass's
     const int span = (np + kGatherWarps - 1) / kGatherWarps;
     const int pa = min(warp * span, np), pb = min(pa + span, np);
@@ -545,10 +606,10 @@ dimg_gather(const float* __restrict__ crd, const float* __restrict__ g,
       for (int c0 = 0; c0 < c; c0 += 32 * V) {
         const int ch = c0 + V * lane;
         if (ch >= c) continue;
-        float* o = out + (int64_t)qi * c + ch;
+        const int64_t at = (int64_t)qi * c + ch;
         float acc[V];
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] = p0 > 0 ? o[v] : 0.0f;
+        for (int v = 0; v < V; ++v) acc[v] = p0 > 0 ? run_sums[at + v] : 0.0f;
         int j = j0;
         for (; j + kGatherBatch <= j1; j += kGatherBatch) {
           int en[kGatherBatch];
@@ -569,10 +630,10 @@ dimg_gather(const float* __restrict__ crd, const float* __restrict__ g,
           load_g<V>(gs + (int64_t)(p0 + (en >> 2)) * c + ch, gv);
           add_entry<V>(acc, gv, en, wts);
         }
-        if constexpr (V == 2) {
-          *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+        if (last) {
+          store_sums<V>(out + at, acc);
         } else {
-          o[0] = acc[0];
+          store_sums<V>(run_sums + at, acc);
         }
       }
     }
@@ -584,11 +645,11 @@ constexpr int kSlab = 32;  // channels per d_img block
 
 // Grid (n, ceil(c / kSlab)), kSlab threads; dynamic shared memory
 // h*w*cs floats, cs = the slab's width. dimg (n, h, w, c).
-template <class L>
-__global__ void dimg_per_channel(const float* __restrict__ crd,
-                                 const float* __restrict__ g,
-                                 float* __restrict__ dimg, int n, int h,
-                                 int w, int c, int p) {
+template <class L, class T>
+__global__ void dimg_per_channel(const T* __restrict__ crd,
+                                 const T* __restrict__ g,
+                                 T* __restrict__ dimg, int n, int h, int w,
+                                 int c, int p) {
   extern __shared__ float acc[];
   const int ni = blockIdx.x;
   const int c0 = blockIdx.y * kSlab;
@@ -597,12 +658,12 @@ __global__ void dimg_per_channel(const float* __restrict__ crd,
   if (lane >= cs) return;  // no barrier below: each thread owns a column
   const int hw = h * w;
   for (int i = 0; i < hw; ++i) acc[i * cs + lane] = 0.0f;
-  const float* gp = g + (int64_t)ni * p * c + c0 + lane;
+  const T* gp = g + (int64_t)ni * p * c + c0 + lane;
 #pragma unroll 4
   for (int pi = 0; pi < p; ++pi) {
     const float2 yx = L::load(crd, ni, pi, p);
     const Taps t = make_taps(yx.x, yx.y, h, w);
-    const float gv = __ldg(gp + (int64_t)pi * c);
+    const float gv = ldf(gp + (int64_t)pi * c);
     const float top = gv * (1.0f - t.wy);
     const float bot = gv * t.wy;
     acc[t.p00 * cs + lane] += top * (1.0f - t.wx);
@@ -610,15 +671,16 @@ __global__ void dimg_per_channel(const float* __restrict__ crd,
     acc[t.p10 * cs + lane] += bot * (1.0f - t.wx);
     acc[t.p11 * cs + lane] += bot * t.wx;
   }
-  float* out = dimg + (int64_t)ni * hw * c + c0 + lane;
-  for (int i = 0; i < hw; ++i) out[(int64_t)i * c] = acc[i * cs + lane];
+  T* out = dimg + (int64_t)ni * hw * c + c0 + lane;
+  for (int i = 0; i < hw; ++i) stf(out + (int64_t)i * c, acc[i * cs + lane]);
 }
 
 enum DimgKind { kDimgPerChannel = 0, kDimgPerSample = 1, kDimgGather = 2 };
 
 // Slabs (warps) of a per-sample block at (h, w, c): as many as fit, up to
 // kSampleWarps; 0 where the shape takes another kernel (c >= 32, or fewer
-// than kSampleMinSlabs fit); a negative cudaError_t on failure.
+// than kSampleMinSlabs fit); a negative cudaError_t on failure. The slabs
+// hold f32 sums for every element type.
 int dimg_sample_warps(int h, int w, int c) {
   if (c >= 32) return 0;
   const int optin = optin_smem();
@@ -633,7 +695,9 @@ int dimg_sample_warps(int h, int w, int c) {
 // The d_img kernel (h, w, c) takes: per sample where four slabs fit, else
 // gather where its block (at a full pass) fits the card's shared memory,
 // else per channel (a few channels on more than 79x79 pixels); a negative
-// cudaError_t on failure
+// cudaError_t on failure. Every kernel sums in f32 in shared memory or
+// registers whatever the element type, so the choice is the same for f32
+// and bf16.
 int dimg_kind(int h, int w, int c) {
   const int warps = dimg_sample_warps(h, w, c);
   if (warps != 0) return warps < 0 ? warps : kDimgPerSample;
@@ -657,8 +721,11 @@ int64_t dimg_smem_bytes(int h, int w, int c) {
   return hw * cs * (int64_t)sizeof(float);
 }
 
-template <class L>
-int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
+// `part`: f32 (n, h, w, c) for the gather's running sums between passes;
+// for f32 it may be null (dimg serves), for bf16 it must be given where
+// the gather takes more than one pass (p > kGatherPixels).
+template <class L, class T>
+int launch_dimg(const T* crd, const T* g, T* dimg, float* part, int n, int h,
                 int w, int c, int p, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w * c == 0) return 0;
@@ -670,31 +737,39 @@ int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
   if (smem > optin) return (int)cudaErrorInvalidValue;
   if (kind == kDimgPerSample) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dimg_per_sample<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dimg_per_sample<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dimg_per_sample<L><<<(unsigned)n, 32 * dimg_sample_warps(h, w, c),
-                         (size_t)smem, s>>>(crd, g, dimg, h, w, c, p);
+    dimg_per_sample<L, T><<<(unsigned)n, 32 * dimg_sample_warps(h, w, c),
+                            (size_t)smem, s>>>(crd, g, dimg, h, w, c, p);
   } else if (kind == kDimgGather) {
+    if constexpr (sizeof(T) == 4) {
+      if (part == nullptr) part = reinterpret_cast<float*>(dimg);
+    }
+    if (p > kGatherPixels && part == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
     const int pixels = p < 1 ? 1 : (p < kGatherPixels ? p : kGatherPixels);
     const int bytes = (int)gather_smem_bytes((int64_t)h * w, pixels);
-    const bool pairs = c % 2 == 0 && ((uintptr_t)g & 7u) == 0 &&
-                       ((uintptr_t)dimg & 7u) == 0;
-    void (*kernel)(const float*, const float*, float*, int, int, int, int,
-                   int) = pairs ? dimg_gather<L, 2> : dimg_gather<L, 1>;
+    const uintptr_t pair = 2 * sizeof(T) - 1;
+    const bool pairs = c % 2 == 0 && ((uintptr_t)g & pair) == 0 &&
+                       ((uintptr_t)dimg & pair) == 0 &&
+                       ((uintptr_t)part & 7u) == 0;
+    void (*kernel)(const T*, const T*, T*, float*, int, int, int, int, int) =
+        pairs ? dimg_gather<L, T, 2> : dimg_gather<L, T, 1>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)n, kGatherThreads, (size_t)bytes, s>>>(
-        crd, g, dimg, h, w, c, p, pixels);
+        crd, g, dimg, part, h, w, c, p, pixels);
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
-        dimg_per_channel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dimg_per_channel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)n, (unsigned)((c + kSlab - 1) / kSlab));
-    dimg_per_channel<L><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n,
-                                                           h, w, c, p);
+    dimg_per_channel<L, T><<<grid, kSlab, (size_t)smem, s>>>(crd, g, dimg, n,
+                                                             h, w, c, p);
   }
   return (int)cudaGetLastError();
 }
@@ -703,13 +778,22 @@ int launch_dimg(const float* crd, const float* g, float* dimg, int n, int h,
 
 // The entry points launch on `stream` and return cudaGetLastError() as an
 // int (0 = the launch was accepted). They do not synchronise and allocate
-// nothing; all arrays are contiguous f32. The _rows_ forms take (n, 2, p)
-// coordinate rows; the _grid_ forms an (n, p, 2) grid, 8-byte aligned.
+// nothing; all arrays are contiguous, of float (_f32) or __nv_bfloat16
+// (_bf16), coordinates, g, d_img and d_coords alike. The _rows_ forms take
+// (n, 2, p) coordinate rows; the _grid_ forms an (n, p, 2) grid, aligned
+// to a (y, x) pair.
 
 extern "C" int catgen_bilinear_dcoords_f32(const float* img, const float* crd,
                                            const float* g, float* dcrd, int n,
                                            int h, int w, int c, int p,
                                            void* stream) {
+  return launch_dcoords<RowsLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
+}
+
+extern "C" int catgen_bilinear_dcoords_bf16(
+    const __nv_bfloat16* img, const __nv_bfloat16* crd,
+    const __nv_bfloat16* g, __nv_bfloat16* dcrd, int n, int h, int w, int c,
+    int p, void* stream) {
   return launch_dcoords<RowsLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
 }
 
@@ -721,33 +805,67 @@ extern "C" int catgen_bilinear_grid_dcoords_f32(const float* img,
   return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
 }
 
-// Which kernel (h, w, c) takes with 16-byte aligned arrays, forward and
-// d_coords alike: 0 per pixel, 1 per warp (d_coords) or per value
-// (forward), 2 staged; a negative cudaError_t on failure.
-extern "C" int catgen_bilinear_sampler_kind(int h, int w, int c) {
-  return sampler_kind(h, w, c);
+extern "C" int catgen_bilinear_grid_dcoords_bf16(
+    const __nv_bfloat16* img, const __nv_bfloat16* crd,
+    const __nv_bfloat16* g, __nv_bfloat16* dcrd, int n, int h, int w, int c,
+    int p, void* stream) {
+  return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
+}
+
+// Which kernel (h, w, c) takes for elements of `elem` bytes (4: f32, 2:
+// bf16) with 16-byte aligned arrays, forward and d_coords alike: 0 per
+// pixel, 1 per warp (d_coords) or per value (forward), 2 staged; a
+// negative cudaError_t on failure.
+extern "C" int catgen_bilinear_sampler_kind(int h, int w, int c, int elem) {
+  return sampler_kind(h, w, c, elem);
 }
 
 // The shared memory one d_img block of (h, w, c) needs, in bytes (a
-// negative cudaError_t if the card's shared memory could not be read).
+// negative cudaError_t if the card's shared memory could not be read);
+// the same for both element types (f32 sums).
 extern "C" int64_t catgen_bilinear_dimg_smem_bytes(int h, int w, int c) {
   return dimg_smem_bytes(h, w, c);
 }
 
 // Which d_img kernel (h, w, c) takes: 0 per channel, 1 per sample, 2
-// gather; a negative cudaError_t on failure.
-extern "C" int catgen_bilinear_dimg_kind(int h, int w, int c) {
+// gather; a negative cudaError_t on failure. The same for both element
+// sizes (f32 sums).
+extern "C" int catgen_bilinear_dimg_kind(int h, int w, int c, int elem) {
+  (void)elem;
   return dimg_kind(h, w, c);
 }
+
+// Output pixels per pass of the gather d_img kernel: a bf16 d_img of more
+// output pixels per sample needs the f32 scratch `part`.
+extern "C" int catgen_bilinear_dimg_gather_pixels() { return kGatherPixels; }
 
 extern "C" int catgen_bilinear_dimg_f32(const float* crd, const float* g,
                                         float* dimg, int n, int h, int w,
                                         int c, int p, void* stream) {
-  return launch_dimg<RowsLayout>(crd, g, dimg, n, h, w, c, p, stream);
+  return launch_dimg<RowsLayout>(crd, g, dimg, (float*)nullptr, n, h, w, c,
+                                 p, stream);
+}
+
+extern "C" int catgen_bilinear_dimg_bf16(const __nv_bfloat16* crd,
+                                         const __nv_bfloat16* g,
+                                         __nv_bfloat16* dimg, float* part,
+                                         int n, int h, int w, int c, int p,
+                                         void* stream) {
+  return launch_dimg<RowsLayout>(crd, g, dimg, part, n, h, w, c, p, stream);
 }
 
 extern "C" int catgen_bilinear_grid_dimg_f32(const float* crd, const float* g,
                                              float* dimg, int n, int h, int w,
                                              int c, int p, void* stream) {
-  return launch_dimg<GridLayout>(crd, g, dimg, n, h, w, c, p, stream);
+  return launch_dimg<GridLayout>(crd, g, dimg, (float*)nullptr, n, h, w, c,
+                                 p, stream);
+}
+
+extern "C" int catgen_bilinear_grid_dimg_bf16(const __nv_bfloat16* crd,
+                                              const __nv_bfloat16* g,
+                                              __nv_bfloat16* dimg,
+                                              float* part, int n, int h,
+                                              int w, int c, int p,
+                                              void* stream) {
+  return launch_dimg<GridLayout>(crd, g, dimg, part, n, h, w, c, p, stream);
 }

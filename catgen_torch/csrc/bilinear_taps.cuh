@@ -10,11 +10,78 @@
 // one-pixel axis (size 1) keeps tap 0 and weight 0. in_y / in_x are 1
 // where the unclipped coordinate lies in [0, size-1], edges included (the
 // TPU kernel's masks; the derivative of the clip there is 1), else 0.
+//
+// Element types: float, or __nv_bfloat16 for catgen's bf16 compute dtype.
+// A bf16 value is read exactly into f32 (its bits moved up 16), every
+// weight, lerp and sum is f32, and a bf16 result is rounded once, to
+// nearest even, as it is stored (__float2bfloat16_rn): the plain PyTorch
+// version's upcast, f32 arithmetic and one .to(torch.bfloat16). The
+// coordinates come in the image's type, so bf16 coordinates are bf16
+// values, and d_coords leaves in that type too.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// One value of the element type, read into f32 (through the read-only
+// cache) or written from f32 (rounded to nearest even for bf16).
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ float tof(float v) { return v; }
+__device__ __forceinline__ float tof(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 16 bytes of the element type: N values, unpacked into f32 or packed from
+// f32 (element 0 in the lowest bytes).
+template <class T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& v, float* out) {
+    out[0] = __uint_as_float(v.x);
+    out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z);
+    out[3] = __uint_as_float(v.w);
+  }
+  __device__ static uint4 pack(const float* in) {
+    return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]),
+                      __float_as_uint(in[2]), __float_as_uint(in[3]));
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& v, float* out) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static uint32_t bits(float x) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  __device__ static uint4 pack(const float* in) {
+    return make_uint4(bits(in[0]) | bits(in[1]) << 16,
+                      bits(in[2]) | bits(in[3]) << 16,
+                      bits(in[4]) | bits(in[5]) << 16,
+                      bits(in[6]) | bits(in[7]) << 16);
+  }
+};
 
 struct Taps {
   int64_t p00, p01, p10, p11;  // pixel indices y*w + x of the four taps
@@ -54,69 +121,99 @@ __device__ __forceinline__ float lerp_values(float v00, float v01, float v10,
 }
 
 // The same, reading the taps of one channel from global memory.
-__device__ __forceinline__ float lerp_taps(const float* __restrict__ base,
+template <class T>
+__device__ __forceinline__ float lerp_taps(const T* __restrict__ base,
                                            const Taps& t, int c) {
-  return lerp_values(__ldg(base + t.p00 * c), __ldg(base + t.p01 * c),
-                     __ldg(base + t.p10 * c), __ldg(base + t.p11 * c), t);
+  return lerp_values(ldf(base + t.p00 * c), ldf(base + t.p01 * c),
+                     ldf(base + t.p10 * c), ldf(base + t.p11 * c), t);
 }
 
 // Where the normalized (y, x) coordinate of output pixel `pi` of sample
-// `ni` lies, for `p` output pixels per sample, and where its gradient goes.
+// `ni` lies, for `p` output pixels per sample, and where its gradient goes,
+// in the element type T.
 // Rows: (n, 2, p), a row of y then a row of x (the v4 kernel's layout).
 struct RowsLayout {
-  __device__ static float2 load(const float* __restrict__ crd, int ni,
-                                int pi, int p) {
-    const float* cr = crd + (int64_t)ni * 2 * p;
-    return make_float2(__ldg(cr + pi), __ldg(cr + p + pi));
+  template <class T>
+  __device__ static float2 load(const T* __restrict__ crd, int ni, int pi,
+                                int p) {
+    const T* cr = crd + (int64_t)ni * 2 * p;
+    return make_float2(ldf(cr + pi), ldf(cr + p + pi));
   }
-  __device__ static void store(float* __restrict__ d, int ni, int pi, int p,
+  template <class T>
+  __device__ static void store(T* __restrict__ d, int ni, int pi, int p,
                                float dy, float dx) {
-    float* o = d + (int64_t)ni * 2 * p;
-    o[pi] = dy;
-    o[p + pi] = dx;
+    T* o = d + (int64_t)ni * 2 * p;
+    stf(o + pi, dy);
+    stf(o + p + pi, dx);
   }
-  // pixels pi..pi+3 as two 16-byte loads: crd 16-byte aligned, p and pi
-  // multiples of 4
-  __device__ static void load4(const float* __restrict__ crd, int ni, int pi,
-                               int p, float4& y, float4& x) {
-    const float* cr = crd + (int64_t)ni * 2 * p;
-    y = __ldg(reinterpret_cast<const float4*>(cr + pi));
-    x = __ldg(reinterpret_cast<const float4*>(cr + p + pi));
+  // pixels pi .. pi + Vec<T>::N - 1 as two 16-byte loads: crd 16-byte
+  // aligned, p and pi multiples of Vec<T>::N
+  template <class T>
+  __device__ static void loadv(const T* __restrict__ crd, int ni, int pi,
+                               int p, float* y, float* x) {
+    const T* cr = crd + (int64_t)ni * 2 * p;
+    Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(cr + pi)), y);
+    Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(cr + p + pi)), x);
   }
 };
 
 // Grid: (n, p, 2), one (y, x) pair per pixel (the layout of catgen's
-// affine_grid and of its v1-v3 kernels); one 8-byte load and store each.
-// The wrapper checks that the array is 8-byte aligned.
+// affine_grid and of its v1-v3 kernels); one load and store of the pair
+// each (8 bytes in f32, 4 in bf16). The wrapper checks that the array is
+// aligned to a pair.
 struct GridLayout {
-  __device__ static float2 load(const float* __restrict__ crd, int ni,
-                                int pi, int p) {
-    return __ldg(reinterpret_cast<const float2*>(crd) + (int64_t)ni * p + pi);
+  template <class T>
+  __device__ static float2 load(const T* __restrict__ crd, int ni, int pi,
+                                int p) {
+    const T* c = crd + 2 * ((int64_t)ni * p + pi);
+    if constexpr (sizeof(T) == 4) {
+      return __ldg(reinterpret_cast<const float2*>(c));
+    } else {
+      const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(c));
+      return make_float2(__uint_as_float(v << 16),
+                         __uint_as_float(v & 0xffff0000u));
+    }
   }
-  __device__ static void store(float* __restrict__ d, int ni, int pi, int p,
+  template <class T>
+  __device__ static void store(T* __restrict__ d, int ni, int pi, int p,
                                float dy, float dx) {
-    reinterpret_cast<float2*>(d)[(int64_t)ni * p + pi] = make_float2(dy, dx);
+    T* o = d + 2 * ((int64_t)ni * p + pi);
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(o) = make_float2(dy, dx);
+    } else {
+      stf(o, dy);
+      stf(o + 1, dx);
+    }
   }
-  // pixels pi..pi+3 as two 16-byte loads of (y, x) pairs, the same
-  // alignment as RowsLayout::load4
-  __device__ static void load4(const float* __restrict__ crd, int ni, int pi,
-                               int p, float4& y, float4& x) {
-    const float4* cr =
-        reinterpret_cast<const float4*>(crd + 2 * ((int64_t)ni * p + pi));
-    const float4 a = __ldg(cr), b = __ldg(cr + 1);
-    y = make_float4(a.x, a.z, b.x, b.z);
-    x = make_float4(a.y, a.w, b.y, b.w);
+  // pixels pi .. pi + Vec<T>::N - 1 as two 16-byte loads of (y, x) pairs,
+  // the same alignment as RowsLayout::loadv
+  template <class T>
+  __device__ static void loadv(const T* __restrict__ crd, int ni, int pi,
+                               int p, float* y, float* x) {
+    constexpr int N = Vec<T>::N;
+    const uint4* cr =
+        reinterpret_cast<const uint4*>(crd + 2 * ((int64_t)ni * p + pi));
+    float v[2 * N];
+    Vec<T>::unpack(__ldg(cr), v);
+    Vec<T>::unpack(__ldg(cr + 1), v + N);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      y[j] = v[2 * j];
+      x[j] = v[2 * j + 1];
+    }
   }
 };
 
 // Which kernel a sampler shape takes, forward (bilinear_sample.cu) and
-// d_coords (bilinear_sample_bwd.cu) alike, decided by (h, w, c) alone so
-// that every run of one shape takes the same kernel:
+// d_coords (bilinear_sample_bwd.cu) alike, decided by (h, w, C) and the
+// element size alone so that every run of one shape takes the same kernel:
 //   * kPerPixel for C < 32 (the input transformer's C = 3);
-//   * kStaged for C % 4 == 0 whose image (h w C floats) fits one block's
-//     opt-in shared memory (64 KB at the branch shape 16x16x64): the
-//     sample's image is staged there once per block and read as float4;
-//   * kPerWarp otherwise (odd C, a 32x32x64 image of 256 KB): one warp
+//   * kStaged where a pixel's C values fill whole 16-byte vectors (C % 4
+//     == 0 in f32, C % 8 == 0 in bf16) and the image (h w C values) fits
+//     one block's opt-in shared memory (64 KB at the branch shape 16x16x64
+//     in f32, 32 KB in bf16): the sample's image is staged there once per
+//     block and read 16 bytes at a time;
+//   * kPerWarp otherwise (other C, a 32x32x64 image of 256 KB): one warp
 //     (d_coords) or one thread (forward) per channel group, from global
 //     memory.
 // A launcher also needs 16-byte aligned arrays for kStaged, and takes
@@ -125,8 +222,8 @@ struct GridLayout {
 // kPerPixel there.
 enum SamplerKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2, kPerQuad = 3 };
 
-static inline int64_t staged_smem_bytes(int h, int w, int c) {
-  return (int64_t)h * w * c * (int64_t)sizeof(float);
+static inline int64_t staged_smem_bytes(int h, int w, int c, int elem) {
+  return (int64_t)h * w * c * elem;
 }
 
 // The current card's opt-in shared memory per block, in bytes; a negative
@@ -141,12 +238,12 @@ static inline int optin_smem() {
   return err == cudaSuccess ? optin : -(int)err;
 }
 
-// kPerPixel, kPerWarp or kStaged; a negative cudaError_t if the card's
-// shared memory could not be read
-static inline int sampler_kind(int h, int w, int c) {
+// kPerPixel, kPerWarp or kStaged for elements of `elem` bytes (4 or 2); a
+// negative cudaError_t if the card's shared memory could not be read
+static inline int sampler_kind(int h, int w, int c, int elem) {
   if (c < 32) return kPerPixel;
-  if (c % 4 != 0) return kPerWarp;
+  if ((int64_t)c * elem % 16 != 0) return kPerWarp;
   const int optin = optin_smem();
   if (optin < 0) return optin;
-  return staged_smem_bytes(h, w, c) <= optin ? kStaged : kPerWarp;
+  return staged_smem_bytes(h, w, c, elem) <= optin ? kStaged : kPerWarp;
 }

@@ -13,6 +13,7 @@ from catgen_torch.core.random import Draws
 from catgen_torch.kernels import config as kconfig
 from catgen_torch.kernels.bilinear import (affine_grid_rows,
                                            bilinear_sample_rows)
+from catgen_torch.nn.layers import weak
 from catgen_torch.nn.spatial_transformer import affine_grid, bilinear_sample
 
 
@@ -48,22 +49,28 @@ def augment_batch(draws: Draws, images: torch.Tensor,
     ``bilinear_sample`` on the grid (each the Hopper kernel on CUDA
     tensors); brightness and noise are elementwise. Draws
     are taken in catgen's order: scale, angle, ty, tx, flip, brightness,
-    noise."""
+    noise. Everything runs in the images' dtype, as catgen's does: in
+    bf16 the draws are rounded to bf16 and the affine matrices and grid
+    are bf16 arithmetic (catgen draws them in bf16)."""
     n, h, w, _ = images.shape
-    device = images.device
-    scale = draws.uniform((n,), config.scale_min,
-                          config.scale_max).to(device)
-    angle = draws.uniform((n,), -config.rotation_deg,
-                          config.rotation_deg).to(device) * (math.pi / 180.0)
+    device, dtype = images.device, images.dtype
+
+    def uniform(shape, low, high):
+        return draws.uniform(shape, low, high).to(device, dtype)
+
+    scale = uniform((n,), config.scale_min, config.scale_max)
+    angle = uniform((n,), -config.rotation_deg,
+                    config.rotation_deg) * weak(math.pi / 180.0, dtype)
     tpx = config.translation_px * h / config.translation_ref_size
     # pixel translation -> normalized align-corners units
     tn = 2.0 * tpx / max(h - 1, 1)
-    ty = draws.uniform((n,), -tn, tn).to(device)
-    tx = draws.uniform((n,), -tn, tn).to(device)
+    ty = uniform((n,), -tn, tn)
+    tx = uniform((n,), -tn, tn)
     if config.hflip:
-        flip = torch.where(draws.bernoulli(0.5, (n,)).to(device), -1.0, 1.0)
+        flip = torch.where(draws.bernoulli(0.5, (n,)).to(device), -1.0,
+                           1.0).to(dtype)
     else:
-        flip = torch.ones((n,), device=device)
+        flip = torch.ones((n,), dtype=dtype, device=device)
 
     # inverse warp: the sample grid is (1/scale) R(-angle) applied to the
     # output coords, then translated; x additionally sign-flipped for hflip
@@ -82,9 +89,9 @@ def augment_batch(draws: Draws, images: torch.Tensor,
                               affine_grid(theta, h, w).to(images.dtype))
 
     # multiplicative brightness +-15%
-    bri = draws.uniform((n, 1, 1, 1), -config.brightness,
-                        config.brightness).to(device)
+    bri = uniform((n, 1, 1, 1), -config.brightness, config.brightness)
     out = out * (1.0 + bri)
     if config.noise_std > 0:
-        out = out + config.noise_std * draws.normal(out.shape).to(device)
+        out = out + weak(config.noise_std, dtype) * draws.normal(
+            out.shape).to(device, dtype)
     return torch.clamp(out, 0.0, 1.0)

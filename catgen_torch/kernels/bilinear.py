@@ -19,6 +19,17 @@ formulation of ``catgen/nn/spatial_transformer.py::bilinear_sample``,
 under autograd. Both follow the TPU kernel at exact edges: the derivative
 of the coordinate clip is 1 on the edge itself (``torch.clamp``; v4's
 inclusive masks), where catgen's XLA path (``jnp.clip``) gives 0.5.
+
+Two element types, as catgen's compute dtype: float32, and bfloat16 with
+image, coordinates and gradients in bf16. The bf16 kernels (the same
+kernels instantiated for ``__nv_bfloat16``) and the plain version alike
+compute in f32 from the bf16 values and round each result once, to
+nearest even: the output, d_img (an f32 sum, as v4's) and d_coords (in the
+coordinates' dtype). The forward's bits are the plain version's; the
+backward's differ only where two f32 sums of another order round apart.
+Launches are counted per element type: ``LAUNCHES``, ``DCOORDS_LAUNCHES``
+and ``DIMG_LAUNCHES`` for f32, ``BF16_LAUNCHES``,
+``BF16_DCOORDS_LAUNCHES`` and ``BF16_DIMG_LAUNCHES`` for bf16.
 """
 
 from __future__ import annotations
@@ -30,10 +41,32 @@ import torch
 
 from catgen_torch.kernels.build import load_library
 
-# Launches of each CUDA kernel since import (or since a caller reset them).
+# Launches of each CUDA kernel since import (or since a caller reset them),
+# f32 and bf16 instantiations apart.
 LAUNCHES = 0              # forward
 DCOORDS_LAUNCHES = 0      # backward, d_coords
 DIMG_LAUNCHES = 0         # backward, d_img
+BF16_LAUNCHES = BF16_DCOORDS_LAUNCHES = BF16_DIMG_LAUNCHES = 0
+COUNTERS = ("LAUNCHES", "DCOORDS_LAUNCHES", "DIMG_LAUNCHES", "BF16_LAUNCHES",
+            "BF16_DCOORDS_LAUNCHES", "BF16_DIMG_LAUNCHES")
+
+# the kernels' element types and the suffix of their C entry points
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def reset_launches() -> None:
+    for name in COUNTERS:
+        globals()[name] = 0
+
+
+def launches() -> dict:
+    return {name: globals()[name] for name in COUNTERS}
+
+
+def count(name: str, dtype: torch.dtype) -> None:
+    """Adds one to the f32 counter ``name`` or to its bf16 twin."""
+    key = name if dtype == torch.float32 else f"BF16_{name}"
+    globals()[key] += 1
 
 
 @functools.lru_cache(maxsize=32)
@@ -62,7 +95,18 @@ def affine_grid_rows(theta: torch.Tensor, height: int,
 
 def bilinear_sample_rows_plain(img: torch.Tensor, coords_rows: torch.Tensor,
                                out_hw) -> torch.Tensor:
-    """Plain version: four gathers and three lerps, in the input dtype."""
+    """Plain version: four gathers and three lerps, in the input dtype; a
+    bf16 input is computed in f32 and the output rounded once to bf16 (the
+    bf16 kernels' arithmetic). Under autograd the casts make the bf16
+    gradients f32 sums rounded once too."""
+    if img.dtype == torch.bfloat16:
+        return _sample_rows(img.float(), coords_rows.float(),
+                            out_hw).to(torch.bfloat16)
+    return _sample_rows(img, coords_rows, out_hw)
+
+
+def _sample_rows(img: torch.Tensor, coords_rows: torch.Tensor,
+                 out_hw) -> torch.Tensor:
     n, h, w, c = img.shape
     ho, wo = out_hw
     p = ho * wo
@@ -108,8 +152,9 @@ def bilinear_sample_rows_backward_plain(img, coords_rows, grad_out, out_hw,
 
 
 def _check(img: torch.Tensor, coords_rows: torch.Tensor, out_hw) -> None:
-    if img.dtype != torch.float32 or coords_rows.dtype != torch.float32:
-        raise TypeError(f"bilinear_sample_rows kernel takes float32, got "
+    if img.dtype not in KERNEL_DTYPES or coords_rows.dtype != img.dtype:
+        raise TypeError(f"bilinear_sample_rows kernel takes float32 or "
+                        f"bfloat16, the image and coordinates alike, got "
                         f"{img.dtype} and {coords_rows.dtype}")
     if img.dim() != 4:
         raise ValueError(f"img must be (N, H, W, C), got {tuple(img.shape)}")
@@ -133,15 +178,34 @@ def _check(img: torch.Tensor, coords_rows: torch.Tensor, out_hw) -> None:
 def _check_grad(img: torch.Tensor, grad_out: torch.Tensor, out_hw) -> None:
     n, _, _, c = img.shape
     want = (n, out_hw[0], out_hw[1], c)
-    if grad_out.dtype != torch.float32:
-        raise TypeError(f"bilinear sampler backward takes a float32 "
-                        f"gradient, got {grad_out.dtype}")
+    if grad_out.dtype != img.dtype:
+        raise TypeError(f"bilinear sampler backward takes a gradient of the "
+                        f"image's dtype {img.dtype}, got {grad_out.dtype}")
     if tuple(grad_out.shape) != want or not grad_out.is_contiguous():
         raise ValueError(f"the sampled output's gradient must be a "
                          f"contiguous {want}, got {tuple(grad_out.shape)}")
     if grad_out.device != img.device:
         raise ValueError(f"gradient on {grad_out.device}, img on "
                          f"{img.device}")
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry point ``catgen_bilinear_<name>_<f32|bf16>``."""
+    return getattr(load_library(),
+                   f"catgen_bilinear_{name}_{KERNEL_DTYPES[dtype]}")
+
+
+def dimg_scratch(img: torch.Tensor, p: int):
+    """The f32 scratch of a bf16 gather d_img that takes more than one pass
+    over its ``p`` output pixels per sample (the running sums between
+    passes), as an address for the C entry point; None (0) otherwise."""
+    n, h, w, c = img.shape
+    if (img.dtype != torch.bfloat16 or dimg_kind(h, w, c, img.dtype)
+            != "gather"
+            or p <= load_library().catgen_bilinear_dimg_gather_pixels()):
+        return None, 0
+    part = torch.empty(img.shape, dtype=torch.float32, device=img.device)
+    return part, part.data_ptr()
 
 
 def _launched(err: int, what: str) -> None:
@@ -152,40 +216,38 @@ def _launched(err: int, what: str) -> None:
 def launch(img: torch.Tensor, coords_rows: torch.Tensor,
            out_hw) -> torch.Tensor:
     """Runs the forward kernel on the current stream; raises on bad inputs
-    or a refused launch. Counts each launch in ``LAUNCHES``."""
-    global LAUNCHES
+    or a refused launch. Counts each launch in ``LAUNCHES`` (f32) or
+    ``BF16_LAUNCHES``."""
     _check(img, coords_rows, out_hw)
-    lib = load_library()
     n, h, w, c = img.shape
     ho, wo = out_hw
     out = torch.empty((n, ho, wo, c), dtype=img.dtype, device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_sample_rows_f32(
+        err = _entry("sample_rows", img.dtype)(
             img.data_ptr(), coords_rows.data_ptr(), out.data_ptr(),
             n, h, w, c, ho * wo, stream)
     _launched(err, "bilinear_sample_rows")
-    LAUNCHES += 1
+    count("LAUNCHES", img.dtype)
     return out
 
 
 def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
                    grad_out: torch.Tensor, out_hw) -> torch.Tensor:
     """Runs the d_coords kernel: (N, 2, P), the gradient with respect to
-    the coordinate rows. Counts each launch in ``DCOORDS_LAUNCHES``."""
-    global DCOORDS_LAUNCHES
+    the coordinate rows, in their dtype. Counts each launch in
+    ``DCOORDS_LAUNCHES`` (f32) or ``BF16_DCOORDS_LAUNCHES``."""
     _check(img, coords_rows, out_hw)
     _check_grad(img, grad_out, out_hw)
-    lib = load_library()
     n, h, w, c = img.shape
     dcrd = torch.empty_like(coords_rows)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_dcoords_f32(
+        err = _entry("dcoords", img.dtype)(
             img.data_ptr(), coords_rows.data_ptr(), grad_out.data_ptr(),
             dcrd.data_ptr(), n, h, w, c, out_hw[0] * out_hw[1], stream)
     _launched(err, "bilinear sampler d_coords")
-    DCOORDS_LAUNCHES += 1
+    count("DCOORDS_LAUNCHES", img.dtype)
     return dcrd
 
 
@@ -194,60 +256,81 @@ FORWARD_KINDS = ("per_pixel", "per_value", "staged", "per_quad")
 DIMG_KINDS = ("per_channel", "per_sample", "gather")
 
 
-def _kind(h: int, w: int, c: int, names, entry: str) -> str:
-    code = getattr(load_library(), entry)(h, w, c)
+def _kind(h: int, w: int, c: int, dtype: torch.dtype, names,
+          entry: str) -> str:
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the sampler kernels take float32 or bfloat16, not "
+                        f"{dtype}")
+    code = getattr(load_library(), entry)(h, w, c, dtype.itemsize)
     if code < 0:
         raise RuntimeError(f"reading the card's shared memory failed: "
                            f"cudaError_t {-code}")
     return names[code]
 
 
-def dcoords_kind(h: int, w: int, c: int) -> str:
-    """Which d_coords kernel an (h, w, c) image takes on the current card
-    (16-byte aligned arrays): ``per_pixel`` (c < 32), ``staged`` (the
-    image in shared memory: c % 4 == 0 and it fits) or ``per_warp``."""
-    return _kind(h, w, c, DCOORDS_KINDS, "catgen_bilinear_sampler_kind")
+def dcoords_kind(h: int, w: int, c: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """Which d_coords kernel an (h, w, c) image of ``dtype`` takes on the
+    current card (16-byte aligned arrays): ``per_pixel`` (c < 32),
+    ``staged`` (the image in shared memory: a pixel's c values fill whole
+    16-byte vectors, c % 4 == 0 in f32 and c % 8 == 0 in bf16, and it
+    fits) or ``per_warp``."""
+    return _kind(h, w, c, dtype, DCOORDS_KINDS,
+                 "catgen_bilinear_sampler_kind")
 
 
-def forward_kind(h: int, w: int, c: int) -> str:
-    """Which forward kernel an (h, w, c) image takes on the current card,
-    rows or grid layout, with 16-byte aligned arrays: for c >= 32 the
-    d_coords kernels' rule, ``staged`` (c % 4 == 0 and the image fits
-    shared memory) or ``per_value`` (unaligned arrays take it too); for c
-    < 32 ``per_quad`` (the image staged in shared memory, four output
-    pixels a thread: h*w*c % 4 == 0 and the image fits) or ``per_pixel``
-    (unaligned arrays take it too)."""
-    return _kind(h, w, c, FORWARD_KINDS, "catgen_bilinear_forward_kind")
+def forward_kind(h: int, w: int, c: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """Which forward kernel an (h, w, c) image of ``dtype`` takes on the
+    current card, rows or grid layout, with 16-byte aligned arrays: for c
+    >= 32 the d_coords kernels' rule, ``staged`` (whole 16-byte vectors
+    per pixel and the image fits shared memory) or ``per_value``
+    (unaligned arrays take it too); for c < 32 ``per_quad`` (the image
+    staged in shared memory, a thread per group of neighbouring output
+    pixels, 4 in f32 and 8 in bf16, whose coordinates fill a 16-byte
+    vector: h*w*c values fill whole 16-byte vectors and the image fits)
+    or ``per_pixel`` (unaligned arrays take it too)."""
+    return _kind(h, w, c, dtype, FORWARD_KINDS,
+                 "catgen_bilinear_forward_kind")
 
 
-def dimg_kind(h: int, w: int, c: int) -> str:
-    """Which d_img kernel an (h, w, c) image takes on the current card,
-    rows or grid layout: ``per_sample`` (c < 32 and four h*w*c slabs fit
-    one block's shared memory: a block per sample, one slab per warp),
-    else ``gather`` (a block per sample buckets its output pixels' taps by
-    input pixel, then sums each input pixel's bin in order; images up to
-    79x79), else ``per_channel`` (a block per sample and slab of 32
-    channels)."""
-    return _kind(h, w, c, DIMG_KINDS, "catgen_bilinear_dimg_kind")
+def dimg_kind(h: int, w: int, c: int,
+              dtype: torch.dtype = torch.float32) -> str:
+    """Which d_img kernel an (h, w, c) image of ``dtype`` takes on the
+    current card, rows or grid layout: ``per_sample`` (c < 32 and four
+    h*w*c slabs of f32 sums fit one block's shared memory: a block per
+    sample, one slab per warp), else ``gather`` (a block per sample
+    buckets its output pixels' taps by input pixel, then sums each input
+    pixel's bin in order; images up to 79x79), else ``per_channel`` (a
+    block per sample and slab of 32 channels). The sums are f32 for both
+    element types, so the choice does not depend on ``dtype``."""
+    return _kind(h, w, c, dtype, DIMG_KINDS, "catgen_bilinear_dimg_kind")
 
 
 def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
                 grad_out: torch.Tensor, out_hw) -> torch.Tensor:
     """Runs the d_img kernel: (N, H, W, C), the gradient with respect to
-    the image (``img`` gives its shape and device; its values are not
-    read). Deterministic: no atomics. Counts each launch in
-    ``DIMG_LAUNCHES``."""
-    global DIMG_LAUNCHES
+    the image (``img`` gives its shape, dtype and device; its values are
+    not read), summed in f32 and rounded once for bf16. Deterministic: no
+    atomics. Counts each launch in ``DIMG_LAUNCHES`` (f32) or
+    ``BF16_DIMG_LAUNCHES``."""
     _check(img, coords_rows, out_hw)
     _check_grad(img, grad_out, out_hw)
     lib = load_library()
     n, h, w, c = img.shape
+    p = out_hw[0] * out_hw[1]
     dimg = torch.empty_like(img)
+    # the bf16 entry points take the scratch's address (0: none), held
+    # until the launch; the caching allocator orders its reuse after the
+    # kernel on this stream
+    part, part_ptr = dimg_scratch(img, p)
+    scratch = () if img.dtype == torch.float32 else (part_ptr,)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_dimg_f32(
+        err = _entry("dimg", img.dtype)(
             coords_rows.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(),
-            n, h, w, c, out_hw[0] * out_hw[1], stream)
+            *scratch, n, h, w, c, p, stream)
+    del part
     # a block holds up to 8 slabs of h*w*c floats (per sample), 8 cursors
     # per input pixel and 1024 output pixels' entries and weights (gather)
     # or h*w*min(c, 32) floats (per channel); an image too large for the
@@ -255,7 +338,7 @@ def launch_dimg(img: torch.Tensor, coords_rows: torch.Tensor,
     _launched(err, f"bilinear sampler d_img (a block needs "
                    f"{lib.catgen_bilinear_dimg_smem_bytes(h, w, c)} bytes of "
                    f"shared memory)")
-    DIMG_LAUNCHES += 1
+    count("DIMG_LAUNCHES", img.dtype)
     return dimg
 
 

@@ -18,32 +18,39 @@ v4 superseded, under their public names here:
 
 They differ only in how they fed the TPU's matrix unit. On Hopper each is
 the v4 gather kernels instantiated for the grid layout
-(``csrc/bilinear_sample.cu``, ``csrc/bilinear_sample_bwd.cu``): one 8-byte
-load of (y, x) per pixel, d_coords written as (dy, dx) pairs, no permute
-copy. All in f32 (v3's bf16 operand rounding is not copied, as v4's is
+(``csrc/bilinear_sample.cu``, ``csrc/bilinear_sample_bwd.cu``): one load
+of the (y, x) pair per pixel (8 bytes in f32, 4 in bf16), d_coords
+written as (dy, dx) pairs, no permute copy. In f32, or in bf16 as
+``kernels/bilinear.py``'s kernels are: bf16 values, f32 arithmetic, each
+result rounded once (v3's bf16 operand rounding is not copied, as v4's is
 not). Their masks are inclusive, so the derivative on the edge itself is 1,
 as v4's (``kernels/bilinear.py``); catgen's XLA sampler gives 0.5 there.
 
 On a CUDA tensor each wrapper launches the kernels or raises; on CPU
 tensors it runs ``bilinear_sample_grid_plain`` under autograd. Counters:
-``LAUNCHES``, ``DCOORDS_LAUNCHES`` and ``DIMG_LAUNCHES`` count the kernels,
-``V1_LAUNCHES``..``V3_LAUNCHES`` the forwards taken under each
-generation's name (``bilinear_sample_grid`` itself, catgen's ``xla``
-route, counts in neither).
+``LAUNCHES``, ``DCOORDS_LAUNCHES`` and ``DIMG_LAUNCHES`` count the f32
+kernels and their ``BF16_`` twins the bf16 ones, ``V1_LAUNCHES``..
+``V3_LAUNCHES`` the forwards taken under each generation's name
+(``bilinear_sample_grid`` itself, catgen's ``xla`` route, counts in
+neither).
 """
 
 from __future__ import annotations
 
 import torch
 
-from catgen_torch.kernels.bilinear import (_check_grad, _launched,
-                                           bilinear_sample_rows_plain)
+from catgen_torch.kernels.bilinear import (KERNEL_DTYPES, _check_grad,
+                                           _entry, _launched,
+                                           bilinear_sample_rows_plain,
+                                           dimg_scratch)
 from catgen_torch.kernels.build import load_library
 
 COUNTERS = ("LAUNCHES", "DCOORDS_LAUNCHES", "DIMG_LAUNCHES", "V1_LAUNCHES",
-            "V2_LAUNCHES", "V3_LAUNCHES")
+            "V2_LAUNCHES", "V3_LAUNCHES", "BF16_LAUNCHES",
+            "BF16_DCOORDS_LAUNCHES", "BF16_DIMG_LAUNCHES")
 LAUNCHES = DCOORDS_LAUNCHES = DIMG_LAUNCHES = 0
 V1_LAUNCHES = V2_LAUNCHES = V3_LAUNCHES = 0
+BF16_LAUNCHES = BF16_DCOORDS_LAUNCHES = BF16_DIMG_LAUNCHES = 0
 
 
 def reset_launches() -> None:
@@ -55,14 +62,15 @@ def launches() -> dict:
     return {name: globals()[name] for name in COUNTERS}
 
 
-def _count(name: str) -> None:
-    globals()[name] += 1
+def _count(name: str, dtype: torch.dtype = torch.float32) -> None:
+    """Adds one to ``name``, or for a bf16 kernel to its ``BF16_`` twin."""
+    globals()[name if dtype == torch.float32 else f"BF16_{name}"] += 1
 
 
 def bilinear_sample_grid_plain(img: torch.Tensor,
                                coords: torch.Tensor) -> torch.Tensor:
     """Plain version: the coordinate rows' gathers and lerps on the grid's
-    (y, x) pairs, in the input dtype."""
+    (y, x) pairs, in the input dtype (bf16: in f32, rounded once)."""
     n, ho, wo, _ = coords.shape
     rows = coords.reshape(n, ho * wo, 2).permute(0, 2, 1)
     return bilinear_sample_rows_plain(img, rows, (ho, wo))
@@ -83,8 +91,9 @@ def bilinear_sample_grid_backward_plain(img, coords, grad_out,
 
 
 def _check(img: torch.Tensor, coords: torch.Tensor) -> None:
-    if img.dtype != torch.float32 or coords.dtype != torch.float32:
-        raise TypeError(f"bilinear_sample_grid kernel takes float32, got "
+    if img.dtype not in KERNEL_DTYPES or coords.dtype != img.dtype:
+        raise TypeError(f"bilinear_sample_grid kernel takes float32 or "
+                        f"bfloat16, the image and grid alike, got "
                         f"{img.dtype} and {coords.dtype}")
     if img.dim() != 4 or coords.dim() != 4 or coords.shape[-1] != 2 \
             or coords.shape[0] != img.shape[0]:
@@ -100,69 +109,76 @@ def _check(img: torch.Tensor, coords: torch.Tensor) -> None:
             f"{img.device} and {coords.device}")
     if img.device != coords.device:
         raise ValueError(f"img on {img.device}, coords on {coords.device}")
-    if coords.data_ptr() % 8:
+    if coords.data_ptr() % (2 * coords.element_size()):
         raise ValueError("bilinear_sample_grid kernel reads (y, x) as one "
-                         "8-byte load: the grid must be 8-byte aligned")
+                         "load: the grid must be aligned to a pair")
 
 
 def launch(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Runs the forward kernel on the current stream; raises on bad inputs
-    or a refused launch. Counts each launch in ``LAUNCHES``."""
+    or a refused launch. Counts each launch in ``LAUNCHES`` (f32) or
+    ``BF16_LAUNCHES``."""
     _check(img, coords)
-    lib = load_library()
     n, h, w, c = img.shape
     ho, wo = coords.shape[1:3]
     out = torch.empty((n, ho, wo, c), dtype=img.dtype, device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_sample_grid_f32(
+        err = _entry("sample_grid", img.dtype)(
             img.data_ptr(), coords.data_ptr(), out.data_ptr(), n, h, w, c,
             ho * wo, stream)
     _launched(err, "bilinear_sample_grid")
-    _count("LAUNCHES")
+    _count("LAUNCHES", img.dtype)
     return out
 
 
 def launch_dcoords(img: torch.Tensor, coords: torch.Tensor,
                    grad_out: torch.Tensor) -> torch.Tensor:
     """Runs the d_coords kernel: (N, Ho, Wo, 2), the gradient with respect
-    to the grid. Counts each launch in ``DCOORDS_LAUNCHES``."""
+    to the grid, in its dtype. Counts each launch in ``DCOORDS_LAUNCHES``
+    (f32) or ``BF16_DCOORDS_LAUNCHES``."""
     _check(img, coords)
     out_hw = tuple(coords.shape[1:3])
     _check_grad(img, grad_out, out_hw)
-    lib = load_library()
     n, h, w, c = img.shape
     dcrd = torch.empty_like(coords)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_grid_dcoords_f32(
+        err = _entry("grid_dcoords", img.dtype)(
             img.data_ptr(), coords.data_ptr(), grad_out.data_ptr(),
             dcrd.data_ptr(), n, h, w, c, out_hw[0] * out_hw[1], stream)
     _launched(err, "bilinear_sample_grid d_coords")
-    _count("DCOORDS_LAUNCHES")
+    _count("DCOORDS_LAUNCHES", img.dtype)
     return dcrd
 
 
 def launch_dimg(img: torch.Tensor, coords: torch.Tensor,
                 grad_out: torch.Tensor) -> torch.Tensor:
     """Runs the d_img kernel: (N, H, W, C), the gradient with respect to
-    the image (``img`` gives its shape and device). Deterministic: no
-    atomics. Counts each launch in ``DIMG_LAUNCHES``."""
+    the image (``img`` gives its shape, dtype and device), summed in f32
+    and rounded once for bf16. Deterministic: no atomics. Counts each
+    launch in ``DIMG_LAUNCHES`` (f32) or ``BF16_DIMG_LAUNCHES``."""
     _check(img, coords)
     out_hw = tuple(coords.shape[1:3])
     _check_grad(img, grad_out, out_hw)
     lib = load_library()
     n, h, w, c = img.shape
+    p = out_hw[0] * out_hw[1]
     dimg = torch.empty_like(img)
+    # the bf16 gather's f32 scratch (kernels/bilinear.py), held until the
+    # launch
+    part, part_ptr = dimg_scratch(img, p)
+    scratch = () if img.dtype == torch.float32 else (part_ptr,)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_bilinear_grid_dimg_f32(
-            coords.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(), n, h, w,
-            c, out_hw[0] * out_hw[1], stream)
+        err = _entry("grid_dimg", img.dtype)(
+            coords.data_ptr(), grad_out.data_ptr(), dimg.data_ptr(),
+            *scratch, n, h, w, c, p, stream)
+    del part
     _launched(err, f"bilinear_sample_grid d_img (a block needs "
                    f"{lib.catgen_bilinear_dimg_smem_bytes(h, w, c)} bytes of "
                    f"shared memory)")
-    _count("DIMG_LAUNCHES")
+    _count("DIMG_LAUNCHES", img.dtype)
     return dimg
 
 
@@ -221,5 +237,5 @@ def bilinear_sample_sep(img: torch.Tensor,
 def bilinear_sample_batched(img: torch.Tensor,
                             coords: torch.Tensor) -> torch.Tensor:
     """catgen's v3 (``pallas_bilinear_v3.py::bilinear_sample_batched``):
-    the grid kernels in f32; counts in ``V3_LAUNCHES``."""
+    the grid kernels; counts in ``V3_LAUNCHES``."""
     return _generation("V3_LAUNCHES", img, coords)

@@ -35,19 +35,21 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (name, argument types, return type) of every C entry point
 SIGNATURES = (
-    ("catgen_bilinear_sample_rows_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-     _I),
-    ("catgen_bilinear_dcoords_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-     _I),
-    ("catgen_bilinear_dimg_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    ("catgen_bilinear_dimg_smem_bytes", [_I, _I, _I], _I64),
-    ("catgen_bilinear_sampler_kind", [_I, _I, _I], _I),
-    ("catgen_bilinear_forward_kind", [_I, _I, _I], _I),
-    ("catgen_bilinear_dimg_kind", [_I, _I, _I], _I),
-    ("catgen_bilinear_sample_grid_f32", [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-     _I),
-    ("catgen_bilinear_grid_dcoords_f32", [_P] * 4 + [_I] * 5 + [_P], _I),
-    ("catgen_bilinear_grid_dimg_f32", [_P] * 3 + [_I] * 5 + [_P], _I),
+    *((f"catgen_bilinear_sample_{layout}_{t}", [_P, _P, _P] + [_I] * 5 + [_P],
+       _I) for layout in ("rows", "grid") for t in ("f32", "bf16")),
+    *((f"catgen_bilinear_{layout}dcoords_{t}", [_P] * 4 + [_I] * 5 + [_P],
+       _I) for layout in ("", "grid_") for t in ("f32", "bf16")),
+    *((f"catgen_bilinear_{layout}dimg_f32", [_P] * 3 + [_I] * 5 + [_P], _I)
+      for layout in ("", "grid_")),
+    # the bf16 d_img also takes the f32 scratch of the gather's passes
+    *((f"catgen_bilinear_{layout}dimg_bf16", [_P] * 4 + [_I] * 5 + [_P], _I)
+      for layout in ("", "grid_")),
+    ("catgen_bilinear_dimg_smem_bytes", [_I] * 3, _I64),
+    ("catgen_bilinear_dimg_gather_pixels", [], _I),
+    # (h, w, c, element size in bytes)
+    ("catgen_bilinear_sampler_kind", [_I] * 4, _I),
+    ("catgen_bilinear_forward_kind", [_I] * 4, _I),
+    ("catgen_bilinear_dimg_kind", [_I] * 4, _I),
     ("catgen_st_conv_prelu_f32", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
      _I),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),

@@ -311,6 +311,7 @@ def upsample2_conv_fused(x, weight, bias=None, prelu_alpha=None):
     """Nearest-2x upsample + same conv (+ bias) (+ PReLU, one slope or one
     per output channel) in one pass. x (N, H, W, Cin), weight (Cout, Cin,
     k, k) odd k; returns (N, 2H, 2W, Cout)."""
+    config.refuse_bf16("upsample-conv", x)
     if _on_cpu(x, weight, bias, prelu_alpha):
         return block_plain(x, weight, bias, prelu_alpha=prelu_alpha)
     y = _launch_forward(x, weight, bias, prelu_alpha=prelu_alpha)
@@ -324,6 +325,7 @@ def upsample2_conv_block_fused(x, weight, bias, in_scale, in_shift, in_alpha,
     + bias in one pass; with ``with_stats`` also the per-channel [sum y,
     sum y^2] over (N, 2H, 2W). in_scale, in_shift (Cin,); in_alpha (Cin,)
     or (1,). Returns y, or (y, s1, s2)."""
+    config.refuse_bf16("upsample-conv ladder", x)
     if _on_cpu(x, weight, bias, in_scale, in_shift, in_alpha):
         y = block_plain(x, weight, bias, in_scale, in_shift, in_alpha)
         return (y, *stats_plain(y)) if with_stats else y
@@ -337,6 +339,7 @@ def upsample2_conv_block_fused(x, weight, bias, in_scale, in_shift, in_alpha,
 def upsample2_conv_dx(x, weight, g):
     """dx of ``upsample2_conv(x, weight)`` for the cotangent g: the dX
     kernel alone (the ``hybrid`` backward)."""
+    config.refuse_bf16("upsample-conv dX", x, g)
     if _on_cpu(x, weight, g):
         return upsample2_conv_backward_plain(x, weight, g)[0]
     dx = _launch_dx(x, weight, g)
@@ -347,6 +350,7 @@ def upsample2_conv_dx(x, weight, g):
 def upsample2_conv_backward(x, weight, g):
     """(dx, dweight, dbias) of ``upsample2_conv(x, weight) + bias`` for the
     cotangent g (N, 2H, 2W, Cout)."""
+    config.refuse_bf16("upsample-conv backward", x, g)
     if _on_cpu(x, weight, g):
         return upsample2_conv_backward_plain(x, weight, g)
     dx = upsample2_conv_dx(x, weight, g)
@@ -361,6 +365,7 @@ def fused_block_backward(x, in_scale, in_shift, in_alpha, weight, y, gy,
     """The full VJP of ``upsample2_conv_block``: returns (dx, dscale,
     dshift, dalpha (Cin,), dweight, dbias); the caller sums dalpha for a
     shared slope."""
+    config.refuse_bf16("upsample-conv ladder backward", x, gy)
     if _on_cpu(x, in_scale, in_shift, in_alpha, weight, y, gy, gs1, gs2):
         bias = torch.zeros(weight.shape[0], dtype=x.dtype, device=x.device)
         return fused_block_backward_plain(x, in_scale, in_shift, in_alpha,
@@ -407,7 +412,9 @@ class _UpsampleConvBias(torch.autograd.Function):
 
 def upsample2_conv_bias(x, weight, bias):
     """Differentiable ``upsample2_conv_fused(x, weight, bias)``; the
-    backward follows ``config.upsample_bwd``."""
+    backward follows ``config.upsample_bwd``. f32 only (a bf16 x raises:
+    ROADMAP Queue A item 1b)."""
+    config.refuse_bf16("upsample-conv", x)
     return _UpsampleConvBias.apply(x, weight, bias)
 
 
@@ -440,6 +447,8 @@ class _UpsampleConvBlock(torch.autograd.Function):
 def upsample2_conv_block(x, in_scale, in_shift, in_alpha, weight, bias):
     """Differentiable ladder block: returns (y, s1, s2) as
     ``upsample2_conv_block_fused(..., with_stats=True)``; the backward
-    takes (gy, gs1, gs2) and follows ``config.ladder_bwd``."""
+    takes (gy, gs1, gs2) and follows ``config.ladder_bwd``. f32 only (a
+    bf16 x raises: ROADMAP Queue A item 1b)."""
+    config.refuse_bf16("upsample-conv ladder", x)
     return _UpsampleConvBlock.apply(x, in_scale, in_shift, in_alpha, weight,
                                     bias)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from catgen_torch.kernels import bilinear
+from catgen_torch.kernels import config as kconfig
 from catgen_torch.kernels.bilinear import (_launched, affine_grid_rows,
                                            base_rows,
                                            bilinear_sample_rows_plain)
@@ -167,7 +168,9 @@ def st_conv_prelu(img, theta, kernel, bias, alpha) -> torch.Tensor:
     """img (N, H, W, C), theta (N, 2, 3), kernel (3, 3, C, F), bias (F,),
     alpha (1,) or (F,). Returns (N, H, W, F). CPU tensors take the plain
     version; CUDA tensors the kernel, which skips writing what the backward
-    reads when no gradient will be taken."""
+    reads when no gradient will be taken. f32 only: a bf16 image raises
+    (ROADMAP Queue A item 1b)."""
+    kconfig.refuse_bf16("fused ST-conv prefix", img)
     args = (img, theta, kernel, bias, alpha)
     if all(t.device.type == "cpu" for t in args):
         return st_conv_prelu_plain(*args)

@@ -12,7 +12,9 @@ kernels (``kernels/fused_upsample_conv.py``), ``naive`` the unfused
 reference. Weights are the plain conv's, so checkpoints are
 interchangeable.
 
-Weights are OIHW (PyTorch's layout); images NHWC.
+Weights are OIHW (PyTorch's layout); images NHWC. As catgen's, the
+collapse runs in the weight's dtype (f32) and the collapsed kernel is cast
+to the image's dtype (bf16 under ``compute_dtype``) for the convolution.
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ def upsample2_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
             ck, (ph, pw) = collapse_weights(weight, d, e)
             # F.pad takes (left, right, top, bottom); conv2d pads only
             # symmetrically, and these pads are not
-            y = F.conv2d(F.pad(xc, (pw[0], pw[1], ph[0], ph[1])), ck)
+            y = F.conv2d(F.pad(xc, (pw[0], pw[1], ph[0], ph[1])),
+                         ck.to(x.dtype))
             planes.append(to_nhwc(y))
     y = torch.stack(planes, dim=-2)                 # (N, H, W, 4, Cout)
     y = y.reshape(n, h, w, 2, 2, cout)
@@ -101,7 +104,7 @@ def upsample2_conv_reference(x: torch.Tensor,
     up = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
     up = up.reshape(n, 2 * h, 2 * w, c)
     p = (weight.shape[2] - 1) // 2
-    return to_nhwc(F.conv2d(to_nchw(up), weight, padding=p))
+    return to_nhwc(F.conv2d(to_nchw(up), weight.to(x.dtype), padding=p))
 
 
 class UpsampleConv(nn.Module):

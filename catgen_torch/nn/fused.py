@@ -16,7 +16,8 @@ The pending affine + PReLU of the last stage is applied before the next
 plain layer (G32up-c's output conv). The BatchNorm arithmetic (biased
 batch variance for normalization; running mean and unbiased running
 variance moved by ``momentum`` in place on the ``BatchNorm`` child's
-buffers, also under ``torch.no_grad``) follows ``nn.layers.BatchNorm``, so
+buffers, also under ``torch.no_grad``, but not in a ``remat`` recompute)
+follows ``nn.layers.BatchNorm``, so
 the two paths are interchangeable and checkpoints identical. Off the
 kernel route it is the plain ``Sequential``.
 """
@@ -27,6 +28,7 @@ import math
 
 import torch
 
+from catgen_torch.core import random as crandom
 from catgen_torch.core.module import Sequential
 from catgen_torch.kernels import config
 from catgen_torch.kernels.fused_upsample_conv import (
@@ -73,11 +75,12 @@ class FusedDecoderSequential(Sequential):
                 count = math.prod(y.shape[:-1])
                 mean = s1 / count
                 var = torch.clamp(s2 / count - mean * mean, min=0.0)
-                with torch.no_grad():
-                    m = bn.momentum
-                    bn.mean.mul_(1 - m).add_(m * mean)
-                    bn.var.mul_(1 - m).add_(
-                        m * var * (count / max(count - 1, 1)))
+                if not crandom.recomputing():   # else the first pass did
+                    with torch.no_grad():
+                        m = bn.momentum
+                        bn.mean.mul_(1 - m).add_(m * mean)
+                        bn.var.mul_(1 - m).add_(
+                            m * var * (count / max(count - 1, 1)))
             else:
                 y = upsample2_conv_block_fused(x, uc.weight, uc.bias,
                                                *pending, with_stats=False)

@@ -15,10 +15,23 @@ with running statistics ``mean`` and ``var`` as buffers; PReLU holds
 ``training`` (``module.train()`` / ``module.eval()``) selects train or
 eval semantics, as catgen's ``train=`` flag does. The stochastic layers
 draw their masks from the ``Draws`` set on the layer (``set_draws``).
+
+Compute dtype: parameters and BatchNorm statistics stay f32, and the
+activations run in the input's dtype (catgen's ``compute_dtype``, f32 or
+bf16). As in catgen, each parameter is cast to the input's dtype where it
+is used, a bias is added after the product is rounded to that dtype (two
+operations in catgen), and a Python constant is rounded to the dtype
+before it meets a tensor (``weak``: JAX's weak typing), where PyTorch
+would keep it in f32 and round once. In f32 every path is what it was.
+Under a ``torch.utils.checkpoint`` region of the train step's ``remat``
+the dropout layers replay, in the recompute, the masks they drew, and
+BatchNorm leaves its running statistics alone there
+(``catgen_torch.core.random.remat_contexts``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -27,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from catgen_torch.core import initializers
+from catgen_torch.core import random as crandom
 from catgen_torch.core.random import Draws
 
 
@@ -36,6 +50,25 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def weak(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: the constant a
+    JAX weak type puts beside an array of that dtype. PyTorch applies a
+    Python scalar to a bf16 tensor in f32; rounded first, it gives
+    catgen's bf16 result (and the same result as before in f32)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor) -> torch.Tensor:
+    """catgen's Dense: ``x @ W + b`` with W and b cast to x's dtype. In
+    another dtype than the weights' the product is rounded before the
+    bias is added, as catgen's dot and add are two operations."""
+    if x.dtype == weight.dtype:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype)) + bias.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +94,7 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 class Conv(nn.Module):
@@ -91,16 +124,23 @@ class Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(to_nchw(x), self.weight, self.bias,
+        if x.dtype == self.weight.dtype:
+            return to_nhwc(F.conv2d(to_nchw(x), self.weight, self.bias,
+                                    padding=self.padding))
+        # catgen: conv with the kernel cast to x's dtype, then the bias add
+        y = F.conv2d(to_nchw(x), self.weight.to(x.dtype),
                      padding=self.padding)
-        return to_nhwc(y)
+        return to_nhwc(y) + self.bias.to(x.dtype)
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over every axis but the last. Eval: ``x*scale + shift``
     with ``scale = gamma*rsqrt(var+eps)`` from the running statistics.
     Train: normalizes with the biased batch variance and moves the running
-    mean and the unbiased running variance by ``momentum``."""
+    mean and the unbiased running variance by ``momentum``, except in the
+    recompute of a ``remat`` region, whose first pass moved them. The
+    statistics are taken in f32; scale and shift are rounded to x's
+    dtype."""
 
     momentum = 0.1
     eps = 1e-5
@@ -120,10 +160,12 @@ class BatchNorm(nn.Module):
             mean_sq = (xf * xf).mean(dim=dims)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             n = math.prod(x.shape[:-1])
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            if not crandom.recomputing():   # else the first pass did
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.mul_(1 - m).add_(m * mean)
+                    self.var.mul_(1 - m).add_(
+                        m * var * (n / max(n - 1, 1)))
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var.float() + self.eps)
@@ -154,7 +196,7 @@ class LeakyReLU(nn.Module):
     negative_slope = 1.0 / 3.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.negative_slope * x)
+        return torch.where(x >= 0, x, weak(self.negative_slope, x.dtype) * x)
 
 
 class Sigmoid(nn.Module):
@@ -178,7 +220,8 @@ class _MaskedDropout(nn.Module):
     ``mask_shape(x)`` with probability 1-rate and scales by 1/(1-rate).
     The mask comes from ``self.draws`` (a ``catgen_torch.core.random.Draws``
     or a stand-in that hands in masks drawn elsewhere), which the caller
-    sets; see ``set_draws``."""
+    sets; see ``set_draws``. In the recompute of a ``remat`` region the
+    layer replays the mask it drew in the first pass."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
@@ -197,8 +240,9 @@ class _MaskedDropout(nn.Module):
             raise ValueError(f"{type(self).__name__} in train mode needs "
                              f"random draws (set .draws)")
         keep = 1.0 - self.rate
-        mask = self.draws.bernoulli(keep, self.mask_shape(x)).to(x.device)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = crandom.remat_mask(lambda: self.draws.bernoulli(
+            keep, self.mask_shape(x)).to(x.device))
+        return torch.where(mask, x / weak(keep, x.dtype), torch.zeros_like(x))
 
 
 class Dropout(_MaskedDropout):

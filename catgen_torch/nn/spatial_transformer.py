@@ -33,7 +33,8 @@ from catgen_torch.kernels.bilinear import (affine_grid_rows,
                                            bilinear_sample_rows)
 from catgen_torch.kernels.bilinear_grid import bilinear_sample_grid
 from catgen_torch.kernels.st_conv import st_conv_prelu
-from catgen_torch.nn.layers import AvgPool, Conv, Dense, Flatten, LeakyReLU
+from catgen_torch.nn.layers import (AvgPool, Conv, Dense, Flatten, LeakyReLU,
+                                    linear)
 
 Flags = Tuple[bool, bool, bool]   # (rotation, scaling, translation)
 
@@ -104,7 +105,10 @@ def sample_affine(x: torch.Tensor, thetas) -> torch.Tensor:
     """Samples ``x`` (N, H, W, C) at the affine grids of the (N, 2, 3)
     ``thetas``, stacked along the rows: (N, len(thetas)*H, W, C), on
     the sampler the selectors pick (catgen's ``SpatialTransformer`` and
-    ``FusedSTBranches`` routing)."""
+    ``FusedSTBranches`` routing). The grids are made in f32 from the f32
+    thetas and rounded to x's dtype before sampling, as catgen's are: in
+    bf16 a 32-pixel axis is sampled on a grid of 1/8 pixel near its far
+    edge."""
     h, w = x.shape[1:3]
     x = x.contiguous()
 
@@ -152,7 +156,7 @@ class AffineParamHead(nn.Module):
             self.bias.copy_(torch.tensor(self.init_bias))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 def _localization_net(in_channels: int, height: int,

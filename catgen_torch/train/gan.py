@@ -27,28 +27,49 @@ place (parameters, buffers and optimizer tensors) and returns the step's
 metrics as 0-d tensors on the device. Every random draw of a step comes,
 in catgen's order, from one ``Draws`` (``catgen_torch.core.random``).
 
-Not ported: the data-parallel axis (ROADMAP Queue A item 11), bf16
-compute (``compute_dtype``), ``remat``, the flat optimizer and the
-``CATGEN_BCE`` environment default (``GanConfig.bce`` is).
+``compute_dtype`` (f32 or bf16) is the activations' dtype, as catgen's:
+the noise is drawn in it and the reals are cast to it (before the
+augmentation), the layers cast their f32 parameters to it where they use
+them (``nn/layers.py``), and the losses upcast to f32; parameters,
+optimizer states and BatchNorm statistics stay f32. ``remat`` recomputes
+G's and D's forwards in the backward (``torch.utils.checkpoint``, where
+catgen wraps the same module applications in ``jax.checkpoint``); the
+recompute replays the region's dropout masks and leaves BatchNorm's
+running statistics alone, so the step equals the one without it bit for
+bit. ``bce=None`` reads ``CATGEN_BCE`` (default ``logits``), as catgen's
+step does.
+
+Not ported: the data-parallel axis (ROADMAP Queue A item 11) and the flat
+optimizer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from catgen_torch import optim
 from catgen_torch.core.module import Sequential
-from catgen_torch.core.random import Draws
+from catgen_torch.core.random import Draws, remat_contexts
 from catgen_torch.data import color as colorlib
 from catgen_torch.data.ops import augment_batch
 from catgen_torch.nn.layers import Sigmoid, set_draws
 
 BCE_CHOICES = ("logits", "torch", "clip")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+# GanConfig.bce=None reads the environment once, at import, as catgen does
+# (catgen/train/gan.py): a typo fails loudly instead of falling through
+_bce_choice = os.environ.get("CATGEN_BCE", "logits")
+if _bce_choice not in BCE_CHOICES:
+    raise ValueError(f"CATGEN_BCE={_bce_choice!r}: pick one of "
+                     f"{sorted(BCE_CHOICES)}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +101,10 @@ class GanConfig:
     normalized_inputs: bool = False    # reals arrive in [-1, 1]
     g_bn_advance_in_d: bool = True     # G's BN stats advance in the D phase
     g_frozen_children: Tuple[str, ...] = ()   # top-level G children kept
-    bce: str = "logits"            # "logits" | "torch" | "clip"
+    compute_dtype: torch.dtype = torch.float32   # or torch.bfloat16
+    remat: bool = False            # recompute G's and D's forwards
+    bce: Optional[str] = None      # "logits" | "torch" | "clip"; None:
+                                   # the CATGEN_BCE default
 
     def make_optimizers(self) -> Tuple[optim.Optimizer, optim.Optimizer]:
         """(D's, G's) optimizer."""
@@ -160,6 +184,20 @@ def bce_clip(pred: torch.Tensor, target: torch.Tensor,
 
 
 _PROB_BCE = {"torch": bce_torch, "clip": bce_clip}
+
+
+def draw_noise(draws: Draws, shape, dtype: torch.dtype) -> torch.Tensor:
+    """The step's noise, U(-1, 1) of ``shape`` in ``dtype``. catgen draws
+    it as ``jax.random.uniform(key, shape, bf16, -1, 1)``: 7 random
+    mantissa bits give u in [0, 1) in steps of 1/128, so the noise lies in
+    [-1, 63/64] in steps of 1/64. A round-to-nearest cast of an f32 draw
+    could give 1.0; instead the f32 draw is floored onto catgen's grid,
+    which keeps [-1, 1) and maps a value already on it (catgen's replayed
+    draws) to itself."""
+    u = draws.uniform(shape, -1.0, 1.0)
+    if dtype == torch.float32:
+        return u
+    return (torch.floor((u + 1.0) * 64.0) / 64.0 - 1.0).to(dtype)
 
 
 def uniform_noise(generator: torch.Generator, n: int, noise_dim: int,
@@ -244,16 +282,22 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
 
     ``reals`` is ``d_iterations`` half-batches stacked along the batch
     axis, (d_iterations * batch_size/2, H, W, C), in [0, 1] (in [-1, 1]
-    with ``normalized_inputs``), on the models' device. The step draws its
-    noise, augmentation and dropout masks from ``draws``."""
+    with ``normalized_inputs``), on the models' device; the step casts
+    them to ``compute_dtype``. It draws its noise, augmentation and
+    dropout masks from ``draws``."""
     if config.d_iterations < 1 or config.g_iterations < 1:
         raise ValueError(
             f"d_iterations/g_iterations must be >= 1 (got "
             f"{config.d_iterations}/{config.g_iterations}); the reference "
             f"always runs at least one D and one G update per batch")
-    if config.bce not in BCE_CHOICES:
-        raise ValueError(f"GanConfig.bce={config.bce!r}: pick one of "
-                         f"{list(BCE_CHOICES)}")
+    bce = config.bce or _bce_choice
+    if bce not in BCE_CHOICES:
+        raise ValueError(f"GanConfig.bce={bce!r}: pick one of "
+                         f"{sorted(BCE_CHOICES)}")
+    cdt = config.compute_dtype
+    if cdt not in COMPUTE_DTYPES:
+        raise ValueError(f"GanConfig.compute_dtype={cdt}: pick one of "
+                         f"{list(COMPUTE_DTYPES)}")
     d_optim, g_optim = config.make_optimizers()
     half = config.batch_size // 2
     g_params = dict(g.named_parameters())
@@ -274,7 +318,17 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
     def is_frozen(key: str) -> bool:
         return bool(frozen) and key.startswith(frozen_prefixes)
 
-    if config.bce == "logits":
+    def apply(module_fn, x):
+        """``module_fn(x)``; under ``remat`` checkpointed, as catgen's
+        ``jax.checkpoint`` of the module application: recomputed in the
+        backward, replaying its dropout masks (``remat_contexts``)."""
+        if not config.remat:
+            return module_fn(x)
+        return checkpoint(module_fn, x, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=remat_contexts)
+
+    if bce == "logits":
         layers = list(d.children())
         if not (isinstance(d, Sequential) and layers
                 and isinstance(layers[-1], Sigmoid)):
@@ -282,16 +336,19 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
                              "ending in Sigmoid")
         body = layers[:-1]
 
-        def d_loss_and_prob(x, targets):
+        def d_logits(x):
             for layer in body:
                 x = layer(x)
-            logits = x[:, 0]
-            return bce_logits(logits, targets), torch.sigmoid(logits)
-    else:
-        prob_bce = _PROB_BCE[config.bce]
+            return x
 
         def d_loss_and_prob(x, targets):
-            prob = d(x)[:, 0]
+            logits = apply(d_logits, x)[:, 0]
+            return bce_logits(logits, targets), torch.sigmoid(logits)
+    else:
+        prob_bce = _PROB_BCE[bce]
+
+        def d_loss_and_prob(x, targets):
+            prob = apply(d, x)[:, 0]
             return prob_bce(prob, targets), prob
 
     def update(opt, grads, opt_state, params, l1, l2, clamp):
@@ -301,7 +358,7 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
 
     def d_phase(state: TrainState, reals: torch.Tensor, draws: Draws):
         device = reals.device
-        noise = draws.uniform((half, config.noise_dim), -1.0, 1.0).to(device)
+        noise = draw_noise(draws, (half, config.noise_dim), cdt).to(device)
         saved = (_snapshot(g_buffers) if not config.g_bn_advance_in_d
                  else _snapshot(frozen_g_buffers))
         with torch.no_grad():
@@ -350,21 +407,23 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
         return loss.detach(), acc, acc_avg, do_train.float(), tp, tn, fp, fn
 
     def g_phase(state: TrainState, draws: Draws, device) -> torch.Tensor:
-        noise = draws.uniform((config.batch_size, config.noise_dim),
-                              -1.0, 1.0).to(device)
+        noise = draw_noise(draws, (config.batch_size, config.noise_dim),
+                           cdt).to(device)
         targets = torch.ones(config.batch_size, device=device)
         saved_d = _snapshot(d_buffers)        # catgen drops D's new state
         saved_g = _snapshot(frozen_g_buffers)
+        # D frozen until the backward is done: a remat recompute of D must
+        # save what its first pass saved
         for p in d_params.values():
             p.requires_grad_(False)
         try:
-            fakes = g(noise)
+            fakes = apply(g, noise)
             loss, _ = d_loss_and_prob(fakes, targets)
+            grads = dict(zip(g_params, torch.autograd.grad(
+                loss, list(g_params.values()))))
         finally:
             for p in d_params.values():
                 p.requires_grad_(True)
-        grads = dict(zip(g_params, torch.autograd.grad(
-            loss, list(g_params.values()))))
         _restore(d_buffers, saved_d)
         if frozen:
             grads = {k: torch.zeros_like(v) if is_frozen(k) else v
@@ -397,6 +456,7 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
         d.train()
         set_draws(g, draws)
         set_draws(d, draws)
+        reals = reals.to(cdt)         # catgen casts before the augmentation
         if config.augment:
             reals = augment_reals(config, draws, reals)
         d_stats = [d_phase(state, reals[it * half:(it + 1) * half], draws)

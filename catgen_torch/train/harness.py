@@ -163,7 +163,10 @@ class GanHarness:
                 "plot_data": self.plot_data,
                 "normalize_mean": norm, "normalize_std": norm,
                 "config": dataclasses.asdict(self.hc),
-                "gan_config": dataclasses.asdict(self.gc)}
+                # a torch.dtype is no JSON value: catgen leaves it out too
+                "gan_config": {k: v for k, v in
+                               dataclasses.asdict(self.gc).items()
+                               if k != "compute_dtype"}}
         path = path or self._ckpt_path()
         ckpt.save(path, train_state_to_leaves(self.state), meta)
         self.logger.log("checkpoint_saved", path=path, epoch=self.state.epoch)

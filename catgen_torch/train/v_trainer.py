@@ -11,7 +11,13 @@ in place (V holds its weights) and returns its metrics on the device.
 The epoch is a per-batch loop: generate the batch's fakes, then step.
 catgen scans both inside one compiled program and stages the epoch flat,
 TPU workarounds that are not ported. Not ported either: the data-parallel
-axis (ROADMAP Queue A item 11) and bf16 compute (item 1).
+axis (ROADMAP Queue A item 11).
+
+``VConfig.compute_dtype`` (f32 or bf16) is the update's activation dtype:
+as catgen's step, it casts the reals and fakes it is handed, after they
+were made (the synthetic generators, the warp's sampler kernel included,
+run in f32 before it); V's layers cast their f32 parameters to it, and
+the BCE upcasts to f32.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ class VConfig:
     v_l2: float = 0.01
     v_clamp: float = 5.0
     lr: Optional[float] = None            # None: torch7 adam's default
+    compute_dtype: torch.dtype = torch.float32   # or torch.bfloat16
 
     def make_optimizer(self) -> optim.Optimizer:
         return optim.adam() if self.lr is None else optim.adam(lr=self.lr)
@@ -81,7 +88,8 @@ def make_train_step(v: nn.Module, config: VConfig):
         v.train()
         set_draws(v, draws)
         device = reals.device
-        inputs = torch.cat([reals, fakes])
+        cdt = config.compute_dtype
+        inputs = torch.cat([reals.to(cdt), fakes.to(cdt)])
         t_real = torch.cat([torch.ones(half, device=device),
                             torch.zeros(half, device=device)])
         targets = torch.stack([1.0 - t_real, t_real], dim=-1)

@@ -112,11 +112,31 @@ with a non-zero exit code and no result.
  25. at the reference's batch 32 and bench.py's 640: a V batch's
      generation (each generator, each overlay kind, the pixelwise scan's
      host walk) and update, profiled; the pretrain step at 640 on both
-     routes, profiled.
+     routes, profiled;
+ 26. the sampler kernels' bf16 instantiations against their bf16 plain
+     versions (upcast, f32 arithmetic, one rounding) at phase 4's shapes,
+     rows and grid layouts: the kernel each bf16 shape takes; the forward
+     bit for bit (a misaligned image too); d_img and d_coords within one
+     bf16 unit in the last place plus 2^-16 of the largest, repeats bit
+     for bit;
+ 27. the training CLI with --dtype bf16 --augment (one epoch of 20 steps
+     at batch 64): 5 forward, 4 d_coords and 3 d_img bf16 launches a step;
+     the sample CLI reads the checkpoint; twice from one seed, the same
+     checkpoint bits; one bf16 step on the v1 grid route (the grid
+     kernels' bf16 launches);
+ 28. one bf16 step at batch 8, and the same step with remat, on the card
+     and on the CPU from the same weights and draws: on each device the
+     remat step is the plain step bit for bit and draws the same; card
+     against CPU within bf16 bounds;
+ 29. at batch 640 (bench.py's configuration) in one run: the f32 and bf16
+     steps and both with remat (time, images/s, idle share, peak memory),
+     the V update in f32 and bf16, and each bf16 sampler kernel, rows and
+     grid, against its plain version, its bf16 library call and its bf16
+     bound (the rows kernels also in device time).
 
 Each phase off the default route sets the selectors through
-catgen_torch.kernels.config.using and restores them; phases 1-10 run the
-default route. From phase 5 on, everything runs in the numeric mode the
+catgen_torch.kernels.config.using and restores them; phases 1-10 and
+26-29 run the default route. From phase 5 on, everything runs in the numeric mode the
 CLIs set (full f32, cuDNN deterministic); each train step is timed with
 and without cuDNN's deterministic algorithms. It prints a JSON line describing the kernels, the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
@@ -285,11 +305,13 @@ SAMPLER_LIBRARY = {"fwd": "grid_sample",
 
 
 def sampler_device_line(key: str, layout: str, shape, kern, library,
-                        card_name: str) -> tuple:
+                        card_name: str, elem: int = 4) -> tuple:
     """Prints a sampler kernel's device time (key: fwd, dcoords or dimg)
     beside its library call's (grid_sample, or grid_sampler_2d_backward
     with the one output the kernel computes) in the same run, and their
-    ratio; returns (kernel ms, library ms)."""
+    ratio; returns (kernel ms, library ms). ``elem``: 4 for the f32
+    kernels, 2 for the bf16 ones."""
+    import torch
     from catgen_torch.kernels import bilinear
 
     k1, names, src1 = device_ms(kern)
@@ -297,12 +319,13 @@ def sampler_device_line(key: str, layout: str, shape, kern, library,
     k2, _, src2 = device_ms(kern)
     k_ms = min(k1, k2)
     kind = {"fwd": bilinear.forward_kind, "dcoords": bilinear.dcoords_kind,
-            "dimg": bilinear.dimg_kind}[key](*shape[1:4])
+            "dimg": bilinear.dimg_kind}[key](
+        *shape[1:4], torch.float32 if elem == 4 else torch.bfloat16)
     print(f"{key} {layout} {shape}: kernel {kind} "
           f"({names[0][:60] if names else '-'}) device {k_ms:.4f} ms, "
           f"{SAMPLER_LIBRARY[key]} device {lib_ms:.4f} ms, ratio "
           f"{k_ms / lib_ms:.3f}, bound "
-          f"{sampler_bound(key, shape)[0]:.4f} ms (sessions of >= 100 "
+          f"{sampler_bound(key, shape, elem)[0]:.4f} ms (sessions of >= 100 "
           f"calls and >= 20 ms, order kernel-library-kernel, best of the "
           f"two kernel readings; from {src1}/{src_lib}/{src2}); "
           f"{card_name}")
@@ -621,7 +644,7 @@ def reset_counts() -> None:
     from catgen_torch.kernels import (bilinear, bilinear_grid,
                                       fused_upsample_conv, st_conv)
 
-    bilinear.LAUNCHES = bilinear.DCOORDS_LAUNCHES = bilinear.DIMG_LAUNCHES = 0
+    bilinear.reset_launches()
     st_conv.LAUNCHES = 0
     bilinear_grid.reset_launches()
     fused_upsample_conv.reset_launches()
@@ -1382,12 +1405,13 @@ def bound_3xtf32(flops: float, nbytes: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def sampler_bound(key: str, shape) -> tuple:
-    """Bound of a sampler kernel at (N, H, W, C, Ho, Wo): each input read
-    once, each output written once, ~8-12 flops per sampled value."""
+def sampler_bound(key: str, shape, elem: int = 4) -> tuple:
+    """Bound of a sampler kernel at (N, H, W, C, Ho, Wo) with elements of
+    ``elem`` bytes (4: f32, 2: bf16): each input read once, each output
+    written once, ~8-12 flops per sampled value."""
     n, h, w, c, ho, wo = shape
-    img, rows, sampled = n * h * w * c * 4, n * 2 * ho * wo * 4, \
-        n * ho * wo * c * 4
+    img, rows, sampled = n * h * w * c * elem, n * 2 * ho * wo * elem, \
+        n * ho * wo * c * elem
     nbytes = {"fwd": img + rows + sampled,
               "dcoords": img + rows + sampled + rows,
               "dimg": rows + sampled + img}[key]
@@ -2701,6 +2725,537 @@ def pretrain_times(card_name: str, route=None) -> dict:
     return {"step_ms": med, "idle_share": idle}
 
 
+# ---------------------------------------------------------------------------
+# the bf16 train step (phases 26-29): catgen's compute_dtype=bfloat16 on the
+# default route, its sampler kernels' bf16 instantiations, and remat
+# ---------------------------------------------------------------------------
+
+# the kernels each shape of DCOORDS_SHAPES takes in bf16, (forward,
+# d_coords, d_img): a 16-byte vector holds 8 bf16 values, so the 32x32x64
+# image (128 KB in bf16) is staged, where f32 takes the per-value forward
+BF16_KINDS = (("per_quad", "per_pixel", "per_sample"),
+              ("staged", "staged", "gather"),
+              ("staged", "staged", "gather"))
+# bf16 backward kernels vs the plain version: both are f32 sums, of another
+# order, rounded once to bf16, so they may round to neighbouring values:
+# within BF16_ULPS units in the last place of the plain value, plus
+# BF16_FLOOR of its largest for sums that cancel far below their terms
+BF16_ULPS, BF16_FLOOR = 1, 2.0 ** -16
+# the bf16 step, card against CPU: every bf16 rounding follows from sums of
+# another order (cuDNN's against the CPU's), so the step agrees to bf16
+# noise: losses within BF16_LOSS_RTOL; gradients per leaf within
+# BF16_GRAD_REL of the leaf's largest plus BF16_GRAD_FLOOR of the update's
+# largest (the spatial transformers' localization nets learn through sums
+# of bf16 d_coords that cancel); parameters: Adam's first step moves a
+# weight by +-lr, so where a gradient's sign is within that noise it moves
+# 2*lr the other way: at most BF16_FLIP_SHARE of the weights may differ,
+# each by at most PARAM_FLIP_MAX
+BF16_LOSS_RTOL, BF16_GRAD_REL, BF16_GRAD_FLOOR = 2e-2, 0.1, 0.05
+BF16_FLIP_SHARE = 0.1
+
+
+def bf16_spacing(t):
+    """The spacing of bf16 values at |t| (8 significant bits), in f32."""
+    import torch
+
+    mag = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_inputs(shape, seed: int):
+    """sampler_inputs and a cotangent, rounded to bf16, on the card."""
+    import torch
+
+    img, rows, out_hw = sampler_inputs(shape, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.rand((shape[0], *out_hw, shape[3]), generator=gen) * 2 - 1
+    return img.bfloat16(), rows.bfloat16(), g.cuda().bfloat16(), out_hw
+
+
+def bf16_vs_plain() -> dict:
+    """Phase 26: the bf16 sampler kernels against their bf16 plain
+    versions at the training shapes (N=640), the 32x32x64 image (N=64) and
+    the zoomed-in input ST, rows and grid layouts: the kernel each shape
+    takes; the forward bit for bit (and the same bits from a misaligned
+    image); d_img and d_coords within BF16_ULPS + BF16_FLOOR, repeats bit
+    for bit. Returns the largest errors, absolute and in units."""
+    import torch
+    from catgen_torch.kernels import bilinear
+    from catgen_torch.kernels import bilinear_grid as bg
+
+    bf = torch.bfloat16
+    for shape, want in zip(DCOORDS_SHAPES, BF16_KINDS):
+        got = (bilinear.forward_kind(*shape[1:4], bf),
+               bilinear.dcoords_kind(*shape[1:4], bf),
+               bilinear.dimg_kind(*shape[1:4], bf))
+        print(f"bf16 kernels at {shape}: forward {got[0]}, d_coords "
+              f"{got[1]}, d_img {got[2]} (designed: {', '.join(want)})")
+        require(got == want, f"the bf16 kernels at {shape}: {got}")
+    worst = {"fwd": 0.0, "dcoords": 0.0, "dimg": 0.0, "dcoords_ulps": 0.0,
+             "dimg_ulps": 0.0}
+    cases = [(s, 1.0, lay) for s in DCOORDS_SHAPES for lay in ("rows",
+                                                               "grid")]
+    cases.append((TRAIN_SHAPES[0], ZOOM, "rows"))
+    for i, (shape, zoom, layout) in enumerate(cases):
+        n, h, w, c, ho, wo = shape
+        img, rows, g, out_hw = bf16_inputs(shape, seed=200 + i)
+        rows = (rows * zoom).contiguous()
+        if layout == "rows":
+            run = {"fwd": lambda im: bilinear.launch(im, rows, out_hw),
+                   "dimg": lambda: bilinear.launch_dimg(img, rows, g, out_hw),
+                   "dcoords": lambda: bilinear.launch_dcoords(img, rows, g,
+                                                              out_hw)}
+        else:
+            grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
+            run = {"fwd": lambda im: bg.launch(im, grid),
+                   "dimg": lambda: bg.launch_dimg(img, grid, g),
+                   "dcoords": lambda: bg.launch_dcoords(img, grid, g).reshape(
+                       n, ho * wo, 2).permute(0, 2, 1).contiguous()}
+        fwd, fwd_mis = run["fwd"](img), run["fwd"](misaligned(img))
+        got = {k: run[k]() for k in ("dimg", "dcoords")}
+        again = {k: run[k]() for k in ("dimg", "dcoords")}
+        torch.cuda.synchronize()
+        want_fwd = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+        want = dict(zip(("dimg", "dcoords"),
+                        bilinear.bilinear_sample_rows_backward_plain(
+                            img, rows, g, out_hw)))
+        tag = f"{shape} {layout}{' zoomed' if zoom != 1.0 else ''}"
+        same = torch.equal(fwd, want_fwd) and torch.equal(fwd, fwd_mis)
+        print(f"{tag} bf16 forward: bits equal to the plain version's and to "
+              f"the kernel's of a misaligned image: {same} (required)")
+        require(fwd.dtype == bf and same, f"the bf16 forward at {tag}")
+        for name in ("dimg", "dcoords"):
+            a, b = got[name], want[name]
+            require(a.dtype == b.dtype == bf and a.shape == b.shape,
+                    f"bf16 {name} at {tag}: {a.dtype} {tuple(a.shape)}")
+            err = (a.float() - b.float()).abs()
+            units = err / bf16_spacing(b)
+            bound = (BF16_ULPS * bf16_spacing(b)
+                     + BF16_FLOOR * b.float().abs().max())
+            ok = bool((err <= bound).all())
+            rep = torch.equal(a, again[name])
+            print(f"{tag} bf16 {name}: max {units.max().item():.2f} units "
+                  f"in the last place, {int((err > 0).sum())} of "
+                  f"{err.numel()} values differ; within {BF16_ULPS} unit + "
+                  f"{BF16_FLOOR:g} x max: {ok}; repeat bit-identical: {rep}")
+            require(ok, f"bf16 {name} disagrees at {tag}")
+            require(rep, f"bf16 {name} is not deterministic at {tag}")
+            worst[name] = max(worst[name], err.max().item())
+            worst[f"{name}_ulps"] = max(worst[f"{name}_ulps"],
+                                        units.max().item())
+    return worst
+
+
+def bf16_counts() -> dict:
+    """Every sampler launch counter since the last reset: the rows kernels'
+    f32 and bf16 counters, the grid kernels' (``grid_`` prefix)."""
+    from catgen_torch.kernels import bilinear, bilinear_grid, st_conv
+
+    return {**bilinear.launches(), "st_conv": st_conv.LAUNCHES,
+            **{f"grid_{k}": v for k, v in bilinear_grid.launches().items()}}
+
+
+def bf16_train_on_card(root: str) -> tuple:
+    """Phase 27: the training CLI with --dtype bf16 --augment, one epoch of
+    20 steps at batch 64, twice from one seed: each step launches the bf16
+    forward 5 times, d_coords 4 and d_img 3 (the visualization samples in
+    f32, as catgen's does: 2 D batches, 4 f32 forwards); the sample CLI
+    reads the
+    checkpoint; the two checkpoints hold the same bits. Then one bf16 step
+    on the v1 grid route, for the grid kernels' bf16 launches. Returns
+    (the CLI run's counts, its steps, the grid step's counts)."""
+    import numpy as np
+    import torch
+    from catgen_torch.cli import sample as sample_cli
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.core.random import Draws
+    from catgen_torch.data.fixture import write_fixture_dataset
+    from catgen_torch.kernels import config as kconfig
+    from catgen_torch.train import gan
+
+    corpus = write_fixture_dataset(os.path.join(root, "corpus"), n=256)
+    args = list(TRAIN_ARGS[2:])                # no --fixture: one corpus
+    args[args.index("--epochs") + 1] = "1"
+    leaves, counts = [], None
+    for run in range(2):
+        save = os.path.join(root, f"run{run}")
+        reset_counts()
+        harness = train_cli.main(args + ["--dataset", corpus, "--device",
+                                         "cuda", "--save", save, "--seed",
+                                         "5", "--dtype", "bf16"])
+        if run == 0:
+            counts, steps = bf16_counts(), harness.state.step
+            expected = dict.fromkeys(counts, 0)
+            expected.update(BF16_LAUNCHES=5 * steps,
+                            BF16_DCOORDS_LAUNCHES=4 * steps,
+                            BF16_DIMG_LAUNCHES=3 * steps, LAUNCHES=4)
+            shown = {k: v for k, v in counts.items() if v or expected[k]}
+            print(f"bf16 training CLI: {steps} steps, 1 visualization; "
+                  f"sampler launches {shown}, expected "
+                  f"{ {k: expected[k] for k in shown} } (5 forward, 4 "
+                  f"d_coords, 3 d_img bf16 launches a step; the "
+                  f"visualization's 2 D batches in f32)")
+            require(steps == 20 and counts == expected,
+                    "the bf16 training path's kernel launches")
+            require(upsample_counts() == expected_upsample(None, 0, 0),
+                    "upsample-conv kernels launched on the default route")
+            with open(os.path.join(save, "train_metrics.jsonl")) as f:
+                epoch = [e for e in map(json.loads, f)
+                         if e["event"] == "epoch"][0]
+            print(f"bf16 epoch: loss_d {epoch['loss_d']:.5f} loss_g "
+                  f"{epoch['loss_g']:.5f} acc_d {epoch['acc_d']:.4f} "
+                  f"{epoch['imgs_per_sec']} imgs/s (CLI clock, with "
+                  f"warm-up)")
+            require(all(math.isfinite(epoch[k]) for k in ("loss_d",
+                                                          "loss_g")),
+                    "non-finite bf16 losses")
+            runs = sample_cli.main(["--save", save, "--count", "256",
+                                    "--device", "cuda", "--dataset",
+                                    corpus, "--neighbours"])
+            check_finite(runs[0])
+            print(f"sample CLI read the bf16 run's checkpoint: 256 images, "
+                  f"D scores {runs[0]['scores'].min().item():.4f}..."
+                  f"{runs[0]['scores'].max().item():.4f}")
+        with np.load(os.path.join(save, "adversarial.ckpt")) as z:
+            leaves.append({k: z[k] for k in z.files if k != "__meta__"})
+    a, b = leaves
+    differ = sorted(k for k in a if k not in b
+                    or a[k].tobytes() != b[k].tobytes())
+    print(f"two same-seed bf16 training CLI runs: {len(a)} checkpoint "
+          f"arrays, {len(differ)} differ in any bit"
+          f"{': ' + ', '.join(differ[:5]) if differ else ''}")
+    require(a.keys() == b.keys() and not differ,
+            "same-seed bf16 CLI runs wrote different checkpoints")
+
+    config = gan.GanConfig(batch_size=64, augment=True,
+                           compute_dtype=torch.bfloat16)
+    g, d = seeded_pair(7, G_GAIN, D_GAIN)
+    g, d = g.cuda(), d.cuda()
+    reset_counts()
+    with kconfig.using(**GRID["v1"]):
+        state = gan.init_state(g, d, config)
+        gan.make_train_step(g, d, config)(
+            state, torch.rand((32, 32, 32, 3), device="cuda"),
+            Draws(torch.Generator("cuda").manual_seed(8)))
+    grid = bf16_counts()
+    want = dict.fromkeys(grid, 0)
+    want.update(grid_BF16_LAUNCHES=5, grid_BF16_DCOORDS_LAUNCHES=4,
+                grid_BF16_DIMG_LAUNCHES=3, grid_V1_LAUNCHES=4)
+    print(f"one bf16 step on the v1 grid route: "
+          f"{ {k: v for k, v in grid.items() if v} }, expected "
+          f"{ {k: v for k, v in want.items() if v} }")
+    require(grid == want, "the bf16 grid route's kernel launches")
+    return counts, steps, grid
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state, on the CPU, by name."""
+    out = {f"g.{k}": v for k, v in state.g.state_dict().items()}
+    out.update({f"d.{k}": v for k, v in state.d.state_dict().items()})
+    for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        for field, value in zip(type(opt)._fields, opt):
+            items = value.items() if isinstance(value, dict) else [("", value)]
+            out.update({f"{name}.{field}.{k}": v for k, v in items})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def bf16_step_card_vs_cpu() -> dict:
+    """Phase 28: one bf16 step at batch 8 with augmentation, and the same
+    step with remat, on the CPU and on the card from the same weights and
+    draws (recorded on the CPU, replayed on the card). On each device the
+    remat step is the plain step bit for bit (metrics, gradients,
+    parameters, BatchNorm statistics, optimizer states) and draws the same
+    (the CPU's recordings are equal, and so is the next draw of the card's
+    own generator); card against CPU within the BF16_* bounds."""
+    import copy
+    import dataclasses
+
+    import torch
+    from catgen_torch import optim
+    from catgen_torch.core.random import Draws
+    from catgen_torch.train import gan
+
+    config = gan.GanConfig(batch_size=8, augment=True,
+                           compute_dtype=torch.bfloat16)
+    g, d = seeded_pair(3, G_GAIN, D_GAIN)
+    reals = torch.rand((4, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(4))
+    real_cap = optim.clamp_and_penalize
+    runs, recorded = {}, {}
+
+    def one(dev, remat, draws):
+        gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+        cfg = dataclasses.replace(config, remat=remat)
+        state = gan.init_state(gd, dd, cfg)
+        grads = []
+
+        def spy(gr, *a, **k):
+            grads.append({n: t.detach().cpu() for n, t in gr.items()})
+            return real_cap(gr, *a, **k)
+
+        optim.clamp_and_penalize = spy
+        try:
+            m = gan.make_train_step(gd, dd, cfg)(state, reals.to(dev), draws)
+        finally:
+            optim.clamp_and_penalize = real_cap
+        return m, grads, _state_tensors(state)
+
+    mode = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            rec = RecordingDraws(Draws(torch.Generator().manual_seed(5)))
+            runs[("cpu", remat)] = one("cpu", remat, rec)
+            recorded[remat] = rec.taken + [rec.draws.uniform((4,))]
+        for remat in (False, True):
+            replay = ReplayedDraws(recorded[False][:-1], "cuda")
+            reset_counts()
+            runs[("cuda", remat)] = one("cuda", remat, replay)
+            require(not replay.taken, "the card drew less than the CPU")
+            counts = {k: v for k, v in bf16_counts().items() if v}
+            print(f"bf16 step on the card{' with remat' if remat else ''}: "
+                  f"sampler launches {counts}")
+            if not remat:
+                require(counts == {"BF16_LAUNCHES": 5,
+                                   "BF16_DCOORDS_LAUNCHES": 4,
+                                   "BF16_DIMG_LAUNCHES": 3},
+                        "the bf16 step's kernel launches")
+        own = {}
+        for remat in (False, True):
+            draws = Draws(torch.Generator("cuda").manual_seed(6))
+            own[remat] = (one("cuda", remat, draws), draws.uniform((4,)))
+    finally:
+        torch.backends.cudnn.deterministic = mode
+
+    def same(a, b):
+        (ma, ga, sa), (mb, gb, sb) = a, b
+        return (all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(ma, mb))
+                and len(ga) == len(gb)
+                and all(torch.equal(x[k], y[k]) for x, y in zip(ga, gb)
+                        for k in x)
+                and sa.keys() == sb.keys()
+                and all(torch.equal(sa[k], sb[k]) for k in sa))
+
+    draws_same = len(recorded[False]) == len(recorded[True]) and all(
+        torch.equal(x, y) for x, y in zip(recorded[False], recorded[True]))
+    checks = {"cpu": same(runs[("cpu", False)], runs[("cpu", True)]),
+              "cuda": same(runs[("cuda", False)], runs[("cuda", True)]),
+              "cuda_own_draws": same(own[False][0], own[True][0])
+              and torch.equal(own[False][1], own[True][1])}
+    print(f"remat step equals the plain step bit for bit (metrics, "
+          f"gradients, parameters, BN statistics, optimizer states): "
+          f"{checks}; the CPU's draws and its next draw equal: {draws_same}")
+    require(all(checks.values()) and draws_same,
+            "the remat step differs from the plain step")
+
+    (mc, gc, pc), (mg, gg, pg) = runs[("cpu", False)], runs[("cuda", False)]
+    for name in ("loss_d", "loss_g", "acc_d"):
+        a, b = float(getattr(mg, name)), float(getattr(mc, name))
+        print(f"bf16 {name}: card {a:.6f} cpu {b:.6f} rel err "
+              f"{abs(a - b) / max(abs(b), 1e-30):.2e} (tolerance "
+              f"{BF16_LOSS_RTOL})")
+        require(abs(a - b) <= BF16_LOSS_RTOL * abs(b), f"bf16 {name}")
+    worst_grad = 0.0
+    for phase_name, a, b in zip("DG", gg, gc):
+        top = max(v.abs().max().item() for v in b.values())
+        for k in b:
+            err = (a[k] - b[k]).abs().max().item()
+            bound = (BF16_GRAD_REL * b[k].abs().max().item()
+                     + BF16_GRAD_FLOOR * top)
+            require(err <= bound, f"bf16 {phase_name} gradient {k}: "
+                                  f"{err:.3e} > {bound:.3e}")
+            worst_grad = max(worst_grad, err / top)
+    n = beyond = 0
+    worst = 0.0
+    for k, want in pc.items():
+        if not want.is_floating_point():
+            require(torch.equal(pg[k], want), f"bf16 step {k}")
+            continue
+        err = (pg[k].float() - want.float()).abs()
+        n += err.numel()
+        beyond += int((err > PARAM_ATOL).sum())
+        worst = max(worst, err.max().item())
+    print(f"bf16 step card vs CPU: gradients within {BF16_GRAD_REL} of the "
+          f"leaf + {BF16_GRAD_FLOOR} of the largest (worst {worst_grad:.3f}"
+          f" of the largest); parameters and states max abs err "
+          f"{worst:.3e}, {beyond} of {n} beyond {PARAM_ATOL} (Adam sign "
+          f"flips; allowed {BF16_FLIP_SHARE:g} of them, each <= "
+          f"{PARAM_FLIP_MAX})")
+    require(worst <= PARAM_FLIP_MAX, "bf16 parameters differ beyond 2*lr")
+    require(beyond <= BF16_FLIP_SHARE * n, "too many bf16 parameters differ")
+    return {"grad_worst_of_largest": worst_grad, "param_abs": worst,
+            "param_share_beyond": beyond / n}
+
+
+def bf16_step_times(card_name: str, dtype, remat: bool) -> dict:
+    """One configuration of phase 29: bench.py's train step (batch 640,
+    augmentation, logit BCE, Adam) in ``dtype``, with or without remat:
+    median step of 10, images/s, peak device memory, profiled idle
+    share."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.train import gan
+    from torch.profiler import ProfilerActivity, profile
+
+    config = gan.GanConfig(batch_size=TRAIN_B, augment=True,
+                           compute_dtype=dtype, remat=remat)
+    g, d = seeded_pair(6, G_GAIN, D_GAIN)
+    g, d = g.cuda(), d.cuda()
+    state = gan.init_state(g, d, config)
+    step = gan.make_train_step(g, d, config)
+    reals = torch.rand((TRAIN_B // 2, 32, 32, 3), device="cuda")
+    draws = Draws(torch.Generator("cuda").manual_seed(0))
+    for _ in range(2):
+        step(state, reals, draws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, reals, draws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=10,
+                          warmup=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, reals, draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    idle = 1 - busy / 1e6 / wall if busy else None
+    name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
+        (" remat" if remat else "")
+    print(f"train step {name}, batch {TRAIN_B}: median {med:.3f} ms of 10 "
+          f"(min {lo:.3f}, max {hi:.3f}) = {2 * TRAIN_B / med * 1e3:.1f} "
+          f"images/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
+          f"profiled step: wall {wall * 1e3:.3f} ms, device kernels "
+          f"{busy / 1e3:.3f} ms, idle share "
+          f"{'not measured' if idle is None else round(idle, 3)}; "
+          f"{card_name}")
+    return {"step_ms": med, "images_per_s": 2 * TRAIN_B / med * 1e3,
+            "peak_bytes": peak, "idle_share": idle,
+            "device_ms": busy / 1e3}
+
+
+def bf16_times(card_name: str, v_generation_ms: float) -> dict:
+    """Phase 29, at batch 640 in one run: the f32 and the bf16 train step,
+    both again with remat (time and peak memory); the V update in f32 and
+    bf16 (the generation runs in f32 either way; phase 25's time stands in
+    for it); each bf16 sampler kernel, rows and grid layouts, against its
+    plain version, its bf16 library call and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch import models
+    from catgen_torch.core.module import reset_parameters
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import bilinear
+    from catgen_torch.kernels import bilinear_grid as bg
+    from catgen_torch.train import v_trainer
+
+    out = {}
+    for dtype, remat in ((torch.float32, False), (torch.bfloat16, False),
+                         (torch.bfloat16, True), (torch.float32, True)):
+        key = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
+            ("_remat" if remat else "")
+        out[key] = bf16_step_times(card_name, dtype, remat)
+        torch.cuda.empty_cache()
+    print(f"bf16 step {out['bf16']['step_ms']:.3f} ms against f32 "
+          f"{out['f32']['step_ms']:.3f} ms (ratio "
+          f"{out['bf16']['step_ms'] / out['f32']['step_ms']:.3f}); remat "
+          f"peak memory {out['bf16_remat']['peak_bytes'] / 2 ** 30:.3f} GiB "
+          f"(bf16) and {out['f32_remat']['peak_bytes'] / 2 ** 30:.3f} GiB "
+          f"(f32) against {out['bf16']['peak_bytes'] / 2 ** 30:.3f} and "
+          f"{out['f32']['peak_bytes'] / 2 ** 30:.3f} without (same run); "
+          f"{card_name}")
+
+    device = torch.device("cuda")
+    half = TRAIN_B // 2
+    reals = torch.rand((half, 32, 32, 3), device=device)
+    fakes = torch.rand((half, 32, 32, 3), device=device)
+    draws = Draws(torch.Generator(device).manual_seed(14))
+    for dtype in (torch.float32, torch.bfloat16):
+        v = models.create_V32((32, 32, 3))
+        reset_parameters(v, torch.Generator().manual_seed(13))
+        config = v_trainer.VConfig(batch_size=TRAIN_B, compute_dtype=dtype)
+        state = v_trainer.init_state(v.to(device), config)
+        step = v_trainer.make_train_step(state.v, config)
+        update = wall_ms(lambda: step(state, reals, fakes, draws),
+                         reps=12)[0]
+        key = "v_bf16" if dtype == torch.bfloat16 else "v_f32"
+        out[key] = {"update_ms": update,
+                    "batch_ms": v_generation_ms + update}
+        print(f"V batch of {TRAIN_B} ({key[2:]}): update {update:.3f} ms, "
+              f"with phase 25's mean generation {v_generation_ms:.3f} ms "
+              f"(f32 in both: the warp runs before the cast) "
+              f"{TRAIN_B / (v_generation_ms + update) * 1e3:.1f} images/s; "
+              f"{card_name}")
+
+    for layout in ("rows", "grid"):
+        for key in ("fwd", "dcoords", "dimg"):
+            for part in ("", "_plain", "_library", "_device"):
+                out[f"{layout}_{key}{part}"] = []
+        for i, shape in enumerate(TRAIN_SHAPES):
+            n, h, w, c, ho, wo = shape
+            img, rows, gcot, out_hw = bf16_inputs(shape, seed=260 + i)
+            grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
+            inp = img.permute(0, 3, 1, 2).contiguous()
+            gn = gcot.permute(0, 3, 1, 2).contiguous()
+            xy = grid.flip(-1).contiguous()       # grid_sample takes (x, y)
+
+            def grid_bwd(mask, gn=gn, inp=inp, xy=xy):
+                return torch.ops.aten.grid_sampler_2d_backward(
+                    gn, inp, xy, 0, 1, True, mask)
+
+            library = {
+                "fwd": lambda: F.grid_sample(inp, xy, mode="bilinear",
+                                             padding_mode="border",
+                                             align_corners=True),
+                "dcoords": lambda: grid_bwd([False, True]),
+                "dimg": lambda: grid_bwd([True, False])}
+            if layout == "rows":
+                pairs = {
+                    "fwd": (lambda: bilinear.launch(img, rows, out_hw),
+                            lambda: bilinear.bilinear_sample_rows_plain(
+                                img, rows, out_hw)),
+                    "dcoords": (lambda: bilinear.launch_dcoords(
+                        img, rows, gcot, out_hw),
+                        lambda: bilinear.bilinear_sample_rows_backward_plain(
+                            img, rows, gcot, out_hw, need_img=False)),
+                    "dimg": (lambda: bilinear.launch_dimg(img, rows, gcot,
+                                                          out_hw),
+                             lambda: bilinear.bilinear_sample_rows_backward_plain(
+                                 img, rows, gcot, out_hw, need_coords=False))}
+            else:
+                pairs = {
+                    "fwd": (lambda: bg.launch(img, grid),
+                            lambda: bg.bilinear_sample_grid_plain(img, grid)),
+                    "dcoords": (lambda: bg.launch_dcoords(img, grid, gcot),
+                                lambda: bg.bilinear_sample_grid_backward_plain(
+                                    img, grid, gcot, need_img=False)),
+                    "dimg": (lambda: bg.launch_dimg(img, grid, gcot),
+                             lambda: bg.bilinear_sample_grid_backward_plain(
+                                 img, grid, gcot, need_coords=False))}
+            for key, (kern, plain) in pairs.items():
+                p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
+                k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+                lib = cuda_ms(library[key], inner=10)
+                bound = sampler_bound(key, shape, 2)[0]
+                out[f"{layout}_{key}"].append(min(k1, k2))
+                out[f"{layout}_{key}_plain"].append(min(p1, p2))
+                out[f"{layout}_{key}_library"].append(lib)
+                print(f"bf16 sampler {key} {layout} {shape}: kernel "
+                      f"{min(k1, k2):.4f} ms, plain {min(p1, p2):.4f} ms, "
+                      f"{SAMPLER_LIBRARY[key]} in bf16 {lib:.4f} ms, bound "
+                      f"{bound:.4f} ms (bf16 bytes at 3.35 TB/s; CUDA events, "
+                      f"median of 20 timings of 10 back-to-back calls, order "
+                      f"plain-kernel-kernel-plain-library); {card_name}")
+                if layout == "rows":
+                    out[f"rows_{key}_device"].append(sampler_device_line(
+                        key, "rows bf16", shape, kern, library[key],
+                        card_name, elem=2))
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -2836,6 +3391,29 @@ def main(argv=None) -> int:
         pre_step, "v_ratings": ratings, "v_times_ms": vt,
         "pretrain_times_ms": pt, "card": card_name}}))
     del v_harness
+
+    phase(26, "the bf16 sampler kernels against their bf16 plain versions")
+    t0 = time.perf_counter()
+    bf16_err = bf16_vs_plain()
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as root:
+        phase(27, "the training CLI in bf16 (--dtype bf16), twice from one "
+                  "seed; one bf16 step on the v1 grid route")
+        t0 = time.perf_counter()
+        bf16_train, bf16_steps, bf16_grid = bf16_train_on_card(root)
+        print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    phase(28, "one bf16 step and one bf16 remat step, card against CPU")
+    t0 = time.perf_counter()
+    bf16_step = bf16_step_card_vs_cpu()
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+    phase(29, f"bf16 and f32 times and memory on the card, batch {TRAIN_B}")
+    t0 = time.perf_counter()
+    bt = bf16_times(card_name, vt[f"batch_{TRAIN_B}"]["generation"])
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"bf16": {
+        "step_card_vs_cpu": bf16_step, "card": card_name,
+        **{k: bt[k] for k in ("f32", "bf16", "f32_remat", "bf16_remat",
+                              "v_f32", "v_bf16")}}}))
 
     from catgen_torch.kernels import bilinear
 
@@ -2998,6 +3576,48 @@ def main(argv=None) -> int:
             [k for k, _ in gt[f"{key}_device"]])
         kernels[-1]["library_device_ms_by_shape"] = by_shape(
             [lib for _, lib in gt[f"{key}_device"]])
+    # the bf16 instantiations (phases 26-29): the rows kernels on the bf16
+    # training CLI's path, the grid kernels on one bf16 v1 step
+    for layout, counts, prefix in (("rows", bf16_train, ""),
+                                   ("grid", bf16_grid, "grid_")):
+        for key, counter in (("fwd", "BF16_LAUNCHES"),
+                             ("dcoords", "BF16_DCOORDS_LAUNCHES"),
+                             ("dimg", "BF16_DIMG_LAUNCHES")):
+            base = {"fwd": f"bilinear_sample_{layout}",
+                    "dcoords": f"bilinear_sample_{layout}_bwd_dcoords",
+                    "dimg": f"bilinear_sample_{layout}_bwd_dimg"}[key]
+            bounds = [sampler_bound(key, shape, 2)[0]
+                      for shape in TRAIN_SHAPES]
+            v4 = "catgen/kernels/pallas_bilinear_v4.py"
+            v1 = "catgen/kernels/pallas_bilinear.py"
+            kernels.append({
+                "name": f"{base}_bf16", "route": "cuda",
+                "source": source_fwd if key == "fwd" else source_bwd,
+                "replaces": (f"{v4}:799" if key == "fwd" else f"{v4}:917")
+                if layout == "rows" else
+                (f"{v1}:72" if key == "fwd" else f"{v1}:171"),
+                "launches": counts[prefix + counter],
+                "launches_by_path": {
+                    ("train_bf16" if layout == "rows" else "step_v1_bf16"):
+                    counts[prefix + counter]},
+                "max_abs_err": bf16_err[key],
+                **({"max_ulps": bf16_err[f"{key}_ulps"]}
+                   if key != "fwd" else {}),
+                "ms": sum(bt[f"{layout}_{key}"]),
+                "plain_ms": sum(bt[f"{layout}_{key}_plain"]),
+                "bound_ms": sum(bounds), "bound_by": "bytes",
+                "library_ms": sum(bt[f"{layout}_{key}_library"]),
+                "ms_by_shape": by_shape(bt[f"{layout}_{key}"]),
+                "plain_ms_by_shape": by_shape(bt[f"{layout}_{key}_plain"]),
+                "library_ms_by_shape": by_shape(
+                    bt[f"{layout}_{key}_library"]),
+                "bound_ms_by_shape": by_shape(bounds),
+                **({"device_ms_by_shape": by_shape(
+                        [k for k, _ in bt[f"rows_{key}_device"]]),
+                    "library_device_ms_by_shape": by_shape(
+                        [lib for _, lib in bt[f"rows_{key}_device"]])}
+                   if layout == "rows" else {}),
+            })
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -98,12 +98,40 @@ def test_resume_continues_from_the_checkpoint(trained, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--dtype", "bf16"], ["--collapseDetect"],
+    ["--devices", "2"], ["--collapseDetect"],
     ["--weightsVisFreq", "1"], ["--profile", "trace"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         train_cli.main(ARGS + ["--epochs", "1", "--save", str(tmp_path)]
                        + flags)
+
+
+def test_train_cli_runs_in_bf16_and_the_sample_cli_reads_it(tmp_path):
+    # catgen's --dtype bf16 (compute_dtype=bfloat16): activations in bf16,
+    # parameters and optimizer states f32 in the checkpoint
+    save = str(tmp_path)
+    harness = train_cli.main(ARGS + ["--epochs", "1", "--save", save,
+                                     "--dtype", "bf16", "--augment"])
+    assert harness.gc.compute_dtype == torch.bfloat16
+    epoch = [e for e in _events(save) if e["event"] == "epoch"][0]
+    assert all(np.isfinite(epoch[k]) for k in ("loss_d", "loss_g"))
+    with np.load(os.path.join(save, "adversarial.ckpt")) as z:
+        assert z[".g_params['00_Dense']['kernel']"].dtype == np.float32
+        assert z[".g_state['04_BatchNorm']['mean']"].dtype == np.float32
+    runs = sample_cli.main(["--save", save, "--count", "16", "--device",
+                            "cpu", "--out", os.path.join(save, "samples")])
+    assert runs[0]["images"].shape == (16, 32, 32, 3)
+    assert bool(torch.isfinite(runs[0]["images"]).all())
+
+
+def test_kernel_routes_refuse_bf16(tmp_path):
+    from catgen_torch.kernels import config as kconfig
+
+    for route in (dict(upsample_impl="pallas"), dict(st_conv_impl="fused")):
+        with kconfig.using(**route), pytest.raises(
+                NotImplementedError, match="Queue A item 1b"):
+            train_cli.main(ARGS + ["--epochs", "1", "--save",
+                                   str(tmp_path), "--dtype", "bf16"])
 
 
 @pytest.fixture(scope="module")

@@ -1227,3 +1227,169 @@ def test_tf32_dx_halo_is_zero_after_the_fold(f32_cuda):
     assert (zero - want).abs().max().item() <= bound
     assert (wrong - want).abs().max().item() > 100 * bound
     _up_close(got, want, UP_TIGHT, "dx")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instantiations of the sampler kernels, both layouts, against the
+# bf16 plain version (its upcast, f32 arithmetic and one rounding): the
+# forward bit for bit, by every kernel (per quad, staged, per value, per
+# pixel; an image off a 16-byte boundary, a C that is not a multiple of
+# 8); d_img and d_coords within BF16_ULPS units in the last place of the
+# plain value plus BF16_FLOOR of the largest (both are f32 sums of another
+# order, rounded once: where they round apart they differ by one unit, and
+# a sum that cancels to far below its terms may differ by f32 rounding of
+# those terms); repeats bit for bit; the zoomed-in input ST, every edge,
+# and a gather d_img of more than 1024 output pixels (its f32 scratch).
+# ---------------------------------------------------------------------------
+
+from catgen_torch.kernels import bilinear_grid  # noqa: E402
+
+BF16_ULPS, BF16_FLOOR = 1, 2.0 ** -16
+BF16_SHAPES = SHAPES + [
+    (2, 32, 32, 64, 32, 32),    # a 32x32x64 image: per value, gather
+    (2, 8, 8, 36, 5, 7),        # C % 8 != 0: per value (f32: staged)
+    (2, 16, 16, 64, 48, 32),    # 1536 output pixels: gather, two passes
+    (3, 16, 12, 3, 9, 3),       # P = 27: per quad, pixel by pixel
+]
+BF16_COORDS = {"spread": lambda r: r, "zoom": lambda r: r * 0.05,
+               "edges": lambda r: torch.sign(r) * 1.5}
+
+
+def _bf16_inputs(shape, device, seed=0):
+    img, rows, out_hw = _inputs(shape, device, seed)
+    g = _cotangent(shape, device, seed + 1)
+    return img.bfloat16(), rows.bfloat16(), g.bfloat16(), out_hw
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    x = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16 and got.is_cuda
+    assert got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    bound = (BF16_ULPS * _bf16_ulp(want)
+             + BF16_FLOOR * want.float().abs().max())
+    assert bool((err <= bound).all()), (err - bound).max().item()
+
+
+def _bf16_grid(rows, out_hw):
+    return rows.permute(0, 2, 1).reshape(rows.shape[0], *out_hw,
+                                         2).contiguous()
+
+
+# (forward, d_coords, d_img) by shape in bf16, where a 16-byte vector holds
+# 8 values: 8x8x36 is staged in f32 only, 32x32x64 (128 KB in bf16) in bf16
+# only, and 9x11x3 (594 bytes) fills no whole vector of either type
+@pytest.mark.parametrize("hwc, kinds", [
+    ((32, 32, 3), ("per_quad", "per_pixel", "per_sample")),
+    ((16, 16, 64), ("staged", "staged", "gather")),
+    ((32, 32, 64), ("staged", "staged", "gather")),
+    ((8, 8, 36), ("per_value", "per_warp", "gather")),
+    ((9, 11, 3), ("per_pixel", "per_pixel", "per_sample")),
+    ((9, 11, 33), ("per_value", "per_warp", "gather"))])
+def test_bf16_kernel_choice(cuda, hwc, kinds):
+    assert (bilinear.forward_kind(*hwc, torch.bfloat16),
+            bilinear.dcoords_kind(*hwc, torch.bfloat16),
+            bilinear.dimg_kind(*hwc, torch.bfloat16)) == kinds
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_forward_gives_the_plain_bits(cuda, shape, layout):
+    img, rows, _, out_hw = _bf16_inputs(shape, cuda, seed=40)
+    want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    crd = rows if layout == "rows" else _bf16_grid(rows, out_hw)
+    before = bilinear.launches() if layout == "rows" else \
+        bilinear_grid.launches()
+    first = _forward(layout, img, crd, out_hw)
+    again = _forward(layout, img, crd, out_hw)
+    other = _forward(layout, _misaligned(img), crd, out_hw)
+    torch.cuda.synchronize()
+    after = bilinear.launches() if layout == "rows" else \
+        bilinear_grid.launches()
+    assert after["BF16_LAUNCHES"] == before["BF16_LAUNCHES"] + 3
+    assert after["LAUNCHES"] == before["LAUNCHES"]
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first, want)
+    assert torch.equal(first, again)
+    assert torch.equal(first, other)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(BF16_COORDS))
+def test_bf16_backward_kernels_match_plain(cuda, shape, layout, coords):
+    img, rows, g, out_hw = _bf16_inputs(shape, cuda, seed=41)
+    rows = BF16_COORDS[coords](rows).contiguous()
+    want_img, want_crd = bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, out_hw)
+    if layout == "rows":
+        runs = [(bilinear.launch_dimg(img, rows, g, out_hw),
+                 bilinear.launch_dcoords(img, rows, g, out_hw))
+                for _ in range(2)]
+    else:
+        grid = _bf16_grid(rows, out_hw)
+        runs = [(bilinear_grid.launch_dimg(img, grid, g),
+                 bilinear_grid.launch_dcoords(img, grid, g)
+                 .reshape(shape[0], -1, 2).permute(0, 2, 1))
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    _bf16_close(runs[0][0], want_img)
+    _bf16_close(runs[0][1].contiguous(), want_crd)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_bf16_autograd_through_the_kernels(cuda):
+    shape = (4, 16, 16, 64, 48, 16)
+    img, rows, g, out_hw = _bf16_inputs(shape, cuda, seed=42)
+    img.requires_grad_(True)
+    rows.requires_grad_(True)
+    before = bilinear.launches()
+    out = bilinear.bilinear_sample_rows(img, rows, out_hw)
+    out.backward(g)
+    torch.cuda.synchronize()
+    after = bilinear.launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "LAUNCHES": 0, "DCOORDS_LAUNCHES": 0, "DIMG_LAUNCHES": 0,
+        "BF16_LAUNCHES": 1, "BF16_DCOORDS_LAUNCHES": 1,
+        "BF16_DIMG_LAUNCHES": 1}
+    assert img.grad.dtype == rows.grad.dtype == torch.bfloat16
+    want_img, want_crd = bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, out_hw)
+    _bf16_close(img.grad, want_img)
+    _bf16_close(rows.grad, want_crd)
+
+
+@pytest.mark.parametrize("bad", ["mixed", "grad_f32", "grid_unaligned"])
+def test_bf16_wrappers_refuse(cuda, bad):
+    img, rows, g, out_hw = _bf16_inputs(SHAPES[1], cuda, seed=43)
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "mixed":
+            bilinear.launch(img, rows.float(), out_hw)
+        elif bad == "grad_f32":
+            bilinear.launch_dcoords(img, rows, g.float(), out_hw)
+        else:
+            grid = _bf16_grid(rows, out_hw)
+            buf = torch.empty(grid.numel() + 1, dtype=grid.dtype,
+                              device=cuda)
+            off = buf[1:].view(grid.shape)   # 2 bytes past a pair
+            off.copy_(grid)
+            bilinear_grid.launch(img, off)
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_gather_dimg_gives_the_emulated_bits(cuda, shape, layout):
+    # the CPU emulation's f32 sums of the bf16 values, rounded once; three
+    # passes take the wrapper's f32 scratch between them
+    n, h, w, c = shape[:4]
+    img, rows, g, out_hw = _bf16_inputs(shape, cuda, seed=44)
+    got = _dimg_run(layout, img, rows, g, out_hw)
+    want = gather_dimg(rows.float().cpu().numpy(),
+                       g.float().cpu().numpy().reshape(n, -1, c), (h, w))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want.bfloat16())

@@ -1,9 +1,11 @@
 """The numeric mode the port's CLIs run in (catgen_torch/cli/common.py::
 resolve_device): catgen's ``--dtype f32`` has every convolution and matmul
-in full f32 and repeats its bits from a seed, so the CLIs turn TF32 off
-for cuDNN and for matmuls and take cuDNN's deterministic algorithms with
-no autotuning, on whatever device they run. Here on the CPU: the flags as
-``resolve_device`` and each CLI leave them, from the opposite settings."""
+in full f32 and repeats its bits from a seed, and its bf16 dots sum in
+f32, so the CLIs turn TF32 off for cuDNN and for matmuls, turn off
+cuBLAS's reduced-precision sums of bf16 products, and take cuDNN's
+deterministic algorithms with no autotuning, on whatever device they run.
+Here on the CPU: the flags as ``resolve_device`` and each CLI leave them,
+from the opposite settings."""
 
 import pytest
 import torch
@@ -19,6 +21,7 @@ from catgen_torch.train import harness
 ARGS = ["--device", "cpu", "--fixture", "16", "--batchSize", "4",
         "--N_epoch", "8"]
 FLAGS = (("cudnn", "allow_tf32", False), ("cuda.matmul", "allow_tf32", False),
+         ("cuda.matmul", "allow_bf16_reduced_precision_reduction", False),
          ("cudnn", "deterministic", True), ("cudnn", "benchmark", False))
 
 

@@ -235,3 +235,52 @@ def test_emulated_gather_matches_catgen_v4_interpret(case):
     got = _emulated(img, rows, g)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+# the bf16 kernel reads bf16 g and coordinates exactly into f32, sums as
+# above and rounds each d_img value once: the emulation on bf16 values,
+# rounded once, against the plain version's bf16 backward (its f32
+# autograd rounded once) within one bf16 unit plus 2^-16 of the largest
+# (two f32 sums of another order may round to neighbouring bf16 values),
+# and against catgen's v4 in interpret mode on bf16 inputs, v4's tolerance
+BF16_ULPS, BF16_FLOOR = 1, 2.0 ** -16
+
+
+def _bf16(a):
+    return torch.as_tensor(a).bfloat16()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_emulated_bf16_gather_matches_plain_bf16_backward(case):
+    img, rows, g, out_hw = _inputs(case, seed=5)
+    img, rows, g = (_bf16(a) for a in (img, rows, g))
+    n, h, w, c = img.shape
+    got = gather_dimg(rows.float().numpy(),
+                      g.float().numpy().reshape(n, -1, c), (h, w)).bfloat16()
+    want = bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, out_hw, need_coords=False)[0]
+    assert want.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp(min=2.0 ** -126))) - 7)
+    bound = BF16_ULPS * spacing + BF16_FLOOR * want.float().abs().max()
+    assert bool((err <= bound).all())
+
+
+@pytest.mark.parametrize("case", ["branch", "zoomed"])
+def test_emulated_bf16_gather_matches_catgen_v4_interpret(case):
+    import jax
+    import jax.numpy as jnp
+
+    from catgen.kernels.pallas_bilinear_v4 import bilinear_sample_rows
+
+    img, rows, g, out_hw = _inputs(case, seed=6)
+    img, rows, g = (_bf16(a).float().numpy() for a in (img, rows, g))
+    _, vjp = jax.vjp(lambda a, b: bilinear_sample_rows(a, b, out_hw, True),
+                     jnp.asarray(img, jnp.bfloat16),
+                     jnp.asarray(rows, jnp.bfloat16))
+    want = np.asarray(vjp(jnp.asarray(g, jnp.bfloat16))[0].astype(
+        jnp.float32))
+    got = _emulated(img, rows, g)
+    got = torch.as_tensor(got).bfloat16().float().numpy()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()

@@ -239,6 +239,6 @@ def test_bad_configs_raise():
 def test_port_config_fields_are_catgens():
     ported = {f.name for f in dataclasses.fields(tgan.GanConfig)}
     catgen = {f.name for f in dataclasses.fields(cgan.GanConfig)}
-    # not ported: the DP axis, bf16 compute and rematerialization
-    assert catgen - ported == {"axis_name", "compute_dtype", "remat"}
+    # not ported: the DP axis
+    assert catgen - ported == {"axis_name"}
     assert ported <= catgen

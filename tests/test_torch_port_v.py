@@ -369,6 +369,6 @@ def test_port_config_fields_are_catgens():
     import dataclasses
     ported = {f.name for f in dataclasses.fields(tvt.VConfig)}
     catgen = {f.name for f in dataclasses.fields(cvt.VConfig)}
-    # not ported: the DP axis and bf16 compute
-    assert catgen - ported == {"axis_name", "compute_dtype"}
+    # not ported: the DP axis
+    assert catgen - ported == {"axis_name"}
     assert ported <= catgen
