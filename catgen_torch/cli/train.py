@@ -63,9 +63,8 @@ def parse_args(argv=None):
                    help="comma list of top-level G children to freeze "
                         "(grads zeroed, params and BN state pinned)")
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
-                   help="activation compute dtype (bf16: the sampler "
-                        "kernels' bf16 instantiations on the default "
-                        "route; the kernel routes refuse it)")
+                   help="activation compute dtype (bf16: the kernels' "
+                        "bf16 instantiations on every route)")
     p.add_argument("--bce", default=None,
                    choices=list(gan.BCE_CHOICES),
                    help="GAN criterion (default: CATGEN_BCE or 'logits', "

@@ -1,6 +1,6 @@
 // D's input prefix in one pass: the affine spatial transformer's bilinear
 // sample of the image, a 3x3 'same' convolution of the sampled image, its
-// bias and a PReLU, for NHWC f32 tensors.
+// bias and a PReLU, for NHWC f32 or bf16 images.
 //
 // Replaces the TPU kernel catgen/kernels/pallas_st_conv.py, _forward ->
 // _st_conv_kernel: the affine grid built from theta inside the kernel, v4
@@ -34,15 +34,22 @@
 // sampling work at band 8); no block writes what another writes, so there
 // are no atomics and repeats are bit-identical.
 //
-// Arithmetic is f32; it does not copy the TPU's bf16 roundings (the
-// sampled tile and the weights) or its bf16 z. The coordinates come from
-// the same (3, P) base rows as the plain version, t0*gy + t1*gx + t2, each
-// product rounded (--fmad=false); the plain version's matmul may sum them
-// in another order, so a coordinate can differ in its last bit, and a
-// sample by ~1e-6 of the image's range. The lerps round as the plain
+// The f32 instantiation computes in f32 throughout; it does not copy the
+// TPU's bf16 roundings (the sampled tile and the weights) or its bf16 z.
+// The bf16 one (catgen's bf16 compute dtype) does, as the TPU kernel: the
+// image is read exactly into f32, each sample is the f32 lerp rounded
+// once to bf16 (into the tile and samp), the weights come rounded to bf16
+// (the wrapper rounds them), bias and alpha stay f32, z is the f32 sum of
+// the exact bf16 x bf16 products plus the bias, stored rounded to bf16,
+// and the output is the PReLU of the f32 z, rounded once. The coordinates
+// are f32 in both, from theta, as the TPU kernel's: from the same (3, P)
+// base rows as the plain version (st_conv.py::prefix_rows), t0*gy + t1*gx
+// + t2, each product rounded (--fmad=false) and added left to right, so
+// the samples are the plain version's bits. The lerps round as the plain
 // version's do (lerp_taps); the conv's 27-term sums run in another order
 // than cuDNN's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,21 +63,22 @@ constexpr int kThreads = 256;
 constexpr int64_t kSmemLimit = 48 * 1024;
 
 // CT: the channel count C when it is 1..4 (weights in registers), else 0
-// (any C, weights read through the read-only cache).
+// (any C, weights read through the read-only cache). T: the element type
+// of img, kmat, out, samp and z (float or __nv_bfloat16).
 // img (n, h, w, c); theta (n, 2, 3), rows (y, x); base (3, h*w) rows
 // [gy; gx; 1]; kmat (9*c, f), row (ky*3 + kx)*c + ci; bias (f); alpha
 // (alpha_n), alpha_n 1 or f; out, z (n, h*w, f); samp (n, h*w, c); samp
 // and z may be null.
-template <int CT>
+template <int CT, class T>
 __global__ void __launch_bounds__(kThreads)
-st_conv_prelu_kernel(const float* __restrict__ img,
+st_conv_prelu_kernel(const T* __restrict__ img,
                      const float* __restrict__ theta,
                      const float* __restrict__ base,
-                     const float* __restrict__ kmat,
+                     const T* __restrict__ kmat,
                      const float* __restrict__ bias,
                      const float* __restrict__ alpha, int alpha_n,
-                     float* __restrict__ out, float* __restrict__ samp,
-                     float* __restrict__ z, int h, int w, int c_rt, int f,
+                     T* __restrict__ out, T* __restrict__ samp,
+                     T* __restrict__ z, int h, int w, int c_rt, int f,
                      int band, int nbands) {
   extern __shared__ float tile[];
   const int c = CT > 0 ? CT : c_rt;
@@ -86,7 +94,7 @@ st_conv_prelu_kernel(const float* __restrict__ img,
   const float* th = theta + (int64_t)ni * 6;
   const float t00 = __ldg(th + 0), t01 = __ldg(th + 1), t02 = __ldg(th + 2);
   const float t10 = __ldg(th + 3), t11 = __ldg(th + 4), t12 = __ldg(th + 5);
-  const float* im = img + (int64_t)ni * p * c;
+  const T* im = img + (int64_t)ni * p * c;
   for (int i = tid; i < (band + 2) * cols; i += nthreads) {
     const int y = y0 - 1 + i / cols;
     const int x = i % cols - 1;
@@ -100,11 +108,15 @@ st_conv_prelu_kernel(const float* __restrict__ img,
     const Taps t = make_taps(t00 * gy + t01 * gx + t02,
                              t10 * gy + t11 * gx + t12, h, w);
     const bool own = samp != nullptr && y >= y0 && y < y0 + band;
-    float* s = own ? samp + ((int64_t)ni * p + pi) * c : nullptr;
+    T* s = own ? samp + ((int64_t)ni * p + pi) * c : nullptr;
     for (int ch = 0; ch < c; ++ch) {
-      const float v = lerp_taps(im + ch, t, c);
+      float v = lerp_taps(im + ch, t, c);
+      // the bf16 tile holds the sample rounded once (read back exactly)
+      if constexpr (sizeof(T) == 2) {
+        v = __bfloat162float(__float2bfloat16_rn(v));
+      }
       dst[ch] = v;
-      if (own) s[ch] = v;
+      if (own) stf(s + ch, v);     // exact: v is already of type T
     }
   }
   __syncthreads();
@@ -114,7 +126,7 @@ st_conv_prelu_kernel(const float* __restrict__ img,
     float wr[CT > 0 ? 9 * CT : 1];
     if constexpr (CT > 0) {
 #pragma unroll
-      for (int k = 0; k < 9 * CT; ++k) wr[k] = __ldg(kmat + (int64_t)k * f + fi);
+      for (int k = 0; k < 9 * CT; ++k) wr[k] = ldf(kmat + (int64_t)k * f + fi);
     }
     const float b = __ldg(bias + fi);
     const float a = __ldg(alpha + (alpha_n == 1 ? 0 : fi));
@@ -144,7 +156,7 @@ st_conv_prelu_kernel(const float* __restrict__ img,
               if constexpr (CT > 0) {
                 wk = wr[k];
               } else {
-                wk = __ldg(kmat + (int64_t)k * f + fi);
+                wk = ldf(kmat + (int64_t)k * f + fi);
               }
               acc[j] = fmaf(v, wk, acc[j]);
             }
@@ -156,17 +168,17 @@ st_conv_prelu_kernel(const float* __restrict__ img,
       for (int j = 0; j < kSeg; ++j) {
         if (x0 + j >= w) break;
         const float zv = acc[j] + b;
-        out[o + (int64_t)j * f] = zv >= 0.0f ? zv : a * zv;
-        if (z != nullptr) z[o + (int64_t)j * f] = zv;
+        stf(out + o + (int64_t)j * f, zv >= 0.0f ? zv : a * zv);
+        if (z != nullptr) stf(z + o + (int64_t)j * f, zv);
       }
     }
   }
 }
 
-template <int CT>
-int launch(const float* img, const float* theta, const float* base,
-           const float* kmat, const float* bias, const float* alpha,
-           int alpha_n, float* out, float* samp, float* z, int n, int h,
+template <int CT, class T>
+int launch(const T* img, const float* theta, const float* base,
+           const T* kmat, const float* bias, const float* alpha,
+           int alpha_n, T* out, T* samp, T* z, int n, int h,
            int w, int c, int f, void* stream) {
   const int cols = (w + kSeg - 1) / kSeg * kSeg + 2;
   int band = h < kMaxBand ? h : kMaxBand;
@@ -178,25 +190,18 @@ int launch(const float* img, const float* theta, const float* base,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int bx = f < 64 ? f : 64;
   const dim3 threads((unsigned)bx, (unsigned)(kThreads / bx));
-  st_conv_prelu_kernel<CT><<<(unsigned)blocks, threads, (size_t)smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  st_conv_prelu_kernel<CT, T><<<(unsigned)blocks, threads, (size_t)smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z, h, w, c, f,
       band, nbands);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() as an int (0 = the
-// launch was accepted; cudaErrorInvalidValue if a band's tile would not
-// fit in 48 KB of shared memory). Does not synchronise and allocates
-// nothing; all arrays are contiguous f32; samp and z may be null.
-extern "C" int catgen_st_conv_prelu_f32(const float* img, const float* theta,
-                                        const float* base, const float* kmat,
-                                        const float* bias, const float* alpha,
-                                        int alpha_n, float* out, float* samp,
-                                        float* z, int n, int h, int w, int c,
-                                        int f, void* stream) {
+template <class T>
+int launch_c(const T* img, const float* theta, const float* base,
+             const T* kmat, const float* bias, const float* alpha,
+             int alpha_n, T* out, T* samp, T* z, int n, int h, int w, int c,
+             int f, void* stream) {
   if ((int64_t)n * h * w * f == 0) return 0;
   switch (c) {
     case 1:
@@ -215,4 +220,31 @@ extern "C" int catgen_st_conv_prelu_f32(const float* img, const float* theta,
       return launch<0>(img, theta, base, kmat, bias, alpha, alpha_n, out,
                        samp, z, n, h, w, c, f, stream);
   }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() as an int (0 = the
+// launch was accepted; cudaErrorInvalidValue if a band's tile would not
+// fit in 48 KB of shared memory). Does not synchronise and allocates
+// nothing; all arrays are contiguous; samp and z may be null. The f32
+// entry takes f32 arrays; the bf16 one a bf16 img, kmat, out, samp and z,
+// with theta, base, bias and alpha f32.
+extern "C" int catgen_st_conv_prelu_f32(const float* img, const float* theta,
+                                        const float* base, const float* kmat,
+                                        const float* bias, const float* alpha,
+                                        int alpha_n, float* out, float* samp,
+                                        float* z, int n, int h, int w, int c,
+                                        int f, void* stream) {
+  return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z,
+                  n, h, w, c, f, stream);
+}
+
+extern "C" int catgen_st_conv_prelu_bf16(
+    const __nv_bfloat16* img, const float* theta, const float* base,
+    const __nv_bfloat16* kmat, const float* bias, const float* alpha,
+    int alpha_n, __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
+    int n, int h, int w, int c, int f, void* stream) {
+  return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z,
+                  n, h, w, c, f, stream);
 }

@@ -102,6 +102,105 @@ static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
 
 }  // namespace fwd
 
+// The forward's epilogue, for both element types T: bias, PReLU, the
+// interleaved store (rounded once to T), the column sums of the unrounded
+// values. Thread (g, t) of warp w of warpgroup wg holds rows 16 w + g and
+// 16 w + g + 8 of the warpgroup's 64, columns 2t, 2t+1 of each 8-column
+// group: sum[4 j + 2 half + q]. The statistics are deterministic without
+// atomics: the 8 rows g of a warp in a fixed butterfly, then the 8 warps
+// in order, one row of partial sums per block (`smem`, the free A tiles,
+// holds the warps' sums).
+template <bool kStats, class T>
+__device__ __forceinline__ void fwd_epilogue(
+    const float (&sum)[64], const T* __restrict__ bias,
+    const T* __restrict__ prelu, int prelu_n, T* __restrict__ y,
+    float* __restrict__ partial, uint8_t* smem, const Geometry& g, int p,
+    int co0, int64_t m0, int mtile) {
+  constexpr int kTileN = fwd::kTileN, kThreads = fwd::kThreads;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int hw = g.h * g.w;
+  const int64_t m_total = (int64_t)g.n * hw;
+  const int m_tiles = (int)ceil_div(m_total, fwd::kTileM);
+  const int d = p >> 1, e = p & 1;
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16;
+  float s1[16][2] = {}, s2[16][2] = {};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int64_t m = m0 + wrow + gid + 8 * hf;
+    if (m >= m_total) continue;
+    const int nn = (int)(m / hw);
+    const int rem = (int)(m - (int64_t)nn * hw);
+    const int oi = rem / g.w, oj = rem - oi * g.w;
+    T* out = y + (((int64_t)nn * 2 * g.h + 2 * oi + d) * 2 * g.w + 2 * oj +
+                  e) * g.cout;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int co = co0 + 8 * j + 2 * tig;
+      float val[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = sum[4 * j + 2 * hf + q];
+        if (co + q < g.cout) {
+          if (bias != nullptr) v += ldf(bias + co + q);
+          if (prelu != nullptr) {
+            const float a = ldf(prelu + (prelu_n == 1 ? 0 : co + q));
+            v = v >= 0.0f ? v : a * v;
+          }
+          if (kStats) {
+            s1[j][q] += v;
+            s2[j][q] += v * v;
+          }
+        }
+        val[q] = v;
+      }
+      if (co + 1 < g.cout && (g.cout & 1) == 0) {
+        store_pair(out + co, val[0], val[1]);
+      } else if (co < g.cout) {
+        store_one(out + co, val[0]);
+        if (co + 1 < g.cout) store_one(out + co + 1, val[1]);
+      }
+    }
+  }
+  if (kStats) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s1[j][q] += __shfl_xor_sync(0xffffffffu, s1[j][q], off);
+          s2[j][q] += __shfl_xor_sync(0xffffffffu, s2[j][q], off);
+        }
+      }
+    }
+    float* red = reinterpret_cast<float*>(smem);   // (8 warps, 2, 128)
+    const int warp = tid >> 5;
+    if (gid == 0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = 8 * j + 2 * tig + q;
+          red[(warp * 2 + 0) * kTileN + col] = s1[j][q];
+          red[(warp * 2 + 1) * kTileN + col] = s2[j][q];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < kTileN && co0 + tid < g.cout) {
+      float t1 = 0.0f, t2 = 0.0f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        t1 += red[(w * 2 + 0) * kTileN + tid];
+        t2 += red[(w * 2 + 1) * kTileN + tid];
+      }
+      float* dst = partial + ((int64_t)p * m_tiles + mtile) * 2 * g.cout;
+      dst[co0 + tid] = t1;
+      dst[g.cout + co0 + tid] = t2;
+    }
+  }
+}
+
 // x (n, h, w, cin); wst (4, kh, kw, cin, cout); y (n, 2h, 2w, cout);
 // partial (4 * m_tiles, 2, cout) when kStats. Blocks in order parity,
 // cout tile, pixel tile (fastest to slowest).
@@ -122,7 +221,6 @@ upsample_conv_fwd(const float* __restrict__ x, const float* __restrict__ wst,
 
   const int tid = threadIdx.x;
   const int co_tiles = (int)ceil_div(g.cout, kTileN);
-  const int m_tiles = (int)ceil_div((int64_t)g.n * g.h * g.w, kTileM);
   int b = blockIdx.x;
   const int p = b & 3;
   b >>= 2;
@@ -306,88 +404,8 @@ upsample_conv_fwd(const float* __restrict__ x, const float* __restrict__ wst,
   }
   cp_async_wait<0>();
 
-  // epilogue: bias, PReLU, the interleaved store, the column sums. Thread
-  // (g, t) of warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8
-  // of the warpgroup's 64, columns 2t, 2t+1 of each 8-column group.
-  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16;
-  float s1[16][2] = {}, s2[16][2] = {};
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int64_t m = m0 + wrow + gid + 8 * hf;
-    if (m >= m_total) continue;
-    const int nn = (int)(m / hw);
-    const int rem = (int)(m - (int64_t)nn * hw);
-    const int oi = rem / g.w, oj = rem - oi * g.w;
-    float* out = y + (((int64_t)nn * 2 * g.h + 2 * oi + d) * 2 * g.w +
-                      2 * oj + e) * g.cout;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int co = co0 + 8 * j + 2 * tig;
-      float val[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float v = sum[4 * j + 2 * hf + q];
-        if (co + q < g.cout) {
-          if (bias != nullptr) v += __ldg(bias + co + q);
-          if (prelu != nullptr) {
-            const float a = __ldg(prelu + (prelu_n == 1 ? 0 : co + q));
-            v = v >= 0.0f ? v : a * v;
-          }
-          if (kStats) {
-            s1[j][q] += v;
-            s2[j][q] += v * v;
-          }
-        }
-        val[q] = v;
-      }
-      if (co + 1 < g.cout && (g.cout & 1) == 0) {
-        *reinterpret_cast<float2*>(out + co) = make_float2(val[0], val[1]);
-      } else if (co < g.cout) {
-        out[co] = val[0];
-        if (co + 1 < g.cout) out[co + 1] = val[1];
-      }
-    }
-  }
-  if (kStats) {
-    // the 8 rows g of a warp in a fixed butterfly, then the 8 warps in
-    // order; the A tiles are free to hold them
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s1[j][q] += __shfl_xor_sync(0xffffffffu, s1[j][q], off);
-          s2[j][q] += __shfl_xor_sync(0xffffffffu, s2[j][q], off);
-        }
-      }
-    }
-    float* red = reinterpret_cast<float*>(smem);   // (8 warps, 2, 128)
-    const int warp = tid >> 5;
-    if (gid == 0) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = 8 * j + 2 * tig + q;
-          red[(warp * 2 + 0) * kTileN + col] = s1[j][q];
-          red[(warp * 2 + 1) * kTileN + col] = s2[j][q];
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < kTileN && co0 + tid < g.cout) {
-      float t1 = 0.0f, t2 = 0.0f;
-      for (int w = 0; w < kThreads / 32; ++w) {
-        t1 += red[(w * 2 + 0) * kTileN + tid];
-        t2 += red[(w * 2 + 1) * kTileN + tid];
-      }
-      float* dst = partial + ((int64_t)p * m_tiles + mtile) * 2 * g.cout;
-      dst[co0 + tid] = t1;
-      dst[g.cout + co0 + tid] = t2;
-    }
-  }
+  fwd_epilogue<kStats>(sum, bias, prelu, prelu_n, y, partial, smem, g, p,
+                       co0, m0, mtile);
 }
 
 template <bool kTransform, bool kStats, bool kVec>
@@ -416,6 +434,236 @@ cudaError_t launch_fwd(bool vec, const float* x, const float* wst,
                    x, wst, bias, prelu, prelu_n, tr, y, partial, g, s)
              : launch_fwd<kTransform, kStats, false>(
                    x, wst, bias, prelu, prelu_n, tr, y, partial, g, s);
+}
+
+// The bf16 forward (catgen's bf16 compute dtype), the same design with
+// one bf16 product in place of the 3xTF32 split:
+//   * wgmma m64n128k16 bf16 with f32 accumulators; a step is one tap and
+//     64 input channels, so a 128-byte swizzled row holds a step's
+//     contraction as the f32 kernel's 32 channels do, and the 4 products of
+//     a step advance 32 bytes a row as its k8 TF32 products do.
+//   * Both operands land in place: A (x, NHWC) as in f32, and B from the
+//     transposed parity stack (4, kh, kw, cout, cin) that the wrapper
+//     makes, K-major as it lies. No split and no transposing pass; with
+//     the input transform, the thread that copied an A chunk applies it
+//     in f32 and the halo mask (0 outside the image, after the
+//     transform) once the chunk has landed, and rounds it once to bf16,
+//     as catgen rounds the transformed block to x's dtype.
+//   * Fresh accumulators each 64-deep step, the steps added in f32 (the
+//     tensor cores' truncating adds, as in f32); bias and PReLU in f32 on
+//     the sums, the statistics from the unrounded f32 values, y rounded
+//     once (__float2bfloat16_rn). Bound: 2 * MACs / 989e12 s.
+//   * Shared memory: A x 3 and B x 3 stages of 16 KB: 97 KB. 16-byte
+//     copies need cin % 8 == 0 and cout % 8 == 0 and aligned arrays; other
+//     shapes take 2-byte loads through registers (kVec = false).
+
+namespace fwd16 {
+
+constexpr int kTileM = kTilePixels;   // output pixels of one parity per block
+constexpr int kTileN = 128;     // output channels per block
+constexpr int kStep = 64;       // contraction per stage: 64 channels, 1 tap
+constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
+constexpr int kTile = kTileM * kStep * 2;     // bytes of one A or B tile
+static_assert(kTileM == kTileN, "one tile size for A and B");
+static_assert(kStep * 2 == 128, "a tile row is one 128-byte swizzle row");
+constexpr int kA = 0, kB = 3;   // tiles: A x 3 stages, B x 3 stages
+constexpr int kSmemBytes = 6 * kTile + 1024;    // + room to align
+static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
+static_assert(kTileM == fwd::kTileM && kTileN == fwd::kTileN &&
+              kThreads == fwd::kThreads, "fwd_epilogue's tile");
+
+}  // namespace fwd16
+
+// x (n, h, w, cin); wstt (4, kh, kw, cout, cin); y (n, 2h, 2w, cout), all
+// bf16, as bias, prelu and the transform; partial (4 * m_tiles, 2, cout)
+// f32 when kStats. Blocks in order parity, cout tile, pixel tile (fastest
+// to slowest).
+template <bool kTransform, bool kStats, bool kVec>
+__global__ void __launch_bounds__(fwd16::kThreads, 1)
+upsample_conv_fwd_bf16(const bf16* __restrict__ x,
+                       const bf16* __restrict__ wstt,
+                       const bf16* __restrict__ bias,
+                       const bf16* __restrict__ prelu, int prelu_n,
+                       TransformT<bf16> tr, bf16* __restrict__ y,
+                       float* __restrict__ partial, Geometry g) {
+  using namespace fwd16;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the tiles start at the first 1024-byte boundary (the swizzle's period)
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
+  auto tile = [&](int t) { return smem + t * kTile; };
+
+  const int tid = threadIdx.x;
+  const int co_tiles = (int)ceil_div(g.cout, kTileN);
+  int b = blockIdx.x;
+  const int p = b & 3;
+  b >>= 2;
+  const int co0 = (b % co_tiles) * kTileN;
+  const int mtile = b / co_tiles;
+  const int d = p >> 1, e = p & 1;
+  const int hw = g.h * g.w;
+  const int64_t m_total = (int64_t)g.n * hw;
+  const int64_t m0 = (int64_t)mtile * kTileM;
+  const int csteps = (g.cin + kStep - 1) / kStep;
+  const int steps = g.kh * g.kw * csteps;
+
+  // loaders: rows 32 r + (tid >> 3), chunk tid & 7 (channels 8 (tid & 7)
+  // .. +7 of the step) of A (pixels) and of B (output channels)
+  const int acq = tid & 7, arow = tid >> 3;
+  int apix[4], ai[4], aj[4];
+  uint32_t avalid = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t m = m0 + 32 * r + arow;
+    const bool ok = m < m_total;
+    const int nn = ok ? (int)(m / hw) : 0;
+    const int rem = ok ? (int)(m - (int64_t)nn * hw) : 0;
+    ai[r] = rem / g.w;
+    aj[r] = rem - ai[r] * g.w;
+    apix[r] = ok ? (int)m : 0;      // (nn h + i) w + j
+    avalid |= (uint32_t)ok << r;
+  }
+
+  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
+  int ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
+
+  auto load_stage = [&](int kt) {
+    const int slot = kt % 3;
+    bf16* a_dst = reinterpret_cast<bf16*>(tile(kA + slot));
+    bf16* b_dst = reinterpret_cast<bf16*>(tile(kB + slot));
+    const int c = ld_cs * kStep + 8 * acq;
+    const int du = g.umin_h[d] + ld_u, dv = g.umin_w[e] + ld_v;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int si = ai[r] + du, sj = aj[r] + dv;
+      const bool inb = ((avalid >> r) & 1u) && si >= 0 && si < g.h &&
+                       sj >= 0 && sj < g.w;
+      const bf16* src = x + ((int64_t)apix[r] + du * g.w + dv) * g.cin + c;
+      copy8<kVec>(a_dst + chunk_at(32 * r + arow, acq) / 2, src, x,
+                  inb && (!kVec || c < g.cin), c, g.cin);
+      bits |= (uint32_t)inb << r;
+    }
+    const bf16* wtap =
+        wstt + (((int64_t)p * g.kh + ld_u) * g.kw + ld_v) * g.cout * g.cin;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int co = co0 + 32 * r + arow;
+      copy8<kVec>(b_dst + chunk_at(32 * r + arow, acq) / 2,
+                  wtap + (int64_t)co * g.cin + c, wstt,
+                  co < g.cout && (!kVec || c < g.cin), c, g.cin);
+    }
+    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
+    if (++ld_cs == csteps) {
+      ld_cs = 0;
+      if (++ld_v == g.kw) {
+        ld_v = 0;
+        ++ld_u;
+      }
+    }
+  };
+
+  // stage kt's own chunks, once they have landed: with the transform,
+  // A's transform and halo in f32, rounded once, in place. Then visible
+  // to wgmma. Stage kt + 1's copies may still be in flight.
+  auto prepare_stage = [&](int kt) {
+    float sc[8], sh[8], al[8];
+    const int c = (kt % csteps) * kStep + 8 * acq;
+    if (kTransform) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const bool ok = c + q < g.cin;
+        sc[q] = ok ? ldf(tr.scale + c + q) : 0.0f;
+        sh[q] = ok ? ldf(tr.shift + c + q) : 0.0f;
+        al[q] = ok ? ldf(tr.alpha + c + q) : 0.0f;
+      }
+    }
+    cp_async_wait<1>();             // this thread's copies of stage kt
+    if (kTransform) {
+      uint8_t* a = tile(kA + kt % 3);
+      const uint32_t bits = masks >> (4 * (kt % 3));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint4* chunk = reinterpret_cast<uint4*>(a + chunk_at(32 * r + arow,
+                                                             acq));
+        float v[8];
+        unpack8(*chunk, v);
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          // prelu(x * scale + shift) in f32, as the plain version's
+          const float xt = v[q] * sc[q] + sh[q];
+          v[q] = inb ? (xt >= 0.0f ? xt : al[q] * xt) : 0.0f;
+        }
+        *chunk = pack8(v);
+      }
+    }
+    fence_async_shared();
+  };
+
+  // warpgroup wg owns rows 64 wg .. +63 of the tile. acc holds one step's
+  // 64 channels; sum adds the steps in f32.
+  const int wg = tid >> 7;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
+
+  if (steps > 0) load_stage(0);
+  cp_async_commit();
+  if (steps > 1) load_stage(1);
+  cp_async_commit();
+  if (steps > 0) prepare_stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < steps; ++kt) {
+    if (kt + 2 < steps) load_stage(kt + 2);
+    cp_async_commit();
+    const uint32_t a = sbase + (kA + kt % 3) * kTile + wg * 64 * 128;
+    const uint32_t bt = sbase + (kB + kt % 3) * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {   // 16 channels each, 32 bytes a row
+      wgmma_bf16(acc, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
+    }
+    wgmma_commit();
+    if (kt + 1 < steps) prepare_stage(kt + 1);
+    wgmma_wait(acc);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
+    __syncthreads();                // stage kt + 1 ready; kt's tiles free
+  }
+  cp_async_wait<0>();
+
+  fwd_epilogue<kStats>(sum, bias, prelu, prelu_n, y, partial, smem, g, p,
+                       co0, m0, mtile);
+}
+
+template <bool kTransform, bool kStats, bool kVec>
+cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wstt,
+                            const bf16* bias, const bf16* prelu, int prelu_n,
+                            TransformT<bf16> tr, bf16* y, float* partial,
+                            const Geometry& g, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_fwd_bf16<kTransform, kStats, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, fwd16::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = 4 * ceil_div(g.cout, fwd16::kTileN) *
+                         ceil_div((int64_t)g.n * g.h * g.w, fwd16::kTileM);
+  upsample_conv_fwd_bf16<kTransform, kStats, kVec>
+      <<<(unsigned)blocks, fwd16::kThreads, fwd16::kSmemBytes, s>>>(
+          x, wstt, bias, prelu, prelu_n, tr, y, partial, g);
+  return cudaGetLastError();
+}
+
+template <bool kTransform, bool kStats>
+cudaError_t launch_fwd_bf16(bool vec, const bf16* x, const bf16* wstt,
+                            const bf16* bias, const bf16* prelu, int prelu_n,
+                            TransformT<bf16> tr, bf16* y, float* partial,
+                            const Geometry& g, cudaStream_t s) {
+  return vec ? launch_fwd_bf16<kTransform, kStats, true>(
+                   x, wstt, bias, prelu, prelu_n, tr, y, partial, g, s)
+             : launch_fwd_bf16<kTransform, kStats, false>(
+                   x, wstt, bias, prelu, prelu_n, tr, y, partial, g, s);
 }
 
 }  // namespace
@@ -465,6 +713,46 @@ extern "C" int catgen_upsample_conv_fwd_f32(
                                         y, partial, g, s)
               : launch_fwd<false, false>(vec, x, wst, bias, prelu, prelu_n,
                                          tr, y, partial, g, s);
+  }
+  if (err != cudaSuccess || !with_stats) return (int)err;
+  const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);
+  return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);
+}
+
+// The bf16 forward: the f32 entry's arguments with bf16 x, bias, prelu,
+// transform and y, and wstt (4, kh, kw, cout, cin), the parity stack
+// transposed; partial and stats stay f32.
+extern "C" int catgen_upsample_conv_fwd_bf16(
+    const bf16* x, const bf16* wstt, const bf16* bias, const bf16* prelu,
+    int prelu_n, const bf16* tscale, const bf16* tshift, const bf16* talpha,
+    bf16* y, float* partial, float* stats, int n, int h, int w, int cin,
+    int cout, int kh, int kw, int uh0, int uh1, int uw0, int uw1,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)n * h * w == 0 || cout == 0) return 0;
+  if ((int64_t)n * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry g =
+      make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
+  const TransformT<bf16> tr = {tscale, tshift, talpha};
+  const bool with_stats = stats != nullptr;
+  // 16-byte copies where every row of x and wstt starts 16-byte aligned
+  const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
+                   aligned16(wstt);
+  cudaError_t err;
+  if (tscale != nullptr) {
+    err = with_stats
+              ? launch_fwd_bf16<true, true>(vec, x, wstt, bias, prelu,
+                                            prelu_n, tr, y, partial, g, s)
+              : launch_fwd_bf16<true, false>(vec, x, wstt, bias, prelu,
+                                             prelu_n, tr, y, partial, g, s);
+  } else {
+    err = with_stats
+              ? launch_fwd_bf16<false, true>(vec, x, wstt, bias, prelu,
+                                             prelu_n, tr, y, partial, g, s)
+              : launch_fwd_bf16<false, false>(vec, x, wstt, bias, prelu,
+                                              prelu_n, tr, y, partial, g, s);
   }
   if (err != cudaSuccess || !with_stats) return (int)err;
   const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);

@@ -136,6 +136,104 @@ static_assert(smem_bytes(true) <= 232448,
 
 }  // namespace dxk
 
+// dX's epilogue, for both element types T: dx from the step sums, and
+// with the transform its backward and the column sums of dscale, dshift
+// and dalpha. Thread (g, t) of warp w of warpgroup wg holds rows 16 w + g
+// and 16 w + g + 8 of the warpgroup's 64, columns 2t, 2t+1 of each
+// 8-column group: sum[4 j + 2 half + q]. The sums go as the forward's
+// statistics: the 8 rows of a warp in a fixed butterfly, the 8 warps in
+// order, one partial row per block (`smem`, the free A tiles, holds the
+// warps' sums: (8 warps, 3, 128)).
+template <bool kTransform, class T>
+__device__ __forceinline__ void dx_epilogue(
+    const float (&sum)[64], const T* __restrict__ x, TransformT<T> tr,
+    T* __restrict__ dx, float* __restrict__ partial, uint8_t* smem,
+    const Geometry& gm, int c0, int m0, int mtile) {
+  constexpr int kTileN = dxk::kTileN, kThreads = dxk::kThreads;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m_total = gm.n * gm.h * gm.w;
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int warp = tid >> 5;
+  const int wrow = wg * 64 + (warp & 3) * 16;
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = c0 + 8 * j + 2 * tig;
+    float sc[2], sh[2], al[2];
+    float dsc[2] = {0.0f, 0.0f}, dsh[2] = {0.0f, 0.0f}, dal[2] = {0.0f, 0.0f};
+    if (kTransform) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool ok = c + q < gm.cin;
+        sc[q] = ok ? ldf(tr.scale + c + q) : 0.0f;
+        sh[q] = ok ? ldf(tr.shift + c + q) : 0.0f;
+        al[q] = ok ? ldf(tr.alpha + c + q) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + wrow + gid + 8 * hf;
+      if (m >= m_total) continue;
+      const int64_t idx = (int64_t)m * gm.cin + c;
+      float val[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float dxn = sum[4 * j + 2 * hf + q];
+        val[q] = dxn;
+        if (kTransform && c + q < gm.cin) {
+          // the transform's backward, as the plain version's:
+          // xt = x * scale + shift; xn = xt >= 0 ? xt : alpha * xt
+          const float xv = ldf(x + idx + q);
+          const float xt = xv * sc[q] + sh[q];
+          const bool pos = xt >= 0.0f;
+          const float dxt = pos ? dxn : dxn * al[q];
+          val[q] = dxt * sc[q];
+          dsc[q] += dxt * xv;
+          dsh[q] += dxt;
+          dal[q] += pos ? 0.0f : dxn * xt;
+        }
+      }
+      if (c + 1 < gm.cin && (gm.cin & 1) == 0) {
+        store_pair(dx + idx, val[0], val[1]);
+      } else if (c < gm.cin) {
+        store_one(dx + idx, val[0]);
+        if (c + 1 < gm.cin) store_one(dx + idx + 1, val[1]);
+      }
+    }
+    if (kTransform) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          dsc[q] += __shfl_xor_sync(0xffffffffu, dsc[q], off);
+          dsh[q] += __shfl_xor_sync(0xffffffffu, dsh[q], off);
+          dal[q] += __shfl_xor_sync(0xffffffffu, dal[q], off);
+        }
+        if (gid == 0) {
+          const int col = 8 * j + 2 * tig + q;
+          red[(warp * 3 + 0) * kTileN + col] = dsc[q];
+          red[(warp * 3 + 1) * kTileN + col] = dsh[q];
+          red[(warp * 3 + 2) * kTileN + col] = dal[q];
+        }
+      }
+    }
+  }
+  if (kTransform) {
+    __syncthreads();
+    if (tid < kTileN && c0 + tid < gm.cin) {
+      float* dst = partial + (int64_t)mtile * 3 * gm.cin + c0 + tid;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float t = 0.0f;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          t += red[(w * 3 + k) * kTileN + tid];
+        }
+        dst[k * gm.cin] = t;
+      }
+    }
+  }
+}
+
 // g (n, 2h, 2w, cout) (+ fold, y the same); wst (4, kh, kw, cin, cout);
 // dx (n, h, w, cin). With kTransform: x (n, h, w, cin), tr, and partial
 // (m_tiles, 3, cin) receives each block's [dscale, dshift, dalpha] column
@@ -329,92 +427,7 @@ upsample_conv_dx(const float* __restrict__ g, Fold fold,
   }
   cp_async_wait<0>();
 
-  // epilogue: dx, and with the transform its backward and the column
-  // sums. Thread (g, t) of warp w of the warpgroup holds rows 16 w + g and
-  // 16 w + g + 8 of the warpgroup's 64, columns 2t, 2t+1 of each 8-column
-  // group. The A tiles are free to hold the sums: (8 warps, 3, 128).
-  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int warp = tid >> 5;
-  const int wrow = wg * 64 + (warp & 3) * 16;
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = c0 + 8 * j + 2 * tig;
-    float sc[2], sh[2], al[2];
-    float dsc[2] = {0.0f, 0.0f}, dsh[2] = {0.0f, 0.0f}, dal[2] = {0.0f, 0.0f};
-    if (kTransform) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const bool ok = c + q < gm.cin;
-        sc[q] = ok ? __ldg(tr.scale + c + q) : 0.0f;
-        sh[q] = ok ? __ldg(tr.shift + c + q) : 0.0f;
-        al[q] = ok ? __ldg(tr.alpha + c + q) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = m0 + wrow + gid + 8 * hf;
-      if (m >= m_total) continue;
-      const int64_t idx = (int64_t)m * gm.cin + c;
-      float val[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float dxn = sum[4 * j + 2 * hf + q];
-        val[q] = dxn;
-        if (kTransform && c + q < gm.cin) {
-          // the transform's backward, as the plain version's autograd:
-          // xt = x * scale + shift; xn = xt >= 0 ? xt : alpha * xt
-          const float xv = __ldg(x + idx + q);
-          const float xt = xv * sc[q] + sh[q];
-          const bool pos = xt >= 0.0f;
-          const float dxt = pos ? dxn : dxn * al[q];
-          val[q] = dxt * sc[q];
-          dsc[q] += dxt * xv;
-          dsh[q] += dxt;
-          dal[q] += pos ? 0.0f : dxn * xt;
-        }
-      }
-      if (c + 1 < gm.cin && (gm.cin & 1) == 0) {
-        *reinterpret_cast<float2*>(dx + idx) = make_float2(val[0], val[1]);
-      } else if (c < gm.cin) {
-        dx[idx] = val[0];
-        if (c + 1 < gm.cin) dx[idx + 1] = val[1];
-      }
-    }
-    if (kTransform) {
-      // the 8 rows g of the warp in a fixed butterfly
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          dsc[q] += __shfl_xor_sync(0xffffffffu, dsc[q], off);
-          dsh[q] += __shfl_xor_sync(0xffffffffu, dsh[q], off);
-          dal[q] += __shfl_xor_sync(0xffffffffu, dal[q], off);
-        }
-        if (gid == 0) {
-          const int col = 8 * j + 2 * tig + q;
-          red[(warp * 3 + 0) * kTileN + col] = dsc[q];
-          red[(warp * 3 + 1) * kTileN + col] = dsh[q];
-          red[(warp * 3 + 2) * kTileN + col] = dal[q];
-        }
-      }
-    }
-  }
-  if (kTransform) {
-    // the 8 warps in order, one row of partial sums per block
-    __syncthreads();
-    if (tid < kTileN && c0 + tid < gm.cin) {
-      float* dst = partial + (int64_t)mtile * 3 * gm.cin + c0 + tid;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float t = 0.0f;
-        for (int w = 0; w < kThreads / 32; ++w) {
-          t += red[(w * 3 + k) * kTileN + tid];
-        }
-        dst[k * gm.cin] = t;
-      }
-    }
-  }
+  dx_epilogue<kTransform>(sum, x, tr, dx, partial, smem, gm, c0, m0, mtile);
 }
 
 namespace dck {
@@ -750,6 +763,503 @@ upsample_conv_dck(const float* __restrict__ x, Transform tr,
   }
 }
 
+// The bf16 dX (catgen's bf16 compute dtype): the f32 dX's design with one
+// bf16 wgmma product (m64n128k16) in place of the 3xTF32 split, as the
+// bf16 forward (upsample_conv.cu):
+//   * a step is one (parity, tap) pair and 64 output channels, one
+//     128-byte swizzled row of A (g at the source pixels) and of B (the
+//     parity stack's cin rows, cout contiguous); both land in place;
+//   * with the fold, y is staged beside g, and the thread that copied a
+//     chunk computes (gy + gs1) + (2 y) gs2 in f32, masks the halo after
+//     it and rounds it once to bf16 in place, as catgen rounds the folded
+//     cotangent to x's dtype before its products;
+//   * the epilogue writes dx rounded once, and with the transform its
+//     backward in f32 from the bf16 x and constants, the column sums of
+//     dscale, dshift and dalpha f32 as in f32;
+//   * fresh accumulators each 64-deep step, the steps added in f32.
+// Shared memory: A x 3, B x 3 and, with the fold, y x 2 stages of 16 KB.
+
+namespace dxk16 {
+
+constexpr int kTileM = kTilePixels;   // input pixels per block
+constexpr int kTileN = 128;     // input channels per block
+constexpr int kStep = 64;       // contraction per stage: 64 output channels
+constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
+constexpr int kTile = kTileM * kStep * 2;     // bytes of one A or B tile
+static_assert(kTileM == kTileN, "one loader layout for A and B");
+static_assert(kStep * 2 == 128, "a tile row is one 128-byte swizzle row");
+constexpr int kA = 0, kB = 3, kY = 6;
+__host__ __device__ constexpr int smem_bytes(bool fold) {
+  return (fold ? 8 : 6) * kTile + 1024;      // + room to align
+}
+static_assert(smem_bytes(true) <= 232448,
+              "over the H100's opt-in shared memory");
+static_assert(kTileM == dxk::kTileM && kTileN == dxk::kTileN &&
+              kThreads == dxk::kThreads, "dx_epilogue's tile");
+
+}  // namespace dxk16
+
+// g (n, 2h, 2w, cout) (+ fold, y the same); wst (4, kh, kw, cin, cout);
+// dx (n, h, w, cin), all bf16, as x and the transform; partial (m_tiles,
+// 3, cin) f32 with kTransform. Blocks in order cin tile, pixel tile.
+template <bool kFold, bool kTransform, bool kVec>
+__global__ void __launch_bounds__(dxk16::kThreads, 1)
+upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
+                      const bf16* __restrict__ wst,
+                      const bf16* __restrict__ x, TransformT<bf16> tr,
+                      bf16* __restrict__ dx, float* __restrict__ partial,
+                      Geometry gm) {
+  using namespace dxk16;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
+  auto tile = [&](int t) { return smem + t * kTile; };
+
+  const int tid = threadIdx.x;
+  const int ci_tiles = (int)ceil_div(gm.cin, kTileN);
+  const int c0 = (blockIdx.x % ci_tiles) * kTileN;
+  const int mtile = blockIdx.x / ci_tiles;
+  const int hw = gm.h * gm.w;
+  const int m_total = gm.n * hw;          // the launcher checks < 2^31
+  const int m0 = mtile * kTileM;
+  const int csteps = (gm.cout + kStep - 1) / kStep;
+  const int steps = 4 * gm.kh * gm.kw * csteps;
+
+  // loaders: rows 32 r + (tid >> 3), chunk tid & 7 (output channels
+  // 8 (tid & 7) .. +7 of the step) of A and of B
+  const int acq = tid & 7, arow = tid >> 3;
+  int gbase[4], ai[4], aj[4];
+  uint32_t avalid = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + 32 * r + arow;
+    const bool ok = m < m_total;
+    const int nn = ok ? m / hw : 0;
+    const int rem = ok ? m - nn * hw : 0;
+    ai[r] = rem / gm.w;
+    aj[r] = rem - ai[r] * gm.w;
+    gbase[r] = nn * 4 * hw;
+    avalid |= (uint32_t)ok << r;
+  }
+
+  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
+  int ld_p = 0, ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
+
+  auto load_stage = [&](int kt) {
+    const int slot = kt % 3;
+    bf16* a_dst = reinterpret_cast<bf16*>(tile(kA + slot));
+    bf16* b_dst = reinterpret_cast<bf16*>(tile(kB + slot));
+    bf16* y_dst = reinterpret_cast<bf16*>(tile(kY + (kt & 1)));
+    const int d = ld_p >> 1, e = ld_p & 1;
+    const int co = ld_cs * kStep + 8 * acq;
+    const int oh = gm.umin_h[d] + ld_u, ow = gm.umin_w[e] + ld_v;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int si = ai[r] - oh, sj = aj[r] - ow;
+      const bool inb = ((avalid >> r) & 1u) && si >= 0 && si < gm.h &&
+                       sj >= 0 && sj < gm.w;
+      const int gpix = gbase[r] + (2 * si + d) * 2 * gm.w + 2 * sj + e;
+      const int64_t off = (int64_t)gpix * gm.cout + co;
+      const bool ok = inb && (!kVec || co < gm.cout);
+      const uint32_t at = chunk_at(32 * r + arow, acq) / 2;
+      copy8<kVec>(a_dst + at, g + off, g, ok, co, gm.cout);
+      if (kFold) copy8<kVec>(y_dst + at, fold.y + off, fold.y, ok, co, gm.cout);
+      bits |= (uint32_t)inb << r;
+    }
+    const bf16* wtap =
+        wst + (((int64_t)ld_p * gm.kh + ld_u) * gm.kw + ld_v) * gm.cin *
+                  gm.cout;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = c0 + 32 * r + arow;
+      copy8<kVec>(b_dst + chunk_at(32 * r + arow, acq) / 2,
+                  wtap + (int64_t)c * gm.cout + co, wst,
+                  c < gm.cin && (!kVec || co < gm.cout), co, gm.cout);
+    }
+    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
+    if (++ld_cs == csteps) {
+      ld_cs = 0;
+      if (++ld_v == gm.kw) {
+        ld_v = 0;
+        if (++ld_u == gm.kh) {
+          ld_u = 0;
+          ++ld_p;
+        }
+      }
+    }
+  };
+
+  // stage kt's own chunks, once they have landed: with the fold, A's fold
+  // and halo mask in f32, rounded once, in place. Then visible to wgmma.
+  auto prepare_stage = [&](int kt) {
+    const int slot = kt % 3;
+    float s1[8], s2[8];
+    const int co = (kt % csteps) * kStep + 8 * acq;
+    if (kFold) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const bool ok = co + q < gm.cout;
+        s1[q] = ok ? __ldg(fold.gs + co + q) : 0.0f;
+        s2[q] = ok ? __ldg(fold.gs + gm.cout + co + q) : 0.0f;
+      }
+    }
+    cp_async_wait<1>();             // this thread's copies of stage kt
+    if (kFold) {
+      uint8_t* a = tile(kA + slot);
+      const uint8_t* ys = tile(kY + (kt & 1));
+      const uint32_t bits = masks >> (4 * slot);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t off = chunk_at(32 * r + arow, acq);
+        uint4* chunk = reinterpret_cast<uint4*>(a + off);
+        float v[8], yv[8];
+        unpack8(*chunk, v);
+        unpack8(*reinterpret_cast<const uint4*>(ys + off), yv);
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          // (gy + gs1) + (2 y) gs2, in the plain version's order; 0 in
+          // the halo after the fold
+          const float t = (2.0f * yv[q]) * s2[q];
+          v[q] = inb ? (v[q] + s1[q]) + t : 0.0f;
+        }
+        *chunk = pack8(v);
+      }
+    }
+    fence_async_shared();
+  };
+
+  const int wg = tid >> 7;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
+
+  if (steps > 0) load_stage(0);
+  cp_async_commit();
+  if (steps > 1) load_stage(1);
+  cp_async_commit();
+  if (steps > 0) prepare_stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < steps; ++kt) {
+    if (kt + 2 < steps) load_stage(kt + 2);
+    cp_async_commit();
+    const uint32_t a = sbase + (kA + kt % 3) * kTile + wg * 64 * 128;
+    const uint32_t bt = sbase + (kB + kt % 3) * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {   // 16 channels each, 32 bytes a row
+      wgmma_bf16(acc, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
+    }
+    wgmma_commit();
+    if (kt + 1 < steps) prepare_stage(kt + 1);
+    wgmma_wait(acc);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
+    __syncthreads();                // stage kt + 1 ready; kt's tiles free
+  }
+  cp_async_wait<0>();
+
+  dx_epilogue<kTransform>(sum, x, tr, dx, partial, smem, gm, c0, m0, mtile);
+}
+
+// The bf16 dCK: the f32 dCK's blocks, ranges and fixed-order sums, with
+// one mma.sync.m16n8k16 bf16 product (f32 accumulators) in place of the
+// three m16n8k8 TF32 ones. x and g stay pixel-major in shared memory (a
+// row of 128 channels per pixel, padded to 136 bf16 = 272 bytes, so the
+// 8 rows of an 8x8 matrix hit 8 different 16-byte bank groups), and
+// ldmatrix.trans hands each thread its fragments with the pixels (the
+// contraction) paired in a register. The transform of x and the fold of g
+// run once per staged chunk in f32 and round once to bf16, as catgen's
+// kernel rounds xn and g to x's dtype; dbias sums the unrounded f32 fold.
+// A stage is 32 pixels (two k16 products); fresh accumulators each
+// stage, the stages added in f32.
+
+namespace dck16 {
+
+constexpr int kTileCin = 128;    // tile rows: input channels
+constexpr int kTileCout = 128;   // tile columns: output channels
+constexpr int kStep = 32;        // pixels per stage
+constexpr int kStages = 4;       // cp.async ring depth
+constexpr int kThreads = 256;    // 8 warps: 2 (cin) x 4 (cout), 64 x 32 each
+constexpr int kLd = kTileCin + 8;  // row stride in bf16 (272 bytes)
+constexpr int kRows = 2;         // pixel rows each thread copies per stage
+static_assert(kTileCin == kTileCout, "one loader layout serves x and g");
+static_assert(kStep * kTileCin / 8 == kThreads * kRows, "loaders");
+static_assert(kStages * 2 * kRows <= 32, "row masks of all stages in one word");
+
+__host__ __device__ constexpr int stage_elems(bool fold) {
+  return (fold ? 3 : 2) * kStep * kLd;   // x, g (and the fold's y) tiles
+}
+
+// Dynamic shared memory: the ring, then the tile's f32 channel constants
+// (scale, shift, alpha of cin; gs1, gs2 of cout)
+__host__ __device__ constexpr int smem_bytes(bool fold) {
+  return kStages * stage_elems(fold) * 2 + 5 * kTileCin * 4;
+}
+
+// four 8x8 b16 matrices, transposed: register i from the rows whose
+// addresses lanes 8i .. 8i+7 give
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// d (+)= a * b: one m16n8k16 bf16 product, f32 accumulators; into fresh
+// accumulators when `fresh`
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         bool fresh) {
+  const float c0 = fresh ? 0.0f : d[0], c1 = fresh ? 0.0f : d[1];
+  const float c2 = fresh ? 0.0f : d[2], c3 = fresh ? 0.0f : d[3];
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c0), "f"(c1), "f"(c2), "f"(c3));
+}
+
+}  // namespace dck16
+
+// x (n, h, w, cin) (+ transform); g (n, 2h, 2w, cout) (+ fold, y the
+// same), all bf16; the f32 dCK's block order, partial (splits, 4, kh, kw,
+// cin, cout) and db_partial (splits * 4, cout), f32.
+template <bool kFold, bool kTransform, bool kVec>
+__global__ void __launch_bounds__(dck16::kThreads, 1)
+upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
+                       const bf16* __restrict__ g, FoldT<bf16> fold,
+                       float* __restrict__ partial,
+                       float* __restrict__ db_partial, Geometry gm,
+                       int chunk) {
+  using namespace dck16;
+  using dck::Pix;
+  using dck::Step;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int t = threadIdx.x;
+  const int taps = gm.kh * gm.kw;
+  const int co_tiles = (int)ceil_div(gm.cout, kTileCout);
+  const int ci_tiles = (int)ceil_div(gm.cin, kTileCin);
+  int b = blockIdx.x;
+  const int tap = b % taps;
+  b /= taps;
+  const int co0 = (b % co_tiles) * kTileCout;
+  b /= co_tiles;
+  const int ci_tile = b % ci_tiles;
+  const int ci0 = ci_tile * kTileCin;
+  b /= ci_tiles;
+  const int p = b & 3, sp = b >> 2;
+  const int d = p >> 1, e = p & 1;
+  const int u = tap / gm.kw, v = tap - u * gm.kw;
+  const int sh = gm.umin_h[d] + u, sw = gm.umin_w[e] + v;
+  const int pixels = gm.n * gm.h * gm.w;
+  const int kb0 = sp * chunk;
+  const int kb1 = min(kb0 + chunk, pixels);
+  const int steps = kb1 > kb0 ? (kb1 - kb0 + kStep - 1) / kStep : 0;
+  const bool bias_block = kFold && tap == 0 && ci_tile == 0;
+  constexpr bool kFix = kTransform || kFold;   // a pass over staged data
+
+  // the loader's share: rows rg*2, rg*2+1 of every stage, channels
+  // 8q .. 8q+7 of both tiles (16 threads copy a row's 256 bytes)
+  const int q = t & 15, rg = t >> 4;
+  const int cx = ci0 + 8 * q, cg = co0 + 8 * q;
+  Step one = {}, stride = {};
+  Pix next = {};
+  if (steps > 0) {
+    const int m = kb0 + rg * kRows, hw = gm.h * gm.w;
+    one = dck::make_step(1, gm.h, gm.w);
+    stride = dck::make_step(kStep, gm.h, gm.w);
+    next.n = m / hw;
+    next.i = (m - next.n * hw) / gm.w;
+    next.j = m - next.n * hw - next.i * gm.w;
+  }
+  uint32_t masks = 0;               // per stage: 2 x-row bits, 2 g-row bits
+
+  float* consts =
+      reinterpret_cast<float*>(smem_raw + kStages * stage_elems(kFold) * 2);
+  if (kFix && t < kTileCin) {
+    const bool okx = kTransform && ci0 + t < gm.cin;
+    consts[t] = okx ? ldf(tr.scale + ci0 + t) : 0.0f;
+    consts[kTileCin + t] = okx ? ldf(tr.shift + ci0 + t) : 0.0f;
+    consts[2 * kTileCin + t] = okx ? ldf(tr.alpha + ci0 + t) : 0.0f;
+    const bool okg = kFold && co0 + t < gm.cout;
+    consts[3 * kTileCin + t] = okg ? __ldg(fold.gs + co0 + t) : 0.0f;
+    consts[4 * kTileCin + t] =
+        okg ? __ldg(fold.gs + gm.cout + co0 + t) : 0.0f;
+  }
+  if (kFix) __syncthreads();
+  float db[8] = {};
+
+  auto load_stage = [&](int kt) {
+    const int slot = kt % kStages;
+    bf16* sx = smem + slot * stage_elems(kFold);
+    bf16* sg = sx + kStep * kLd;
+    Pix pr = next;
+    int m = kb0 + kt * kStep + rg * kRows;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = rg * kRows + r;
+      const bool valid = m < kb1;
+      const int si = pr.i + sh, sj = pr.j + sw;
+      const bool inb = valid && si >= 0 && si < gm.h && sj >= 0 && sj < gm.w;
+      const int xpix = (pr.n * gm.h + si) * gm.w + sj;
+      const int gpix =
+          (pr.n * 2 * gm.h + 2 * pr.i + d) * 2 * gm.w + 2 * pr.j + e;
+      copy8<kVec>(sx + row * kLd + 8 * q, x + (int64_t)xpix * gm.cin + cx, x,
+                  inb && (!kVec || cx < gm.cin), cx, gm.cin);
+      const int64_t goff = (int64_t)gpix * gm.cout + cg;
+      const bool gok = valid && (!kVec || cg < gm.cout);
+      copy8<kVec>(sg + row * kLd + 8 * q, g + goff, g, gok, cg, gm.cout);
+      if (kFold) {
+        copy8<kVec>(sg + kStep * kLd + row * kLd + 8 * q, fold.y + goff,
+                    fold.y, gok, cg, gm.cout);
+      }
+      bits |= ((uint32_t)inb << r) | ((uint32_t)valid << (kRows + r));
+      dck::advance(pr, one, gm.h, gm.w);
+      ++m;
+    }
+    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
+    dck::advance(next, stride, gm.h, gm.w);
+  };
+
+  // the transform of x and the fold of g on this thread's own chunks of
+  // stage kt, once its copies have landed, in f32 and rounded once
+  auto fix_stage = [&](int kt) {
+    const int slot = kt % kStages;
+    bf16* sx = smem + slot * stage_elems(kFold);
+    bf16* sg = sx + kStep * kLd;
+    const uint32_t bits = masks >> (4 * slot);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = rg * kRows + r;
+      if (kTransform) {
+        uint4* px = reinterpret_cast<uint4*>(sx + row * kLd + 8 * q);
+        float xv[8];
+        unpack8(*px, xv);
+        const bool inb = (bits >> r) & 1u;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int ch = 8 * q + k;
+          const float xt = xv[k] * consts[ch] + consts[kTileCin + ch];
+          xv[k] = inb ? (xt >= 0.0f ? xt : consts[2 * kTileCin + ch] * xt)
+                      : 0.0f;
+        }
+        *px = pack8(xv);
+      }
+      if (kFold) {
+        uint4* pg = reinterpret_cast<uint4*>(sg + row * kLd + 8 * q);
+        float gv[8], yv[8];
+        unpack8(*pg, gv);
+        unpack8(*reinterpret_cast<const uint4*>(sg + (kStep + row) * kLd +
+                                                8 * q), yv);
+        const bool valid = (bits >> (kRows + r)) & 1u;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int ch = 8 * q + k;
+          // (gy + gs1) + (2 y) gs2, in the plain version's order
+          const float tk = (2.0f * yv[k]) * consts[4 * kTileCin + ch];
+          gv[k] = valid ? (gv[k] + consts[3 * kTileCin + ch]) + tk : 0.0f;
+          if (bias_block) db[k] += gv[k];
+        }
+        *pg = pack8(gv);
+      }
+    }
+  };
+
+  // the warp's 64 x 32 share of the tile: 4 x 4 m16n8 fragments
+  const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  // ldmatrix row addresses of this lane: A (x) pixel lo/hi half by
+  // lane >> 4, cin half by (lane >> 3) & 1; B (g) pixel half by
+  // (lane >> 3) & 1, the second n8 fragment of a pair by lane >> 4
+  const int a_pix = (lane & 7) + 8 * (lane >> 4);
+  const int a_ch = wm + 8 * ((lane >> 3) & 1);
+  const int b_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int b_ch = wn + 8 * (lane >> 4);
+  float acc[4][4][4], sum[4][4][4] = {};
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of stage kt
+    if (kFix) fix_stage(kt);
+    __syncthreads();                // everyone's stage kt; stage kt-1 free
+    if (kt + kStages - 1 < steps) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    const bf16* sx = smem + (kt % kStages) * stage_elems(kFold);
+    const bf16* sg = sx + kStep * kLd;
+#pragma unroll
+    for (int k0 = 0; k0 < kStep; k0 += 16) {
+      uint32_t a[4][4], bq[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        ldmatrix_x4_trans(a[mt], sx + (k0 + a_pix) * kLd + a_ch + 16 * mt);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {   // n8 fragments 2 np, 2 np + 1
+        ldmatrix_x4_trans(bq[np], sg + (k0 + b_pix) * kLd + b_ch + 16 * np);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t* bf = bq[nt >> 1] + 2 * (nt & 1);
+          mma_bf16(acc[mt][nt], a[mt], bf[0], bf[1], k0 == 0);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sum[mt][nt][k] += acc[mt][nt][k];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + ((((int64_t)sp * 4 + p) * gm.kh + u) * gm.kw + v) *
+                             gm.cin * gm.cout;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = ci0 + wm + mt * 16 + gid + 8 * half;
+      if (c >= gm.cin) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = co0 + wn + nt * 8 + 2 * tig;
+        float* o = out + (int64_t)c * gm.cout + co;
+        if (co < gm.cout) o[0] = sum[mt][nt][2 * half];
+        if (co + 1 < gm.cout) o[1] = sum[mt][nt][2 * half + 1];
+      }
+    }
+  }
+  if (bias_block) {
+    // thread (rg, q) holds column sums over its rows of every stage; the
+    // 16 row groups are added in order
+    __syncthreads();                // the ring is free: reuse it
+    float* red = reinterpret_cast<float*>(smem_raw);   // (16, kTileCout)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red[rg * kTileCout + 8 * q + k] = db[k];
+    __syncthreads();
+    if (t < kTileCout && co0 + t < gm.cout) {
+      float s = 0.0f;
+      for (int r = 0; r < kThreads / 16; ++r) s += red[r * kTileCout + t];
+      db_partial[((int64_t)sp * 4 + p) * gm.cout + co0 + t] = s;
+    }
+  }
+}
+
 template <bool kFold, bool kTransform, bool kVec>
 cudaError_t launch_dx(const float* g, Fold fold, const float* wst,
                       const float* x, Transform tr, float* dx, float* partial,
@@ -804,6 +1314,65 @@ cudaError_t launch_dck(bool vec, const float* x, Transform tr, const float* g,
   return vec ? launch_dck<kFold, kTransform, true>(
                    x, tr, g, fold, partial, db_partial, gm, splits, chunk, s)
              : launch_dck<kFold, kTransform, false>(
+                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s);
+}
+
+template <bool kFold, bool kTransform, bool kVec>
+cudaError_t launch_dx_bf16(const bf16* g, FoldT<bf16> fold, const bf16* wst,
+                           const bf16* x, TransformT<bf16> tr, bf16* dx,
+                           float* partial, const Geometry& gm,
+                           cudaStream_t s) {
+  const int smem = dxk16::smem_bytes(kFold);
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_dx_bf16<kFold, kTransform, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = ceil_div(gm.cin, dxk16::kTileN) *
+                         ceil_div((int64_t)gm.n * gm.h * gm.w, dxk16::kTileM);
+  upsample_conv_dx_bf16<kFold, kTransform, kVec>
+      <<<(unsigned)blocks, dxk16::kThreads, smem, s>>>(g, fold, wst, x, tr,
+                                                       dx, partial, gm);
+  return cudaGetLastError();
+}
+
+template <bool kFold, bool kTransform>
+cudaError_t launch_dx_bf16(bool vec, const bf16* g, FoldT<bf16> fold,
+                           const bf16* wst, const bf16* x,
+                           TransformT<bf16> tr, bf16* dx, float* partial,
+                           const Geometry& gm, cudaStream_t s) {
+  return vec ? launch_dx_bf16<kFold, kTransform, true>(g, fold, wst, x, tr,
+                                                       dx, partial, gm, s)
+             : launch_dx_bf16<kFold, kTransform, false>(g, fold, wst, x, tr,
+                                                        dx, partial, gm, s);
+}
+
+template <bool kFold, bool kTransform, bool kVec>
+cudaError_t launch_dck_bf16(const bf16* x, TransformT<bf16> tr,
+                            const bf16* g, FoldT<bf16> fold, float* partial,
+                            float* db_partial, const Geometry& gm,
+                            int splits, int chunk, cudaStream_t s) {
+  const int smem = dck16::smem_bytes(kFold);
+  cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_dck_bf16<kFold, kTransform, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (int64_t)gm.kh * gm.kw *
+                         ceil_div(gm.cout, dck16::kTileCout) *
+                         ceil_div(gm.cin, dck16::kTileCin) * 4 * splits;
+  upsample_conv_dck_bf16<kFold, kTransform, kVec>
+      <<<(unsigned)blocks, dck16::kThreads, smem, s>>>(
+          x, tr, g, fold, partial, db_partial, gm, chunk);
+  return cudaGetLastError();
+}
+
+template <bool kFold, bool kTransform>
+cudaError_t launch_dck_bf16(bool vec, const bf16* x, TransformT<bf16> tr,
+                            const bf16* g, FoldT<bf16> fold, float* partial,
+                            float* db_partial, const Geometry& gm,
+                            int splits, int chunk, cudaStream_t s) {
+  return vec ? launch_dck_bf16<kFold, kTransform, true>(
+                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s)
+             : launch_dck_bf16<kFold, kTransform, false>(
                    x, tr, g, fold, partial, db_partial, gm, splits, chunk, s);
 }
 
@@ -931,6 +1500,90 @@ extern "C" int catgen_upsample_conv_dck_f32(
   } else {
     err = launch_dck<false, false>(vec, x, tr, g, fold, partial, db_partial,
                                    gm, splits, chunk, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  err = launch_sum_rows(partial, dck, splits,
+                        (int64_t)4 * kh * kw * cin * cout, s);
+  if (err != cudaSuccess || !f) return (int)err;
+  return (int)launch_sum_rows(db_partial, dbias, splits * 4, cout, s);
+}
+
+// The bf16 dX: the f32 entry's arguments with bf16 g, y, wst, x, the
+// transform and dx; gs, partial and dtr stay f32.
+extern "C" int catgen_upsample_conv_dx_bf16(
+    const bf16* g, const bf16* y, const float* gs, const bf16* wst,
+    const bf16* x, const bf16* tscale, const bf16* tshift,
+    const bf16* talpha, bf16* dx, float* partial, float* dtr, int n, int h,
+    int w, int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0,
+    int uw1, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)n * h * w == 0 || cin == 0) return 0;
+  if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry gm =
+      make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
+  const FoldT<bf16> fold = {y, gs, cout};
+  const TransformT<bf16> tr = {tscale, tshift, talpha};
+  const bool f = y != nullptr, tf = x != nullptr;
+  const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(g) &&
+                   aligned16(y) && aligned16(wst);
+  cudaError_t err;
+  if (f && tf) {
+    err = launch_dx_bf16<true, true>(vec, g, fold, wst, x, tr, dx, partial,
+                                     gm, s);
+  } else if (f) {
+    err = launch_dx_bf16<true, false>(vec, g, fold, wst, x, tr, dx, partial,
+                                      gm, s);
+  } else if (tf) {
+    err = launch_dx_bf16<false, true>(vec, g, fold, wst, x, tr, dx, partial,
+                                      gm, s);
+  } else {
+    err = launch_dx_bf16<false, false>(vec, g, fold, wst, x, tr, dx, partial,
+                                       gm, s);
+  }
+  if (err != cudaSuccess || !tf) return (int)err;
+  return (int)launch_sum_rows(partial, dtr,
+                              (int)ceil_div((int64_t)n * h * w, dxk16::kTileM),
+                              3 * (int64_t)cin, s);
+}
+
+// The bf16 dCK: the f32 entry's arguments with bf16 x, the transform, g
+// and y; gs, the scratch, dck and dbias stay f32.
+extern "C" int catgen_upsample_conv_dck_bf16(
+    const bf16* x, const bf16* tscale, const bf16* tshift,
+    const bf16* talpha, const bf16* g, const bf16* y, const float* gs,
+    float* partial, float* dck, float* db_partial, float* dbias, int n,
+    int h, int w, int cin, int cout, int kh, int kw, int uh0, int uh1,
+    int uw0, int uw1, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cin == 0 || cout == 0) return 0;
+  if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry gm =
+      make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
+  const FoldT<bf16> fold = {y, gs, cout};
+  const TransformT<bf16> tr = {tscale, tshift, talpha};
+  const int splits = catgen_upsample_conv_dck_splits(n, h, w, cin, cout, kh,
+                                                     kw);
+  const int chunk = dck_chunk((int64_t)n * h * w, splits);
+  const bool f = y != nullptr, tf = tscale != nullptr;
+  const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
+                   aligned16(g) && aligned16(y);
+  cudaError_t err;
+  if (f && tf) {
+    err = launch_dck_bf16<true, true>(vec, x, tr, g, fold, partial,
+                                      db_partial, gm, splits, chunk, s);
+  } else if (f) {
+    err = launch_dck_bf16<true, false>(vec, x, tr, g, fold, partial,
+                                       db_partial, gm, splits, chunk, s);
+  } else if (tf) {
+    err = launch_dck_bf16<false, true>(vec, x, tr, g, fold, partial,
+                                       db_partial, gm, splits, chunk, s);
+  } else {
+    err = launch_dck_bf16<false, false>(vec, x, tr, g, fold, partial,
+                                        db_partial, gm, splits, chunk, s);
   }
   if (err != cudaSuccess) return (int)err;
   err = launch_sum_rows(partial, dck, splits,

@@ -1,12 +1,14 @@
 // Shared pieces of the upsample-conv kernels (upsample_conv.cu, forward;
-// upsample_conv_bwd.cu, dX and dCK), which all run 3xTF32 on the tensor
-// cores: the geometry, the input transform and cotangent fold, cp.async
-// copies, the split of an f32 value into TF32 hi and lo, the wgmma pieces
-// of the forward and dX (their sources say how), and the fixed-order sums
-// that make every reduction deterministic without atomics.
+// upsample_conv_bwd.cu, dX and dCK), which run 3xTF32 on the tensor cores
+// in f32 and one bf16 product in bf16: the geometry, the input transform
+// and cotangent fold, cp.async copies, the split of an f32 value into
+// TF32 hi and lo, bf16 packing, the wgmma pieces of the forward and dX
+// (their sources say how), and the fixed-order sums that make every
+// reduction deterministic without atomics.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,20 +29,28 @@ struct Geometry {
   int umin_h[2], umin_w[2];
 };
 
-// The previous stage's BatchNorm affine and PReLU, per input channel.
-struct Transform {
-  const float* scale;
-  const float* shift;
-  const float* alpha;
+using bf16 = __nv_bfloat16;
+
+// The previous stage's BatchNorm affine and PReLU, per input channel, in
+// the kernel's element type T.
+template <class T>
+struct TransformT {
+  const T* scale;
+  const T* shift;
+  const T* alpha;
 };
+using Transform = TransformT<float>;
 
 // BatchNorm-statistics cotangents folded into the output cotangent:
-// g = gy + gs[0][co] + 2 y gs[1][co] (gs is (2, cout)).
-struct Fold {
-  const float* y;
+// g = gy + gs[0][co] + 2 y gs[1][co] (y of the element type T; gs is
+// (2, cout) f32 in both).
+template <class T>
+struct FoldT {
+  const T* y;
   const float* gs;
   int cout;
 };
+using Fold = FoldT<float>;
 
 // out[c] = sum over rows r of in[r * cols + c], in a fixed order: thread
 // (x, y) adds rows y, y + blockDim.y, ... in turn, then row 0 of threads
@@ -82,7 +92,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // src_bytes < size zero-fills the rest (0: the whole chunk)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -213,12 +223,104 @@ __device__ __forceinline__ void copy4(float* dst, const float* src,
   }
 }
 
+// Pieces of the bf16 kernels: 16 bytes hold 8 bf16 values (element 0 in
+// the lowest bytes); a bf16 value is read exactly into f32 (its bits moved
+// up 16) and an f32 one rounded to it once, to nearest even.
+
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldf(const bf16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// two values rounded to bf16, packed: a in the low half
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  return bf16_bits(a) | bf16_bits(b) << 16;
+}
+
+// One or two neighbouring values stored in the element type (bf16 rounded
+// once); a pair needs an address aligned to the pair
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&out)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                    pack2(v[6], v[7]));
+}
+
+// Copies one chunk of 8 bf16 values (16 bytes) into shared memory, zero
+// where !ok (or, per element, past `count` of the element's index c): a
+// 16-byte cp.async, or (kVec false: odd channel counts, unaligned arrays)
+// 2-byte loads through registers and one 16-byte store; `base` stands in
+// for the source of a zero-fill, which reads nothing
+template <bool kVec>
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src,
+                                      const bf16* base, bool ok, int c,
+                                      int count) {
+  if (kVec) {
+    cp_async16(dst, ok ? src : base, ok ? 16 : 0);
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t lo = ok && c + 2 * q < count ? __ldg(s + 2 * q) : 0u;
+      const uint32_t hi =
+          ok && c + 2 * q + 1 < count ? __ldg(s + 2 * q + 1) : 0u;
+      w[q] = lo | hi << 16;
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// d (+)= A * B over one 16-deep step: 64 rows x 128 columns, f32
+// accumulators (64 a thread), A and B bf16, K-major in shared memory in
+// the 128-byte swizzle (as wgmma_tf32's, 32 bytes a row a step);
+// accumulate into d unless `fresh`
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db, bool fresh) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"((int)fresh));
+}
+
 __host__ __device__ __forceinline__ int64_t ceil_div(int64_t a, int64_t b) {
   return (a + b - 1) / b;
 }
 
 // null, or 16-byte aligned: every row of an array whose row length is a
-// multiple of 4 floats can take 16-byte copies
+// multiple of 16 bytes (4 floats, 8 bf16) can take 16-byte copies
 static inline bool aligned16(const void* p) {
   return p == nullptr || ((uintptr_t)p & 15u) == 0;
 }

@@ -50,14 +50,14 @@ SIGNATURES = (
     ("catgen_bilinear_sampler_kind", [_I] * 4, _I),
     ("catgen_bilinear_forward_kind", [_I] * 4, _I),
     ("catgen_bilinear_dimg_kind", [_I] * 4, _I),
-    ("catgen_st_conv_prelu_f32", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
-     _I),
+    *((f"catgen_st_conv_prelu_{t}", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
+       + [_P], _I) for t in ("f32", "bf16")),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),
-    ("catgen_upsample_conv_fwd_f32", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 11
-     + [_P], _I),
+    *((f"catgen_upsample_conv_fwd_{t}", [_P] * 4 + [_I] + [_P] * 6
+       + [_I] * 11 + [_P], _I) for t in ("f32", "bf16")),
     ("catgen_upsample_conv_dck_splits", [_I] * 7, _I),
-    ("catgen_upsample_conv_dx_f32", [_P] * 11 + [_I] * 11 + [_P], _I),
-    ("catgen_upsample_conv_dck_f32", [_P] * 11 + [_I] * 11 + [_P], _I),
+    *((f"catgen_upsample_conv_{k}_{t}", [_P] * 11 + [_I] * 11 + [_P], _I)
+      for k in ("dx", "dck") for t in ("f32", "bf16")),
 )
 
 

@@ -50,8 +50,6 @@ from __future__ import annotations
 import contextlib
 import os
 
-import torch
-
 from catgen_torch.kernels import bilinear_grid
 
 _UPSAMPLE_IMPLS = ("auto", "collapsed", "pallas", "naive")
@@ -107,18 +105,6 @@ def resolve_st_conv_impl() -> str:
     if st_conv_impl != "auto":
         return st_conv_impl
     return "split"
-
-
-def refuse_bf16(route: str, *tensors) -> None:
-    """The kernel routes (G's upsample-conv kernels, D's fused prefix) run
-    in f32 only: a bf16 tensor raises, naming the ROADMAP item, on any
-    device. No silent cast to f32: it would skip the bf16 rounding catgen
-    does there (the block prologue rounds to x's dtype) and hide that no
-    bf16 kernel ran."""
-    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(
-            f"bf16 on the kernel routes ({route}) is not ported yet: "
-            f"ROADMAP Queue A item 1b")
 
 
 def get_mxu_sampler():

@@ -21,11 +21,20 @@ into the 4-parity stack, the dCK -> dW chain through the collapse
 matrices and the per-layer dbias stay PyTorch ops here, as catgen keeps
 them outside its ``pallas_call``s.
 
-On CPU tensors every function runs its plain version: the input
+Two element types, as catgen's compute dtype: float32, and bfloat16 with
+x, the weight, bias, the input transform, g and y all in bf16. The bf16
+kernels round where catgen's Pallas kernels round: the collapsed kernel
+once (its taps summed in f32), the transformed input and the folded
+cotangent before the products, each output once; the products' sums, the
+statistics, the transform's gradients, dCK and the dCK -> dW chain are
+f32, and dW and the per-layer dbias are rounded to the weight's dtype.
+
+On CPU tensors every function runs its plain version: in f32 the input
 transform, the port's ``upsample2_conv`` (the collapsed parity convs),
-bias and the sums; each backward is autograd of that forward. On CUDA
+bias and the sums, each backward autograd of that forward; in bf16 the
+same in f32 on the bf16 values, rounded at the kernels' points. On CUDA
 tensors it launches the kernels or raises. Weights are OIHW (the port's
-layout), images NHWC, everything float32.
+layout), images NHWC.
 """
 
 from __future__ import annotations
@@ -35,19 +44,27 @@ import torch
 from catgen_torch.kernels import config
 from catgen_torch.kernels.build import load_library
 from catgen_torch.kernels.upsample_conv import (_collapse_matrix, _collapse_on,
-                                                collapse_weights,
+                                                collapse_weights, interleave,
+                                                parity_pads, parity_plane,
                                                 upsample2_conv,
                                                 upsample2_conv_reference)
 
-# Launches of each CUDA kernel since import (or since reset_launches()).
+# the kernels' element types and the suffix of their C entry points
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# Launches of each CUDA kernel since import (or since reset_launches()),
+# f32 and bf16 instantiations apart.
 LAUNCHES = 0              # row 3: upsample2_conv_fused
 BLOCK_LAUNCHES = 0        # row 4: upsample2_conv_block_fused
 DX_LAUNCHES = 0           # row 5: dX of upsample2_conv_backward
 DCK_LAUNCHES = 0          # row 5: dCK of upsample2_conv_backward
 BLOCK_DX_LAUNCHES = 0     # row 6: dX, dscale, dshift, dalpha
 BLOCK_DCK_LAUNCHES = 0    # row 6: dCK and dbias
-COUNTERS = ("LAUNCHES", "BLOCK_LAUNCHES", "DX_LAUNCHES", "DCK_LAUNCHES",
-            "BLOCK_DX_LAUNCHES", "BLOCK_DCK_LAUNCHES")
+BF16_LAUNCHES = BF16_BLOCK_LAUNCHES = BF16_DX_LAUNCHES = 0
+BF16_DCK_LAUNCHES = BF16_BLOCK_DX_LAUNCHES = BF16_BLOCK_DCK_LAUNCHES = 0
+F32_COUNTERS = ("LAUNCHES", "BLOCK_LAUNCHES", "DX_LAUNCHES", "DCK_LAUNCHES",
+                "BLOCK_DX_LAUNCHES", "BLOCK_DCK_LAUNCHES")
+COUNTERS = F32_COUNTERS + tuple(f"BF16_{c}" for c in F32_COUNTERS)
 
 
 def reset_launches() -> None:
@@ -59,8 +76,9 @@ def launches() -> dict:
     return {name: globals()[name] for name in COUNTERS}
 
 
-def _count(name: str) -> None:
-    globals()[name] += 1
+def _count(name: str, dtype: torch.dtype) -> None:
+    """Adds one to the f32 counter ``name`` or to its bf16 twin."""
+    globals()[name if dtype == torch.float32 else f"BF16_{name}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -68,23 +86,48 @@ def _count(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _wide(t):
+    """t in f32, or in its own dtype where that is wider (an f64
+    reference keeps f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def in_transform(x, scale, shift, alpha):
-    """The previous stage's BatchNorm affine and PReLU."""
+    """The previous stage's BatchNorm affine and PReLU, in the operands'
+    dtype (in bf16 each operation rounds, as catgen's ladder end does)."""
     xt = x * scale + shift
     return torch.where(xt >= 0, xt, alpha * xt)
 
 
-def block_plain(x, weight, bias=None, in_scale=None, in_shift=None,
-                in_alpha=None, prelu_alpha=None):
-    """Plain forward: [in-transform ->] upsample2_conv [+ bias] [-> PReLU]."""
+def block_input(x, scale, shift, alpha):
+    """The block's prologue: ``in_transform`` in f32, rounded once to x's
+    dtype."""
+    return in_transform(_wide(x), _wide(scale), _wide(shift),
+                        _wide(alpha)).to(x.dtype)
+
+
+def _block_sums(x, weight, bias, in_scale, in_shift, in_alpha, prelu_alpha):
+    """The block's output in f32, before its one rounding: [prologue ->]
+    upsample2_conv of the (rounded) operands [+ bias] [-> PReLU]."""
     if in_scale is not None:
-        x = in_transform(x, in_scale, in_shift, in_alpha)
-    y = upsample2_conv(x, weight)
+        x = block_input(x, in_scale, in_shift, in_alpha)
+    y = upsample2_conv(_wide(x), weight)
     if bias is not None:
-        y = y + bias
+        y = y + _wide(bias)
     if prelu_alpha is not None:
-        y = torch.where(y >= 0, y, prelu_alpha * y)
+        y = torch.where(y >= 0, y, _wide(prelu_alpha) * y)
     return y
+
+
+def block_plain(x, weight, bias=None, in_scale=None, in_shift=None,
+                in_alpha=None, prelu_alpha=None, with_stats=False):
+    """Plain forward: [in-transform ->] upsample2_conv [+ bias] [-> PReLU],
+    in x's dtype; with ``with_stats`` also the f32 per-channel [sum y,
+    sum y^2] of the unrounded output (``stats_plain``)."""
+    y = _block_sums(x, weight, bias, in_scale, in_shift, in_alpha,
+                    prelu_alpha)
+    out = y.to(x.dtype)
+    return (out, *stats_plain(y)) if with_stats else out
 
 
 def stats_plain(y):
@@ -104,22 +147,96 @@ def _vjp(fn, inputs, needs, cotangent):
 
 def upsample2_conv_backward_plain(x, weight, g, fn=upsample2_conv,
                                   need_x=True):
-    """(dx, dweight, dbias) of ``fn(x, weight) + bias`` by autograd; dx is
-    None unless ``need_x``."""
+    """(dx, dweight, dbias) of ``fn(x, weight) + bias`` by autograd, in the
+    operands' dtype; dx is None unless ``need_x``."""
     bias = torch.zeros(weight.shape[0], dtype=g.dtype, device=g.device)
     grads = _vjp(lambda x_, w_, b_: fn(x_, w_) + b_, (x, weight, bias),
                  (need_x, True, True), g)
     return (grads[0], grads[1], grads[2]) if need_x else (None, *grads)
 
 
+def stack_conv(x, wst, k_h: int, k_w: int):
+    """``upsample2_conv`` from the parity stack ``wst`` (``parity_stack``
+    of a k_h x k_w weight), in wst's dtype."""
+    planes = []
+    for p in range(4):
+        d, e = divmod(p, 2)
+        planes.append(parity_plane(x, wst[p].permute(3, 2, 0, 1),
+                                   parity_pads(k_h, d), parity_pads(k_w, e)))
+    return interleave(planes)
+
+
+def _kernel_vjp(xn, weight, g, need_x=True):
+    """(dxn or None, dCK) in f32 of the parity convs for the cotangent g:
+    the f32 sums of the (already rounded) operands' products."""
+    k_h, k_w = weight.shape[2], weight.shape[3]
+    grads = _vjp(lambda a, b: stack_conv(a, b, k_h, k_w),
+                 (_wide(xn), _wide(parity_stack(weight))), (need_x, True),
+                 _wide(g))
+    return (grads[0] if need_x else None), grads[-1]
+
+
+def kernel_backward_plain(x, weight, g, need_x=True):
+    """Row 5's plain version: (dx, dweight, dbias) of ``upsample2_conv(x,
+    weight) + bias`` as the kernels compute them, catgen's arithmetic: dx
+    and dCK f32 sums over the operands (the collapsed kernel rounded once
+    to the weight's dtype), dx rounded once to x's dtype, dCK chained to dW
+    in f32 and rounded to the weight's dtype, dbias the f32 sum of g,
+    rounded likewise (in f32 the roundings do nothing)."""
+    dxn, dck = _kernel_vjp(x, weight, g, need_x)
+    k_h, k_w = weight.shape[2], weight.shape[3]
+    return (dxn.to(x.dtype) if need_x else None,
+            dweight_from_dck(dck, k_h, k_w).to(weight.dtype),
+            _wide(g).sum(dim=(0, 1, 2)).to(weight.dtype))
+
+
+def _fold(y, gy, gs1, gs2):
+    """The stats cotangents folded into the output's, in f32: (gy + gs1)
+    + (2 y) gs2."""
+    return _wide(gy) + _wide(gs1) + 2.0 * _wide(y) * _wide(gs2)
+
+
+def _block_ref(x, in_scale, in_shift, in_alpha, weight, bias):
+    """catgen's ``_block_ref``: the block with the conv's output rounded
+    to x's dtype before the bias (the ``xla_vjp`` backward's forward)."""
+    xn = block_input(x, in_scale, in_shift, in_alpha)
+    return upsample2_conv(xn, weight) + bias.to(x.dtype)
+
+
 def fused_block_backward_plain(x, in_scale, in_shift, in_alpha, weight, bias,
                                y, gy, gs1, gs2):
-    """The six cotangents of the block by autograd of ``block_plain``, the
-    stats cotangents folded into g; dalpha per input channel."""
-    g = gy + gs1 + 2.0 * y * gs2
+    """The six cotangents of the block by autograd of catgen's
+    ``_block_ref`` in x's dtype, the stats cotangents folded into g in f32
+    and rounded to y's dtype (catgen's ``xla_vjp`` ladder backward);
+    dalpha per input channel."""
+    g = _fold(y, gy, gs1, gs2).to(y.dtype)
     alpha = in_alpha.reshape(-1).expand(x.shape[-1])
-    return _vjp(lambda *a: block_plain(a[0], a[4], a[5], a[1], a[2], a[3]),
-                (x, in_scale, in_shift, alpha, weight, bias), (True,) * 6, g)
+    return _vjp(_block_ref, (x, in_scale, in_shift, alpha, weight, bias),
+                (True,) * 6, g)
+
+
+def block_backward_plain(x, in_scale, in_shift, in_alpha, weight, y, gy,
+                         gs1, gs2):
+    """Row 6's plain version: (dx, dscale, dshift, dalpha (Cin,), dweight,
+    dbias) as the kernels compute them, catgen's
+    ``_fused_block_bwd_kernel`` arithmetic: the prologue recomputed in f32
+    and rounded to x's dtype, the fold in f32 (dbias its f32 sum) rounded
+    before both products, dx rounded once, dscale, dshift and dalpha f32
+    sums, dCK chained to dW in f32 and rounded to the weight's dtype (in
+    f32 the roundings do nothing)."""
+    sc, sh = _wide(in_scale), _wide(in_shift)
+    al = _wide(in_alpha).reshape(-1).expand(x.shape[-1])
+    xt = _wide(x) * sc + sh
+    mask = xt >= 0
+    xn = torch.where(mask, xt, al * xt).to(x.dtype)
+    g32 = _fold(y, gy, gs1, gs2)
+    dxn, dck = _kernel_vjp(xn, weight, g32.to(x.dtype))
+    dxt = dxn * torch.where(mask, 1.0, al)
+    dims = (0, 1, 2)
+    return ((dxt * sc).to(x.dtype), (dxt * _wide(x)).sum(dims),
+            dxt.sum(dims), (dxn * torch.where(mask, 0.0, xt)).sum(dims),
+            dweight_from_dck(dck, weight.shape[2], weight.shape[3]).to(
+                weight.dtype), g32.sum(dims))
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +248,12 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
-def _check(name: str, t: torch.Tensor, device, shape=None) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"upsample-conv kernel takes float32 {name}, got "
+def _check(name: str, t: torch.Tensor, device, shape=None,
+           dtype=None) -> None:
+    """t on ``device``, contiguous, and of ``shape`` and ``dtype`` where
+    they are given."""
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"upsample-conv kernel takes {dtype} {name}, got "
                         f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, x on {device}")
@@ -151,6 +271,9 @@ def _geometry(x: torch.Tensor, weight: torch.Tensor):
                          f"{x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"upsample-conv kernel takes float32 or bfloat16 x, "
+                        f"got {x.dtype}")
     _check("x", x, x.device)
     if weight.dim() != 4 or weight.shape[1] != x.shape[3]:
         raise ValueError(f"weight must be (Cout, {x.shape[3]}, k, k), got "
@@ -158,8 +281,8 @@ def _geometry(x: torch.Tensor, weight: torch.Tensor):
     if weight.shape[2] % 2 != 1 or weight.shape[3] % 2 != 1:
         raise ValueError(f"kernel size must be odd, got "
                          f"{tuple(weight.shape[2:])}")
-    if weight.dtype != torch.float32 or weight.device != x.device:
-        raise ValueError(f"weight must be float32 on {x.device}, got "
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise ValueError(f"weight must be {x.dtype} on {x.device}, got "
                          f"{weight.dtype} on {weight.device}")
     n, h, w, cin = x.shape
     return n, h, w, cin, weight.shape[0], weight.shape[2], weight.shape[3]
@@ -173,7 +296,8 @@ def _umins(k_h: int, k_w: int) -> tuple:
 
 def parity_stack(weight: torch.Tensor) -> torch.Tensor:
     """The four collapsed kernels of an OIHW weight in parity order (d, e)
-    as (4, kh', kw', Cin, Cout), the layout the kernels read."""
+    as (4, kh', kw', Cin, Cout), the layout the kernels read (the bf16
+    forward its transpose (4, kh', kw', Cout, Cin))."""
     cks = [collapse_weights(weight, d, e)[0] for d in (0, 1) for e in (0, 1)]
     return torch.stack([ck.permute(2, 3, 1, 0) for ck in cks]).contiguous()
 
@@ -204,13 +328,31 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry point ``catgen_upsample_conv_<name>_<f32|bf16>``."""
+    return getattr(load_library(),
+                   f"catgen_upsample_conv_{name}_{KERNEL_DTYPES[dtype]}")
+
+
+def _check_transform(in_scale, in_shift, in_alpha, cin, x):
+    """Checks the input transform; returns in_alpha as (cin,)."""
+    _check("in_scale", in_scale, x.device, (cin,), x.dtype)
+    _check("in_shift", in_shift, x.device, (cin,), x.dtype)
+    if in_alpha.numel() not in (1, cin):
+        raise ValueError(f"in_alpha must hold 1 or {cin} slopes, got "
+                         f"{in_alpha.numel()}")
+    _check("in_alpha", in_alpha, x.device, dtype=x.dtype)
+    return in_alpha.reshape(-1).expand(cin).contiguous()
+
+
 def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
                     in_shift=None, in_alpha=None, with_stats=False):
-    """Runs the forward kernel; returns y, or (y, s1, s2) with stats."""
+    """Runs the forward kernel; returns y, or (y, s1, s2) with stats (f32
+    sums in both element types)."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
     if bias is not None:
-        _check("bias", bias, dev, (cout,))
+        _check("bias", bias, dev, (cout,), x.dtype)
     prelu_n = 0
     if prelu_alpha is not None:
         prelu_alpha = prelu_alpha.reshape(-1)
@@ -218,17 +360,13 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
         if prelu_n not in (1, cout):
             raise ValueError(f"prelu_alpha must hold 1 or {cout} slopes, got "
                              f"{prelu_n}")
-        _check("prelu_alpha", prelu_alpha, dev)
+        _check("prelu_alpha", prelu_alpha, dev, dtype=x.dtype)
     if in_scale is not None:
-        _check("in_scale", in_scale, dev, (cin,))
-        _check("in_shift", in_shift, dev, (cin,))
-        if in_alpha.numel() not in (1, cin):
-            raise ValueError(f"in_alpha must hold 1 or {cin} slopes, got "
-                             f"{in_alpha.numel()}")
-        _check("in_alpha", in_alpha, dev)
-        in_alpha = in_alpha.reshape(-1).expand(cin).contiguous()
+        in_alpha = _check_transform(in_scale, in_shift, in_alpha, cin, x)
     lib = load_library()
     wst = parity_stack(weight)
+    if x.dtype == torch.bfloat16:     # K-major B for bf16 wgmma
+        wst = wst.transpose(3, 4).contiguous()
     y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     partial = stats = None
     if with_stats:
@@ -237,7 +375,7 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
                               device=dev)
         stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.catgen_upsample_conv_fwd_f32(
+        err = _entry("fwd", x.dtype)(
             x.data_ptr(), wst.data_ptr(), _ptr(bias), _ptr(prelu_alpha),
             prelu_n, _ptr(in_scale), _ptr(in_shift), _ptr(in_alpha),
             y.data_ptr(), _ptr(partial), _ptr(stats), n, h, w, cin, cout,
@@ -248,10 +386,11 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
 
 def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                in_alpha=None):
-    """Runs the dX kernel; with the transform, returns (dx, dtr (3, cin))."""
+    """Runs the dX kernel; with the transform, returns (dx, dtr (3, cin))
+    (dtr f32 in both element types)."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
-    _check("g", g, dev, (n, 2 * h, 2 * w, cout))
+    _check("g", g, dev, (n, 2 * h, 2 * w, cout), x.dtype)
     lib = load_library()
     wst = parity_stack(weight)
     dx = torch.empty_like(x)
@@ -261,7 +400,7 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
         partial = torch.empty((rows, 3, cin), dtype=torch.float32, device=dev)
         dtr = torch.empty((3, cin), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.catgen_upsample_conv_dx_f32(
+        err = _entry("dx", x.dtype)(
             g.data_ptr(), _ptr(y), _ptr(gs), wst.data_ptr(),
             x.data_ptr() if in_scale is not None else None, _ptr(in_scale),
             _ptr(in_shift), _ptr(in_alpha), dx.data_ptr(), _ptr(partial),
@@ -274,10 +413,10 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
 def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                 in_alpha=None):
     """Runs the dCK kernel; returns dCK (4, kh', kw', Cin, Cout), and with
-    the fold also dbias (Cout,)."""
+    the fold also dbias (Cout,), both f32 in both element types."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
-    _check("g", g, dev, (n, 2 * h, 2 * w, cout))
+    _check("g", g, dev, (n, 2 * h, 2 * w, cout), x.dtype)
     lib = load_library()
     kp_h, kp_w = _collapse_matrix(k_h, 0)[0].shape[0], \
         _collapse_matrix(k_w, 0)[0].shape[0]
@@ -293,7 +432,7 @@ def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                                  device=dev)
         dbias = torch.empty((cout,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.catgen_upsample_conv_dck_f32(
+        err = _entry("dck", x.dtype)(
             x.data_ptr(), _ptr(in_scale), _ptr(in_shift), _ptr(in_alpha),
             g.data_ptr(), _ptr(y), _ptr(gs), partial.data_ptr(),
             dck.data_ptr(), _ptr(db_partial), _ptr(dbias), n, h, w, cin,
@@ -310,12 +449,11 @@ def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
 def upsample2_conv_fused(x, weight, bias=None, prelu_alpha=None):
     """Nearest-2x upsample + same conv (+ bias) (+ PReLU, one slope or one
     per output channel) in one pass. x (N, H, W, Cin), weight (Cout, Cin,
-    k, k) odd k; returns (N, 2H, 2W, Cout)."""
-    config.refuse_bf16("upsample-conv", x)
+    k, k) odd k, bias and slopes in x's dtype; returns (N, 2H, 2W, Cout)."""
     if _on_cpu(x, weight, bias, prelu_alpha):
         return block_plain(x, weight, bias, prelu_alpha=prelu_alpha)
     y = _launch_forward(x, weight, bias, prelu_alpha=prelu_alpha)
-    _count("LAUNCHES")
+    _count("LAUNCHES", x.dtype)
     return y
 
 
@@ -323,67 +461,62 @@ def upsample2_conv_block_fused(x, weight, bias, in_scale, in_shift, in_alpha,
                                with_stats: bool = True):
     """prelu(x * in_scale + in_shift, in_alpha) -> upsample2 -> conv ->
     + bias in one pass; with ``with_stats`` also the per-channel [sum y,
-    sum y^2] over (N, 2H, 2W). in_scale, in_shift (Cin,); in_alpha (Cin,)
-    or (1,). Returns y, or (y, s1, s2)."""
-    config.refuse_bf16("upsample-conv ladder", x)
+    sum y^2] over (N, 2H, 2W), f32. in_scale, in_shift (Cin,); in_alpha
+    (Cin,) or (1,); all in x's dtype. Returns y, or (y, s1, s2)."""
     if _on_cpu(x, weight, bias, in_scale, in_shift, in_alpha):
-        y = block_plain(x, weight, bias, in_scale, in_shift, in_alpha)
-        return (y, *stats_plain(y)) if with_stats else y
+        return block_plain(x, weight, bias, in_scale, in_shift, in_alpha,
+                           with_stats=with_stats)
     out = _launch_forward(x, weight, bias, in_scale=in_scale,
                           in_shift=in_shift, in_alpha=in_alpha,
                           with_stats=with_stats)
-    _count("BLOCK_LAUNCHES")
+    _count("BLOCK_LAUNCHES", x.dtype)
     return out
 
 
 def upsample2_conv_dx(x, weight, g):
     """dx of ``upsample2_conv(x, weight)`` for the cotangent g: the dX
     kernel alone (the ``hybrid`` backward)."""
-    config.refuse_bf16("upsample-conv dX", x, g)
     if _on_cpu(x, weight, g):
-        return upsample2_conv_backward_plain(x, weight, g)[0]
+        return kernel_backward_plain(x, weight, g)[0]
     dx = _launch_dx(x, weight, g)
-    _count("DX_LAUNCHES")
+    _count("DX_LAUNCHES", x.dtype)
     return dx
 
 
 def upsample2_conv_backward(x, weight, g):
     """(dx, dweight, dbias) of ``upsample2_conv(x, weight) + bias`` for the
-    cotangent g (N, 2H, 2W, Cout)."""
-    config.refuse_bf16("upsample-conv backward", x, g)
+    cotangent g (N, 2H, 2W, Cout); dweight and dbias in the weight's
+    dtype."""
     if _on_cpu(x, weight, g):
-        return upsample2_conv_backward_plain(x, weight, g)
+        return kernel_backward_plain(x, weight, g)
     dx = upsample2_conv_dx(x, weight, g)
     dck = _launch_dck(x, weight, g)
-    _count("DCK_LAUNCHES")
+    _count("DCK_LAUNCHES", x.dtype)
     dw = dweight_from_dck(dck, weight.shape[2], weight.shape[3])
-    return dx, dw, g.sum(dim=(0, 1, 2))
+    return (dx, dw.to(weight.dtype),
+            g.float().sum(dim=(0, 1, 2)).to(weight.dtype))
 
 
 def fused_block_backward(x, in_scale, in_shift, in_alpha, weight, y, gy,
                          gs1, gs2):
     """The full VJP of ``upsample2_conv_block``: returns (dx, dscale,
     dshift, dalpha (Cin,), dweight, dbias); the caller sums dalpha for a
-    shared slope."""
-    config.refuse_bf16("upsample-conv ladder backward", x, gy)
+    shared slope. dx in x's dtype, dweight in the weight's; the others are
+    f32 sums."""
     if _on_cpu(x, in_scale, in_shift, in_alpha, weight, y, gy, gs1, gs2):
-        bias = torch.zeros(weight.shape[0], dtype=x.dtype, device=x.device)
-        return fused_block_backward_plain(x, in_scale, in_shift, in_alpha,
-                                          weight, bias, y, gy, gs1, gs2)
+        return block_backward_plain(x, in_scale, in_shift, in_alpha, weight,
+                                    y, gy, gs1, gs2)
     cin = x.shape[-1]
-    alpha = in_alpha.reshape(-1).expand(cin).contiguous()
-    gs = torch.stack([gs1, gs2]).contiguous()
-    _check("y", y, x.device, gy.shape)
+    gs = torch.stack([gs1.float(), gs2.float()]).contiguous()
+    _check("y", y, x.device, gy.shape, x.dtype)
     _check("gs", gs, x.device, (2, weight.shape[0]))
-    for name, t in (("in_scale", in_scale), ("in_shift", in_shift),
-                    ("in_alpha", alpha)):
-        _check(name, t, x.device, (cin,))
+    alpha = _check_transform(in_scale, in_shift, in_alpha, cin, x)
     dx, dtr = _launch_dx(x, weight, gy, y, gs, in_scale, in_shift, alpha)
-    _count("BLOCK_DX_LAUNCHES")
+    _count("BLOCK_DX_LAUNCHES", x.dtype)
     dck, dbias = _launch_dck(x, weight, gy, y, gs, in_scale, in_shift, alpha)
-    _count("BLOCK_DCK_LAUNCHES")
+    _count("BLOCK_DCK_LAUNCHES", x.dtype)
     dw = dweight_from_dck(dck, weight.shape[2], weight.shape[3])
-    return dx, dtr[0], dtr[1], dtr[2], dw, dbias
+    return dx, dtr[0], dtr[1], dtr[2], dw.to(weight.dtype), dbias
 
 
 class _UpsampleConvBias(torch.autograd.Function):
@@ -412,9 +545,7 @@ class _UpsampleConvBias(torch.autograd.Function):
 
 def upsample2_conv_bias(x, weight, bias):
     """Differentiable ``upsample2_conv_fused(x, weight, bias)``; the
-    backward follows ``config.upsample_bwd``. f32 only (a bf16 x raises:
-    ROADMAP Queue A item 1b)."""
-    config.refuse_bf16("upsample-conv", x)
+    backward follows ``config.upsample_bwd``."""
     return _UpsampleConvBias.apply(x, weight, bias)
 
 
@@ -441,14 +572,15 @@ class _UpsampleConvBlock(torch.autograd.Function):
                 gs2)
         if in_alpha.numel() == 1:     # shared slope: sum over channels
             dal = dal.sum()
-        return dx, dsc, dsh, dal.reshape(in_alpha.shape), dw, db
+        # the f32 sums rounded to their inputs' dtype, as catgen's VJP
+        return (dx, dsc.to(in_scale.dtype), dsh.to(in_shift.dtype),
+                dal.reshape(in_alpha.shape).to(in_alpha.dtype), dw,
+                db.to(bias.dtype))
 
 
 def upsample2_conv_block(x, in_scale, in_shift, in_alpha, weight, bias):
     """Differentiable ladder block: returns (y, s1, s2) as
     ``upsample2_conv_block_fused(..., with_stats=True)``; the backward
-    takes (gy, gs1, gs2) and follows ``config.ladder_bwd``. f32 only (a
-    bf16 x raises: ROADMAP Queue A item 1b)."""
-    config.refuse_bf16("upsample-conv ladder", x)
+    takes (gy, gs1, gs2) and follows ``config.ladder_bwd``."""
     return _UpsampleConvBlock.apply(x, in_scale, in_shift, in_alpha, weight,
                                     bias)

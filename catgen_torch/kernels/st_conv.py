@@ -10,19 +10,29 @@ img NHWC ``(N, H, W, C)``; theta ``(N, 2, 3)``, the affine matrices in
 (edge-clamped bilinear, align-corners), convolved with zero padding of the
 sampled image, plus bias, through PReLU.
 
-On CUDA tensors the wrapper launches ``csrc/st_conv.cu`` (counted in
-``LAUNCHES``) or raises; on CPU tensors it runs ``st_conv_prelu_plain``,
-the split composition, under autograd. The kernel writes the sampled image
-and the pre-activation z only where autograd will need them.
+Two element types for the image (and the output), as catgen's compute
+dtype: float32, and bfloat16; theta, kernel, bias and alpha stay f32 (the
+model's parameters). In f32 the kernel computes in f32 throughout (not
+catgen's bf16 roundings). In bf16 it rounds where catgen's Pallas kernel
+does: the sampled image (f32 coordinates, f32 lerps) and the conv weights
+to bf16, z = the f32 sum + the f32 bias stored in bf16, and the output
+from the f32 z rounded once.
 
-The backward mirrors catgen's ``_vjp_bwd``: dz and dalpha from the saved
-z; the conv's input and weight gradients (dS, dkernel) and dbias from the
-saved sampled image in one ``aten.convolution_backward`` (catgen does that
-part in XLA, outside Pallas); then the sampler's backward kernels at the
-grid's coordinate rows, d_coords always and d_img only where the image
-needs a gradient (in the D phase it is data); ``dtheta = d_rows @ base^T``.
-On CPU tensors the same Function runs with the plain forward and the plain
-sampler backward, which is how the tests reach its formula.
+On CUDA tensors the wrapper launches ``csrc/st_conv.cu`` (counted in
+``LAUNCHES``, ``BF16_LAUNCHES`` for bf16) or raises; on CPU tensors it
+runs ``st_conv_prelu_plain``. The kernel writes the sampled image and the
+pre-activation z only where autograd will need them.
+
+The backward mirrors catgen's ``_vjp_bwd``, in f32 in both element types:
+dz and dalpha from the saved z; the conv's input and weight gradients
+(dS, dkernel, from the unrounded f32 kernel) and dbias from the saved
+sampled image in one ``aten.convolution_backward`` (catgen does that part
+in XLA, outside Pallas); then, dS and the coordinate rows rounded to the
+image's dtype, the sampler's backward kernels at the grid's coordinate
+rows, d_coords always and d_img only where the image needs a gradient (in
+the D phase it is data); ``dtheta = d_rows @ base^T`` in f32. On CPU
+tensors the same Function runs with the plain forward and the plain
+sampler backward.
 """
 
 from __future__ import annotations
@@ -31,42 +41,64 @@ import torch
 import torch.nn.functional as F
 
 from catgen_torch.kernels import bilinear
-from catgen_torch.kernels import config as kconfig
 from catgen_torch.kernels.bilinear import (_launched, affine_grid_rows,
                                            base_rows,
                                            bilinear_sample_rows_plain)
 from catgen_torch.kernels.build import load_library
 
-LAUNCHES = 0   # forward kernel launches since import or a caller's reset
+# forward kernel launches since import or a caller's reset, per element type
+LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
 def _slope(alpha: torch.Tensor) -> torch.Tensor:
     return alpha if alpha.numel() == 1 else alpha.reshape(1, 1, 1, -1)
 
 
+def prefix_rows(theta, h: int, w: int) -> torch.Tensor:
+    """(N, 2, H*W) coordinate rows as catgen's fused kernel makes them
+    from theta (``pallas_st_conv.py:72-73``) and the CUDA kernel does:
+    t0 gy + t1 gx + t2, each product rounded, added left to right (f32).
+    ``affine_grid_rows``'s matmul may add them in another order, which in
+    bf16 can move a sample by a unit."""
+    base = base_rows(h, w, theta.device, torch.float32)
+    theta = theta.float()
+    return (theta[:, :, 0:1] * base[0] + theta[:, :, 1:2] * base[1]
+            + theta[:, :, 2:3])
+
+
 def _forward_plain(img, theta, kernel, bias, alpha):
-    """(out, samp, z) of the split composition in f32: affine grid rows,
-    gathers, zero-padded 3x3 conv, bias, PReLU; samp and z NHWC."""
+    """(out, samp, z) of the split composition, NHWC: the kernel's affine
+    grid rows (f32), gathers, zero-padded 3x3 conv, bias, PReLU, in f32 on
+    the operands rounded to the image's dtype (the sampled image, the
+    kernel), each result rounded once to it."""
     n, h, w, c = img.shape
-    rows = affine_grid_rows(theta.float(), h, w)
-    samp = bilinear_sample_rows_plain(img.float(), rows, (h, w))
-    z = F.conv2d(samp.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias,
+    dt = img.dtype
+    rows = prefix_rows(theta, h, w)
+    samp = bilinear_sample_rows_plain(img.float(), rows, (h, w)).to(dt)
+    z = F.conv2d(samp.float().permute(0, 3, 1, 2),
+                 kernel.to(dt).float().permute(3, 2, 0, 1), bias.float(),
                  padding=1).permute(0, 2, 3, 1)
-    return torch.where(z >= 0, z, _slope(alpha) * z), samp, z
+    out = torch.where(z >= 0, z, _slope(alpha.float()) * z)
+    return out.to(dt), samp, z.to(dt)
 
 
 def st_conv_prelu_plain(img, theta, kernel, bias, alpha) -> torch.Tensor:
-    """Plain version: the split [ST -> conv -> PReLU] composition in f32."""
+    """Plain version: the split [ST -> conv -> PReLU] composition, in f32
+    (``_forward_plain``)."""
     return _forward_plain(img, theta, kernel, bias, alpha)[0]
 
 
 def _check(img, theta, kernel, bias, alpha) -> None:
     named = {"img": img, "theta": theta, "kernel": kernel, "bias": bias,
              "alpha": alpha}
-    for name, t in named.items():
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"st_conv_prelu kernel takes a float32 or bfloat16 "
+                        f"img, got {img.dtype}")
+    for name, t in list(named.items())[1:]:
         if t.dtype != torch.float32:
-            raise TypeError(f"st_conv_prelu kernel takes float32, got "
-                            f"{name} {t.dtype}")
+            raise TypeError(f"st_conv_prelu kernel takes float32 {name}, got "
+                            f"{t.dtype}")
     if img.dim() != 4:
         raise ValueError(f"img must be (N, H, W, C), got {tuple(img.shape)}")
     n, _, _, c = img.shape
@@ -91,29 +123,37 @@ def _check(img, theta, kernel, bias, alpha) -> None:
 
 def launch(img, theta, kernel, bias, alpha, save: bool = True):
     """Runs the forward kernel on the current stream and returns (out,
-    samp, z), NHWC; samp and z are None unless ``save``. Raises on bad
-    inputs or a refused launch. Counts each launch in ``LAUNCHES``."""
-    global LAUNCHES
+    samp, z), NHWC, in the image's dtype; samp and z are None unless
+    ``save``. Raises on bad inputs or a refused launch. Counts each launch
+    in ``LAUNCHES`` (f32) or ``BF16_LAUNCHES``."""
+    global LAUNCHES, BF16_LAUNCHES
     _check(img, theta, kernel, bias, alpha)
     lib = load_library()
     n, h, w, c = img.shape
     f = kernel.shape[-1]
+    bf16 = img.dtype == torch.bfloat16
     base = base_rows(h, w, img.device, torch.float32)
+    kmat = kernel.to(img.dtype)       # the bf16 kernel takes bf16 weights
     out = torch.empty((n, h, w, f), dtype=img.dtype, device=img.device)
     samp = torch.empty_like(img) if save else None
     z = torch.empty_like(out) if save else None
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.catgen_st_conv_prelu_f32(
+        entry = (lib.catgen_st_conv_prelu_bf16 if bf16
+                 else lib.catgen_st_conv_prelu_f32)
+        err = entry(
             img.data_ptr(), theta.data_ptr(), base.data_ptr(),
-            kernel.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
+            kmat.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
             alpha.numel(), out.data_ptr(),
             samp.data_ptr() if save else None, z.data_ptr() if save else None,
             n, h, w, c, f, stream)
     # a band of the sampled image is held in shared memory: a width and
     # channel count too large for 48 KB are refused (cudaErrorInvalidValue)
     _launched(err, "st_conv_prelu")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, samp, z
 
 
@@ -146,37 +186,39 @@ class _STConvPReLU(torch.autograd.Function):
         n, h, w, c = img.shape
         f = kernel.shape[-1]
         need = ctx.needs_input_grad
+        # f32 throughout (no-ops in f32): the bf16 g, z and samp upcast
+        g, z = g.float(), z.float()
         dz = torch.where(z >= 0, g, _slope(alpha) * g)
         neg = torch.where(z < 0, g * z, 0.0)
         dalpha = (neg.sum() if alpha.numel() == 1
                   else neg.sum(dim=(0, 1, 2))).reshape(alpha.shape)
         ds, dw, dbias = torch.ops.aten.convolution_backward(
-            dz.permute(0, 3, 1, 2), samp.permute(0, 3, 1, 2),
+            dz.permute(0, 3, 1, 2), samp.float().permute(0, 3, 1, 2),
             kernel.permute(3, 2, 0, 1), [f], [1, 1], [1, 1], [1, 1], False,
             [0, 0], 1, [True, need[2], need[3]])
         dkernel = dw.permute(2, 3, 1, 0) if need[2] else None
-        rows = affine_grid_rows(theta, h, w)
-        d_img, d_rows = _sampler_vjp(img, rows,
-                                     ds.permute(0, 2, 3, 1).contiguous(),
-                                     need[0])
-        dtheta = torch.matmul(d_rows, base_rows(h, w, theta.device,
-                                                theta.dtype).T)
+        rows = affine_grid_rows(theta, h, w).to(img.dtype)
+        d_img, d_rows = _sampler_vjp(
+            img, rows, ds.permute(0, 2, 3, 1).to(img.dtype).contiguous(),
+            need[0])
+        dtheta = torch.matmul(d_rows.float(), base_rows(h, w, theta.device,
+                                                        theta.dtype).T)
         return d_img, dtheta, dkernel, dbias, dalpha
 
 
 def st_conv_prelu(img, theta, kernel, bias, alpha) -> torch.Tensor:
-    """img (N, H, W, C), theta (N, 2, 3), kernel (3, 3, C, F), bias (F,),
-    alpha (1,) or (F,). Returns (N, H, W, F). CPU tensors take the plain
-    version; CUDA tensors the kernel, which skips writing what the backward
-    reads when no gradient will be taken. f32 only: a bf16 image raises
-    (ROADMAP Queue A item 1b)."""
-    kconfig.refuse_bf16("fused ST-conv prefix", img)
+    """img (N, H, W, C) f32 or bf16, theta (N, 2, 3), kernel (3, 3, C, F),
+    bias (F,), alpha (1,) or (F,), all four f32. Returns (N, H, W, F) in
+    the image's dtype. CPU tensors take the plain version; CUDA tensors the
+    kernel, which skips writing what the backward reads when no gradient
+    will be taken. The backward is catgen's VJP on both."""
     args = (img, theta, kernel, bias, alpha)
-    if all(t.device.type == "cpu" for t in args):
-        return st_conv_prelu_plain(*args)
-    # the parameters are small: a contiguous copy costs nothing; the image
-    # must come contiguous
-    args = (img,) + tuple(t.contiguous() for t in args[1:])
+    cpu = all(t.device.type == "cpu" for t in args)
+    if not cpu:
+        # the parameters are small: a contiguous copy costs nothing; the
+        # image must come contiguous
+        args = (img,) + tuple(t.contiguous() for t in args[1:])
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _STConvPReLU.apply(*args)
-    return launch(*args, save=False)[0]
+    return st_conv_prelu_plain(*args) if cpu else launch(*args,
+                                                          save=False)[0]

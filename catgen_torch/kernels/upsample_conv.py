@@ -13,8 +13,9 @@ reference. Weights are the plain conv's, so checkpoints are
 interchangeable.
 
 Weights are OIHW (PyTorch's layout); images NHWC. As catgen's, the
-collapse runs in the weight's dtype (f32) and the collapsed kernel is cast
-to the image's dtype (bf16 under ``compute_dtype``) for the convolution.
+collapse sums the taps in f32 (or f64) and rounds the collapsed kernel
+once to the weight's dtype; the convolution casts it to the image's dtype
+(bf16 under ``compute_dtype``).
 """
 
 from __future__ import annotations
@@ -56,21 +57,47 @@ def _collapse_on(k: int, parity: int, device: torch.device,
         return torch.from_numpy(m).to(device, dtype), u_min
 
 
-def collapse_weights(weight: torch.Tensor, parity_h: int, parity_w: int):
-    """Collapses an OIHW kernel (Cout, Cin, k, k) for one output parity.
+def parity_pads(k: int, parity: int) -> Tuple[int, int]:
+    """(before, after): the explicit, asymmetric padding of one axis of a
+    parity conv that reproduces the zero-padded 'same' conv of the naive
+    upsample+conv."""
+    m, u_min = _collapse_matrix(k, parity)
+    return -u_min, m.shape[0] - 1 + u_min
 
-    Returns (collapsed kernel (Cout, Cin, k'h, k'w), ((top, bottom),
-    (left, right))): the explicit, asymmetric padding that reproduces the
-    zero-padded 'same' conv of the naive upsample+conv."""
-    mh, u_min_h = _collapse_on(weight.shape[2], parity_h, weight.device,
-                               weight.dtype)
-    mw, u_min_w = _collapse_on(weight.shape[3], parity_w, weight.device,
-                               weight.dtype)
-    ck = torch.einsum("ua,vb,oiab->oiuv", mh, mw, weight)
-    kp_h, kp_w = mh.shape[0], mw.shape[0]
-    pad_h = (-u_min_h, kp_h - 1 + u_min_h)
-    pad_w = (-u_min_w, kp_w - 1 + u_min_w)
-    return ck, (pad_h, pad_w)
+
+def collapse_weights(weight: torch.Tensor, parity_h: int, parity_w: int):
+    """Collapses an OIHW kernel (Cout, Cin, k, k) for one output parity:
+    the taps summed in f32 (f64 for an f64 weight), rounded once to the
+    weight's dtype.
+
+    Returns (collapsed kernel (Cout, Cin, k'h, k'w), (pad_h, pad_w)), the
+    pads of ``parity_pads``."""
+    acc = torch.promote_types(weight.dtype, torch.float32)
+    mh = _collapse_on(weight.shape[2], parity_h, weight.device, acc)[0]
+    mw = _collapse_on(weight.shape[3], parity_w, weight.device, acc)[0]
+    ck = torch.einsum("ua,vb,oiab->oiuv", mh, mw,
+                      weight.to(acc)).to(weight.dtype)
+    return ck, (parity_pads(weight.shape[2], parity_h),
+                parity_pads(weight.shape[3], parity_w))
+
+
+def parity_plane(x: torch.Tensor, ck: torch.Tensor, pad_h, pad_w):
+    """One parity's conv of x (N, H, W, Cin) NHWC with its collapsed OIHW
+    kernel, cast to x's dtype: (N, H, W, Cout)."""
+    # F.pad takes (left, right, top, bottom); conv2d pads only
+    # symmetrically, and these pads are not
+    xc = F.pad(to_nchw(x), (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
+    return to_nhwc(F.conv2d(xc, ck.to(x.dtype)))
+
+
+def interleave(planes) -> torch.Tensor:
+    """The four parity planes (N, H, W, C), in parity order (d, e), as the
+    output (N, 2H, 2W, C), out[2i + d, 2j + e] = plane_de[i, j]."""
+    n, h, w, cout = planes[0].shape
+    y = torch.stack(planes, dim=-2)                 # (N, H, W, 4, Cout)
+    y = y.reshape(n, h, w, 2, 2, cout)
+    y = y.permute(0, 1, 3, 2, 4, 5)                 # (N, H, 2, W, 2, Cout)
+    return y.reshape(n, 2 * h, 2 * w, cout)
 
 
 def upsample2_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -79,22 +106,12 @@ def upsample2_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     x (N, H, W, Cin) NHWC; weight (Cout, Cin, k, k), k odd. Returns
     (N, 2H, 2W, Cout), equal up to reassociation to
     ``upsample2_conv_reference``."""
-    n, h, w, _ = x.shape
-    cout = weight.shape[0]
-    xc = to_nchw(x)
     planes = []
     for d in (0, 1):
         for e in (0, 1):
-            ck, (ph, pw) = collapse_weights(weight, d, e)
-            # F.pad takes (left, right, top, bottom); conv2d pads only
-            # symmetrically, and these pads are not
-            y = F.conv2d(F.pad(xc, (pw[0], pw[1], ph[0], ph[1])),
-                         ck.to(x.dtype))
-            planes.append(to_nhwc(y))
-    y = torch.stack(planes, dim=-2)                 # (N, H, W, 4, Cout)
-    y = y.reshape(n, h, w, 2, 2, cout)
-    y = y.permute(0, 1, 3, 2, 4, 5)                 # (N, H, 2, W, 2, Cout)
-    return y.reshape(n, 2 * h, 2 * w, cout)
+            ck, pads = collapse_weights(weight, d, e)
+            planes.append(parity_plane(x, ck, *pads))
+    return interleave(planes)
 
 
 def upsample2_conv_reference(x: torch.Tensor,
@@ -139,8 +156,9 @@ class UpsampleConv(nn.Module):
 
         impl = config.resolve_upsample_impl()
         if impl == "pallas":
-            return fused_upsample_conv.upsample2_conv_bias(x, self.weight,
-                                                           self.bias)
+            # the kernel takes its operands in x's dtype, as catgen's
+            return fused_upsample_conv.upsample2_conv_bias(
+                x, self.weight.to(x.dtype), self.bias.to(x.dtype))
         fn = upsample2_conv if impl == "collapsed" else \
             upsample2_conv_reference
         return fn(x, self.weight) + self.bias.to(x.dtype)

@@ -13,13 +13,17 @@ boundary-fused block (``kernels/fused_upsample_conv.py``):
     statistics and the block computes no sums.
 
 The pending affine + PReLU of the last stage is applied before the next
-plain layer (G32up-c's output conv). The BatchNorm arithmetic (biased
-batch variance for normalization; running mean and unbiased running
-variance moved by ``momentum`` in place on the ``BatchNorm`` child's
-buffers, also under ``torch.no_grad``, but not in a ``remat`` recompute)
-follows ``nn.layers.BatchNorm``, so
-the two paths are interchangeable and checkpoints identical. Off the
-kernel route it is the plain ``Sequential``.
+plain layer (G32up-c's output conv). In bf16 (catgen's compute dtype) the
+blocks take the weight, bias, affine and slope rounded to bf16 (the
+affine computed in f32 from the f32 statistics), and the pending affine
+at the ladder's end runs on bf16 operands, as catgen's does.
+
+The BatchNorm arithmetic (biased batch variance for normalization;
+running mean and unbiased running variance moved by ``momentum`` in
+place on the ``BatchNorm`` child's buffers, also under ``torch.no_grad``,
+but not in a ``remat`` recompute) follows ``nn.layers.BatchNorm``, so the
+two paths are interchangeable and checkpoints identical. Off the kernel
+route it is the plain ``Sequential``.
 """
 
 from __future__ import annotations
@@ -64,14 +68,15 @@ class FusedDecoderSequential(Sequential):
                 i += 1
                 continue
             uc, bn, pr = layers[i:i + 3]
+            dt = x.dtype
             if pending is None:       # identity: slope-1 PReLU
                 cin = x.shape[-1]
-                pending = (torch.ones(cin, dtype=x.dtype, device=x.device),
-                           torch.zeros(cin, dtype=x.dtype, device=x.device),
-                           torch.ones(1, dtype=x.dtype, device=x.device))
+                pending = (torch.ones(cin, dtype=dt, device=x.device),
+                           torch.zeros(cin, dtype=dt, device=x.device),
+                           torch.ones(1, dtype=dt, device=x.device))
+            weight, bias = uc.weight.to(dt), uc.bias.to(dt)
             if self.training:
-                y, s1, s2 = upsample2_conv_block(x, *pending, uc.weight,
-                                                 uc.bias)
+                y, s1, s2 = upsample2_conv_block(x, *pending, weight, bias)
                 count = math.prod(y.shape[:-1])
                 mean = s1 / count
                 var = torch.clamp(s2 / count - mean * mean, min=0.0)
@@ -82,12 +87,14 @@ class FusedDecoderSequential(Sequential):
                         bn.var.mul_(1 - m).add_(
                             m * var * (count / max(count - 1, 1)))
             else:
-                y = upsample2_conv_block_fused(x, uc.weight, uc.bias,
-                                               *pending, with_stats=False)
+                y = upsample2_conv_block_fused(x, weight, bias, *pending,
+                                               with_stats=False)
                 mean, var = bn.mean, bn.var
+            # the affine and slope in f32, rounded to y's dtype (catgen's)
             inv = torch.rsqrt(var + bn.eps)
-            pending = (bn.scale * inv, bn.bias - bn.scale * mean * inv,
-                       pr.alpha)
+            pending = ((bn.scale * inv).to(dt),
+                       (bn.bias - bn.scale * mean * inv).to(dt),
+                       pr.alpha.to(dt))
             x = y
             i += 3
         if pending is not None:       # the ladder ended on a stage group

@@ -256,6 +256,8 @@ class FusedSTConvPReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if config.resolve_st_conv_impl() == "fused" and self._can_fuse(x):
+            # the f32 kernel, bias and slope in any compute dtype, as
+            # catgen's: for a bf16 image the kernel rounds the weights
             return st_conv_prelu(x.contiguous(), self.st.theta(x),
                                  self.conv.weight.permute(2, 3, 1, 0),
                                  self.conv.bias, self.act.alpha)

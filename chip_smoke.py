@@ -16,9 +16,9 @@ with a non-zero exit code and no result.
   1. environment: torch, CUDA, the card, nvcc, triton, PIL;
   2. build: compiles catgen_torch/csrc/*.cu for sm_90a (one nvcc per
      source, in parallel); the SASS of every instantiation of the dCK, dX
-     and forward upsample-conv kernels holds TF32 tensor-core products
-     (cuobjdump: HMMA for dCK's mma.sync, HGMMA for the wgmma of the
-     forward and dX);
+     and forward upsample-conv kernels holds tensor-core products of its
+     type, TF32 for f32 (3xTF32) and BF16 for bf16 (cuobjdump: HMMA for
+     dCK's mma.sync, HGMMA for the wgmma of the forward and dX);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256, with the forward kernel each
      shape takes (per quad, staged); both bit for bit against the plain
@@ -57,8 +57,8 @@ with a non-zero exit code and no result.
      of at least 100 calls and 20 ms;
  11. the upsample-conv kernels against their plain versions at G32up-c's
      three stage shapes, N=640 and N=320, dCK in all four fold/transform
-     variants; repeats bit-identical; the forward (rows 3 and 4), dCK, dX
-     and the plain version against float64 at N=640;
+     variants; repeats bit-identical; the forward (rows 3 and 4), dCK's
+     dW and db, dX and the plain version against float64 at N=640;
  12. the sampling CLI on the ladder route (CATGEN_UPSAMPLE_IMPL=pallas,
      CATGEN_FUSED_LADDER=1): 3 block launches per G batch, the same
      images as phase 5;
@@ -132,7 +132,30 @@ with a non-zero exit code and no result.
      steps and both with remat (time, images/s, idle share, peak memory),
      the V update in f32 and bf16, and each bf16 sampler kernel, rows and
      grid, against its plain version, its bf16 library call and its bf16
-     bound (the rows kernels also in device time).
+     bound (the rows kernels also in device time);
+ 30. phase 11 for the upsample-conv kernels' bf16 instantiations (wgmma
+     and mma.sync bf16) against their bf16 plain versions: bf16 outputs
+     within one unit in the last place plus 2^-16 of the largest, dW and
+     db (sums over the batch) plus 1e-4, f32 sums within 1e-4 of the
+     largest, repeats bit for bit; dCK's dW and db within one unit plus
+     2^-16 of float64 rounded once, the plain version's reading beside
+     it, and three planted rounding faults that the 1e-4 floor must fail;
+ 31. phase 17 for the ST-conv kernel's bf16 instantiation against its
+     bf16 plain version (N=640 and 256, shared and per-channel slope):
+     out and z within one unit plus 2^-16 of the largest, samp bit for
+     bit (the plain version samples at the kernel's coordinates);
+ 32. the training CLI with --dtype bf16 on the ladder and on the
+     fused-prefix routes (one epoch of 20 steps at batch 64, twice from
+     one seed: every launch per step on the bf16 instantiations, the
+     visualization in f32, the same checkpoint bits); one bf16 step on
+     each kernel route (ladder, per layer with dX and dCK, per layer with
+     dX alone, fused prefix), card against CPU at phase 28's bounds;
+ 33. at batch 640: each bf16 kernel of phases 30-31 against its plain
+     version, its bf16 library call (cuDNN's collapsed route: forward,
+     dgrad, wgrad; the split prefix) and its bf16 bound, in event and
+     device time; the bf16 step on the default, ladder, per-layer and
+     fused-prefix routes in one run (time, images/s, idle share, peak
+     memory, each port kernel's device time).
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -466,42 +489,47 @@ def build() -> None:
     tensor_core_check(path)
 
 
-# the 3xTF32 kernels (mangled-name stem) and their instantiations: fold x
-# transform x 16-byte copies (dCK, mma.sync: HMMA; dX, wgmma: HGMMA),
-# transform x stats x 16-byte copies (the forward, wgmma: HGMMA)
+# the tensor-core kernels (mangled-name stem) and their instantiations, in
+# each element type: fold x transform x 16-byte copies (dCK, mma.sync:
+# HMMA; dX, wgmma: HGMMA), transform x stats x 16-byte copies (the
+# forward, wgmma: HGMMA); f32 runs 3xTF32 (TF32 products), bf16 one BF16
+# product (the _bf16 kernels)
 TENSOR_CORE_KERNELS = {"upsample_conv_dck": 8, "upsample_conv_fwd": 8,
                        "upsample_conv_dx": 8}
 
 
 def tensor_core_check(path) -> None:
     """Requires the machine code (cuobjdump -sass) of every instantiation
-    of the dCK, dX and forward upsample-conv kernels to hold TF32
-    tensor-core products (HMMA ... TF32 from mma.sync, HGMMA ... TF32 from
-    wgmma), and prints their count and the first one of each
-    instantiation."""
+    of the dCK, dX and forward upsample-conv kernels to hold tensor-core
+    products of its element type (HMMA from mma.sync, HGMMA from wgmma;
+    TF32 for the f32 kernels, BF16 for the bf16 ones), and prints their
+    count and the first one of each instantiation."""
     from torch.utils import cpp_extension
 
     tool = shutil.which("cuobjdump") or os.path.join(
         cpp_extension.CUDA_HOME or "", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    found = {stem: 0 for stem in TENSOR_CORE_KERNELS}
+    found = {(stem, t): 0 for stem in TENSOR_CORE_KERNELS
+             for t in ("TF32", "BF16")}
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
         stem = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
         if stem is None:
             continue
+        kind = "BF16" if f"{stem}_bf16" in name else "TF32"
         mma = [ln.strip() for ln in block.splitlines()
-               if ("HMMA" in ln or "HGMMA" in ln) and "TF32" in ln]
-        print(f"SASS {name}: {len(mma)} TF32 tensor-core instructions, "
+               if ("HMMA" in ln or "HGMMA" in ln) and kind in ln]
+        print(f"SASS {name}: {len(mma)} {kind} tensor-core instructions, "
               f"e.g. {mma[0] if mma else 'none'}")
-        require(mma, f"{name} has no TF32 tensor-core instruction")
-        found[stem] += 1
-    for stem, want in TENSOR_CORE_KERNELS.items():
-        print(f"{stem}: {found[stem]} instantiations, each with TF32 "
+        require(mma, f"{name} has no {kind} tensor-core instruction")
+        found[(stem, kind)] += 1
+    for (stem, kind), n in found.items():
+        want = TENSOR_CORE_KERNELS[stem]
+        print(f"{stem} ({kind}): {n} instantiations, each with {kind} "
               f"tensor-core instructions")
-        require(found[stem] == want, f"{found[stem]} {stem} instantiations "
-                                     f"in the SASS, not {want}")
+        require(n == want, f"{n} {kind} {stem} instantiations in the "
+                           f"SASS, not {want}")
 
 
 def sampler_inputs(shape, seed):
@@ -645,7 +673,7 @@ def reset_counts() -> None:
                                       fused_upsample_conv, st_conv)
 
     bilinear.reset_launches()
-    st_conv.LAUNCHES = 0
+    st_conv.LAUNCHES = st_conv.BF16_LAUNCHES = 0
     bilinear_grid.reset_launches()
     fused_upsample_conv.reset_launches()
 
@@ -1361,13 +1389,6 @@ G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
 # pixel, up to 640 * 32 * 32 = 655,360 terms (1e-4)
 UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
 LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
-# the kernels that run 3xTF32 on the tensor cores, and their time over the
-# cuDNN collapsed route's (forward, dgrad, wgrad) per stage with the
-# CUDA-core f32 kernels they replaced (PERF.md, section 6)
-TF32_KEYS = ("fwd", "block", "dx", "block_dx", "dck", "block_dck")
-RATIO_BEFORE = {"fwd": (1.14, 1.29, 1.40), "block": (1.39, 1.55, 1.66),
-                "dx": (0.78, 0.63, 1.34), "block_dx": (0.91, 0.77, 1.62),
-                "dck": (1.15, 1.23, 2.68), "block_dck": (1.74, 1.76, 4.12)}
 LIBRARY_CALL = {"fwd": "forward", "block": "forward", "dx": "dgrad",
                 "block_dx": "dgrad", "dck": "wgrad", "block_dck": "wgrad"}
 PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
@@ -1424,7 +1445,10 @@ def stage_shape(i: int, n: int) -> tuple:
     return (n, hw, hw, cin, cout, k)
 
 
-def upsample_inputs(shape, seed: int) -> dict:
+def upsample_inputs(shape, seed: int, bf16: bool = False) -> dict:
+    """One upsample-conv stage's operands on the card from ``seed``; with
+    ``bf16`` every operand rounded to bf16 but the stats cotangents (gs1,
+    gs2), which the ladder passes in f32."""
     import torch
 
     n, h, w, cin, cout, k = shape
@@ -1436,25 +1460,76 @@ def upsample_inputs(shape, seed: int) -> dict:
     def rand(*size, scale=1.0, low=0.0):
         return torch.rand(size, generator=gen, device="cuda") * scale + low
 
-    return dict(x=randn(n, h, w, cin),
-                weight=randn(cout, cin, k, k,
-                             scale=1 / math.sqrt(cin * k * k)),
-                bias=randn(cout, scale=0.1), scale=rand(cin, low=0.5),
-                shift=randn(cin, scale=0.3), alpha=rand(1, scale=0.5),
-                alpha_c=rand(cin, scale=0.5), prelu_c=rand(cout, scale=0.5),
-                gy=randn(n, 2 * h, 2 * w, cout), gs1=randn(cout, scale=0.01),
-                gs2=randn(cout, scale=0.01))
+    v = dict(x=randn(n, h, w, cin),
+             weight=randn(cout, cin, k, k, scale=1 / math.sqrt(cin * k * k)),
+             bias=randn(cout, scale=0.1), scale=rand(cin, low=0.5),
+             shift=randn(cin, scale=0.3), alpha=rand(1, scale=0.5),
+             alpha_c=rand(cin, scale=0.5), prelu_c=rand(cout, scale=0.5),
+             gy=randn(n, 2 * h, 2 * w, cout), gs1=randn(cout, scale=0.01),
+             gs2=randn(cout, scale=0.01))
+    return {key: t.bfloat16() if bf16 and key not in ("gs1", "gs2") else t
+            for key, t in v.items()}
 
 
-def upsample_vs_plain() -> dict:
-    """Each upsample-conv kernel against its plain version at G32up-c's
-    three stage shapes at N=640 and at stage 3 at N=320 (the D phase's
-    half batch): forward with a scalar and a per-channel PReLU slope, the
-    block with and without stats, (dx, dweight, dbias) of the per-layer
-    backward and the six outputs of the block backward. Every kernel runs
-    twice; the repeats must be bit-identical. Returns the largest absolute
-    error of each kernel and, under "<key>_rel", the largest error over
-    the largest plain value of its output."""
+def agrees(got, want, loose: bool = False) -> tuple:
+    """(ok, largest absolute error, largest |want|, detail): a bf16 output
+    within BF16_ULPS units in the last place of ``want`` plus BF16_FLOOR
+    of its largest value (f32 sums of another order, rounded once), or
+    BF16_SUM_FLOOR for a ``loose`` one (a sum over every pixel of the
+    batch, phase 30); an f32 output within UP_TIGHT of the largest,
+    UP_LOOSE for a ``loose`` one."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    top = max(want.float().abs().max().item(), 1e-6)
+    if want.dtype == torch.bfloat16:
+        floor = BF16_SUM_FLOOR if loose else BF16_FLOOR
+        ok = bool((err <= BF16_ULPS * bf16_spacing(want) + floor * top).all())
+        nonzero = want != 0
+        units = ((err / bf16_spacing(want))[nonzero].max().item()
+                 if bool(nonzero.any()) else 0.0)
+        detail = (f"max {units:.2f} units in the last place of a nonzero "
+                  f"value; within {BF16_ULPS} unit + {floor:g} x max "
+                  f"{top:.4g}")
+    else:
+        rel = UP_LOOSE if loose else UP_TIGHT
+        ok = err.max().item() <= rel * top
+        detail = f"within {rel:g} x max {top:.4g}"
+    return ok, err.max().item(), top, detail
+
+
+def output_check(tag: str, got, again, want, loose: bool = False) -> tuple:
+    """One kernel output against its plain version's (``agrees``), the
+    repeat bit-identical. Returns the largest absolute error and its ratio
+    to the largest plain value."""
+    import torch
+
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{tag}: {got.dtype} {tuple(got.shape)} against "
+            f"{want.dtype} {tuple(want.shape)}")
+    ok, err, top, detail = agrees(got, want, loose)
+    same = torch.equal(got, again)
+    print(f"{tag}: max_abs_err {err:.3e}, {detail} |plain|: {ok}; repeat "
+          f"bit-identical: {same}")
+    require(ok, f"{tag} disagrees with its plain version")
+    require(same, f"{tag} is not deterministic")
+    return err, err / top
+
+
+def upsample_vs_plain(bf16: bool = False) -> dict:
+    """Each upsample-conv kernel against its plain version, in f32 (phase
+    11) or in bf16 (phase 30), at G32up-c's three stage shapes at N=640
+    and at stage 3 at N=320 (the D phase's half batch): the forward
+    without a PReLU (the per-layer route's), with a scalar and with a
+    per-channel slope; the block with and without the stats; (dx,
+    dweight, dbias) of the per-layer backward; dweight of the dCK
+    kernel's two other variants (the routes run the fold with the
+    transform, and neither): the fold alone, the transform alone; the
+    block backward's six outputs. Every kernel runs twice; the repeats
+    must be bit-identical (``output_check``; the sums over the batch are
+    ``loose``). Returns the largest absolute error of each kernel and,
+    under "<key>_rel", the largest error over the largest plain value of
+    its output."""
     import torch
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
@@ -1463,81 +1538,69 @@ def upsample_vs_plain() -> dict:
     shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
     shapes.append(stage_shape(2, TRAIN_B // 2))
     for s, shape in enumerate(shapes):
-        v = upsample_inputs(shape, seed=70 + s)
+        v = upsample_inputs(shape, (300 if bf16 else 70) + s, bf16)
         x, w, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
-        sc, sh = v["scale"], v["shift"]
-        groups = []     # (key, names, rels, kernel fn, plain fn)
-        for a in ("alpha", "prelu_c"):
-            groups.append(("fwd", (f"y (PReLU {a})",), (UP_TIGHT,),
-                           lambda a=a: (fuc.upsample2_conv_fused(
-                               x, w, b, v[a]),),
-                           lambda a=a: (fuc.block_plain(
-                               x, w, b, prelu_alpha=v[a]),)))
-        groups.append((
-            "block", ("y", "s1", "s2"), (UP_TIGHT, UP_LOOSE, UP_LOOSE),
-            lambda: fuc.upsample2_conv_block_fused(x, w, b, sc, sh,
-                                                   v["alpha_c"]),
-            lambda: (lambda y: (y, *fuc.stats_plain(y)))(
-                fuc.block_plain(x, w, b, sc, sh, v["alpha_c"]))))
-        groups.append((
-            "block", ("y (no stats)",), (UP_TIGHT,),
-            lambda: (fuc.upsample2_conv_block_fused(
-                x, w, b, sc, sh, v["alpha"], with_stats=False),),
-            lambda: (fuc.block_plain(x, w, b, sc, sh, v["alpha"]),)))
-        groups.append((
-            ("dx", "dck", "dck"), ("dx", "dweight", "dbias"),
-            (UP_TIGHT, UP_LOOSE, UP_LOOSE),
-            lambda: fuc.upsample2_conv_backward(x, w, gy),
-            lambda: fuc.upsample2_conv_backward_plain(x, w, gy)))
-        y = fuc.block_plain(x, w, b, sc, sh, v["alpha"])
-        args = (x, sc, sh, v["alpha"], w, y, gy, v["gs1"], v["gs2"])
-        gs = torch.stack([v["gs1"], v["gs2"]])
-        alc = v["alpha"].expand(shape[3]).contiguous()
-        gfold = gy + v["gs1"] + 2.0 * y * v["gs2"]
+        sc, sh, al = v["scale"], v["shift"], v["alpha"]
         k = shape[5]
-        # the dCK kernel's two other variants (the routes run fold with
-        # transform, and neither): the fold alone, the transform alone
-        groups.append((
-            "dck", ("dweight (fold)", "dbias (fold)"), (UP_LOOSE,) * 2,
-            lambda: (lambda r: (fuc.dweight_from_dck(r[0], k, k), r[1]))(
-                fuc._launch_dck(x, w, gy, y, gs)),
-            lambda: fuc.upsample2_conv_backward_plain(
-                x, w, gfold, need_x=False)[1:]))
-        groups.append((
-            "dck", ("dweight (transform)",), (UP_LOOSE,),
-            lambda: (fuc.dweight_from_dck(fuc._launch_dck(
-                x, w, gy, in_scale=sc, in_shift=sh, in_alpha=alc), k, k),),
-            lambda: fuc._vjp(lambda w_: fuc.block_plain(
-                x, w_, None, sc, sh, v["alpha"]), (w,), (True,), gy)))
-        groups.append((
-            ("block_dx",) * 4 + ("block_dck",) * 2,
-            ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"),
-            (UP_TIGHT,) + (UP_LOOSE,) * 5,
-            lambda: fuc.fused_block_backward(*args),
-            lambda: fuc.fused_block_backward_plain(*args[:5], b, *args[5:])))
-        for keys, names, rels, kern, plain in groups:
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        ale = al.expand(shape[3]).contiguous()
+        y = fuc.block_plain(x, w, b, sc, sh, al)
+        args = (x, sc, sh, al, w, y, gy, v["gs1"], v["gs2"])
+        g = fuc._fold(y, gy, v["gs1"], v["gs2"])
+
+        def dweight(dck):
+            return fuc.dweight_from_dck(dck, k, k).to(w.dtype)
+
+        def dweight_plain(xn, g_):
+            return dweight(fuc._kernel_vjp(xn, w, g_.to(x.dtype),
+                                           need_x=False)[1])
+
+        groups = [   # (keys, names, kernel, plain)
+            ("fwd", ("y",), lambda: (fuc.upsample2_conv_fused(x, w, b),),
+             lambda: (fuc.block_plain(x, w, b),)),
+            *(("fwd", (f"y (PReLU {a})",),
+               lambda a=a: (fuc.upsample2_conv_fused(x, w, b, v[a]),),
+               lambda a=a: (fuc.block_plain(x, w, b, prelu_alpha=v[a]),))
+              for a in ("alpha", "prelu_c")),
+            ("block", ("y", "s1", "s2"),
+             lambda: fuc.upsample2_conv_block_fused(x, w, b, sc, sh,
+                                                    v["alpha_c"]),
+             lambda: fuc.block_plain(x, w, b, sc, sh, v["alpha_c"],
+                                     with_stats=True)),
+            ("block", ("y (no stats)",),
+             lambda: (fuc.upsample2_conv_block_fused(
+                 x, w, b, sc, sh, al, with_stats=False),),
+             lambda: (fuc.block_plain(x, w, b, sc, sh, al),)),
+            (("dx", "dck", "dck"), ("dx", "dweight", "dbias"),
+             lambda: fuc.upsample2_conv_backward(x, w, gy),
+             lambda: fuc.kernel_backward_plain(x, w, gy)),
+            ("dck", ("dweight (fold)", "dbias (fold)"),
+             lambda: (lambda r: (dweight(r[0]), r[1]))(
+                 fuc._launch_dck(x, w, gy, y, gs)),
+             lambda: (dweight_plain(x, g), g.sum(dim=(0, 1, 2)))),
+            ("dck", ("dweight (transform)",),
+             lambda: (dweight(fuc._launch_dck(
+                 x, w, gy, in_scale=sc, in_shift=sh, in_alpha=ale)),),
+             lambda: (dweight_plain(fuc.block_input(x, sc, sh, al), gy),)),
+            (("block_dx",) * 4 + ("block_dck",) * 2,
+             ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"),
+             lambda: fuc.fused_block_backward(*args),
+             lambda: fuc.block_backward_plain(*args)),
+        ]
+        for keys, names, kern, plain in groups:
             got, again = kern(), kern()
             torch.cuda.synchronize()
             want = plain()
             if isinstance(keys, str):
                 keys = (keys,) * len(names)
-            for key, name, rel, a, a2, p in zip(keys, names, rels, got,
-                                                again, want):
-                require(a.shape == p.shape, f"{key} {name} shape "
-                        f"{tuple(a.shape)} != {tuple(p.shape)}")
-                err = (a - p).abs().max().item()
-                top = p.abs().max().item()
-                same = torch.equal(a, a2)
-                print(f"{shape} {key} {name}: max_abs_err {err:.3e} "
-                      f"(tolerance {rel} x max |plain| {top:.4g}); repeat "
-                      f"bit-identical: {same}")
-                require(err <= rel * max(top, 1e-6),
-                        f"{key} {name} disagrees with plain at {shape}")
-                require(same, f"{key} {name} not deterministic at {shape}")
+            for key, name, a, a2, p in zip(keys, names, got, again, want):
+                err, rel = output_check(
+                    f"{shape} {'bf16 ' if bf16 else ''}{key} {name}", a, a2,
+                    p, loose=not name.startswith(("y", "dx")))
                 worst[key] = max(worst[key], err)
-                worst[f"{key}_rel"] = max(worst[f"{key}_rel"],
-                                          err / max(top, 1e-6))
-        del groups, y, args, v, gfold
+                worst[f"{key}_rel"] = max(worst[f"{key}_rel"], rel)
+        del groups, y, args, v, g
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1587,13 +1650,23 @@ def fwd_vs_float64() -> dict:
     return worst
 
 
-def dck_vs_float64() -> dict:
-    """The dCK kernel (3xTF32) and the plain version (cuDNN in f32) against
-    float64 autograd (cuDNN in double) at G32up-c's three stage shapes at
-    N=640, without and with the fold and transform: dweight's largest
-    error over its largest value. The kernel must be within UP_TIGHT: the
-    plain version's own f32 error is what its UP_LOOSE comparison
-    measures. Returns the kernel's worst per key ("dck", "block_dck")."""
+def dck_vs_float64(bf16: bool = False) -> dict:
+    """dweight and dbias of the dCK kernel (3xTF32 in f32, one bf16
+    product in bf16) and of the plain version against float64 (cuDNN in
+    double) of the same operands: x, or the block's prologue rounded to
+    x's dtype, and g, or the fold rounded to it; at G32up-c's three stage
+    shapes at N=640, row 5 and row 6. The kernel must be within UP_TIGHT
+    of the largest value in f32; in bf16, within BF16_ULPS unit +
+    BF16_FLOOR of the largest of the float64 value rounded once to bf16
+    (the CPU tests' bound against catgen). The plain version's own error
+    is printed beside it: it is what UP_LOOSE (phase 11) and
+    BF16_SUM_FLOOR (phase 30) allow for. In bf16, each of three planted
+    faults at a wrong rounding point must fail phase 30's check against
+    the plain version: dCK rounded to bf16 before the chain to dweight,
+    dCK kept in bf16 while it is summed over ten slices of the batch, and
+    row 5's dbias kept in bf16 while it is summed over the samples.
+    Returns the kernel's worst error over the largest value per key
+    ("dck", "block_dck")."""
     import torch
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
@@ -1601,41 +1674,101 @@ def dck_vs_float64() -> dict:
     for s in range(3):
         shape = stage_shape(s, TRAIN_B)
         k = shape[5]
-        v = upsample_inputs(shape, seed=140 + s)
-        x, w, gy, sc, sh, al = (v[a] for a in ("x", "weight", "gy", "scale",
-                                                 "shift", "alpha"))
+        v = upsample_inputs(shape, (350 if bf16 else 140) + s, bf16)
+        x, w, gy, sc, sh, al, gs1, gs2 = (v[a] for a in (
+            "x", "weight", "gy", "scale", "shift", "alpha", "gs1", "gs2"))
         y = fuc.block_plain(x, w, v["bias"], sc, sh, al)
-        gs = torch.stack([v["gs1"], v["gs2"]])
         for key in ("dck", "block_dck"):
-            block = key == "block_dck"
-            g = gy + v["gs1"] + 2.0 * y * v["gs2"] if block else gy
-            if block:
-                dck, _ = fuc._launch_dck(x, w, gy, y, gs, sc, sh,
-                                         al.expand(shape[3]).contiguous())
+            if key == "block_dck":
+                bwd = (x, sc, sh, al, w, y, gy, gs1, gs2)
+                got = fuc.fused_block_backward(*bwd)[4:]
+                plain = fuc.block_backward_plain(*bwd)[4:]
+                xn = fuc.block_input(x, sc, sh, al)
+                g = fuc._fold(y, gy, gs1, gs2).to(x.dtype)
+                g64 = (gy.double() + gs1.double()
+                       + 2.0 * y.double() * gs2.double())
             else:
-                dck = fuc._launch_dck(x, w, gy)
-            got = fuc.dweight_from_dck(dck, k, k)
-
-            def plain(dtype, block=block, g=g):
-                xd, wd = x.to(dtype), w.to(dtype)
-                fn = ((lambda w_: fuc.block_plain(
-                    xd, w_, None, sc.to(dtype), sh.to(dtype), al.to(dtype)))
-                      if block else (lambda w_: fuc.upsample2_conv(xd, w_)))
-                return fuc._vjp(fn, (wd,), (True,), g.to(dtype))[0]
-
-            exact = plain(torch.float64)
-            top = exact.abs().max().item()
-            err = (got.double() - exact).abs().max().item() / top
-            err32 = (plain(torch.float32).double() - exact).abs().max(
-                ).item() / top
-            print(f"{key} dweight {shape} against float64: kernel {err:.3e}, "
-                  f"plain (cuDNN f32) {err32:.3e} of the largest value "
-                  f"{top:.4g} (kernel tolerance {UP_TIGHT})")
-            require(err <= UP_TIGHT, f"{key} is not f32-accurate at {shape}")
-            worst[key] = max(worst[key], err)
-            del exact, got, dck
-        del v, y, gs
+                got = fuc.upsample2_conv_backward(x, w, gy)[1:]
+                plain = fuc.kernel_backward_plain(x, w, gy)[1:]
+                xn, g, g64 = x, gy, gy.double()
+            exact = (fuc.dweight_from_dck(fuc._kernel_vjp(
+                xn.double(), w.double(), g.double(), need_x=False)[1], k, k),
+                g64.sum(dim=(0, 1, 2)))
+            del g64
+            for name, a, p, e in zip(("dweight", "dbias"), got, plain, exact):
+                top = e.abs().max().item()
+                if a.dtype == torch.bfloat16:
+                    rounded = e.float().bfloat16()
+                    ok, err, _, detail = agrees(a, rounded)
+                    pok, perr, _, pdetail = agrees(p, rounded)
+                    print(f"bf16 {key} {name} {shape} against float64 "
+                          f"rounded once: kernel {detail} (required): {ok},"
+                          f" {err / top:.3e} of the largest; plain "
+                          f"{pdetail}: {pok}, {perr / top:.3e} of the "
+                          f"largest")
+                else:
+                    err = (a.double() - e).abs().max().item()
+                    ok = err <= UP_TIGHT * top
+                    print(f"{'bf16 ' if bf16 else ''}{key} {name} {shape} "
+                          f"against float64: kernel {err / top:.3e}, plain "
+                          f"{(p.double() - e).abs().max().item() / top:.3e} "
+                          f"of the largest value {top:.4g} (kernel "
+                          f"tolerance {UP_TIGHT})")
+                require(ok, f"{key} {name} is off float64 at {shape}")
+                if name == "dweight":
+                    worst[key] = max(worst[key], err / top)
+            if bf16:
+                # the f32 sums before the one rounding, against float64
+                gs = torch.stack([gs1, gs2])
+                dck = (fuc._launch_dck(x, w, gy, y, gs, sc, sh, al.expand(
+                    shape[3]).contiguous())[0] if key == "block_dck"
+                       else fuc._launch_dck(x, w, gy))
+                dck_plain = fuc._kernel_vjp(xn, w, g, need_x=False)[1]
+                top = exact[0].abs().max().item()
+                rel = [(fuc.dweight_from_dck(t, k, k).double()
+                        - exact[0]).abs().max().item() / top
+                       for t in (dck, dck_plain)]
+                print(f"bf16 {key} dweight {shape}, its f32 sums before the "
+                      f"rounding against float64: kernel {rel[0]:.3e}, "
+                      f"plain {rel[1]:.3e} of the largest value {top:.4g}")
+                faults_fail(key, shape, x, w, xn, g, dck_plain, plain)
+                del dck, dck_plain
+            del exact, got, plain
+        del v, y
+        torch.cuda.empty_cache()
     return worst
+
+
+def faults_fail(key: str, shape, x, w, xn, g, dck, plain) -> None:
+    """Bf16 dweight and dbias with a rounding point in the wrong place
+    (``dck_vs_float64``), from the operands xn and g and the plain
+    version's f32 ``dck``, each of which phase 30's check against the
+    ``plain`` (dweight, dbias) must refuse."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    k = shape[5]
+    faults = {"dCK rounded to bf16 before the chain to dweight":
+              (0, fuc.dweight_from_dck(dck.bfloat16().float(), k, k))}
+    part, acc = x.shape[0] // 10, None
+    for i in range(10):
+        sl = slice(i * part, (i + 1) * part)
+        piece = fuc._kernel_vjp(xn[sl], w, g[sl], need_x=False)[1].bfloat16()
+        acc = piece if acc is None else acc + piece
+    faults["dCK kept in bf16 over ten slices of the batch"] = (
+        0, fuc.dweight_from_dck(acc.float(), k, k))
+    if plain[1].dtype == torch.bfloat16:
+        per_sample = g.float().sum(dim=(1, 2)).bfloat16()
+        acc = per_sample[0]
+        for row in per_sample[1:]:
+            acc = acc + row
+        faults["dbias kept in bf16 over the samples"] = (1, acc)
+    for what, (i, wrong) in faults.items():
+        ok, _, _, detail = agrees(wrong.bfloat16(), plain[i], loose=True)
+        print(f"bf16 {key} {shape}, planted fault ({what}) against the plain "
+              f"version: {detail}: {ok} (must be False)")
+        require(not ok, f"phase 30's check passes a fault: {what}")
+    del acc, faults
 
 
 def dx_vs_float64() -> dict:
@@ -1770,20 +1903,25 @@ def per_layer_steps() -> dict:
     return {k: v[0] for k, v in out.items()}
 
 
-def upsample_times(card_name: str) -> dict:
-    """At each G32up-c stage shape at B=640: each upsample-conv kernel
-    (CUDA events), its plain version, the cuDNN collapsed route's share
-    of the same work (the library route: upsample2_conv, its autograd dX
-    or dW), and the bound. Returns {key: [per-stage dict]}."""
+def upsample_times(card_name: str, bf16: bool = False) -> dict:
+    """At each G32up-c stage shape at B=640, in f32 (phase 16) or bf16
+    (phase 33): each upsample-conv kernel (CUDA events, and device time
+    from the profiler, the wrapper's weight collapse included), its plain
+    version, the cuDNN collapsed route in the same dtype (forward, dgrad
+    or wgrad: its share of the same work) and the bound (3xTF32, with the
+    f32 CUDA-core bound beside it, or bf16 on the tensor cores); then dCK
+    with the fold alone and with the transform alone. Returns {key:
+    [per-stage dict]}."""
     import torch
     from catgen_torch.kernels import fused_upsample_conv as fuc
     from catgen_torch.kernels.upsample_conv import upsample2_conv
 
     out = {key: [] for key, *_ in UP_KERNELS}
+    dtype = "bf16" if bf16 else "f32"
     for s in range(3):
         shape = stage_shape(s, TRAIN_B)
         n, h, w, cin, cout, k = shape
-        v = upsample_inputs(shape, seed=90 + s)
+        v = upsample_inputs(shape, (330 if bf16 else 90) + s, bf16)
         x, wt, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
         sc, sh, al = v["scale"], v["shift"], v["alpha"]
         alc = al.expand(cin).contiguous()
@@ -1793,88 +1931,68 @@ def upsample_times(card_name: str) -> dict:
         lib_y = upsample2_conv(xr, wr)
         kp = (k + 1) // 2
         flops = 2.0 * n * h * w * 4 * kp * kp * cin * cout
-        xb, yb = x.numel() * 4, gy.numel() * 4
-        wb = 4 * kp * kp * cin * cout * 4
-
-        def gfold():
-            return gy + v["gs1"] + 2.0 * y * v["gs2"]
-
+        elem = x.element_size()
+        xb, yb = x.numel() * elem, gy.numel() * elem
+        wb = 4 * kp * kp * cin * cout * elem
+        ckb = 4 * kp * kp * cin * cout * 4          # dCK's f32 sums
         lib_fwd = lambda: upsample2_conv(x, wt)                  # noqa: E731
         lib_dx = lambda: torch.autograd.grad(                    # noqa: E731
             lib_y, [xr], gy, retain_graph=True)
         lib_dw = lambda: torch.autograd.grad(                    # noqa: E731
             lib_y, [wr], gy, retain_graph=True)
+        block_bwd = lambda: fuc.block_backward_plain(            # noqa: E731
+            x, sc, sh, al, wt, y, gy, v["gs1"], v["gs2"])
         runs = {
             "fwd": (lambda: fuc.upsample2_conv_fused(x, wt, b),
                     lambda: fuc.block_plain(x, wt, b), lib_fwd,
                     xb + wb + yb),
             "block": (lambda: fuc.upsample2_conv_block_fused(
                           x, wt, b, sc, sh, al),
-                      lambda: fuc.stats_plain(
-                          fuc.block_plain(x, wt, b, sc, sh, al)),
+                      lambda: fuc.block_plain(x, wt, b, sc, sh, al,
+                                              with_stats=True),
                       lib_fwd, xb + wb + yb),
             "dx": (lambda: fuc.upsample2_conv_dx(x, wt, gy),
-                   lambda: fuc._vjp(upsample2_conv, (x, wt), (True, False),
-                                    gy),
+                   lambda: fuc.kernel_backward_plain(x, wt, gy),
                    lib_dx, yb + wb + xb),
             "dck": (lambda: fuc._launch_dck(x, wt, gy),
-                    lambda: fuc._vjp(upsample2_conv, (x, wt), (False, True),
-                                     gy),
-                    lib_dw, xb + yb + wb),
+                    lambda: fuc._kernel_vjp(x, wt, gy, need_x=False),
+                    lib_dw, xb + yb + ckb),
             "block_dx": (lambda: fuc._launch_dx(x, wt, gy, y, gs, sc, sh,
                                                 alc),
-                         lambda: fuc._vjp(
-                             lambda x_, s_, h_, a_: fuc.block_plain(
-                                 x_, wt, b, s_, h_, a_),
-                             (x, sc, sh, alc), (True,) * 4, gfold()),
-                         lib_dx, xb + 2 * yb + wb + xb),
+                         block_bwd, lib_dx, xb + 2 * yb + wb + xb),
             "block_dck": (lambda: fuc._launch_dck(x, wt, gy, y, gs, sc, sh,
                                                   alc),
-                          lambda: fuc._vjp(
-                              lambda w_, b_: fuc.block_plain(
-                                  x, w_, b_, sc, sh, al),
-                              (wt, b), (True, True), gfold()),
-                          lib_dw, xb + 2 * yb + wb),
+                          block_bwd, lib_dw, xb + 2 * yb + ckb),
         }
         for key, (kern, plain, library, nbytes) in runs.items():
             k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
-            p = cuda_ms(plain, reps=5, inner=3, warmup=2)
+            p = cuda_ms(plain, reps=3, inner=2, warmup=1)
             lib = cuda_ms(library, reps=5, inner=3, warmup=2)
             k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
-            b_ms, b_by = bound(flops, nbytes)
-            row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
-                       bound_ms=b_ms, bound_by=b_by)
-            if key in TF32_KEYS:
-                row["bound_f32_ms"] = b_ms
-                row["bound_ms"], row["bound_by"] = bound_3xtf32(flops,
+            dev, _, src = device_ms(kern, calls=20, warmup=1)
+            lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
+            b_ms, b_by = (bound_bf16 if bf16 else bound_3xtf32)(flops,
                                                                 nbytes)
-                print(f"{key} stage {s + 1} {shape}: kernel {row['ms']:.4f} "
-                      f"ms, cuDNN {LIBRARY_CALL[key]} "
-                      f"(collapsed route) {lib:.4f} ms, ratio "
-                      f"{row['ms'] / lib:.3f} (CUDA-core kernel: "
-                      f"{RATIO_BEFORE[key][s]}); bound 3xTF32 "
-                      f"{row['bound_ms']:.4f} ms, f32 {b_ms:.4f} ms; "
-                      f"{card_name}")
-            if key in ("dx", "block_dx"):
-                # device time beside cuDNN dgrad's, 30 calls a session
-                row["device_ms"], _, src = device_ms(kern, calls=30,
-                                                     warmup=1)
-                row["library_device_ms"], _, src_lib = device_ms(
-                    library, calls=30, warmup=1)
-                print(f"{key} stage {s + 1} {shape}: kernel device "
-                      f"{row['device_ms']:.4f} ms, cuDNN dgrad (collapsed "
-                      f"route) device {row['library_device_ms']:.4f} ms, "
-                      f"ratio {row['device_ms'] / row['library_device_ms']:.3f}"
-                      f" (30 calls a session, from {src}/{src_lib}); "
-                      f"{card_name}")
+            row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                       library_device_ms=lib_dev)
+            if not bf16:
+                row["bound_f32_ms"] = bound(flops, nbytes)[0]
             out[key].append(row)
-            print(f"{key} {shape}: kernel {row['ms']:.4f} ms ({k1:.4f} / "
-                  f"{k2:.4f}), plain {p:.4f} ms, cuDNN collapsed route "
-                  f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-                  f"{flops / row['ms'] / 1e9:.2f} TFLOP/s (CUDA events, "
-                  f"median of 5 timings of 3 back-to-back calls, order "
-                  f"kernel-plain-library-kernel); {card_name}")
+            rate = ("one bf16 product at 989 TFLOP/s" if bf16 else
+                    f"3xTF32 at 495 TFLOP/s; f32 CUDA cores "
+                    f"{row['bound_f32_ms']:.4f} ms")
+            print(f"{dtype} {key} stage {s + 1} {shape}: kernel "
+                  f"{row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), device "
+                  f"{dev:.4f} ms ({src}, 20 calls), plain {p:.4f} ms, cuDNN "
+                  f"{LIBRARY_CALL[key]} in {dtype} (collapsed route) "
+                  f"{lib:.4f} ms, device {lib_dev:.4f} ms ({src_lib}), "
+                  f"device ratio {dev / lib_dev:.3f}; bound {b_ms:.4f} ms "
+                  f"({b_by}; {flops / 1e9:.1f} GFLOP, {rate}; "
+                  f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {b_ms / dev:.3f} of "
+                  f"the bound in device time, {flops / dev / 1e9:.1f} "
+                  f"TFLOP/s (events: median of 5 timings of 3 back-to-back "
+                  f"calls, order kernel-plain-library-kernel); {card_name}")
         # what the block backward's fix-ups cost: dCK with the fold alone
         # and with the transform alone, beside the two variants above
         singles = {
@@ -1883,13 +2001,14 @@ def upsample_times(card_name: str) -> dict:
                                                  in_shift=sh, in_alpha=alc)}
         times = {f: cuda_ms(fn, reps=5, inner=3, warmup=2)
                  for f, fn in singles.items()}
-        print(f"dck variants stage {s + 1} {shape}: neither "
+        print(f"{dtype} dck variants stage {s + 1} {shape}: neither "
               f"{out['dck'][-1]['ms']:.4f} ms, fold alone "
               f"{times['fold']:.4f}, transform alone "
               f"{times['transform']:.4f}, both "
               f"{out['block_dck'][-1]['ms']:.4f} (CUDA events); "
               f"{card_name}")
         del runs, lib_y, xr, wr, y, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1969,11 +2088,6 @@ def device_step_ms(times: dict, pattern):
 
 ST_SHAPES = [              # D32_st3's prefix (N, H, W, C, F): train, sample
     (TRAIN_B, 32, 32, 3, 64), (N_SAMPLER, 32, 32, 3, 64)]
-# ST-conv kernel against plain: out and z are 27-term sums in another
-# order, from coordinates that may differ from the plain matmul's in the
-# last bit (1e-5 of the largest plain value); samp is a lerp of values in
-# [0, 1] (1e-5 absolute)
-ST_TOL = 1e-5
 
 
 def st_inputs(shape, seed: int, channelwise: bool) -> tuple:
@@ -1999,43 +2113,45 @@ def st_inputs(shape, seed: int, channelwise: bool) -> tuple:
             rand(f if channelwise else 1) * 0.5)
 
 
-def st_conv_vs_plain() -> dict:
+def st_conv_vs_plain(bf16: bool = False) -> dict:
     """The ST-conv kernel against its plain version at D32_st3's prefix,
-    N=640 and 256, with a shared and a per-channel slope: out, samp and z;
-    every launch twice, bit-identical; without samp and z (the sampling
-    path) the same out. Returns the largest errors."""
+    N=640 and 256, with a shared and a per-channel slope, on an f32 image
+    (phase 17) or a bf16 one (phase 31): out and z (``output_check``),
+    samp bit for bit (the same lerps at the same coordinates, rounded once
+    in bf16); every launch twice, bit-identical; without samp and z (the
+    sampling path) the same out. Returns the largest errors."""
     import torch
     from catgen_torch.kernels import st_conv
 
-    worst = {"out": 0.0, "out_rel": 0.0, "samp": 0.0, "z_rel": 0.0}
+    worst = dict.fromkeys(("out", "out_rel", "z", "z_rel", "samp"), 0.0)
     for i, shape in enumerate(ST_SHAPES):
         for channelwise in (False, True):
-            args = st_inputs(shape, 100 + i, channelwise)
+            img, *params = st_inputs(shape, (310 if bf16 else 100) + i,
+                                     channelwise)
+            args = (img.bfloat16() if bf16 else img, *params)
             got, again = st_conv.launch(*args), st_conv.launch(*args)
             light = st_conv.launch(*args, save=False)
             torch.cuda.synchronize()
             want = st_conv._forward_plain(*args)
-            for name, a, a2, p in zip(("out", "samp", "z"), got, again,
-                                      want):
-                err = (a - p).abs().max().item()
-                top = p.abs().max().item()
-                tol = ST_TOL if name == "samp" else ST_TOL * top
-                same = torch.equal(a, a2)
-                print(f"st_conv {shape} {'per-channel' if channelwise else 'shared'}"
-                      f" slope, {name}: max_abs_err {err:.3e} (tolerance "
-                      f"{tol:.3e}; max |plain| {top:.4f}); repeat "
-                      f"bit-identical: {same}")
-                require(err <= tol, f"st_conv {name} disagrees at {shape}")
-                require(same, f"st_conv {name} not deterministic at {shape}")
-                if name == "samp":
-                    worst["samp"] = max(worst["samp"], err)
-                else:
-                    worst[name] = max(worst.get(name, 0.0), err)
-                    worst[f"{name}_rel"] = max(worst[f"{name}_rel"],
-                                               err / top)
+            tag = (f"{'bf16 ' if bf16 else ''}st_conv {shape} "
+                   f"{'per-channel' if channelwise else 'shared'} slope")
+            for name, a, a2, p in zip(("out", "z"), got[::2], again[::2],
+                                      want[::2]):
+                err, rel = output_check(f"{tag}, {name}", a, a2,
+                                        p.contiguous())
+                worst[name] = max(worst[name], err)
+                worst[f"{name}_rel"] = max(worst[f"{name}_rel"], rel)
+            samp = got[1]
+            worst["samp"] = max(worst["samp"], (samp.float() - want[1].float()
+                                                ).abs().max().item())
+            same = torch.equal(samp, want[1]) and torch.equal(samp, again[1])
+            print(f"{tag}, samp: the plain version's bits, repeat "
+                  f"bit-identical: {same} (required)")
+            require(samp.dtype == args[0].dtype and same,
+                    f"{tag}: samp is not the plain version's")
             require(light[1] is None and light[2] is None
                     and torch.equal(light[0], got[0]),
-                    "the kernel without samp and z gives another out")
+                    f"{tag}: the kernel without samp and z gives another out")
     return worst
 
 
@@ -2126,53 +2242,67 @@ def generation_steps() -> dict:
     return {k: v[0] for k, v in out.items()}
 
 
-def st_conv_times(card_name: str) -> dict:
-    """At D32_st3's prefix: the ST-conv kernel as the training path runs it
-    (writing samp and z) at B=640 and as the sampling path runs it (out
-    alone) at N=256, its plain version, the split route the default path
-    runs (the v4 sampler kernel, cuDNN's conv2d and the PReLU; no single
-    PyTorch call computes the function), and the bounds."""
+def st_conv_times(card_name: str, bf16: bool = False) -> dict:
+    """At D32_st3's prefix, on an f32 image (phase 20) or a bf16 one (phase
+    33): the ST-conv kernel as the training path runs it (writing samp
+    and z) at B=640 and as the sampling path runs it (out alone) at N=256
+    (CUDA events, and device time from the profiler), its plain version,
+    the split route the default path runs in the same dtype (the v4
+    sampler kernel, cuDNN's conv2d and the PReLU; no single PyTorch call
+    computes the function), and the bound: the bytes, against the conv's
+    products at the rate of their type (f32 on the CUDA cores, bf16 on the
+    tensor cores) and the sampler's lerps in f32."""
     import torch
     import torch.nn.functional as F
     from catgen_torch.kernels import bilinear, st_conv
 
     out = {}
+    dtype = "bf16" if bf16 else "f32"
     for shape, save in ((ST_SHAPES[0], True), (ST_SHAPES[1], False)):
         n, h, w, c, f = shape
-        args = st_inputs(shape, 120, False)
-        img, theta, kernel, bias, alpha = args
+        img, theta, kernel, bias, alpha = st_inputs(
+            shape, 340 if bf16 else 120, False)
+        img = img.bfloat16() if bf16 else img
+        kd, bd, ad = (t.to(img.dtype) for t in (kernel, bias, alpha))
 
-        def split(img=img, theta=theta, kernel=kernel, bias=bias,
-                  alpha=alpha, h=h, w=w):
-            rows = bilinear.affine_grid_rows(theta, h, w)
+        def split(img=img, theta=theta, kd=kd, bd=bd, ad=ad, h=h, w=w):
+            rows = bilinear.affine_grid_rows(theta, h, w).to(img.dtype)
             sampled = bilinear.launch(img, rows, (h, w))
-            z = F.conv2d(sampled.permute(0, 3, 1, 2),
-                         kernel.permute(3, 2, 0, 1), bias,
-                         padding=1).permute(0, 2, 3, 1)
-            return torch.where(z >= 0, z, alpha * z)
+            z = F.conv2d(sampled.permute(0, 3, 1, 2), kd.permute(3, 2, 0, 1),
+                         bd, padding=1).permute(0, 2, 3, 1)
+            return torch.where(z >= 0, z, ad * z)
 
+        args = (img, theta, kernel, bias, alpha)
         kern = (lambda args=args, save=save:
                 st_conv.launch(*args, save=save))
         plain = lambda args=args: st_conv._forward_plain(*args)  # noqa: E731
         p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
         k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
         lib = cuda_ms(split, inner=10)
-        px = n * h * w
-        nbytes = 4 * (px * c + n * 6 + 9 * c * f + 2 * f + px * f
-                      + (px * (c + f) if save else 0))
-        ops = 2.0 * 9 * c * f * px + 8.0 * c * px
-        b_ms, b_by = bound(ops, nbytes)
+        dev, _, src = device_ms(kern, calls=100, warmup=3)
+        lib_dev, _, src_lib = device_ms(split, calls=100, warmup=3)
+        px, e = n * h * w, img.element_size()
+        nbytes = (e * px * c + 4 * n * 6 + e * 9 * c * f + 4 * 2 * f
+                  + e * px * f + (e * px * (c + f) if save else 0))
+        conv, lerps = 2.0 * 9 * c * f * px, 8.0 * c * px
+        b_ms, b_by = (bound_bf16(conv, nbytes, lerps) if bf16
+                      else bound(conv + lerps, nbytes))
         row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                   library_device_ms=lib_dev)
         out["train" if save else "sample"] = row
-        print(f"st_conv {shape} ({'samp and z written' if save else 'out alone'}):"
-              f" kernel {row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), plain "
-              f"{row['plain_ms']:.4f} ms, split route (v4 kernel + cuDNN "
-              f"conv2d + PReLU) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
-              f"{nbytes / row['ms'] / 1e6:.1f} GB/s (CUDA events, median of "
-              f"20 timings of 10 back-to-back calls, order plain-kernel-"
-              f"kernel-plain-split); {card_name}")
+        print(f"{dtype} st_conv {shape} "
+              f"({'samp and z written' if save else 'out alone'}): kernel "
+              f"{row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), device {dev:.4f} "
+              f"ms ({src}), plain {row['plain_ms']:.4f} ms, split route in "
+              f"{dtype} (v4 sampler kernel + cuDNN conv2d + PReLU) "
+              f"{lib:.4f} ms, device {lib_dev:.4f} ms ({src_lib}); bound "
+              f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+              f"{conv / 1e9:.2f} GFLOP of conv at "
+              f"{'989' if bf16 else '67'} TFLOP/s and {lerps / 1e9:.3f} of "
+              f"f32 lerps at 67), {b_ms / dev:.3f} of the bound in device "
+              f"time (CUDA events, median of 20 timings of 10 back-to-back "
+              f"calls, order plain-kernel-kernel-plain-split); {card_name}")
     return out
 
 
@@ -2847,11 +2977,13 @@ def bf16_vs_plain() -> dict:
 
 
 def bf16_counts() -> dict:
-    """Every sampler launch counter since the last reset: the rows kernels'
-    f32 and bf16 counters, the grid kernels' (``grid_`` prefix)."""
+    """Every launch counter of D's kernels since the last reset: the rows
+    kernels' f32 and bf16 counters, the ST-conv kernel's (``st_conv``,
+    ``st_conv_bf16``), the grid kernels' (``grid_`` prefix)."""
     from catgen_torch.kernels import bilinear, bilinear_grid, st_conv
 
     return {**bilinear.launches(), "st_conv": st_conv.LAUNCHES,
+            "st_conv_bf16": st_conv.BF16_LAUNCHES,
             **{f"grid_{k}": v for k, v in bilinear_grid.launches().items()}}
 
 
@@ -3048,13 +3180,24 @@ def bf16_step_card_vs_cpu() -> dict:
     require(all(checks.values()) and draws_same,
             "the remat step differs from the plain step")
 
-    (mc, gc, pc), (mg, gg, pg) = runs[("cpu", False)], runs[("cuda", False)]
+    return compare_bf16_steps(runs[("cpu", False)], runs[("cuda", False)],
+                              "bf16 step")
+
+
+def compare_bf16_steps(cpu, card, what: str) -> dict:
+    """A bf16 step's (metrics, gradients, state tensors) on the card
+    against the CPU's, within the BF16_* bounds; returns the worst
+    gradient error over the update's largest and the parameters'
+    errors."""
+    import torch
+
+    (mc, gc, pc), (mg, gg, pg) = cpu, card
     for name in ("loss_d", "loss_g", "acc_d"):
         a, b = float(getattr(mg, name)), float(getattr(mc, name))
-        print(f"bf16 {name}: card {a:.6f} cpu {b:.6f} rel err "
+        print(f"{what}, {name}: card {a:.6f} cpu {b:.6f} rel err "
               f"{abs(a - b) / max(abs(b), 1e-30):.2e} (tolerance "
               f"{BF16_LOSS_RTOL})")
-        require(abs(a - b) <= BF16_LOSS_RTOL * abs(b), f"bf16 {name}")
+        require(abs(a - b) <= BF16_LOSS_RTOL * abs(b), f"{what}: {name}")
     worst_grad = 0.0
     for phase_name, a, b in zip("DG", gg, gc):
         top = max(v.abs().max().item() for v in b.values())
@@ -3062,20 +3205,20 @@ def bf16_step_card_vs_cpu() -> dict:
             err = (a[k] - b[k]).abs().max().item()
             bound = (BF16_GRAD_REL * b[k].abs().max().item()
                      + BF16_GRAD_FLOOR * top)
-            require(err <= bound, f"bf16 {phase_name} gradient {k}: "
+            require(err <= bound, f"{what}: {phase_name} gradient {k}: "
                                   f"{err:.3e} > {bound:.3e}")
             worst_grad = max(worst_grad, err / top)
     n = beyond = 0
     worst = 0.0
     for k, want in pc.items():
         if not want.is_floating_point():
-            require(torch.equal(pg[k], want), f"bf16 step {k}")
+            require(torch.equal(pg[k], want), f"{what}: {k}")
             continue
         err = (pg[k].float() - want.float()).abs()
         n += err.numel()
         beyond += int((err > PARAM_ATOL).sum())
         worst = max(worst, err.max().item())
-    print(f"bf16 step card vs CPU: gradients within {BF16_GRAD_REL} of the "
+    print(f"{what}, card vs CPU: gradients within {BF16_GRAD_REL} of the "
           f"leaf + {BF16_GRAD_FLOOR} of the largest (worst {worst_grad:.3f}"
           f" of the largest); parameters and states max abs err "
           f"{worst:.3e}, {beyond} of {n} beyond {PARAM_ATOL} (Adam sign "
@@ -3087,13 +3230,19 @@ def bf16_step_card_vs_cpu() -> dict:
             "param_share_beyond": beyond / n}
 
 
-def bf16_step_times(card_name: str, dtype, remat: bool) -> dict:
-    """One configuration of phase 29: bench.py's train step (batch 640,
-    augmentation, logit BCE, Adam) in ``dtype``, with or without remat:
-    median step of 10, images/s, peak device memory, profiled idle
-    share."""
+def bf16_step_times(card_name: str, dtype, remat: bool,
+                    route=None, route_name: str = "") -> dict:
+    """One configuration of phases 29 and 33: bench.py's train step (batch
+    640, augmentation, logit BCE, Adam) in ``dtype``, with or without
+    remat, on the default route or on ``route``: median step of 10,
+    images/s, peak device memory, profiled idle share, and each port
+    kernel's device time in the profiled step (``device_ms``: name ->
+    (ms, launches))."""
+    import contextlib
+
     import torch
     from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
     from catgen_torch.train import gan
     from torch.profiler import ProfilerActivity, profile
 
@@ -3105,26 +3254,32 @@ def bf16_step_times(card_name: str, dtype, remat: bool) -> dict:
     step = gan.make_train_step(g, d, config)
     reals = torch.rand((TRAIN_B // 2, 32, 32, 3), device="cuda")
     draws = Draws(torch.Generator("cuda").manual_seed(0))
-    for _ in range(2):
-        step(state, reals, draws)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step(state, reals, draws)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=10,
-                          warmup=0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with (upconfig.using(**route) if route else contextlib.nullcontext()):
+        for _ in range(2):
+            step(state, reals, draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         step(state, reals, draws)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        peak = torch.cuda.max_memory_allocated()
+        med, lo, hi = wall_ms(lambda: step(state, reals, draws), reps=10,
+                              warmup=0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, reals, draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
     idle = 1 - busy / 1e6 / wall if busy else None
+    device = {e.key: (e.self_device_time_total / 1e3, e.count)
+              for e in kernels if any(k in e.key for k in (
+                  "upsample_conv", "sum_rows", "st_conv", "Layout"))}
     name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
-        (" remat" if remat else "")
+        (" remat" if remat else "") + (f" {route_name} route"
+                                       if route_name else "")
     print(f"train step {name}, batch {TRAIN_B}: median {med:.3f} ms of 10 "
           f"(min {lo:.3f}, max {hi:.3f}) = {2 * TRAIN_B / med * 1e3:.1f} "
           f"images/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
@@ -3132,9 +3287,12 @@ def bf16_step_times(card_name: str, dtype, remat: bool) -> dict:
           f"{busy / 1e3:.3f} ms, idle share "
           f"{'not measured' if idle is None else round(idle, 3)}; "
           f"{card_name}")
+    for key, (ms, count) in sorted(device.items(), key=lambda i: -i[1][0]):
+        print(f"  port kernel in the step: {key[:90]} x{count}, {ms:.4f} ms "
+              f"in all; {card_name}")
     return {"step_ms": med, "images_per_s": 2 * TRAIN_B / med * 1e3,
             "peak_bytes": peak, "idle_share": idle,
-            "device_ms": busy / 1e3}
+            "device_ms": busy / 1e3, "kernel_device_ms": device}
 
 
 def bf16_times(card_name: str, v_generation_ms: float) -> dict:
@@ -3253,6 +3411,217 @@ def bf16_times(card_name: str, v_generation_ms: float) -> dict:
                     out[f"rows_{key}_device"].append(sampler_device_line(
                         key, "rows bf16", shape, kern, library[key],
                         card_name, elem=2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel routes in bf16 (phases 30-33): the upsample-conv kernels' and
+# the ST-conv kernel's bf16 instantiations on G's ladder and per-layer
+# routes and on D's fused prefix
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12        # H100 SXM: bf16 on the tensor cores, dense
+# a bf16 output that sums over every pixel of the batch (dW, dbias) against
+# its plain version: one unit in the last place plus the f32 allowance
+# phase 11 gives such sums (UP_LOOSE of the largest): the plain version's
+# f32 wgrad (cuDNN) is up to ~5.5e-5 of the largest off float64 before its
+# rounding, the kernel's within 1e-6 (dck_vs_float64, which holds the
+# kernel to BF16_FLOOR against float64 and checks that rounding faults
+# fail this floor)
+BF16_SUM_FLOOR = UP_LOOSE
+BF16_UP_KERNELS = tuple((key, f"{name}_bf16", f"BF16_{counter}", replaces,
+                         source)
+                        for key, name, counter, replaces, source in UP_KERNELS)
+BF16_ROUTES = (("ladder", LADDER), ("per-layer", PER_LAYER),
+               ("per-layer hybrid", dict(PER_LAYER, upsample_bwd="hybrid")),
+               ("fused-prefix", FUSED))
+
+
+def bound_bf16(flops: float, nbytes: float, f32_ops: float = 0.0) -> tuple:
+    """(least ms, what bounds it): the larger of the bf16 products' flops
+    over the card's bf16 tensor-core rate (plus any f32 operations beside
+    them over its f32 rate) and the bytes over its memory rate."""
+    t_ops = flops / BF16_FLOPS + f32_ops / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_route_counts() -> dict:
+    """Every launch counter since the last reset: D's kernels'
+    (``bf16_counts``) and the upsample-conv kernels' (prefix ``up_``)."""
+    return {**bf16_counts(),
+            **{f"up_{k}": v for k, v in upsample_counts().items()}}
+
+
+def expected_bf16_route(route, steps: int, g_evals: int,
+                        d_evals: int) -> dict:
+    """``bf16_route_counts`` as the design gives them for ``steps`` bf16
+    train steps with augmentation on ``route``, with ``g_evals`` G and
+    ``d_evals`` D batches in f32 (the visualization samples in f32): the
+    steps' launches on the bf16 instantiations, as ``expected_upsample``
+    and ``expected_sampler`` count them in f32."""
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    up32, up16 = (expected_upsample(route, 0, g_evals),
+                  expected_upsample(route, steps, 0))
+    d32, d16 = (expected_sampler(route, 0, d_evals),
+                expected_sampler(route, steps, 0))
+    want = dict.fromkeys(bf16_route_counts(), 0)
+    for k in fuc.F32_COUNTERS:
+        want[f"up_{k}"], want[f"up_BF16_{k}"] = up32[k], up16[k]
+    want.update(LAUNCHES=d32["fwd"], DCOORDS_LAUNCHES=d32["dcoords"],
+                DIMG_LAUNCHES=d32["dimg"], BF16_LAUNCHES=d16["fwd"],
+                BF16_DCOORDS_LAUNCHES=d16["dcoords"],
+                BF16_DIMG_LAUNCHES=d16["dimg"], st_conv=d32["st_conv"],
+                st_conv_bf16=d16["st_conv"])
+    return want
+
+
+def bf16_routes_cli(root: str) -> dict:
+    """Phase 32, first part: the training CLI with --dtype bf16 --augment
+    (one epoch of 20 steps at batch 64) on the ladder and on the
+    fused-prefix routes, twice each from one seed: every launch as the
+    design gives it (per step on the bf16 instantiations: ladder 6 block
+    forwards, 3 block dX, 3 block dCK; fused prefix 2 ST-conv, 3 sampler
+    forwards, 4 d_coords, 3 d_img; the visualization's G and D batches
+    in f32), and the same checkpoint bits from both runs. Returns each
+    route's counts and steps."""
+    import numpy as np
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.data.fixture import write_fixture_dataset
+    from catgen_torch.kernels import config as upconfig
+
+    corpus = write_fixture_dataset(os.path.join(root, "corpus"), n=256)
+    args = list(TRAIN_ARGS[2:])                # no --fixture: one corpus
+    args[args.index("--epochs") + 1] = "1"
+    out = {}
+    for name, route in (("ladder", LADDER), ("fused-prefix", FUSED)):
+        leaves = []
+        for run in range(2):
+            save = os.path.join(root, f"{name}{run}")
+            reset_counts()
+            with upconfig.using(**route):
+                harness = train_cli.main(
+                    args + ["--dataset", corpus, "--device", "cuda",
+                            "--save", save, "--seed", "5", "--dtype",
+                            "bf16"])
+            if run == 0:
+                counts, steps = bf16_route_counts(), harness.state.step
+                want = expected_bf16_route(route, steps, 1, 2)
+                shown = {k: v for k, v in counts.items() if v or want[k]}
+                print(f"bf16 training CLI on the {name} route: {steps} "
+                      f"steps, 1 visualization; launches {shown}, expected "
+                      f"{ {k: want[k] for k in shown} }")
+                require(steps == 20 and counts == want,
+                        f"the bf16 {name} route's kernel launches")
+                with open(os.path.join(save, "train_metrics.jsonl")) as f:
+                    epoch = [e for e in map(json.loads, f)
+                             if e["event"] == "epoch"][0]
+                print(f"bf16 {name} epoch: loss_d {epoch['loss_d']:.5f} "
+                      f"loss_g {epoch['loss_g']:.5f} acc_d "
+                      f"{epoch['acc_d']:.4f}")
+                require(all(math.isfinite(epoch[k])
+                            for k in ("loss_d", "loss_g")),
+                        f"non-finite bf16 losses on the {name} route")
+                out[name] = (counts, steps)
+            with np.load(os.path.join(save, "adversarial.ckpt")) as z:
+                leaves.append({k: z[k] for k in z.files if k != "__meta__"})
+        a, b = leaves
+        differ = sorted(k for k in a if k not in b
+                        or a[k].tobytes() != b[k].tobytes())
+        print(f"two same-seed bf16 training CLI runs on the {name} route: "
+              f"{len(a)} checkpoint arrays, {len(differ)} differ in any bit"
+              f"{': ' + ', '.join(differ[:5]) if differ else ''}")
+        require(a.keys() == b.keys() and not differ,
+                f"same-seed bf16 CLI runs on the {name} route wrote "
+                f"different checkpoints")
+        bn = [k for k in a if "BatchNorm" in k]
+        require(bn and all(a[k].dtype == np.float32 for k in bn),
+                "the bf16 checkpoint's BatchNorm statistics are not f32")
+    return out
+
+
+def bf16_route_step_card_vs_cpu(name: str, route) -> dict:
+    """Phase 32, second part: one bf16 step at batch 8 with augmentation
+    on ``route``, on the CPU (the kernels' bf16 plain versions) and on the
+    card (their bf16 instantiations) from the same weights and draws:
+    the card's launches as designed for one step, and card against CPU
+    within phase 28's bounds. Returns the comparison and the launches."""
+    import copy
+
+    import torch
+    from catgen_torch import optim
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import gan
+
+    config = gan.GanConfig(batch_size=8, augment=True,
+                           compute_dtype=torch.bfloat16)
+    g, d = seeded_pair(3, G_GAIN, D_GAIN)
+    reals = torch.rand((4, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(4))
+    real_cap = optim.clamp_and_penalize
+    runs, recorded, counts = {}, None, None
+    mode = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in ("cpu", "cuda"):
+            gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+            state = gan.init_state(gd, dd, config)
+            grads = []
+
+            def spy(gr, *a, **k):
+                grads.append({n: t.detach().cpu() for n, t in gr.items()})
+                return real_cap(gr, *a, **k)
+
+            draws = (RecordingDraws(Draws(torch.Generator().manual_seed(5)))
+                     if dev == "cpu" else ReplayedDraws(recorded.taken, dev))
+            optim.clamp_and_penalize = spy
+            reset_counts()
+            try:
+                with upconfig.using(**route):
+                    m = gan.make_train_step(gd, dd, config)(
+                        state, reals.to(dev), draws)
+            finally:
+                optim.clamp_and_penalize = real_cap
+            if dev == "cpu":
+                recorded = draws
+            else:
+                torch.cuda.synchronize()
+                require(not draws.taken, "the card drew less than the CPU")
+                counts = bf16_route_counts()
+            runs[dev] = (m, grads, _state_tensors(state))
+    finally:
+        torch.backends.cudnn.deterministic = mode
+    want = expected_bf16_route(route, 1, 0, 0)
+    print(f"bf16 step on the {name} route, on the card: launches "
+          f"{ {k: v for k, v in counts.items() if v} }, expected "
+          f"{ {k: v for k, v in want.items() if v} }")
+    require(counts == want, f"the bf16 {name} step's kernel launches")
+    return {**compare_bf16_steps(runs["cpu"], runs["cuda"],
+                                 f"bf16 step on the {name} route"),
+            "launches": counts}
+
+
+def bf16_route_step_times(card_name: str) -> dict:
+    """Phase 33, the steps: the bf16 train step at B=640 (bench.py's
+    configuration) on the default, ladder, per-layer and fused-prefix
+    routes in one run, in that order: time, images/s, peak memory, idle
+    share and each port kernel's device time in a profiled step."""
+    import torch
+
+    out = {}
+    for name, route in (("default", None), ("ladder", LADDER),
+                        ("per-layer", PER_LAYER), ("fused-prefix", FUSED)):
+        out[name] = bf16_step_times(card_name, torch.bfloat16, False, route,
+                                    name)
+        torch.cuda.empty_cache()
+    base = out["default"]["step_ms"]
+    print("bf16 train step, batch 640: " + ", ".join(
+        f"{name} route {r['step_ms']:.3f} ms ({r['step_ms'] / base:.3f} of "
+        f"the default)" for name, r in out.items())
+          + f" (same run, in that order); {card_name}")
     return out
 
 
@@ -3415,6 +3784,39 @@ def main(argv=None) -> int:
         **{k: bt[k] for k in ("f32", "bf16", "f32_remat", "bf16_remat",
                               "v_f32", "v_bf16")}}}))
 
+    phase(30, "the bf16 upsample-conv kernels against their bf16 plain "
+              "versions and float64 at G32up-c's stage shapes, batch 640")
+    t0 = time.perf_counter()
+    bf16_up_err = upsample_vs_plain(bf16=True)
+    exact16 = dck_vs_float64(bf16=True)
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s")
+    phase(31, "the bf16 ST-conv kernel against its bf16 plain version")
+    t0 = time.perf_counter()
+    bf16_st_err = st_conv_vs_plain(bf16=True)
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_routes_") as root:
+        phase(32, "the training CLI in bf16 on the ladder and fused-prefix "
+                  "routes, twice from one seed; one bf16 step on each "
+                  "kernel route, card against CPU")
+        t0 = time.perf_counter()
+        bf16_cli = bf16_routes_cli(root)
+    bf16_route_steps = {name: bf16_route_step_card_vs_cpu(name, route)
+                        for name, route in BF16_ROUTES}
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s")
+    phase(33, f"bf16 kernel and kernel-route step times on the card, batch "
+              f"{TRAIN_B}")
+    t0 = time.perf_counter()
+    bkt = upsample_times(card_name, bf16=True)
+    st16 = st_conv_times(card_name, bf16=True)
+    brt = bf16_route_step_times(card_name)
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"bf16_kernel_routes": {
+        "card": card_name,
+        "steps_card_vs_cpu": {k: {m: v[m] for m in v if m != "launches"}
+                              for k, v in bf16_route_steps.items()},
+        "steps": {k: {m: v[m] for m in v if m != "kernel_device_ms"}
+                  for k, v in brt.items()}}}))
+
     from catgen_torch.kernels import bilinear
 
     def by_shape(values, shapes=TRAIN_SHAPES):
@@ -3467,13 +3869,38 @@ def main(argv=None) -> int:
                  "DX_LAUNCHES": per_layer["pallas"],
                  "DCK_LAUNCHES": per_layer["pallas"]}
     stages = [stage_shape(i, TRAIN_B) for i in range(3)]
-    patterns = {"fwd": "upsample_conv_fwd<false", "block":
-                "upsample_conv_fwd<true", "dx": "upsample_conv_dx<false",
-                "dck": "upsample_conv_dck<false", "block_dx":
-                "upsample_conv_dx<true", "block_dck":
-                "upsample_conv_dck<true"}
+
+    def up_pattern(key: str, suffix: str = "") -> str:
+        """The profiler name of an upsample-conv kernel's instantiations."""
+        op = "fwd" if key == "block" else key.removeprefix("block_")
+        return (f"upsample_conv_{op}{suffix}<"
+                f"{'true' if key.startswith('block') else 'false'}")
+
+    def up_times(rows) -> dict:
+        """An upsample-conv kernel's times over the three stages, and each
+        stage's."""
+        names = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                 "library_device_ms")
+        return {**{k: sum(r[k] for r in rows) for k in names},
+                "bound_by": "operations" if all(
+                    r["bound_by"] == "operations" for r in rows) else "bytes",
+                **{f"{k}_by_shape": by_shape([r[k] for r in rows], stages)
+                   for k in names}}
+
+    def st_entry(name, err, rows, library, **extra) -> dict:
+        """The ST-conv kernel's entry: the training path's times, the
+        sampling path's beside them."""
+        return {"name": name, "route": "cuda",
+                "source": "catgen_torch/csrc/st_conv.cu",
+                "replaces": "catgen/kernels/pallas_st_conv.py:154", **extra,
+                "max_abs_err": err["out"], "max_rel_err": err["out_rel"],
+                "z_max_abs_err": err["z"], "z_max_rel_err": err["z_rel"],
+                "samp_max_abs_err": err["samp"], **rows["train"],
+                "library": library, "shape": str(ST_SHAPES[0]),
+                "sampling_path": {"shape": str(ST_SHAPES[1]),
+                                  **rows["sample"]}}
+
     for key, name, counter, replaces, source in UP_KERNELS:
-        rows = ut[key]
         path = main_path.get(counter, ladder_train)
         profiled = rt["per-layer" if counter in main_path else "ladder"]
         kernels.append({
@@ -3490,51 +3917,22 @@ def main(argv=None) -> int:
             "max_rel_err": up_err[f"{key}_rel"],
             **({"max_rel_err_vs_float64": exact[key]}
                if key in exact else {}),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": "operations" if all(
-                r["bound_by"] == "operations" for r in rows) else "bytes",
-            **({"bound_f32_ms": sum(r["bound_f32_ms"] for r in rows),
-                "bound_note": "3xTF32 on the tensor cores: 3 x 2 x MACs "
-                              "/ 495e12; bound_f32_ms: 2 x MACs / 67e12"}
-               if key in TF32_KEYS else {}),
-            "library_ms": sum(r["library_ms"] for r in rows),
-            "device_ms_per_step": device_step_ms(profiled, patterns[key]),
-            "ms_by_shape": by_shape([r["ms"] for r in rows], stages),
-            "plain_ms_by_shape": by_shape([r["plain_ms"] for r in rows],
-                                          stages),
-            "library_ms_by_shape": by_shape([r["library_ms"] for r in rows],
-                                            stages),
-            "bound_ms_by_shape": by_shape([r["bound_ms"] for r in rows],
-                                          stages),
-            **({"device_ms_by_shape": by_shape(
-                    [r["device_ms"] for r in rows], stages),
-                "library_device_ms_by_shape": by_shape(
-                    [r["library_device_ms"] for r in rows], stages)}
-               if "device_ms" in rows[0] else {}),
+            **up_times(ut[key]),
+            "bound_f32_ms": sum(r["bound_f32_ms"] for r in ut[key]),
+            "bound_note": "3xTF32 on the tensor cores: 3 x 2 x MACs / "
+                          "495e12; bound_f32_ms: 2 x MACs / 67e12",
+            "device_ms_per_step": device_step_ms(profiled, up_pattern(key)),
         })
-    st_row, st_sample = st_t["train"], st_t["sample"]
-    kernels.append({
-        "name": "st_conv_prelu", "route": "cuda",
-        "source": "catgen_torch/csrc/st_conv.cu",
-        "replaces": "catgen/kernels/pallas_st_conv.py:154",
-        "launches": fused_train["st_conv"],
-        "launches_by_path": {
+    kernels.append(st_entry(
+        "st_conv_prelu", st_err, st_t,
+        "split route: v4 sampler kernel + cuDNN conv2d + PReLU",
+        launches=fused_train["st_conv"],
+        launches_by_path={
             "sample_fused_prefix": fused_sample["st_conv"],
             "train_fused_prefix": fused_train["st_conv"],
             "step_card_vs_cpu": fused_step["launches"]["st_conv"]},
-        "max_abs_err": st_err["out"], "max_rel_err": st_err["out_rel"],
-        "z_max_rel_err": st_err["z_rel"], "samp_max_abs_err": st_err["samp"],
-        "ms": st_row["ms"], "plain_ms": st_row["plain_ms"],
-        "bound_ms": st_row["bound_ms"], "bound_by": st_row["bound_by"],
-        "library_ms": st_row["library_ms"],
-        "library": "split route: v4 sampler kernel + cuDNN conv2d + PReLU",
-        "device_ms_per_step": device_step_ms(rd["fused-prefix"],
-                                             "st_conv_prelu_kernel"),
-        "shape": str(ST_SHAPES[0]),
-        "sampling_path": {"shape": str(ST_SHAPES[1]), **st_sample},
-    })
+        device_ms_per_step=device_step_ms(rd["fused-prefix"],
+                                          "st_conv_prelu_kernel")))
     also = {"fwd": ["catgen/kernels/pallas_bilinear_v2.py:135",
                     "catgen/kernels/pallas_bilinear_v3.py:126"],
             "bwd": ["catgen/kernels/pallas_bilinear_v2.py:171",
@@ -3618,6 +4016,42 @@ def main(argv=None) -> int:
                         [lib for _, lib in bt[f"rows_{key}_device"]])}
                    if layout == "rows" else {}),
             })
+    # the bf16 instantiations of rows 3-7 (phases 30-33): the block kernels
+    # on the bf16 ladder training CLI's path, the per-layer kernels on one
+    # bf16 per-layer step, the ST-conv kernel on the bf16 fused-prefix CLI
+    ladder16, fused16 = bf16_cli["ladder"][0], bf16_cli["fused-prefix"][0]
+    per_layer16 = bf16_route_steps["per-layer"]["launches"]
+    for key, name, counter, replaces, source in BF16_UP_KERNELS:
+        block = key.startswith("block")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"catgen_torch/csrc/{source}", "replaces": replaces,
+            "launches": (ladder16 if block else per_layer16)[f"up_{counter}"],
+            "launches_by_path": {
+                "train_ladder_bf16": ladder16[f"up_{counter}"],
+                **{f"step_{r.replace('-', '_').replace(' ', '_')}_bf16":
+                   bf16_route_steps[r]["launches"][f"up_{counter}"]
+                   for r, _ in BF16_ROUTES}},
+            "max_abs_err": bf16_up_err[key],
+            "max_rel_err": bf16_up_err[f"{key}_rel"],
+            **({"max_rel_err_vs_float64": exact16[key]}
+               if key in exact16 else {}),
+            **up_times(bkt[key]),
+            "device_ms_per_step": device_step_ms(
+                {"device_ms": brt["ladder" if block else "per-layer"][
+                    "kernel_device_ms"]}, up_pattern(key, "_bf16")),
+        })
+    kernels.append(st_entry(
+        "st_conv_prelu_bf16", bf16_st_err, st16,
+        "split route in bf16: bf16 v4 sampler kernel + cuDNN conv2d + PReLU",
+        launches=fused16["st_conv_bf16"],
+        launches_by_path={
+            "train_fused_prefix_bf16": fused16["st_conv_bf16"],
+            "step_fused_prefix_bf16":
+                bf16_route_steps["fused-prefix"]["launches"]["st_conv_bf16"]},
+        device_ms_per_step=device_step_ms(
+            {"device_ms": brt["fused-prefix"]["kernel_device_ms"]},
+            ("st_conv_prelu_kernel", "bfloat16"))))
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -442,11 +442,10 @@ def test_grid_cuda_tensors_never_fall_back(cuda, bad):
 # ---------------------------------------------------------------------------
 # the fused ST-conv kernel (kernels/st_conv.py). Tolerances as chip_smoke.py
 # holds it: out and z within 1e-5 of the largest plain value (27-term sums
-# in another order; a coordinate may differ from the plain matmul's in its
-# last bit), samp within 1e-5 absolute. The backward (the Function) within
-# 1e-4 of each gradient's largest: a z within rounding of 0 can take the
-# other side of the PReLU's kink, which moves dalpha, dbias and what
-# follows by that element's cotangent.
+# in another order), samp within 1e-5 absolute. The backward (the
+# Function) within 1e-4 of each gradient's largest: a z within rounding of
+# 0 can take the other side of the PReLU's kink, which moves dalpha, dbias
+# and what follows by that element's cotangent.
 # ---------------------------------------------------------------------------
 
 ST_SHAPES = [                   # (N, H, W, C, F)
@@ -1393,3 +1392,246 @@ def test_bf16_gather_dimg_gives_the_emulated_bits(cuda, shape, layout):
                        g.float().cpu().numpy().reshape(n, -1, c), (h, w))
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.cpu(), want.bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instantiations of the upsample-conv kernels (forward, dX, dCK)
+# and of the ST-conv kernel against their bf16 plain versions (f32 sums of
+# the bf16 operands, rounded where catgen's kernels round): each bf16
+# output within _bf16_close's bound (one unit in the last place of the
+# plain value plus 2^-16 of the largest: f32 sums of another order,
+# rounded once); the f32 sums (statistics, the transform's gradients,
+# dbias of the block) within UP_LOOSE of their largest; repeats bit for
+# bit; an input off a 16-byte boundary, and channel counts that are not
+# multiples of 8, take the 2-byte copies and give the same bits as the
+# 16-byte copies.
+# ---------------------------------------------------------------------------
+
+BF16_UP_SHAPES = UP_SHAPES + [
+    (2, 8, 8, 128, 64, 3),     # 16-byte copies, cout under one tile
+    (2, 4, 5, 16, 12, 5),      # cin % 8 == 0, cout % 8 != 0
+]
+
+
+def _bf16_up_inputs(shape, device, seed=0, alpha_n=1):
+    """``_up_inputs`` rounded to bf16, the stats cotangents f32."""
+    return {k: t if k in ("gs1", "gs2") else t.bfloat16()
+            for k, t in _up_inputs(shape, device, seed, alpha_n).items()}
+
+
+def _bf16_or_f32_close(got, want, name):
+    if want.dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        assert got.dtype == torch.float32, name
+        _up_close(got, want, UP_LOOSE, name)
+
+
+def _misaligned_copy(t):
+    """t's values in a tensor 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bf16_counts():
+    return {k: v for k, v in fuc.launches().items() if k.startswith("BF16")}
+
+
+@pytest.mark.parametrize("shape", BF16_UP_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_bf16_upsample_forward_matches_plain(f32_cuda, shape, alpha):
+    cout = shape[4]
+    v = _bf16_up_inputs(shape, f32_cuda, seed=60,
+                        alpha_n=1 if alpha == "scalar" else cout)
+    before = fuc.launches()
+    got = fuc.upsample2_conv_fused(v["x"], v["weight"], v["bias"],
+                                   v["alpha"])
+    torch.cuda.synchronize()
+    assert fuc.launches() == dict(before,
+                                  BF16_LAUNCHES=before["BF16_LAUNCHES"] + 1)
+    want = fuc.block_plain(v["x"], v["weight"], v["bias"],
+                           prelu_alpha=v["alpha"])
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("shape", BF16_UP_SHAPES)
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_bf16_upsample_block_matches_plain(f32_cuda, shape, with_stats):
+    v = _bf16_up_inputs(shape, f32_cuda, seed=61, alpha_n=shape[3])
+    args = (v["x"], v["weight"], v["bias"], v["scale"], v["shift"],
+            v["alpha"])
+    before = fuc.BF16_BLOCK_LAUNCHES
+    got = fuc.upsample2_conv_block_fused(*args, with_stats=with_stats)
+    torch.cuda.synchronize()
+    assert fuc.BF16_BLOCK_LAUNCHES == before + 1
+    want = fuc.block_plain(*args, with_stats=with_stats)
+    if not with_stats:
+        got, want = (got,), (want,)
+    for name, a, b in zip(("y", "s1", "s2"), got, want):
+        _bf16_or_f32_close(a, b, name)
+
+
+@pytest.mark.parametrize("shape", BF16_UP_SHAPES)
+def test_bf16_upsample_backward_matches_plain(f32_cuda, shape):
+    v = _bf16_up_inputs(shape, f32_cuda, seed=62)
+    before = (fuc.BF16_DX_LAUNCHES, fuc.BF16_DCK_LAUNCHES)
+    got = fuc.upsample2_conv_backward(v["x"], v["weight"], v["gy"])
+    torch.cuda.synchronize()
+    assert (fuc.BF16_DX_LAUNCHES, fuc.BF16_DCK_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = fuc.kernel_backward_plain(v["x"], v["weight"], v["gy"])
+    for name, a, b in zip(("dx", "dweight", "dbias"), got, want):
+        assert b.dtype == torch.bfloat16, name
+        _bf16_or_f32_close(a, b, name)
+
+
+@pytest.mark.parametrize("shape", BF16_UP_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_bf16_block_backward_matches_plain(f32_cuda, shape, alpha):
+    v = _bf16_up_inputs(shape, f32_cuda, seed=63,
+                        alpha_n=1 if alpha == "scalar" else shape[3])
+    y = fuc.upsample2_conv_block_fused(v["x"], v["weight"], v["bias"],
+                                       v["scale"], v["shift"], v["alpha"],
+                                       with_stats=False)
+    args = (v["x"], v["scale"], v["shift"], v["alpha"], v["weight"], y,
+            v["gy"], v["gs1"], v["gs2"])
+    before = (fuc.BF16_BLOCK_DX_LAUNCHES, fuc.BF16_BLOCK_DCK_LAUNCHES)
+    got = fuc.fused_block_backward(*args)
+    torch.cuda.synchronize()
+    assert (fuc.BF16_BLOCK_DX_LAUNCHES, fuc.BF16_BLOCK_DCK_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = fuc.block_backward_plain(*args)
+    for name, a, b in zip(
+            ("dx", "dscale", "dshift", "dalpha", "dweight", "dbias"), got,
+            want):
+        _bf16_or_f32_close(a, b, name)
+
+
+@pytest.mark.parametrize("shape", [BF16_UP_SHAPES[3], BF16_UP_SHAPES[5]])
+def test_bf16_upsample_kernels_repeat_and_ignore_alignment(f32_cuda, shape):
+    # a bf16 x, g and y 2 bytes off a 16-byte boundary take the 2-byte
+    # copies: the same sums in the same order, so the same bits
+    v = _bf16_up_inputs(shape, f32_cuda, seed=64, alpha_n=shape[3])
+
+    def run(x, gy):
+        y = fuc.upsample2_conv_block_fused(x, v["weight"], v["bias"],
+                                           v["scale"], v["shift"],
+                                           v["alpha"])
+        return (list(y) + list(fuc.upsample2_conv_backward(x, v["weight"],
+                                                           gy))
+                + list(fuc.fused_block_backward(
+                    x, v["scale"], v["shift"], v["alpha"], v["weight"],
+                    _misaligned_copy(y[0]) if x is not v["x"] else y[0],
+                    gy, v["gs1"], v["gs2"])))
+
+    first, again = run(v["x"], v["gy"]), run(v["x"], v["gy"])
+    off = run(_misaligned_copy(v["x"]), _misaligned_copy(v["gy"]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(first, off))
+
+
+@pytest.mark.parametrize("bad", ["f32_weight", "f32_bias", "f32_scale",
+                                 "f32_g"])
+def test_bf16_upsample_refuses_mixed_dtypes(f32_cuda, bad):
+    v = _bf16_up_inputs(UP_SHAPES[0], f32_cuda, alpha_n=UP_SHAPES[0][3])
+    name = bad[4:] if bad != "f32_g" else "gy"
+    v[name] = v[name].float()
+    before = fuc.launches()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "f32_g":
+            fuc.upsample2_conv_backward(v["x"], v["weight"], v["gy"])
+        else:
+            fuc.upsample2_conv_block_fused(v["x"], v["weight"], v["bias"],
+                                           v["scale"], v["shift"],
+                                           v["alpha"])
+    assert fuc.launches() == before
+
+
+def test_bf16_upsample_route_launches_the_bf16_kernels(f32_cuda):
+    from catgen_torch.kernels.upsample_conv import UpsampleConv
+
+    layer = UpsampleConv(9, 11).to(f32_cuda)
+    x = _up_inputs(UP_SHAPES[0], f32_cuda)["x"].bfloat16().requires_grad_()
+    fuc.reset_launches()
+    with upconfig.using(upsample_impl="pallas", upsample_bwd="pallas"):
+        layer(x).sum().backward()
+    assert fuc.launches() == dict(
+        dict.fromkeys(fuc.COUNTERS, 0), BF16_LAUNCHES=1, BF16_DX_LAUNCHES=1,
+        BF16_DCK_LAUNCHES=1)
+    assert x.grad.dtype == torch.bfloat16
+    assert layer.weight.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape", ST_SHAPES)
+@pytest.mark.parametrize("channelwise", [False, True])
+def test_bf16_st_conv_kernel_matches_plain(f32_cuda, shape, channelwise):
+    img, *params = _st_inputs(shape, f32_cuda, seed=65,
+                              channelwise=channelwise)
+    img = img.bfloat16()
+    before = (st_conv.LAUNCHES, st_conv.BF16_LAUNCHES)
+    out, samp, z = st_conv.launch(img, *params)
+    light = st_conv.launch(img, *params, save=False)
+    torch.cuda.synchronize()
+    assert (st_conv.LAUNCHES, st_conv.BF16_LAUNCHES) == (before[0],
+                                                         before[1] + 2)
+    assert light[1] is None and light[2] is None
+    assert torch.equal(light[0], out)
+    want = st_conv._forward_plain(img, *params)
+    assert out.dtype == samp.dtype == z.dtype == torch.bfloat16
+    for a, b in zip((out, z), want[::2]):
+        _bf16_close(a, b.contiguous())
+    # the plain version samples at the kernel's coordinates: the same bits
+    assert torch.equal(samp, want[1])
+
+
+def test_bf16_st_conv_kernel_repeats_bit_for_bit(f32_cuda):
+    img, *params = _st_inputs(ST_SHAPES[0], f32_cuda, seed=66,
+                              channelwise=True)
+    img = img.bfloat16()
+    first, again = st_conv.launch(img, *params), st_conv.launch(img, *params)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("image_grad", [True, False])
+def test_bf16_st_conv_backward_matches_the_cpu(f32_cuda, image_grad):
+    # the same Function (catgen's VJP) on the card (the bf16 sampler
+    # kernels) and on the CPU (their plain versions)
+    args = list(_st_inputs(ST_SHAPES[1], f32_cuda, seed=67,
+                           channelwise=True))
+    args[0] = args[0].bfloat16()
+    g = torch.randn((2, 12, 16, 31), device=f32_cuda,
+                    generator=torch.Generator(f32_cuda).manual_seed(3)
+                    ).bfloat16()
+    grads = []
+    for dev in (f32_cuda, "cpu"):
+        leaves = [a.detach().to(dev).requires_grad_(i > 0 or image_grad)
+                  for i, a in enumerate(args)]
+        before = bilinear.launches()
+        out = st_conv.st_conv_prelu(*leaves)
+        grads.append(torch.autograd.grad(
+            out, [a for a in leaves if a.requires_grad], g.to(dev)))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            after = bilinear.launches()
+            assert (after["BF16_DCOORDS_LAUNCHES"]
+                    - before["BF16_DCOORDS_LAUNCHES"],
+                    after["BF16_DIMG_LAUNCHES"]
+                    - before["BF16_DIMG_LAUNCHES"]) == (1, int(image_grad))
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype
+        if image_grad and a.dtype == torch.bfloat16:
+            assert a.shape == args[0].shape
+        err = (a.float().cpu() - b.float()).abs().max().item()
+        assert err <= 1e-2 * b.float().abs().max().item()
+
+
+def test_bf16_st_conv_refuses_bf16_parameters(f32_cuda):
+    img, theta, kernel, bias, alpha = _st_inputs(ST_SHAPES[1], f32_cuda)
+    before = (st_conv.LAUNCHES, st_conv.BF16_LAUNCHES)
+    with pytest.raises(TypeError):
+        st_conv.st_conv_prelu(img.bfloat16(), theta, kernel.bfloat16(), bias,
+                              alpha)
+    assert (st_conv.LAUNCHES, st_conv.BF16_LAUNCHES) == before
