@@ -1,7 +1,8 @@
 // Nearest-2x upsample + k x k 'same' conv as four collapsed parity convs in
 // one pass, with the optional pieces of both TPU forms:
 //   * an input transform prelu(x * scale + shift, alpha), the previous
-//     ladder stage's BatchNorm affine and PReLU, applied as x is staged;
+//     ladder stage's BatchNorm affine and PReLU, applied as x is staged
+//     (f32; in bf16 it runs first as its own pass, upsample_conv_prep.cu);
 //     a halo element outside the image is 0, not the transform of 0, as
 //     the unfused BN -> PReLU -> upsample -> zero-padded conv gives;
 //   * bias, and a PReLU epilogue (one slope or one per output channel);
@@ -444,11 +445,13 @@ cudaError_t launch_fwd(bool vec, const float* x, const float* wst,
 //     a step advance 32 bytes a row as its k8 TF32 products do.
 //   * Both operands land in place: A (x, NHWC) as in f32, and B from the
 //     transposed parity stack (4, kh, kw, cout, cin) that the wrapper
-//     makes, K-major as it lies. No split and no transposing pass; with
-//     the input transform, the thread that copied an A chunk applies it
-//     in f32 and the halo mask (0 outside the image, after the
-//     transform) once the chunk has landed, and rounds it once to bf16,
-//     as catgen rounds the transformed block to x's dtype.
+//     makes, K-major as it lies. No split and no transposing pass. The
+//     block's input transform is not applied here: its pass
+//     (upsample_conv_prep.cu) writes xn once per element, rounded once as
+//     catgen rounds the transformed block to x's dtype, and this kernel
+//     reads xn as x, its zero-filled copies giving the halo's 0. (Applied
+//     to each staged chunk, the transform would run once per parity, tap
+//     and cout tile, 32-64 times per element, between a step's products.)
 //   * Fresh accumulators each 64-deep step, the steps added in f32 (the
 //     tensor cores' truncating adds, as in f32); bias and PReLU in f32 on
 //     the sums, the statistics from the unrounded f32 values, y rounded
@@ -475,17 +478,17 @@ static_assert(kTileM == fwd::kTileM && kTileN == fwd::kTileN &&
 }  // namespace fwd16
 
 // x (n, h, w, cin); wstt (4, kh, kw, cout, cin); y (n, 2h, 2w, cout), all
-// bf16, as bias, prelu and the transform; partial (4 * m_tiles, 2, cout)
-// f32 when kStats. Blocks in order parity, cout tile, pixel tile (fastest
-// to slowest).
-template <bool kTransform, bool kStats, bool kVec>
+// bf16, as bias and prelu; partial (4 * m_tiles, 2, cout) f32 when
+// kStats. Blocks in order parity, cout tile, pixel tile (fastest to
+// slowest).
+template <bool kStats, bool kVec>
 __global__ void __launch_bounds__(fwd16::kThreads, 1)
 upsample_conv_fwd_bf16(const bf16* __restrict__ x,
                        const bf16* __restrict__ wstt,
                        const bf16* __restrict__ bias,
                        const bf16* __restrict__ prelu, int prelu_n,
-                       TransformT<bf16> tr, bf16* __restrict__ y,
-                       float* __restrict__ partial, Geometry g) {
+                       bf16* __restrict__ y, float* __restrict__ partial,
+                       Geometry g) {
   using namespace fwd16;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   // the tiles start at the first 1024-byte boundary (the swizzle's period)
@@ -525,7 +528,6 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
     avalid |= (uint32_t)ok << r;
   }
 
-  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
   int ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
 
   auto load_stage = [&](int kt) {
@@ -534,7 +536,6 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
     bf16* b_dst = reinterpret_cast<bf16*>(tile(kB + slot));
     const int c = ld_cs * kStep + 8 * acq;
     const int du = g.umin_h[d] + ld_u, dv = g.umin_w[e] + ld_v;
-    uint32_t bits = 0;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int si = ai[r] + du, sj = aj[r] + dv;
@@ -543,7 +544,6 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
       const bf16* src = x + ((int64_t)apix[r] + du * g.w + dv) * g.cin + c;
       copy8<kVec>(a_dst + chunk_at(32 * r + arow, acq) / 2, src, x,
                   inb && (!kVec || c < g.cin), c, g.cin);
-      bits |= (uint32_t)inb << r;
     }
     const bf16* wtap =
         wstt + (((int64_t)p * g.kh + ld_u) * g.kw + ld_v) * g.cout * g.cin;
@@ -554,7 +554,6 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
                   wtap + (int64_t)co * g.cin + c, wstt,
                   co < g.cout && (!kVec || c < g.cin), c, g.cin);
     }
-    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
     if (++ld_cs == csteps) {
       ld_cs = 0;
       if (++ld_v == g.kw) {
@@ -564,41 +563,10 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
     }
   };
 
-  // stage kt's own chunks, once they have landed: with the transform,
-  // A's transform and halo in f32, rounded once, in place. Then visible
-  // to wgmma. Stage kt + 1's copies may still be in flight.
-  auto prepare_stage = [&](int kt) {
-    float sc[8], sh[8], al[8];
-    const int c = (kt % csteps) * kStep + 8 * acq;
-    if (kTransform) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const bool ok = c + q < g.cin;
-        sc[q] = ok ? ldf(tr.scale + c + q) : 0.0f;
-        sh[q] = ok ? ldf(tr.shift + c + q) : 0.0f;
-        al[q] = ok ? ldf(tr.alpha + c + q) : 0.0f;
-      }
-    }
+  // stage kt's own chunks, once they have landed, made visible to wgmma.
+  // Stage kt + 1's copies may still be in flight.
+  auto prepare_stage = [&]() {
     cp_async_wait<1>();             // this thread's copies of stage kt
-    if (kTransform) {
-      uint8_t* a = tile(kA + kt % 3);
-      const uint32_t bits = masks >> (4 * (kt % 3));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        uint4* chunk = reinterpret_cast<uint4*>(a + chunk_at(32 * r + arow,
-                                                             acq));
-        float v[8];
-        unpack8(*chunk, v);
-        const bool inb = (bits >> r) & 1u;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          // prelu(x * scale + shift) in f32, as the plain version's
-          const float xt = v[q] * sc[q] + sh[q];
-          v[q] = inb ? (xt >= 0.0f ? xt : al[q] * xt) : 0.0f;
-        }
-        *chunk = pack8(v);
-      }
-    }
     fence_async_shared();
   };
 
@@ -613,7 +581,7 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
   cp_async_commit();
   if (steps > 1) load_stage(1);
   cp_async_commit();
-  if (steps > 0) prepare_stage(0);
+  if (steps > 0) prepare_stage();
   __syncthreads();
   for (int kt = 0; kt < steps; ++kt) {
     if (kt + 2 < steps) load_stage(kt + 2);
@@ -626,7 +594,7 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
       wgmma_bf16(acc, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
     }
     wgmma_commit();
-    if (kt + 1 < steps) prepare_stage(kt + 1);
+    if (kt + 1 < steps) prepare_stage();
     wgmma_wait(acc);
 #pragma unroll
     for (int k = 0; k < 64; ++k) sum[k] += acc[k];
@@ -638,32 +606,32 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
                        co0, m0, mtile);
 }
 
-template <bool kTransform, bool kStats, bool kVec>
+template <bool kStats, bool kVec>
 cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wstt,
                             const bf16* bias, const bf16* prelu, int prelu_n,
-                            TransformT<bf16> tr, bf16* y, float* partial,
-                            const Geometry& g, cudaStream_t s) {
+                            bf16* y, float* partial, const Geometry& g,
+                            cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      upsample_conv_fwd_bf16<kTransform, kStats, kVec>,
+      upsample_conv_fwd_bf16<kStats, kVec>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, fwd16::kSmemBytes);
   if (err != cudaSuccess) return err;
   const int64_t blocks = 4 * ceil_div(g.cout, fwd16::kTileN) *
                          ceil_div((int64_t)g.n * g.h * g.w, fwd16::kTileM);
-  upsample_conv_fwd_bf16<kTransform, kStats, kVec>
+  upsample_conv_fwd_bf16<kStats, kVec>
       <<<(unsigned)blocks, fwd16::kThreads, fwd16::kSmemBytes, s>>>(
-          x, wstt, bias, prelu, prelu_n, tr, y, partial, g);
+          x, wstt, bias, prelu, prelu_n, y, partial, g);
   return cudaGetLastError();
 }
 
-template <bool kTransform, bool kStats>
+template <bool kStats>
 cudaError_t launch_fwd_bf16(bool vec, const bf16* x, const bf16* wstt,
                             const bf16* bias, const bf16* prelu, int prelu_n,
-                            TransformT<bf16> tr, bf16* y, float* partial,
-                            const Geometry& g, cudaStream_t s) {
-  return vec ? launch_fwd_bf16<kTransform, kStats, true>(
-                   x, wstt, bias, prelu, prelu_n, tr, y, partial, g, s)
-             : launch_fwd_bf16<kTransform, kStats, false>(
-                   x, wstt, bias, prelu, prelu_n, tr, y, partial, g, s);
+                            bf16* y, float* partial, const Geometry& g,
+                            cudaStream_t s) {
+  return vec ? launch_fwd_bf16<kStats, true>(x, wstt, bias, prelu, prelu_n,
+                                             y, partial, g, s)
+             : launch_fwd_bf16<kStats, false>(x, wstt, bias, prelu, prelu_n,
+                                              y, partial, g, s);
 }
 
 }  // namespace
@@ -719,14 +687,14 @@ extern "C" int catgen_upsample_conv_fwd_f32(
   return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);
 }
 
-// The bf16 forward: the f32 entry's arguments with bf16 x, bias, prelu,
-// transform and y, and wstt (4, kh, kw, cout, cin), the parity stack
-// transposed; partial and stats stay f32.
+// The bf16 forward: the f32 entry's arguments but the input transform
+// (the block's runs first as its own pass, upsample_conv_prep.cu), with
+// bf16 x, bias, prelu and y, and wstt (4, kh, kw, cout, cin), the parity
+// stack transposed; partial and stats stay f32.
 extern "C" int catgen_upsample_conv_fwd_bf16(
     const bf16* x, const bf16* wstt, const bf16* bias, const bf16* prelu,
-    int prelu_n, const bf16* tscale, const bf16* tshift, const bf16* talpha,
-    bf16* y, float* partial, float* stats, int n, int h, int w, int cin,
-    int cout, int kh, int kw, int uh0, int uh1, int uw0, int uw1,
+    int prelu_n, bf16* y, float* partial, float* stats, int n, int h, int w,
+    int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0, int uw1,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)n * h * w == 0 || cout == 0) return 0;
@@ -735,25 +703,15 @@ extern "C" int catgen_upsample_conv_fwd_bf16(
   }
   const Geometry g =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
-  const TransformT<bf16> tr = {tscale, tshift, talpha};
   const bool with_stats = stats != nullptr;
   // 16-byte copies where every row of x and wstt starts 16-byte aligned
   const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
                    aligned16(wstt);
-  cudaError_t err;
-  if (tscale != nullptr) {
-    err = with_stats
-              ? launch_fwd_bf16<true, true>(vec, x, wstt, bias, prelu,
-                                            prelu_n, tr, y, partial, g, s)
-              : launch_fwd_bf16<true, false>(vec, x, wstt, bias, prelu,
-                                             prelu_n, tr, y, partial, g, s);
-  } else {
-    err = with_stats
-              ? launch_fwd_bf16<false, true>(vec, x, wstt, bias, prelu,
-                                             prelu_n, tr, y, partial, g, s)
-              : launch_fwd_bf16<false, false>(vec, x, wstt, bias, prelu,
-                                              prelu_n, tr, y, partial, g, s);
-  }
+  const cudaError_t err =
+      with_stats ? launch_fwd_bf16<true>(vec, x, wstt, bias, prelu, prelu_n,
+                                         y, partial, g, s)
+                 : launch_fwd_bf16<false>(vec, x, wstt, bias, prelu, prelu_n,
+                                          y, partial, g, s);
   if (err != cudaSuccess || !with_stats) return (int)err;
   const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);
   return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);

@@ -9,6 +9,9 @@
 //     load, the input transform recomputed from x (dCK reads xn, zero
 //     outside the image), the transform's backward in dX's epilogue (dx,
 //     and per-channel dscale, dshift, dalpha), and dbias from dCK's pass.
+//     In bf16 the dCK kernel has no flags: the transform and the fold
+//     (with dbias) run once per element in upsample_conv_prep.cu, and
+//     dCK reads their outputs.
 // The dCK -> dW chain through the collapse matrices, and the per-layer
 // form's dbias (a sum of g), stay in the PyTorch wrapper, as catgen keeps
 // them outside its pallas_calls.
@@ -964,82 +967,69 @@ upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
   dx_epilogue<kTransform>(sum, x, tr, dx, partial, smem, gm, c0, m0, mtile);
 }
 
-// The bf16 dCK: the f32 dCK's blocks, ranges and fixed-order sums, with
-// one mma.sync.m16n8k16 bf16 product (f32 accumulators) in place of the
-// three m16n8k8 TF32 ones. x and g stay pixel-major in shared memory (a
-// row of 128 channels per pixel, padded to 136 bf16 = 272 bytes, so the
-// 8 rows of an 8x8 matrix hit 8 different 16-byte bank groups), and
-// ldmatrix.trans hands each thread its fragments with the pixels (the
-// contraction) paired in a register. The transform of x and the fold of g
-// run once per staged chunk in f32 and round once to bf16, as catgen's
-// kernel rounds xn and g to x's dtype; dbias sums the unrounded f32 fold.
-// A stage is 32 pixels (two k16 products); fresh accumulators each
-// stage, the stages added in f32.
+// The bf16 dCK (catgen's bf16 compute dtype): the f32 dCK's blocks, pixel
+// ranges and fixed-order sums, on bf16 wgmma (m64n128k16, f32
+// accumulators). It reads its operands as they lie: x and g on the
+// per-layer route, and on the block route the transformed input xn and
+// the folded cotangent gf, which the passes of upsample_conv_prep.cu
+// write once per element (catgen's kernel rounds xn and g to x's dtype
+// before its products, as those passes do). The design, against the bound
+// 2 * MACs / 989e12 s:
+//   * wgmma takes 16-bit operands MN-major ("transposed") from shared
+//     memory, so the pixel-major tiles feed it as they land, with no
+//     transposing pass: A is x's tile (M = 128 input channels contiguous
+//     per pixel), B is g's (N = 128 output channels contiguous per
+//     pixel), K runs over the pixels. Each tile is two columns of 64
+//     channels (128 bytes) by kStep pixel rows, in wgmma's 128-byte
+//     swizzle: 8 pixel rows make one 1024-byte swizzle atom, the atoms
+//     follow each other down K, and the second 64 channels lie kHalf
+//     bytes on (the descriptor's MN stride).
+//   * Each of the two warpgroups owns 64 input channels x 128 output
+//     channels: 8 wgmma a stage of 128 pixels into fresh accumulators,
+//     and the stages are added in f32 (the tensor cores' truncating
+//     adds, as in f32 above).
+//   * A ring of 3 stages (x and g tiles, 64 KB a stage) filled by
+//     16-byte cp.async copies that zero-fill halo rows of x, rows past
+//     the range in both, and channels past the last; the copies of
+//     stages kt + 1 and kt + 2 are in flight while stage kt's products
+//     run, and a stage's copies are issued while the products of the
+//     stage before run. One barrier a stage. Channel counts that are not
+//     multiples of 8, or unaligned arrays, take 2-byte loads through
+//     registers (kVec = false), in the same kernel.
 
 namespace dck16 {
 
-constexpr int kTileCin = 128;    // tile rows: input channels
-constexpr int kTileCout = 128;   // tile columns: output channels
-constexpr int kStep = 32;        // pixels per stage
-constexpr int kStages = 4;       // cp.async ring depth
-constexpr int kThreads = 256;    // 8 warps: 2 (cin) x 4 (cout), 64 x 32 each
-constexpr int kLd = kTileCin + 8;  // row stride in bf16 (272 bytes)
-constexpr int kRows = 2;         // pixel rows each thread copies per stage
+constexpr int kTileCin = 128;    // M: input channels, 64 per warpgroup
+constexpr int kTileCout = 128;   // N: output channels
+constexpr int kStep = 128;       // K: pixels per stage
+constexpr int kStages = 3;       // cp.async ring depth
+constexpr int kThreads = 256;    // 2 warpgroups
+constexpr int kRows = kStep * 16 / kThreads;   // pixel rows a thread copies
+constexpr int kHalf = kStep * 128;   // bytes of 64 channels x kStep pixels
+constexpr int kTile = 2 * kHalf;     // bytes of an x or a g tile
+constexpr int kSmemBytes = kStages * 2 * kTile + 1024;   // + room to align
 static_assert(kTileCin == kTileCout, "one loader layout serves x and g");
-static_assert(kStep * kTileCin / 8 == kThreads * kRows, "loaders");
-static_assert(kStages * 2 * kRows <= 32, "row masks of all stages in one word");
-
-__host__ __device__ constexpr int stage_elems(bool fold) {
-  return (fold ? 3 : 2) * kStep * kLd;   // x, g (and the fold's y) tiles
-}
-
-// Dynamic shared memory: the ring, then the tile's f32 channel constants
-// (scale, shift, alpha of cin; gs1, gs2 of cout)
-__host__ __device__ constexpr int smem_bytes(bool fold) {
-  return kStages * stage_elems(fold) * 2 + 5 * kTileCin * 4;
-}
-
-// four 8x8 b16 matrices, transposed: register i from the rows whose
-// addresses lanes 8i .. 8i+7 give
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row)));
-}
-
-// d (+)= a * b: one m16n8k16 bf16 product, f32 accumulators; into fresh
-// accumulators when `fresh`
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1,
-                                         bool fresh) {
-  const float c0 = fresh ? 0.0f : d[0], c1 = fresh ? 0.0f : d[1];
-  const float c2 = fresh ? 0.0f : d[2], c3 = fresh ? 0.0f : d[3];
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c0), "f"(c1), "f"(c2), "f"(c3));
-}
+static_assert(kStep % 16 == 0 && kRows * kThreads == kStep * 16, "loaders");
+static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
 
 }  // namespace dck16
 
-// x (n, h, w, cin) (+ transform); g (n, 2h, 2w, cout) (+ fold, y the
-// same), all bf16; the f32 dCK's block order, partial (splits, 4, kh, kw,
-// cin, cout) and db_partial (splits * 4, cout), f32.
-template <bool kFold, bool kTransform, bool kVec>
+// x (n, h, w, cin); g (n, 2h, 2w, cout), both bf16. One block per (tap,
+// cout tile, cin tile, parity, split), in that order from fastest to
+// slowest in blockIdx.x (the f32 dCK's); split sp covers pixels [sp *
+// chunk, (sp + 1) * chunk). partial (splits, 4, kh, kw, cin, cout) f32.
+template <bool kVec>
 __global__ void __launch_bounds__(dck16::kThreads, 1)
-upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
-                       const bf16* __restrict__ g, FoldT<bf16> fold,
-                       float* __restrict__ partial,
-                       float* __restrict__ db_partial, Geometry gm,
-                       int chunk) {
+upsample_conv_dck_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                       float* __restrict__ partial, Geometry gm, int chunk) {
   using namespace dck16;
   using dck::Pix;
   using dck::Step;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  // the tiles start at the first 1024-byte boundary (the swizzle's period)
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
   const int t = threadIdx.x;
   const int taps = gm.kh * gm.kw;
   const int co_tiles = (int)ceil_div(gm.cout, kTileCout);
@@ -1049,8 +1039,7 @@ upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
   b /= taps;
   const int co0 = (b % co_tiles) * kTileCout;
   b /= co_tiles;
-  const int ci_tile = b % ci_tiles;
-  const int ci0 = ci_tile * kTileCin;
+  const int ci0 = (b % ci_tiles) * kTileCin;
   b /= ci_tiles;
   const int p = b & 3, sp = b >> 2;
   const int d = p >> 1, e = p & 1;
@@ -1060,16 +1049,16 @@ upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
   const int kb0 = sp * chunk;
   const int kb1 = min(kb0 + chunk, pixels);
   const int steps = kb1 > kb0 ? (kb1 - kb0 + kStep - 1) / kStep : 0;
-  const bool bias_block = kFold && tap == 0 && ci_tile == 0;
-  constexpr bool kFix = kTransform || kFold;   // a pass over staged data
 
-  // the loader's share: rows rg*2, rg*2+1 of every stage, channels
-  // 8q .. 8q+7 of both tiles (16 threads copy a row's 256 bytes)
+  // the loader's share: pixel rows rg*kRows .. +kRows-1 of every stage,
+  // channels 8q .. 8q+7 of both tiles (16 threads copy a pixel's 256
+  // bytes), which land in column q >> 3, chunk q & 7 of the tiles
   const int q = t & 15, rg = t >> 4;
   const int cx = ci0 + 8 * q, cg = co0 + 8 * q;
+  const uint32_t col = (q >> 3) * kHalf;
   Step one = {}, stride = {};
-  Pix next = {};
-  if (steps > 0) {
+  Pix next = {};                    // row rg*kRows of the next stage to load
+  if (steps > 0) {                  // (an empty image has no h w to divide)
     const int m = kb0 + rg * kRows, hw = gm.h * gm.w;
     one = dck::make_step(1, gm.h, gm.w);
     stride = dck::make_step(kStep, gm.h, gm.w);
@@ -1077,30 +1066,12 @@ upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
     next.i = (m - next.n * hw) / gm.w;
     next.j = m - next.n * hw - next.i * gm.w;
   }
-  uint32_t masks = 0;               // per stage: 2 x-row bits, 2 g-row bits
-
-  float* consts =
-      reinterpret_cast<float*>(smem_raw + kStages * stage_elems(kFold) * 2);
-  if (kFix && t < kTileCin) {
-    const bool okx = kTransform && ci0 + t < gm.cin;
-    consts[t] = okx ? ldf(tr.scale + ci0 + t) : 0.0f;
-    consts[kTileCin + t] = okx ? ldf(tr.shift + ci0 + t) : 0.0f;
-    consts[2 * kTileCin + t] = okx ? ldf(tr.alpha + ci0 + t) : 0.0f;
-    const bool okg = kFold && co0 + t < gm.cout;
-    consts[3 * kTileCin + t] = okg ? __ldg(fold.gs + co0 + t) : 0.0f;
-    consts[4 * kTileCin + t] =
-        okg ? __ldg(fold.gs + gm.cout + co0 + t) : 0.0f;
-  }
-  if (kFix) __syncthreads();
-  float db[8] = {};
 
   auto load_stage = [&](int kt) {
-    const int slot = kt % kStages;
-    bf16* sx = smem + slot * stage_elems(kFold);
-    bf16* sg = sx + kStep * kLd;
+    uint8_t* sx = smem + (kt % kStages) * 2 * kTile;
+    uint8_t* sg = sx + kTile;
     Pix pr = next;
     int m = kb0 + kt * kStep + rg * kRows;
-    uint32_t bits = 0;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = rg * kRows + r;
@@ -1110,152 +1081,83 @@ upsample_conv_dck_bf16(const bf16* __restrict__ x, TransformT<bf16> tr,
       const int xpix = (pr.n * gm.h + si) * gm.w + sj;
       const int gpix =
           (pr.n * 2 * gm.h + 2 * pr.i + d) * 2 * gm.w + 2 * pr.j + e;
-      copy8<kVec>(sx + row * kLd + 8 * q, x + (int64_t)xpix * gm.cin + cx, x,
+      const uint32_t off = col + chunk_at(row, q & 7);
+      copy8<kVec>(reinterpret_cast<bf16*>(sx + off),
+                  x + (int64_t)xpix * gm.cin + cx, x,
                   inb && (!kVec || cx < gm.cin), cx, gm.cin);
-      const int64_t goff = (int64_t)gpix * gm.cout + cg;
-      const bool gok = valid && (!kVec || cg < gm.cout);
-      copy8<kVec>(sg + row * kLd + 8 * q, g + goff, g, gok, cg, gm.cout);
-      if (kFold) {
-        copy8<kVec>(sg + kStep * kLd + row * kLd + 8 * q, fold.y + goff,
-                    fold.y, gok, cg, gm.cout);
-      }
-      bits |= ((uint32_t)inb << r) | ((uint32_t)valid << (kRows + r));
+      copy8<kVec>(reinterpret_cast<bf16*>(sg + off),
+                  g + (int64_t)gpix * gm.cout + cg, g,
+                  valid && (!kVec || cg < gm.cout), cg, gm.cout);
       dck::advance(pr, one, gm.h, gm.w);
       ++m;
     }
-    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
     dck::advance(next, stride, gm.h, gm.w);
   };
 
-  // the transform of x and the fold of g on this thread's own chunks of
-  // stage kt, once its copies have landed, in f32 and rounded once
-  auto fix_stage = [&](int kt) {
-    const int slot = kt % kStages;
-    bf16* sx = smem + slot * stage_elems(kFold);
-    bf16* sg = sx + kStep * kLd;
-    const uint32_t bits = masks >> (4 * slot);
+  // warpgroup wg owns input channels 64 wg .. +63 of the tile (x's
+  // column wg). acc holds one stage's 128 pixels; sum adds the stages in
+  // f32.
+  const int wg = t >> 7;
+  float acc[64], sum[64];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = rg * kRows + r;
-      if (kTransform) {
-        uint4* px = reinterpret_cast<uint4*>(sx + row * kLd + 8 * q);
-        float xv[8];
-        unpack8(*px, xv);
-        const bool inb = (bits >> r) & 1u;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int ch = 8 * q + k;
-          const float xt = xv[k] * consts[ch] + consts[kTileCin + ch];
-          xv[k] = inb ? (xt >= 0.0f ? xt : consts[2 * kTileCin + ch] * xt)
-                      : 0.0f;
-        }
-        *px = pack8(xv);
-      }
-      if (kFold) {
-        uint4* pg = reinterpret_cast<uint4*>(sg + row * kLd + 8 * q);
-        float gv[8], yv[8];
-        unpack8(*pg, gv);
-        unpack8(*reinterpret_cast<const uint4*>(sg + (kStep + row) * kLd +
-                                                8 * q), yv);
-        const bool valid = (bits >> (kRows + r)) & 1u;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int ch = 8 * q + k;
-          // (gy + gs1) + (2 y) gs2, in the plain version's order
-          const float tk = (2.0f * yv[k]) * consts[4 * kTileCin + ch];
-          gv[k] = valid ? (gv[k] + consts[3 * kTileCin + ch]) + tk : 0.0f;
-          if (bias_block) db[k] += gv[k];
-        }
-        *pg = pack8(gv);
-      }
-    }
-  };
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
 
-  // the warp's 64 x 32 share of the tile: 4 x 4 m16n8 fragments
-  const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
-  // ldmatrix row addresses of this lane: A (x) pixel lo/hi half by
-  // lane >> 4, cin half by (lane >> 3) & 1; B (g) pixel half by
-  // (lane >> 3) & 1, the second n8 fragment of a pair by lane >> 4
-  const int a_pix = (lane & 7) + 8 * (lane >> 4);
-  const int a_ch = wm + 8 * ((lane >> 3) & 1);
-  const int b_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int b_ch = wn + 8 * (lane >> 4);
-  float acc[4][4][4], sum[4][4][4] = {};
-
+  // stages 0 .. kStages-2 in flight, stage 0 landed; then per stage: its
+  // products started (asynchronous), the copies of stage kt + kStages - 1
+  // issued beside them into the slot stage kt - 1 freed, the wait for the
+  // products and their sum, the wait for this thread's copies of stage
+  // kt + 1, one barrier
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) load_stage(s);
     cp_async_commit();
   }
+  cp_async_wait<kStages - 2>();
+  fence_async_shared();
+  __syncthreads();
   for (int kt = 0; kt < steps; ++kt) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of stage kt
-    if (kFix) fix_stage(kt);
-    __syncthreads();                // everyone's stage kt; stage kt-1 free
+    const uint32_t sx = sbase + (kt % kStages) * 2 * kTile;
+    const uint32_t sg = sx + kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kStep / 16; ++s) {   // 16 pixels: 2 swizzle atoms
+      wgmma_bf16_mn(acc, mn_desc(sx + wg * kHalf + 2048 * s, kHalf),
+                    mn_desc(sg + 2048 * s, kHalf), s == 0);
+    }
+    wgmma_commit();
     if (kt + kStages - 1 < steps) load_stage(kt + kStages - 1);
     cp_async_commit();
-    const bf16* sx = smem + (kt % kStages) * stage_elems(kFold);
-    const bf16* sg = sx + kStep * kLd;
+    wgmma_wait(acc);
 #pragma unroll
-    for (int k0 = 0; k0 < kStep; k0 += 16) {
-      uint32_t a[4][4], bq[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        ldmatrix_x4_trans(a[mt], sx + (k0 + a_pix) * kLd + a_ch + 16 * mt);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {   // n8 fragments 2 np, 2 np + 1
-        ldmatrix_x4_trans(bq[np], sg + (k0 + b_pix) * kLd + b_ch + 16 * np);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t* bf = bq[nt >> 1] + 2 * (nt & 1);
-          mma_bf16(acc[mt][nt], a[mt], bf[0], bf[1], k0 == 0);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) sum[mt][nt][k] += acc[mt][nt][k];
-      }
-    }
+    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
+    cp_async_wait<kStages - 2>();   // this thread's copies of stage kt + 1
+    fence_async_shared();           // visible to wgmma (the async proxy)
+    __syncthreads();                // stage kt + 1 landed; kt's slot free
   }
   cp_async_wait<0>();
 
+  // thread (g, t) of warp w of warpgroup wg holds rows 16 w + g and
+  // 16 w + g + 8 of the warpgroup's 64 input channels, output channels
+  // 8 j + 2 t, +1: sum[4 j + 2 half + q]
   float* out = partial + ((((int64_t)sp * 4 + p) * gm.kh + u) * gm.kw + v) *
                              gm.cin * gm.cout;
+  const int lane = t & 31, gid = lane >> 2, tig = lane & 3;
+  const int c_row = ci0 + wg * 64 + ((t >> 5) & 3) * 16 + gid;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int hf = 0; hf < 2; ++hf) {
+    const int c = c_row + 8 * hf;
+    if (c >= gm.cin) continue;
+    float* o = out + (int64_t)c * gm.cout;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = ci0 + wm + mt * 16 + gid + 8 * half;
-      if (c >= gm.cin) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = co0 + wn + nt * 8 + 2 * tig;
-        float* o = out + (int64_t)c * gm.cout + co;
-        if (co < gm.cout) o[0] = sum[mt][nt][2 * half];
-        if (co + 1 < gm.cout) o[1] = sum[mt][nt][2 * half + 1];
+    for (int j = 0; j < 16; ++j) {
+      const int co = co0 + 8 * j + 2 * tig;
+      const float a = sum[4 * j + 2 * hf], a1 = sum[4 * j + 2 * hf + 1];
+      if (co + 1 < gm.cout && (gm.cout & 1) == 0) {
+        store_pair(o + co, a, a1);
+      } else {
+        if (co < gm.cout) o[co] = a;
+        if (co + 1 < gm.cout) o[co + 1] = a1;
       }
-    }
-  }
-  if (bias_block) {
-    // thread (rg, q) holds column sums over its rows of every stage; the
-    // 16 row groups are added in order
-    __syncthreads();                // the ring is free: reuse it
-    float* red = reinterpret_cast<float*>(smem_raw);   // (16, kTileCout)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) red[rg * kTileCout + 8 * q + k] = db[k];
-    __syncthreads();
-    if (t < kTileCout && co0 + t < gm.cout) {
-      float s = 0.0f;
-      for (int r = 0; r < kThreads / 16; ++r) s += red[r * kTileCout + t];
-      db_partial[((int64_t)sp * 4 + p) * gm.cout + co0 + t] = s;
     }
   }
 }
@@ -1346,38 +1248,26 @@ cudaError_t launch_dx_bf16(bool vec, const bf16* g, FoldT<bf16> fold,
                                                         dx, partial, gm, s);
 }
 
-template <bool kFold, bool kTransform, bool kVec>
-cudaError_t launch_dck_bf16(const bf16* x, TransformT<bf16> tr,
-                            const bf16* g, FoldT<bf16> fold, float* partial,
-                            float* db_partial, const Geometry& gm,
-                            int splits, int chunk, cudaStream_t s) {
-  const int smem = dck16::smem_bytes(kFold);
+template <bool kVec>
+cudaError_t launch_dck_bf16(const bf16* x, const bf16* g, float* partial,
+                            const Geometry& gm, int splits, int chunk,
+                            cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      upsample_conv_dck_bf16<kFold, kTransform, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      upsample_conv_dck_bf16<kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dck16::kSmemBytes);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (int64_t)gm.kh * gm.kw *
                          ceil_div(gm.cout, dck16::kTileCout) *
                          ceil_div(gm.cin, dck16::kTileCin) * 4 * splits;
-  upsample_conv_dck_bf16<kFold, kTransform, kVec>
-      <<<(unsigned)blocks, dck16::kThreads, smem, s>>>(
-          x, tr, g, fold, partial, db_partial, gm, chunk);
+  upsample_conv_dck_bf16<kVec>
+      <<<(unsigned)blocks, dck16::kThreads, dck16::kSmemBytes, s>>>(
+          x, g, partial, gm, chunk);
   return cudaGetLastError();
 }
 
-template <bool kFold, bool kTransform>
-cudaError_t launch_dck_bf16(bool vec, const bf16* x, TransformT<bf16> tr,
-                            const bf16* g, FoldT<bf16> fold, float* partial,
-                            float* db_partial, const Geometry& gm,
-                            int splits, int chunk, cudaStream_t s) {
-  return vec ? launch_dck_bf16<kFold, kTransform, true>(
-                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s)
-             : launch_dck_bf16<kFold, kTransform, false>(
-                   x, tr, g, fold, partial, db_partial, gm, splits, chunk, s);
-}
-
-int dck_chunk(int64_t pixels, int splits) {
-  return (int)(ceil_div(ceil_div(pixels, splits), dck::kStep) * dck::kStep);
+// a split's pixel range: an equal share, rounded up to whole stages
+int dck_chunk(int64_t pixels, int splits, int step) {
+  return (int)(ceil_div(ceil_div(pixels, splits), step) * step);
 }
 
 }  // namespace
@@ -1482,7 +1372,7 @@ extern "C" int catgen_upsample_conv_dck_f32(
   const Transform tr = {tscale, tshift, talpha};
   const int splits = catgen_upsample_conv_dck_splits(n, h, w, cin, cout, kh,
                                                      kw);
-  const int chunk = dck_chunk((int64_t)n * h * w, splits);
+  const int chunk = dck_chunk((int64_t)n * h * w, splits, dck::kStep);
   const bool f = y != nullptr, tf = tscale != nullptr;
   // 16-byte copies where every row of x, g and y starts 16-byte aligned
   const bool vec = cin % 4 == 0 && cout % 4 == 0 && aligned16(x) &&
@@ -1548,14 +1438,17 @@ extern "C" int catgen_upsample_conv_dx_bf16(
                               3 * (int64_t)cin, s);
 }
 
-// The bf16 dCK: the f32 entry's arguments with bf16 x, the transform, g
-// and y; gs, the scratch, dck and dbias stay f32.
+// The bf16 dCK of x (n, h, w, cin) and g (n, 2h, 2w, cout), both bf16:
+// on the block route the caller passes the transformed input and the
+// folded cotangent (upsample_conv_prep.cu), and writes dbias there.
+// partial holds (splits, 4, kh, kw, cin, cout) floats of scratch; dck
+// receives (4, kh, kw, cin, cout) f32. Pixel indices are 32-bit: n * 2h *
+// 2w must stay below 2^31. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int catgen_upsample_conv_dck_bf16(
-    const bf16* x, const bf16* tscale, const bf16* tshift,
-    const bf16* talpha, const bf16* g, const bf16* y, const float* gs,
-    float* partial, float* dck, float* db_partial, float* dbias, int n,
-    int h, int w, int cin, int cout, int kh, int kw, int uh0, int uh1,
-    int uw0, int uw1, void* stream) {
+    const bf16* x, const bf16* g, float* partial, float* dck, int n, int h,
+    int w, int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0,
+    int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cin == 0 || cout == 0) return 0;
   if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
@@ -1563,31 +1456,16 @@ extern "C" int catgen_upsample_conv_dck_bf16(
   }
   const Geometry gm =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
-  const FoldT<bf16> fold = {y, gs, cout};
-  const TransformT<bf16> tr = {tscale, tshift, talpha};
   const int splits = catgen_upsample_conv_dck_splits(n, h, w, cin, cout, kh,
                                                      kw);
-  const int chunk = dck_chunk((int64_t)n * h * w, splits);
-  const bool f = y != nullptr, tf = tscale != nullptr;
+  const int chunk = dck_chunk((int64_t)n * h * w, splits, dck16::kStep);
+  // 16-byte copies where every row of x and g starts 16-byte aligned
   const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
-                   aligned16(g) && aligned16(y);
-  cudaError_t err;
-  if (f && tf) {
-    err = launch_dck_bf16<true, true>(vec, x, tr, g, fold, partial,
-                                      db_partial, gm, splits, chunk, s);
-  } else if (f) {
-    err = launch_dck_bf16<true, false>(vec, x, tr, g, fold, partial,
-                                       db_partial, gm, splits, chunk, s);
-  } else if (tf) {
-    err = launch_dck_bf16<false, true>(vec, x, tr, g, fold, partial,
-                                       db_partial, gm, splits, chunk, s);
-  } else {
-    err = launch_dck_bf16<false, false>(vec, x, tr, g, fold, partial,
-                                        db_partial, gm, splits, chunk, s);
-  }
+                   aligned16(g);
+  cudaError_t err =
+      vec ? launch_dck_bf16<true>(x, g, partial, gm, splits, chunk, s)
+          : launch_dck_bf16<false>(x, g, partial, gm, splits, chunk, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_sum_rows(partial, dck, splits,
-                        (int64_t)4 * kh * kw * cin * cout, s);
-  if (err != cudaSuccess || !f) return (int)err;
-  return (int)launch_sum_rows(db_partial, dbias, splits * 4, cout, s);
+  return (int)launch_sum_rows(partial, dck, splits,
+                              (int64_t)4 * kh * kw * cin * cout, s);
 }

@@ -53,11 +53,19 @@ SIGNATURES = (
     *((f"catgen_st_conv_prelu_{t}", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
        + [_P], _I) for t in ("f32", "bf16")),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),
-    *((f"catgen_upsample_conv_fwd_{t}", [_P] * 4 + [_I] + [_P] * 6
-       + [_I] * 11 + [_P], _I) for t in ("f32", "bf16")),
+    ("catgen_upsample_conv_fwd_f32", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 11
+     + [_P], _I),
+    # the bf16 forward and dCK take no input transform or fold: the bf16
+    # block runs them as passes of their own (transform, fold)
+    ("catgen_upsample_conv_fwd_bf16", [_P] * 4 + [_I] + [_P] * 3
+     + [_I] * 11 + [_P], _I),
     ("catgen_upsample_conv_dck_splits", [_I] * 7, _I),
-    *((f"catgen_upsample_conv_{k}_{t}", [_P] * 11 + [_I] * 11 + [_P], _I)
-      for k in ("dx", "dck") for t in ("f32", "bf16")),
+    *((f"catgen_upsample_conv_{k}", [_P] * 11 + [_I] * 11 + [_P], _I)
+      for k in ("dx_f32", "dx_bf16", "dck_f32")),
+    ("catgen_upsample_conv_dck_bf16", [_P] * 4 + [_I] * 11 + [_P], _I),
+    ("catgen_upsample_conv_fold_rows", [_I, _I], _I),
+    ("catgen_upsample_conv_transform_bf16", [_P] * 5 + [_I] * 2 + [_P], _I),
+    ("catgen_upsample_conv_fold_bf16", [_P] * 6 + [_I] * 2 + [_P], _I),
 )
 
 

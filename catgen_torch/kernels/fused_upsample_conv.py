@@ -11,15 +11,20 @@ their plain PyTorch versions. The counterpart of
   * ``upsample2_conv_backward``: (dx, dweight, dbias) of row 3 (row 5);
   * ``fused_block_backward``: the six cotangents of row 4, with the stats
     cotangents folded in (row 6);
+  * ``block_input_pass`` and ``block_fold_pass``: the bf16 block's input
+    transform and cotangent fold (with dbias), each a pass of its own over
+    the elements, which the bf16 forward and dCK kernels then read as
+    they lie;
   * ``upsample2_conv_bias`` and ``upsample2_conv_block``: the autograd
     Functions around them; their backwards follow ``config.upsample_bwd``
     and ``config.ladder_bwd``.
 
-The kernels are ``catgen_torch/csrc/upsample_conv.cu`` (forward) and
-``catgen_torch/csrc/upsample_conv_bwd.cu`` (dX, dCK). The weight collapse
-into the 4-parity stack, the dCK -> dW chain through the collapse
-matrices and the per-layer dbias stay PyTorch ops here, as catgen keeps
-them outside its ``pallas_call``s.
+The kernels are ``catgen_torch/csrc/upsample_conv.cu`` (forward),
+``catgen_torch/csrc/upsample_conv_bwd.cu`` (dX, dCK) and
+``catgen_torch/csrc/upsample_conv_prep.cu`` (the bf16 passes). The
+weight collapse into the 4-parity stack, the dCK -> dW chain through the
+collapse matrices and the per-layer dbias stay PyTorch ops here, as
+catgen keeps them outside its ``pallas_call``s.
 
 Two element types, as catgen's compute dtype: float32, and bfloat16 with
 x, the weight, bias, the input transform, g and y all in bf16. The bf16
@@ -62,9 +67,13 @@ BLOCK_DX_LAUNCHES = 0     # row 6: dX, dscale, dshift, dalpha
 BLOCK_DCK_LAUNCHES = 0    # row 6: dCK and dbias
 BF16_LAUNCHES = BF16_BLOCK_LAUNCHES = BF16_DX_LAUNCHES = 0
 BF16_DCK_LAUNCHES = BF16_BLOCK_DX_LAUNCHES = BF16_BLOCK_DCK_LAUNCHES = 0
+BF16_TRANSFORM_LAUNCHES = 0   # the bf16 block's input transform pass
+BF16_FOLD_LAUNCHES = 0        # the bf16 block's cotangent fold pass
 F32_COUNTERS = ("LAUNCHES", "BLOCK_LAUNCHES", "DX_LAUNCHES", "DCK_LAUNCHES",
                 "BLOCK_DX_LAUNCHES", "BLOCK_DCK_LAUNCHES")
-COUNTERS = F32_COUNTERS + tuple(f"BF16_{c}" for c in F32_COUNTERS)
+PASS_COUNTERS = ("BF16_TRANSFORM_LAUNCHES", "BF16_FOLD_LAUNCHES")
+COUNTERS = (F32_COUNTERS + tuple(f"BF16_{c}" for c in F32_COUNTERS)
+            + PASS_COUNTERS)
 
 
 def reset_launches() -> None:
@@ -77,7 +86,8 @@ def launches() -> dict:
 
 
 def _count(name: str, dtype: torch.dtype) -> None:
-    """Adds one to the f32 counter ``name`` or to its bf16 twin."""
+    """Adds one to the f32 counter ``name`` or to its bf16 twin (the
+    passes have only the bf16 one)."""
     globals()[name if dtype == torch.float32 else f"BF16_{name}"] += 1
 
 
@@ -194,6 +204,13 @@ def _fold(y, gy, gs1, gs2):
     """The stats cotangents folded into the output's, in f32: (gy + gs1)
     + (2 y) gs2."""
     return _wide(gy) + _wide(gs1) + 2.0 * _wide(y) * _wide(gs2)
+
+
+def block_fold(y, gy, gs1, gs2):
+    """The block backward's fold: (g, dbias), the fold in f32 rounded once
+    to y's dtype and its f32 per-channel sum before the rounding."""
+    g32 = _fold(y, gy, gs1, gs2)
+    return g32.to(y.dtype), g32.sum(dim=(0, 1, 2))
 
 
 def _block_ref(x, in_scale, in_shift, in_alpha, weight, bias):
@@ -345,10 +362,64 @@ def _check_transform(in_scale, in_shift, in_alpha, cin, x):
     return in_alpha.reshape(-1).expand(cin).contiguous()
 
 
+def _bf16_only(what: str, x) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{what} kernel needs CUDA tensors, x is on "
+                         f"{x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bfloat16, got {x.dtype}")
+
+
+def _launch_transform(x, in_scale, in_shift, in_alpha):
+    """Runs the transform pass on a bf16 x (N, H, W, Cin); returns xn."""
+    _bf16_only("block input transform", x)
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
+    _check("x", x, x.device)
+    cin = x.shape[3]
+    in_alpha = _check_transform(in_scale, in_shift, in_alpha, cin, x)
+    xn = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = load_library().catgen_upsample_conv_transform_bf16(
+            x.data_ptr(), in_scale.data_ptr(), in_shift.data_ptr(),
+            in_alpha.data_ptr(), xn.data_ptr(), x.numel() // max(cin, 1),
+            cin, _stream(x.device))
+    _launched(err, "block input transform")
+    return xn
+
+
+def _launch_fold(y, gy, gs1, gs2):
+    """Runs the fold pass on bf16 y and gy (N, 2H, 2W, Cout) with f32 gs1,
+    gs2 (Cout,); returns (gf, dbias f32)."""
+    _bf16_only("cotangent fold", y)
+    if y.dim() != 4:
+        raise ValueError(f"y must be (N, 2H, 2W, Cout), got "
+                         f"{tuple(y.shape)}")
+    _check("y", y, y.device)
+    _check("gy", gy, y.device, y.shape, y.dtype)
+    cout = y.shape[3]
+    gs = torch.stack([gs1.float(), gs2.float()]).contiguous()
+    _check("gs", gs, y.device, (2, cout))
+    rows = y.numel() // max(cout, 1)
+    lib = load_library()
+    partial = torch.empty((lib.catgen_upsample_conv_fold_rows(rows, cout),
+                           cout), dtype=torch.float32, device=y.device)
+    gf = torch.empty_like(gy)
+    dbias = torch.empty((cout,), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        err = lib.catgen_upsample_conv_fold_bf16(
+            gy.data_ptr(), y.data_ptr(), gs.data_ptr(), gf.data_ptr(),
+            partial.data_ptr(), dbias.data_ptr(), rows, cout,
+            _stream(y.device))
+    _launched(err, "cotangent fold")
+    return gf, dbias
+
+
 def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
                     in_shift=None, in_alpha=None, with_stats=False):
     """Runs the forward kernel; returns y, or (y, s1, s2) with stats (f32
-    sums in both element types)."""
+    sums in both element types). In bf16 the input transform runs first,
+    as its own pass (``block_input_pass``)."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
     if bias is not None:
@@ -365,8 +436,12 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
         in_alpha = _check_transform(in_scale, in_shift, in_alpha, cin, x)
     lib = load_library()
     wst = parity_stack(weight)
+    transform = (_ptr(in_scale), _ptr(in_shift), _ptr(in_alpha))
     if x.dtype == torch.bfloat16:     # K-major B for bf16 wgmma
         wst = wst.transpose(3, 4).contiguous()
+        if in_scale is not None:
+            x = block_input_pass(x, in_scale, in_shift, in_alpha)
+        transform = ()
     y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     partial = stats = None
     if with_stats:
@@ -377,8 +452,8 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
     with torch.cuda.device(dev):
         err = _entry("fwd", x.dtype)(
             x.data_ptr(), wst.data_ptr(), _ptr(bias), _ptr(prelu_alpha),
-            prelu_n, _ptr(in_scale), _ptr(in_shift), _ptr(in_alpha),
-            y.data_ptr(), _ptr(partial), _ptr(stats), n, h, w, cin, cout,
+            prelu_n, *transform, y.data_ptr(), _ptr(partial), _ptr(stats),
+            n, h, w, cin, cout,
             wst.shape[1], wst.shape[2], *_umins(k_h, k_w), _stream(dev))
     _launched(err, "upsample-conv forward")
     return (y, stats[0], stats[1]) if with_stats else y
@@ -413,7 +488,10 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
 def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                 in_alpha=None):
     """Runs the dCK kernel; returns dCK (4, kh', kw', Cin, Cout), and with
-    the fold also dbias (Cout,), both f32 in both element types."""
+    the fold also dbias (Cout,), both f32 in both element types. In bf16
+    the transform and the fold (with dbias) run first, each as its own
+    pass (``block_input_pass``, ``block_fold_pass``), and the kernel reads
+    their outputs."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
     _check("g", g, dev, (n, 2 * h, 2 * w, cout), x.dtype)
@@ -427,6 +505,18 @@ def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
     dck = torch.empty((4, kp_h, kp_w, cin, cout), dtype=torch.float32,
                       device=dev)
     db_partial = dbias = None
+    if x.dtype == torch.bfloat16:
+        if in_scale is not None:
+            x = block_input_pass(x, in_scale, in_shift, in_alpha)
+        if y is not None:
+            g, dbias = block_fold_pass(y, g, gs[0], gs[1])
+        with torch.cuda.device(dev):
+            err = lib.catgen_upsample_conv_dck_bf16(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                dck.data_ptr(), n, h, w, cin, cout, kp_h, kp_w,
+                *_umins(k_h, k_w), _stream(dev))
+        _launched(err, "upsample-conv dCK")
+        return dck if dbias is None else (dck, dbias)
     if y is not None:
         db_partial = torch.empty((splits * 4, cout), dtype=torch.float32,
                                  device=dev)
@@ -444,6 +534,30 @@ def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
 # ---------------------------------------------------------------------------
 # public functions
 # ---------------------------------------------------------------------------
+
+
+def block_input_pass(x, in_scale, in_shift, in_alpha):
+    """The block's input transform, ``block_input``: prelu(x * in_scale +
+    in_shift, in_alpha) in f32, rounded once to x's dtype, as one pass
+    over x (N, H, W, Cin) (the bf16 kernel on the card). in_scale,
+    in_shift (Cin,), in_alpha (Cin,) or (1,), in x's dtype."""
+    if _on_cpu(x, in_scale, in_shift, in_alpha):
+        return block_input(x, in_scale, in_shift, in_alpha)
+    xn = _launch_transform(x, in_scale, in_shift, in_alpha)
+    _count("TRANSFORM_LAUNCHES", x.dtype)
+    return xn
+
+
+def block_fold_pass(y, gy, gs1, gs2):
+    """The block backward's fold, ``block_fold``: (g, dbias), g = (gy +
+    gs1) + (2 y) gs2 in f32 rounded once to y's dtype and dbias its f32
+    sum over (N, 2H, 2W), as one pass over y and gy (the bf16 kernel on
+    the card). gs1, gs2 (Cout,) f32."""
+    if _on_cpu(y, gy, gs1, gs2):
+        return block_fold(y, gy, gs1, gs2)
+    out = _launch_fold(y, gy, gs1, gs2)
+    _count("FOLD_LAUNCHES", y.dtype)
+    return out
 
 
 def upsample2_conv_fused(x, weight, bias=None, prelu_alpha=None):

@@ -18,7 +18,8 @@ with a non-zero exit code and no result.
      source, in parallel); the SASS of every instantiation of the dCK, dX
      and forward upsample-conv kernels holds tensor-core products of its
      type, TF32 for f32 (3xTF32) and BF16 for bf16 (cuobjdump: HMMA for
-     dCK's mma.sync, HGMMA for the wgmma of the forward and dX);
+     the f32 dCK's mma.sync, HGMMA for the wgmma of the forward, dX and
+     the bf16 dCK);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256, with the forward kernel each
      shape takes (per quad, staged); both bit for bit against the plain
@@ -133,8 +134,11 @@ with a non-zero exit code and no result.
      the V update in f32 and bf16, and each bf16 sampler kernel, rows and
      grid, against its plain version, its bf16 library call and its bf16
      bound (the rows kernels also in device time);
- 30. phase 11 for the upsample-conv kernels' bf16 instantiations (wgmma
-     and mma.sync bf16) against their bf16 plain versions: bf16 outputs
+ 30. phase 11 for the upsample-conv kernels' bf16 instantiations (bf16
+     wgmma; the bf16 block runs its input transform and its cotangent
+     fold as passes of their own, held bit for bit against their plain
+     versions, dbias within 1e-4) against their bf16 plain versions: bf16
+     outputs
      within one unit in the last place plus 2^-16 of the largest, dW and
      db (sums over the batch) plus 1e-4, f32 sums within 1e-4 of the
      largest, repeats bit for bit; dCK's dW and db within one unit plus
@@ -146,14 +150,16 @@ with a non-zero exit code and no result.
      bit (the plain version samples at the kernel's coordinates);
  32. the training CLI with --dtype bf16 on the ladder and on the
      fused-prefix routes (one epoch of 20 steps at batch 64, twice from
-     one seed: every launch per step on the bf16 instantiations, the
+     one seed: every launch per step on the bf16 instantiations and the
+     bf16 block's passes, 9 transforms and 3 folds on the ladder, the
      visualization in f32, the same checkpoint bits); one bf16 step on
      each kernel route (ladder, per layer with dX and dCK, per layer with
      dX alone, fused prefix), card against CPU at phase 28's bounds;
  33. at batch 640: each bf16 kernel of phases 30-31 against its plain
      version, its bf16 library call (cuDNN's collapsed route: forward,
      dgrad, wgrad; the split prefix) and its bf16 bound, in event and
-     device time; the bf16 step on the default, ladder, per-layer and
+     device time (the block forms' calls with their passes), each bf16
+     pass beside them; the bf16 step on the default, ladder, per-layer and
      fused-prefix routes in one run (time, images/s, idle share, peak
      memory, each port kernel's device time).
 
@@ -489,21 +495,26 @@ def build() -> None:
     tensor_core_check(path)
 
 
-# the tensor-core kernels (mangled-name stem) and their instantiations, in
-# each element type: fold x transform x 16-byte copies (dCK, mma.sync:
-# HMMA; dX, wgmma: HGMMA), transform x stats x 16-byte copies (the
-# forward, wgmma: HGMMA); f32 runs 3xTF32 (TF32 products), bf16 one BF16
-# product (the _bf16 kernels)
-TENSOR_CORE_KERNELS = {"upsample_conv_dck": 8, "upsample_conv_fwd": 8,
-                       "upsample_conv_dx": 8}
+# the tensor-core kernels (mangled-name stem), and per element type their
+# instantiations and tensor-core instruction: f32 runs 3xTF32 (TF32
+# products), bf16 one BF16 product (the _bf16 kernels). dCK: fold x
+# transform x 16-byte copies in f32 (mma.sync: HMMA), 16-byte copies in
+# bf16 (wgmma: HGMMA; the bf16 block's transform and fold are passes of
+# their own); dX: fold x transform x 16-byte copies (wgmma: HGMMA); the
+# forward: transform x stats x 16-byte copies in f32, stats x 16-byte
+# copies in bf16 (wgmma: HGMMA)
+TENSOR_CORE_KERNELS = {
+    "upsample_conv_dck": {"TF32": (8, "HMMA"), "BF16": (2, "HGMMA")},
+    "upsample_conv_fwd": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")},
+    "upsample_conv_dx": {"TF32": (8, "HGMMA"), "BF16": (8, "HGMMA")}}
 
 
 def tensor_core_check(path) -> None:
     """Requires the machine code (cuobjdump -sass) of every instantiation
     of the dCK, dX and forward upsample-conv kernels to hold tensor-core
-    products of its element type (HMMA from mma.sync, HGMMA from wgmma;
-    TF32 for the f32 kernels, BF16 for the bf16 ones), and prints their
-    count and the first one of each instantiation."""
+    products of its element type and design (HMMA from mma.sync, HGMMA
+    from wgmma; TF32 for the f32 kernels, BF16 for the bf16 ones), and
+    prints their count and the first one of each instantiation."""
     from torch.utils import cpp_extension
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -518,16 +529,17 @@ def tensor_core_check(path) -> None:
         if stem is None:
             continue
         kind = "BF16" if f"{stem}_bf16" in name else "TF32"
+        op = TENSOR_CORE_KERNELS[stem][kind][1]
         mma = [ln.strip() for ln in block.splitlines()
-               if ("HMMA" in ln or "HGMMA" in ln) and kind in ln]
-        print(f"SASS {name}: {len(mma)} {kind} tensor-core instructions, "
+               if op in ln and kind in ln]
+        print(f"SASS {name}: {len(mma)} {kind} {op} instructions, "
               f"e.g. {mma[0] if mma else 'none'}")
-        require(mma, f"{name} has no {kind} tensor-core instruction")
+        require(mma, f"{name} has no {kind} {op} instruction")
         found[(stem, kind)] += 1
     for (stem, kind), n in found.items():
-        want = TENSOR_CORE_KERNELS[stem]
-        print(f"{stem} ({kind}): {n} instantiations, each with {kind} "
-              f"tensor-core instructions")
+        want, op = TENSOR_CORE_KERNELS[stem][kind]
+        print(f"{stem} ({kind}): {n} instantiations, each with {kind} {op} "
+              f"instructions")
         require(n == want, f"{n} {kind} {stem} instantiations in the "
                            f"SASS, not {want}")
 
@@ -1516,6 +1528,56 @@ def output_check(tag: str, got, again, want, loose: bool = False) -> tuple:
     return err, err / top
 
 
+def passes_vs_plain() -> dict:
+    """Phase 30: the bf16 block's passes against their plain versions at
+    upsample_vs_plain's shapes (G32up-c's three stages at N=640, stage 3
+    at N=320): the transform's xn (``block_input``, a shared and a
+    per-channel slope) and the fold's g (``block_fold``) bit for bit, the
+    fold's dbias (an f32 sum over the batch in another order) within
+    UP_LOOSE of its largest; repeats bit for bit. Returns each output's
+    largest absolute error."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    worst = {"transform": 0.0, "fold": 0.0, "fold_dbias": 0.0}
+    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
+    shapes.append(stage_shape(2, TRAIN_B // 2))
+    for s, shape in enumerate(shapes):
+        v = upsample_inputs(shape, 320 + s, bf16=True)
+        x, sc, sh, gy = v["x"], v["scale"], v["shift"], v["gy"]
+        for alpha in ("alpha", "alpha_c"):
+            got, again = (fuc.block_input_pass(x, sc, sh, v[alpha]),
+                          fuc.block_input_pass(x, sc, sh, v[alpha]))
+            torch.cuda.synchronize()
+            want = fuc.block_input(x, sc, sh, v[alpha])
+            err = (got.float() - want.float()).abs().max().item()
+            same, rep = torch.equal(got, want), torch.equal(got, again)
+            print(f"{shape} bf16 transform pass ({alpha}) xn: max_abs_err "
+                  f"{err:.3e}, bit for bit: {same}; repeat bit-identical: "
+                  f"{rep}")
+            require(same and rep, f"the transform pass at {shape}")
+            worst["transform"] = max(worst["transform"], err)
+        y = fuc.block_plain(x, v["weight"], v["bias"], sc, sh, v["alpha"])
+        (gf, db), (gf2, db2) = (fuc.block_fold_pass(y, gy, v["gs1"],
+                                                    v["gs2"])
+                                for _ in range(2))
+        torch.cuda.synchronize()
+        want_gf, want_db = fuc.block_fold(y, gy, v["gs1"], v["gs2"])
+        err = (gf.float() - want_gf.float()).abs().max().item()
+        same = torch.equal(gf, want_gf)
+        rep = torch.equal(gf, gf2) and torch.equal(db, db2)
+        print(f"{shape} bf16 fold pass g: max_abs_err {err:.3e}, bit for "
+              f"bit: {same}; repeat bit-identical (g, dbias): {rep}")
+        require(same and rep, f"the fold pass at {shape}")
+        worst["fold"] = max(worst["fold"], err)
+        db_err, _ = output_check(f"{shape} bf16 fold pass dbias", db, db2,
+                                 want_db, loose=True)
+        worst["fold_dbias"] = max(worst["fold_dbias"], db_err)
+        del v, y, gf, gf2, want_gf
+        torch.cuda.empty_cache()
+    return worst
+
+
 def upsample_vs_plain(bf16: bool = False) -> dict:
     """Each upsample-conv kernel against its plain version, in f32 (phase
     11) or in bf16 (phase 30), at G32up-c's three stage shapes at N=640
@@ -1916,7 +1978,7 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
     from catgen_torch.kernels import fused_upsample_conv as fuc
     from catgen_torch.kernels.upsample_conv import upsample2_conv
 
-    out = {key: [] for key, *_ in UP_KERNELS}
+    out = {key: [] for key, *_ in UP_KERNELS + (BF16_PASSES if bf16 else ())}
     dtype = "bf16" if bf16 else "f32"
     for s in range(3):
         shape = stage_shape(s, TRAIN_B)
@@ -1993,6 +2055,8 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
                   f"the bound in device time, {flops / dev / 1e9:.1f} "
                   f"TFLOP/s (events: median of 5 timings of 3 back-to-back "
                   f"calls, order kernel-plain-library-kernel); {card_name}")
+        if bf16:
+            pass_times(out, card_name, s, shape, v, y)
         # what the block backward's fix-ups cost: dCK with the fold alone
         # and with the transform alone, beside the two variants above
         singles = {
@@ -2010,6 +2074,42 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
         del runs, lib_y, xr, wr, y, v
         torch.cuda.empty_cache()
     return out
+
+
+def pass_times(out: dict, card_name: str, s: int, shape, v: dict,
+               y) -> None:
+    """Phase 33, beside the bf16 kernels' times at stage ``s``: each bf16
+    block pass (CUDA events and device time) against its plain version
+    and its bound (bytes: each input read once, each output written once;
+    its f32 operations at 67 TFLOP/s beside them); no one library call
+    computes either. Appends a row per pass to ``out``."""
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    x, gy, sc, sh, al = v["x"], v["gy"], v["scale"], v["shift"], v["alpha"]
+    cin, cout = x.shape[3], gy.shape[3]
+    passes = {
+        "transform": (lambda: fuc.block_input_pass(x, sc, sh, al),
+                      lambda: fuc.block_input(x, sc, sh, al),
+                      2 * x.numel() * 2 + 3 * cin * 2, 3.0 * x.numel()),
+        "fold": (lambda: fuc.block_fold_pass(y, gy, v["gs1"], v["gs2"]),
+                 lambda: fuc.block_fold(y, gy, v["gs1"], v["gs2"]),
+                 3 * gy.numel() * 2 + 3 * cout * 4, 5.0 * gy.numel())}
+    for key, (kern, plain, nbytes, ops) in passes.items():
+        k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+        p = cuda_ms(plain, reps=3, inner=2, warmup=1)
+        k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+        dev, _, src = device_ms(kern, warmup=1)   # 100+ calls: tens of us
+        b_ms, b_by = bound_bf16(0.0, nbytes, ops)
+        out[key].append(dict(ms=min(k1, k2), plain_ms=p, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by, device_ms=dev,
+                             library_device_ms=None))
+        print(f"bf16 {key} pass stage {s + 1} {shape}: kernel "
+              f"{min(k1, k2):.4f} ms ({k1:.4f} / {k2:.4f}), device "
+              f"{dev:.4f} ms ({src}), plain {p:.4f} ms, no "
+              f"library call; bound {b_ms:.4f} ms ({b_by}; "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e6:.1f} M f32 "
+              f"operations at 67 TFLOP/s), {b_ms / dev:.3f} of the bound in "
+              f"device time; {card_name}")
 
 
 def route_train_times(card_name: str, name: str, route) -> dict:
@@ -3432,6 +3532,14 @@ BF16_SUM_FLOOR = UP_LOOSE
 BF16_UP_KERNELS = tuple((key, f"{name}_bf16", f"BF16_{counter}", replaces,
                          source)
                         for key, name, counter, replaces, source in UP_KERNELS)
+# the bf16 block's elementwise passes: key, name, counter, TPU kernel (and
+# the other it takes a piece of)
+BF16_PASSES = (
+    ("transform", "block_input_pass_bf16", "BF16_TRANSFORM_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv.py:332",
+     ["catgen/kernels/pallas_upsample_conv_bwd.py:343"]),
+    ("fold", "block_fold_pass_bf16", "BF16_FOLD_LAUNCHES",
+     "catgen/kernels/pallas_upsample_conv_bwd.py:343", []))
 BF16_ROUTES = (("ladder", LADDER), ("per-layer", PER_LAYER),
                ("per-layer hybrid", dict(PER_LAYER, upsample_bwd="hybrid")),
                ("fused-prefix", FUSED))
@@ -3470,6 +3578,12 @@ def expected_bf16_route(route, steps: int, g_evals: int,
     want = dict.fromkeys(bf16_route_counts(), 0)
     for k in fuc.F32_COUNTERS:
         want[f"up_{k}"], want[f"up_BF16_{k}"] = up32[k], up16[k]
+    # every bf16 block forward transforms its input in a pass of its own,
+    # every bf16 block dCK transforms and folds (the transform again: xn
+    # is not kept)
+    want["up_BF16_TRANSFORM_LAUNCHES"] = (up16["BLOCK_LAUNCHES"]
+                                          + up16["BLOCK_DCK_LAUNCHES"])
+    want["up_BF16_FOLD_LAUNCHES"] = up16["BLOCK_DCK_LAUNCHES"]
     want.update(LAUNCHES=d32["fwd"], DCOORDS_LAUNCHES=d32["dcoords"],
                 DIMG_LAUNCHES=d32["dimg"], BF16_LAUNCHES=d16["fwd"],
                 BF16_DCOORDS_LAUNCHES=d16["dcoords"],
@@ -3483,7 +3597,8 @@ def bf16_routes_cli(root: str) -> dict:
     (one epoch of 20 steps at batch 64) on the ladder and on the
     fused-prefix routes, twice each from one seed: every launch as the
     design gives it (per step on the bf16 instantiations: ladder 6 block
-    forwards, 3 block dX, 3 block dCK; fused prefix 2 ST-conv, 3 sampler
+    forwards, 3 block dX, 3 block dCK, and the passes, 9 transforms and 3
+    folds; fused prefix 2 ST-conv, 3 sampler
     forwards, 4 d_coords, 3 d_img; the visualization's G and D batches
     in f32), and the same checkpoint bits from both runs. Returns each
     route's counts and steps."""
@@ -3788,6 +3903,7 @@ def main(argv=None) -> int:
               "versions and float64 at G32up-c's stage shapes, batch 640")
     t0 = time.perf_counter()
     bf16_up_err = upsample_vs_plain(bf16=True)
+    pass_err = passes_vs_plain()
     exact16 = dck_vs_float64(bf16=True)
     print(f"phase 30: {time.perf_counter() - t0:.1f} s")
     phase(31, "the bf16 ST-conv kernel against its bf16 plain version")
@@ -3871,8 +3987,13 @@ def main(argv=None) -> int:
     stages = [stage_shape(i, TRAIN_B) for i in range(3)]
 
     def up_pattern(key: str, suffix: str = "") -> str:
-        """The profiler name of an upsample-conv kernel's instantiations."""
+        """The profiler name of an upsample-conv kernel's instantiations:
+        the block forms' first flag (the forward's stats, dX's fold) is
+        true. The bf16 dCK has one form (its first flag is the 16-byte
+        copies); each route's step launches only its own."""
         op = "fwd" if key == "block" else key.removeprefix("block_")
+        if suffix and op == "dck":
+            return f"upsample_conv_dck{suffix}<"
         return (f"upsample_conv_{op}{suffix}<"
                 f"{'true' if key.startswith('block') else 'false'}")
 
@@ -4040,6 +4161,35 @@ def main(argv=None) -> int:
             "device_ms_per_step": device_step_ms(
                 {"device_ms": brt["ladder" if block else "per-layer"][
                     "kernel_device_ms"]}, up_pattern(key, "_bf16")),
+        })
+    # the bf16 block's passes (phases 30, 32, 33): on the bf16 ladder
+    # training CLI's path
+    for key, name, counter, replaces, also in BF16_PASSES:
+        rows = bkt[key]
+        names = ("ms", "plain_ms", "bound_ms", "device_ms")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "catgen_torch/csrc/upsample_conv_prep.cu",
+            "replaces": replaces, **({"also_replaces": also} if also else {}),
+            "launches": ladder16[f"up_{counter}"],
+            "launches_by_path": {
+                "train_ladder_bf16": ladder16[f"up_{counter}"],
+                **{f"step_{r.replace('-', '_').replace(' ', '_')}_bf16":
+                   bf16_route_steps[r]["launches"][f"up_{counter}"]
+                   for r, _ in BF16_ROUTES}},
+            "max_abs_err": pass_err[key],
+            **({"dbias_max_abs_err": pass_err["fold_dbias"]}
+               if key == "fold" else {}),
+            **{k: sum(r[k] for r in rows) for k in names},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": None, "library_note": "no one PyTorch call "
+            "computes the pass",
+            **{f"{k}_by_shape": by_shape([r[k] for r in rows], stages)
+               for k in names},
+            "device_ms_per_step": device_step_ms(
+                {"device_ms": brt["ladder"]["kernel_device_ms"]},
+                f"upsample_conv_{key}_bf16"),
         })
     kernels.append(st_entry(
         "st_conv_prelu_bf16", bf16_st_err, st16,

@@ -3,7 +3,8 @@ bilinear_sample.cu and bilinear_sample_bwd.cu) at coordinate rows, the
 upsample-conv kernels (upsample_conv.cu, upsample_conv_bwd.cu), the
 same sampler kernels on an (N, Ho, Wo, 2) grid and the fused ST-conv
 kernel (st_conv.cu), and, at the end of the file, the dCK kernel's four
-fold/transform variants, the choice between the d_coords kernels, the
+fold/transform variants, the bf16 block's transform and fold passes and
+the bf16 dCK on wgmma, the choice between the d_coords kernels, the
 staged sampler forward and the choice between the forward kernels, the
 3xTF32 upsample-conv forward at ragged shapes, the per-sample, gather and
 per-channel d_img kernels, the per-quad sampler forward and the 3xTF32
@@ -1563,6 +1564,146 @@ def test_bf16_upsample_route_launches_the_bf16_kernels(f32_cuda):
         BF16_DCK_LAUNCHES=1)
     assert x.grad.dtype == torch.bfloat16
     assert layer.weight.grad.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the bf16 block's passes (csrc/upsample_conv_prep.cu) and the bf16 dCK on
+# wgmma with both operands MN-major: the passes give their plain versions'
+# bits (the same f32 operations, rounded once), but for dbias, an f32 sum
+# in another order (UP_LOOSE); at one-row and one-column images, channel
+# counts off the 16-byte vector and over one block's 256 channels, and
+# arrays 2 bytes off a 16-byte boundary. dCK per layer (x, g) and as the
+# block's (xn and gf from the passes) within UP_LOOSE of the plain f32
+# dCK, and dweight within _bf16_close; repeats bit for bit.
+# ---------------------------------------------------------------------------
+
+PASS_SHAPES = [                # (N, H, W, C)
+    (2, 1, 7, 9),              # one row, C off the vector of 8
+    (3, 5, 1, 16),             # one column
+    (2, 3, 3, 5),              # C under one vector
+    (2, 4, 4, 512),            # G32up-c stage 1's input: two column blocks
+    (1, 6, 5, 264),            # a ragged column block
+]
+
+
+def _pass_inputs(shape, device, seed, alpha_n):
+    n, h, w, c = shape
+    r = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a.astype(np.float32),   # noqa: E731
+                               device=device)
+    return dict(x=t(r.randn(n, h, w, c)).bfloat16(),
+                scale=t(r.rand(c) + 0.5).bfloat16(),
+                shift=t(r.randn(c) * 0.3).bfloat16(),
+                alpha=t(r.rand(alpha_n) * 0.5).bfloat16(),
+                gy=t(r.randn(n, h, w, c)).bfloat16(),
+                gs1=t(r.randn(c) * 0.01), gs2=t(r.randn(c) * 0.01))
+
+
+@pytest.mark.parametrize("shape", PASS_SHAPES)
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bf16_transform_pass_gives_the_plain_bits(f32_cuda, shape, alpha,
+                                                  aligned):
+    v = _pass_inputs(shape, f32_cuda, 70, 1 if alpha == "scalar"
+                     else shape[3])
+    x = v["x"] if aligned else _misaligned_copy(v["x"])
+    args = (v["scale"], v["shift"], v["alpha"])
+    before = fuc.launches()
+    got = fuc.block_input_pass(x, *args)
+    again = fuc.block_input_pass(x, *args)
+    torch.cuda.synchronize()
+    assert fuc.launches() == dict(before, BF16_TRANSFORM_LAUNCHES=before[
+        "BF16_TRANSFORM_LAUNCHES"] + 2)
+    want = fuc.block_input(x, *args)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", PASS_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bf16_fold_pass_gives_the_plain_bits(f32_cuda, shape, aligned):
+    v = _pass_inputs(shape, f32_cuda, 71, 1)
+    y, gy = v["x"], v["gy"]
+    if not aligned:
+        y, gy = _misaligned_copy(y), _misaligned_copy(gy)
+    before = fuc.launches()
+    gf, db = fuc.block_fold_pass(y, gy, v["gs1"], v["gs2"])
+    gf2, db2 = fuc.block_fold_pass(y, gy, v["gs1"], v["gs2"])
+    torch.cuda.synchronize()
+    assert fuc.launches() == dict(before, BF16_FOLD_LAUNCHES=before[
+        "BF16_FOLD_LAUNCHES"] + 2)
+    want_gf, want_db = fuc.block_fold(y, gy, v["gs1"], v["gs2"])
+    assert gf.dtype == torch.bfloat16 and db.dtype == torch.float32
+    assert torch.equal(gf, want_gf)
+    _up_close(db, want_db, UP_LOOSE, "dbias")
+    assert torch.equal(gf, gf2) and torch.equal(db, db2)
+
+
+def test_bf16_fold_pass_of_an_empty_batch(f32_cuda):
+    v = _pass_inputs((0, 4, 4, 12), f32_cuda, 72, 1)
+    gf, db = fuc.block_fold_pass(v["x"], v["gy"], v["gs1"], v["gs2"])
+    torch.cuda.synchronize()
+    assert gf.shape == (0, 4, 4, 12) and torch.equal(db, torch.zeros_like(db))
+
+
+@pytest.mark.parametrize("shape", BF16_UP_SHAPES + [DCK_SHAPES[-1]])
+@pytest.mark.parametrize("form", ["conv", "block"])
+def test_bf16_dck_on_wgmma_matches_plain(f32_cuda, shape, form):
+    v = _bf16_up_inputs(shape, f32_cuda, seed=66, alpha_n=shape[3])
+    x, wt, gy = v["x"], v["weight"], v["gy"]
+    k = shape[5]
+    if form == "block":
+        y = fuc.block_plain(x, wt, v["bias"], v["scale"], v["shift"],
+                            v["alpha"])
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        tr = (v["scale"], v["shift"], v["alpha"])
+
+        def run():
+            return fuc._launch_dck(x, wt, gy, y, gs, *tr)
+
+        xn = fuc.block_input(x, *tr)
+        g, want_db = fuc.block_fold(y, gy, v["gs1"], v["gs2"])
+    else:
+        def run():
+            return (fuc._launch_dck(x, wt, gy), None)
+
+        xn, g, want_db = x, gy, None
+    before = fuc.launches()
+    dck, db = run()
+    again, db2 = run()
+    torch.cuda.synchronize()
+    passes = 2 if form == "block" else 0
+    assert fuc.launches() == dict(
+        before, BF16_TRANSFORM_LAUNCHES=before["BF16_TRANSFORM_LAUNCHES"]
+        + passes, BF16_FOLD_LAUNCHES=before["BF16_FOLD_LAUNCHES"] + passes)
+    want = fuc._kernel_vjp(xn, wt, g, need_x=False)[1]
+    _up_close(dck, want, UP_LOOSE, "dck")
+    _bf16_close(fuc.dweight_from_dck(dck, k, k).bfloat16(),
+                fuc.dweight_from_dck(want, k, k).bfloat16())
+    assert torch.equal(dck, again)
+    if form == "block":
+        _up_close(db, want_db, UP_LOOSE, "dbias")
+        assert torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("bad", ["f32_x", "f32_scale", "f32_y", "f32_gy",
+                                 "cpu_gy"])
+def test_bf16_passes_refuse_mixed_dtypes(f32_cuda, bad):
+    v = _pass_inputs(PASS_SHAPES[3], f32_cuda, 73, 1)
+    name = bad.split("_")[1]
+    if bad.startswith("f32"):
+        v["y" if name == "y" else name] = (v["x"] if name == "y"
+                                           else v[name]).float()
+    else:
+        v[name] = v[name].cpu()
+    before = fuc.launches()
+    with pytest.raises((TypeError, ValueError)):
+        if name in ("x", "scale"):
+            fuc.block_input_pass(v["x"], v["scale"], v["shift"], v["alpha"])
+        else:
+            fuc.block_fold_pass(v.get("y", v["x"]), v["gy"], v["gs1"],
+                                v["gs2"])
+    assert fuc.launches() == before
 
 
 @pytest.mark.parametrize("shape", ST_SHAPES)
