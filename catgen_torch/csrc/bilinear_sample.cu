@@ -82,9 +82,12 @@
 // f32 lerps and .to(torch.bfloat16). The conditions that count in floats
 // count in bytes: a 16-byte vector holds 4 f32 or 8 bf16 values, so the
 // staged kernel needs C % 8 == 0 in bf16, stages half the bytes (32 KB at
-// the branch shape) and gives 8 lanes, not 16, to a pixel at C = 64; the
-// per-quad kernel takes groups of 8 output pixels, not 4, so that a
-// group's coordinate row and its 8 C outputs are whole 16-byte vectors.
+// the branch shape) and gives 8 lanes, not 16, to a pixel at C = 64. The
+// per-quad forward has a bf16 kernel of its own (sample_per_quad_bf16):
+// 4 output pixels a thread as in f32, so that all 256 threads of a block
+// work at P = 1024, with the image widened in shared memory to 8-byte
+// groups of 4 channels (one read a tap at C = 3) and each round's output
+// gathered in shared memory, so that it leaves as whole 16-byte vectors.
 // In bf16 the bound halves: 21 MB of images and 63 MB of output at the
 // branch shape; 3.9 + 2.6 + 3.9 MB at the input ST.
 
@@ -190,34 +193,28 @@ sample_per_pixel_staged(const T* __restrict__ img, const T* __restrict__ crd,
 }
 
 constexpr int kQuadThreads = 256;
+constexpr int kQuadPixels = 4;     // output pixels a thread
+// output pixels a block of the bf16 per-quad kernel takes per round
+constexpr int kQuadRound = kQuadThreads * kQuadPixels;
 
-// Sets value j (< Vec<T>::N) of the 16-byte vector v to x, rounded to T;
+// Sets value j (< Vec<T>::N) of the 16-byte vector v of f32 values to x;
 // a chain of selects on j, so that v stays in registers.
 template <class T>
 __device__ __forceinline__ void put(uint4& v, int j, float x) {
-  uint32_t bits, mask;
-  int word;
-  if constexpr (sizeof(T) == 4) {
-    bits = __float_as_uint(x);
-    mask = 0xffffffffu;
-    word = j;
-  } else {
-    const int shift = (j & 1) * 16;
-    bits = Vec<T>::bits(x) << shift;
-    mask = 0xffffu << shift;
-    word = j >> 1;
-  }
+  static_assert(sizeof(T) == 4, "the f32 per-quad kernel's");
+  const uint32_t bits = __float_as_uint(x), mask = 0xffffffffu;
+  const int word = j;
   if (word == 0) v.x = (v.x & ~mask) | bits;
   else if (word == 1) v.y = (v.y & ~mask) | bits;
   else if (word == 2) v.z = (v.z & ~mask) | bits;
   else v.w = (v.w & ~mask) | bits;
 }
 
-// Grid n, one block per sample; thread t takes the groups of G =
-// Vec<T>::N neighbouring output pixels [G q, G q + G) for q = t, t +
-// blockDim.x, ... (quads in f32, 8 pixels in bf16). img, crd and out
-// 16-byte aligned, h*w*c values a whole number of 16-byte vectors, c < 32,
-// p * c < 2^31; dynamic shared memory h*w*c values of T.
+// f32 per quad. Grid n, one block per sample; thread t takes the quads of
+// G = Vec<T>::N = 4 neighbouring output pixels [G q, G q + G) for q = t,
+// t + blockDim.x, .... img, crd and out 16-byte aligned, h*w*c values a
+// whole number of 16-byte vectors, c < 32, p * c < 2^31; dynamic shared
+// memory h*w*c values of T (float; bf16 takes sample_per_quad_bf16).
 template <class L, class T>
 __global__ void __launch_bounds__(kQuadThreads)
 sample_per_quad_staged(const T* __restrict__ img, const T* __restrict__ crd,
@@ -277,6 +274,118 @@ sample_per_quad_staged(const T* __restrict__ img, const T* __restrict__ crd,
   }
 }
 
+// Shared memory of the bf16 per-quad kernel at (h, w, c): one region that
+// holds first the sample's image as it lies (16-byte cp.async) and then a
+// round's output, and the image widened to whole groups of 4 channels (8
+// bytes a group, zeros past c).
+static inline int64_t quad_bf16_region(int h, int w, int c) {
+  const int64_t raw = (int64_t)h * w * c * 2;
+  const int64_t round = (int64_t)kQuadRound * c * 2;
+  return ((raw > round ? raw : round) + 15) / 16 * 16;
+}
+static inline int64_t quad_bf16_smem_bytes(int h, int w, int c) {
+  return quad_bf16_region(h, w, c) + (int64_t)h * w * ((c + 3) / 4) * 8;
+}
+
+// bf16 per quad: the f32 kernel's quads (4 output pixels a thread, so
+// that every thread of a 256-thread block works at P = 1024), with the
+// 16-byte vector of 8 bf16 values kept apart from a thread's work. The
+// sample's image is staged as it lies, then widened in shared memory to
+// 4-channel groups, so that a tap of C <= 4 channels is one 8-byte read;
+// the coordinates of a quad come as 8-byte loads (rows: 4 y, then 4 x) or
+// one 16-byte load (grid: 4 (y, x) pairs); each value is rounded once
+// into a round's output tile in shared memory, which leaves as coalesced
+// 16-byte streaming stores (2-byte stores where the round's part of out
+// is not whole 16-byte vectors). Where p % 4 != 0 each thread loads its
+// coordinates pixel by pixel (the same values). Grid n, one block per
+// sample; img, crd and out 16-byte aligned, h*w*c values a whole number
+// of 16-byte vectors, c < 32, p * c < 2^31; `region` is
+// quad_bf16_region(h, w, c), the dynamic shared memory
+// quad_bf16_smem_bytes(h, w, c).
+template <class L>
+__global__ void __launch_bounds__(kQuadThreads)
+sample_per_quad_bf16(const __nv_bfloat16* __restrict__ img,
+                     const __nv_bfloat16* __restrict__ crd,
+                     __nv_bfloat16* __restrict__ out, int h, int w, int c,
+                     int p, int region) {
+  constexpr int G = kQuadPixels;
+  extern __shared__ uint4 smem4[];
+  // the region: the sample's image (h w c values), then a round's output
+  unsigned short* part = reinterpret_cast<unsigned short*>(smem4);
+  // the widened image, (h w, cg) groups of 4 channels
+  uint2* wide = reinterpret_cast<uint2*>(
+      reinterpret_cast<uint8_t*>(smem4) + region);
+  const int ni = blockIdx.x, tid = threadIdx.x;
+  const int hw = h * w, cg = (c + 3) / 4;
+  const int chunks = hw * c / 8;
+  stage_async(smem4, reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
+  asm volatile("cp.async.commit_group;\n" ::);
+  const bool vec = p % G == 0;
+  float ys[G] = {}, xs[G] = {};
+  if (vec && G * tid < p) L::load4(crd, ni, G * tid, p, ys, xs);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  for (int pix = tid; pix < hw; pix += blockDim.x) {
+    for (int k = 0; k < cg; ++k) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = 4 * k + i;
+        v[i] = ch < c ? part[pix * c + ch] : 0u;
+      }
+      wide[pix * cg + k] = make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+    }
+  }
+  __syncthreads();
+
+  unsigned short* o = reinterpret_cast<unsigned short*>(out) +
+                      (int64_t)ni * p * c;
+  for (int r0 = 0; r0 < p; r0 += kQuadRound) {
+    const int q = r0 / G + tid;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int pi = G * q + j;
+      if (pi >= p) break;
+      float yn = ys[j], xn = xs[j];
+      if (!vec) {
+        const float2 yx = L::load(crd, ni, pi, p);
+        yn = yx.x;
+        xn = yx.y;
+      }
+      const Taps t = make_taps(yn, xn, h, w);
+      unsigned short* dst = part + (pi - r0) * c;
+      for (int k = 0; k < cg; ++k) {
+        float a[4], b[4], e[4], f[4];
+        unpack4(wide[(int)t.p00 * cg + k], a);
+        unpack4(wide[(int)t.p01 * cg + k], b);
+        unpack4(wide[(int)t.p10 * cg + k], e);
+        unpack4(wide[(int)t.p11 * cg + k], f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (4 * k + i < c) {
+            dst[4 * k + i] = (unsigned short)Vec<__nv_bfloat16>::bits(
+                lerp_values(a[i], b[i], e[i], f[i], t));
+          }
+        }
+      }
+    }
+    const int next = q + blockDim.x;
+    if (vec && G * next < p) L::load4(crd, ni, G * next, p, ys, xs);
+    __syncthreads();                // the round's output is in `part`
+    const int count = min(kQuadRound, p - r0) * c;
+    unsigned short* base = o + (int64_t)r0 * c;
+    if (((uintptr_t)base & 15u) == 0 && count % 8 == 0) {
+      const uint4* src = reinterpret_cast<const uint4*>(part);
+      uint4* dst = reinterpret_cast<uint4*>(base);
+      for (int k = tid; k < count / 8; k += blockDim.x) __stcs(dst + k, src[k]);
+    } else {
+      for (int k = tid; k < count; k += blockDim.x) base[k] = part[k];
+    }
+    __syncthreads();                // `part` is free for the next round
+  }
+}
+
 // Ranges per sample of the staged kernel: the fewest whose n * per_sample
 // blocks fill their waves (blocks resident per SM x SMs) to 90% or more,
 // else the fullest, with at least 32 output pixels per range. Depends on
@@ -317,7 +426,8 @@ cudaError_t staged_per_sample(int n, int p, int smem, int& best) {
 // The forward's kind at (h, w, c) for elements of `elem` bytes with
 // 16-byte aligned arrays: for C >= 32 sampler_kind's (shared with
 // d_coords); for C < 32 kPerQuad where the image fits one block's opt-in
-// shared memory and h w C values fill whole 16-byte vectors (each
+// shared memory (in bf16 with its widened copy and a round's output,
+// quad_bf16_smem_bytes) and h w C values fill whole 16-byte vectors (each
 // sample's image starts on 16 bytes), else kPerPixel. A negative
 // cudaError_t if the card's shared memory could not be read.
 int forward_shape_kind(int h, int w, int c, int elem) {
@@ -325,7 +435,9 @@ int forward_shape_kind(int h, int w, int c, int elem) {
   if ((int64_t)h * w * c * elem % 16 != 0) return kPerPixel;
   const int optin = optin_smem();
   if (optin < 0) return optin;
-  return staged_smem_bytes(h, w, c, elem) <= optin ? kPerQuad : kPerPixel;
+  const int64_t bytes = elem == 2 ? quad_bf16_smem_bytes(h, w, c)
+                                  : staged_smem_bytes(h, w, c, elem);
+  return bytes <= optin ? kPerQuad : kPerPixel;
 }
 
 // The kind (h, w, c) takes with these arrays: forward_shape_kind, then
@@ -355,13 +467,23 @@ int launch_sample(const T* img, const T* crd, T* out, int n, int h, int w,
   if (kind < 0) return -kind;
   if (kind == kPerQuad) {
     if ((int64_t)n * p == 0) return 0;
-    const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
-    const cudaError_t err = cudaFuncSetAttribute(
-        sample_per_quad_staged<L, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    sample_per_quad_staged<L, T><<<(unsigned)n, kQuadThreads, smem, s>>>(
-        img, crd, out, h, w, c, p);
+    if constexpr (sizeof(T) == 2) {
+      const int smem = (int)quad_bf16_smem_bytes(h, w, c);
+      const cudaError_t err = cudaFuncSetAttribute(
+          sample_per_quad_bf16<L>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      sample_per_quad_bf16<L><<<(unsigned)n, kQuadThreads, smem, s>>>(
+          img, crd, out, h, w, c, p, (int)quad_bf16_region(h, w, c));
+    } else {
+      const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
+      const cudaError_t err = cudaFuncSetAttribute(
+          sample_per_quad_staged<L, T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      sample_per_quad_staged<L, T><<<(unsigned)n, kQuadThreads, smem, s>>>(
+          img, crd, out, h, w, c, p);
+    }
   } else if (kind == kStaged) {
     if ((int64_t)n * p == 0) return 0;
     const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));

@@ -83,6 +83,14 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// 4 bf16 values (8 bytes, element 0 in the lowest bytes) read into f32
+__device__ __forceinline__ void unpack4(const uint2& v, float* out) {
+  out[0] = __uint_as_float(v.x << 16);
+  out[1] = __uint_as_float(v.x & 0xffff0000u);
+  out[2] = __uint_as_float(v.y << 16);
+  out[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
 struct Taps {
   int64_t p00, p01, p10, p11;  // pixel indices y*w + x of the four taps
   float wy, wx;
@@ -155,6 +163,14 @@ struct RowsLayout {
     Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(cr + pi)), y);
     Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(cr + p + pi)), x);
   }
+  // bf16 pixels pi .. pi + 3 as two 8-byte loads: crd 16-byte aligned, p
+  // and pi multiples of 4
+  __device__ static void load4(const __nv_bfloat16* __restrict__ crd,
+                               int ni, int pi, int p, float* y, float* x) {
+    const __nv_bfloat16* cr = crd + (int64_t)ni * 2 * p;
+    unpack4(__ldg(reinterpret_cast<const uint2*>(cr + pi)), y);
+    unpack4(__ldg(reinterpret_cast<const uint2*>(cr + p + pi)), x);
+  }
 };
 
 // Grid: (n, p, 2), one (y, x) pair per pixel (the layout of catgen's
@@ -198,6 +214,19 @@ struct GridLayout {
     Vec<T>::unpack(__ldg(cr + 1), v + N);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
+      y[j] = v[2 * j];
+      x[j] = v[2 * j + 1];
+    }
+  }
+  // bf16 pixels pi .. pi + 3 as one 16-byte load of (y, x) pairs, the
+  // same alignment as RowsLayout::load4
+  __device__ static void load4(const __nv_bfloat16* __restrict__ crd,
+                               int ni, int pi, int p, float* y, float* x) {
+    float v[8];
+    Vec<__nv_bfloat16>::unpack(__ldg(reinterpret_cast<const uint4*>(
+        crd + 2 * ((int64_t)ni * p + pi))), v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
       y[j] = v[2 * j];
       x[j] = v[2 * j + 1];
     }

@@ -5,13 +5,14 @@
 // Replaces the TPU kernels of catgen/kernels/pallas_upsample_conv_bwd.py:
 //   * upsample2_conv_backward: _dx_kernel (dX) and _dw_kernel (dCK);
 //   * fused_block_backward: _fused_block_bwd_kernel, here as the same two
-//     kernels with flags: the cotangent fold g = gy + gs1 + 2 y gs2 on
-//     load, the input transform recomputed from x (dCK reads xn, zero
+//     kernels with flags: in f32 the cotangent fold g = gy + gs1 + 2 y gs2
+//     on load, the input transform recomputed from x (dCK reads xn, zero
 //     outside the image), the transform's backward in dX's epilogue (dx,
 //     and per-channel dscale, dshift, dalpha), and dbias from dCK's pass.
-//     In bf16 the dCK kernel has no flags: the transform and the fold
-//     (with dbias) run once per element in upsample_conv_prep.cu, and
-//     dCK reads their outputs.
+//     In bf16 the fold (with dbias) runs once per element in
+//     upsample_conv_prep.cu and both kernels read its output, as catgen
+//     folds g once for both products; dCK reads the transform pass's xn
+//     too, and dX keeps the transform's backward in its epilogue.
 // The dCK -> dW chain through the collapse matrices, and the per-layer
 // form's dbias (a sum of g), stay in the PyTorch wrapper, as catgen keeps
 // them outside its pallas_calls.
@@ -766,21 +767,31 @@ upsample_conv_dck(const float* __restrict__ x, Transform tr,
   }
 }
 
-// The bf16 dX (catgen's bf16 compute dtype): the f32 dX's design with one
-// bf16 wgmma product (m64n128k16) in place of the 3xTF32 split, as the
-// bf16 forward (upsample_conv.cu):
+// The bf16 dX (catgen's bf16 compute dtype): the f32 dX's tiles and
+// epilogue with one bf16 wgmma product (m64n128k16) in place of the
+// 3xTF32 split, as the bf16 forward (upsample_conv.cu). It reads g as it
+// lies: the per-layer cotangent, or on the block route the folded
+// cotangent gf that upsample_conv_prep.cu writes once per element (catgen
+// folds g and rounds it to x's dtype before both products, as that pass
+// does; a zero-filled halo copy is the 0 the fold masks in). So the main
+// loop only copies and multiplies:
 //   * a step is one (parity, tap) pair and 64 output channels, one
 //     128-byte swizzled row of A (g at the source pixels) and of B (the
-//     parity stack's cin rows, cout contiguous); both land in place;
-//   * with the fold, y is staged beside g, and the thread that copied a
-//     chunk computes (gy + gs1) + (2 y) gs2 in f32, masks the halo after
-//     it and rounds it once to bf16 in place, as catgen rounds the folded
-//     cotangent to x's dtype before its products;
+//     parity stack's cin rows, cout contiguous); both land in place by
+//     16-byte cp.async (2-byte loads for kVec = false);
+//   * a ring of kStages stages of 32 KB, taken two steps at a time: the
+//     copies of the next two pairs are in flight while a pair's products
+//     run, one barrier a pair;
+//   * fresh accumulators each 64-deep step, in two banks: both steps of a
+//     pair are queued on the tensor cores before the first one's products
+//     are added into sum (wgmma.wait_group 1), so the second one's run
+//     under that sum and under the next copies. The steps are added in
+//     f32 in step order: the bits of a one-bank loop;
 //   * the epilogue writes dx rounded once, and with the transform its
 //     backward in f32 from the bf16 x and constants, the column sums of
-//     dscale, dshift and dalpha f32 as in f32;
-//   * fresh accumulators each 64-deep step, the steps added in f32.
-// Shared memory: A x 3, B x 3 and, with the fold, y x 2 stages of 16 KB.
+//     dscale, dshift and dalpha f32 as in f32.
+// What bounds it: 2 * MACs / 989e12 s on the tensor cores, while each
+// step reads 32 KB of tiles (from L2, mostly) for 1M MACs.
 
 namespace dxk16 {
 
@@ -788,26 +799,41 @@ constexpr int kTileM = kTilePixels;   // input pixels per block
 constexpr int kTileN = 128;     // input channels per block
 constexpr int kStep = 64;       // contraction per stage: 64 output channels
 constexpr int kThreads = 256;   // 2 warpgroups, 64 rows of the tile each
+constexpr int kStages = 6;      // ring depth: 2 pairs of steps in flight
 constexpr int kTile = kTileM * kStep * 2;     // bytes of one A or B tile
+constexpr int kRing = kStages * 2 * kTile;   // bytes of the ring
+constexpr int kSmemBytes = kRing + 1024;      // + room to align
 static_assert(kTileM == kTileN, "one loader layout for A and B");
 static_assert(kStep * 2 == 128, "a tile row is one 128-byte swizzle row");
-constexpr int kA = 0, kB = 3, kY = 6;
-__host__ __device__ constexpr int smem_bytes(bool fold) {
-  return (fold ? 8 : 6) * kTile + 1024;      // + room to align
-}
-static_assert(smem_bytes(true) <= 232448,
-              "over the H100's opt-in shared memory");
+static_assert(kStages % 2 == 0 && kStages >= 4,
+              "a pair in the tensor cores, whole pairs loading");
+static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
 static_assert(kTileM == dxk::kTileM && kTileN == dxk::kTileN &&
               kThreads == dxk::kThreads, "dx_epilogue's tile");
+static_assert(kThreads / 32 * 3 * kTileN * 4 <= kRing,
+              "dx_epilogue's sums fit the ring");
 
 }  // namespace dxk16
 
-// g (n, 2h, 2w, cout) (+ fold, y the same); wst (4, kh, kw, cin, cout);
-// dx (n, h, w, cin), all bf16, as x and the transform; partial (m_tiles,
-// 3, cin) f32 with kTransform. Blocks in order cin tile, pixel tile.
-template <bool kFold, bool kTransform, bool kVec>
+// One step's products for warpgroup wg into fresh accumulators d, from
+// the ring slot at `slot` (A, then B): 4 wgmma of 16 output channels (32
+// bytes a row), one commit group.
+__device__ __forceinline__ void dx16_products(float (&d)[64], uint32_t slot,
+                                              int wg) {
+  const uint32_t a = slot + wg * 64 * 128, bt = slot + dxk16::kTile;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    wgmma_bf16(d, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
+  }
+  wgmma_commit();
+}
+
+// g (n, 2h, 2w, cout); wst (4, kh, kw, cin, cout); dx (n, h, w, cin), all
+// bf16, as x and the transform; partial (m_tiles, 3, cin) f32 with
+// kTransform. Blocks in order cin tile, pixel tile.
+template <bool kTransform, bool kVec>
 __global__ void __launch_bounds__(dxk16::kThreads, 1)
-upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
+upsample_conv_dx_bf16(const bf16* __restrict__ g,
                       const bf16* __restrict__ wst,
                       const bf16* __restrict__ x, TransformT<bf16> tr,
                       bf16* __restrict__ dx, float* __restrict__ partial,
@@ -817,7 +843,6 @@ upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
   const uint32_t raw_addr = smem_addr(smem_raw);
   uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
   const uint32_t sbase = smem_addr(smem);
-  auto tile = [&](int t) { return smem + t * kTile; };
 
   const int tid = threadIdx.x;
   const int ci_tiles = (int)ceil_div(gm.cin, kTileN);
@@ -846,30 +871,25 @@ upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
     avalid |= (uint32_t)ok << r;
   }
 
-  uint32_t masks = 0;               // per A slot: 4 halo bits of A rows
-  int ld_p = 0, ld_u = 0, ld_v = 0, ld_cs = 0;   // the next stage to load
+  int ld_p = 0, ld_u = 0, ld_v = 0, ld_cs = 0;   // the next step to load
 
-  auto load_stage = [&](int kt) {
-    const int slot = kt % 3;
-    bf16* a_dst = reinterpret_cast<bf16*>(tile(kA + slot));
-    bf16* b_dst = reinterpret_cast<bf16*>(tile(kB + slot));
-    bf16* y_dst = reinterpret_cast<bf16*>(tile(kY + (kt & 1)));
+  // copies the next step's A and B tiles into ring slot `slot`
+  auto load_stage = [&](int slot) {
+    bf16* a_dst = reinterpret_cast<bf16*>(smem + 2 * slot * kTile);
+    bf16* b_dst = a_dst + kTile / 2;
     const int d = ld_p >> 1, e = ld_p & 1;
     const int co = ld_cs * kStep + 8 * acq;
     const int oh = gm.umin_h[d] + ld_u, ow = gm.umin_w[e] + ld_v;
-    uint32_t bits = 0;
+    const bool co_ok = !kVec || co < gm.cout;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int si = ai[r] - oh, sj = aj[r] - ow;
       const bool inb = ((avalid >> r) & 1u) && si >= 0 && si < gm.h &&
                        sj >= 0 && sj < gm.w;
       const int gpix = gbase[r] + (2 * si + d) * 2 * gm.w + 2 * sj + e;
-      const int64_t off = (int64_t)gpix * gm.cout + co;
-      const bool ok = inb && (!kVec || co < gm.cout);
-      const uint32_t at = chunk_at(32 * r + arow, acq) / 2;
-      copy8<kVec>(a_dst + at, g + off, g, ok, co, gm.cout);
-      if (kFold) copy8<kVec>(y_dst + at, fold.y + off, fold.y, ok, co, gm.cout);
-      bits |= (uint32_t)inb << r;
+      copy8<kVec>(a_dst + chunk_at(32 * r + arow, acq) / 2,
+                  g + (int64_t)gpix * gm.cout + co, g, inb && co_ok, co,
+                  gm.cout);
     }
     const bf16* wtap =
         wst + (((int64_t)ld_p * gm.kh + ld_u) * gm.kw + ld_v) * gm.cin *
@@ -879,9 +899,8 @@ upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
       const int c = c0 + 32 * r + arow;
       copy8<kVec>(b_dst + chunk_at(32 * r + arow, acq) / 2,
                   wtap + (int64_t)c * gm.cout + co, wst,
-                  c < gm.cin && (!kVec || co < gm.cout), co, gm.cout);
+                  c < gm.cin && co_ok, co, gm.cout);
     }
-    masks = (masks & ~(0xfu << (4 * slot))) | (bits << (4 * slot));
     if (++ld_cs == csteps) {
       ld_cs = 0;
       if (++ld_v == gm.kw) {
@@ -894,75 +913,44 @@ upsample_conv_dx_bf16(const bf16* __restrict__ g, FoldT<bf16> fold,
     }
   };
 
-  // stage kt's own chunks, once they have landed: with the fold, A's fold
-  // and halo mask in f32, rounded once, in place. Then visible to wgmma.
-  auto prepare_stage = [&](int kt) {
-    const int slot = kt % 3;
-    float s1[8], s2[8];
-    const int co = (kt % csteps) * kStep + 8 * acq;
-    if (kFold) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const bool ok = co + q < gm.cout;
-        s1[q] = ok ? __ldg(fold.gs + co + q) : 0.0f;
-        s2[q] = ok ? __ldg(fold.gs + gm.cout + co + q) : 0.0f;
-      }
-    }
-    cp_async_wait<1>();             // this thread's copies of stage kt
-    if (kFold) {
-      uint8_t* a = tile(kA + slot);
-      const uint8_t* ys = tile(kY + (kt & 1));
-      const uint32_t bits = masks >> (4 * slot);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint32_t off = chunk_at(32 * r + arow, acq);
-        uint4* chunk = reinterpret_cast<uint4*>(a + off);
-        float v[8], yv[8];
-        unpack8(*chunk, v);
-        unpack8(*reinterpret_cast<const uint4*>(ys + off), yv);
-        const bool inb = (bits >> r) & 1u;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          // (gy + gs1) + (2 y) gs2, in the plain version's order; 0 in
-          // the halo after the fold
-          const float t = (2.0f * yv[q]) * s2[q];
-          v[q] = inb ? (v[q] + s1[q]) + t : 0.0f;
-        }
-        *chunk = pack8(v);
-      }
-    }
-    fence_async_shared();
-  };
-
   const int wg = tid >> 7;
-  float acc[64], sum[64];
+  float acc0[64], acc1[64], sum[64];
 #pragma unroll
   for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
 
-  if (steps > 0) load_stage(0);
-  cp_async_commit();
-  if (steps > 1) load_stage(1);
-  cp_async_commit();
-  if (steps > 0) prepare_stage(0);
-  __syncthreads();
-  for (int kt = 0; kt < steps; ++kt) {
-    if (kt + 2 < steps) load_stage(kt + 2);
+#pragma unroll
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < steps) load_stage(s);
     cp_async_commit();
-    const uint32_t a = sbase + (kA + kt % 3) * kTile + wg * 64 * 128;
-    const uint32_t bt = sbase + (kB + kt % 3) * kTile;
+  }
+  // two steps at a time (steps is a multiple of 4, the parities): both
+  // steps' products queued, step kt's added into sum while step kt + 1's
+  // run; every product group is retired within its pair
+#pragma unroll 1
+  for (int kt = 0; kt < steps; kt += 2) {
+    cp_async_wait<kStages - 4>();   // this thread's copies of kt, kt + 1
+    fence_async_shared();
+    __syncthreads();                // every copy of the pair has landed,
+                                    // and the pair before is done
     wgmma_fence();
+    dx16_products(acc0, sbase + 2 * (kt % kStages) * kTile, wg);
+    dx16_products(acc1, sbase + 2 * ((kt + 1) % kStages) * kTile, wg);
+    // steps kt + kStages - 2 and kt + kStages - 1 into the slots the pair
+    // before has left
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {   // 16 channels each, 32 bytes a row
-      wgmma_bf16(acc, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
+    for (int j = kStages - 2; j < kStages; ++j) {
+      if (kt + j < steps) load_stage((kt + j) % kStages);
+      cp_async_commit();
     }
-    wgmma_commit();
-    if (kt + 1 < steps) prepare_stage(kt + 1);
-    wgmma_wait(acc);
+    wgmma_wait<1>(acc0);            // step kt's products
 #pragma unroll
-    for (int k = 0; k < 64; ++k) sum[k] += acc[k];
-    __syncthreads();                // stage kt + 1 ready; kt's tiles free
+    for (int k = 0; k < 64; ++k) sum[k] += acc0[k];
+    wgmma_wait<0>(acc1);            // step kt + 1's
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc1[k];
   }
   cp_async_wait<0>();
+  __syncthreads();                  // both warpgroups are done with the ring
 
   dx_epilogue<kTransform>(sum, x, tr, dx, partial, smem, gm, c0, m0, mtile);
 }
@@ -1219,33 +1207,31 @@ cudaError_t launch_dck(bool vec, const float* x, Transform tr, const float* g,
                    x, tr, g, fold, partial, db_partial, gm, splits, chunk, s);
 }
 
-template <bool kFold, bool kTransform, bool kVec>
-cudaError_t launch_dx_bf16(const bf16* g, FoldT<bf16> fold, const bf16* wst,
-                           const bf16* x, TransformT<bf16> tr, bf16* dx,
-                           float* partial, const Geometry& gm,
-                           cudaStream_t s) {
-  const int smem = dxk16::smem_bytes(kFold);
+template <bool kTransform, bool kVec>
+cudaError_t launch_dx_bf16(const bf16* g, const bf16* wst, const bf16* x,
+                           TransformT<bf16> tr, bf16* dx, float* partial,
+                           const Geometry& gm, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      upsample_conv_dx_bf16<kFold, kTransform, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      upsample_conv_dx_bf16<kTransform, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dxk16::kSmemBytes);
   if (err != cudaSuccess) return err;
   const int64_t blocks = ceil_div(gm.cin, dxk16::kTileN) *
                          ceil_div((int64_t)gm.n * gm.h * gm.w, dxk16::kTileM);
-  upsample_conv_dx_bf16<kFold, kTransform, kVec>
-      <<<(unsigned)blocks, dxk16::kThreads, smem, s>>>(g, fold, wst, x, tr,
-                                                       dx, partial, gm);
+  upsample_conv_dx_bf16<kTransform, kVec>
+      <<<(unsigned)blocks, dxk16::kThreads, dxk16::kSmemBytes, s>>>(
+          g, wst, x, tr, dx, partial, gm);
   return cudaGetLastError();
 }
 
-template <bool kFold, bool kTransform>
-cudaError_t launch_dx_bf16(bool vec, const bf16* g, FoldT<bf16> fold,
-                           const bf16* wst, const bf16* x,
-                           TransformT<bf16> tr, bf16* dx, float* partial,
-                           const Geometry& gm, cudaStream_t s) {
-  return vec ? launch_dx_bf16<kFold, kTransform, true>(g, fold, wst, x, tr,
-                                                       dx, partial, gm, s)
-             : launch_dx_bf16<kFold, kTransform, false>(g, fold, wst, x, tr,
-                                                        dx, partial, gm, s);
+template <bool kTransform>
+cudaError_t launch_dx_bf16(bool vec, const bf16* g, const bf16* wst,
+                           const bf16* x, TransformT<bf16> tr, bf16* dx,
+                           float* partial, const Geometry& gm,
+                           cudaStream_t s) {
+  return vec ? launch_dx_bf16<kTransform, true>(g, wst, x, tr, dx, partial,
+                                                gm, s)
+             : launch_dx_bf16<kTransform, false>(g, wst, x, tr, dx, partial,
+                                                 gm, s);
 }
 
 template <bool kVec>
@@ -1263,6 +1249,14 @@ cudaError_t launch_dck_bf16(const bf16* x, const bf16* g, float* partial,
       <<<(unsigned)blocks, dck16::kThreads, dck16::kSmemBytes, s>>>(
           x, g, partial, gm, chunk);
   return cudaGetLastError();
+}
+
+// dX of an empty batch or input: dx is empty, and with the transform
+// (dtr non-null; an empty x may have a null pointer) its sums dtr (3,
+// cin) are 0
+int empty_dx(float* dtr, int cin, cudaStream_t s) {
+  if (dtr == nullptr || cin <= 0) return 0;
+  return (int)cudaMemsetAsync(dtr, 0, sizeof(float) * 3 * (size_t)cin, s);
 }
 
 // a split's pixel range: an equal share, rounded up to whole stages
@@ -1317,7 +1311,7 @@ extern "C" int catgen_upsample_conv_dx_f32(
     int w, int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0,
     int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)n * h * w == 0 || cin == 0) return 0;
+  if ((int64_t)n * h * w == 0 || cin == 0) return empty_dx(dtr, cin, s);
   if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1398,8 +1392,10 @@ extern "C" int catgen_upsample_conv_dck_f32(
   return (int)launch_sum_rows(db_partial, dbias, splits * 4, cout, s);
 }
 
-// The bf16 dX: the f32 entry's arguments with bf16 g, y, wst, x, the
-// transform and dx; gs, partial and dtr stay f32.
+// The bf16 dX: the f32 entry's arguments with bf16 g, wst, x, the
+// transform and dx; partial and dtr stay f32. It takes no fold: on the
+// block route g is the folded cotangent that catgen_upsample_conv_fold_bf16
+// writes, and a non-null y or gs is refused (cudaErrorInvalidValue).
 extern "C" int catgen_upsample_conv_dx_bf16(
     const bf16* g, const bf16* y, const float* gs, const bf16* wst,
     const bf16* x, const bf16* tscale, const bf16* tshift,
@@ -1407,31 +1403,21 @@ extern "C" int catgen_upsample_conv_dx_bf16(
     int w, int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0,
     int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)n * h * w == 0 || cin == 0) return 0;
+  if (y != nullptr || gs != nullptr) return (int)cudaErrorInvalidValue;
+  if ((int64_t)n * h * w == 0 || cin == 0) return empty_dx(dtr, cin, s);
   if ((int64_t)n * 4 * h * w >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   const Geometry gm =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
-  const FoldT<bf16> fold = {y, gs, cout};
   const TransformT<bf16> tr = {tscale, tshift, talpha};
-  const bool f = y != nullptr, tf = x != nullptr;
+  const bool tf = x != nullptr;
+  // 16-byte copies where every row of g and wst starts 16-byte aligned
   const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(g) &&
-                   aligned16(y) && aligned16(wst);
-  cudaError_t err;
-  if (f && tf) {
-    err = launch_dx_bf16<true, true>(vec, g, fold, wst, x, tr, dx, partial,
-                                     gm, s);
-  } else if (f) {
-    err = launch_dx_bf16<true, false>(vec, g, fold, wst, x, tr, dx, partial,
-                                      gm, s);
-  } else if (tf) {
-    err = launch_dx_bf16<false, true>(vec, g, fold, wst, x, tr, dx, partial,
-                                      gm, s);
-  } else {
-    err = launch_dx_bf16<false, false>(vec, g, fold, wst, x, tr, dx, partial,
-                                       gm, s);
-  }
+                   aligned16(wst);
+  const cudaError_t err =
+      tf ? launch_dx_bf16<true>(vec, g, wst, x, tr, dx, partial, gm, s)
+         : launch_dx_bf16<false>(vec, g, wst, x, tr, dx, partial, gm, s);
   if (err != cudaSuccess || !tf) return (int)err;
   return (int)launch_sum_rows(partial, dtr,
                               (int)ceil_div((int64_t)n * h * w, dxk16::kTileM),

@@ -42,16 +42,14 @@ struct TransformT {
 };
 using Transform = TransformT<float>;
 
-// BatchNorm-statistics cotangents folded into the output cotangent:
-// g = gy + gs[0][co] + 2 y gs[1][co] (y of the element type T; gs is
-// (2, cout) f32 in both).
-template <class T>
-struct FoldT {
-  const T* y;
+// BatchNorm-statistics cotangents folded into the f32 kernels' output
+// cotangent: g = gy + gs[0][co] + 2 y gs[1][co] (gs is (2, cout)). The
+// bf16 block folds in a pass of its own (upsample_conv_prep.cu).
+struct Fold {
+  const float* y;
   const float* gs;
   int cout;
 };
-using Fold = FoldT<float>;
 
 // out[c] = sum over rows r of in[r * cols + c], in a fixed order: thread
 // (x, y) adds rows y, y + blockDim.y, ... in turn, then row 0 of threads
@@ -177,9 +175,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// waits for this warpgroup's products; d may be read after it
+// waits until at most N of this warpgroup's product groups are pending
+// (N = 0: all done); d, whose group is done then, may be read after it
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n"
+  asm volatile("wgmma.wait_group.sync.aligned %64;\n"
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -188,7 +188,7 @@ __device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-               :
+               : "n"(N)
                : "memory");
 }
 

@@ -13,8 +13,9 @@ their plain PyTorch versions. The counterpart of
     cotangents folded in (row 6);
   * ``block_input_pass`` and ``block_fold_pass``: the bf16 block's input
     transform and cotangent fold (with dbias), each a pass of its own over
-    the elements, which the bf16 forward and dCK kernels then read as
-    they lie;
+    the elements, which the bf16 kernels then read as they lie (the
+    forward and dCK the transform's output, dX and dCK the fold's, once
+    per block backward);
   * ``upsample2_conv_bias`` and ``upsample2_conv_block``: the autograd
     Functions around them; their backwards follow ``config.upsample_bwd``
     and ``config.ladder_bwd``.
@@ -232,28 +233,39 @@ def fused_block_backward_plain(x, in_scale, in_shift, in_alpha, weight, bias,
                 (True,) * 6, g)
 
 
-def block_backward_plain(x, in_scale, in_shift, in_alpha, weight, y, gy,
-                         gs1, gs2):
-    """Row 6's plain version: (dx, dscale, dshift, dalpha (Cin,), dweight,
-    dbias) as the kernels compute them, catgen's
-    ``_fused_block_bwd_kernel`` arithmetic: the prologue recomputed in f32
-    and rounded to x's dtype, the fold in f32 (dbias its f32 sum) rounded
-    before both products, dx rounded once, dscale, dshift and dalpha f32
-    sums, dCK chained to dW in f32 and rounded to the weight's dtype (in
-    f32 the roundings do nothing)."""
+def block_grads_plain(x, in_scale, in_shift, in_alpha, weight, g):
+    """The block's gradients for the folded cotangent g (``block_fold``'s,
+    in x's dtype) as the kernels compute them from it, catgen's
+    ``_fused_block_bwd_kernel`` arithmetic after its fold: (dx, dscale,
+    dshift, dalpha (Cin,), dweight), the prologue recomputed in f32 and
+    rounded to x's dtype, dx of the parity convs on g and the transform's
+    backward in f32, dx rounded once, dscale, dshift and dalpha f32 sums,
+    dCK chained to dW in f32 and rounded to the weight's dtype (in f32 the
+    roundings do nothing). The bf16 block dX kernel computes the first
+    four, the dCK kernel on the transform pass's output the last."""
     sc, sh = _wide(in_scale), _wide(in_shift)
     al = _wide(in_alpha).reshape(-1).expand(x.shape[-1])
     xt = _wide(x) * sc + sh
     mask = xt >= 0
     xn = torch.where(mask, xt, al * xt).to(x.dtype)
-    g32 = _fold(y, gy, gs1, gs2)
-    dxn, dck = _kernel_vjp(xn, weight, g32.to(x.dtype))
+    dxn, dck = _kernel_vjp(xn, weight, g)
     dxt = dxn * torch.where(mask, 1.0, al)
     dims = (0, 1, 2)
     return ((dxt * sc).to(x.dtype), (dxt * _wide(x)).sum(dims),
             dxt.sum(dims), (dxn * torch.where(mask, 0.0, xt)).sum(dims),
             dweight_from_dck(dck, weight.shape[2], weight.shape[3]).to(
-                weight.dtype), g32.sum(dims))
+                weight.dtype))
+
+
+def block_backward_plain(x, in_scale, in_shift, in_alpha, weight, y, gy,
+                         gs1, gs2):
+    """Row 6's plain version: (dx, dscale, dshift, dalpha (Cin,), dweight,
+    dbias), catgen's ``_fused_block_bwd_kernel`` arithmetic: the fold in
+    f32 rounded once to y's dtype (``block_fold``; dbias its f32 sum),
+    then ``block_grads_plain`` on the folded cotangent."""
+    g, dbias = block_fold(y, gy, gs1, gs2)
+    return (*block_grads_plain(x, in_scale, in_shift, in_alpha, weight, g),
+            dbias)
 
 
 # ---------------------------------------------------------------------------
@@ -462,10 +474,15 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
 def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                in_alpha=None):
     """Runs the dX kernel; with the transform, returns (dx, dtr (3, cin))
-    (dtr f32 in both element types)."""
+    (dtr f32 in both element types). The f32 kernel folds g with y and gs
+    itself; the bf16 kernel takes no fold, but g folded by
+    ``block_fold_pass``."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
     _check("g", g, dev, (n, 2 * h, 2 * w, cout), x.dtype)
+    if x.dtype == torch.bfloat16 and y is not None:
+        raise ValueError("the bf16 dX kernel reads the folded cotangent: "
+                         "fold with block_fold_pass first")
     lib = load_library()
     wst = parity_stack(weight)
     dx = torch.empty_like(x)
@@ -488,10 +505,10 @@ def _launch_dx(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
 def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                 in_alpha=None):
     """Runs the dCK kernel; returns dCK (4, kh', kw', Cin, Cout), and with
-    the fold also dbias (Cout,), both f32 in both element types. In bf16
-    the transform and the fold (with dbias) run first, each as its own
-    pass (``block_input_pass``, ``block_fold_pass``), and the kernel reads
-    their outputs."""
+    the fold (f32 only) also dbias (Cout,), both f32. In bf16 the kernel
+    takes no fold, but g folded by ``block_fold_pass``, and the transform
+    runs first as a pass of its own (``block_input_pass``), whose output
+    the kernel reads."""
     n, h, w, cin, cout, k_h, k_w = _geometry(x, weight)
     dev = x.device
     _check("g", g, dev, (n, 2 * h, 2 * w, cout), x.dtype)
@@ -506,17 +523,18 @@ def _launch_dck(x, weight, g, y=None, gs=None, in_scale=None, in_shift=None,
                       device=dev)
     db_partial = dbias = None
     if x.dtype == torch.bfloat16:
+        if y is not None:
+            raise ValueError("the bf16 dCK kernel reads the folded "
+                             "cotangent: fold with block_fold_pass first")
         if in_scale is not None:
             x = block_input_pass(x, in_scale, in_shift, in_alpha)
-        if y is not None:
-            g, dbias = block_fold_pass(y, g, gs[0], gs[1])
         with torch.cuda.device(dev):
             err = lib.catgen_upsample_conv_dck_bf16(
                 x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                 dck.data_ptr(), n, h, w, cin, cout, kp_h, kp_w,
                 *_umins(k_h, k_w), _stream(dev))
         _launched(err, "upsample-conv dCK")
-        return dck if dbias is None else (dck, dbias)
+        return dck
     if y is not None:
         db_partial = torch.empty((splits * 4, cout), dtype=torch.float32,
                                  device=dev)
@@ -625,9 +643,17 @@ def fused_block_backward(x, in_scale, in_shift, in_alpha, weight, y, gy,
     _check("y", y, x.device, gy.shape, x.dtype)
     _check("gs", gs, x.device, (2, weight.shape[0]))
     alpha = _check_transform(in_scale, in_shift, in_alpha, cin, x)
-    dx, dtr = _launch_dx(x, weight, gy, y, gs, in_scale, in_shift, alpha)
-    _count("BLOCK_DX_LAUNCHES", x.dtype)
-    dck, dbias = _launch_dck(x, weight, gy, y, gs, in_scale, in_shift, alpha)
+    tr = (in_scale, in_shift, alpha)
+    if x.dtype == torch.bfloat16:
+        # the fold once, for both kernels, as catgen's kernel folds g once
+        gf, dbias = block_fold_pass(y, gy, gs1, gs2)
+        dx, dtr = _launch_dx(x, weight, gf, None, None, *tr)
+        _count("BLOCK_DX_LAUNCHES", x.dtype)
+        dck = _launch_dck(x, weight, gf, None, None, *tr)
+    else:
+        dx, dtr = _launch_dx(x, weight, gy, y, gs, *tr)
+        _count("BLOCK_DX_LAUNCHES", x.dtype)
+        dck, dbias = _launch_dck(x, weight, gy, y, gs, *tr)
     _count("BLOCK_DCK_LAUNCHES", x.dtype)
     dw = dweight_from_dck(dck, weight.shape[2], weight.shape[3])
     return dx, dtr[0], dtr[1], dtr[2], dw.to(weight.dtype), dbias

@@ -116,8 +116,9 @@ with a non-zero exit code and no result.
      routes, profiled;
  26. the sampler kernels' bf16 instantiations against their bf16 plain
      versions (upcast, f32 arithmetic, one rounding) at phase 4's shapes,
-     rows and grid layouts: the kernel each bf16 shape takes; the forward
-     bit for bit (a misaligned image too); d_img and d_coords within one
+     rows and grid layouts, and at the augmentation's own coordinates:
+     the kernel each bf16 shape takes; the forward bit for bit (a
+     misaligned image too); d_img and d_coords within one
      bf16 unit in the last place plus 2^-16 of the largest, repeats bit
      for bit;
  27. the training CLI with --dtype bf16 --augment (one epoch of 20 steps
@@ -137,7 +138,9 @@ with a non-zero exit code and no result.
  30. phase 11 for the upsample-conv kernels' bf16 instantiations (bf16
      wgmma; the bf16 block runs its input transform and its cotangent
      fold as passes of their own, held bit for bit against their plain
-     versions, dbias within 1e-4) against their bf16 plain versions: bf16
+     versions, dbias within 1e-4; the block backward folds once and its
+     dX and dCK read the fold's output, the block dX also held alone on
+     it) against their bf16 plain versions: bf16
      outputs
      within one unit in the last place plus 2^-16 of the largest, dW and
      db (sums over the batch) plus 1e-4, f32 sums within 1e-4 of the
@@ -158,8 +161,10 @@ with a non-zero exit code and no result.
  33. at batch 640: each bf16 kernel of phases 30-31 against its plain
      version, its bf16 library call (cuDNN's collapsed route: forward,
      dgrad, wgrad; the split prefix) and its bf16 bound, in event and
-     device time (the block forms' calls with their passes), each bf16
-     pass beside them; the bf16 step on the default, ladder, per-layer and
+     device time (the block forward and dCK with their transform pass,
+     the block dX alone on the folded cotangent), each bf16 pass beside
+     them, and the whole bf16 block backward in one call beside cuDNN's
+     bf16 dgrad and wgrad; the bf16 step on the default, ladder, per-layer and
      fused-prefix routes in one run (time, images/s, idle share, peak
      memory, each port kernel's device time).
 
@@ -500,13 +505,14 @@ def build() -> None:
 # products), bf16 one BF16 product (the _bf16 kernels). dCK: fold x
 # transform x 16-byte copies in f32 (mma.sync: HMMA), 16-byte copies in
 # bf16 (wgmma: HGMMA; the bf16 block's transform and fold are passes of
-# their own); dX: fold x transform x 16-byte copies (wgmma: HGMMA); the
-# forward: transform x stats x 16-byte copies in f32, stats x 16-byte
+# their own); dX: fold x transform x 16-byte copies in f32, transform x
+# 16-byte copies in bf16 (it reads the fold pass's output; wgmma: HGMMA);
+# the forward: transform x stats x 16-byte copies in f32, stats x 16-byte
 # copies in bf16 (wgmma: HGMMA)
 TENSOR_CORE_KERNELS = {
     "upsample_conv_dck": {"TF32": (8, "HMMA"), "BF16": (2, "HGMMA")},
     "upsample_conv_fwd": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")},
-    "upsample_conv_dx": {"TF32": (8, "HGMMA"), "BF16": (8, "HGMMA")}}
+    "upsample_conv_dx": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")}}
 
 
 def tensor_core_check(path) -> None:
@@ -1637,8 +1643,7 @@ def upsample_vs_plain(bf16: bool = False) -> dict:
              lambda: fuc.upsample2_conv_backward(x, w, gy),
              lambda: fuc.kernel_backward_plain(x, w, gy)),
             ("dck", ("dweight (fold)", "dbias (fold)"),
-             lambda: (lambda r: (dweight(r[0]), r[1]))(
-                 fuc._launch_dck(x, w, gy, y, gs)),
+             lambda: fold_dck(x, w, gy, y, gs),
              lambda: (dweight_plain(x, g), g.sum(dim=(0, 1, 2)))),
             ("dck", ("dweight (transform)",),
              lambda: (dweight(fuc._launch_dck(
@@ -1649,6 +1654,14 @@ def upsample_vs_plain(bf16: bool = False) -> dict:
              lambda: fuc.fused_block_backward(*args),
              lambda: fuc.block_backward_plain(*args)),
         ]
+        if bf16:   # the bf16 block dX kernel alone, on the folded g
+            gf = fuc.block_fold(y, gy, v["gs1"], v["gs2"])[0]
+            groups.append((
+                "block_dx", ("dx (on gf)", "dscale (on gf)",
+                             "dshift (on gf)", "dalpha (on gf)"),
+                lambda: (lambda r: (r[0], *r[1]))(
+                    fuc._launch_dx(x, w, gf, None, None, sc, sh, ale)),
+                lambda: fuc.block_grads_plain(x, sc, sh, al, w, gf)[:4]))
         for keys, names, kern, plain in groups:
             got, again = kern(), kern()
             torch.cuda.synchronize()
@@ -1664,6 +1677,22 @@ def upsample_vs_plain(bf16: bool = False) -> dict:
         del groups, y, args, v, g
         torch.cuda.empty_cache()
     return worst
+
+
+def fold_dck(x, w, gy, y, gs):
+    """dCK with the fold (dweight, dbias): in f32 the kernel folds as it
+    loads; in bf16 the fold pass runs first and the kernel reads its
+    output, as the bf16 block backward does."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    k = w.shape[2]
+    if x.dtype == torch.bfloat16:
+        gf, db = fuc.block_fold_pass(y, gy, gs[0], gs[1])
+        dck = fuc._launch_dck(x, w, gf)
+    else:
+        dck, db = fuc._launch_dck(x, w, gy, y, gs)
+    return fuc.dweight_from_dck(dck, k, k).to(w.dtype), db
 
 
 F64_TOL = 1e-6             # the 3xTF32 forward against float64
@@ -1781,10 +1810,12 @@ def dck_vs_float64(bf16: bool = False) -> dict:
                     worst[key] = max(worst[key], err / top)
             if bf16:
                 # the f32 sums before the one rounding, against float64
-                gs = torch.stack([gs1, gs2])
-                dck = (fuc._launch_dck(x, w, gy, y, gs, sc, sh, al.expand(
-                    shape[3]).contiguous())[0] if key == "block_dck"
-                       else fuc._launch_dck(x, w, gy))
+                # the block's dCK reads the fold pass's output, as in
+                # the block backward
+                dck = (fuc._launch_dck(
+                    x, w, fuc.block_fold_pass(y, gy, gs1, gs2)[0], None,
+                    None, sc, sh, al.expand(shape[3]).contiguous())
+                       if key == "block_dck" else fuc._launch_dck(x, w, gy))
                 dck_plain = fuc._kernel_vjp(xn, w, g, need_x=False)[1]
                 top = exact[0].abs().max().item()
                 rel = [(fuc.dweight_from_dck(t, k, k).double()
@@ -1979,6 +2010,8 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
     from catgen_torch.kernels.upsample_conv import upsample2_conv
 
     out = {key: [] for key, *_ in UP_KERNELS + (BF16_PASSES if bf16 else ())}
+    if bf16:
+        out["block_backward"] = []
     dtype = "bf16" if bf16 else "f32"
     for s in range(3):
         shape = stage_shape(s, TRAIN_B)
@@ -2026,6 +2059,20 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
                                                   alc),
                           block_bwd, lib_dw, xb + 2 * yb + ckb),
         }
+        if bf16:
+            # the bf16 block backward folds once (the fold pass, timed in
+            # pass_times) and both kernels read its gf: dX alone (g, the
+            # weight and x for the transform's backward read, dx written),
+            # dCK with the transform pass (x and gf read, dCK written)
+            gf = fuc.block_fold(y, gy, v["gs1"], v["gs2"])[0]
+            runs["block_dx"] = (
+                lambda: fuc._launch_dx(x, wt, gf, None, None, sc, sh, alc),
+                lambda: fuc.block_grads_plain(x, sc, sh, al, wt, gf),
+                lib_dx, yb + wb + 2 * xb)
+            runs["block_dck"] = (
+                lambda: fuc._launch_dck(x, wt, gf, None, None, sc, sh, alc),
+                lambda: fuc.block_grads_plain(x, sc, sh, al, wt, gf),
+                lib_dw, xb + yb + ckb)
         for key, (kern, plain, library, nbytes) in runs.items():
             k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
             p = cuda_ms(plain, reps=3, inner=2, warmup=1)
@@ -2057,10 +2104,12 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
                   f"calls, order kernel-plain-library-kernel); {card_name}")
         if bf16:
             pass_times(out, card_name, s, shape, v, y)
+            block_backward_time(out, card_name, s, shape, v, y, lib_y,
+                                xr, wr, flops, xb, yb, wb, ckb)
         # what the block backward's fix-ups cost: dCK with the fold alone
         # and with the transform alone, beside the two variants above
         singles = {
-            "fold": lambda: fuc._launch_dck(x, wt, gy, y, gs),
+            "fold": lambda: fold_dck(x, wt, gy, y, gs),
             "transform": lambda: fuc._launch_dck(x, wt, gy, in_scale=sc,
                                                  in_shift=sh, in_alpha=alc)}
         times = {f: cuda_ms(fn, reps=5, inner=3, warmup=2)
@@ -2074,6 +2123,46 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
         del runs, lib_y, xr, wr, y, v
         torch.cuda.empty_cache()
     return out
+
+
+def block_backward_time(out: dict, card_name: str, s: int, shape,
+                        v: dict, y, lib_y, xr, wr, flops: float, xb: int,
+                        yb: int, wb: int, ckb: int) -> None:
+    """Phase 33, beside the bf16 kernels' times at stage ``s``: the bf16
+    block backward as one call (``fused_block_backward``: the fold pass,
+    dX on its gf, the transform pass and dCK, and the wrapper's work)
+    against cuDNN's bf16 dgrad and wgrad in one call (autograd of the
+    collapsed route for x and the weight), device time from the profiler
+    beside CUDA events; its bound counts the products of both kernels and
+    each input (x, y, gy, the weight) read once, dx and dCK written once.
+    Appends a row to out["block_backward"]."""
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+    import torch
+
+    args = (v["x"], v["scale"], v["shift"], v["alpha"], v["weight"], y,
+            v["gy"], v["gs1"], v["gs2"])
+    kern = lambda: fuc.fused_block_backward(*args)            # noqa: E731
+    library = lambda: torch.autograd.grad(                     # noqa: E731
+        lib_y, [xr, wr], v["gy"], retain_graph=True)
+    k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+    p = cuda_ms(lambda: fuc.block_backward_plain(*args), reps=3, inner=2,
+                warmup=1)
+    lib = cuda_ms(library, reps=5, inner=3, warmup=2)
+    k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+    dev, names, src = device_ms(kern, calls=20, warmup=1)
+    lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
+    b_ms, b_by = bound_bf16(2 * flops, 2 * xb + 2 * yb + wb + ckb)
+    out["block_backward"].append(dict(
+        ms=min(k1, k2), plain_ms=p, library_ms=lib, bound_ms=b_ms,
+        bound_by=b_by, device_ms=dev, library_device_ms=lib_dev))
+    print(f"bf16 block backward stage {s + 1} {shape}: one call "
+          f"{min(k1, k2):.4f} ms ({k1:.4f} / {k2:.4f}), device {dev:.4f} ms "
+          f"({src}, 20 calls; {len(names)} kernels: fold, dX, transform, "
+          f"dCK, sums), plain {p:.4f} ms, cuDNN dgrad + wgrad in bf16 "
+          f"(collapsed route, one call) {lib:.4f} ms, device {lib_dev:.4f} "
+          f"ms ({src_lib}), device ratio {dev / lib_dev:.3f}; bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / dev:.3f} of the bound in device "
+          f"time; {card_name}")
 
 
 def pass_times(out: dict, card_name: str, s: int, shape, v: dict,
@@ -2962,7 +3051,9 @@ def pretrain_times(card_name: str, route=None) -> dict:
 
 # the kernels each shape of DCOORDS_SHAPES takes in bf16, (forward,
 # d_coords, d_img): a 16-byte vector holds 8 bf16 values, so the 32x32x64
-# image (128 KB in bf16) is staged, where f32 takes the per-value forward
+# image (128 KB in bf16) is staged, where f32 takes the per-value forward;
+# the bf16 per-quad forward is a kernel of its own (sample_per_quad_bf16:
+# 4 output pixels a thread, the image widened in shared memory)
 BF16_KINDS = (("per_quad", "per_pixel", "per_sample"),
               ("staged", "staged", "gather"),
               ("staged", "staged", "gather"))
@@ -3002,10 +3093,36 @@ def bf16_inputs(shape, seed: int):
     return img.bfloat16(), rows.bfloat16(), g.cuda().bfloat16(), out_hw
 
 
+def augment_rows(images, seed: int):
+    """The coordinate rows that ``data.ops.augment_batch`` hands the
+    sampler for ``images`` (its default route: rows, in the images'
+    dtype), from draws seeded by ``seed``."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.data import ops
+
+    seen = []
+    sample = ops.bilinear_sample_rows
+
+    def spy(img, rows, out_hw):
+        seen.append(rows)
+        return sample(img, rows, out_hw)
+
+    ops.bilinear_sample_rows = spy
+    try:
+        ops.augment_batch(Draws(torch.Generator("cuda").manual_seed(seed)),
+                          images)
+    finally:
+        ops.bilinear_sample_rows = sample
+    require(len(seen) == 1, "the augmentation sampled once")
+    return seen[0].contiguous()
+
+
 def bf16_vs_plain() -> dict:
     """Phase 26: the bf16 sampler kernels against their bf16 plain
-    versions at the training shapes (N=640), the 32x32x64 image (N=64) and
-    the zoomed-in input ST, rows and grid layouts: the kernel each shape
+    versions at the training shapes (N=640), the 32x32x64 image (N=64),
+    the zoomed-in input ST and the augmentation's coordinates (the input
+    ST's shape), rows and grid layouts: the kernel each shape
     takes; the forward bit for bit (and the same bits from a misaligned
     image); d_img and d_coords within BF16_ULPS + BF16_FLOOR, repeats bit
     for bit. Returns the largest errors, absolute and in units."""
@@ -3026,10 +3143,14 @@ def bf16_vs_plain() -> dict:
     cases = [(s, 1.0, lay) for s in DCOORDS_SHAPES for lay in ("rows",
                                                                "grid")]
     cases.append((TRAIN_SHAPES[0], ZOOM, "rows"))
+    # the augmentation samples the reals at the input ST's shape, at its
+    # own warps' coordinates (zoom None)
+    cases.append((TRAIN_SHAPES[0], None, "rows"))
     for i, (shape, zoom, layout) in enumerate(cases):
         n, h, w, c, ho, wo = shape
         img, rows, g, out_hw = bf16_inputs(shape, seed=200 + i)
-        rows = (rows * zoom).contiguous()
+        rows = (augment_rows(img, seed=200 + i) if zoom is None
+                else (rows * zoom).contiguous())
         if layout == "rows":
             run = {"fwd": lambda im: bilinear.launch(im, rows, out_hw),
                    "dimg": lambda: bilinear.launch_dimg(img, rows, g, out_hw),
@@ -3049,7 +3170,9 @@ def bf16_vs_plain() -> dict:
         want = dict(zip(("dimg", "dcoords"),
                         bilinear.bilinear_sample_rows_backward_plain(
                             img, rows, g, out_hw)))
-        tag = f"{shape} {layout}{' zoomed' if zoom != 1.0 else ''}"
+        tag = (f"{shape} {layout}"
+               f"{' augmentation' if zoom is None else ''}"
+               f"{' zoomed' if zoom not in (None, 1.0) else ''}")
         same = torch.equal(fwd, want_fwd) and torch.equal(fwd, fwd_mis)
         print(f"{tag} bf16 forward: bits equal to the plain version's and to "
               f"the kernel's of a misaligned image: {same} (required)")
@@ -4162,6 +4285,12 @@ def main(argv=None) -> int:
                 {"device_ms": brt["ladder" if block else "per-layer"][
                     "kernel_device_ms"]}, up_pattern(key, "_bf16")),
         })
+        if key == "block_dx":
+            kernels[-1]["block_backward"] = {
+                "what": "fused_block_backward in one call: the fold pass, "
+                        "this kernel on its output, the transform pass and "
+                        "dCK; library: cuDNN's bf16 dgrad and wgrad in one "
+                        "call", **up_times(bkt["block_backward"])}
     # the bf16 block's passes (phases 30, 32, 33): on the bf16 ladder
     # training CLI's path
     for key, name, counter, replaces, also in BF16_PASSES:

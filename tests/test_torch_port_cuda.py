@@ -1297,7 +1297,23 @@ def test_bf16_kernel_choice(cuda, hwc, kinds):
             bilinear.dimg_kind(*hwc, torch.bfloat16)) == kinds
 
 
-@pytest.mark.parametrize("shape", BF16_SHAPES)
+# the bf16 per-quad forward (4 output pixels a thread, the image widened
+# in shared memory, each round's output leaving from shared memory) where
+# h*w*c fills whole vectors of 8: P off 8 (a sample's output off 16
+# bytes: 2-byte stores), P off 4 (coordinates pixel by pixel), one output
+# pixel, two rounds of 1024 pixels, C = 1 and the widest C = 31
+BF16_QUAD_SHAPES = [
+    (640, 32, 32, 3, 32, 32),   # the input ST and the augmentation
+    (2, 8, 8, 3, 5, 4),         # P = 20
+    (2, 8, 9, 4, 5, 7),         # P = 35
+    (2, 8, 8, 3, 1, 1),         # P = 1
+    (2, 16, 16, 3, 48, 32),     # P = 1536
+    (3, 32, 32, 1, 32, 32),     # C = 1
+    (2, 4, 4, 31, 2, 2),        # C = 31
+]
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES + BF16_QUAD_SHAPES)
 @pytest.mark.parametrize("layout", ["rows", "grid"])
 def test_bf16_forward_gives_the_plain_bits(cuda, shape, layout):
     img, rows, _, out_hw = _bf16_inputs(shape, cuda, seed=40)
@@ -1653,13 +1669,15 @@ def test_bf16_dck_on_wgmma_matches_plain(f32_cuda, shape, form):
     x, wt, gy = v["x"], v["weight"], v["gy"]
     k = shape[5]
     if form == "block":
+        # as the bf16 block backward: the fold pass, then the kernel on its
+        # output after the transform pass
         y = fuc.block_plain(x, wt, v["bias"], v["scale"], v["shift"],
                             v["alpha"])
-        gs = torch.stack([v["gs1"], v["gs2"]])
         tr = (v["scale"], v["shift"], v["alpha"])
 
         def run():
-            return fuc._launch_dck(x, wt, gy, y, gs, *tr)
+            gf, db = fuc.block_fold_pass(y, gy, v["gs1"], v["gs2"])
+            return fuc._launch_dck(x, wt, gf, None, None, *tr), db
 
         xn = fuc.block_input(x, *tr)
         g, want_db = fuc.block_fold(y, gy, v["gs1"], v["gs2"])
@@ -1704,6 +1722,138 @@ def test_bf16_passes_refuse_mixed_dtypes(f32_cuda, bad):
             fuc.block_fold_pass(v.get("y", v["x"]), v["gy"], v["gs1"],
                                 v["gs2"])
     assert fuc.launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 block dX, which reads the fold pass's output (the bf16 block
+# backward folds once, for dX and dCK): dx, dscale, dshift and dalpha on
+# gf against block_grads_plain (_bf16_close for dx, UP_LOOSE for the f32
+# sums) at ragged shapes (channel counts off the vector of 8: the 2-byte
+# copies; pixels off the 128-pixel tile; Cin over one tile; k = 1 and 5)
+# and stage 1, the same bits as the whole block backward's, repeats bit
+# for bit, an empty batch; both bf16 kernels refuse a fold of their own.
+# The bf16 per-quad forward's own cases: coordinates spread and within one
+# pixel, both layouts, the kernel an aligned or misaligned view takes
+# ---------------------------------------------------------------------------
+
+
+def _bf16_block_dx(v, gf):
+    tr = (v["scale"], v["shift"], v["alpha"].expand(v["x"].shape[3])
+          .contiguous())
+    dx, dtr = fuc._launch_dx(v["x"], v["weight"], gf, None, None, *tr)
+    return (dx, *dtr)
+
+
+@pytest.mark.parametrize("shape", DX_SHAPES + [UP_SHAPES[3]])
+@pytest.mark.parametrize("alpha", ["scalar", "channelwise"])
+def test_bf16_block_dx_on_gf_matches_plain(f32_cuda, shape, alpha):
+    v = _bf16_up_inputs(shape, f32_cuda, seed=80,
+                        alpha_n=1 if alpha == "scalar" else shape[3])
+    y = fuc.block_plain(v["x"], v["weight"], v["bias"], v["scale"],
+                        v["shift"], v["alpha"])
+    gf = fuc.block_fold(y, v["gy"], v["gs1"], v["gs2"])[0]
+    before = fuc.launches()
+    runs = [_bf16_block_dx(v, gf) for _ in range(2)]
+    whole = fuc.fused_block_backward(v["x"], v["scale"], v["shift"],
+                                     v["alpha"], v["weight"], y, v["gy"],
+                                     v["gs1"], v["gs2"])
+    torch.cuda.synchronize()
+    after = fuc.launches()
+    assert after["BF16_FOLD_LAUNCHES"] == before["BF16_FOLD_LAUNCHES"] + 1
+    assert (after["BF16_BLOCK_DX_LAUNCHES"]
+            == before["BF16_BLOCK_DX_LAUNCHES"] + 1)
+    want = fuc.block_grads_plain(v["x"], v["scale"], v["shift"], v["alpha"],
+                                 v["weight"], gf)[:4]
+    for name, a, a2, b, c in zip(("dx", "dscale", "dshift", "dalpha"),
+                                 *runs, want, whole):
+        _bf16_or_f32_close(a, b, name)
+        assert torch.equal(a, a2), name
+        assert torch.equal(a, c.reshape(a.shape)), name
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_block_dx_of_an_empty_batch(f32_cuda, dtype):
+    # dx empty, and the transform's sums 0 (not left unwritten)
+    shape = (0, 4, 5, 9, 11, 3)
+    if dtype == "bf16":
+        v = _bf16_up_inputs(shape, f32_cuda, seed=81)
+        dx, ds, dh, da = _bf16_block_dx(v, v["gy"])
+    else:
+        v = _up_inputs(shape, f32_cuda, seed=81)
+        gs = torch.stack([v["gs1"], v["gs2"]])
+        dx, dtr = fuc._launch_dx(v["x"], v["weight"], v["gy"], v["gy"], gs,
+                                 v["scale"], v["shift"],
+                                 v["alpha"].expand(9).contiguous())
+        ds, dh, da = dtr
+    torch.cuda.synchronize()
+    assert dx.shape == v["x"].shape and dx.dtype == v["x"].dtype
+    for t in (ds, dh, da):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+def test_bf16_kernels_refuse_a_fold_of_their_own(f32_cuda):
+    from catgen_torch.kernels.build import load_library
+
+    n, h, w, cin, cout, k = UP_SHAPES[0]
+    v = _bf16_up_inputs(UP_SHAPES[0], f32_cuda, seed=82)
+    gs = torch.stack([v["gs1"], v["gs2"]])
+    y = v["gy"].flip(0).contiguous()
+    before = fuc.launches()
+    for launch in (fuc._launch_dx, fuc._launch_dck):
+        with pytest.raises(ValueError):
+            launch(v["x"], v["weight"], v["gy"], y, gs)
+    assert fuc.launches() == before
+    wst = fuc.parity_stack(v["weight"])
+    dx = torch.empty_like(v["x"])
+    err = load_library().catgen_upsample_conv_dx_bf16(
+        v["gy"].data_ptr(), y.data_ptr(), gs.data_ptr(), wst.data_ptr(),
+        None, None, None, None, dx.data_ptr(), None, None, n, h, w, cin,
+        cout, wst.shape[1], wst.shape[2], *fuc._umins(k, k),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1                 # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("shape", BF16_QUAD_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(QUAD_COORDS))
+def test_bf16_per_quad_forward_gives_the_plain_bits(cuda, shape, layout,
+                                                    coords):
+    assert bilinear.forward_kind(*shape[1:4], torch.bfloat16) == "per_quad"
+    img, rows, _, out_hw = _bf16_inputs(shape, cuda, seed=42)
+    rows = QUAD_COORDS[coords](rows).contiguous()
+    crd = _coords(layout, rows, out_hw)
+    want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    first = _forward(layout, img, crd, out_hw)
+    again = _forward(layout, img, crd, out_hw)
+    per_pixel = (_forward(layout, _misaligned(img), crd, out_hw),
+                 _forward(layout, img, _coords(layout, rows, out_hw, 2),
+                          out_hw))
+    torch.cuda.synchronize()
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first, want)
+    assert torch.equal(first, again)
+    assert all(torch.equal(first, other) for other in per_pixel)
+
+
+@pytest.mark.parametrize("view, name", [
+    ("aligned", "sample_per_quad_bf16"), ("image", "sample_per_pixel"),
+    ("coords", "sample_per_pixel")])
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_per_quad_forward_kernel_of_a_view(cuda, view, name, layout):
+    img, rows, _, out_hw = _bf16_inputs((2, 32, 32, 3, 32, 32), cuda,
+                                        seed=43)
+    im = _misaligned(img) if view == "image" else img
+    crd = _coords(layout, rows, out_hw, 2 if view == "coords" else 0)
+    names = _forward_kernel_names(lambda: _forward(layout, im, crd, out_hw))
+    assert len(names) == 1 and name + "<" in names[0], names
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_per_quad_forward_of_an_empty_batch(cuda, layout):
+    img, rows, _, out_hw = _bf16_inputs((0, 32, 32, 3, 32, 32), cuda)
+    got = _forward(layout, img, _coords(layout, rows, out_hw), out_hw)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 32, 32, 3) and got.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("shape", ST_SHAPES)
