@@ -28,11 +28,11 @@
 //     its channel's 9*C weights in registers (C <= 4; a template
 //     parameter) and reads each sampled value of its 3x6 window once for
 //     the 4 outputs (broadcast reads: a warp's threads share the window);
-//   * K = 9*C = 27 is too shallow for tensor cores: f32 fmaf on CUDA
-//     cores, well under the card's f32 rate at this byte count.
+//     f32 fmaf on the CUDA cores.
 // The halo rows are sampled by both neighbouring blocks (a quarter more
 // sampling work at band 8); no block writes what another writes, so there
-// are no atomics and repeats are bit-identical.
+// are no atomics and repeats are bit-identical. This kernel serves f32, and
+// the bf16 shapes that st_conv_bf16_mma (below) does not take.
 //
 // The f32 instantiation computes in f32 throughout; it does not copy the
 // TPU's bf16 roundings (the sampled tile and the weights) or its bf16 z.
@@ -175,6 +175,319 @@ st_conv_prelu_kernel(const T* __restrict__ img,
   }
 }
 
+// The bf16 prefix on the tensor cores (st_conv_bf16_mma), for C = 1..4,
+// F a multiple of 8, h w C a multiple of 8 and 16-byte aligned arrays
+// (st_conv.py::bf16_kind). It has the same inputs and roundings as the
+// bf16 instantiation above, and the TPU kernel's arithmetic: the conv is a
+// (pixels x 9C) by (9C x F) product of bf16 values with f32 sums, which
+// pallas_st_conv.py runs as nine bf16 dot_generals on the MXU. The design,
+// against the byte bound (a sample reads 6 KB of image and writes 128 KB
+// of out, and of z, at D32_st3's 32x32x3 -> 64):
+//   * one block per sample (4 warps; 16 for a batch under 4 samples an
+//     SM: mma_warps). Its image is staged in shared memory
+//     with 16-byte cp.async and each pixel is sampled once, into a
+//     zero-bordered (h+2) x (w+2) tile: no halo row is sampled twice, and
+//     the conv's zero padding is the border. The samples keep the bits of
+//     the kernel above (make_taps and lerp_values in f32 from the same
+//     coordinates, rounded once to bf16); samp leaves from a compact copy
+//     as 16-byte stores;
+//   * the conv on mma.sync.m16n8k16 (bf16 products, exact; f32 sums), K =
+//     9C padded with zeros to a multiple of 16 (27 -> 32). A warp takes 16
+//     pixels at a time: each thread's A fragments come from the tile at
+//     offsets fixed per thread (its contraction indices decoded once to
+//     tap and channel); B, the K x F weight matrix in catgen's (ky, kx, ci)
+//     row order, comes packed in fragment order by the wrapper
+//     (st_conv.py::pack_weights) and is staged in shared memory once. The
+//     27-term sums run in the tensor core's order, not the kernel above's,
+//     so z and out agree with the plain version to a rounding, not bit for
+//     bit;
+//   * z = sum + bias and out = PReLU(z) in f32, each rounded once to bf16,
+//     gathered per warp in shared memory (rows padded to spread the banks)
+//     and stored as whole 16-byte vectors: 8 output channels of a pixel.
+// No atomics; every value is written by one thread: repeats are
+// bit-identical.
+
+namespace stmma {
+
+constexpr int kGroup = 8;        // n-tiles (8 output channels) per store
+constexpr int kRowBytes = kGroup * 16 + 16;   // a staged pixel, padded
+constexpr int kStage = 16 * kRowBytes;        // a warp's 16 pixels
+// warps a block: 4, or 16 where the batch leaves the SMs under 4 samples
+// each (the sampling path's 256 on 132 SMs): a warp's work is a chain of
+// dependent steps, so a small batch needs more of them
+constexpr int kFewWarps = 4, kManyWarps = 16;
+
+__host__ __device__ constexpr int k_tiles(int c) { return (9 * c + 15) / 16; }
+
+__host__ __device__ inline int64_t round16(int64_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// shared memory of a block of `warps` warps: the image and samp's compact
+// copy, which the warps' staging of out and z takes over once the tile is
+// sampled; the bordered tile; the packed weights
+__host__ __device__ inline int64_t union_bytes(int h, int w, int c,
+                                               int warps) {
+  const int64_t sampling = 2 * (int64_t)h * w * c * 2;
+  const int64_t staging = (int64_t)warps * 2 * kStage;
+  return sampling > staging ? sampling : staging;
+}
+__host__ __device__ inline int64_t tile_bytes(int h, int w, int c) {
+  return round16((int64_t)(h + 2) * (w + 2) * c * 2);
+}
+__host__ __device__ inline int64_t weight_bytes(int c, int f) {
+  return (int64_t)f * k_tiles(c) * 32;   // f/8 n-tiles x 32 lanes x 8 KT B
+}
+__host__ __device__ inline int64_t smem_bytes(int h, int w, int c, int f,
+                                              int warps) {
+  return union_bytes(h, w, c, warps) + tile_bytes(h, w, c) +
+         weight_bytes(c, f);
+}
+
+}  // namespace stmma
+
+// d += A * B, one m16n8k16 bf16 product with f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits_rn(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// img (n, h, w, C), out, z (n, h w, f), samp (n, h w, C), all bf16 and
+// 16-byte aligned; wpack (f/8, 32, KT) pairs of 32-bit fragment registers;
+// theta, base, bias, alpha as st_conv_prelu_kernel's. One block of W
+// warps per sample.
+template <int C, int W>
+__global__ void __launch_bounds__(W * 32)
+st_conv_bf16_mma(const __nv_bfloat16* __restrict__ img,
+                 const float* __restrict__ theta,
+                 const float* __restrict__ base,
+                 const uint2* __restrict__ wpack,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ alpha, int alpha_n,
+                 __nv_bfloat16* __restrict__ out,
+                 __nv_bfloat16* __restrict__ samp,
+                 __nv_bfloat16* __restrict__ z, int h, int w, int f) {
+  using namespace stmma;
+  constexpr int KT = k_tiles(C), kThreads = W * 32;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ub = (int)union_bytes(h, w, C, W), tb = (int)tile_bytes(h, w, C);
+  unsigned short* simg = reinterpret_cast<unsigned short*>(smem);
+  const int ni = blockIdx.x, tid = threadIdx.x;
+  const int p = h * w, tw = w + 2, chunks = p * C / 8;
+  unsigned short* scomp = simg + p * C;           // samp, compact
+  unsigned short* tile = reinterpret_cast<unsigned short*>(smem + ub);
+  uint2* wsm = reinterpret_cast<uint2*>(smem + ub + tb);
+
+  // 1. the sample's image and the packed weights, 16-byte copies
+  const uint4* src = reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks;
+  for (int k = tid; k < chunks; k += kThreads) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(simg + 8 * k)),
+                 "l"(src + k));
+  }
+  const int wchunks = f * KT * 2;
+  for (int k = tid; k < wchunks; k += kThreads) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(wsm + 2 * k)),
+                 "l"(wpack + 2 * k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  const float* th = theta + (int64_t)ni * 6;
+  const float t00 = __ldg(th + 0), t01 = __ldg(th + 1), t02 = __ldg(th + 2);
+  const float t10 = __ldg(th + 3), t11 = __ldg(th + 4), t12 = __ldg(th + 5);
+  // the tile's border is the conv's zero padding
+  for (int i = tid; i < 2 * tw + 2 * h; i += kThreads) {
+    int yb, xb;
+    if (i < 2 * tw) {
+      yb = i < tw ? 0 : h + 1;
+      xb = i < tw ? i : i - tw;
+    } else {
+      yb = 1 + (i - 2 * tw) / 2;
+      xb = ((i - 2 * tw) & 1) ? w + 1 : 0;
+    }
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) tile[(yb * tw + xb) * C + ch] = 0;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // 2. each pixel sampled once, rounded once to bf16
+  for (int pi = tid; pi < p; pi += kThreads) {
+    const int y = pi / w, x = pi - (pi / w) * w;
+    const float gy = __ldg(base + pi), gx = __ldg(base + p + pi);
+    const Taps t = make_taps(t00 * gy + t01 * gx + t02,
+                             t10 * gy + t11 * gx + t12, h, w);
+    const int o00 = (int)t.p00 * C, o01 = (int)t.p01 * C;
+    const int o10 = (int)t.p10 * C, o11 = (int)t.p11 * C;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float v = lerp_values(
+          __uint_as_float((uint32_t)simg[o00 + ch] << 16),
+          __uint_as_float((uint32_t)simg[o01 + ch] << 16),
+          __uint_as_float((uint32_t)simg[o10 + ch] << 16),
+          __uint_as_float((uint32_t)simg[o11 + ch] << 16), t);
+      const unsigned short bits = (unsigned short)bf16_bits_rn(v);
+      tile[((y + 1) * tw + x + 1) * C + ch] = bits;
+      scomp[pi * C + ch] = bits;
+    }
+  }
+  __syncthreads();
+  if (samp != nullptr) {
+    uint4* dst = reinterpret_cast<uint4*>(samp) + (int64_t)ni * chunks;
+    const uint4* cs = reinterpret_cast<const uint4*>(scomp);
+    for (int k = tid; k < chunks; k += kThreads) {
+      __stcs(dst + k, cs[k]);
+    }
+  }
+  __syncthreads();                  // the staging takes the image's room
+
+  // 3. the conv: this thread's contraction indices k = 16 kt + 2 tig +
+  // (j & 1) + 8 (j >> 1) as offsets from a pixel's window corner in the
+  // tile (-1: the zero padding of K)
+  const int lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
+  int off[KT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 16 * kt + 2 * tig + (j & 1) + 8 * (j >> 1);
+      const int tap = k / C, ci = k - (k / C) * C;
+      off[kt][j] = k < 9 * C ? ((tap / 3) * tw + tap % 3) * C + ci : -1;
+    }
+  }
+  uint8_t* st_out = smem + warp * 2 * kStage;
+  uint8_t* st_z = st_out + kStage;
+  const int mtiles = (p + 15) / 16, ntiles = f / 8;
+  const float* al = alpha_n == 1 ? alpha : nullptr;
+  for (int ng = 0; ng < ntiles; ng += kGroup) {
+    const int ntg = min(kGroup, ntiles - ng);
+    for (int mt = warp; mt < mtiles; mt += W) {
+      const int m0 = mt * 16;
+      // rows gid and gid + 8 of the 16 pixels: their windows' corners
+      const int r0 = min(m0 + gid, p - 1), r1 = min(m0 + gid + 8, p - 1);
+      const int c0 = ((r0 / w) * tw + r0 % w) * C;
+      const int c1 = ((r1 / w) * tw + r1 % w) * C;
+      auto pair = [&](int corner, int oa, int ob) -> uint32_t {
+        const uint32_t lo = oa >= 0 ? tile[corner + oa] : 0u;
+        const uint32_t hi = ob >= 0 ? tile[corner + ob] : 0u;
+        return lo | hi << 16;
+      };
+      uint32_t a[KT][4];
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        a[kt][0] = pair(c0, off[kt][0], off[kt][1]);
+        a[kt][1] = pair(c1, off[kt][0], off[kt][1]);
+        a[kt][2] = pair(c0, off[kt][2], off[kt][3]);
+        a[kt][3] = pair(c1, off[kt][2], off[kt][3]);
+      }
+      for (int j = 0; j < ntg; ++j) {
+        const int nt = ng + j;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+          mma_bf16(acc, a[kt], wsm[(nt * 32 + lane) * KT + kt]);
+        }
+        const int n = nt * 8 + 2 * tig;
+        const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+        const float a0 = __ldg(al != nullptr ? al : alpha + n);
+        const float a1 = __ldg(al != nullptr ? al : alpha + n + 1);
+        const float zv[4] = {acc[0] + b0, acc[1] + b1, acc[2] + b0,
+                             acc[3] + b1};
+        float ov[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float sl = (q & 1) ? a1 : a0;
+          ov[q] = zv[q] >= 0.0f ? zv[q] : sl * zv[q];
+        }
+        const int at = gid * kRowBytes + j * 16 + tig * 4;
+        *reinterpret_cast<uint32_t*>(st_out + at) =
+            bf16_bits_rn(ov[0]) | bf16_bits_rn(ov[1]) << 16;
+        *reinterpret_cast<uint32_t*>(st_out + at + 8 * kRowBytes) =
+            bf16_bits_rn(ov[2]) | bf16_bits_rn(ov[3]) << 16;
+        if (z != nullptr) {
+          *reinterpret_cast<uint32_t*>(st_z + at) =
+              bf16_bits_rn(zv[0]) | bf16_bits_rn(zv[1]) << 16;
+          *reinterpret_cast<uint32_t*>(st_z + at + 8 * kRowBytes) =
+              bf16_bits_rn(zv[2]) | bf16_bits_rn(zv[3]) << 16;
+        }
+      }
+      __syncwarp();
+      // the 16 pixels' channels 8 ng .. as 16-byte vectors
+      for (int i = lane; i < 16 * ntg; i += 32) {
+        const int r = i / ntg, ch = i - (i / ntg) * ntg;
+        if (m0 + r >= p) continue;
+        const int64_t o = ((int64_t)ni * p + m0 + r) * f + (ng + ch) * 8;
+        const int at = r * kRowBytes + ch * 16;
+        __stcs(reinterpret_cast<uint4*>(out + o),
+               *reinterpret_cast<const uint4*>(st_out + at));
+        if (z != nullptr) {
+          __stcs(reinterpret_cast<uint4*>(z + o),
+                 *reinterpret_cast<const uint4*>(st_z + at));
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The warps a block takes for a batch of n on this card: kManyWarps where
+// n is under 4 samples an SM, else kFewWarps (0 if the card could not be
+// read)
+static inline int mma_warps(int n) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return n < 4 * sms ? stmma::kManyWarps : stmma::kFewWarps;
+}
+
+template <int C, int W>
+int launch_mma(const __nv_bfloat16* img, const float* theta,
+               const float* base, const __nv_bfloat16* wpack,
+               const float* bias, const float* alpha, int alpha_n,
+               __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
+               int n, int h, int w, int f, void* stream) {
+  const int64_t smem = stmma::smem_bytes(h, w, C, f, W);
+  const cudaError_t err = cudaFuncSetAttribute(
+      st_conv_bf16_mma<C, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  st_conv_bf16_mma<C, W><<<(unsigned)n, W * 32, (size_t)smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      img, theta, base, reinterpret_cast<const uint2*>(wpack), bias, alpha,
+      alpha_n, out, samp, z, h, w, f);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_mma(const __nv_bfloat16* img, const float* theta,
+               const float* base, const __nv_bfloat16* wpack,
+               const float* bias, const float* alpha, int alpha_n,
+               __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
+               int n, int h, int w, int f, int warps, void* stream) {
+  return warps == stmma::kManyWarps
+             ? launch_mma<C, stmma::kManyWarps>(img, theta, base, wpack, bias,
+                                                alpha, alpha_n, out, samp, z,
+                                                n, h, w, f, stream)
+             : launch_mma<C, stmma::kFewWarps>(img, theta, base, wpack, bias,
+                                               alpha, alpha_n, out, samp, z,
+                                               n, h, w, f, stream);
+}
+
+static inline bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
+}
+
 template <int CT, class T>
 int launch(const T* img, const float* theta, const float* base,
            const T* kmat, const float* bias, const float* alpha,
@@ -240,11 +553,47 @@ extern "C" int catgen_st_conv_prelu_f32(const float* img, const float* theta,
                   n, h, w, c, f, stream);
 }
 
+// The bf16 entry's kmat is (9*c, f) for st_conv_prelu_kernel (packed =
+// 0), or with packed = 1 the fragment-ordered matrix of
+// st_conv.py::pack_weights for st_conv_bf16_mma, which the wrapper picks
+// by shape and alignment (st_conv.py::bf16_kind); a shape or array that
+// st_conv_bf16_mma does not take is refused with packed = 1.
 extern "C" int catgen_st_conv_prelu_bf16(
     const __nv_bfloat16* img, const float* theta, const float* base,
     const __nv_bfloat16* kmat, const float* bias, const float* alpha,
     int alpha_n, __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
-    int n, int h, int w, int c, int f, void* stream) {
-  return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z,
-                  n, h, w, c, f, stream);
+    int n, int h, int w, int c, int f, int packed, void* stream) {
+  if (!packed) {
+    return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp,
+                    z, n, h, w, c, f, stream);
+  }
+  if ((int64_t)n * h * w * f == 0) return 0;
+  int device = 0, optin = 0;
+  const int warps = mma_warps(n);
+  if (warps == 0 || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (c < 1 || c > 4 || f % 8 != 0 || (int64_t)h * w * c % 8 != 0 ||
+      (int64_t)h * w * f >= ((int64_t)1 << 31) ||
+      stmma::smem_bytes(h, w, c, f, warps) > optin || !aligned16(img) ||
+      !aligned16(kmat) || !aligned16(out) || !aligned16(samp) ||
+      !aligned16(z)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (c) {
+    case 1:
+      return launch_mma<1>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+                           samp, z, n, h, w, f, warps, stream);
+    case 2:
+      return launch_mma<2>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+                           samp, z, n, h, w, f, warps, stream);
+    case 3:
+      return launch_mma<3>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+                           samp, z, n, h, w, f, warps, stream);
+    default:
+      return launch_mma<4>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+                           samp, z, n, h, w, f, warps, stream);
+  }
 }

@@ -76,6 +76,7 @@
 // and a second kernel adds the rows in a fixed order. No atomics
 // anywhere: two calls on the same inputs give the same bits.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,15 +111,17 @@ static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
 // group: sum[4 j + 2 half + q]. The statistics are deterministic without
 // atomics: the 8 rows g of a warp in a fixed butterfly, then the 8 warps
 // in order, one row of partial sums per block (`smem`, the free A tiles,
-// holds the warps' sums).
+// holds the warps' sums). `tid` counts the 256 threads that hold the tile;
+// with `named` they meet at named barrier 1 (the warp-specialised kernel's
+// producer warpgroup takes no part), else at __syncthreads.
 template <bool kStats, class T>
 __device__ __forceinline__ void fwd_epilogue(
     const float (&sum)[64], const T* __restrict__ bias,
     const T* __restrict__ prelu, int prelu_n, T* __restrict__ y,
     float* __restrict__ partial, uint8_t* smem, const Geometry& g, int p,
-    int co0, int64_t m0, int mtile) {
+    int co0, int64_t m0, int mtile, int tid, bool named) {
   constexpr int kTileN = fwd::kTileN, kThreads = fwd::kThreads;
-  const int tid = threadIdx.x, wg = tid >> 7;
+  const int wg = tid >> 7;
   const int hw = g.h * g.w;
   const int64_t m_total = (int64_t)g.n * hw;
   const int m_tiles = (int)ceil_div(m_total, fwd::kTileM);
@@ -188,7 +191,11 @@ __device__ __forceinline__ void fwd_epilogue(
         }
       }
     }
-    __syncthreads();
+    if (named) {
+      named_barrier(1, kThreads);
+    } else {
+      __syncthreads();
+    }
     if (tid < kTileN && co0 + tid < g.cout) {
       float t1 = 0.0f, t2 = 0.0f;
       for (int w = 0; w < kThreads / 32; ++w) {
@@ -406,7 +413,7 @@ upsample_conv_fwd(const float* __restrict__ x, const float* __restrict__ wst,
   cp_async_wait<0>();
 
   fwd_epilogue<kStats>(sum, bias, prelu, prelu_n, y, partial, smem, g, p,
-                       co0, m0, mtile);
+                       co0, m0, mtile, threadIdx.x, false);
 }
 
 template <bool kTransform, bool kStats, bool kVec>
@@ -603,7 +610,7 @@ upsample_conv_fwd_bf16(const bf16* __restrict__ x,
   cp_async_wait<0>();
 
   fwd_epilogue<kStats>(sum, bias, prelu, prelu_n, y, partial, smem, g, p,
-                       co0, m0, mtile);
+                       co0, m0, mtile, threadIdx.x, false);
 }
 
 template <bool kStats, bool kVec>
@@ -632,6 +639,276 @@ cudaError_t launch_fwd_bf16(bool vec, const bf16* x, const bf16* wstt,
                                              y, partial, g, s)
              : launch_fwd_bf16<kStats, false>(x, wstt, bias, prelu, prelu_n,
                                               y, partial, g, s);
+}
+
+// The bf16 forward, warp-specialised (upsample_conv_fwd_bf16_tma), for
+// the shapes whose 128-pixel tiles are boxes of x: the same blocks, steps,
+// products and epilogue as upsample_conv_fwd_bf16, so y and the
+// statistics keep its bits, with a main loop that keeps the tensor cores
+// fed:
+//   * one producer thread issues every copy: per step one TMA box of x
+//     (a 4-D map over (cin, w, h, n), box (64, w_b, h_b, n_b) = the tile's
+//     128 pixels in its row order, the tap's offset in the coordinates; the
+//     zeros TMA reads past an edge, negative coordinates included, are the
+//     conv's zero halo) and one of the transposed parity stack (a 2-D map
+//     over (4 kh kw cout, cin), box (64, 128)), both in the 128-byte swizzle
+//     that tile_desc describes. No consumer thread computes an address or
+//     tests a halo;
+//   * a ring of kStages stages (32 KB each) with a full and an empty
+//     mbarrier per stage: a stage is refilled as soon as both consumer
+//     warpgroups have retired its products, so copies run up to kStages - 2
+//     steps ahead;
+//   * two consumer warpgroups (setmaxnreg: 232 registers each, the
+//     producer's warpgroup 40), each 64 pixels x 128 output channels, take
+//     the steps in pairs on two accumulator banks: both steps' products
+//     are queued before the first's are added into sum, so the second's run
+//     under that sum; both banks are retired before the loop turns (a bank
+//     in flight across the back edge made ptxas serialise every wgmma,
+//     upsample_conv_bwd.cu's bf16 dX). The two warpgroups run apart,
+//     meeting only at the empty barriers, so one's sums run under the
+//     other's products;
+//   * fresh accumulators every 64-deep step, added into sum in step order
+//     (tap u, tap v, channel step): the one-bank kernel's bits.
+// What is left: with one block per SM (the ring and the registers fill
+// it) its prologue and epilogue run alone, and a variant without the
+// epilogue and the step sums ran markedly faster. Tried and slower: y
+// staged in shared memory for 16-byte stores; clusters of two blocks that
+// share x's or the weights' box by TMA multicast (24 KB a step from L2 in
+// place of 32), so L2 does not bound it; one warpgroup a step behind the
+// other (a divergent path before the products: ptxas serialised every
+// wgmma, C7520).
+// The maps are encoded on the host per call (cuTensorMapEncodeTiled, found
+// through the runtime's driver entry point, so the library links against
+// the runtime alone) and passed as __grid_constant__ parameters.
+
+namespace fwdt {
+
+constexpr int kStages = 6;                 // ring depth
+constexpr int kTile = fwd16::kTile;        // 16 KB: A or B of one step
+constexpr int kStageBytes = 2 * kTile;
+constexpr int kThreads = 384;              // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kRing = kStages * kStageBytes;
+// ring, full and empty barriers, + room to align
+constexpr int kSmemBytes = kRing + 2 * kStages * 8 + 1024;
+static_assert(kSmemBytes <= 232448, "over the H100's opt-in shared memory");
+static_assert(fwd::kThreads / 32 * 2 * fwd::kTileN * 4 <= kRing,
+              "fwd_epilogue's sums fit the ring");
+
+}  // namespace fwdt
+
+// One step's products for consumer warpgroup cwg into fresh accumulators
+// d, from ring stage `stage` (A, then B): 4 wgmma of 16 channels (32 bytes
+// a row), one commit group.
+__device__ __forceinline__ void fwd16_products(float (&d)[64], uint32_t stage,
+                                               int cwg) {
+  const uint32_t a = stage + cwg * 64 * 128, bt = stage + fwdt::kTile;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    wgmma_bf16(d, tile_desc(a + 32 * s), tile_desc(bt + 32 * s), s == 0);
+  }
+  wgmma_commit();
+}
+
+// xmap over x (n, h, w, cin) and wmap over wstt (4, kh, kw, cout, cin) as
+// above; y, partial and the blocks' order as upsample_conv_fwd_bf16's.
+template <bool kStats>
+__global__ void __launch_bounds__(fwdt::kThreads, 1)
+upsample_conv_fwd_bf16_tma(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const bf16* __restrict__ bias,
+                           const bf16* __restrict__ prelu, int prelu_n,
+                           bf16* __restrict__ y, float* __restrict__ partial,
+                           Geometry g) {
+  using namespace fwdt;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the stages start at the first 1024-byte boundary (the swizzle's period)
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int co_tiles = (int)ceil_div(g.cout, fwd16::kTileN);
+  int b = blockIdx.x;
+  const int p = b & 3;
+  b >>= 2;
+  const int co0 = (b % co_tiles) * fwd16::kTileN;
+  const int mtile = b / co_tiles;
+  const int hw = g.h * g.w;
+  const int64_t m0 = (int64_t)mtile * fwd16::kTileM;
+  const int steps = g.kh * g.kw * (g.cin / fwd16::kStep);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {                  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      // the tile's first pixel: sample n0, row i0, column j0 (a box)
+      const int n0 = (int)(m0 / hw);
+      const int rem = (int)(m0 - (int64_t)n0 * hw);
+      const int i0 = rem / g.w, j0 = rem - (rem / g.w) * g.w;
+      const int d = p >> 1, e = p & 1;
+      const int csteps = g.cin / fwd16::kStep;
+      int u = 0, v = 0, cs = 0;
+      for (int kt = 0; kt < steps; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty + s, ((kt / kStages) - 1) & 1);
+        uint8_t* stage = smem + s * kStageBytes;
+        mbar_expect_tx(full + s, kStageBytes);
+        tma_load_4d(stage, &xmap, full + s, cs * fwd16::kStep,
+                    j0 + g.umin_w[e] + v, i0 + g.umin_h[d] + u, n0);
+        tma_load_2d(stage + kTile, &wmap, full + s, cs * fwd16::kStep,
+                    ((p * g.kh + u) * g.kw + v) * g.cout + co0);
+        if (++cs == csteps) {
+          cs = 0;
+          if (++v == g.kw) {
+            v = 0;
+            ++u;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int ctid = tid - 128, cwg = ctid >> 7;
+  const bool signals = (ctid & 31) == 0;   // one arrival per consumer warp
+  float acc0[64], acc1[64], sum[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) sum[k] = 0.0f;
+
+  int kt = 0;
+#pragma unroll 1
+  for (; kt + 1 < steps; kt += 2) {
+    const int s0 = kt % kStages, s1 = (kt + 1) % kStages;
+    mbar_wait(full + s0, (kt / kStages) & 1);
+    wgmma_fence();
+    fwd16_products(acc0, sbase + s0 * kStageBytes, cwg);
+    mbar_wait(full + s1, ((kt + 1) / kStages) & 1);
+    fwd16_products(acc1, sbase + s1 * kStageBytes, cwg);
+    wgmma_wait<1>(acc0);            // step kt's products
+    if (signals) mbar_arrive(empty + s0);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc0[k];
+    wgmma_wait<0>(acc1);            // step kt + 1's
+    if (signals) mbar_arrive(empty + s1);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc1[k];
+  }
+  if (kt < steps) {                 // an odd step count's last step
+    const int s0 = kt % kStages;
+    mbar_wait(full + s0, (kt / kStages) & 1);
+    wgmma_fence();
+    fwd16_products(acc0, sbase + s0 * kStageBytes, cwg);
+    wgmma_wait<0>(acc0);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) sum[k] += acc0[k];
+  }
+  named_barrier(1, 2 * 128);        // both warpgroups are done with the ring
+
+  fwd_epilogue<kStats>(sum, bias, prelu, prelu_n, y, partial, smem, g, p,
+                       co0, m0, mtile, ctid, true);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault);
+    q = cudaDriverEntryPointSuccess;
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess &&
+        p != nullptr) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first, sizes in elements,
+// strides of dims 1.. in bytes) with the 128-byte swizzle and zero fill
+static bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kStats>
+cudaError_t launch_fwd_bf16_tma(const bf16* x, const bf16* wstt,
+                                const bf16* bias, const bf16* prelu,
+                                int prelu_n, bf16* y, float* partial,
+                                const Geometry& g, int box_w, int box_h,
+                                int box_n, cudaStream_t s) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.w,
+                               (cuuint64_t)g.h, (cuuint64_t)g.n};
+  const cuuint64_t xstrides[3] = {
+      (cuuint64_t)g.cin * 2, (cuuint64_t)g.w * g.cin * 2,
+      (cuuint64_t)g.h * g.w * g.cin * 2};
+  const cuuint32_t xbox[4] = {(cuuint32_t)fwd16::kStep, (cuuint32_t)box_w,
+                              (cuuint32_t)box_h, (cuuint32_t)box_n};
+  const cuuint64_t wdims[2] = {(cuuint64_t)g.cin,
+                               (cuuint64_t)4 * g.kh * g.kw * g.cout};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)g.cin * 2};
+  const cuuint32_t wbox[2] = {(cuuint32_t)fwd16::kStep,
+                              (cuuint32_t)fwd16::kTileN};
+  if (!encode_bf16(&xmap, x, 4, xdims, xstrides, xbox) ||
+      !encode_bf16(&wmap, wstt, 2, wdims, wstrides, wbox)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_conv_fwd_bf16_tma<kStats>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, fwdt::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = 4 * ceil_div(g.cout, fwd16::kTileN) *
+                         ceil_div((int64_t)g.n * g.h * g.w, fwd16::kTileM);
+  upsample_conv_fwd_bf16_tma<kStats>
+      <<<(unsigned)blocks, fwdt::kThreads, fwdt::kSmemBytes, s>>>(
+          xmap, wmap, bias, prelu, prelu_n, y, partial, g);
+  return cudaGetLastError();
+}
+
+// A box (w_b, h_b, n_b) of x that holds a 128-pixel tile in its row
+// order: the rule of fused_upsample_conv.py::fwd_bf16_box, which the
+// launcher checks the caller's box against
+static bool tma_box_ok(const Geometry& g, int bw, int bh, int bn) {
+  const int hw = g.h * g.w;
+  if (g.cin % fwd16::kStep != 0 || bw * bh * bn != fwd16::kTileM) {
+    return false;
+  }
+  if (bh == 1 && bn == 1) return g.w % bw == 0;           // within a row
+  if (bn == 1) return bw == g.w && hw % fwd16::kTileM == 0;   // rows
+  return bw == g.w && bh == g.h;                           // whole images
 }
 
 }  // namespace
@@ -690,28 +967,50 @@ extern "C" int catgen_upsample_conv_fwd_f32(
 // The bf16 forward: the f32 entry's arguments but the input transform
 // (the block's runs first as its own pass, upsample_conv_prep.cu), with
 // bf16 x, bias, prelu and y, and wstt (4, kh, kw, cout, cin), the parity
-// stack transposed; partial and stats stay f32.
+// stack transposed; partial and stats stay f32. (box_w, box_h, box_n):
+// the box of x that the warp-specialised kernel loads a tile as
+// (fused_upsample_conv.py::fwd_bf16_box, from the shape and x's
+// alignment), or (0, 0, 0) for upsample_conv_fwd_bf16; a box that does not
+// hold a tile, or an unaligned x or wstt with one, is refused.
 extern "C" int catgen_upsample_conv_fwd_bf16(
     const bf16* x, const bf16* wstt, const bf16* bias, const bf16* prelu,
     int prelu_n, bf16* y, float* partial, float* stats, int n, int h, int w,
     int cin, int cout, int kh, int kw, int uh0, int uh1, int uw0, int uw1,
-    void* stream) {
+    int box_w, int box_h, int box_n, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)n * h * w == 0 || cout == 0) return 0;
+  if (cout == 0) return 0;
+  if ((int64_t)n * h * w == 0) {    // no pixels: sums of nothing
+    return stats == nullptr ? 0
+                            : (int)cudaMemsetAsync(
+                                  stats, 0, sizeof(float) * 2 * cout, s);
+  }
   if ((int64_t)n * h * w >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   const Geometry g =
       make_geometry(n, h, w, cin, cout, kh, kw, uh0, uh1, uw0, uw1);
   const bool with_stats = stats != nullptr;
-  // 16-byte copies where every row of x and wstt starts 16-byte aligned
-  const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
-                   aligned16(wstt);
-  const cudaError_t err =
-      with_stats ? launch_fwd_bf16<true>(vec, x, wstt, bias, prelu, prelu_n,
-                                         y, partial, g, s)
-                 : launch_fwd_bf16<false>(vec, x, wstt, bias, prelu, prelu_n,
-                                          y, partial, g, s);
+  cudaError_t err;
+  if (box_w != 0) {
+    if (!tma_box_ok(g, box_w, box_h, box_n) || x == nullptr ||
+        !aligned16(x) || !aligned16(wstt)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    err = with_stats
+              ? launch_fwd_bf16_tma<true>(x, wstt, bias, prelu, prelu_n, y,
+                                          partial, g, box_w, box_h, box_n, s)
+              : launch_fwd_bf16_tma<false>(x, wstt, bias, prelu, prelu_n, y,
+                                           partial, g, box_w, box_h, box_n,
+                                           s);
+  } else {
+    // 16-byte copies where every row of x and wstt starts 16-byte aligned
+    const bool vec = cin % 8 == 0 && cout % 8 == 0 && aligned16(x) &&
+                     aligned16(wstt);
+    err = with_stats ? launch_fwd_bf16<true>(vec, x, wstt, bias, prelu,
+                                             prelu_n, y, partial, g, s)
+                     : launch_fwd_bf16<false>(vec, x, wstt, bias, prelu,
+                                              prelu_n, y, partial, g, s);
+  }
   if (err != cudaSuccess || !with_stats) return (int)err;
   const int rows = 4 * catgen_upsample_conv_partial_rows(n, h, w);
   return (int)launch_sum_rows(partial, stats, rows, 2 * (int64_t)cout, s);

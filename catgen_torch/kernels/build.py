@@ -50,15 +50,19 @@ SIGNATURES = (
     ("catgen_bilinear_sampler_kind", [_I] * 4, _I),
     ("catgen_bilinear_forward_kind", [_I] * 4, _I),
     ("catgen_bilinear_dimg_kind", [_I] * 4, _I),
-    *((f"catgen_st_conv_prelu_{t}", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
-       + [_P], _I) for t in ("f32", "bf16")),
+    ("catgen_st_conv_prelu_f32", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
+     + [_P], _I),
+    # the bf16 entry also takes whether kmat is packed for the tensor cores
+    ("catgen_st_conv_prelu_bf16", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 6
+     + [_P], _I),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),
     ("catgen_upsample_conv_fwd_f32", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 11
      + [_P], _I),
     # the bf16 forward and dCK take no input transform or fold: the bf16
-    # block runs them as passes of their own (transform, fold)
+    # block runs them as passes of their own (transform, fold); the
+    # forward takes the box of x its TMA kernel loads (or zeros)
     ("catgen_upsample_conv_fwd_bf16", [_P] * 4 + [_I] + [_P] * 3
-     + [_I] * 11 + [_P], _I),
+     + [_I] * 14 + [_P], _I),
     ("catgen_upsample_conv_dck_splits", [_I] * 7, _I),
     *((f"catgen_upsample_conv_{k}", [_P] * 11 + [_I] * 11 + [_P], _I)
       for k in ("dx_f32", "dx_bf16", "dck_f32")),

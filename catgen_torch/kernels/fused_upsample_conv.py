@@ -427,6 +427,40 @@ def _launch_fold(y, gy, gs1, gs2):
     return gf, dbias
 
 
+# pixels of a bf16 forward tile and channels of its contraction step
+FWD_TILE_PIXELS, FWD_STEP = 128, 64
+
+
+def fwd_bf16_box(n: int, h: int, w: int, cin: int, aligned: bool = True):
+    """The box (w_b, h_b, n_b) of x (n, h, w, cin) that the bf16 forward's
+    warp-specialised kernel loads each 128-pixel tile as, by TMA: a box
+    whose elements in row order are the tile's pixels (128 pixels of one
+    row, whole rows of one image, or whole images); None where no box
+    holds a tile (h w neither divides 128 nor is a multiple of it, or its
+    rows do not split into boxes), cin % 64 != 0, or x is not 16-byte
+    aligned (``aligned``), where the cp.async kernel
+    (``upsample_conv_fwd_bf16``) runs. Shape and alignment alone decide."""
+    hw = h * w
+    if not aligned or cin % FWD_STEP or n * hw == 0:
+        return None
+    if w % FWD_TILE_PIXELS == 0:
+        return (FWD_TILE_PIXELS, 1, 1)
+    if FWD_TILE_PIXELS % w == 0 and hw % FWD_TILE_PIXELS == 0:
+        return (w, FWD_TILE_PIXELS // w, 1)
+    if FWD_TILE_PIXELS % hw == 0:
+        return (w, h, FWD_TILE_PIXELS // hw)
+    return None
+
+
+def forward_kind_bf16(x) -> str:
+    """Which kernel the bf16 forward takes for x (N, H, W, Cin): "tma"
+    (the warp-specialised kernel, ``fwd_bf16_box``) or "cp_async" (the
+    cp.async kernel, ``upsample_conv_fwd_bf16``)."""
+    n, h, w, cin = x.shape
+    return ("tma" if fwd_bf16_box(n, h, w, cin, x.data_ptr() % 16 == 0)
+            else "cp_async")
+
+
 def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
                     in_shift=None, in_alpha=None, with_stats=False):
     """Runs the forward kernel; returns y, or (y, s1, s2) with stats (f32
@@ -449,11 +483,14 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
     lib = load_library()
     wst = parity_stack(weight)
     transform = (_ptr(in_scale), _ptr(in_shift), _ptr(in_alpha))
+    box = ()
     if x.dtype == torch.bfloat16:     # K-major B for bf16 wgmma
         wst = wst.transpose(3, 4).contiguous()
         if in_scale is not None:
             x = block_input_pass(x, in_scale, in_shift, in_alpha)
         transform = ()
+        # the box of x the TMA kernel loads, or (0, 0, 0): the cp.async one
+        box = fwd_bf16_box(n, h, w, cin, x.data_ptr() % 16 == 0) or (0, 0, 0)
     y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=dev)
     partial = stats = None
     if with_stats:
@@ -466,7 +503,7 @@ def _launch_forward(x, weight, bias=None, prelu_alpha=None, in_scale=None,
             x.data_ptr(), wst.data_ptr(), _ptr(bias), _ptr(prelu_alpha),
             prelu_n, *transform, y.data_ptr(), _ptr(partial), _ptr(stats),
             n, h, w, cin, cout,
-            wst.shape[1], wst.shape[2], *_umins(k_h, k_w), _stream(dev))
+            wst.shape[1], wst.shape[2], *_umins(k_h, k_w), *box, _stream(dev))
     _launched(err, "upsample-conv forward")
     return (y, stats[0], stats[1]) if with_stats else y
 

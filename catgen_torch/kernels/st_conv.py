@@ -21,7 +21,10 @@ from the f32 z rounded once.
 On CUDA tensors the wrapper launches ``csrc/st_conv.cu`` (counted in
 ``LAUNCHES``, ``BF16_LAUNCHES`` for bf16) or raises; on CPU tensors it
 runs ``st_conv_prelu_plain``. The kernel writes the sampled image and the
-pre-activation z only where autograd will need them.
+pre-activation z only where autograd will need them. In bf16 the conv
+runs on the tensor cores (``st_conv_bf16_mma``) for the shapes that
+``bf16_kind`` names "mma", with the weights packed by ``pack_weights``;
+other shapes keep the CUDA-core kernel.
 
 The backward mirrors catgen's ``_vjp_bwd``, in f32 in both element types:
 dz and dalpha from the saved z; the conv's input and weight gradients
@@ -89,6 +92,63 @@ def st_conv_prelu_plain(img, theta, kernel, bias, alpha) -> torch.Tensor:
     return _forward_plain(img, theta, kernel, bias, alpha)[0]
 
 
+# st_conv.cu's tensor-core kernel: its most warps a block, staged bytes
+# per warp (out and z: 16 pixels x 8 chunks of 16 bytes, rows padded by
+# 16), the card's opt-in shared memory per block (H100)
+MMA_WARPS, MMA_STAGE, OPTIN_SMEM = 16, 2 * 16 * (8 * 16 + 16), 232448
+
+
+def mma_k_tiles(c: int) -> int:
+    """16-deep contraction steps of the conv: K = 9C padded to 16s."""
+    return (9 * c + 15) // 16
+
+
+def mma_smem_bytes(h: int, w: int, c: int, f: int,
+                   warps: int = MMA_WARPS) -> int:
+    """Shared memory of a block of ``warps`` warps of the tensor-core
+    kernel, as st_conv.cu (``stmma::smem_bytes``) computes it: the image
+    and samp's compact copy or the warps' output staging, the
+    zero-bordered sampled tile, the packed weights."""
+    sampling = 2 * h * w * c * 2
+    staging = warps * MMA_STAGE
+    tile = ((h + 2) * (w + 2) * c * 2 + 15) // 16 * 16
+    return max(sampling, staging) + tile + f * mma_k_tiles(c) * 32
+
+
+def bf16_kind(img, f: int) -> str:
+    """Which kernel the bf16 prefix takes for img (N, H, W, C) and F
+    output channels: "mma" (the conv on the tensor cores) for C = 1..4,
+    F a multiple of 8, H W C a multiple of 8, a 16-byte aligned image and
+    a block that fits the card's shared memory; else "cuda_cores" (the
+    kernel the f32 prefix runs). Shape and alignment alone decide."""
+    _, h, w, c = img.shape
+    ok = (1 <= c <= 4 and f > 0 and f % 8 == 0 and (h * w * c) % 8 == 0
+          and img.data_ptr() % 16 == 0
+          and mma_smem_bytes(h, w, c, f) <= OPTIN_SMEM)
+    return "mma" if ok else "cuda_cores"
+
+
+def pack_weights(kmat: torch.Tensor) -> torch.Tensor:
+    """The (3, 3, C, F) weights as the tensor-core kernel reads its B
+    fragments: K = 9C rows in catgen's (ky, kx, ci) order
+    (``kernel.reshape(9 C, F)``), zero rows to 16 KT, F a multiple of 8;
+    returned as (F/8, 8, 4, KT, 2, 2): n-tile, the lane's group g and
+    thread t (lane 4 g + t), k-tile, then rows 16 kt + 8 r + 2 t + j of
+    column 8 nt + g. Keeps kmat's dtype."""
+    c, f = kmat.shape[2], kmat.shape[3]
+    kt = mma_k_tiles(c)
+    m = kmat.new_zeros((16 * kt, f))
+    m[:9 * c] = kmat.reshape(9 * c, f)
+    return (m.reshape(kt, 2, 4, 2, f // 8, 8).permute(4, 5, 2, 0, 1, 3)
+            .contiguous())
+
+
+def unpack_weights(packed: torch.Tensor, c: int) -> torch.Tensor:
+    """``pack_weights``'s (9C, F) matrix back from its packing."""
+    nt, _, _, kt, _, _ = packed.shape
+    return packed.permute(3, 4, 2, 5, 0, 1).reshape(16 * kt, 8 * nt)[:9 * c]
+
+
 def _check(img, theta, kernel, bias, alpha) -> None:
     named = {"img": img, "theta": theta, "kernel": kernel, "bias": bias,
              "alpha": alpha}
@@ -134,19 +194,23 @@ def launch(img, theta, kernel, bias, alpha, save: bool = True):
     bf16 = img.dtype == torch.bfloat16
     base = base_rows(h, w, img.device, torch.float32)
     kmat = kernel.to(img.dtype)       # the bf16 kernel takes bf16 weights
+    packed = bf16 and bf16_kind(img, f) == "mma"
+    if packed:
+        kmat = pack_weights(kmat)
     out = torch.empty((n, h, w, f), dtype=img.dtype, device=img.device)
     samp = torch.empty_like(img) if save else None
     z = torch.empty_like(out) if save else None
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        entry = (lib.catgen_st_conv_prelu_bf16 if bf16
-                 else lib.catgen_st_conv_prelu_f32)
-        err = entry(
-            img.data_ptr(), theta.data_ptr(), base.data_ptr(),
+    args = (img.data_ptr(), theta.data_ptr(), base.data_ptr(),
             kmat.data_ptr(), bias.data_ptr(), alpha.data_ptr(),
             alpha.numel(), out.data_ptr(),
-            samp.data_ptr() if save else None, z.data_ptr() if save else None,
-            n, h, w, c, f, stream)
+            samp.data_ptr() if save else None,
+            z.data_ptr() if save else None, n, h, w, c, f)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        if bf16:
+            err = lib.catgen_st_conv_prelu_bf16(*args, int(packed), stream)
+        else:
+            err = lib.catgen_st_conv_prelu_f32(*args, stream)
     # a band of the sampled image is held in shared memory: a width and
     # channel count too large for 48 KB are refused (cudaErrorInvalidValue)
     _launched(err, "st_conv_prelu")

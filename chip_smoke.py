@@ -19,7 +19,8 @@ with a non-zero exit code and no result.
      and forward upsample-conv kernels holds tensor-core products of its
      type, TF32 for f32 (3xTF32) and BF16 for bf16 (cuobjdump: HMMA for
      the f32 dCK's mma.sync, HGMMA for the wgmma of the forward, dX and
-     the bf16 dCK);
+     the bf16 dCK), and so does the bf16 ST-conv's tensor-core kernel
+     (BF16 HMMA from mma.sync);
   3. the sampler's forward kernel against its plain PyTorch version at
      both shapes of the sampling path, N=256, with the forward kernel each
      shape takes (per quad, staged); both bit for bit against the plain
@@ -147,10 +148,16 @@ with a non-zero exit code and no result.
      largest, repeats bit for bit; dCK's dW and db within one unit plus
      2^-16 of float64 rounded once, the plain version's reading beside
      it, and three planted rounding faults that the 1e-4 floor must fail;
+     which kernel the bf16 forward takes: the warp-specialised TMA kernel
+     at every stage shape (its box of x), the cp.async kernel at stage 1 with
+     a misaligned x and at 6x6 images (no box), both held against the
+     plain version;
  31. phase 17 for the ST-conv kernel's bf16 instantiation against its
      bf16 plain version (N=640 and 256, shared and per-channel slope):
      out and z within one unit plus 2^-16 of the largest, samp bit for
-     bit (the plain version samples at the kernel's coordinates);
+     bit (the plain version samples at the kernel's coordinates); the
+     prefix's shapes take the tensor-core kernel (its warps a block
+     printed), F = 60 the CUDA-core one;
  32. the training CLI with --dtype bf16 on the ladder and on the
      fused-prefix routes (one epoch of 20 steps at batch 64, twice from
      one seed: every launch per step on the bf16 instantiations and the
@@ -508,33 +515,38 @@ def build() -> None:
 # their own); dX: fold x transform x 16-byte copies in f32, transform x
 # 16-byte copies in bf16 (it reads the fold pass's output; wgmma: HGMMA);
 # the forward: transform x stats x 16-byte copies in f32, stats x 16-byte
-# copies in bf16 (wgmma: HGMMA)
+# copies in bf16 and stats in the TMA kernel (wgmma: HGMMA); the bf16
+# ST-conv on the tensor cores: C = 1..4 x 4 or 16 warps (mma.sync: HMMA)
 TENSOR_CORE_KERNELS = {
     "upsample_conv_dck": {"TF32": (8, "HMMA"), "BF16": (2, "HGMMA")},
-    "upsample_conv_fwd": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")},
-    "upsample_conv_dx": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")}}
+    "upsample_conv_fwd": {"TF32": (8, "HGMMA"), "BF16": (6, "HGMMA")},
+    "upsample_conv_dx": {"TF32": (8, "HGMMA"), "BF16": (4, "HGMMA")},
+    "st_conv_bf16_mma": {"BF16": (8, "HMMA")}}
 
 
 def tensor_core_check(path) -> None:
     """Requires the machine code (cuobjdump -sass) of every instantiation
-    of the dCK, dX and forward upsample-conv kernels to hold tensor-core
-    products of its element type and design (HMMA from mma.sync, HGMMA
-    from wgmma; TF32 for the f32 kernels, BF16 for the bf16 ones), and
-    prints their count and the first one of each instantiation."""
+    of the dCK, dX and forward upsample-conv kernels and of the bf16
+    ST-conv's tensor-core kernel to hold tensor-core products of its
+    element type and design (HMMA from mma.sync, HGMMA from wgmma; TF32
+    for the f32 kernels, BF16 for the bf16 ones), and prints their count
+    and the first one of each instantiation."""
     from torch.utils import cpp_extension
 
     tool = shutil.which("cuobjdump") or os.path.join(
         cpp_extension.CUDA_HOME or "", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    found = {(stem, t): 0 for stem in TENSOR_CORE_KERNELS
-             for t in ("TF32", "BF16")}
+    found = {(stem, t): 0 for stem, kinds in TENSOR_CORE_KERNELS.items()
+             for t in kinds}
     for block in sass.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
         stem = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
         if stem is None:
             continue
-        kind = "BF16" if f"{stem}_bf16" in name else "TF32"
+        kinds = TENSOR_CORE_KERNELS[stem]
+        kind = (next(iter(kinds)) if len(kinds) == 1
+                else "BF16" if f"{stem}_bf16" in name else "TF32")
         op = TENSOR_CORE_KERNELS[stem][kind][1]
         mma = [ln.strip() for ln in block.splitlines()
                if op in ln and kind in ln]
@@ -1679,6 +1691,73 @@ def upsample_vs_plain(bf16: bool = False) -> dict:
     return worst
 
 
+def kernel_names(fn, calls: int = 3) -> list:
+    """The names of the CUDA kernels that ``calls`` calls of ``fn``
+    launch. Late in the run a profiler session can drop its kernel records
+    (``device_ms``): a session that saw none is asked again, up to three
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count > 0]
+        if names:
+            break
+    return names
+
+
+def bf16_forward_kinds() -> dict:
+    """Phase 30: which kernel the bf16 forward takes. G32up-c's stage
+    shapes (N=640 and stage 3 at 320) must take the warp-specialised TMA
+    kernel (``fuc.fwd_bf16_box``: its box of x printed), and the profiler
+    must see it launch; two shapes keep the cp.async kernel and are held
+    against the plain version (``output_check``): stage 1 with x one
+    element off a 16-byte boundary, and 6x6 images at stage 2's channels
+    (36 pixels, no box). Returns {shape: kernel}."""
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    kinds = {}
+    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
+    shapes.append(stage_shape(2, TRAIN_B // 2))
+    ragged = [("x off 16 bytes", stage_shape(0, TRAIN_B)),
+              ("no box", (TRAIN_B, 6, 6, 512, 256, 3))]
+    for tag, shape in [("stage", sh) for sh in shapes] + ragged:
+        n, h, w, cin, cout, _ = shape
+        v = upsample_inputs(shape, 350, bf16=True)
+        x = misaligned(v["x"]) if tag.startswith("x off") else v["x"]
+        run = lambda x=x, v=v: fuc.upsample2_conv_fused(  # noqa: E731
+            x, v["weight"], v["bias"], v["prelu_c"])
+        kind = fuc.forward_kind_bf16(x)
+        names = [k for k in kernel_names(run)
+                 if "upsample_conv_fwd_bf16" in k]
+        seen = ("tma" if names and "upsample_conv_fwd_bf16_tma<" in names[0]
+                else "cp_async")
+        print(f"bf16 forward at {shape} ({tag}): {kind} kernel (box "
+              f"{fuc.fwd_bf16_box(n, h, w, cin, x.data_ptr() % 16 == 0)}), "
+              f"the profiler saw {names or 'no kernel in 3 sessions'}")
+        require(not names or (len(names) == 1 and seen == kind),
+                f"the bf16 forward at {shape} launched {names}, not {kind}")
+        require(kind == ("tma" if tag == "stage" else "cp_async"),
+                f"the bf16 forward at {shape} ({tag}) took {kind}")
+        kinds[f"{shape} ({tag})"] = kind
+        if tag != "stage":
+            got, again = run(), run()
+            want = fuc.block_plain(v["x"], v["weight"], v["bias"],
+                                   prelu_alpha=v["prelu_c"])
+            output_check(f"{shape} bf16 fwd y ({tag}, {kind} kernel)", got,
+                         again, want)
+        del v, x
+    return kinds
+
+
 def fold_dck(x, w, gy, y, gs):
     """dCK with the fold (dweight, dbias): in f32 the kernel folds as it
     loads; in bf16 the fold pass runs first and the kernel reads its
@@ -2302,22 +2381,51 @@ def st_inputs(shape, seed: int, channelwise: bool) -> tuple:
             rand(f if channelwise else 1) * 0.5)
 
 
+# a bf16 prefix shape off the tensor cores (F % 8 != 0): the CUDA-core
+# kernel that the f32 prefix runs (phase 31)
+ST_RAGGED = (TRAIN_B, 32, 32, 3, 60)
+
+
 def st_conv_vs_plain(bf16: bool = False) -> dict:
     """The ST-conv kernel against its plain version at D32_st3's prefix,
     N=640 and 256, with a shared and a per-channel slope, on an f32 image
     (phase 17) or a bf16 one (phase 31): out and z (``output_check``),
     samp bit for bit (the same lerps at the same coordinates, rounded once
     in bf16); every launch twice, bit-identical; without samp and z (the
-    sampling path) the same out. Returns the largest errors."""
+    sampling path) the same out. In bf16 the prefix's shapes must take
+    the tensor-core kernel (``st_conv.bf16_kind``, the profiler's kernel
+    name, and its warps a block printed), and ST_RAGGED the CUDA-core one.
+    Returns the largest errors."""
     import torch
     from catgen_torch.kernels import st_conv
 
     worst = dict.fromkeys(("out", "out_rel", "z", "z_rel", "samp"), 0.0)
-    for i, shape in enumerate(ST_SHAPES):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = ST_SHAPES + ([ST_RAGGED] if bf16 else [])
+    for i, shape in enumerate(shapes):
+        if bf16:
+            img = torch.zeros(shape[:4], dtype=torch.bfloat16, device="cuda")
+            want_kind = "mma" if shape in ST_SHAPES else "cuda_cores"
+            kind = st_conv.bf16_kind(img, shape[4])
+            warps = 16 if shape[0] < 4 * sms else 4
+            print(f"bf16 st_conv at {shape}: {kind} kernel"
+                  + (f", {warps} warps a block ({sms} SMs)"
+                     if kind == "mma" else ""))
+            require(kind == want_kind, f"the bf16 st_conv at {shape} took "
+                                       f"{kind}, not {want_kind}")
         for channelwise in (False, True):
             img, *params = st_inputs(shape, (310 if bf16 else 100) + i,
                                      channelwise)
             args = (img.bfloat16() if bf16 else img, *params)
+            if bf16 and not channelwise:
+                names = [k for k in kernel_names(
+                    lambda: st_conv.launch(*args)) if "st_conv" in k]
+                print(f"  the profiler saw "
+                      f"{names or 'no kernel in 3 sessions'}")
+                require(not names or (
+                    len(names) == 1 and ("st_conv_bf16_mma<" in names[0])
+                    == (shape in ST_SHAPES)),
+                    f"the bf16 st_conv at {shape} launched {names}")
             got, again = st_conv.launch(*args), st_conv.launch(*args)
             light = st_conv.launch(*args, save=False)
             torch.cuda.synchronize()
@@ -4026,6 +4134,7 @@ def main(argv=None) -> int:
               "versions and float64 at G32up-c's stage shapes, batch 640")
     t0 = time.perf_counter()
     bf16_up_err = upsample_vs_plain(bf16=True)
+    fwd16_kinds = bf16_forward_kinds()
     pass_err = passes_vs_plain()
     exact16 = dck_vs_float64(bf16=True)
     print(f"phase 30: {time.perf_counter() - t0:.1f} s")
@@ -4117,6 +4226,9 @@ def main(argv=None) -> int:
         op = "fwd" if key == "block" else key.removeprefix("block_")
         if suffix and op == "dck":
             return f"upsample_conv_dck{suffix}<"
+        if suffix and op == "fwd":    # the cp.async or the TMA kernel
+            return (f"upsample_conv_fwd{suffix}",
+                    f"<{'true' if key == 'block' else 'false'}")
         return (f"upsample_conv_{op}{suffix}<"
                 f"{'true' if key.startswith('block') else 'false'}")
 
@@ -4285,6 +4397,12 @@ def main(argv=None) -> int:
                 {"device_ms": brt["ladder" if block else "per-layer"][
                     "kernel_device_ms"]}, up_pattern(key, "_bf16")),
         })
+        if key in ("fwd", "block"):
+            kernels[-1]["cuda_kernel"] = (
+                "upsample_conv_fwd_bf16_tma (TMA boxes, mbarrier ring, "
+                "two accumulator banks) where fwd_bf16_box gives a box, "
+                "else upsample_conv_fwd_bf16")
+            kernels[-1]["kernel_by_shape"] = fwd16_kinds
         if key == "block_dx":
             kernels[-1]["block_backward"] = {
                 "what": "fused_block_backward in one call: the fold pass, "
@@ -4328,9 +4446,10 @@ def main(argv=None) -> int:
             "train_fused_prefix_bf16": fused16["st_conv_bf16"],
             "step_fused_prefix_bf16":
                 bf16_route_steps["fused-prefix"]["launches"]["st_conv_bf16"]},
+        cuda_kernel="st_conv_bf16_mma (the conv on mma.sync tensor cores)",
         device_ms_per_step=device_step_ms(
             {"device_ms": brt["fused-prefix"]["kernel_device_ms"]},
-            ("st_conv_prelu_kernel", "bfloat16"))))
+            "st_conv_bf16_mma")))
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

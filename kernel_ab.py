@@ -5,23 +5,29 @@ bit and device times, in one call.
     python3 kernel_ab.py compare FILE_A FILE_B [FILE_A2 FILE_B2 ...]
 
 ``run`` imports catgen_torch from the checkout at DIR (its kernels are
-built from DIR's sources into DIR/catgen_torch/_build), runs the bf16
-upsample-conv backward (the per-layer dX, the block dX kernel on the
-folded cotangent, and the whole block backward: fold pass, dX,
-transform pass, dCK) at G32up-c's three stage shapes at
-B=640, and the sampler forward at the input ST's shape (640, 32, 32, 3)
--> 32x32 in f32 and bf16, rows and grid layouts, on inputs made from
-fixed seeds, and saves a SHA-256 of every output's bytes and each call's
-time to FILE: device time from the profiler (the kernels' own time per
-call, in all and by kernel, over 20 calls of a backward, 200 of a
-sampler forward, after 3 warm-up calls) and CUDA events over back-to-back calls (median of 5, the
-wrapper's host work included). Run it for two
-checkouts in turns (A, B, B, A), then ``compare`` prints which outputs
-are equal bit for bit and each time beside the other's, the runs of one
-checkout averaged. Both checkouts' entry points must be those of the
-same wrappers
-(``fused_upsample_conv.upsample2_conv_dx``, ``_launch_dx``,
-``fused_block_backward``, ``bilinear.launch``, ``bilinear_grid.launch``).
+built from DIR's sources into DIR/catgen_torch/_build) and runs, at
+G32up-c's three stage shapes at B=640, the bf16 upsample-conv forward
+(per layer with bias and a per-channel PReLU, and as the block with its
+transform pass and the statistics), the f32 forward per layer, and the
+bf16 backward (the per-layer dX, the block dX kernel on the folded
+cotangent, and the whole block backward: fold pass, dX, transform pass,
+dCK); the ST-conv prefix at D32_st3's training shape (640, 32, 32, 3) ->
+64 with samp and z and at its sampling shape (256, ...) with out alone,
+in bf16 and f32; and the sampler forward at the input ST's shape (640,
+32, 32, 3) -> 32x32 in f32 and bf16, rows and grid layouts. Inputs come
+from fixed seeds. It saves a SHA-256 of every output's bytes and each
+call's time to FILE: device time from the profiler (the kernels' own
+time per call, in all and by kernel, over 20 calls of an upsample-conv,
+200 of a sampler forward or an ST-conv, after 3 warm-up calls) and CUDA
+events over back-to-back calls (median of 5, the wrapper's host work
+included). Run it for two checkouts in turns (A, B, B, A), then
+``compare`` prints which outputs are equal bit for bit and each time
+beside the other's, the runs of one checkout averaged. Both checkouts'
+entry points must be those of the same wrappers
+(``fused_upsample_conv.upsample2_conv_fused``,
+``upsample2_conv_block_fused``, ``upsample2_conv_dx``, ``_launch_dx``,
+``fused_block_backward``, ``st_conv.launch``, ``bilinear.launch``,
+``bilinear_grid.launch``).
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ def _stage_inputs(s: int):
              scale=torch.rand(cin, generator=gen, device="cuda") + 0.5,
              shift=randn(cin, scale=0.3),
              alpha=torch.rand(1, generator=gen, device="cuda") * 0.5,
+             prelu=torch.rand(cout, generator=gen, device="cuda") * 0.5,
              gy=randn(B, 2 * hw, 2 * hw, cout))
     out = {key: t.bfloat16() for key, t in v.items()}
     out["gs1"], out["gs2"] = randn(cout, scale=0.01), randn(cout, scale=0.01)
@@ -109,7 +116,7 @@ def run(root: str, out: str) -> None:
     sys.path.insert(0, root)
     import torch
     import catgen_torch
-    from catgen_torch.kernels import bilinear, bilinear_grid
+    from catgen_torch.kernels import bilinear, bilinear_grid, st_conv
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     here = os.path.dirname(os.path.abspath(catgen_torch.__file__))
@@ -126,7 +133,15 @@ def run(root: str, out: str) -> None:
         gf = fuc.block_fold(y, gy, v["gs1"], v["gs2"])[0]
         tr = (v["scale"], v["shift"], v["alpha"].expand(x.shape[3])
               .contiguous())
+        x32, w32, b32, pr32 = (v[k].float() for k in ("x", "weight", "bias",
+                                                       "prelu"))
         calls = {
+            f"stage{s + 1}_fwd": lambda: (fuc.upsample2_conv_fused(
+                x, w, v["bias"], v["prelu"]),),
+            f"stage{s + 1}_block_fwd": lambda: fuc.upsample2_conv_block_fused(
+                x, w, v["bias"], v["scale"], v["shift"], v["alpha"]),
+            f"stage{s + 1}_fwd_f32": lambda: (fuc.upsample2_conv_fused(
+                x32, w32, b32, pr32),),
             f"stage{s + 1}_dx": lambda: (fuc.upsample2_conv_dx(x, w, gy),),
             f"stage{s + 1}_block_dx_on_gf": lambda: fuc._launch_dx(
                 x, w, gf, None, None, *tr),
@@ -138,8 +153,34 @@ def run(root: str, out: str) -> None:
             dev, kernels = _device_ms(fn, calls=20)
             times[key] = {"device_ms": dev, "event_ms": _ms(fn),
                           "kernels": kernels}
-        del v, x, w, gy, y, gf, calls
+        del v, x, w, gy, y, gf, calls, x32, w32, b32, pr32
         torch.cuda.empty_cache()
+    for n, save in ((B, True), (256, False)):
+        gen = torch.Generator("cuda").manual_seed(700 + n)
+        ang = (torch.rand(n, generator=gen, device="cuda") - 0.5) * 0.6
+        sc = 0.85 + 0.3 * torch.rand(n, generator=gen, device="cuda")
+        ty, tx = ((torch.rand(n, generator=gen, device="cuda") - 0.5) * 0.3
+                  for _ in range(2))
+        cos, sin = torch.cos(ang) * sc, torch.sin(ang) * sc
+        theta = torch.stack([torch.stack([cos, -sin, ty], -1),
+                             torch.stack([sin, cos, tx], -1)], 1).contiguous()
+        img = torch.rand((n, 32, 32, 3), generator=gen, device="cuda")
+        kern = torch.randn((3, 3, 3, 64), generator=gen, device="cuda") * 0.3
+        bias = torch.randn((64,), generator=gen, device="cuda") * 0.1
+        alpha = torch.rand((64,), generator=gen, device="cuda") * 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            im = img.to(dtype)
+            key = (f"st_conv_{n}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                   f"{'' if save else '_out_only'}")
+
+            def fn(im=im):
+                return tuple(t for t in st_conv.launch(
+                    im, theta, kern, bias, alpha, save=save) if t is not None)
+
+            outputs[key] = [_digest(t) for t in fn()]
+            dev, kernels = _device_ms(fn, calls=200)
+            times[key] = {"device_ms": dev, "event_ms": _ms(fn, inner=200),
+                          "kernels": kernels}
     gen = torch.Generator("cuda").manual_seed(600)
     img = torch.rand((B, 32, 32, 3), generator=gen, device="cuda")
     rows = torch.rand((B, 2, 1024), generator=gen, device="cuda") * 2.4 - 1.2

@@ -1926,3 +1926,216 @@ def test_bf16_st_conv_refuses_bf16_parameters(f32_cuda):
         st_conv.st_conv_prelu(img.bfloat16(), theta, kernel.bfloat16(), bias,
                               alpha)
     assert (st_conv.LAUNCHES, st_conv.BF16_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 upsample-conv forward's warp-specialised kernel (TMA boxes of x,
+# an mbarrier ring, two accumulator banks): where fwd_bf16_box gives a box
+# it runs, and it must give the bits of the cp.async kernel
+# (upsample_conv_fwd_bf16, which a misaligned copy of x takes) for y and
+# the statistics, and agree with the plain version within _bf16_close; the
+# shapes without a box (cin % 64 != 0, h w neither dividing 128 nor a
+# multiple of it) and a misaligned x take the cp.async kernel; an empty batch
+# launches nothing; repeats bit for bit.
+# ---------------------------------------------------------------------------
+
+TMA_SHAPES = [                 # (N, H, W, Cin, Cout, k), box (w, h, n)
+    ((3, 4, 4, 512, 512, 3), (4, 4, 8)),     # G32up-c stage 1, ragged n
+    ((2, 8, 8, 512, 256, 3), (8, 8, 2)),     # stage 2
+    ((2, 16, 16, 256, 128, 5), (16, 8, 1)),  # stage 3
+    ((1, 4, 128, 64, 72, 3), (128, 1, 1)),   # a row of 128; cout ragged
+    ((5, 2, 4, 64, 136, 5), (4, 2, 16)),     # odd steps (9); 2 cout tiles
+    ((1, 4, 4, 64, 64, 3), (4, 4, 8)),       # one tile past n's end
+]
+CP_ASYNC_SHAPES = [            # no box: the cp.async kernel
+    (2, 4, 4, 96, 64, 3),      # cin % 64 != 0
+    (2, 6, 6, 64, 64, 3),      # 36 pixels neither divide 128 nor fill it
+    (2, 12, 12, 64, 64, 3),    # 144 pixels, not a multiple of 128
+]
+
+
+def _cp_async_forward(x, weight, bias, prelu, with_stats):
+    """The cp.async bf16 forward kernel on x as it lies: the C entry with
+    no box (the wrapper takes the box whenever x has one)."""
+    from catgen_torch.kernels.build import load_library
+
+    n, h, w, cin = x.shape
+    cout, _, k_h, k_w = weight.shape
+    wst = fuc.parity_stack(weight).transpose(3, 4).contiguous()
+    lib = load_library()
+    y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
+    partial = stats = None
+    if with_stats:
+        rows = 4 * lib.catgen_upsample_conv_partial_rows(n, h, w)
+        partial = torch.empty((rows, 2, cout), device=x.device)
+        stats = torch.empty((2, cout), device=x.device)
+    prelu = None if prelu is None else prelu.reshape(-1)
+    err = lib.catgen_upsample_conv_fwd_bf16(
+        x.data_ptr(), wst.data_ptr(), bias.data_ptr(),
+        None if prelu is None else prelu.data_ptr(),
+        0 if prelu is None else prelu.numel(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if stats is None else stats.data_ptr(), n, h, w, cin, cout,
+        wst.shape[1], wst.shape[2], *fuc._umins(k_h, k_w), 0, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return (y, stats[0], stats[1]) if with_stats else (y,)
+
+
+def _kernel_names_seen(fn):
+    """``_forward_kernel_names``, asked up to three times: a profiler
+    session now and then records no kernel at all."""
+    for _ in range(3):
+        names = _forward_kernel_names(fn)
+        if names:
+            return names
+    return names
+
+
+def _fwd_kernel(fn):
+    names = [n for n in _kernel_names_seen(fn)
+             if "upsample_conv_fwd_bf16" in n]
+    assert len(names) == 1, names
+    return "tma" if "upsample_conv_fwd_bf16_tma<" in names[0] else "cp_async"
+
+
+@pytest.mark.parametrize("shape, box", TMA_SHAPES)
+@pytest.mark.parametrize("form", ["scalar", "channelwise", "stats",
+                                  "no_stats"])
+def test_bf16_tma_forward_gives_the_cp_async_bits(f32_cuda, shape, box, form):
+    n, h, w, cin, cout, _ = shape
+    assert fuc.fwd_bf16_box(n, h, w, cin) == box
+    block = form in ("stats", "no_stats")
+    v = _bf16_up_inputs(shape, f32_cuda, seed=70,
+                        alpha_n=cin if block else
+                        (1 if form == "scalar" else cout))
+
+    def run(x):
+        if block:
+            return fuc.upsample2_conv_block_fused(
+                x, v["weight"], v["bias"], v["scale"], v["shift"],
+                v["alpha"], with_stats=form == "stats")
+        return (fuc.upsample2_conv_fused(x, v["weight"], v["bias"],
+                                         v["alpha"]),)
+
+    assert fuc.forward_kind_bf16(v["x"]) == "tma"
+    assert _fwd_kernel(lambda: run(v["x"])) == "tma"
+    if block:   # the cp.async kernel on the transform pass's output
+        xn = fuc.block_input_pass(v["x"], v["scale"], v["shift"], v["alpha"])
+        ref = _cp_async_forward(xn, v["weight"], v["bias"], None,
+                             form == "stats")
+    else:       # a misaligned x takes the cp.async kernel
+        off = _misaligned_copy(v["x"])
+        assert fuc.forward_kind_bf16(off) == "cp_async"
+        assert _fwd_kernel(lambda: run(off)) == "cp_async"
+        ref = run(off)
+    got, again = run(v["x"]), run(v["x"])
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    assert len(got) == len(ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    if block:
+        want = fuc.block_plain(v["x"], v["weight"], v["bias"], v["scale"],
+                               v["shift"], v["alpha"],
+                               with_stats=form == "stats")
+    else:
+        want = fuc.block_plain(v["x"], v["weight"], v["bias"],
+                               prelu_alpha=v["alpha"])
+    want = want if isinstance(want, tuple) else (want,)
+    for name, a, b in zip(("y", "s1", "s2"), got, want):
+        _bf16_or_f32_close(a, b, name)
+
+
+@pytest.mark.parametrize("shape", CP_ASYNC_SHAPES)
+def test_bf16_forward_without_a_box_takes_the_cp_async_kernel(f32_cuda, shape):
+    n, h, w, cin, cout, _ = shape
+    assert fuc.fwd_bf16_box(n, h, w, cin) is None
+    v = _bf16_up_inputs(shape, f32_cuda, seed=71, alpha_n=cout)
+    assert fuc.forward_kind_bf16(v["x"]) == "cp_async"
+    run = lambda: fuc.upsample2_conv_fused(  # noqa: E731
+        v["x"], v["weight"], v["bias"], v["alpha"])
+    assert _fwd_kernel(run) == "cp_async"
+    got = run()
+    torch.cuda.synchronize()
+    _bf16_close(got, fuc.block_plain(v["x"], v["weight"], v["bias"],
+                                     prelu_alpha=v["alpha"]))
+
+
+def test_bf16_tma_forward_of_an_empty_batch(f32_cuda):
+    v = _bf16_up_inputs((1, 4, 4, 512, 512, 3), f32_cuda, seed=72)
+    x = v["x"][:0]
+    before = fuc.BF16_BLOCK_LAUNCHES
+    y, s1, s2 = fuc.upsample2_conv_block_fused(x, v["weight"], v["bias"],
+                                               v["scale"], v["shift"],
+                                               v["alpha"])
+    torch.cuda.synchronize()
+    assert fuc.BF16_BLOCK_LAUNCHES == before + 1
+    assert y.shape == (0, 8, 8, 512)
+    assert s1.abs().max().item() == 0.0 and s2.abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 ST-conv on the tensor cores (st_conv_bf16_mma): C = 1..4, F = 64
+# and 8, the training and sampling shapes and an h that is not a multiple
+# of 8; out and z within _bf16_close of the plain version (27-term sums in
+# the tensor core's order), samp bit for bit, repeats bit for bit; a shape
+# it does not take (F % 8 != 0, C over 4, a misaligned image) keeps the
+# CUDA-core kernel.
+# ---------------------------------------------------------------------------
+
+MMA_ST_SHAPES = [               # (N, H, W, C, F)
+    (640, 32, 32, 3, 64),       # the training shape
+    (256, 32, 32, 3, 64),       # the sampling shape
+    (3, 12, 20, 1, 64),         # C = 1, h not a multiple of 8
+    (2, 30, 32, 2, 64),         # C = 2, 960 pixels
+    (2, 9, 8, 4, 8),            # C = 4 (K = 36 -> 48), F = 8
+    (3, 32, 32, 3, 8),          # F = 8
+    (2, 7, 8, 3, 136),          # F over one group of 64, ragged pixels
+]
+
+
+def _st_kernel(fn):
+    names = [n for n in _kernel_names_seen(fn) if "st_conv" in n]
+    assert len(names) == 1, names
+    return "mma" if "st_conv_bf16_mma<" in names[0] else "cuda_cores"
+
+
+@pytest.mark.parametrize("shape", MMA_ST_SHAPES)
+@pytest.mark.parametrize("channelwise", [False, True])
+def test_bf16_st_conv_on_tensor_cores_matches_plain(f32_cuda, shape,
+                                                    channelwise):
+    img, *params = _st_inputs(shape, f32_cuda, seed=73,
+                              channelwise=channelwise)
+    img = img.bfloat16()
+    assert st_conv.bf16_kind(img, shape[4]) == "mma"
+    assert _st_kernel(lambda: st_conv.launch(img, *params)) == "mma"
+    first, again = st_conv.launch(img, *params), st_conv.launch(img, *params)
+    light = st_conv.launch(img, *params, save=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(light[0], first[0])
+    out, samp, z = first
+    want = st_conv._forward_plain(img, *params)
+    for a, b in zip((out, z), want[::2]):
+        _bf16_close(a, b.contiguous())
+    assert torch.equal(samp, want[1])
+
+
+@pytest.mark.parametrize("case", ["f31", "c5", "misaligned"])
+def test_bf16_st_conv_shapes_off_the_tensor_cores(f32_cuda, case):
+    shape = {"f31": (2, 12, 16, 3, 31), "c5": (2, 8, 8, 5, 16),
+             "misaligned": (2, 32, 32, 3, 64)}[case]
+    img, *params = _st_inputs(shape, f32_cuda, seed=74)
+    img = img.bfloat16()
+    if case == "misaligned":
+        img = _misaligned_copy(img)
+    assert st_conv.bf16_kind(img, shape[4]) == "cuda_cores"
+    assert _st_kernel(lambda: st_conv.launch(img, *params)) == "cuda_cores"
+    out, samp, z = st_conv.launch(img, *params)
+    torch.cuda.synchronize()
+    want = st_conv._forward_plain(img, *params)
+    for a, b in zip((out, z), want[::2]):
+        _bf16_close(a, b.contiguous())
+    assert torch.equal(samp, want[1])
