@@ -140,17 +140,6 @@ constexpr int kStagedThreads = 256;
 template <class T>
 constexpr int kStagedLanes = 64 / Vec<T>::N;
 
-// Copies `chunks` 16-byte vectors from global `src` to shared `dst` with
-// the block's threads (cp.async; the caller commits and waits).
-__device__ __forceinline__ void stage_async(uint4* dst, const uint4* src,
-                                            int chunks) {
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(dst + k)),
-                 "l"(src + k));
-  }
-}
-
 // Grid: n * per_sample blocks, the blocks of one sample adjacent; block
 // (ni, part) covers output pixels [part * span, (part + 1) * span) of
 // sample ni. img and out 16-byte aligned, c a multiple of Vec<T>::N,
@@ -276,15 +265,15 @@ sample_per_quad_staged(const T* __restrict__ img, const T* __restrict__ crd,
 
 // Shared memory of the bf16 per-quad kernel at (h, w, c): one region that
 // holds first the sample's image as it lies (16-byte cp.async) and then a
-// round's output, and the image widened to whole groups of 4 channels (8
-// bytes a group, zeros past c).
+// round's output, and the image widened to whole groups of 4 channels
+// (bilinear_taps.cuh, widen4).
 static inline int64_t quad_bf16_region(int h, int w, int c) {
   const int64_t raw = (int64_t)h * w * c * 2;
   const int64_t round = (int64_t)kQuadRound * c * 2;
   return ((raw > round ? raw : round) + 15) / 16 * 16;
 }
 static inline int64_t quad_bf16_smem_bytes(int h, int w, int c) {
-  return quad_bf16_region(h, w, c) + (int64_t)h * w * ((c + 3) / 4) * 8;
+  return quad_bf16_region(h, w, c) + wide_bytes(h, w, c);
 }
 
 // bf16 per quad: the f32 kernel's quads (4 output pixels a thread, so
@@ -326,17 +315,7 @@ sample_per_quad_bf16(const __nv_bfloat16* __restrict__ img,
   if (vec && G * tid < p) L::load4(crd, ni, G * tid, p, ys, xs);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  for (int pix = tid; pix < hw; pix += blockDim.x) {
-    for (int k = 0; k < cg; ++k) {
-      uint32_t v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ch = 4 * k + i;
-        v[i] = ch < c ? part[pix * c + ch] : 0u;
-      }
-      wide[pix * cg + k] = make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
-    }
-  }
+  widen4(wide, part, hw, c);
   __syncthreads();
 
   unsigned short* o = reinterpret_cast<unsigned short*>(out) +
@@ -448,11 +427,10 @@ template <class T>
 int forward_kind(const T* img, const T* crd, const T* out, int h, int w,
                  int c, int p) {
   const int kind = forward_shape_kind(h, w, c, (int)sizeof(T));
-  const bool fits = ((uintptr_t)img & 15u) == 0 &&
-                    ((uintptr_t)out & 15u) == 0 &&
+  const bool fits = aligned16(img) && aligned16(out) &&
                     (int64_t)p * c < ((int64_t)1 << 31);
   if (kind == kStaged && !fits) return kPerWarp;
-  if (kind == kPerQuad && !(fits && ((uintptr_t)crd & 15u) == 0)) {
+  if (kind == kPerQuad && !(fits && aligned16(crd))) {
     return kPerPixel;
   }
   return kind;

@@ -28,9 +28,9 @@
 // (_bwd_kernel_dcrd, _dense_bwd_kernel_mxu_dcrd) contract one-hot weight
 // masks against the image on the matrix unit; here it is a gather, bound
 // by bytes: each output pixel reads its coordinates and C values of g, and
-// its four taps of C values come from the sample's image. Three kernels,
-// chosen by shape alone (sampler_kind, bilinear_taps.cuh, which the
-// forward shares), the same way on every run:
+// its four taps of C values come from the sample's image. Four kernels,
+// chosen by shape alone (dcoords_shape_kind; for C >= 32 sampler_kind,
+// bilinear_taps.cuh, which the forward shares), the same way on every run:
 //   * staged, for C % 4 == 0, C >= 32 and an image that fits one block's
 //     opt-in shared memory (h w C 4 bytes: 64 KB at 16x16x64): one block
 //     per sample and range of at most 256 output pixels stages the
@@ -43,8 +43,23 @@
 //   * per warp, for other C >= 32 (odd channel counts, a 32x32x64 image
 //     of 256 KB): lanes take channels lane, lane+32, ..., gathered from
 //     global memory, and meet in a butterfly of warp shuffles;
-//   * per pixel, for C < 32 (the input ST at C = 3), summing its channels
-//     in order.
+//   * per quad (dcoords_per_quad_bf16), for bf16 at C < 32 (the input ST
+//     at C = 3) where h w C values fill whole 16-byte vectors, the image
+//     and its widened copy fit one block's opt-in shared memory and img,
+//     g, the coordinates and d_coords are 16-byte aligned: the design of
+//     the bf16 per-quad forward (bilinear_sample.cu, sample_per_quad_bf16)
+//     against what bounds the per-pixel kernel in bf16, the count of
+//     2-byte memory instructions (19 a pixel at C = 3 for ~20 bytes). One
+//     block per sample stages the image with 16-byte cp.async and widens
+//     it in shared memory to 4-channel groups (a tap is one 8-byte read);
+//     a thread takes 4 neighbouring output pixels: their coordinates as
+//     two 8-byte loads (rows) or one 16-byte load (grid), their g as C
+//     8-byte loads, their d_coords as two 8-byte stores (rows: 4 dy, 4 dx)
+//     or one 16-byte store (grid: 4 (dy, dx) pairs). Each pixel's sums are
+//     the per-pixel kernel's, channel by channel, rounded once: the same
+//     bits. Where p % 4 != 0 it loads and stores pixel by pixel;
+//   * per pixel, for the other C < 32 (all of f32: at 58% of its byte
+//     bound it was left alone), summing its channels in order.
 //
 // d_img[n, tap, c] += g[p,c] * weight(tap, p) over the output pixels p.
 // Many output pixels reach one input pixel, at positions only the
@@ -247,13 +262,8 @@ dcoords_staged(const T* __restrict__ img, const T* __restrict__ crd,
   const int p0 = (blockIdx.x - ni * per_sample) * span;
   const int p1 = min(p0 + span, p);
   const int cv = c / N, chunks = h * w * cv;
-  const uint4* src =
-      reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks;
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(simg + k)),
-                 "l"(src + k));
-  }
+  stage_async(simg, reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
@@ -302,6 +312,159 @@ dcoords_staged(const T* __restrict__ img, const T* __restrict__ crd,
   }
 }
 
+constexpr int kQuadThreads = 256;
+constexpr int kQuadPixels = 4;     // output pixels a thread
+
+// Shared memory of the per-quad kernel at (h, w, c): the sample's image as
+// it lies (16-byte cp.async; `raw` bytes, rounded to 16) and its widened
+// copy.
+static inline int64_t quad_raw_bytes(int h, int w, int c) {
+  return ((int64_t)h * w * c * 2 + 15) / 16 * 16;
+}
+static inline int64_t quad_smem_bytes(int h, int w, int c) {
+  return quad_raw_bytes(h, w, c) + wide_bytes(h, w, c);
+}
+
+// bf16 per quad. Grid n, one block per sample; thread t takes the quads of
+// 4 neighbouring output pixels [4 q, 4 q + 4) for q = t, t + blockDim.x,
+// .... CT: c when it is 1..4 (the quad's g in registers, unpacked at
+// indices fixed at compile time), else 0 (any c < 32; g read value by
+// value). img, crd, g and dcrd 16-byte aligned, h w c values a whole
+// number of 16-byte vectors, c < 32; `raw` is quad_raw_bytes(h, w, c), the
+// dynamic shared memory quad_smem_bytes(h, w, c).
+template <class L, int CT>
+__global__ void __launch_bounds__(kQuadThreads)
+dcoords_per_quad_bf16(const __nv_bfloat16* __restrict__ img,
+                      const __nv_bfloat16* __restrict__ crd,
+                      const __nv_bfloat16* __restrict__ g,
+                      __nv_bfloat16* __restrict__ dcrd, int h, int w,
+                      int c_rt, int p, int raw) {
+  constexpr int G = kQuadPixels;
+  const int c = CT > 0 ? CT : c_rt;
+  extern __shared__ uint4 smem4[];
+  const unsigned short* part = reinterpret_cast<const unsigned short*>(smem4);
+  // the widened image, (h w, cg) groups of 4 channels
+  uint2* wide =
+      reinterpret_cast<uint2*>(reinterpret_cast<uint8_t*>(smem4) + raw);
+  const int ni = blockIdx.x, tid = threadIdx.x;
+  const int hw = h * w, cg = (c + 3) / 4;
+  const int chunks = hw * c / 8;
+  stage_async(smem4, reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
+  asm volatile("cp.async.commit_group;\n" ::);
+  // p % 4 == 0: every quad's coordinates, g and d_coords are whole
+  // aligned vectors
+  const bool vec = p % G == 0;
+  const __nv_bfloat16* gs = g + (int64_t)ni * p * c;
+  // the first quad's coordinates and g are in flight during the staging
+  float ys[G] = {}, xs[G] = {};
+  uint2 gq[CT > 0 ? CT : 1];
+  auto load_quad = [&](int q) {
+    L::load4(crd, ni, G * q, p, ys, xs);
+    if constexpr (CT > 0) {
+      const uint2* gv = reinterpret_cast<const uint2*>(gs + G * q * CT);
+#pragma unroll
+      for (int i = 0; i < CT; ++i) gq[i] = __ldg(gv + i);
+    }
+  };
+  if (vec && G * tid < p) load_quad(tid);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  widen4(wide, part, hw, c);
+  __syncthreads();
+
+  for (int q = tid; G * q < p; q += blockDim.x) {
+    float gv[CT > 0 ? G * CT : 1];
+    if constexpr (CT > 0) {
+#pragma unroll
+      for (int i = 0; i < CT; ++i) unpack4(gq[i], gv + 4 * i);
+    }
+    float dy[G], dx[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int pi = G * q + j;
+      if (pi >= p) break;
+      float yn = ys[j], xn = xs[j];
+      if (!vec) {
+        const float2 yx = L::load(crd, ni, pi, p);
+        yn = yx.x;
+        xn = yx.y;
+      }
+      const Taps t = make_taps(yn, xn, h, w);
+      // tap_grad's arithmetic, channels 0 .. c-1 in order
+      float sy = 0.0f, sx = 0.0f;
+      for (int k = 0; k < cg; ++k) {
+        float v00[4], v01[4], v10[4], v11[4];
+        unpack4(wide[(int)t.p00 * cg + k], v00);
+        unpack4(wide[(int)t.p01 * cg + k], v01);
+        unpack4(wide[(int)t.p10 * cg + k], v10);
+        unpack4(wide[(int)t.p11 * cg + k], v11);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ch = 4 * k + i;
+          if (ch >= c) break;
+          float gc;
+          if constexpr (CT > 0) {
+            gc = vec ? gv[j * CT + i] : ldf(gs + pi * CT + i);
+          } else {
+            gc = ldf(gs + pi * c + ch);
+          }
+          const float top = v00[i] * (1.0f - t.wx) + v01[i] * t.wx;
+          const float bot = v10[i] * (1.0f - t.wx) + v11[i] * t.wx;
+          const float ry = bot - top;
+          const float rx =
+              (1.0f - t.wy) * (v01[i] - v00[i]) + t.wy * (v11[i] - v10[i]);
+          sy += gc * ry;
+          sx += gc * rx;
+        }
+      }
+      // store_dcoords' scaling
+      dy[j] = sy * t.in_y * (0.5f * (float)(h - 1));
+      dx[j] = sx * t.in_x * (0.5f * (float)(w - 1));
+      if (!vec) L::store(dcrd, ni, pi, p, dy[j], dx[j]);
+    }
+    if (vec) {
+      L::store4(dcrd, ni, G * q, p, dy, dx);
+      const int next = q + blockDim.x;
+      if (G * next < p) load_quad(next);
+    }
+  }
+}
+
+// The d_coords kernel (h, w, c) takes for elements of `elem` bytes with
+// 16-byte aligned arrays: for C >= 32 sampler_kind's (shared with the
+// forward); for C < 32 in bf16 kPerQuad where h w C values fill whole
+// 16-byte vectors (each sample's image starts on 16 bytes) and the image
+// with its widened copy fits one block's opt-in shared memory
+// (quad_smem_bytes), else kPerPixel (and kPerPixel for every f32 C < 32).
+// A negative cudaError_t if the card's shared memory could not be read.
+int dcoords_shape_kind(int h, int w, int c, int elem) {
+  if (c >= 32) return sampler_kind(h, w, c, elem);
+  if (elem != 2 || (int64_t)h * w * c * elem % 16 != 0) return kPerPixel;
+  const int optin = optin_smem();
+  if (optin < 0) return optin;
+  return quad_smem_bytes(h, w, c) <= optin ? kPerQuad : kPerPixel;
+}
+
+template <class L>
+int launch_quad(const __nv_bfloat16* img, const __nv_bfloat16* crd,
+                 const __nv_bfloat16* g, __nv_bfloat16* dcrd, int n, int h,
+                 int w, int c, int p, int smem, cudaStream_t s) {
+  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*,
+                 const __nv_bfloat16*, __nv_bfloat16*, int, int, int, int,
+                 int) = c == 1   ? dcoords_per_quad_bf16<L, 1>
+                        : c == 2 ? dcoords_per_quad_bf16<L, 2>
+                        : c == 3 ? dcoords_per_quad_bf16<L, 3>
+                        : c == 4 ? dcoords_per_quad_bf16<L, 4>
+                                 : dcoords_per_quad_bf16<L, 0>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)n, kQuadThreads, (size_t)smem, s>>>(
+      img, crd, g, dcrd, h, w, c, p, (int)quad_raw_bytes(h, w, c));
+  return 0;
+}
+
 template <class L, class T>
 int launch_dcoords(const T* img, const T* crd, const T* g, T* dcrd, int n,
                    int h, int w, int c, int p, void* stream) {
@@ -309,12 +472,22 @@ int launch_dcoords(const T* img, const T* crd, const T* g, T* dcrd, int n,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t pixels = (int64_t)n * p;
   if (pixels == 0) return 0;
-  int kind = sampler_kind(h, w, c, (int)sizeof(T));
+  int kind = dcoords_shape_kind(h, w, c, (int)sizeof(T));
   if (kind < 0) return -kind;
-  const bool aligned = ((uintptr_t)img & 15u) == 0 &&
-                       ((uintptr_t)g & 15u) == 0;
+  const bool aligned = aligned16(img) && aligned16(g);
   if (kind == kStaged && !aligned) kind = kPerWarp;
-  if (kind == kStaged) {
+  if (kind == kPerQuad &&
+      !(aligned && aligned16(crd) && aligned16(dcrd) &&
+        (int64_t)p * c < ((int64_t)1 << 31))) {
+    kind = kPerPixel;
+  }
+  if (kind == kPerQuad) {
+    if constexpr (sizeof(T) == 2) {
+      const int err = launch_quad<L>(img, crd, g, dcrd, n, h, w, c, p,
+                                     (int)quad_smem_bytes(h, w, c), s);
+      if (err != 0) return err;
+    }
+  } else if (kind == kStaged) {
     const int smem = (int)staged_smem_bytes(h, w, c, (int)sizeof(T));
     const cudaError_t err = cudaFuncSetAttribute(
         dcoords_staged<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -812,12 +985,11 @@ extern "C" int catgen_bilinear_grid_dcoords_bf16(
   return launch_dcoords<GridLayout>(img, crd, g, dcrd, n, h, w, c, p, stream);
 }
 
-// Which kernel (h, w, c) takes for elements of `elem` bytes (4: f32, 2:
-// bf16) with 16-byte aligned arrays, forward and d_coords alike: 0 per
-// pixel, 1 per warp (d_coords) or per value (forward), 2 staged; a
-// negative cudaError_t on failure.
-extern "C" int catgen_bilinear_sampler_kind(int h, int w, int c, int elem) {
-  return sampler_kind(h, w, c, elem);
+// Which d_coords kernel (h, w, c) takes for elements of `elem` bytes (4:
+// f32, 2: bf16) with 16-byte aligned arrays: 0 per pixel, 1 per warp, 2
+// staged, 3 per quad; a negative cudaError_t on failure.
+extern "C" int catgen_bilinear_dcoords_kind(int h, int w, int c, int elem) {
+  return dcoords_shape_kind(h, w, c, elem);
 }
 
 // The shared memory one d_img block of (h, w, c) needs, in bytes (a

@@ -91,6 +91,54 @@ __device__ __forceinline__ void unpack4(const uint2& v, float* out) {
   out[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
+// 4 f32 values rounded once to bf16 (nearest even) and packed into 8 bytes
+__device__ __forceinline__ uint2 pack4(const float* in) {
+  return make_uint2(Vec<__nv_bfloat16>::bits(in[0]) |
+                        Vec<__nv_bfloat16>::bits(in[1]) << 16,
+                    Vec<__nv_bfloat16>::bits(in[2]) |
+                        Vec<__nv_bfloat16>::bits(in[3]) << 16);
+}
+
+// Copies `chunks` 16-byte vectors from global `src` to shared `dst` with
+// the block's threads (cp.async; the caller commits and waits).
+__device__ __forceinline__ void stage_async(uint4* dst, const uint4* src,
+                                            int chunks) {
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst + k)),
+                 "l"(src + k));
+  }
+}
+
+// A staged bf16 image of C < 32 channels, widened in shared memory to
+// groups of 4 channels (8 bytes a group, zeros past c), so that a tap of
+// C <= 4 channels is one 8-byte read: the per-quad forward
+// (bilinear_sample.cu) and d_coords (bilinear_sample_bwd.cu) kernels read
+// their taps from it. Bytes of the widened copy of an (h, w, c) image:
+static inline int64_t wide_bytes(int h, int w, int c) {
+  return (int64_t)h * w * ((c + 3) / 4) * 8;
+}
+
+// Widens the sample's image `raw` (hw pixels of c bf16 values, as it
+// lies) into `wide` with the block's threads; the caller syncs before (raw
+// staged) and after.
+__device__ __forceinline__ void widen4(uint2* __restrict__ wide,
+                                       const unsigned short* __restrict__ raw,
+                                       int hw, int c) {
+  const int cg = (c + 3) / 4;
+  for (int pix = threadIdx.x; pix < hw; pix += blockDim.x) {
+    for (int k = 0; k < cg; ++k) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ch = 4 * k + i;
+        v[i] = ch < c ? raw[pix * c + ch] : 0u;
+      }
+      wide[pix * cg + k] = make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+    }
+  }
+}
+
 struct Taps {
   int64_t p00, p01, p10, p11;  // pixel indices y*w + x of the four taps
   float wy, wx;
@@ -171,6 +219,15 @@ struct RowsLayout {
     unpack4(__ldg(reinterpret_cast<const uint2*>(cr + pi)), y);
     unpack4(__ldg(reinterpret_cast<const uint2*>(cr + p + pi)), x);
   }
+  // the gradients of bf16 pixels pi .. pi + 3, each rounded once, as two
+  // 8-byte stores (4 dy, then 4 dx); the alignment of load4
+  __device__ static void store4(__nv_bfloat16* __restrict__ d, int ni,
+                                int pi, int p, const float* dy,
+                                const float* dx) {
+    __nv_bfloat16* o = d + (int64_t)ni * 2 * p;
+    *reinterpret_cast<uint2*>(o + pi) = pack4(dy);
+    *reinterpret_cast<uint2*>(o + p + pi) = pack4(dx);
+  }
 };
 
 // Grid: (n, p, 2), one (y, x) pair per pixel (the layout of catgen's
@@ -231,12 +288,28 @@ struct GridLayout {
       x[j] = v[2 * j + 1];
     }
   }
+  // the gradients of bf16 pixels pi .. pi + 3 as one 16-byte store of 4
+  // (dy, dx) pairs, each rounded once; the alignment of load4
+  __device__ static void store4(__nv_bfloat16* __restrict__ d, int ni,
+                                int pi, int p, const float* dy,
+                                const float* dx) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = dy[j];
+      v[2 * j + 1] = dx[j];
+    }
+    *reinterpret_cast<uint4*>(d + 2 * ((int64_t)ni * p + pi)) =
+        Vec<__nv_bfloat16>::pack(v);
+  }
 };
 
-// Which kernel a sampler shape takes, forward (bilinear_sample.cu) and
-// d_coords (bilinear_sample_bwd.cu) alike, decided by (h, w, C) and the
-// element size alone so that every run of one shape takes the same kernel:
-//   * kPerPixel for C < 32 (the input transformer's C = 3);
+// Which kernel a sampler shape of C >= 32 takes, forward
+// (bilinear_sample.cu) and d_coords (bilinear_sample_bwd.cu) alike, decided
+// by (h, w, C) and the element size alone so that every run of one shape
+// takes the same kernel:
+//   * kPerPixel for C < 32 (the input transformer's C = 3), where each
+//     launcher has a rule of its own (below);
 //   * kStaged where a pixel's C values fill whole 16-byte vectors (C % 4
 //     == 0 in f32, C % 8 == 0 in bf16) and the image (h w C values) fits
 //     one block's opt-in shared memory (64 KB at the branch shape 16x16x64
@@ -246,13 +319,19 @@ struct GridLayout {
 //     (d_coords) or one thread (forward) per channel group, from global
 //     memory.
 // A launcher also needs 16-byte aligned arrays for kStaged, and takes
-// kPerWarp where they are not. The forward alone has a fourth kernel for
-// C < 32, kPerQuad (bilinear_sample.cu, forward_kind); d_coords keeps
-// kPerPixel there.
+// kPerWarp where they are not. For C < 32 both have a fourth kernel,
+// kPerQuad, chosen by a rule of each launcher's (bilinear_sample.cu,
+// forward_shape_kind: f32 and bf16; bilinear_sample_bwd.cu,
+// dcoords_shape_kind: bf16 alone), and kPerPixel where it does not apply.
 enum SamplerKind { kPerPixel = 0, kPerWarp = 1, kStaged = 2, kPerQuad = 3 };
 
 static inline int64_t staged_smem_bytes(int h, int w, int c, int elem) {
   return (int64_t)h * w * c * elem;
+}
+
+// Whether a pointer is 16-byte aligned (a null pointer is)
+static inline bool aligned16(const void* ptr) {
+  return ((uintptr_t)ptr & 15u) == 0;
 }
 
 // The current card's opt-in shared memory per block, in bytes; a negative

@@ -31,8 +31,10 @@
 //     f32 fmaf on the CUDA cores.
 // The halo rows are sampled by both neighbouring blocks (a quarter more
 // sampling work at band 8); no block writes what another writes, so there
-// are no atomics and repeats are bit-identical. This kernel serves f32, and
-// the bf16 shapes that st_conv_bf16_mma (below) does not take.
+// are no atomics and repeats are bit-identical. This kernel
+// (st_conv_prelu_kernel) serves the f32 shapes that st_conv_f32_tiled
+// (below) does not take, and the bf16 shapes that st_conv_bf16_mma does
+// not take.
 //
 // The f32 instantiation computes in f32 throughout; it does not copy the
 // TPU's bf16 roundings (the sampled tile and the weights) or its bf16 z.
@@ -175,6 +177,198 @@ st_conv_prelu_kernel(const T* __restrict__ img,
   }
 }
 
+// The f32 prefix, tiled (st_conv_f32_tiled), for C = 1..4, F a multiple
+// of 4, h w C a multiple of 4 and 16-byte aligned image and outputs
+// (st_conv.py::f32_kind; D32_st3's prefix at both batches). The kernel
+// above at D32_st3's sampling shape (256 samples, out alone: 70 MB, 0.021
+// ms at 3.35 TB/s) runs at 41% of that bound, for two faults this design
+// removes:
+//   * its conv issues a shared-memory load for every 2 FMAs (one output
+//     channel a thread, a 3 x 6 x C window per 4 pixels): 7.1 M warp
+//     loads, ~0.03 ms of the SM's shared pipe, above the byte bound. Here
+//     a thread makes 4 output channels of 4 pixels: the 27 float4 weights
+//     of its channels (at C = 3) stay in registers, and each sampled value
+//     read from the tile feeds 4 x (up to 3) FMAs, 4 times fewer loads for
+//     the same 27 f32 FMAs per output (~0.015 ms on the CUDA cores). A
+//     warp's 32 threads are 16 channel groups of 2 neighbouring 4-pixel
+//     segments (at F = 64), so a load reads 2 addresses in 2 banks;
+//   * its bands sample a halo row above and below (a third more sampling
+//     at band 8). Here one block per sample stages the image in shared
+//     memory with 16-byte cp.async and samples each pixel once into a
+//     zero-bordered (h + 2) x (4 ceil(w / 4) + 2) tile, as the bf16
+//     kernel below does.
+// Each output keeps the kernel above's sum: 27 fmaf in k = (ky 3 + kx) C +
+// ci order from 0, then the bias and the PReLU, so z and out are its bits;
+// the samples are its bits too (make_taps and lerp_values on the same f32
+// coordinates, from an exact copy of the image). Out and z leave as 16-byte
+// vectors of 4 channels of a pixel (a warp stores whole 256-byte runs),
+// samp from a compact copy in shared memory as 16-byte vectors. 6 warps a
+// block: the weights take 108 of a thread's 168 registers at C = 3, so 2
+// blocks (12 warps) fit an SM (1 at C = 4); at N=256 that ran faster than
+// 4 warps a block, 3 an SM (8 warps on most SMs: 2 samples each). No
+// atomics; repeats are bit-identical.
+
+namespace sttile {
+
+constexpr int kWarps = 6;
+constexpr int kTileThreads = kWarps * 32;
+constexpr int kChannels = 4;     // output channels per thread (a float4)
+
+__host__ __device__ inline int tile_w(int w) {
+  return (w + kSeg - 1) / kSeg * kSeg + 2;
+}
+__host__ __device__ inline int64_t image_bytes(int h, int w, int c) {
+  return ((int64_t)h * w * c * 4 + 15) / 16 * 16;
+}
+// the sample's image, samp's compact copy, the bordered tile
+__host__ __device__ inline int64_t smem_bytes(int h, int w, int c) {
+  return 2 * image_bytes(h, w, c) + (int64_t)(h + 2) * tile_w(w) * c * 4;
+}
+
+}  // namespace sttile
+
+// img (n, h, w, C), out, z (n, h w, f), samp (n, h w, C), all f32 and
+// 16-byte aligned; theta, base, kmat, bias, alpha as st_conv_prelu_kernel's.
+// One block per sample; dynamic shared memory sttile::smem_bytes(h, w, C).
+template <int C>
+__global__ void __launch_bounds__(sttile::kTileThreads, C < 4 ? 2 : 1)
+st_conv_f32_tiled(const float* __restrict__ img,
+                  const float* __restrict__ theta,
+                  const float* __restrict__ base,
+                  const float* __restrict__ kmat,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ alpha, int alpha_n,
+                  float* __restrict__ out, float* __restrict__ samp,
+                  float* __restrict__ z, int h, int w, int f) {
+  using namespace sttile;
+  extern __shared__ __align__(16) float sm[];
+  const int ni = blockIdx.x, tid = threadIdx.x;
+  const int p = h * w, tw = tile_w(w), chunks = p * C / 4;
+  const int ib = (int)(image_bytes(h, w, C) / 4);
+  float* simg = sm;                 // the sample's image
+  float* scomp = sm + ib;           // samp, compact
+  float* tile = sm + 2 * ib;        // (h + 2) x tw, image pixel (y, x) at
+                                    // (y + 1, x + 1)
+
+  // 1. the sample's image, 16-byte copies; the tile's border, zeros (the
+  // conv's padding, and the columns past w of a ragged last segment)
+  stage_async(reinterpret_cast<uint4*>(simg),
+              reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
+  asm volatile("cp.async.commit_group;\n" ::);
+  const float* th = theta + (int64_t)ni * 6;
+  const float t00 = __ldg(th + 0), t01 = __ldg(th + 1), t02 = __ldg(th + 2);
+  const float t10 = __ldg(th + 3), t11 = __ldg(th + 4), t12 = __ldg(th + 5);
+  const int side = tw - w;          // column 0 and the columns past w
+  for (int i = tid; i < 2 * tw + h * side; i += kTileThreads) {
+    int yb, xb;
+    if (i < 2 * tw) {
+      yb = i < tw ? 0 : h + 1;
+      xb = i < tw ? i : i - tw;
+    } else {
+      const int r = i - 2 * tw, k = r % side;
+      yb = 1 + r / side;
+      xb = k == 0 ? 0 : w + k;
+    }
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) tile[(yb * tw + xb) * C + ch] = 0.0f;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // 2. each pixel sampled once (st_conv_prelu_kernel's arithmetic)
+  for (int pi = tid; pi < p; pi += kTileThreads) {
+    const int y = pi / w, x = pi - (pi / w) * w;
+    const float gy = __ldg(base + pi), gx = __ldg(base + p + pi);
+    const Taps t = make_taps(t00 * gy + t01 * gx + t02,
+                             t10 * gy + t11 * gx + t12, h, w);
+    const int o00 = (int)t.p00 * C, o01 = (int)t.p01 * C;
+    const int o10 = (int)t.p10 * C, o11 = (int)t.p11 * C;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float v = lerp_values(simg[o00 + ch], simg[o01 + ch],
+                                  simg[o10 + ch], simg[o11 + ch], t);
+      tile[((y + 1) * tw + x + 1) * C + ch] = v;
+      scomp[pi * C + ch] = v;
+    }
+  }
+  __syncthreads();
+  if (samp != nullptr) {
+    float4* dst = reinterpret_cast<float4*>(samp) + (int64_t)ni * chunks;
+    const float4* cs = reinterpret_cast<const float4*>(scomp);
+    for (int k = tid; k < chunks; k += kTileThreads) __stcs(dst + k, cs[k]);
+  }
+
+  // 3. the conv, bias and PReLU: a thread takes channel group cl (4
+  // channels) of segments sl, sl + sn, ... (4 pixels of a row each)
+  const int f4 = f / kChannels;
+  const int cn = f4 < 32 ? f4 : 32, sn = kTileThreads / cn;
+  const int cl = tid % cn, sl = tid / cn;
+  if (sl >= sn) return;
+  const int nseg = (w + kSeg - 1) / kSeg, segs = h * nseg;
+  for (int cgi = cl; cgi < f4; cgi += cn) {
+    const int f0 = kChannels * cgi;
+    float4 wr[9 * C];
+#pragma unroll
+    for (int k = 0; k < 9 * C; ++k) {
+      const float* wk = kmat + (int64_t)k * f + f0;
+      wr[k] = make_float4(__ldg(wk), __ldg(wk + 1), __ldg(wk + 2),
+                          __ldg(wk + 3));
+    }
+    const float4 b = make_float4(__ldg(bias + f0), __ldg(bias + f0 + 1),
+                                 __ldg(bias + f0 + 2), __ldg(bias + f0 + 3));
+    const float* al = alpha + (alpha_n == 1 ? 0 : f0);
+    const int as = alpha_n == 1 ? 0 : 1;
+    const float4 a = make_float4(__ldg(al), __ldg(al + as),
+                                 __ldg(al + 2 * as), __ldg(al + 3 * as));
+    for (int seg = sl; seg < segs; seg += sn) {
+      const int r = seg / nseg;                // output row r
+      const int x0 = (seg - r * nseg) * kSeg;
+      float4 acc[kSeg];
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        // tile row r + ky holds image row r + ky - 1; tile column x0 + col
+        // image column x0 + col - 1
+        const float* row = tile + ((r + ky) * tw + x0) * C;
+#pragma unroll
+        for (int col = 0; col < kSeg + 2; ++col) {
+#pragma unroll
+          for (int ci = 0; ci < C; ++ci) {
+            const float v = row[col * C + ci];
+#pragma unroll
+            for (int j = 0; j < kSeg; ++j) {
+              const int kx = col - j;
+              if (kx < 0 || kx > 2) continue;
+              const float4 wk = wr[(ky * 3 + kx) * C + ci];
+              acc[j].x = fmaf(v, wk.x, acc[j].x);
+              acc[j].y = fmaf(v, wk.y, acc[j].y);
+              acc[j].z = fmaf(v, wk.z, acc[j].z);
+              acc[j].w = fmaf(v, wk.w, acc[j].w);
+            }
+          }
+        }
+      }
+      const int64_t o = ((int64_t)ni * p + (int64_t)r * w + x0) * f + f0;
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j) {
+        if (x0 + j >= w) break;
+        const float4 zv = make_float4(acc[j].x + b.x, acc[j].y + b.y,
+                                      acc[j].z + b.z, acc[j].w + b.w);
+        const float4 ov = make_float4(zv.x >= 0.0f ? zv.x : a.x * zv.x,
+                                      zv.y >= 0.0f ? zv.y : a.y * zv.y,
+                                      zv.z >= 0.0f ? zv.z : a.z * zv.z,
+                                      zv.w >= 0.0f ? zv.w : a.w * zv.w);
+        __stcs(reinterpret_cast<float4*>(out + o + (int64_t)j * f), ov);
+        if (z != nullptr) {
+          __stcs(reinterpret_cast<float4*>(z + o + (int64_t)j * f), zv);
+        }
+      }
+    }
+  }
+}
+
 // The bf16 prefix on the tensor cores (st_conv_bf16_mma), for C = 1..4,
 // F a multiple of 8, h w C a multiple of 8 and 16-byte aligned arrays
 // (st_conv.py::bf16_kind). It has the same inputs and roundings as the
@@ -196,8 +390,10 @@ st_conv_prelu_kernel(const T* __restrict__ img,
 //     pixels at a time: each thread's A fragments come from the tile at
 //     offsets fixed per thread (its contraction indices decoded once to
 //     tap and channel); B, the K x F weight matrix in catgen's (ky, kx, ci)
-//     row order, comes packed in fragment order by the wrapper
-//     (st_conv.py::pack_weights) and is staged in shared memory once. The
+//     row order, is packed in fragment order in shared memory by the block
+//     itself, from the f32 weights, each rounded once to bf16 (the layout
+//     and bits of st_conv.py::pack_weights; packing on the host took two
+//     device ops a call, more host time than the kernel's at N=256). The
 //     27-term sums run in the tensor core's order, not the kernel above's,
 //     so z and out agree with the plain version to a rounding, not bit for
 //     bit;
@@ -261,7 +457,7 @@ __device__ __forceinline__ uint32_t bf16_bits_rn(float v) {
 }
 
 // img (n, h, w, C), out, z (n, h w, f), samp (n, h w, C), all bf16 and
-// 16-byte aligned; wpack (f/8, 32, KT) pairs of 32-bit fragment registers;
+// 16-byte aligned; kmat the f32 weights (9 C, f), row (ky 3 + kx) C + ci;
 // theta, base, bias, alpha as st_conv_prelu_kernel's. One block of W
 // warps per sample.
 template <int C, int W>
@@ -269,7 +465,7 @@ __global__ void __launch_bounds__(W * 32)
 st_conv_bf16_mma(const __nv_bfloat16* __restrict__ img,
                  const float* __restrict__ theta,
                  const float* __restrict__ base,
-                 const uint2* __restrict__ wpack,
+                 const float* __restrict__ kmat,
                  const float* __restrict__ bias,
                  const float* __restrict__ alpha, int alpha_n,
                  __nv_bfloat16* __restrict__ out,
@@ -286,20 +482,27 @@ st_conv_bf16_mma(const __nv_bfloat16* __restrict__ img,
   unsigned short* tile = reinterpret_cast<unsigned short*>(smem + ub);
   uint2* wsm = reinterpret_cast<uint2*>(smem + ub + tb);
 
-  // 1. the sample's image and the packed weights, 16-byte copies
-  const uint4* src = reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks;
-  for (int k = tid; k < chunks; k += kThreads) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(simg + 8 * k)),
-                 "l"(src + k));
-  }
-  const int wchunks = f * KT * 2;
-  for (int k = tid; k < wchunks; k += kThreads) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(wsm + 2 * k)),
-                 "l"(wpack + 2 * k));
-  }
+  // 1. the sample's image, 16-byte copies; the weights in fragment order
+  // (st_conv.py::pack_weights): the pair of registers of lane 4 g + t of
+  // n-tile nt for k-tile kt holds rows 16 kt + 8 r + 2 t + j (r, j = 0, 1)
+  // of column 8 nt + g, each rounded once to bf16, zeros past 9 C
+  stage_async(reinterpret_cast<uint4*>(simg),
+              reinterpret_cast<const uint4*>(img) + (int64_t)ni * chunks,
+              chunks);
   asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = tid; i < (f / 8) * 32 * KT; i += kThreads) {
+    const int kt = i % KT, lane = (i / KT) % 32, nt = i / (KT * 32);
+    const int col = 8 * nt + (lane >> 2), row0 = 16 * kt + 2 * (lane & 3);
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = row0 + 8 * (q >> 1) + (q & 1);
+      v[q] = row < 9 * C
+                 ? bf16_bits_rn(__ldg(kmat + (int64_t)row * f + col))
+                 : 0u;
+    }
+    wsm[i] = make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+  }
   const float* th = theta + (int64_t)ni * 6;
   const float t00 = __ldg(th + 0), t01 = __ldg(th + 1), t02 = __ldg(th + 2);
   const float t10 = __ldg(th + 3), t11 = __ldg(th + 4), t12 = __ldg(th + 5);
@@ -453,7 +656,7 @@ static inline int mma_warps(int n) {
 
 template <int C, int W>
 int launch_mma(const __nv_bfloat16* img, const float* theta,
-               const float* base, const __nv_bfloat16* wpack,
+               const float* base, const float* kmat,
                const float* bias, const float* alpha, int alpha_n,
                __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
                int n, int h, int w, int f, void* stream) {
@@ -464,28 +667,59 @@ int launch_mma(const __nv_bfloat16* img, const float* theta,
   if (err != cudaSuccess) return (int)err;
   st_conv_bf16_mma<C, W><<<(unsigned)n, W * 32, (size_t)smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      img, theta, base, reinterpret_cast<const uint2*>(wpack), bias, alpha,
-      alpha_n, out, samp, z, h, w, f);
+      img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z, h, w, f);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_mma(const __nv_bfloat16* img, const float* theta,
-               const float* base, const __nv_bfloat16* wpack,
+               const float* base, const float* kmat,
                const float* bias, const float* alpha, int alpha_n,
                __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
                int n, int h, int w, int f, int warps, void* stream) {
   return warps == stmma::kManyWarps
-             ? launch_mma<C, stmma::kManyWarps>(img, theta, base, wpack, bias,
+             ? launch_mma<C, stmma::kManyWarps>(img, theta, base, kmat, bias,
                                                 alpha, alpha_n, out, samp, z,
                                                 n, h, w, f, stream)
-             : launch_mma<C, stmma::kFewWarps>(img, theta, base, wpack, bias,
+             : launch_mma<C, stmma::kFewWarps>(img, theta, base, kmat, bias,
                                                alpha, alpha_n, out, samp, z,
                                                n, h, w, f, stream);
 }
 
-static inline bool aligned16(const void* p) {
-  return p == nullptr || ((uintptr_t)p & 15u) == 0;
+// Whether the f32 prefix at this shape and with these arrays takes
+// st_conv_f32_tiled (the rule of st_conv.py::f32_kind): C = 1..4, F a
+// multiple of 4, h w C a multiple of 4 (each sample's image whole 16-byte
+// vectors), 16-byte aligned image and outputs, a block within the card's
+// opt-in shared memory, h w F within 32 bits.
+static bool tiled_f32(const float* img, const float* out, const float* samp,
+                      const float* z, int h, int w, int c, int f) {
+  int device = 0, optin = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return false;
+  }
+  return c >= 1 && c <= 4 && f > 0 && f % 4 == 0 &&
+         (int64_t)h * w * c % 4 == 0 &&
+         (int64_t)h * w * f < ((int64_t)1 << 31) &&
+         sttile::smem_bytes(h, w, c) <= optin && aligned16(img) &&
+         aligned16(out) && aligned16(samp) && aligned16(z);
+}
+
+template <int C>
+int launch_tiled(const float* img, const float* theta, const float* base,
+                 const float* kmat, const float* bias, const float* alpha,
+                 int alpha_n, float* out, float* samp, float* z, int n, int h,
+                 int w, int f, void* stream) {
+  const int64_t smem = sttile::smem_bytes(h, w, C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      st_conv_f32_tiled<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  st_conv_f32_tiled<C><<<(unsigned)n, sttile::kTileThreads, (size_t)smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z, h, w, f);
+  return (int)cudaGetLastError();
 }
 
 template <int CT, class T>
@@ -541,32 +775,53 @@ int launch_c(const T* img, const float* theta, const float* base,
 // launch was accepted; cudaErrorInvalidValue if a band's tile would not
 // fit in 48 KB of shared memory). Does not synchronise and allocates
 // nothing; all arrays are contiguous; samp and z may be null. The f32
-// entry takes f32 arrays; the bf16 one a bf16 img, kmat, out, samp and z,
-// with theta, base, bias and alpha f32.
+// entry takes f32 arrays and picks st_conv_f32_tiled where tiled_f32 holds,
+// else st_conv_prelu_kernel (the same bits); the bf16 one a bf16 img, kmat,
+// out, samp and z, with theta, base, bias and alpha f32.
 extern "C" int catgen_st_conv_prelu_f32(const float* img, const float* theta,
                                         const float* base, const float* kmat,
                                         const float* bias, const float* alpha,
                                         int alpha_n, float* out, float* samp,
                                         float* z, int n, int h, int w, int c,
                                         int f, void* stream) {
-  return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp, z,
-                  n, h, w, c, f, stream);
-}
-
-// The bf16 entry's kmat is (9*c, f) for st_conv_prelu_kernel (packed =
-// 0), or with packed = 1 the fragment-ordered matrix of
-// st_conv.py::pack_weights for st_conv_bf16_mma, which the wrapper picks
-// by shape and alignment (st_conv.py::bf16_kind); a shape or array that
-// st_conv_bf16_mma does not take is refused with packed = 1.
-extern "C" int catgen_st_conv_prelu_bf16(
-    const __nv_bfloat16* img, const float* theta, const float* base,
-    const __nv_bfloat16* kmat, const float* bias, const float* alpha,
-    int alpha_n, __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z,
-    int n, int h, int w, int c, int f, int packed, void* stream) {
-  if (!packed) {
+  if ((int64_t)n * h * w * f == 0) return 0;
+  if (!tiled_f32(img, out, samp, z, h, w, c, f)) {
     return launch_c(img, theta, base, kmat, bias, alpha, alpha_n, out, samp,
                     z, n, h, w, c, f, stream);
   }
+  switch (c) {
+    case 1:
+      return launch_tiled<1>(img, theta, base, kmat, bias, alpha, alpha_n,
+                             out, samp, z, n, h, w, f, stream);
+    case 2:
+      return launch_tiled<2>(img, theta, base, kmat, bias, alpha, alpha_n,
+                             out, samp, z, n, h, w, f, stream);
+    case 3:
+      return launch_tiled<3>(img, theta, base, kmat, bias, alpha, alpha_n,
+                             out, samp, z, n, h, w, f, stream);
+    default:
+      return launch_tiled<4>(img, theta, base, kmat, bias, alpha, alpha_n,
+                             out, samp, z, n, h, w, f, stream);
+  }
+}
+
+// The bf16 entry's kmat is the bf16 (9*c, f) matrix for
+// st_conv_prelu_kernel (tensor_cores = 0), or with tensor_cores = 1 the
+// f32 one for st_conv_bf16_mma, which packs and rounds it itself; the
+// wrapper picks by shape and alignment (st_conv.py::bf16_kind), and a
+// shape or array that st_conv_bf16_mma does not take is refused with
+// tensor_cores = 1.
+extern "C" int catgen_st_conv_prelu_bf16(
+    const __nv_bfloat16* img, const float* theta, const float* base,
+    const void* kmat, const float* bias, const float* alpha, int alpha_n,
+    __nv_bfloat16* out, __nv_bfloat16* samp, __nv_bfloat16* z, int n, int h,
+    int w, int c, int f, int tensor_cores, void* stream) {
+  if (!tensor_cores) {
+    return launch_c(img, theta, base,
+                    static_cast<const __nv_bfloat16*>(kmat), bias, alpha,
+                    alpha_n, out, samp, z, n, h, w, c, f, stream);
+  }
+  const float* kf = static_cast<const float*>(kmat);
   if ((int64_t)n * h * w * f == 0) return 0;
   int device = 0, optin = 0;
   const int warps = mma_warps(n);
@@ -578,22 +833,21 @@ extern "C" int catgen_st_conv_prelu_bf16(
   if (c < 1 || c > 4 || f % 8 != 0 || (int64_t)h * w * c % 8 != 0 ||
       (int64_t)h * w * f >= ((int64_t)1 << 31) ||
       stmma::smem_bytes(h, w, c, f, warps) > optin || !aligned16(img) ||
-      !aligned16(kmat) || !aligned16(out) || !aligned16(samp) ||
-      !aligned16(z)) {
+      !aligned16(out) || !aligned16(samp) || !aligned16(z)) {
     return (int)cudaErrorInvalidValue;
   }
   switch (c) {
     case 1:
-      return launch_mma<1>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+      return launch_mma<1>(img, theta, base, kf, bias, alpha, alpha_n, out,
                            samp, z, n, h, w, f, warps, stream);
     case 2:
-      return launch_mma<2>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+      return launch_mma<2>(img, theta, base, kf, bias, alpha, alpha_n, out,
                            samp, z, n, h, w, f, warps, stream);
     case 3:
-      return launch_mma<3>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+      return launch_mma<3>(img, theta, base, kf, bias, alpha, alpha_n, out,
                            samp, z, n, h, w, f, warps, stream);
     default:
-      return launch_mma<4>(img, theta, base, kmat, bias, alpha, alpha_n, out,
+      return launch_mma<4>(img, theta, base, kf, bias, alpha, alpha_n, out,
                            samp, z, n, h, w, f, warps, stream);
   }
 }

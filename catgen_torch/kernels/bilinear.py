@@ -251,9 +251,19 @@ def launch_dcoords(img: torch.Tensor, coords_rows: torch.Tensor,
     return dcrd
 
 
-DCOORDS_KINDS = ("per_pixel", "per_warp", "staged")
+DCOORDS_KINDS = ("per_pixel", "per_warp", "staged", "per_quad")
 FORWARD_KINDS = ("per_pixel", "per_value", "staged", "per_quad")
 DIMG_KINDS = ("per_channel", "per_sample", "gather")
+# the card's opt-in shared memory per block (H100), for the host-side plans
+OPTIN_SMEM = 232448
+
+
+def dcoords_quad_smem_bytes(h: int, w: int, c: int) -> int:
+    """Shared memory of a block of the bf16 per-quad d_coords kernel at an
+    (h, w, c) image, as bilinear_sample_bwd.cu (``quad_smem_bytes``)
+    computes it: the sample's image as it lies, rounded to 16 bytes, and
+    its copy widened to 8-byte groups of 4 channels."""
+    return (h * w * c * 2 + 15) // 16 * 16 + h * w * ((c + 3) // 4) * 8
 
 
 def _kind(h: int, w: int, c: int, dtype: torch.dtype, names,
@@ -271,12 +281,18 @@ def _kind(h: int, w: int, c: int, dtype: torch.dtype, names,
 def dcoords_kind(h: int, w: int, c: int,
                  dtype: torch.dtype = torch.float32) -> str:
     """Which d_coords kernel an (h, w, c) image of ``dtype`` takes on the
-    current card (16-byte aligned arrays): ``per_pixel`` (c < 32),
-    ``staged`` (the image in shared memory: a pixel's c values fill whole
-    16-byte vectors, c % 4 == 0 in f32 and c % 8 == 0 in bf16, and it
-    fits) or ``per_warp``."""
+    current card (16-byte aligned arrays): for c < 32 ``per_quad`` in bf16
+    where h*w*c values fill whole 16-byte vectors and the image with its
+    widened copy fits a block's shared memory
+    (``dcoords_quad_smem_bytes``: a block per sample, a thread per 4
+    neighbouring output pixels), else ``per_pixel`` (every f32 c < 32
+    too); for c >= 32 ``staged`` (the image in shared memory: a pixel's c
+    values fill whole 16-byte vectors, c % 4 == 0 in f32 and c % 8 == 0
+    in bf16, and it fits) or ``per_warp``. The per-quad kernel also needs
+    the image, coordinates, gradient and output 16-byte aligned, and
+    takes ``per_pixel``'s place only where they are."""
     return _kind(h, w, c, dtype, DCOORDS_KINDS,
-                 "catgen_bilinear_sampler_kind")
+                 "catgen_bilinear_dcoords_kind")
 
 
 def forward_kind(h: int, w: int, c: int,

@@ -47,12 +47,13 @@ SIGNATURES = (
     ("catgen_bilinear_dimg_smem_bytes", [_I] * 3, _I64),
     ("catgen_bilinear_dimg_gather_pixels", [], _I),
     # (h, w, c, element size in bytes)
-    ("catgen_bilinear_sampler_kind", [_I] * 4, _I),
+    ("catgen_bilinear_dcoords_kind", [_I] * 4, _I),
     ("catgen_bilinear_forward_kind", [_I] * 4, _I),
     ("catgen_bilinear_dimg_kind", [_I] * 4, _I),
     ("catgen_st_conv_prelu_f32", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5
      + [_P], _I),
-    # the bf16 entry also takes whether kmat is packed for the tensor cores
+    # the bf16 entry also takes whether the tensor-core kernel runs (kmat
+    # then f32, which it packs itself)
     ("catgen_st_conv_prelu_bf16", [_P] * 6 + [_I] + [_P] * 3 + [_I] * 6
      + [_P], _I),
     ("catgen_upsample_conv_partial_rows", [_I, _I, _I], _I),

@@ -21,10 +21,15 @@ from the f32 z rounded once.
 On CUDA tensors the wrapper launches ``csrc/st_conv.cu`` (counted in
 ``LAUNCHES``, ``BF16_LAUNCHES`` for bf16) or raises; on CPU tensors it
 runs ``st_conv_prelu_plain``. The kernel writes the sampled image and the
-pre-activation z only where autograd will need them. In bf16 the conv
-runs on the tensor cores (``st_conv_bf16_mma``) for the shapes that
-``bf16_kind`` names "mma", with the weights packed by ``pack_weights``;
-other shapes keep the CUDA-core kernel.
+pre-activation z only where autograd will need them. In f32 the shapes
+that ``f32_kind`` names "tiled" (D32_st3's prefix) take
+``st_conv_f32_tiled`` (a block per sample, 4 output channels of 4 pixels
+a thread), the others the banded kernel ``st_conv_prelu_kernel``, with
+the same bits. In bf16 the conv runs on the tensor cores
+(``st_conv_bf16_mma``) for the shapes that ``bf16_kind`` names "mma"; that
+kernel takes the f32 weights and packs them itself in ``pack_weights``'
+fragment order (the same bits), so the wrapper launches nothing else.
+Other shapes keep the banded kernel.
 
 The backward mirrors catgen's ``_vjp_bwd``, in f32 in both element types:
 dz and dalpha from the saved z; the conv's input and weight gradients
@@ -44,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from catgen_torch.kernels import bilinear
-from catgen_torch.kernels.bilinear import (_launched, affine_grid_rows,
-                                           base_rows,
+from catgen_torch.kernels.bilinear import (OPTIN_SMEM, _launched,
+                                           affine_grid_rows, base_rows,
                                            bilinear_sample_rows_plain)
 from catgen_torch.kernels.build import load_library
 
@@ -92,10 +97,33 @@ def st_conv_prelu_plain(img, theta, kernel, bias, alpha) -> torch.Tensor:
     return _forward_plain(img, theta, kernel, bias, alpha)[0]
 
 
+def tiled_smem_bytes(h: int, w: int, c: int) -> int:
+    """Shared memory of a block of the f32 tiled kernel, as st_conv.cu
+    (``sttile::smem_bytes``) computes it: the sample's image and samp's
+    compact copy (each rounded to 16 bytes), and the zero-bordered tile of
+    (h + 2) rows of 4 ceil(w / 4) + 2 columns."""
+    image = (h * w * c * 4 + 15) // 16 * 16
+    return 2 * image + (h + 2) * ((w + 3) // 4 * 4 + 2) * c * 4
+
+
+def f32_kind(img, f: int) -> str:
+    """Which kernel the f32 prefix takes for img (N, H, W, C) and F output
+    channels: "tiled" (``st_conv_f32_tiled``) for C = 1..4, F a multiple
+    of 4, H W C a multiple of 4, a 16-byte aligned image, H W F within 32
+    bits and a block that fits the card's shared memory; else "banded"
+    (``st_conv_prelu_kernel``). Shape and alignment alone decide, as
+    st_conv.cu's ``tiled_f32`` does (the wrapper's outputs are aligned)."""
+    _, h, w, c = img.shape
+    ok = (1 <= c <= 4 and f > 0 and f % 4 == 0 and (h * w * c) % 4 == 0
+          and img.data_ptr() % 16 == 0 and h * w * f < 2 ** 31
+          and tiled_smem_bytes(h, w, c) <= OPTIN_SMEM)
+    return "tiled" if ok else "banded"
+
+
 # st_conv.cu's tensor-core kernel: its most warps a block, staged bytes
 # per warp (out and z: 16 pixels x 8 chunks of 16 bytes, rows padded by
-# 16), the card's opt-in shared memory per block (H100)
-MMA_WARPS, MMA_STAGE, OPTIN_SMEM = 16, 2 * 16 * (8 * 16 + 16), 232448
+# 16)
+MMA_WARPS, MMA_STAGE = 16, 2 * 16 * (8 * 16 + 16)
 
 
 def mma_k_tiles(c: int) -> int:
@@ -120,7 +148,8 @@ def bf16_kind(img, f: int) -> str:
     output channels: "mma" (the conv on the tensor cores) for C = 1..4,
     F a multiple of 8, H W C a multiple of 8, a 16-byte aligned image and
     a block that fits the card's shared memory; else "cuda_cores" (the
-    kernel the f32 prefix runs). Shape and alignment alone decide."""
+    banded kernel, ``st_conv_prelu_kernel``). Shape and alignment alone
+    decide."""
     _, h, w, c = img.shape
     ok = (1 <= c <= 4 and f > 0 and f % 8 == 0 and (h * w * c) % 8 == 0
           and img.data_ptr() % 16 == 0
@@ -129,8 +158,10 @@ def bf16_kind(img, f: int) -> str:
 
 
 def pack_weights(kmat: torch.Tensor) -> torch.Tensor:
-    """The (3, 3, C, F) weights as the tensor-core kernel reads its B
-    fragments: K = 9C rows in catgen's (ky, kx, ci) order
+    """The (3, 3, C, F) weights as the tensor-core kernel packs its B
+    fragments in shared memory (from the f32 weights, rounding each to
+    bf16 once: ``pack_weights(kernel.bfloat16())`` is its packing, bit for
+    bit): K = 9C rows in catgen's (ky, kx, ci) order
     (``kernel.reshape(9 C, F)``), zero rows to 16 KT, F a multiple of 8;
     returned as (F/8, 8, 4, KT, 2, 2): n-tile, the lane's group g and
     thread t (lane 4 g + t), k-tile, then rows 16 kt + 8 r + 2 t + j of
@@ -193,10 +224,10 @@ def launch(img, theta, kernel, bias, alpha, save: bool = True):
     f = kernel.shape[-1]
     bf16 = img.dtype == torch.bfloat16
     base = base_rows(h, w, img.device, torch.float32)
-    kmat = kernel.to(img.dtype)       # the bf16 kernel takes bf16 weights
-    packed = bf16 and bf16_kind(img, f) == "mma"
-    if packed:
-        kmat = pack_weights(kmat)
+    mma = bf16 and bf16_kind(img, f) == "mma"
+    # the banded bf16 kernel takes bf16 weights; the tensor-core one packs
+    # and rounds the f32 weights itself (pack_weights' layout and bits)
+    kmat = kernel if mma else kernel.to(img.dtype)
     out = torch.empty((n, h, w, f), dtype=img.dtype, device=img.device)
     samp = torch.empty_like(img) if save else None
     z = torch.empty_like(out) if save else None
@@ -208,7 +239,7 @@ def launch(img, theta, kernel, bias, alpha, save: bool = True):
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         if bf16:
-            err = lib.catgen_st_conv_prelu_bf16(*args, int(packed), stream)
+            err = lib.catgen_st_conv_prelu_bf16(*args, int(mma), stream)
         else:
             err = lib.catgen_st_conv_prelu_f32(*args, stream)
     # a band of the sampled image is held in shared memory: a width and

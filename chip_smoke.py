@@ -78,7 +78,9 @@ with a non-zero exit code and no result.
      dgrad's; the train step on the ladder and per-layer routes, profiled;
  17. the fused ST-conv kernel against its plain version at D32_st3's
      prefix, N=640 and 256, shared and per-channel slope: out, samp and z;
-     repeats bit-identical;
+     repeats bit-identical; both shapes take the tiled kernel
+     (st_conv.f32_kind and the profiler's name), whose out, z and samp are
+     the bits of the banded kernel (a misaligned image takes it);
  18. D's fused-prefix route (CATGEN_ST_CONV=fused): the sampling CLI (1
      ST-conv and 1 v4 launch per D batch, the same images and scores as
      phase 5), the training CLI (per step 2 ST-conv, 3 v4 forwards, 4
@@ -91,7 +93,8 @@ with a non-zero exit code and no result.
      batch, no v4 launch) and the training CLI (per step 5 grid forwards,
      4 d_coords, 3 d_img); one train step each on v2 and v3;
  20. times at batch 640: the ST-conv kernel, its plain version, the split
-     route and its bound; the grid kernels, their plain versions,
+     route and its bound, and the banded kernel beside it in device
+     time; the grid kernels, their plain versions,
      grid_sample and the bound (each also in device time beside its
      library call's); the train step on the fused-prefix, v1 and default
      routes, profiled;
@@ -118,21 +121,25 @@ with a non-zero exit code and no result.
  26. the sampler kernels' bf16 instantiations against their bf16 plain
      versions (upcast, f32 arithmetic, one rounding) at phase 4's shapes,
      rows and grid layouts, and at the augmentation's own coordinates:
-     the kernel each bf16 shape takes; the forward bit for bit (a
-     misaligned image too); d_img and d_coords within one
-     bf16 unit in the last place plus 2^-16 of the largest, repeats bit
-     for bit;
+     the kernel each bf16 shape takes (d_coords per quad at the input
+     ST); the forward bit for bit (a misaligned image too); d_img and
+     d_coords within one bf16 unit in the last place plus 2^-16 of the
+     largest, repeats bit for bit; the per-quad d_coords bit for bit
+     against the per-pixel kernel (a misaligned image);
  27. the training CLI with --dtype bf16 --augment (one epoch of 20 steps
      at batch 64): 5 forward, 4 d_coords and 3 d_img bf16 launches a step;
      the sample CLI reads the checkpoint; twice from one seed, the same
      checkpoint bits; one bf16 step on the v1 grid route (the grid
-     kernels' bf16 launches);
+     kernels' bf16 launches, the per-quad d_coords twice by the
+     profiler's names);
  28. one bf16 step at batch 8, and the same step with remat, on the card
      and on the CPU from the same weights and draws: on each device the
      remat step is the plain step bit for bit and draws the same; card
      against CPU within bf16 bounds;
  29. at batch 640 (bench.py's configuration) in one run: the f32 and bf16
-     steps and both with remat (time, images/s, idle share, peak memory),
+     steps and both with remat (time, images/s, idle share, peak memory;
+     the bf16 step launches the per-quad d_coords twice and the bf16
+     per-pixel one never, by the profiler's names),
      the V update in f32 and bf16, and each bf16 sampler kernel, rows and
      grid, against its plain version, its bf16 library call and its bf16
      bound (the rows kernels also in device time);
@@ -173,7 +180,8 @@ with a non-zero exit code and no result.
      them, and the whole bf16 block backward in one call beside cuDNN's
      bf16 dgrad and wgrad; the bf16 step on the default, ladder, per-layer and
      fused-prefix routes in one run (time, images/s, idle share, peak
-     memory, each port kernel's device time).
+     memory, each port kernel's device time; the fused prefix's per-quad
+     d_coords twice).
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -2392,10 +2400,13 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
     (phase 17) or a bf16 one (phase 31): out and z (``output_check``),
     samp bit for bit (the same lerps at the same coordinates, rounded once
     in bf16); every launch twice, bit-identical; without samp and z (the
-    sampling path) the same out. In bf16 the prefix's shapes must take
-    the tensor-core kernel (``st_conv.bf16_kind``, the profiler's kernel
-    name, and its warps a block printed), and ST_RAGGED the CUDA-core one.
-    Returns the largest errors."""
+    sampling path) the same out. In f32 the prefix's shapes must take the
+    tiled kernel (``st_conv.f32_kind`` and the profiler's kernel name),
+    and out, z and samp must be the bits of the banded kernel, which a
+    misaligned copy of the image takes. In bf16 the prefix's shapes must
+    take the tensor-core kernel (``st_conv.bf16_kind``, the profiler's
+    kernel name, and its warps a block printed), and ST_RAGGED the
+    CUDA-core one. Returns the largest errors."""
     import torch
     from catgen_torch.kernels import st_conv
 
@@ -2403,6 +2414,12 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = ST_SHAPES + ([ST_RAGGED] if bf16 else [])
     for i, shape in enumerate(shapes):
+        if not bf16:
+            kind = st_conv.f32_kind(torch.zeros(shape[:4], device="cuda"),
+                                    shape[4])
+            print(f"f32 st_conv at {shape}: {kind} kernel")
+            require(kind == "tiled", f"the f32 st_conv at {shape} took "
+                                     f"{kind}, not tiled")
         if bf16:
             img = torch.zeros(shape[:4], dtype=torch.bfloat16, device="cuda")
             want_kind = "mma" if shape in ST_SHAPES else "cuda_cores"
@@ -2417,15 +2434,17 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
             img, *params = st_inputs(shape, (310 if bf16 else 100) + i,
                                      channelwise)
             args = (img.bfloat16() if bf16 else img, *params)
-            if bf16 and not channelwise:
+            if not channelwise:
                 names = [k for k in kernel_names(
                     lambda: st_conv.launch(*args)) if "st_conv" in k]
                 print(f"  the profiler saw "
                       f"{names or 'no kernel in 3 sessions'}")
+                new = "st_conv_bf16_mma<" if bf16 else "st_conv_f32_tiled<"
                 require(not names or (
-                    len(names) == 1 and ("st_conv_bf16_mma<" in names[0])
+                    len(names) == 1 and (new in names[0])
                     == (shape in ST_SHAPES)),
-                    f"the bf16 st_conv at {shape} launched {names}")
+                    f"the {'bf16' if bf16 else 'f32'} st_conv at {shape} "
+                    f"launched {names}")
             got, again = st_conv.launch(*args), st_conv.launch(*args)
             light = st_conv.launch(*args, save=False)
             torch.cuda.synchronize()
@@ -2449,6 +2468,18 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
             require(light[1] is None and light[2] is None
                     and torch.equal(light[0], got[0]),
                     f"{tag}: the kernel without samp and z gives another out")
+            if not bf16:
+                banded = st_conv.launch(misaligned(args[0]), *args[1:])
+                banded_light = st_conv.launch(misaligned(args[0]), *args[1:],
+                                              save=False)
+                torch.cuda.synchronize()
+                same = (all(torch.equal(a, b) for a, b in zip(got, banded))
+                        and torch.equal(banded_light[0], got[0]))
+                print(f"{tag}: out, z and samp the bits of the banded "
+                      f"kernel (a misaligned image), with and without samp "
+                      f"and z: {same} (required)")
+                require(same, f"{tag}: the tiled kernel's bits are not the "
+                              f"banded kernel's")
     return worst
 
 
@@ -2548,7 +2579,9 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
     sampler kernel, cuDNN's conv2d and the PReLU; no single PyTorch call
     computes the function), and the bound: the bytes, against the conv's
     products at the rate of their type (f32 on the CUDA cores, bf16 on the
-    tensor cores) and the sampler's lerps in f32."""
+    tensor cores) and the sampler's lerps in f32. In f32 also the
+    banded kernel (a misaligned copy of the image takes it) beside the
+    tiled one, in the same order of readings."""
     import torch
     import torch.nn.functional as F
     from catgen_torch.kernels import bilinear, st_conv
@@ -2576,8 +2609,26 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
         p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
         k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
         lib = cuda_ms(split, inner=10)
-        dev, _, src = device_ms(kern, calls=100, warmup=3)
+        dev, names, src = device_ms(kern, calls=100, warmup=3)
         lib_dev, _, src_lib = device_ms(split, calls=100, warmup=3)
+        banded = {}
+        if not bf16:
+            args_b = (misaligned(img), theta, kernel, bias, alpha)
+            kern_b = (lambda args=args_b, save=save:
+                      st_conv.launch(*args, save=save))
+            b_dev, b_names, b_src = device_ms(kern_b, calls=100, warmup=3)
+            dev2, _, _ = device_ms(kern, calls=100, warmup=3)
+            b_dev2, _, _ = device_ms(kern_b, calls=100, warmup=3)
+            banded = dict(banded_ms=min(cuda_ms(kern_b, inner=10),
+                                        cuda_ms(kern_b, inner=10)),
+                          banded_device_ms=min(b_dev, b_dev2))
+            print(f"f32 st_conv {shape}: the tiled kernel "
+                  f"({names[0][:50] if names else '-'}) device {dev:.4f} / "
+                  f"{dev2:.4f} ms against the banded kernel "
+                  f"({b_names[0][:50] if b_names else '-'}) {b_dev:.4f} / "
+                  f"{b_dev2:.4f} ms (order tiled-banded-tiled-banded, "
+                  f"{src}/{b_src}); {card_name}")
+            dev = min(dev, dev2)
         px, e = n * h * w, img.element_size()
         nbytes = (e * px * c + 4 * n * 6 + e * 9 * c * f + 4 * 2 * f
                   + e * px * f + (e * px * (c + f) if save else 0))
@@ -2586,7 +2637,7 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
                       else bound(conv + lerps, nbytes))
         row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
                    bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                   library_device_ms=lib_dev)
+                   library_device_ms=lib_dev, **banded)
         out["train" if save else "sample"] = row
         print(f"{dtype} st_conv {shape} "
               f"({'samp and z written' if save else 'out alone'}): kernel "
@@ -3160,9 +3211,11 @@ def pretrain_times(card_name: str, route=None) -> dict:
 # the kernels each shape of DCOORDS_SHAPES takes in bf16, (forward,
 # d_coords, d_img): a 16-byte vector holds 8 bf16 values, so the 32x32x64
 # image (128 KB in bf16) is staged, where f32 takes the per-value forward;
-# the bf16 per-quad forward is a kernel of its own (sample_per_quad_bf16:
-# 4 output pixels a thread, the image widened in shared memory)
-BF16_KINDS = (("per_quad", "per_pixel", "per_sample"),
+# the bf16 per-quad forward and d_coords are kernels of their own
+# (sample_per_quad_bf16, dcoords_per_quad_bf16: 4 output pixels a thread,
+# the image widened in shared memory), where f32 keeps the per-pixel
+# d_coords
+BF16_KINDS = (("per_quad", "per_quad", "per_sample"),
               ("staged", "staged", "gather"),
               ("staged", "staged", "gather"))
 # bf16 backward kernels vs the plain version: both are f32 sums, of another
@@ -3233,7 +3286,9 @@ def bf16_vs_plain() -> dict:
     ST's shape), rows and grid layouts: the kernel each shape
     takes; the forward bit for bit (and the same bits from a misaligned
     image); d_img and d_coords within BF16_ULPS + BF16_FLOOR, repeats bit
-    for bit. Returns the largest errors, absolute and in units."""
+    for bit; where d_coords takes the per-quad kernel, the bits of the
+    per-pixel kernel it replaced, which a misaligned image takes. Returns
+    the largest errors, absolute and in units."""
     import torch
     from catgen_torch.kernels import bilinear
     from catgen_torch.kernels import bilinear_grid as bg
@@ -3262,17 +3317,20 @@ def bf16_vs_plain() -> dict:
         if layout == "rows":
             run = {"fwd": lambda im: bilinear.launch(im, rows, out_hw),
                    "dimg": lambda: bilinear.launch_dimg(img, rows, g, out_hw),
-                   "dcoords": lambda: bilinear.launch_dcoords(img, rows, g,
-                                                              out_hw)}
+                   "dcoords": lambda im=img: bilinear.launch_dcoords(
+                       im, rows, g, out_hw)}
         else:
             grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
             run = {"fwd": lambda im: bg.launch(im, grid),
                    "dimg": lambda: bg.launch_dimg(img, grid, g),
-                   "dcoords": lambda: bg.launch_dcoords(img, grid, g).reshape(
-                       n, ho * wo, 2).permute(0, 2, 1).contiguous()}
+                   "dcoords": lambda im=img: bg.launch_dcoords(
+                       im, grid, g).reshape(n, ho * wo, 2).permute(
+                           0, 2, 1).contiguous()}
         fwd, fwd_mis = run["fwd"](img), run["fwd"](misaligned(img))
         got = {k: run[k]() for k in ("dimg", "dcoords")}
         again = {k: run[k]() for k in ("dimg", "dcoords")}
+        quad = bilinear.dcoords_kind(h, w, c, bf) == "per_quad"
+        dc_mis = run["dcoords"](misaligned(img)) if quad else None
         torch.cuda.synchronize()
         want_fwd = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
         want = dict(zip(("dimg", "dcoords"),
@@ -3285,6 +3343,13 @@ def bf16_vs_plain() -> dict:
         print(f"{tag} bf16 forward: bits equal to the plain version's and to "
               f"the kernel's of a misaligned image: {same} (required)")
         require(fwd.dtype == bf and same, f"the bf16 forward at {tag}")
+        if quad:
+            same = torch.equal(got["dcoords"], dc_mis)
+            print(f"{tag} bf16 d_coords: the per-quad kernel's bits equal "
+                  f"to the per-pixel kernel's (a misaligned image): {same} "
+                  f"(required)")
+            require(same, f"the bf16 per-quad d_coords at {tag} is not the "
+                          f"per-pixel kernel's bits")
         for name in ("dimg", "dcoords"):
             a, b = got[name], want[name]
             require(a.dtype == b.dtype == bf and a.shape == b.shape,
@@ -3397,10 +3462,14 @@ def bf16_train_on_card(root: str) -> tuple:
     reset_counts()
     with kconfig.using(**GRID["v1"]):
         state = gan.init_state(g, d, config)
-        gan.make_train_step(g, d, config)(
-            state, torch.rand((32, 32, 32, 3), device="cuda"),
-            Draws(torch.Generator("cuda").manual_seed(8)))
-    grid = bf16_counts()
+        step = gan.make_train_step(g, d, config)
+        reals = torch.rand((32, 32, 32, 3), device="cuda")
+        draws = Draws(torch.Generator("cuda").manual_seed(8))
+        step(state, reals, draws)
+        grid = bf16_counts()
+        require_launches(lambda: step(state, reals, draws),
+                         BF16_STEP_DCOORDS["GridLayout"],
+                         "one bf16 step on the v1 grid route")
     want = dict.fromkeys(grid, 0)
     want.update(grid_BF16_LAUNCHES=5, grid_BF16_DCOORDS_LAUNCHES=4,
                 grid_BF16_DIMG_LAUNCHES=3, grid_V1_LAUNCHES=4)
@@ -3561,14 +3630,55 @@ def compare_bf16_steps(cpu, card, what: str) -> dict:
             "param_share_beyond": beyond / n}
 
 
+# the bf16 C=3 d_coords kernels of a bf16 step, by the strings of their
+# profiler names: the per-quad kernel twice (the input ST in the D and the
+# G phase), the per-pixel kernel it replaced never
+BF16_STEP_DCOORDS = {
+    layout: {"dcoords_per_quad_bf16": (("dcoords_per_quad_bf16<", layout), 2),
+             "dcoords_per_pixel bf16": (("dcoords_per_pixel<",
+                                         "__nv_bfloat16"), 0)}
+    for layout in ("RowsLayout", "GridLayout")}
+
+
+def require_launches(fn, want: dict, what: str) -> dict:
+    """Runs ``fn`` (one step) under the profiler and requires each named
+    kernel's launches: ``want`` maps a label to (the strings its profiler
+    name holds, the launches designed). A session can drop kernel records
+    (``device_ms``), so one that counts otherwise is asked again, up to
+    three times. Returns the last session's counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    designed = {label: n for label, (_, n) in want.items()}
+    got = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {label: sum(e.count for e in kernels
+                          if all(p in e.key for p in names))
+               for label, (names, _) in want.items()}
+        if got == designed:
+            break
+    print(f"{what}: launches by kernel in a profiled step {got}, designed "
+          f"{designed}")
+    require(got == designed, f"{what}: the kernels launched {got}")
+    return got
+
+
 def bf16_step_times(card_name: str, dtype, remat: bool,
-                    route=None, route_name: str = "") -> dict:
+                    route=None, route_name: str = "",
+                    want_kernels=None) -> dict:
     """One configuration of phases 29 and 33: bench.py's train step (batch
     640, augmentation, logit BCE, Adam) in ``dtype``, with or without
     remat, on the default route or on ``route``: median step of 10,
     images/s, peak device memory, profiled idle share, and each port
     kernel's device time in the profiled step (``device_ms``: name ->
-    (ms, launches))."""
+    (ms, launches)); with ``want_kernels`` one more step, whose kernels
+    must launch as ``require_launches`` says."""
     import contextlib
 
     import torch
@@ -3601,6 +3711,12 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
             step(state, reals, draws)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
+            (" remat" if remat else "") + (f" {route_name} route"
+                                           if route_name else "")
+        if want_kernels:
+            require_launches(lambda: step(state, reals, draws), want_kernels,
+                             f"train step {name}")
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
@@ -3608,9 +3724,6 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     device = {e.key: (e.self_device_time_total / 1e3, e.count)
               for e in kernels if any(k in e.key for k in (
                   "upsample_conv", "sum_rows", "st_conv", "Layout"))}
-    name = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
-        (" remat" if remat else "") + (f" {route_name} route"
-                                       if route_name else "")
     print(f"train step {name}, batch {TRAIN_B}: median {med:.3f} ms of 10 "
           f"(min {lo:.3f}, max {hi:.3f}) = {2 * TRAIN_B / med * 1e3:.1f} "
           f"images/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
@@ -3646,7 +3759,9 @@ def bf16_times(card_name: str, v_generation_ms: float) -> dict:
                          (torch.bfloat16, True), (torch.float32, True)):
         key = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}" + \
             ("_remat" if remat else "")
-        out[key] = bf16_step_times(card_name, dtype, remat)
+        out[key] = bf16_step_times(
+            card_name, dtype, remat, want_kernels=BF16_STEP_DCOORDS[
+                "RowsLayout"] if key == "bf16" else None)
         torch.cuda.empty_cache()
     print(f"bf16 step {out['bf16']['step_ms']:.3f} ms against f32 "
           f"{out['f32']['step_ms']:.3f} ms (ratio "
@@ -3960,8 +4075,10 @@ def bf16_route_step_times(card_name: str) -> dict:
     out = {}
     for name, route in (("default", None), ("ladder", LADDER),
                         ("per-layer", PER_LAYER), ("fused-prefix", FUSED)):
-        out[name] = bf16_step_times(card_name, torch.bfloat16, False, route,
-                                    name)
+        out[name] = bf16_step_times(
+            card_name, torch.bfloat16, False, route, name,
+            BF16_STEP_DCOORDS["RowsLayout"] if name == "fused-prefix"
+            else None)
         torch.cuda.empty_cache()
     base = out["default"]["step_ms"]
     print("bf16 train step, batch 640: " + ", ".join(
@@ -4287,8 +4404,14 @@ def main(argv=None) -> int:
             "sample_fused_prefix": fused_sample["st_conv"],
             "train_fused_prefix": fused_train["st_conv"],
             "step_card_vs_cpu": fused_step["launches"]["st_conv"]},
+        cuda_kernel="st_conv_f32_tiled (a block per sample, the tile "
+                    "sampled once, 4 output channels of 4 pixels a thread) "
+                    "where st_conv.f32_kind says tiled (the prefix's "
+                    "shapes), else st_conv_prelu_kernel (banded_ms, "
+                    "banded_device_ms: the banded kernel on the same "
+                    "inputs)",
         device_ms_per_step=device_step_ms(rd["fused-prefix"],
-                                          "st_conv_prelu_kernel")))
+                                          "st_conv_f32_tiled")))
     also = {"fwd": ["catgen/kernels/pallas_bilinear_v2.py:135",
                     "catgen/kernels/pallas_bilinear_v3.py:126"],
             "bwd": ["catgen/kernels/pallas_bilinear_v2.py:171",
@@ -4372,6 +4495,15 @@ def main(argv=None) -> int:
                         [lib for _, lib in bt[f"rows_{key}_device"]])}
                    if layout == "rows" else {}),
             })
+            if key == "dcoords":
+                kernels[-1]["cuda_kernel"] = (
+                    "dcoords_per_quad_bf16 (a block per sample, the image "
+                    "widened in shared memory, 4 output pixels a thread, "
+                    "the per-pixel kernel's bits) at C < 32, "
+                    "dcoords_staged at the branch shape")
+                kernels[-1]["kind_by_shape"] = by_shape(
+                    [bilinear.dcoords_kind(*shape[1:4], torch.bfloat16)
+                     for shape in TRAIN_SHAPES])
     # the bf16 instantiations of rows 3-7 (phases 30-33): the block kernels
     # on the bf16 ladder training CLI's path, the per-layer kernels on one
     # bf16 per-layer step, the ST-conv kernel on the bf16 fused-prefix CLI

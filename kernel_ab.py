@@ -13,8 +13,9 @@ bf16 backward (the per-layer dX, the block dX kernel on the folded
 cotangent, and the whole block backward: fold pass, dX, transform pass,
 dCK); the ST-conv prefix at D32_st3's training shape (640, 32, 32, 3) ->
 64 with samp and z and at its sampling shape (256, ...) with out alone,
-in bf16 and f32; and the sampler forward at the input ST's shape (640,
-32, 32, 3) -> 32x32 in f32 and bf16, rows and grid layouts. Inputs come
+in bf16 and f32; and the sampler forward and d_coords at the input ST's
+shape (640, 32, 32, 3) -> 32x32 in f32 and bf16, rows and grid layouts.
+Inputs come
 from fixed seeds. It saves a SHA-256 of every output's bytes and each
 call's time to FILE: device time from the profiler (the kernels' own
 time per call, in all and by kernel, over 20 calls of an upsample-conv,
@@ -27,7 +28,8 @@ entry points must be those of the same wrappers
 (``fused_upsample_conv.upsample2_conv_fused``,
 ``upsample2_conv_block_fused``, ``upsample2_conv_dx``, ``_launch_dx``,
 ``fused_block_backward``, ``st_conv.launch``, ``bilinear.launch``,
-``bilinear_grid.launch``).
+``bilinear_grid.launch``, ``bilinear.launch_dcoords``,
+``bilinear_grid.launch_dcoords``).
 """
 
 from __future__ import annotations
@@ -184,14 +186,21 @@ def run(root: str, out: str) -> None:
     gen = torch.Generator("cuda").manual_seed(600)
     img = torch.rand((B, 32, 32, 3), generator=gen, device="cuda")
     rows = torch.rand((B, 2, 1024), generator=gen, device="cuda") * 2.4 - 1.2
+    cot = torch.rand((B, 32, 32, 3), generator=gen, device="cuda") * 2 - 1
     for dtype in (torch.float32, torch.bfloat16):
-        im, r = img.to(dtype), rows.to(dtype)
+        im, r, g = img.to(dtype), rows.to(dtype), cot.to(dtype)
         grid = r.permute(0, 2, 1).reshape(B, 32, 32, 2).contiguous()
         tag = "f32" if dtype == torch.float32 else "bf16"
         calls = {f"sampler_fwd_rows_{tag}":
                  lambda im=im, r=r: (bilinear.launch(im, r, (32, 32)),),
                  f"sampler_fwd_grid_{tag}":
-                 lambda im=im, grid=grid: (bilinear_grid.launch(im, grid),)}
+                 lambda im=im, grid=grid: (bilinear_grid.launch(im, grid),),
+                 f"sampler_dcoords_rows_{tag}":
+                 lambda im=im, r=r, g=g: (bilinear.launch_dcoords(
+                     im, r, g, (32, 32)),),
+                 f"sampler_dcoords_grid_{tag}":
+                 lambda im=im, grid=grid, g=g: (bilinear_grid.launch_dcoords(
+                     im, grid, g),)}
         for key, fn in calls.items():
             outputs[key] = [_digest(t) for t in fn()]
             dev, kernels = _device_ms(fn, calls=200)

@@ -9,7 +9,8 @@ staged sampler forward and the choice between the forward kernels, the
 3xTF32 upsample-conv forward at ragged shapes, the per-sample, gather and
 per-channel d_img kernels, the per-quad sampler forward and the 3xTF32
 dX, forward and backward, against their plain PyTorch versions, and the
-wrappers' contract on CUDA tensors. Every test here needs an NVIDIA GPU
+wrappers' contract on CUDA tensors; last, the bf16 per-quad d_coords and
+the f32 tiled ST-conv, each bit for bit against the kernel it replaced. Every test here needs an NVIDIA GPU
 and nvcc; on a machine without a card each one skips. Run them on the
 card with
 
@@ -1285,7 +1286,7 @@ def _bf16_grid(rows, out_hw):
 # 8 values: 8x8x36 is staged in f32 only, 32x32x64 (128 KB in bf16) in bf16
 # only, and 9x11x3 (594 bytes) fills no whole vector of either type
 @pytest.mark.parametrize("hwc, kinds", [
-    ((32, 32, 3), ("per_quad", "per_pixel", "per_sample")),
+    ((32, 32, 3), ("per_quad", "per_quad", "per_sample")),
     ((16, 16, 64), ("staged", "staged", "gather")),
     ((32, 32, 64), ("staged", "staged", "gather")),
     ((8, 8, 36), ("per_value", "per_warp", "gather")),
@@ -1982,11 +1983,13 @@ def _cp_async_forward(x, weight, bias, prelu, with_stats):
     return (y, stats[0], stats[1]) if with_stats else (y,)
 
 
-def _kernel_names_seen(fn):
-    """``_forward_kernel_names``, asked up to three times: a profiler
-    session now and then records no kernel at all."""
+def _kernel_names_seen(fn, calls=5):
+    """``_forward_kernel_names`` of ``calls`` calls of ``fn`` in one
+    session, asked up to three times: late in a long process a profiler
+    session drops kernel records, now and then every record of a call
+    that launches one kernel."""
     for _ in range(3):
-        names = _forward_kernel_names(fn)
+        names = _forward_kernel_names(lambda: [fn() for _ in range(calls)])
         if names:
             return names
     return names
@@ -2139,3 +2142,264 @@ def test_bf16_st_conv_shapes_off_the_tensor_cores(f32_cuda, case):
     for a, b in zip((out, z), want[::2]):
         _bf16_close(a, b.contiguous())
     assert torch.equal(samp, want[1])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 per-quad d_coords (a block per sample, the image widened in
+# shared memory, 4 output pixels a thread, vector loads and stores) against
+# the per-pixel kernel it replaced at C < 32, which a misaligned copy of the
+# image reaches: the same bits, rows and grid layouts, at C = 1..4 and 13,
+# P not a multiple of 4 (pixel by pixel), N = 1 and 3, the input ST at
+# batch 640, on spread, zoomed-in, past-the-edge and exact-edge identity
+# coordinates and on the augmentation's own; repeats bit for bit
+# ---------------------------------------------------------------------------
+
+QUAD_DCOORDS_SHAPES = [
+    (640, 32, 32, 3, 32, 32),   # the input ST and the augmentation
+    (1, 32, 32, 3, 32, 32),     # N = 1
+    (3, 32, 32, 1, 32, 32),     # C = 1
+    (3, 32, 32, 2, 32, 32),     # C = 2
+    (3, 16, 16, 4, 16, 16),     # C = 4
+    (2, 16, 16, 13, 16, 16),    # C = 13: any C < 32, g value by value
+    (3, 8, 8, 3, 5, 7),         # P = 35: pixel by pixel
+    (2, 8, 8, 3, 1, 1),         # P = 1
+    (2, 16, 16, 3, 48, 32),     # P = 1536: two quads a thread
+]
+
+
+def _identity_rows(n, ho, wo, device):
+    gy, gx = torch.meshgrid(torch.linspace(-1, 1, ho),
+                            torch.linspace(-1, 1, wo), indexing="ij")
+    rows = torch.stack([gy.reshape(-1), gx.reshape(-1)])
+    return rows.expand(n, 2, ho * wo).contiguous().to(device)
+
+
+# coordinate rows from the random ones and the output's (Ho, Wo)
+DCOORDS_COORDS = {"spread": lambda r, hw: r,
+                  "zoom": lambda r, hw: r * 0.05,
+                  "edges": lambda r, hw: torch.sign(r) * 1.5,
+                  "identity": lambda r, hw: _identity_rows(r.shape[0], *hw,
+                                                           r.device)}
+
+
+def _augment_rows(images, seed):
+    """The coordinate rows that ``data.ops.augment_batch`` hands the
+    sampler for ``images`` (its default route: rows, in their dtype)."""
+    from catgen_torch.core.random import Draws
+    from catgen_torch.data import ops
+
+    seen, sample = [], ops.bilinear_sample_rows
+
+    def spy(img, rows, out_hw):
+        seen.append(rows)
+        return sample(img, rows, out_hw)
+
+    ops.bilinear_sample_rows = spy
+    try:
+        ops.augment_batch(Draws(torch.Generator(images.device)
+                                .manual_seed(seed)), images)
+    finally:
+        ops.bilinear_sample_rows = sample
+    assert len(seen) == 1
+    return seen[0].contiguous()
+
+
+def _dcoords(layout, img, rows, g, out_hw):
+    """d_coords as (N, 2, P) rows, from the rows or the grid kernels."""
+    if layout == "rows":
+        return bilinear.launch_dcoords(img, rows, g, out_hw)
+    grid = _bf16_grid(rows, out_hw)
+    return (bilinear_grid.launch_dcoords(img, grid, g)
+            .reshape(rows.shape[0], rows.shape[2], 2).permute(0, 2, 1)
+            .contiguous())
+
+
+def _dcoords_kernel(fn):
+    names = [n for n in _kernel_names_seen(fn) if "dcoords" in n]
+    assert len(names) == 1, names
+    return names[0]
+
+
+@pytest.mark.parametrize("hwc, kind", [
+    ((32, 32, 3), "per_quad"), ((32, 32, 1), "per_quad"),
+    ((4, 4, 31), "per_quad"), ((16, 16, 13), "per_quad"),
+    ((9, 11, 3), "per_pixel"), ((1, 5, 1), "per_pixel"),
+    ((128, 128, 7), "per_pixel")])
+def test_bf16_dcoords_kernel_choice(cuda, hwc, kind):
+    assert bilinear.dcoords_kind(*hwc, torch.bfloat16) == kind
+    # f32 keeps the per-pixel kernel at every C < 32
+    assert bilinear.dcoords_kind(*hwc) == "per_pixel"
+    fits = bilinear.dcoords_quad_smem_bytes(*hwc) <= bilinear.OPTIN_SMEM
+    assert (kind == "per_quad") == (fits and hwc[0] * hwc[1] * hwc[2] % 8
+                                    == 0)
+
+
+@pytest.mark.parametrize("shape", QUAD_DCOORDS_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("coords", sorted(DCOORDS_COORDS))
+def test_bf16_per_quad_dcoords_gives_the_per_pixel_bits(cuda, shape, layout,
+                                                        coords):
+    assert bilinear.dcoords_kind(*shape[1:4], torch.bfloat16) == "per_quad"
+    img, rows, g, out_hw = _bf16_inputs(shape, cuda, seed=80)
+    rows = DCOORDS_COORDS[coords](rows.float(), out_hw).bfloat16()
+    rows = rows.contiguous()
+    before = (bilinear.launches(), bilinear_grid.launches())
+    first = _dcoords(layout, img, rows, g, out_hw)
+    again = _dcoords(layout, img, rows, g, out_hw)
+    per_pixel = _dcoords(layout, _misaligned(img), rows, g, out_hw)
+    torch.cuda.synchronize()
+    after = (bilinear.launches(), bilinear_grid.launches())
+    counts = after[layout == "grid"]
+    assert counts["BF16_DCOORDS_LAUNCHES"] == \
+        before[layout == "grid"]["BF16_DCOORDS_LAUNCHES"] + 3
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first, again)
+    assert torch.equal(first, per_pixel)
+    want = bilinear.bilinear_sample_rows_backward_plain(
+        img, rows, g, out_hw, need_img=False)[1]
+    _bf16_close(first, want)
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_per_quad_dcoords_at_the_augmentations_coordinates(cuda,
+                                                                layout):
+    shape = QUAD_DCOORDS_SHAPES[0]
+    img, _, g, out_hw = _bf16_inputs(shape, cuda, seed=81)
+    rows = _augment_rows(img, seed=82)
+    assert rows.dtype == torch.bfloat16 and rows.shape == (640, 2, 1024)
+    first = _dcoords(layout, img, rows, g, out_hw)
+    again = _dcoords(layout, img, rows, g, out_hw)
+    per_pixel = _dcoords(layout, _misaligned(img), rows, g, out_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, per_pixel)
+
+
+@pytest.mark.parametrize("view, name", [
+    ("aligned", "dcoords_per_quad_bf16<"), ("image", "dcoords_per_pixel<"),
+    ("coords", "dcoords_per_pixel<"), ("grad", "dcoords_per_pixel<")])
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_per_quad_dcoords_kernel_of_a_view(cuda, view, name, layout):
+    img, rows, g, out_hw = _bf16_inputs((2, 32, 32, 3, 32, 32), cuda,
+                                        seed=83)
+    im = _misaligned(img) if view == "image" else img
+    gr = _misaligned(g) if view == "grad" else g
+    if layout == "rows":
+        crd = _offset(rows, 2) if view == "coords" else rows
+        run = lambda: bilinear.launch_dcoords(im, crd, gr, out_hw)  # noqa
+    else:
+        grid = _bf16_grid(rows, out_hw)
+        crd = _offset(grid, 2) if view == "coords" else grid
+        run = lambda: bilinear_grid.launch_dcoords(im, crd, gr)  # noqa
+    kernel = _dcoords_kernel(run)
+    assert name in kernel and ("GridLayout" in kernel) == (layout == "grid")
+    assert "bfloat16" in kernel or "per_quad" in kernel
+
+
+def test_f32_dcoords_stays_per_pixel_at_c3(cuda):
+    img, rows, out_hw = _inputs((2, 32, 32, 3, 32, 32), cuda, seed=84)
+    g = _cotangent((2, 32, 32, 3, 32, 32), cuda, seed=85)
+    kernel = _dcoords_kernel(
+        lambda: bilinear.launch_dcoords(img, rows, g, out_hw))
+    assert "dcoords_per_pixel<" in kernel and "float" in kernel
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_bf16_per_quad_dcoords_of_an_empty_batch(cuda, layout):
+    img, rows, g, out_hw = _bf16_inputs((0, 32, 32, 3, 32, 32), cuda)
+    got = _dcoords(layout, img, rows, g, out_hw)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 2, 1024)
+
+
+# ---------------------------------------------------------------------------
+# the f32 tiled ST-conv (a block per sample, the pixel sampled once into a
+# zero-bordered tile, 4 output channels of 4 pixels a thread) against the
+# banded kernel it replaced, which a misaligned copy of the image reaches:
+# out, z and samp bit for bit, at C = 1..4, F = 4, 60, 64 and 128, shared
+# and per-channel slopes, N = 1, 3, 256 and 640, with and without samp and
+# z; both within 1e-5 of the largest plain value; repeats bit for bit
+# ---------------------------------------------------------------------------
+
+TILED_ST_SHAPES = [             # (N, H, W, C, F)
+    (640, 32, 32, 3, 64),       # D32_st3's training shape
+    (256, 32, 32, 3, 64),       # and its sampling shape
+    (1, 32, 32, 3, 64),         # N = 1
+    (3, 12, 20, 1, 4),          # C = 1, F = 4
+    (3, 12, 10, 2, 128),        # C = 2, F = 128, a ragged last segment
+    (2, 9, 7, 4, 64),           # C = 4, odd h and w
+    (3, 32, 32, 3, 60),         # F = 60: 15 channel groups
+]
+
+
+def _st_kernel_name(fn):
+    names = [n for n in _kernel_names_seen(fn) if "st_conv" in n]
+    assert len(names) == 1, names
+    return names[0]
+
+
+@pytest.mark.parametrize("shape", TILED_ST_SHAPES)
+@pytest.mark.parametrize("channelwise", [False, True])
+@pytest.mark.parametrize("save", [True, False])
+def test_f32_tiled_st_conv_gives_the_banded_bits(f32_cuda, shape,
+                                                 channelwise, save):
+    img, *params = _st_inputs(shape, f32_cuda, seed=90,
+                              channelwise=channelwise)
+    banded_img = _misaligned_copy(img)
+    assert st_conv.f32_kind(img, shape[4]) == "tiled"
+    assert st_conv.f32_kind(banded_img, shape[4]) == "banded"
+    before = st_conv.LAUNCHES
+    first = st_conv.launch(img, *params, save=save)
+    again = st_conv.launch(img, *params, save=save)
+    banded = st_conv.launch(banded_img, *params, save=save)
+    torch.cuda.synchronize()
+    assert st_conv.LAUNCHES == before + 3
+    assert (first[1] is None) == (first[2] is None) == (not save)
+    for a, b, c in zip(first, again, banded):
+        assert (a is None) == (b is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, b) and torch.equal(a, c)
+    want = st_conv._forward_plain(img, *params)
+    _st_close(first[0], want[0].contiguous(),
+              1e-5 * want[0].abs().max().item(), "out")
+    if save:
+        _st_close(first[2], want[2].contiguous(),
+                  1e-5 * want[2].abs().max().item(), "z")
+        assert torch.equal(first[1], want[1])
+
+
+@pytest.mark.parametrize("case, kind", [
+    ("d32_st3", "st_conv_f32_tiled<"), ("misaligned", "st_conv_prelu_kernel<"),
+    ("f31", "st_conv_prelu_kernel<"), ("c5", "st_conv_prelu_kernel<"),
+    ("hwc_odd", "st_conv_prelu_kernel<")])
+def test_f32_st_conv_kernel_by_shape(f32_cuda, case, kind):
+    shape = {"d32_st3": (2, 32, 32, 3, 64), "misaligned": (2, 32, 32, 3, 64),
+             "f31": (2, 12, 16, 3, 31), "c5": (2, 8, 8, 5, 16),
+             "hwc_odd": (2, 9, 11, 3, 64)}[case]
+    img, *params = _st_inputs(shape, f32_cuda, seed=91)
+    if case == "misaligned":
+        img = _misaligned_copy(img)
+    want = "tiled" if kind == "st_conv_f32_tiled<" else "banded"
+    assert st_conv.f32_kind(img, shape[4]) == want
+    name = _st_kernel_name(lambda: st_conv.launch(img, *params))
+    assert kind in name and "float" in name, name
+    out, samp, z = st_conv.launch(img, *params)
+    torch.cuda.synchronize()
+    want_out = st_conv._forward_plain(img, *params)
+    _st_close(out, want_out[0].contiguous(),
+              1e-5 * want_out[0].abs().max().item(), "out")
+    assert torch.equal(samp, want_out[1])
+
+
+def test_bf16_st_conv_rounds_the_f32_weights_once(f32_cuda):
+    # the tensor-core kernel packs the f32 weights itself, each rounded
+    # once to bf16 as pack_weights(kernel.bfloat16()) holds them: weights
+    # rounded beforehand give the same bits
+    img, theta, kernel, bias, alpha = _st_inputs((3, 32, 32, 3, 64),
+                                                 f32_cuda, seed=92)
+    img = img.bfloat16()
+    assert st_conv.bf16_kind(img, 64) == "mma"
+    got = st_conv.launch(img, theta, kernel, bias, alpha)
+    rounded = st_conv.launch(img, theta, kernel.bfloat16().float(), bias,
+                             alpha)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, rounded))
