@@ -5,10 +5,20 @@ train.lua``), with catgen's flags and ``--device`` for ``--platform``.
     python -m catgen_torch.cli.train --device cpu --fixture 16 --epochs 1 \\
         --batchSize 4 --N_epoch 8 --save /tmp/run
 
+The 64px pyramid (G64_stack against D64), warm-started from a 32px run
+(``cli.stack64_warmstart``) and stopped if it collapses:
+
+    python -m catgen_torch.cli.train --scale 64 --G g64_stack --D d64 \\
+        --augment --collapseDetect --save runs/x64
+
 Checkpoints are catgen's ``adversarial.ckpt`` (either package resumes the
 other's). A V checkpoint (``cli.train_v``) and a pretrained G
-(``cli.pretrain_g``) in ``--save`` are picked up by filename. Flags whose machinery is not ported yet raise
-NotImplementedError naming the ROADMAP item; none is silently ignored.
+(``cli.pretrain_g``, ``cli.stack64_warmstart``) in ``--save`` are picked up
+by filename. ``--collapseDetect`` exits with code 42 when the detector
+stops the run, as catgen's does; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the second epoch into DIR. Flags whose
+machinery is not ported yet (data parallelism) raise NotImplementedError
+naming the ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -23,8 +33,7 @@ from catgen_torch.cli.common import (add_common_args, add_dataset_args,
                                      resolve_device)
 from catgen_torch.models import D_REGISTRY, G_REGISTRY
 from catgen_torch.train import gan
-from catgen_torch.train.harness import (GanHarness, HarnessConfig,
-                                        not_ported)
+from catgen_torch.train.harness import GanHarness, HarnessConfig
 
 _OPTIMIZERS = ["adam", "adagrad", "sgd", "rmsprop"]
 
@@ -71,31 +80,28 @@ def parse_args(argv=None):
                         "the logit-space BCE; 'torch' / 'clip' are the "
                         "probability-space alternates)")
     p.add_argument("--weightsVisFreq", type=int, default=0,
-                   help="D activation grids every N epochs (not ported)")
+                   help="D activation grids every N epochs")
     p.add_argument("--visFreq", type=int, default=1,
                    help="write sample grids and probes every N epochs")
     p.add_argument("--collapseDetect", action="store_true",
-                   help="stop when the collapse detector fires (not ported)")
+                   help="stop the run when the GAN-collapse detector "
+                        "fires (eval/collapse.py); exits with code 42")
     p.add_argument("--normalize", action="store_true",
                    help="remap inputs [0,1] -> [-1,1]")
     p.add_argument("--augment", action="store_true",
                    help="train-time augmentation of the real batches")
     p.add_argument("--profile", default="",
-                   help="trace the second epoch (not ported)")
+                   help="write a torch.profiler Chrome trace of the second "
+                        "trained epoch (the first with --epochs 1) into "
+                        "this directory")
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """The flags the harness does not see (it refuses the others)."""
-    refuse_multi_host(args)
-    if args.profile:
-        raise not_ported("--profile", "4")
-
-
 def main(argv: Optional[List[str]] = None) -> GanHarness:
-    """Runs the CLI; returns the harness after training."""
+    """Runs the CLI; returns the harness after training. Exits with code 42
+    when the collapse detector stopped the run."""
     args = parse_args(argv)
-    _refuse_unported(args)
+    refuse_multi_host(args)
     device = resolve_device(args.device)
     hc = HarnessConfig(save_dir=args.save, save_freq=args.saveFreq,
                        n_epoch=args.N_epoch, scale=args.scale,
@@ -126,7 +132,9 @@ def main(argv: Optional[List[str]] = None) -> GanHarness:
     harness = GanHarness(hc, gc, dataset, device)
     if args.network:
         harness.resume(args.network, rebuild_optstate=args.rebuildOptstate)
-    harness.train(args.epochs)
+    status = harness.train(args.epochs, profile_dir=args.profile or None)
+    if status == "collapsed":
+        raise SystemExit(42)
     return harness
 
 

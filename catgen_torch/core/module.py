@@ -46,3 +46,21 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if hasattr(m, "reset_parameters_"):
             m.reset_parameters_(generator)
+
+
+def apply_with_intermediates(seq: Sequential, x: torch.Tensor):
+    """Runs ``seq`` child by child in eval mode, without gradients, and
+    returns (y, [(child name, its output), ...]): catgen's
+    ``apply_with_intermediates`` with ``train=False``, the debug hook
+    behind the activation grids. ``seq``'s mode is restored after."""
+    was_training = seq.training
+    seq.eval()
+    intermediates = []
+    try:
+        with torch.inference_mode():
+            for name, layer in seq.named_children():
+                x = layer(x)
+                intermediates.append((name, x))
+    finally:
+        seq.train(was_training)
+    return x, intermediates

@@ -934,7 +934,12 @@ extern "C" int catgen_upsample_conv_fwd_f32(
     int h, int w, int cin, int cout, int kh, int kw, int uh0, int uh1,
     int uw0, int uw1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)n * h * w == 0 || cout == 0) return 0;
+  if (cout == 0) return 0;
+  if ((int64_t)n * h * w == 0) {    // no pixels: sums of nothing
+    return stats == nullptr ? 0
+                            : (int)cudaMemsetAsync(
+                                  stats, 0, sizeof(float) * 2 * cout, s);
+  }
   if ((int64_t)n * h * w >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }

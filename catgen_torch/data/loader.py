@@ -4,7 +4,8 @@ Each JPEG is decoded once (PIL) into a uint8 host cache; ``load_images``,
 ``load_random_images`` and ``epoch_batches`` move a slice, a random sample
 or one epoch of training batches to the device in one copy and there
 convert it to float NHWC in [0, 1] (in [-1, 1] with ``normalize``) at the
-model's scale and color space. File order is one global sort, as
+model's scale (an exact 2x2 average for a 2x downscale, else the bilinear
+resize) and color space. File order is one global sort, as
 catgen's; random samples draw from the same numpy stream as catgen's for
 the same seed, so both packages train on the same reals. catgen's native
 multithreaded decoder and multi-host sharding are not ported yet (ROADMAP
@@ -107,12 +108,10 @@ class ImageDataset:
         x = torch.from_numpy(np.ascontiguousarray(raw_uint8)).to(
             self.device).float() / 255.0
         if self.scale != x.shape[1]:
-            if x.shape[1] != 2 * self.scale:
-                raise NotImplementedError(
-                    f"resizing {x.shape[1]}px sources to {self.scale}px "
-                    f"needs the bilinear resize, not ported yet (ROADMAP "
-                    f"Queue A item 7); only exact 2x downscales are")
-            x = ops.downscale2(x)
+            if x.shape[1] == 2 * self.scale:
+                x = ops.downscale2(x)
+            else:
+                x = ops.resize_bilinear(x, (self.scale, self.scale))
         x = colorlib.rgb_to_colorspace(x, self.colorspace)
         return colorlib.normalize(x) if self.normalize else x
 

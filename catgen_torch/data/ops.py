@@ -1,12 +1,15 @@
 """Image ops on NHWC tensors: the counterparts of ``downscale2``,
-``AugmentConfig`` and ``augment_batch`` in ``catgen/data/ops.py``.
-Bilinear resize is ROADMAP Queue A item 7."""
+``resize_bilinear``, ``AugmentConfig`` and ``augment_batch`` in
+``catgen/data/ops.py``."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from catgen_torch.core.random import Draws
@@ -21,6 +24,53 @@ def downscale2(images: torch.Tensor) -> torch.Tensor:
     """Exact 2x2 area-average downscale (64 -> 32), NHWC."""
     n, h, w, c = images.shape
     return images.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+@functools.lru_cache(maxsize=64)
+def _resample_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) align-corners bilinear resampling matrix: the row
+    weights an identity ``affine_grid`` + ``bilinear_sample`` would
+    gather, fy = i (n_in - 1) / (n_out - 1), 2 taps per output row. A
+    copy of catgen's."""
+    fy = (np.linspace(-1.0, 1.0, n_out) + 1.0) * 0.5 * (n_in - 1)
+    fy = np.clip(fy, 0.0, max(n_in - 1, 0))
+    if n_in > 1:
+        y0 = np.clip(np.floor(fy), 0, n_in - 2).astype(np.int64)
+    else:
+        y0 = np.zeros(n_out, np.int64)
+    y1 = np.minimum(y0 + 1, n_in - 1)
+    wy = (fy - y0).astype(np.float32)
+    m = np.zeros((n_out, n_in), np.float32)
+    np.add.at(m, (np.arange(n_out), y0), 1.0 - wy)
+    np.add.at(m, (np.arange(n_out), y1), wy)
+    return m
+
+
+@functools.lru_cache(maxsize=64)
+def _resample_on(n_in: int, n_out: int,
+                 device: torch.device) -> torch.Tensor:
+    """``_resample_matrix`` on ``device``, made once (a copy from host
+    memory on every call would make the host wait for the card), outside
+    inference mode so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resample_matrix(n_in, n_out)).to(device)
+
+
+def resize_bilinear(images: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize (align-corners) of NHWC ``images`` to ``out_hw``, as
+    catgen's: two static 2-tap matrix products in f32, ``My @ img @
+    Mx^T``, rounded back to the images' dtype. Autograd's VJP is the
+    transposed products. The identity when the size does not change."""
+    n, h, w, c = images.shape
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return images
+    my = _resample_on(h, oh, images.device)             # (oh, h)
+    mx = _resample_on(w, ow, images.device)             # (ow, w)
+    y = torch.einsum("oh,nhwc->nowc", my, images.float())
+    y = torch.einsum("pw,nowc->nopc", mx, y)
+    return y.to(images.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

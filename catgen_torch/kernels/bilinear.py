@@ -112,8 +112,9 @@ def _sample_rows(img: torch.Tensor, coords_rows: torch.Tensor,
     p = ho * wo
     fy = (coords_rows[:, 0] + 1.0) * 0.5 * (h - 1)       # (N, P)
     fx = (coords_rows[:, 1] + 1.0) * 0.5 * (w - 1)
-    fy = torch.clamp(fy, 0.0, h - 1)
-    fx = torch.clamp(fx, 0.0, w - 1)
+    # a NaN coordinate clamps to 0, as the kernels' fmaxf(f, 0) does
+    fy = torch.clamp(torch.nan_to_num(fy, nan=0.0), 0.0, h - 1)
+    fx = torch.clamp(torch.nan_to_num(fx, nan=0.0), 0.0, w - 1)
     if h > 1:
         y0 = torch.clamp(torch.floor(fy), 0, h - 2).long()
     else:

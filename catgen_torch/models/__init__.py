@@ -1,3 +1,9 @@
+from catgen_torch.models.refine import (  # noqa: F401
+    RefineStage,
+    create_D64,
+    create_G64_stack,
+    create_G_refine64,
+)
 from catgen_torch.models.zoo import (  # noqa: F401
     D_REGISTRY,
     G_REGISTRY,
@@ -12,3 +18,8 @@ from catgen_torch.models.zoo import (  # noqa: F401
     create_V16,
     create_V32,
 )
+
+# the 64px pyramid stage's entries, registered here as catgen registers them
+G_REGISTRY["g64_stack"] = create_G64_stack
+G_REGISTRY["refine64"] = create_G_refine64
+D_REGISTRY["d64"] = create_D64

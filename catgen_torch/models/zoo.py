@@ -1,6 +1,8 @@
 """Model zoo: the counterparts of ``catgen/models/zoo.py`` that the ported
 paths run: G32up-c and D32_st3, the V validators V16 and V32, and the
-32px G autoencoder (encoder + G32up-c) of the pretrainer.
+32px G autoencoder (encoder + G32up-c) of the pretrainer. The 64px
+pyramid stage (G64_stack, the refine stage, D64) is in ``refine.py``;
+``catgen_torch.models`` registers it here.
 
 Layer order, widths and child names are catgen's, so a catgen checkpoint
 loads through ``catgen_torch.io.convert``. Unlike catgen's modules, which

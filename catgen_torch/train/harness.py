@@ -7,19 +7,23 @@ with its per-epoch artifacts, the JSONL metrics, and checkpoints in
 catgen's format, filename and cadence. The GAN harness's artifacts are
 sample grids stamped with the epoch, the two sanity probes, the NaN check,
 the nearest-neighbour distance to the corpus and, when a V checkpoint is
-in the save directory, V's rating of the samples; it picks up a pretrained
+in the save directory, V's rating of the samples, and every
+``weights_vis_freq`` epochs D's activation grids; it picks up a pretrained
 G from the save directory by filename, resumes, and rebuilds optimizer
-states on ``--rebuildOptstate``. Each epoch's reals reach the device in
-one copy, and the epoch's metrics come back in one.
+states on ``--rebuildOptstate``. With ``collapse_detect`` a collapse
+detector (``eval/collapse.py``) watches each epoch and visualization and
+stops a collapsed run (``collapse.json``, ``adversarial_collapsed.ckpt``).
+``train`` can trace one epoch with ``torch.profiler``. Each epoch's reals
+reach the device in one copy, and the epoch's metrics come back in one.
 
 Not ported yet, and refused rather than ignored: data parallelism
-(``n_devices > 1``, ROADMAP Queue A item 11), the collapse detector and
-activation grids (item 4).
+(``n_devices > 1``, ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Optional
@@ -32,7 +36,9 @@ from catgen_torch.core.module import reset_parameters
 from catgen_torch.core.random import Draws
 from catgen_torch.data import color as colorlib
 from catgen_torch.data.loader import ImageDataset
-from catgen_torch.eval.collapse import per_pixel_std, sat_fraction
+from catgen_torch.eval.collapse import (CollapseDetector, per_pixel_std,
+                                        sat_fraction)
+from catgen_torch.io.activations import save_activation_grids
 from catgen_torch.io import checkpoint as ckpt
 from catgen_torch.io.convert import (train_state_from_leaves,
                                      train_state_to_leaves,
@@ -92,10 +98,6 @@ class GanHarness:
                  logger: Optional[MetricsLogger] = None):
         if hc.n_devices > 1:
             raise not_ported("data parallelism (n_devices > 1)", "11")
-        if hc.collapse_detect:
-            raise not_ported("the collapse detector", "4")
-        if hc.weights_vis_freq:
-            raise not_ported("D activation grids (weights_vis_freq)", "4")
         self.hc = hc
         self.gc = dataclasses.replace(
             gc, noise_dim=hc.noise_dim,
@@ -123,6 +125,7 @@ class GanHarness:
         self.plot_data = []
         self._viz_corpus = None
         self._nn_baseline = None
+        self.collapse = CollapseDetector() if hc.collapse_detect else None
         self.logger.log("setup", g_params=_count(self.state.g),
                         d_params=_count(self.state.d),
                         acc_window=self.gc.acc_window,
@@ -229,6 +232,9 @@ class GanHarness:
         }
         self.logger.log("epoch", **summary)
         print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
+        if self.collapse is not None:
+            self.collapse.observe_epoch(summary["epoch"], summary["acc_d"],
+                                        summary["loss_g"])
         return summary
 
     def _to_rgb(self, x: torch.Tensor) -> torch.Tensor:
@@ -243,7 +249,10 @@ class GanHarness:
         fixed slice of the corpus (over the slice's own, the
         ``nn_l2_ratio``) and, with a V, V's mean p(real) over all samples
         and over D's best and worst 50 (``v_rating_*``, also appended to
-        ``plot_data``)."""
+        ``plot_data``). The collapse detector, if on, observes the
+        probes and the samples' statistics; every ``weights_vis_freq``
+        epochs D's activations on the first sample are written as grids
+        under ``activations/epoch_<N>``."""
         epoch = self.state.epoch
         if self._viz_corpus is None:
             k = min(512, len(self.dataset))
@@ -299,26 +308,93 @@ class GanHarness:
                 fields["v_rating_bad"] = v3
             self.plot_data.append([epoch, *v3])
         self.logger.log("viz", **fields)
+        if self.collapse is not None:
+            self.collapse.observe_viz(epoch, fields["d_probe_pattern"],
+                                      fields["d_probe_real"],
+                                      fields["sample_sat"],
+                                      fields["sample_std"],
+                                      fields.get("nn_l2_ratio"))
+        if self.hc.weights_vis_freq and epoch % self.hc.weights_vis_freq == 0:
+            save_activation_grids(self.state.d, imgs[:1], os.path.join(
+                base, "activations", f"epoch_{epoch:06d}"))
         return fields
 
-    def train(self, epochs: Optional[int] = None) -> str:
+    def _profiled_epoch(self, profile_dir: str) -> None:
+        """One epoch under ``torch.profiler`` (host and, on a card, CUDA
+        activities), its trace written as Chrome JSON into
+        ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        epoch = self.state.epoch
+        with profile(activities=activities) as prof:
+            self.run_epoch()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"epoch_{epoch:06d}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"[profile] trace written to {path}")
+
+    def train(self, epochs: Optional[int] = None,
+              profile_dir: Optional[str] = None) -> str:
         """The reference's epoch loop: visualize every ``vis_freq`` epochs
         (and before the first), train, save every ``save_freq`` epochs and
-        at the end."""
+        at the end. Returns "completed", or "collapsed" when the collapse
+        detector fired (checked before each epoch and after the last).
+
+        ``profile_dir``: trace the second epoch (the first with one
+        epoch) with ``_profiled_epoch``; it counts against ``epochs`` and
+        keeps the save and visualization cadence, as catgen's does."""
         epochs = epochs if epochs is not None else self.hc.epochs
+        profile_at = 1 if (epochs is None or epochs > 1) else 0
         done = 0
         while epochs is None or done < epochs:
             if done == 0 or self.state.epoch % self.hc.vis_freq == 0:
                 self.visualize()
-            self.run_epoch()
+            if self.collapse is not None and self.collapse.verdict:
+                return self._abort_collapsed()
+            if profile_dir and done == profile_at:
+                self._profiled_epoch(profile_dir)
+            else:
+                self.run_epoch()
             done += 1
             if self.state.epoch % self.hc.save_freq == 0:
                 self.save()
+        # the loop checks the verdict only at the top of an iteration, and
+        # the final state's samples are not yet observed: check both before
+        # the final save writes a possibly degenerate state
+        if self.collapse is not None and done > 0:
+            if not self.collapse.verdict:
+                self.visualize()
+            if self.collapse.verdict:
+                return self._abort_collapsed()
         # final save, unless the cadence save just wrote this state (a
         # duplicate would rotate the real previous snapshot out of .old)
         if done == 0 or self.state.epoch % self.hc.save_freq != 0:
             self.save()
         return "completed"
+
+    def _abort_collapsed(self) -> str:
+        """Stops a collapsed run: writes the detector's report, with
+        ``aborted_at_epoch``, to ``collapse.json`` and the state to
+        ``adversarial_collapsed.ckpt``. ``adversarial.ckpt`` keeps the last
+        healthy snapshot, from which a run can resume past the collapse."""
+        report = self.collapse.report()
+        report["aborted_at_epoch"] = self.state.epoch
+        path = os.path.join(self.hc.save_dir, "collapse.json")
+        os.makedirs(self.hc.save_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1)
+        self.logger.log("collapse_detected", reason=report["reason"],
+                        fired_epoch=report["fired_epoch"])
+        print(f"[collapse] {report['reason']} fired at epoch "
+              f"{report['fired_epoch']}: stopping (verdict in {path})")
+        self.save(os.path.join(self.hc.save_dir,
+                               "adversarial_collapsed.ckpt"))
+        return "collapsed"
 
 
 def _count(module: torch.nn.Module) -> int:

@@ -181,7 +181,26 @@ with a non-zero exit code and no result.
      bf16 dgrad and wgrad; the bf16 step on the default, ladder, per-layer and
      fused-prefix routes in one run (time, images/s, idle share, peak
      memory, each port kernel's device time; the fused prefix's per-quad
-     d_coords twice).
+     d_coords twice);
+ 34. the 64px pyramid's kernel shapes against their plain versions: the
+     refine trunk's per-layer upsample-conv at (256, 32, 32, 64) ->
+     64x64x64, k5 (forward, dX, dCK; f32 and bf16, the bf16 forward on
+     the TMA kernel), and the sampler forward on the augmentation's
+     (128, 64, 64, 3) reals (f32 and bf16, rows and grid, bit for bit);
+     each timed against its plain version, its library call and bound;
+ 35. cli.stack64_warmstart grafts phase 8's 32px G into a G64_stack, and
+     the training CLI runs catgen's 64px workflow (G64_stack against D64,
+     --augment --collapseDetect --weightsVisFreq 1 --profile; 2 epochs of
+     5 steps at batch 64) on the default route and ROUTE64 (the base as
+     the ladder, the refine per layer), f32 and bf16: the warm start
+     picked up, every launch as designed, a completed run, the
+     activation grids, the trace naming each kernel of the step, the
+     sample CLI reading the checkpoint;
+ 36. one 64px step at batch 8, card against CPU, on both routes (G's
+     gradients within G64_GRAD_REL); the 64px step at batch 256
+     (bench.py's 64px configuration) in f32 and bf16 on both routes
+     (median with min and max, images/s, idle share, peak memory, each
+     port kernel's device time).
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -1140,12 +1159,16 @@ def seeded_pair(seed: int, g_gain: float, d_gain: float):
     return g, d
 
 
-def step_card_vs_cpu(route=None) -> dict:
+def step_card_vs_cpu(route=None, pair=None, image=(32, 32, 3),
+                     expected=None, g_rel: float = GRAD_REL) -> dict:
     """One train step at batch 8 with augmentation on the CPU and on the
     card, from the same weights and the same draws: losses, gradients and
     parameters after the step. With ``route`` (upsample-conv selectors)
     both run that route: the card its kernels, the CPU their plain
-    versions."""
+    versions. ``pair`` makes (G, D) (default: the flagship pair, seeded)
+    for ``image``; ``expected(route)`` gives the card's launches
+    (``bf16_route_counts``) for one step, where the flagship's design does
+    not; ``g_rel`` bounds G's gradients in place of GRAD_REL."""
     import copy
 
     import torch
@@ -1155,10 +1178,10 @@ def step_card_vs_cpu(route=None) -> dict:
     from catgen_torch.train import gan
 
     config = gan.GanConfig(batch_size=8, augment=True)
-    g, d = seeded_pair(3, G_GAIN, D_GAIN)
-    reals = torch.rand((4, 32, 32, 3),
+    g, d = pair() if pair else seeded_pair(3, G_GAIN, D_GAIN)
+    reals = torch.rand((4, *image),
                        generator=torch.Generator().manual_seed(4))
-    out = {}
+    out, d_counts = {}, {}
     real_cap = optim.clamp_and_penalize
     for dev in ("cpu", "cuda"):
         gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
@@ -1190,6 +1213,11 @@ def step_card_vs_cpu(route=None) -> dict:
             torch.backends.cudnn.deterministic = mode
         if dev == "cpu":
             recorded = draws
+        elif expected:
+            d_counts = bf16_route_counts()
+            print(f"launches on the card: "
+                  f"{ {k: v for k, v in d_counts.items() if v} }")
+            require(d_counts == expected(route), "the step's launches")
         else:
             up, d_counts = upsample_counts(), sampler_counts()
             print(f"launches on the card: upsample-conv {up}; D's kernels "
@@ -1214,12 +1242,12 @@ def step_card_vs_cpu(route=None) -> dict:
         require(float(getattr(mg, name)) == float(getattr(mc, name)),
                 f"{name} differs")
     worst_grad = 0.0
-    for phase_name, a, b in zip("DG", gg, gc):
+    for phase_name, a, b, leaf_rel in zip("DG", gg, gc, (GRAD_REL, g_rel)):
         top = max(v.abs().max().item() for v in b.values())
         rel = []
         for k in b:
             err = (a[k] - b[k]).abs().max().item()
-            bound = GRAD_REL * b[k].abs().max().item() + GRAD_FLOOR * top
+            bound = leaf_rel * b[k].abs().max().item() + GRAD_FLOOR * top
             require(err <= bound, f"{phase_name} gradient {k}: {err:.3e} > "
                                   f"{bound:.3e}")
             if err > GRAD_FLOOR * top:    # not a rounding-noise leaf
@@ -1230,8 +1258,8 @@ def step_card_vs_cpu(route=None) -> dict:
               f"leaf's largest): " + ", ".join(
                   f"{k} {r:.2e}" for r, k in rel[:3]))
     print(f"gradients: worst per-leaf error {worst_grad:.2e} of the leaf's "
-          f"largest (tolerance {GRAD_REL} + {GRAD_FLOOR} of the update's "
-          f"largest)")
+          f"largest (tolerance {GRAD_REL}, G's {g_rel}, + {GRAD_FLOOR} of "
+          f"the update's largest)")
     n = beyond = 0
     worst = 0.0
     for k, want in pc.items():
@@ -2083,6 +2111,43 @@ def per_layer_steps() -> dict:
     return {k: v[0] for k, v in out.items()}
 
 
+def kernel_row(tag: str, key: str, kern, plain, library, flops: float,
+               nbytes: float, bf16: bool, card_name: str) -> dict:
+    """One upsample-conv kernel's times at one shape: the kernel (CUDA
+    events, and device time from the profiler, the wrapper's weight
+    collapse included), its plain version, its cuDNN collapsed-route call
+    (``LIBRARY_CALL[key]``: its share of the same work) in the same dtype
+    and the bound (3xTF32, with the f32 CUDA-core bound beside it, or bf16
+    on the tensor cores) of ``flops`` and ``nbytes``; printed under
+    ``tag``."""
+    dtype = "bf16" if bf16 else "f32"
+    k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+    p = cuda_ms(plain, reps=3, inner=2, warmup=1)
+    lib = cuda_ms(library, reps=5, inner=3, warmup=2)
+    k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
+    dev, _, src = device_ms(kern, calls=20, warmup=1)
+    lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
+    b_ms, b_by = (bound_bf16 if bf16 else bound_3xtf32)(flops, nbytes)
+    row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib, bound_ms=b_ms,
+               bound_by=b_by, device_ms=dev, library_device_ms=lib_dev)
+    if not bf16:
+        row["bound_f32_ms"] = bound(flops, nbytes)[0]
+    rate = ("one bf16 product at 989 TFLOP/s" if bf16 else
+            f"3xTF32 at 495 TFLOP/s; f32 CUDA cores "
+            f"{row['bound_f32_ms']:.4f} ms")
+    print(f"{tag}: kernel {row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), device "
+          f"{dev:.4f} ms ({src}, 20 calls), plain {p:.4f} ms, cuDNN "
+          f"{LIBRARY_CALL[key]} in {dtype} (collapsed route) {lib:.4f} ms, "
+          f"device {lib_dev:.4f} ms ({src_lib}), device ratio "
+          f"{dev / lib_dev:.3f}; bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.1f} GFLOP, {rate}; {nbytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s), {b_ms / dev:.3f} of the bound in device time, "
+          f"{flops / dev / 1e9:.1f} TFLOP/s (events: median of 5 timings of "
+          f"3 back-to-back calls, order kernel-plain-library-kernel); "
+          f"{card_name}")
+    return row
+
+
 def upsample_times(card_name: str, bf16: bool = False) -> dict:
     """At each G32up-c stage shape at B=640, in f32 (phase 16) or bf16
     (phase 33): each upsample-conv kernel (CUDA events, and device time
@@ -2161,34 +2226,9 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
                 lambda: fuc.block_grads_plain(x, sc, sh, al, wt, gf),
                 lib_dw, xb + yb + ckb)
         for key, (kern, plain, library, nbytes) in runs.items():
-            k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
-            p = cuda_ms(plain, reps=3, inner=2, warmup=1)
-            lib = cuda_ms(library, reps=5, inner=3, warmup=2)
-            k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
-            dev, _, src = device_ms(kern, calls=20, warmup=1)
-            lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
-            b_ms, b_by = (bound_bf16 if bf16 else bound_3xtf32)(flops,
-                                                                nbytes)
-            row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib,
-                       bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                       library_device_ms=lib_dev)
-            if not bf16:
-                row["bound_f32_ms"] = bound(flops, nbytes)[0]
-            out[key].append(row)
-            rate = ("one bf16 product at 989 TFLOP/s" if bf16 else
-                    f"3xTF32 at 495 TFLOP/s; f32 CUDA cores "
-                    f"{row['bound_f32_ms']:.4f} ms")
-            print(f"{dtype} {key} stage {s + 1} {shape}: kernel "
-                  f"{row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), device "
-                  f"{dev:.4f} ms ({src}, 20 calls), plain {p:.4f} ms, cuDNN "
-                  f"{LIBRARY_CALL[key]} in {dtype} (collapsed route) "
-                  f"{lib:.4f} ms, device {lib_dev:.4f} ms ({src_lib}), "
-                  f"device ratio {dev / lib_dev:.3f}; bound {b_ms:.4f} ms "
-                  f"({b_by}; {flops / 1e9:.1f} GFLOP, {rate}; "
-                  f"{nbytes / 1e6:.1f} MB at 3.35 TB/s), {b_ms / dev:.3f} of "
-                  f"the bound in device time, {flops / dev / 1e9:.1f} "
-                  f"TFLOP/s (events: median of 5 timings of 3 back-to-back "
-                  f"calls, order kernel-plain-library-kernel); {card_name}")
+            out[key].append(kernel_row(
+                f"{dtype} {key} stage {s + 1} {shape}", key, kern, plain,
+                library, flops, nbytes, bf16, card_name))
         if bf16:
             pass_times(out, card_name, s, shape, v, y)
             block_backward_time(out, card_name, s, shape, v, y, lib_y,
@@ -3671,14 +3711,16 @@ def require_launches(fn, want: dict, what: str) -> dict:
 
 def bf16_step_times(card_name: str, dtype, remat: bool,
                     route=None, route_name: str = "",
-                    want_kernels=None) -> dict:
+                    want_kernels=None, pair=None, batch: int = TRAIN_B,
+                    image=(32, 32, 3)) -> dict:
     """One configuration of phases 29 and 33: bench.py's train step (batch
     640, augmentation, logit BCE, Adam) in ``dtype``, with or without
     remat, on the default route or on ``route``: median step of 10,
     images/s, peak device memory, profiled idle share, and each port
     kernel's device time in the profiled step (``device_ms``: name ->
     (ms, launches)); with ``want_kernels`` one more step, whose kernels
-    must launch as ``require_launches`` says."""
+    must launch as ``require_launches`` says. ``pair`` makes (G, D)
+    (default: the flagship pair, seeded) for ``image`` at ``batch``."""
     import contextlib
 
     import torch
@@ -3687,13 +3729,13 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     from catgen_torch.train import gan
     from torch.profiler import ProfilerActivity, profile
 
-    config = gan.GanConfig(batch_size=TRAIN_B, augment=True,
+    config = gan.GanConfig(batch_size=batch, augment=True,
                            compute_dtype=dtype, remat=remat)
-    g, d = seeded_pair(6, G_GAIN, D_GAIN)
+    g, d = pair() if pair else seeded_pair(6, G_GAIN, D_GAIN)
     g, d = g.cuda(), d.cuda()
     state = gan.init_state(g, d, config)
     step = gan.make_train_step(g, d, config)
-    reals = torch.rand((TRAIN_B // 2, 32, 32, 3), device="cuda")
+    reals = torch.rand((batch // 2, *image), device="cuda")
     draws = Draws(torch.Generator("cuda").manual_seed(0))
     with (upconfig.using(**route) if route else contextlib.nullcontext()):
         for _ in range(2):
@@ -3724,8 +3766,8 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     device = {e.key: (e.self_device_time_total / 1e3, e.count)
               for e in kernels if any(k in e.key for k in (
                   "upsample_conv", "sum_rows", "st_conv", "Layout"))}
-    print(f"train step {name}, batch {TRAIN_B}: median {med:.3f} ms of 10 "
-          f"(min {lo:.3f}, max {hi:.3f}) = {2 * TRAIN_B / med * 1e3:.1f} "
+    print(f"train step {name}, batch {batch}: median {med:.3f} ms of 10 "
+          f"(min {lo:.3f}, max {hi:.3f}) = {2 * batch / med * 1e3:.1f} "
           f"images/s; peak device memory {peak / 2 ** 30:.3f} GiB; "
           f"profiled step: wall {wall * 1e3:.3f} ms, device kernels "
           f"{busy / 1e3:.3f} ms, idle share "
@@ -3734,7 +3776,8 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     for key, (ms, count) in sorted(device.items(), key=lambda i: -i[1][0]):
         print(f"  port kernel in the step: {key[:90]} x{count}, {ms:.4f} ms "
               f"in all; {card_name}")
-    return {"step_ms": med, "images_per_s": 2 * TRAIN_B / med * 1e3,
+    return {"step_ms": med, "step_min_ms": lo, "step_max_ms": hi,
+            "images_per_s": 2 * batch / med * 1e3,
             "peak_bytes": peak, "idle_share": idle,
             "device_ms": busy / 1e3, "kernel_device_ms": device}
 
@@ -4088,6 +4131,388 @@ def bf16_route_step_times(card_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the 64px pyramid: G64_stack against D64 (phases 34-36)
+# ---------------------------------------------------------------------------
+
+B64 = 256                  # bench.py's 64px training batch
+IMG64 = (64, 64, 3)
+# the refine trunk's upsample-conv in a G batch of B64: (N, H, W, Cin,
+# Cout, k), 32x32x64 -> 64x64x64 with a 5x5 kernel (3x3 collapsed taps)
+REFINE_SHAPE = (B64, 32, 32, 64, 64, 5)
+# the augmentation of the reals, half of a B64 batch: (N, H, W, C, Ho, Wo)
+SAMPLER64_SHAPE = (B64 // 2, 64, 64, 3, 64, 64)
+# the 64px kernel route: the base G32up-c as the ladder, the refine
+# trunk's upsample-conv per layer (a plain Sequential), both backwards on
+# their kernels
+ROUTE64 = dict(upsample_impl="pallas", fused_ladder=True,
+               ladder_bwd="pallas", upsample_bwd="pallas")
+# catgen's documented 64px run (tools/stack64_warmstart.py), 2 epochs of 5
+# steps at batch 64 on a fixture corpus
+TRAIN64_ARGS = ["--fixture", "256", "--scale", "64", "--G", "g64_stack",
+                "--D", "d64", "--augment", "--collapseDetect",
+                "--weightsVisFreq", "1", "--epochs", "2", "--batchSize",
+                "64", "--N_epoch", "160"]
+# G's gradients in a 64px step, card against CPU: f32 rounding may flip
+# the PReLU branch of one of the refine trunk's 2^20 pre-activations,
+# which moves a weight gradient by ~1e-3 of itself (the CPU parity test's
+# finding, tests/test_torch_port_refine64.py)
+G64_GRAD_REL = 2e-3
+# the profiler names of each launch counter's kernels (bf16_route_counts'
+# keys), f32 and bf16
+TRACE_NAMES = {
+    "LAUNCHES": ("sample_per", "RowsLayout"),
+    "BF16_LAUNCHES": ("sample_per", "RowsLayout"),
+    "up_LAUNCHES": ("upsample_conv_fwd<false",),
+    "up_BLOCK_LAUNCHES": ("upsample_conv_fwd<true",),
+    "up_DX_LAUNCHES": ("upsample_conv_dx<false",),
+    "up_BLOCK_DX_LAUNCHES": ("upsample_conv_dx<true",),
+    "up_DCK_LAUNCHES": ("upsample_conv_dck<false",),
+    "up_BLOCK_DCK_LAUNCHES": ("upsample_conv_dck<true",),
+    "up_BF16_LAUNCHES": ("upsample_conv_fwd_bf16", "<false"),
+    "up_BF16_BLOCK_LAUNCHES": ("upsample_conv_fwd_bf16", "<true"),
+    "up_BF16_DX_LAUNCHES": ("upsample_conv_dx_bf16<false",),
+    "up_BF16_BLOCK_DX_LAUNCHES": ("upsample_conv_dx_bf16<true",),
+    "up_BF16_DCK_LAUNCHES": ("upsample_conv_dck_bf16<",),
+    "up_BF16_BLOCK_DCK_LAUNCHES": ("upsample_conv_dck_bf16<",),
+    "up_BF16_TRANSFORM_LAUNCHES": ("upsample_conv_transform_bf16",),
+    "up_BF16_FOLD_LAUNCHES": ("upsample_conv_fold_bf16",),
+}
+
+
+def seeded64(seed: int):
+    """G64_stack and D64 with the flagship's seeded weights (``perturb``
+    at the card-against-CPU gains)."""
+    from catgen_torch import models
+
+    g = models.create_G64_stack(IMG64, 100)
+    d = models.create_D64(IMG64)
+    perturb(g, d, seed, G_GAIN, D_GAIN)
+    return g, d
+
+
+def expected64(route, steps: int, g_evals: int, bf16: bool = False) -> dict:
+    """``bf16_route_counts`` as the design gives them for ``steps`` train
+    steps of G64_stack against D64 with augmentation, in bf16 or f32, and
+    ``g_evals`` eval-mode G batches (in f32: the visualization samples in
+    f32) on ``route`` (None: the default route). D64 has no spatial
+    transformer: a step's one sampler launch is the augmentation's
+    forward. On ROUTE64 a G forward runs 3 ladder blocks (the base) and one
+    per-layer forward (the refine trunk); a step runs G forward twice
+    (the D phase, without gradient, and the G phase) and backward once;
+    the bf16 blocks add their transform and fold passes
+    (``expected_bf16_route``)."""
+    want = dict.fromkeys(bf16_route_counts(), 0)
+    want["BF16_LAUNCHES" if bf16 else "LAUNCHES"] = steps
+    if route is None:
+        return want
+
+    def up(n_steps: int, n_evals: int) -> dict:
+        forwards = 2 * n_steps + n_evals
+        return {"BLOCK_LAUNCHES": 3 * forwards, "LAUNCHES": forwards,
+                "BLOCK_DX_LAUNCHES": 3 * n_steps,
+                "BLOCK_DCK_LAUNCHES": 3 * n_steps,
+                "DX_LAUNCHES": n_steps, "DCK_LAUNCHES": n_steps}
+
+    stepped = up(steps, 0)
+    for k, v in up(0, g_evals).items():
+        want[f"up_{k}"] += v
+    for k, v in stepped.items():
+        want[f"up_BF16_{k}" if bf16 else f"up_{k}"] += v
+    if bf16:
+        want["up_BF16_TRANSFORM_LAUNCHES"] = (stepped["BLOCK_LAUNCHES"]
+                                              + stepped["BLOCK_DCK_LAUNCHES"])
+        want["up_BF16_FOLD_LAUNCHES"] = stepped["BLOCK_DCK_LAUNCHES"]
+    return want
+
+
+def refine_vs_plain(bf16: bool = False) -> dict:
+    """Phase 34: the per-layer upsample-conv kernels at the refine trunk's
+    shape (REFINE_SHAPE; Cin = Cout = 64, so every 128-channel tile runs
+    half masked) against their plain versions: the forward's y (bias only,
+    as the trunk runs it), the backward's dx, dweight and dbias
+    (``output_check``: y and dx tight, the sums over the batch loose),
+    each run twice, the repeats bit for bit. In bf16 the forward must take
+    the TMA kernel (box (32, 4, 1): one 64-deep contraction step a tap),
+    and the profiler must see it. Returns the largest error of each
+    kernel and, under "<key>_rel", over the largest plain value."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    v = upsample_inputs(REFINE_SHAPE, 410 + bf16, bf16)
+    x, w, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
+    n, h, wd, cin, _, _ = REFINE_SHAPE
+    tag = f"{REFINE_SHAPE} {'bf16' if bf16 else 'f32'}"
+    if bf16:
+        run = lambda: fuc.upsample2_conv_fused(x, w, b)  # noqa: E731
+        kind = fuc.forward_kind_bf16(x)
+        names = [k for k in kernel_names(run)
+                 if "upsample_conv_fwd_bf16" in k]
+        print(f"{tag} forward: {kind} kernel (box "
+              f"{fuc.fwd_bf16_box(n, h, wd, cin)}), the profiler saw "
+              f"{names or 'no kernel in 3 sessions'}")
+        require(kind == "tma" and (not names or (
+            len(names) == 1 and "upsample_conv_fwd_bf16_tma<" in names[0])),
+            f"the bf16 forward at the refine shape took {kind}: {names}")
+    worst = {}
+    for keys, names, kern, plain in (
+            (("fwd",), ("y",), lambda: (fuc.upsample2_conv_fused(x, w, b),),
+             lambda: (fuc.block_plain(x, w, b),)),
+            (("dx", "dck", "dck"), ("dx", "dweight", "dbias"),
+             lambda: fuc.upsample2_conv_backward(x, w, gy),
+             lambda: fuc.kernel_backward_plain(x, w, gy))):
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        for key, name, a, a2, p in zip(keys, names, got, again, plain()):
+            err, rel = output_check(f"{tag} {key} {name}", a, a2, p,
+                                    loose=name.startswith("d") and
+                                    name != "dx")
+            worst[key] = max(worst.get(key, 0.0), err)
+            worst[f"{key}_rel"] = max(worst.get(f"{key}_rel", 0.0), rel)
+    del v, x, w, b, gy
+    torch.cuda.empty_cache()
+    return worst
+
+
+def refine_times(card_name: str, bf16: bool = False) -> dict:
+    """Phase 34: the per-layer forward, dX and dCK at the refine trunk's
+    shape, each against its plain version, cuDNN's collapsed route and
+    its bound (``kernel_row``). The bound's work is the collapsed
+    product's: 2 x N x 32 x 32 x 4 parities x 9 taps x 64 x 64 flops
+    (7.7e10 at N = 256); its bytes each operand read once, each output
+    written once."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+    from catgen_torch.kernels.upsample_conv import upsample2_conv
+
+    n, h, w, cin, cout, k = REFINE_SHAPE
+    v = upsample_inputs(REFINE_SHAPE, 420 + bf16, bf16)
+    x, wt, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
+    xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
+    lib_y = upsample2_conv(xr, wr)
+    kp = (k + 1) // 2
+    flops = 2.0 * n * h * w * 4 * kp * kp * cin * cout
+    elem = x.element_size()
+    xb, yb = x.numel() * elem, gy.numel() * elem
+    wb = 4 * kp * kp * cin * cout * elem
+    ckb = 4 * kp * kp * cin * cout * 4
+    runs = {
+        "fwd": (lambda: fuc.upsample2_conv_fused(x, wt, b),
+                lambda: fuc.block_plain(x, wt, b),
+                lambda: upsample2_conv(x, wt), xb + wb + yb),
+        "dx": (lambda: fuc.upsample2_conv_dx(x, wt, gy),
+               lambda: fuc.kernel_backward_plain(x, wt, gy),
+               lambda: torch.autograd.grad(lib_y, [xr], gy,
+                                           retain_graph=True),
+               yb + wb + xb),
+        "dck": (lambda: fuc._launch_dck(x, wt, gy),
+                lambda: fuc._kernel_vjp(x, wt, gy, need_x=False),
+                lambda: torch.autograd.grad(lib_y, [wr], gy,
+                                            retain_graph=True),
+                xb + yb + ckb),
+    }
+    dtype = "bf16" if bf16 else "f32"
+    out = {key: kernel_row(f"{dtype} {key} refine {REFINE_SHAPE}", key,
+                           kern, plain, library, flops, nbytes, bf16,
+                           card_name)
+           for key, (kern, plain, library, nbytes) in runs.items()}
+    del runs, lib_y, xr, wr, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampler64(card_name: str) -> dict:
+    """Phase 34: the sampler forward on the augmentation's 64x64x3 reals
+    (SAMPLER64_SHAPE) at the augmentation's own coordinates, f32 and bf16,
+    rows and grid: the kernel each dtype takes (``forward_kind``; the
+    image staged in shared memory: 48 KiB in f32, widened to 4 channels
+    in bf16), bit for bit against the plain version (per quad or staged;
+    within KERNEL_TOL otherwise), repeats bit for bit; times: the kernel
+    and its plain version in CUDA events, the kernel's and grid_sample's
+    device time, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch.kernels import bilinear, bilinear_grid
+
+    n, h, w, c, ho, wo = SAMPLER64_SHAPE
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        gen = torch.Generator("cuda").manual_seed(430)
+        img = torch.rand((n, h, w, c), generator=gen,
+                         device="cuda").to(dtype)
+        rows = augment_rows(img, 431)
+        grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
+        kind = bilinear.forward_kind(h, w, c, dtype)
+        want = bilinear.bilinear_sample_rows_plain(img, rows, (ho, wo))
+        for layout, kern in (
+                ("rows", lambda: bilinear.launch(img, rows, (ho, wo))),
+                ("grid", lambda: bilinear_grid.launch(img, grid))):
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            exact = torch.equal(got, want)
+            print(f"sampler forward {name} {layout} {SAMPLER64_SHAPE}: "
+                  f"{kind} kernel, max_abs_err {err:.3e}, bits of the plain "
+                  f"version: {exact}, repeat bit-identical: "
+                  f"{torch.equal(got, again)}")
+            require(exact or (kind not in BIT_EXACT_FORWARDS
+                              and err <= KERNEL_TOL),
+                    f"the {name} {layout} sampler forward at 64x64x3")
+            require(torch.equal(got, again), "the sampler forward repeats")
+            out[f"{name}_{layout}_max_abs_err"] = err
+        inp = img.permute(0, 3, 1, 2).contiguous()
+        xy = grid.flip(-1).contiguous()           # grid_sample takes (x, y)
+        kern = lambda: bilinear.launch(img, rows, (ho, wo))  # noqa: E731
+        plain = lambda: bilinear.bilinear_sample_rows_plain(  # noqa: E731
+            img, rows, (ho, wo))
+        library = lambda: F.grid_sample(  # noqa: E731
+            inp, xy, mode="bilinear", padding_mode="border",
+            align_corners=True)
+        k1, p, lib, k2 = (cuda_ms(kern, inner=10), cuda_ms(plain, inner=10),
+                          cuda_ms(library, inner=10), cuda_ms(kern, inner=10))
+        dev, lib_dev = sampler_device_line(
+            "fwd", "rows", SAMPLER64_SHAPE, kern, library, card_name,
+            elem=2 if dtype == torch.bfloat16 else 4)
+        b_ms, b_by = sampler_bound("fwd", SAMPLER64_SHAPE,
+                                   img.element_size())
+        out[name] = dict(kind=kind, ms=min(k1, k2), plain_ms=p,
+                         library_ms=lib, device_ms=dev,
+                         library_device_ms=lib_dev, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"sampler forward {name} {SAMPLER64_SHAPE}: kernel "
+              f"{min(k1, k2):.4f} ms ({k1:.4f} / {k2:.4f}), plain {p:.4f} "
+              f"ms, grid_sample {lib:.4f} ms (CUDA events, median of 20 "
+              f"timings of 10 back-to-back calls), bound {b_ms:.4f} ms "
+              f"({b_by}); {card_name}")
+        del img, rows, grid, inp, xy, want
+    return out
+
+
+def trace_kernels(trace_dir: str) -> set:
+    """The kernel names in the one Chrome trace under ``trace_dir``."""
+    files = os.listdir(trace_dir)
+    require(len(files) == 1 and files[0].endswith(".trace.json"),
+            f"the profile directory holds {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def train64_on_card(save: str, route=None, bf16: bool = False) -> dict:
+    """Phase 35: catgen's 64px run through the training CLI on the card
+    (TRAIN64_ARGS: G64_stack against D64, augmented, with the collapse
+    detector, activation grids at every visualization and a profiled
+    second epoch), on the default route or ROUTE64, in f32 or bf16: the
+    launches of every kernel as ``expected64`` gives them (3
+    visualizations: before each epoch and the detector's look after the
+    last), a completed run (no collapse.json), the activation grids, the
+    trace naming each kernel the profiled epoch launched, and the sample
+    CLI reading the checkpoint on the card. Returns the counts and
+    steps."""
+    from catgen_torch.cli import sample as sample_cli
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.kernels import config as upconfig
+
+    trace = os.path.join(save, "trace")
+    name = (f"{'bf16' if bf16 else 'f32'} "
+            f"{'kernel' if route else 'default'} route")
+    reset_counts()
+    t0 = time.perf_counter()
+    with upconfig.using(**(route or {})):
+        harness = train_cli.main(
+            TRAIN64_ARGS + ["--device", "cuda", "--save", save, "--profile",
+                            trace] + (["--dtype", "bf16"] if bf16 else []))
+    seconds = time.perf_counter() - t0
+    counts, steps = bf16_route_counts(), harness.state.step
+    want = expected64(route, steps, 3, bf16)
+    shown = {k: v for k, v in counts.items() if v or want[k]}
+    print(f"64px training CLI, {name}: {steps} steps, 3 visualizations, "
+          f"{seconds:.1f} s; launches {shown}, expected "
+          f"{ {k: want[k] for k in shown} }")
+    require(steps == 10 and counts == want,
+            f"the 64px training CLI's launches on the {name}")
+    require(harness.collapse is not None and harness.collapse.verdict is None
+            and not os.path.exists(os.path.join(save, "collapse.json")),
+            "the 64px run did not complete")
+    with open(os.path.join(save, "train_metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    require(len(epochs) == 2 and all(math.isfinite(e[k]) for e in epochs
+                                     for k in ("loss_d", "loss_g")),
+            "the 64px run's epochs")
+    print(f"  epochs: " + "; ".join(
+        f"loss_d {e['loss_d']:.5f} loss_g {e['loss_g']:.5f} acc_d "
+        f"{e['acc_d']:.4f}" for e in epochs))
+    for epoch in (1, 2, 3):
+        grids = os.listdir(os.path.join(save, "activations",
+                                        f"epoch_{epoch:06d}"))
+        require(len(grids) == 28, f"{len(grids)} activation grids of D64")
+    names = trace_kernels(trace)
+    traced = {k: any(all(p in n for p in TRACE_NAMES[k]) for n in names)
+              for k, v in expected64(route, 1, 0, bf16).items() if v}
+    print(f"  the trace of epoch 2 ({len(names)} kernel names) names "
+          f"{traced}")
+    require(all(traced.values()), "a kernel of the step is not in the trace")
+    with upconfig.using(**(route or {})):
+        runs = sample_cli.main(["--save", save, "--count", "256",
+                                "--device", "cuda", "--neighbours"])
+    check_finite(runs[0])
+    require(tuple(runs[0]["images"].shape) == (256,) + IMG64
+            and runs[0]["images"].is_cuda, "the 64px samples")
+    print(f"  sample CLI read the 64px checkpoint on the card: 256 images, "
+          f"D scores {runs[0]['scores'].min().item():.4f}..."
+          f"{runs[0]['scores'].max().item():.4f}")
+    return {"launches": counts, "steps": steps, "seconds": seconds,
+            "events": events}
+
+
+def warmstart64(ckpt32: str, save: str) -> None:
+    """Phase 35: ``cli.stack64_warmstart`` grafts a 32px run's G (phase
+    8's checkpoint) into a fresh G64_stack under the pickup filename;
+    its base leaves are the 32px G's, bit for bit."""
+    import numpy as np
+    from catgen_torch.cli import stack64_warmstart
+
+    out = stack64_warmstart.main(["--ckpt", ckpt32, "--save", save])
+    with np.load(ckpt32) as a, np.load(out) as b:
+        src = {k[len(".g_params"):]: a[k] for k in a.files
+               if k.startswith(".g_params")}
+        dst = {k[len("['params']['00_G32up_c']"):]: b[k] for k in b.files
+               if k.startswith("['params']['00_G32up_c']")}
+        same = src.keys() == dst.keys() and all(
+            np.array_equal(src[k], dst[k]) for k in src)
+    print(f"warm start {out}: {len(dst)} base parameter arrays, the 32px "
+          f"run's bits: {same}")
+    require(same, "the warm start's base is not the 32px run's G")
+
+
+def steps64_card_vs_cpu() -> dict:
+    """Phase 36: one 64px step at batch 8, card against CPU, on the
+    default route and on ROUTE64 (``step_card_vs_cpu``; G's gradients
+    within G64_GRAD_REL)."""
+    return {name: step_card_vs_cpu(
+        route, pair=lambda: seeded64(3), image=IMG64,
+        expected=lambda r: expected64(r, 1, 0), g_rel=G64_GRAD_REL)
+        for name, route in (("default", None), ("kernel", ROUTE64))}
+
+
+def step64_times(card_name: str) -> dict:
+    """Phase 36: bench.py's 64px step (G64_stack against D64, batch 256,
+    augmented) in f32 and bf16 on the default route and ROUTE64, in one
+    run (``bf16_step_times``: median of 10 with min and max, images/s,
+    peak memory, idle share, each port kernel's device time)."""
+    import torch
+
+    out = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for rname, route in (("default", None), ("kernel", ROUTE64)):
+            out[f"{dname}_{rname}"] = bf16_step_times(
+                card_name, dtype, False, route, f"64px {rname}",
+                pair=lambda: seeded64(6), batch=B64, image=IMG64)
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -4116,9 +4541,12 @@ def main(argv=None) -> int:
         card_vs_cpu(save)
         phase(7, "sampling times on the card")
         t = times(save, card_name)
+    # phase 8's checkpoint, kept for the 64px warm start (phase 35)
+    run32 = tempfile.TemporaryDirectory(prefix="chip_smoke_run32_")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save:
         phase(8, "the training slice through the CLI")
         train_counts, _, steps = train_on_card(save)
+        shutil.copy(os.path.join(save, "adversarial.ckpt"), run32.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_repeat_") as root:
         phase(8, "the training CLI twice from one seed: its numeric mode, "
                  "the same checkpoint bits")
@@ -4281,6 +4709,55 @@ def main(argv=None) -> int:
                               for k, v in bf16_route_steps.items()},
         "steps": {k: {m: v[m] for m in v if m != "kernel_device_ms"}
                   for k, v in brt.items()}}}))
+
+    phase(34, f"the 64px kernels against their plain versions: the refine "
+              f"trunk's upsample-conv at {REFINE_SHAPE}, the sampler "
+              f"forward at {SAMPLER64_SHAPE}")
+    t0 = time.perf_counter()
+    refine_err = {"f32": refine_vs_plain(), "bf16": refine_vs_plain(True)}
+    refine_t = {"f32": refine_times(card_name),
+                "bf16": refine_times(card_name, True)}
+    s64 = sampler64(card_name)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_64_") as root:
+        phase(35, "the 64px run through cli.train (G64_stack against D64, "
+                  "--augment --collapseDetect --weightsVisFreq 1 "
+                  "--profile), warm-started by cli.stack64_warmstart from "
+                  "phase 8's checkpoint; default and kernel routes, f32 "
+                  "and bf16")
+        t0 = time.perf_counter()
+        runs64 = {}
+        for bf16 in (False, True):
+            for rname, route in (("default", None), ("kernel", ROUTE64)):
+                save = os.path.join(root, f"{rname}{int(bf16)}")
+                if rname == "default" and not bf16:
+                    warmstart64(os.path.join(run32.name, "adversarial.ckpt"),
+                                save)
+                runs64[f"{'bf16' if bf16 else 'f32'}_{rname}"] = \
+                    train64_on_card(save, route, bf16)
+        picked = [e for e in runs64["f32_default"].pop("events")
+                  if e["event"] == "pretrained_g_loaded"]
+        print(f"the 64px run picked up the warm start: {picked}")
+        require(len(picked) == 1, "the 64px run did not pick up the warm "
+                                  "start")
+        for r in runs64.values():
+            r.pop("events", None)
+        print(f"phase 35: {time.perf_counter() - t0:.1f} s")
+    run32.cleanup()
+    phase(36, f"one 64px step at batch 8, card against CPU; the 64px step "
+              f"at batch {B64} in f32 and bf16 on the default and kernel "
+              f"routes")
+    t0 = time.perf_counter()
+    steps64 = steps64_card_vs_cpu()
+    t64 = step64_times(card_name)
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"pyramid_64px": {
+        "card": card_name,
+        "steps_card_vs_cpu": {k: {m: v[m] for m in v if m != "launches"}
+                              for k, v in steps64.items()},
+        "cli_runs": runs64,
+        "steps": {k: {m: v[m] for m in v if m != "kernel_device_ms"}
+                  for k, v in t64.items()}}}))
 
     from catgen_torch.kernels import bilinear
 
@@ -4582,6 +5059,33 @@ def main(argv=None) -> int:
         device_ms_per_step=device_step_ms(
             {"device_ms": brt["fused-prefix"]["kernel_device_ms"]},
             "st_conv_bf16_mma")))
+    # the 64px pyramid (phases 34-36): the shapes it gives the kernels and
+    # their launches in its CLI runs on the kernel route
+    by_name = {k["name"]: k for k in kernels}
+    for dtype, suffix, prefix in (("f32", "", ""), ("bf16", "_bf16", "BF16_")):
+        run = runs64[f"{dtype}_kernel"]["launches"]
+        for key, name, counter, _, _ in UP_KERNELS:
+            entry = by_name[name + suffix]
+            entry["at_64px"] = {"launches_train_64px":
+                                run[f"up_{prefix}{counter}"]}
+            if key in refine_t[dtype]:
+                entry["at_64px"].update(
+                    shape=str(REFINE_SHAPE),
+                    max_abs_err=refine_err[dtype][key],
+                    max_rel_err=refine_err[dtype][f"{key}_rel"],
+                    **refine_t[dtype][key])
+            else:
+                entry["at_64px"]["shape"] = "G64_stack's base (G32up-c)"
+        rows = by_name["bilinear_sample_rows" + suffix]
+        rows["at_64px"] = {
+            "shape": str(SAMPLER64_SHAPE), **s64[dtype],
+            "max_abs_err": s64[f"{dtype}_rows_max_abs_err"],
+            "grid_max_abs_err": s64[f"{dtype}_grid_max_abs_err"],
+            "launches_train_64px": runs64[f"{dtype}_default"]["launches"][
+                f"{prefix}LAUNCHES"]}
+    for _, name, counter, _, _ in BF16_PASSES:
+        by_name[name]["at_64px"] = {"launches_train_64px": runs64[
+            "bf16_kernel"]["launches"][f"up_{counter}"]}
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

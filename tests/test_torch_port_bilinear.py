@@ -80,6 +80,29 @@ def test_grid_form_matches_rows_form():
     assert torch.equal(a, b)
 
 
+def test_plain_version_clamps_a_nan_coordinate_as_the_kernels_do():
+    """A NaN coordinate (a diverged run's transform) samples as 0 in pixel
+    space does, the kernels' fmaxf(f, 0): no index out of range, and a
+    NaN image still reaches the output (the collapse detector's NaN
+    signal)."""
+    img, rows = _inputs(SHAPES[0])
+    nan_rows = rows.copy()
+    nan_rows[0, 0, :5] = np.nan            # y of five pixels
+    nan_rows[1, 1, 7] = np.nan             # x of one pixel
+    zero = rows.copy()
+    zero[0, 0, :5] = -1.0                  # pixel 0 in y
+    zero[1, 1, 7] = -1.0                   # pixel 0 in x
+    got = bilinear.bilinear_sample_rows_plain(
+        torch.tensor(img), torch.tensor(nan_rows), (32, 32))
+    want = bilinear.bilinear_sample_rows_plain(
+        torch.tensor(img), torch.tensor(zero), (32, 32))
+    assert torch.equal(got, want)
+    nan_img = torch.full((2, 32, 32, 3), float("nan"))
+    out = bilinear.bilinear_sample_rows_plain(nan_img, torch.tensor(
+        nan_rows), (32, 32))
+    assert bool(torch.isnan(out).all())
+
+
 def test_cpu_tensors_take_plain_version_and_count_no_launch():
     img, rows = _inputs(SHAPES[0])
     before = bilinear.LAUNCHES

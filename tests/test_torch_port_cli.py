@@ -1,7 +1,8 @@
 """The port's training CLI (catgen_torch/cli/train.py) on the CPU at a tiny
 size: it writes the metrics, the grids and a catgen-format checkpoint that
 catgen loads and the port's sample CLI reads; it resumes from its own
-checkpoint; and it refuses every flag whose machinery is not ported. Then
+checkpoint; --collapseDetect, --weightsVisFreq and --profile do their
+work; and it refuses every flag whose machinery is not ported. Then
 the reference's workflow in one --save: cli.train_v, cli.pretrain_g, and
 cli.train picking up both files (the overlay bank at catgen's test size,
 tests/test_v_subsystem.py, in place of the full 1000 x 10000 walk)."""
@@ -98,12 +99,41 @@ def test_resume_continues_from_the_checkpoint(trained, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--collapseDetect"],
-    ["--weightsVisFreq", "1"], ["--profile", "trace"]])
+    ["--devices", "2"], ["--coordinator", "localhost:1234"],
+    ["--numProcesses", "2"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
         train_cli.main(ARGS + ["--epochs", "1", "--save", str(tmp_path)]
                        + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--collapseDetect"], ["--weightsVisFreq", "1"],
+    ["--profile", "trace"]])
+def test_harness_flags_do_their_work(tmp_path, flags):
+    """The flags that the CLI once refused: the detector watches a healthy
+    run to its end, D's activation grids are written at each
+    visualization, and the second epoch's trace is written."""
+    save = str(tmp_path)
+    if flags[0] == "--profile":
+        flags = ["--profile", os.path.join(save, "trace")]
+    harness = train_cli.main(ARGS + ["--epochs", "2", "--save", save]
+                             + flags)
+    assert harness.state.epoch == 3
+    if flags[0] == "--collapseDetect":
+        assert harness.collapse is not None
+        assert harness.collapse.verdict is None
+        assert not os.path.exists(os.path.join(save, "collapse.json"))
+        assert [e["epoch"] for e in _events(save)
+                if e["event"] == "viz"] == [1, 2, 3]
+    elif flags[0] == "--weightsVisFreq":
+        for epoch in (1, 2):
+            out = os.path.join(save, "activations", f"epoch_{epoch:06d}")
+            assert len(os.listdir(out)) == 13     # D32_st3's children
+    else:
+        trace = os.path.join(save, "trace", "epoch_000002.trace.json")
+        with open(trace) as f:
+            assert json.load(f)["traceEvents"]
 
 
 def test_train_cli_runs_in_bf16_and_the_sample_cli_reads_it(tmp_path):

@@ -77,6 +77,25 @@ def test_kernel_matches_plain(cuda, shape):
     assert (got - want).abs().max().item() <= ATOL
 
 
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+def test_nan_coordinates_sample_as_the_plain_version(cuda, layout):
+    """A NaN coordinate clamps to pixel 0 in the kernel (fmaxf) and in the
+    plain version alike: the same bits, no access out of range."""
+    from catgen_torch.kernels import bilinear_grid
+
+    img, rows, out_hw = _inputs(SHAPES[0], cuda, seed=5)
+    rows[0, 0, :5] = float("nan")
+    rows[1, 1, 7] = float("nan")
+    if layout == "rows":
+        got = bilinear.launch(img, rows, out_hw)
+    else:
+        grid = rows.permute(0, 2, 1).reshape(img.shape[0], *out_hw, 2)
+        got = bilinear_grid.launch(img, grid.contiguous())
+    torch.cuda.synchronize()
+    want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    assert torch.equal(got, want)
+
+
 def test_kernel_is_deterministic(cuda):
     img, rows, out_hw = _inputs(SHAPES[1], cuda, seed=1)
     a = bilinear.launch(img, rows, out_hw)
@@ -2079,6 +2098,28 @@ def test_bf16_tma_forward_of_an_empty_batch(f32_cuda):
     assert s1.abs().max().item() == 0.0 and s2.abs().max().item() == 0.0
 
 
+def test_f32_forward_of_an_empty_batch(f32_cuda):
+    """The f32 block forward on N = 0 writes zero BatchNorm sums (the sums
+    of nothing) and launches no upsample-conv kernel: the stats buffer
+    reuses a freed block of NaNs, which a skipped write would leave."""
+    v = _up_inputs((1, 4, 4, 512, 512, 3), f32_cuda, seed=73)
+    x = v["x"][:0]
+    poison = torch.full((2, 512), float("nan"), device=f32_cuda)
+    del poison
+    before = fuc.launches()
+    out = []
+    names = _forward_kernel_names(lambda: out.append(
+        fuc.upsample2_conv_block_fused(x, v["weight"], v["bias"],
+                                       v["scale"], v["shift"], v["alpha"])))
+    after = fuc.launches()
+    assert after.pop("BLOCK_LAUNCHES") == before.pop("BLOCK_LAUNCHES") + 1
+    assert after == before
+    assert not [n for n in names if "upsample_conv" in n], names
+    y, s1, s2 = out[0]
+    assert y.shape == (0, 8, 8, 512)
+    assert s1.abs().max().item() == 0.0 and s2.abs().max().item() == 0.0
+
+
 # ---------------------------------------------------------------------------
 # the bf16 ST-conv on the tensor cores (st_conv_bf16_mma): C = 1..4, F = 64
 # and 8, the training and sampling shapes and an h that is not a multiple
@@ -2403,3 +2444,94 @@ def test_bf16_st_conv_rounds_the_f32_weights_once(f32_cuda):
                              alpha)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, rounded))
+
+
+# ---------------------------------------------------------------------------
+# the 64px pyramid's shapes: the refine trunk's per-layer upsample-conv
+# (32x32x64 -> 64x64x64, k5: Cin = Cout = 64, so every 128-channel tile
+# runs half masked; in bf16 the TMA forward's box (32, 4, 1) gives one
+# 64-deep contraction step a tap), at N = 1 and 8 and with an x off a
+# 16-byte boundary (the scalar copies in f32, the cp.async forward in
+# bf16), against the plain version; and the sampler forward on the
+# augmentation's 64x64x3 reals, f32 and bf16, rows and grid, bit for bit.
+# ---------------------------------------------------------------------------
+
+REFINE_SHAPES = [(1, 32, 32, 64, 64, 5), (8, 32, 32, 64, 64, 5)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned",
+                                                           "x_off_16b"])
+@pytest.mark.parametrize("shape", REFINE_SHAPES, ids=["n1", "n8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_refine_shape_kernels_match_plain(f32_cuda, dtype, shape,
+                                          misaligned):
+    bf16 = dtype == "bf16"
+    v = (_bf16_up_inputs if bf16 else _up_inputs)(shape, f32_cuda, seed=80)
+    x = _misaligned_copy(v["x"]) if misaligned else v["x"]
+    if bf16:
+        assert fuc.forward_kind_bf16(x) == ("cp_async" if misaligned
+                                            else "tma")
+    before = fuc.launches()
+    y = fuc.upsample2_conv_fused(x, v["weight"], v["bias"])
+    grads = fuc.upsample2_conv_backward(x, v["weight"], v["gy"])
+    torch.cuda.synchronize()
+    prefix = "BF16_" if bf16 else ""
+    after = fuc.launches()
+    for name in ("LAUNCHES", "DX_LAUNCHES", "DCK_LAUNCHES"):
+        assert after[prefix + name] == before[prefix + name] + 1, name
+    want_y = fuc.block_plain(v["x"], v["weight"], v["bias"])
+    want = fuc.kernel_backward_plain(v["x"], v["weight"], v["gy"])
+    if bf16:
+        _bf16_close(y, want_y)
+        for name, a, b in zip(("dx", "dweight", "dbias"), grads, want):
+            _bf16_or_f32_close(a, b, name)
+    else:
+        _up_close(y, want_y, UP_TIGHT, "y")
+        for name, a, b, rel in zip(("dx", "dweight", "dbias"), grads, want,
+                                   (UP_TIGHT, UP_LOOSE, UP_LOOSE)):
+            _up_close(a, b, rel, name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_refine_shape_kernels_ignore_alignment_and_repeat(f32_cuda, dtype):
+    """At the refine shape the aligned and the misaligned x give the same
+    bits (bf16: the TMA forward and the cp.async one; both dtypes: the
+    16-byte and the scalar copies of dX and dCK), and repeats do too."""
+    bf16 = dtype == "bf16"
+    v = (_bf16_up_inputs if bf16 else _up_inputs)(REFINE_SHAPES[1],
+                                                  f32_cuda, seed=81)
+
+    def run(x):
+        return [fuc.upsample2_conv_fused(x, v["weight"], v["bias"]),
+                *fuc.upsample2_conv_backward(x, v["weight"], v["gy"])]
+
+    first, again, off = run(v["x"]), run(v["x"]), run(
+        _misaligned_copy(v["x"]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(first, off))
+
+
+@pytest.mark.parametrize("layout", ["rows", "grid"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_sampler_forward_at_64px_gives_the_plain_bits(cuda, dtype, layout):
+    """The augmentation's sampler on 64x64x3 reals: the per-quad kernel
+    (the image staged in shared memory: 48 KiB in f32, widened to 4
+    channels in bf16) in both dtypes, bit for bit against the plain
+    version, and the kernel of a misaligned image (per pixel) too."""
+    from catgen_torch.kernels import bilinear_grid
+
+    torch_dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    assert bilinear.forward_kind(64, 64, 3, torch_dtype) == "per_quad"
+    img, rows, out_hw = _inputs((4, 64, 64, 3, 64, 64), cuda, seed=82)
+    img, rows = img.to(torch_dtype), rows.to(torch_dtype)
+    if layout == "rows":
+        run = lambda im: bilinear.launch(im, rows, out_hw)  # noqa: E731
+    else:
+        grid = _bf16_grid(rows, out_hw)
+        run = lambda im: bilinear_grid.launch(im, grid)  # noqa: E731
+    got, again, other = run(img), run(img), run(_misaligned(img))
+    torch.cuda.synchronize()
+    want = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again) and torch.equal(got, other)

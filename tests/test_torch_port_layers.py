@@ -303,8 +303,9 @@ def test_fixture_and_grids_equal_catgen():
 def test_registries_hold_only_the_ported_pair():
     from catgen_torch import models
 
-    assert set(models.G_REGISTRY) == {"g32up_c", "default"}
-    assert set(models.D_REGISTRY) == {"d32_st3", "default"}
+    assert set(models.G_REGISTRY) == {"g32up_c", "default", "g64_stack",
+                                      "refine64"}
+    assert set(models.D_REGISTRY) == {"d32_st3", "default", "d64"}
     for registry, key in ((models.G_REGISTRY, "g16up"),
                           (models.D_REGISTRY, "d32")):
         with pytest.raises(NotImplementedError, match="Queue A item 10"):
