@@ -9,10 +9,23 @@ from catgen_torch.models.zoo import (  # noqa: F401
     G_REGISTRY,
     V_REGISTRY,
     create_D,
+    create_D16,
+    create_D16b,
+    create_D16_st3,
+    create_D32,
+    create_D32b,
+    create_D32c,
+    create_D32d,
+    create_D32e,
     create_D32_st3,
     create_G,
     create_G_autoencoder,
+    create_G_decoder,
+    create_G_decoder_upsampling16,
+    create_G_decoder_upsampling32,
+    create_G_decoder_upsampling32b,
     create_G_decoder_upsampling32c,
+    create_G_encoder16,
     create_G_encoder32,
     create_V,
     create_V16,

@@ -133,6 +133,30 @@ class Conv(nn.Module):
         return to_nhwc(y) + self.bias.to(x.dtype)
 
 
+class SubPixelConv(Conv):
+    """A 'same' convolution to ``features * factor**2`` channels, then
+    depth-to-space in catgen's order: channel ``(i * factor + j) *
+    features + c`` of pixel (y, x) goes to pixel (y * factor + i, x *
+    factor + j), channel c. The conv's ``weight`` and ``bias`` are this
+    layer's own, at catgen's parameter path of the layer."""
+
+    def __init__(self, in_channels: int, features: int, factor: int = 2,
+                 kernel_size: Tuple[int, int] = (3, 3),
+                 init: str = "heuristic"):
+        super().__init__(in_channels, features * factor * factor,
+                         kernel_size, init)
+        self.out_features = features
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        n, h, w, _ = y.shape
+        f = self.factor
+        y = y.reshape(n, h, w, f, f, self.out_features)
+        y = y.permute(0, 1, 3, 2, 4, 5)          # N, H, f, W, f, C
+        return y.reshape(n, h * f, w * f, self.out_features)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over every axis but the last. Eval: ``x*scale + shift``
     with ``scale = gamma*rsqrt(var+eps)`` from the running statistics.
@@ -202,6 +226,11 @@ class LeakyReLU(nn.Module):
 class Sigmoid(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(x)
+
+
+class Tanh(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x)
 
 
 class Softmax(nn.Module):
@@ -291,6 +320,37 @@ class Flatten(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], -1)
+
+
+class UpsampleNearest(nn.Module):
+    """Nearest-neighbour ``factor`` x upsampling, standalone (G's decoders
+    use the collapsed ``UpsampleConv``)."""
+
+    def __init__(self, factor: int = 2):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = self.factor
+        n, h, w, c = x.shape
+        x = x[:, :, None, :, None, :].expand(n, h, f, w, f, c)
+        return x.reshape(n, h * f, w * f, c)
+
+
+class UnPooling(nn.Module):
+    """Zero-stuffing unpool: each input pixel goes to the top-left of a
+    ``factor`` x ``factor`` block, the rest of the block is zero."""
+
+    def __init__(self, factor: int = 2):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = self.factor
+        n, h, w, c = x.shape
+        out = x.new_zeros((n, h, f, w, f, c))
+        out[:, :, 0, :, 0, :] = x
+        return out.reshape(n, h * f, w * f, c)
 
 
 class Reshape(nn.Module):

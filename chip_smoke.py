@@ -201,6 +201,33 @@ with a non-zero exit code and no result.
      (bench.py's 64px configuration) in f32 and bf16 on both routes
      (median with min and max, images/s, idle share, peak memory, each
      port kernel's device time).
+ 37. the kernel shapes of the 16px models and G32up against their plain
+     versions, f32 and bf16: the upsample-conv kernels at G16up's two
+     stages and G32up's first (NEW_STAGES, B=640: every form, the
+     repeats bit for bit, the forward, dX and dCK against float64, the
+     bf16 passes, the bf16 forward's TMA box and the cp.async kernel for
+     a misaligned x), the sampler at the 16px input ST, D32_st3's 8x8x64
+     branches and the augmentation's coordinates (the kernel each takes),
+     the ST-conv prefix at 16x16; each timed against its plain version,
+     its library call and its bound; rows 4 and 6 at G64_stack's base
+     stages (B=256) against cuDNN's collapsed route with the input
+     transform and the BatchNorm sums, and dgrad + wgrad in one call;
+ 38. catgen's 16px workflow through the CLIs: cli.train_v --scale 16
+     (V16), cli.pretrain_g --scale 16 on the default and ladder routes,
+     cli.train --scale 16 (G16up against D32_st3 on the default, ladder
+     and fused-prefix routes and against D16_st3 on the default route,
+     f32 and bf16, 2 epochs of 5 steps at batch 64, augmented, a
+     profiled epoch: every launch as designed, the trace's kernel names,
+     the runs picking up V and the pretrained G, cli.sample reading each
+     checkpoint); a 16px step at batch 8 card against CPU on the default,
+     ladder, fused-prefix and per-layer routes (f32 within phase 9's
+     bounds, bf16 within phase 28's); one step of every other registry
+     model on the card; the 16px step at batch 640 timed in f32 and bf16
+     on the default and ladder routes;
+ 39. cli.eval_quality on phase 8's checkpoint with phase 22's V, 1024
+     samples against a 16384-image corpus, on the card and on the CPU:
+     every report field equal within the CPU parity test's tolerances;
+     cli.show_ckpt's output equal to a CPU process's.
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -787,27 +814,30 @@ def upsample_counts() -> dict:
     return fused_upsample_conv.launches()
 
 
-def expected_upsample(route, steps: int, g_evals: int) -> dict:
+def expected_upsample(route, steps: int, g_evals: int,
+                      stages: int = 3) -> dict:
     """The upsample-conv launches the design gives for ``steps`` train steps
     and ``g_evals`` eval-mode G batches on ``route`` (None: the default,
     collapsed route, which launches none). A step runs G three times per
     stage count: forward in the D phase (no gradient) and forward and
-    backward in the G phase; G32up-c has three upsample-conv stages."""
+    backward in the G phase; G32up-c and G32up-b have three upsample-conv
+    stages, G16up and G32up ``stages`` = 2."""
     from catgen_torch.kernels import fused_upsample_conv
 
     want = dict.fromkeys(fused_upsample_conv.COUNTERS, 0)
     if route is None or route.get("upsample_impl") != "pallas":
         return want
     if route["fused_ladder"]:
-        want["BLOCK_LAUNCHES"] = 3 * (2 * steps + g_evals)
+        want["BLOCK_LAUNCHES"] = stages * (2 * steps + g_evals)
         if route["ladder_bwd"] == "pallas":
-            want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = 3 * steps
+            want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = \
+                stages * steps
     else:
-        want["LAUNCHES"] = 3 * (2 * steps + g_evals)
+        want["LAUNCHES"] = stages * (2 * steps + g_evals)
         if route["upsample_bwd"] in ("pallas", "hybrid"):
-            want["DX_LAUNCHES"] = 3 * steps
+            want["DX_LAUNCHES"] = stages * steps
         if route["upsample_bwd"] == "pallas":
-            want["DCK_LAUNCHES"] = 3 * steps
+            want["DCK_LAUNCHES"] = stages * steps
     return want
 
 
@@ -1456,7 +1486,10 @@ G_STAGES = [               # G32up-c's upsample-convs: (Cin, Cout, k, H=W)
 UP_TIGHT, UP_LOOSE = 1e-5, 1e-4
 LADDER = dict(upsample_impl="pallas", fused_ladder=True, ladder_bwd="pallas")
 LIBRARY_CALL = {"fwd": "forward", "block": "forward", "dx": "dgrad",
-                "block_dx": "dgrad", "dck": "wgrad", "block_dck": "wgrad"}
+                "block_dx": "dgrad", "dck": "wgrad", "block_dck": "wgrad",
+                "block_sums": "forward with the input transform and the "
+                              "BN sums",
+                "block_backward": "dgrad + wgrad in one call"}
 PER_LAYER = dict(upsample_impl="pallas", fused_ladder=False,
                  upsample_bwd="pallas")
 UP_KERNELS = (   # key, name, counter, TPU kernel, CUDA source
@@ -1582,10 +1615,10 @@ def output_check(tag: str, got, again, want, loose: bool = False) -> tuple:
     return err, err / top
 
 
-def passes_vs_plain() -> dict:
+def passes_vs_plain(shapes=None) -> dict:
     """Phase 30: the bf16 block's passes against their plain versions at
-    upsample_vs_plain's shapes (G32up-c's three stages at N=640, stage 3
-    at N=320): the transform's xn (``block_input``, a shared and a
+    ``shapes`` (default ``g32up_c_shapes``; phase 37: NEW_STAGES): the
+    transform's xn (``block_input``, a shared and a
     per-channel slope) and the fold's g (``block_fold``) bit for bit, the
     fold's dbias (an f32 sum over the batch in another order) within
     UP_LOOSE of its largest; repeats bit for bit. Returns each output's
@@ -1594,9 +1627,7 @@ def passes_vs_plain() -> dict:
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     worst = {"transform": 0.0, "fold": 0.0, "fold_dbias": 0.0}
-    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
-    shapes.append(stage_shape(2, TRAIN_B // 2))
-    for s, shape in enumerate(shapes):
+    for s, shape in enumerate(shapes or g32up_c_shapes()):
         v = upsample_inputs(shape, 320 + s, bf16=True)
         x, sc, sh, gy = v["x"], v["scale"], v["shift"], v["gy"]
         for alpha in ("alpha", "alpha_c"):
@@ -1632,10 +1663,17 @@ def passes_vs_plain() -> dict:
     return worst
 
 
-def upsample_vs_plain(bf16: bool = False) -> dict:
+def g32up_c_shapes() -> list:
+    """G32up-c's three stage shapes at N=640 and stage 3 at N=320 (the D
+    phase's half batch)."""
+    return ([stage_shape(i, TRAIN_B) for i in range(3)]
+            + [stage_shape(2, TRAIN_B // 2)])
+
+
+def upsample_vs_plain(bf16: bool = False, shapes=None) -> dict:
     """Each upsample-conv kernel against its plain version, in f32 (phase
-    11) or in bf16 (phase 30), at G32up-c's three stage shapes at N=640
-    and at stage 3 at N=320 (the D phase's half batch): the forward
+    11) or in bf16 (phase 30), at ``shapes`` (default ``g32up_c_shapes``;
+    phase 37: NEW_STAGES): the forward
     without a PReLU (the per-layer route's), with a scalar and with a
     per-channel slope; the block with and without the stats; (dx,
     dweight, dbias) of the per-layer backward; dweight of the dCK
@@ -1651,9 +1689,7 @@ def upsample_vs_plain(bf16: bool = False) -> dict:
 
     worst = {key: 0.0 for key, *_ in UP_KERNELS}
     worst.update({f"{key}_rel": 0.0 for key, *_ in UP_KERNELS})
-    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
-    shapes.append(stage_shape(2, TRAIN_B // 2))
-    for s, shape in enumerate(shapes):
+    for s, shape in enumerate(shapes or g32up_c_shapes()):
         v = upsample_inputs(shape, (300 if bf16 else 70) + s, bf16)
         x, w, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
         sc, sh, al = v["scale"], v["shift"], v["alpha"]
@@ -1750,22 +1786,22 @@ def kernel_names(fn, calls: int = 3) -> list:
     return names
 
 
-def bf16_forward_kinds() -> dict:
-    """Phase 30: which kernel the bf16 forward takes. G32up-c's stage
-    shapes (N=640 and stage 3 at 320) must take the warp-specialised TMA
-    kernel (``fuc.fwd_bf16_box``: its box of x printed), and the profiler
-    must see it launch; two shapes keep the cp.async kernel and are held
-    against the plain version (``output_check``): stage 1 with x one
-    element off a 16-byte boundary, and 6x6 images at stage 2's channels
-    (36 pixels, no box). Returns {shape: kernel}."""
+def bf16_forward_kinds(shapes=None, ragged=None) -> dict:
+    """Phase 30: which kernel the bf16 forward takes. ``shapes`` (default
+    ``g32up_c_shapes``; phase 37: NEW_STAGES) must take the
+    warp-specialised TMA kernel (``fuc.fwd_bf16_box``: its box of x
+    printed), and the profiler must see it launch; the ``ragged`` shapes
+    keep the cp.async kernel and are held against the plain version
+    (``output_check``); by default stage 1 with x one element off a
+    16-byte boundary, and 6x6 images at stage 2's channels (36 pixels, no
+    box). Returns {shape: kernel}."""
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     kinds = {}
-    shapes = [stage_shape(i, TRAIN_B) for i in range(3)]
-    shapes.append(stage_shape(2, TRAIN_B // 2))
-    ragged = [("x off 16 bytes", stage_shape(0, TRAIN_B)),
-              ("no box", (TRAIN_B, 6, 6, 512, 256, 3))]
-    for tag, shape in [("stage", sh) for sh in shapes] + ragged:
+    ragged = ragged or [("x off 16 bytes", stage_shape(0, TRAIN_B)),
+                        ("no box", (TRAIN_B, 6, 6, 512, 256, 3))]
+    for tag, shape in ([("stage", sh) for sh in shapes or g32up_c_shapes()]
+                       + ragged):
         n, h, w, cin, cout, _ = shape
         v = upsample_inputs(shape, 350, bf16=True)
         x = misaligned(v["x"]) if tag.startswith("x off") else v["x"]
@@ -1813,10 +1849,11 @@ def fold_dck(x, w, gy, y, gs):
 F64_TOL = 1e-6             # the 3xTF32 forward against float64
 
 
-def fwd_vs_float64() -> dict:
+def fwd_vs_float64(shapes=None) -> dict:
     """The forward kernel (3xTF32) as row 3 (bias, per-channel PReLU) and
     as row 4 (the input transform, bias) against float64 (cuDNN in
-    double) at G32up-c's three stage shapes at N=640: y's largest error
+    double) at ``shapes`` (default G32up-c's three stage shapes at N=640;
+    phase 37: NEW_STAGES): y's largest error
     over y's largest value, within F64_TOL, printed beside the plain
     version's own (cuDNN in f32). Returns the kernel's worst per key
     ("fwd", "block")."""
@@ -1824,8 +1861,7 @@ def fwd_vs_float64() -> dict:
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     worst = {"fwd": 0.0, "block": 0.0}
-    for s in range(3):
-        shape = stage_shape(s, TRAIN_B)
+    for s, shape in enumerate(shapes or g32up_c_shapes()[:3]):
         v = upsample_inputs(shape, seed=150 + s)
         x, w, b = v["x"], v["weight"], v["bias"]
         runs = {
@@ -1856,18 +1892,20 @@ def fwd_vs_float64() -> dict:
     return worst
 
 
-def dck_vs_float64(bf16: bool = False) -> dict:
+def dck_vs_float64(bf16: bool = False, shapes=None,
+                   plant: bool = True) -> dict:
     """dweight and dbias of the dCK kernel (3xTF32 in f32, one bf16
     product in bf16) and of the plain version against float64 (cuDNN in
     double) of the same operands: x, or the block's prologue rounded to
-    x's dtype, and g, or the fold rounded to it; at G32up-c's three stage
-    shapes at N=640, row 5 and row 6. The kernel must be within UP_TIGHT
+    x's dtype, and g, or the fold rounded to it; at ``shapes`` (default
+    G32up-c's three stage shapes at N=640; phase 37: NEW_STAGES), row 5
+    and row 6. The kernel must be within UP_TIGHT
     of the largest value in f32; in bf16, within BF16_ULPS unit +
     BF16_FLOOR of the largest of the float64 value rounded once to bf16
     (the CPU tests' bound against catgen). The plain version's own error
     is printed beside it: it is what UP_LOOSE (phase 11) and
-    BF16_SUM_FLOOR (phase 30) allow for. In bf16, each of three planted
-    faults at a wrong rounding point must fail phase 30's check against
+    BF16_SUM_FLOOR (phase 30) allow for. In bf16 (with ``plant``), each
+    of three planted faults at a wrong rounding point must fail phase 30's check against
     the plain version: dCK rounded to bf16 before the chain to dweight,
     dCK kept in bf16 while it is summed over ten slices of the batch, and
     row 5's dbias kept in bf16 while it is summed over the samples.
@@ -1877,8 +1915,7 @@ def dck_vs_float64(bf16: bool = False) -> dict:
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     worst = {"dck": 0.0, "block_dck": 0.0}
-    for s in range(3):
-        shape = stage_shape(s, TRAIN_B)
+    for s, shape in enumerate(shapes or g32up_c_shapes()[:3]):
         k = shape[5]
         v = upsample_inputs(shape, (350 if bf16 else 140) + s, bf16)
         x, w, gy, sc, sh, al, gs1, gs2 = (v[a] for a in (
@@ -1939,7 +1976,8 @@ def dck_vs_float64(bf16: bool = False) -> dict:
                 print(f"bf16 {key} dweight {shape}, its f32 sums before the "
                       f"rounding against float64: kernel {rel[0]:.3e}, "
                       f"plain {rel[1]:.3e} of the largest value {top:.4g}")
-                faults_fail(key, shape, x, w, xn, g, dck_plain, plain)
+                if plant:
+                    faults_fail(key, shape, x, w, xn, g, dck_plain, plain)
                 del dck, dck_plain
             del exact, got, plain
         del v, y
@@ -1979,10 +2017,10 @@ def faults_fail(key: str, shape, x, w, xn, g, dck, plain) -> None:
     del acc, faults
 
 
-def dx_vs_float64() -> dict:
+def dx_vs_float64(shapes=None) -> dict:
     """The dX kernel (3xTF32) and the plain version (cuDNN in f32) against
-    float64 autograd (cuDNN in double) at G32up-c's three stage shapes at
-    N=640, as row 5 (dx of the conv) and as row 6 (the fold and the
+    float64 autograd (cuDNN in double) at ``shapes`` (default G32up-c's
+    three stage shapes at N=640; phase 37: NEW_STAGES), as row 5 (dx of the conv) and as row 6 (the fold and the
     transform's backward): dx's largest error over its largest value,
     within F64_TOL. Row 6's float64 counterpart takes the PReLU branch the
     kernel takes (the sign of x * scale + shift in f32): a float64 sign of
@@ -1992,8 +2030,7 @@ def dx_vs_float64() -> dict:
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
     worst = {"dx": 0.0, "block_dx": 0.0}
-    for s in range(3):
-        shape = stage_shape(s, TRAIN_B)
+    for s, shape in enumerate(shapes or g32up_c_shapes()[:3]):
         v = upsample_inputs(shape, seed=160 + s)
         x, w, gy, sc, sh, al = (v[a] for a in ("x", "weight", "gy", "scale",
                                                  "shift", "alpha"))
@@ -2112,21 +2149,24 @@ def per_layer_steps() -> dict:
 
 
 def kernel_row(tag: str, key: str, kern, plain, library, flops: float,
-               nbytes: float, bf16: bool, card_name: str) -> dict:
+               nbytes: float, bf16: bool, card_name: str,
+               library_device: bool = True) -> dict:
     """One upsample-conv kernel's times at one shape: the kernel (CUDA
     events, and device time from the profiler, the wrapper's weight
     collapse included), its plain version, its cuDNN collapsed-route call
-    (``LIBRARY_CALL[key]``: its share of the same work) in the same dtype
-    and the bound (3xTF32, with the f32 CUDA-core bound beside it, or bf16
-    on the tensor cores) of ``flops`` and ``nbytes``; printed under
-    ``tag``."""
+    (``LIBRARY_CALL[key]``: its share of the same work; in device time
+    too with ``library_device``) in the same dtype and the bound (3xTF32,
+    with the f32 CUDA-core bound beside it, or bf16 on the tensor cores)
+    of ``flops`` and ``nbytes``; printed under ``tag``."""
     dtype = "bf16" if bf16 else "f32"
     k1 = cuda_ms(kern, reps=5, inner=3, warmup=2)
     p = cuda_ms(plain, reps=3, inner=2, warmup=1)
     lib = cuda_ms(library, reps=5, inner=3, warmup=2)
     k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
     dev, _, src = device_ms(kern, calls=20, warmup=1)
-    lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
+    lib_dev, src_lib = None, "not measured"
+    if library_device:
+        lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
     b_ms, b_by = (bound_bf16 if bf16 else bound_3xtf32)(flops, nbytes)
     row = dict(ms=min(k1, k2), plain_ms=p, library_ms=lib, bound_ms=b_ms,
                bound_by=b_by, device_ms=dev, library_device_ms=lib_dev)
@@ -2135,11 +2175,13 @@ def kernel_row(tag: str, key: str, kern, plain, library, flops: float,
     rate = ("one bf16 product at 989 TFLOP/s" if bf16 else
             f"3xTF32 at 495 TFLOP/s; f32 CUDA cores "
             f"{row['bound_f32_ms']:.4f} ms")
+    vs_lib = (f"device {lib_dev:.4f} ms ({src_lib}), device ratio "
+              f"{dev / lib_dev:.3f}" if lib_dev else
+              f"events ratio {row['ms'] / lib:.3f}")
     print(f"{tag}: kernel {row['ms']:.4f} ms ({k1:.4f} / {k2:.4f}), device "
           f"{dev:.4f} ms ({src}, 20 calls), plain {p:.4f} ms, cuDNN "
           f"{LIBRARY_CALL[key]} in {dtype} (collapsed route) {lib:.4f} ms, "
-          f"device {lib_dev:.4f} ms ({src_lib}), device ratio "
-          f"{dev / lib_dev:.3f}; bound {b_ms:.4f} ms ({b_by}; "
+          f"{vs_lib}; bound {b_ms:.4f} ms ({b_by}; "
           f"{flops / 1e9:.1f} GFLOP, {rate}; {nbytes / 1e6:.1f} MB at 3.35 "
           f"TB/s), {b_ms / dev:.3f} of the bound in device time, "
           f"{flops / dev / 1e9:.1f} TFLOP/s (events: median of 5 timings of "
@@ -2148,15 +2190,17 @@ def kernel_row(tag: str, key: str, kern, plain, library, flops: float,
     return row
 
 
-def upsample_times(card_name: str, bf16: bool = False) -> dict:
-    """At each G32up-c stage shape at B=640, in f32 (phase 16) or bf16
-    (phase 33): each upsample-conv kernel (CUDA events, and device time
-    from the profiler, the wrapper's weight collapse included), its plain
-    version, the cuDNN collapsed route in the same dtype (forward, dgrad
-    or wgrad: its share of the same work) and the bound (3xTF32, with the
-    f32 CUDA-core bound beside it, or bf16 on the tensor cores); then dCK
-    with the fold alone and with the transform alone. Returns {key:
-    [per-stage dict]}."""
+def upsample_times(card_name: str, bf16: bool = False, shapes=None,
+                   library_device: bool = True) -> dict:
+    """At each G32up-c stage shape at B=640 (or each of ``shapes``: phase
+    37's NEW_STAGES), in f32 (phase 16) or bf16 (phase 33): each
+    upsample-conv kernel (CUDA events, and device time from the profiler,
+    the wrapper's weight collapse included), its plain version, the cuDNN
+    collapsed route in the same dtype (forward, dgrad or wgrad: its share
+    of the same work; in device time too with ``library_device``) and the
+    bound (3xTF32, with the f32 CUDA-core bound beside it, or bf16 on the
+    tensor cores); then dCK with the fold alone and with the transform
+    alone. Returns {key: [per-stage dict]}."""
     import torch
     from catgen_torch.kernels import fused_upsample_conv as fuc
     from catgen_torch.kernels.upsample_conv import upsample2_conv
@@ -2165,8 +2209,7 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
     if bf16:
         out["block_backward"] = []
     dtype = "bf16" if bf16 else "f32"
-    for s in range(3):
-        shape = stage_shape(s, TRAIN_B)
+    for s, shape in enumerate(shapes or g32up_c_shapes()[:3]):
         n, h, w, cin, cout, k = shape
         v = upsample_inputs(shape, (330 if bf16 else 90) + s, bf16)
         x, wt, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
@@ -2228,11 +2271,12 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
         for key, (kern, plain, library, nbytes) in runs.items():
             out[key].append(kernel_row(
                 f"{dtype} {key} stage {s + 1} {shape}", key, kern, plain,
-                library, flops, nbytes, bf16, card_name))
+                library, flops, nbytes, bf16, card_name, library_device))
         if bf16:
             pass_times(out, card_name, s, shape, v, y)
             block_backward_time(out, card_name, s, shape, v, y, lib_y,
-                                xr, wr, flops, xb, yb, wb, ckb)
+                                xr, wr, flops, xb, yb, wb, ckb,
+                                library_device)
         # what the block backward's fix-ups cost: dCK with the fold alone
         # and with the transform alone, beside the two variants above
         singles = {
@@ -2254,15 +2298,17 @@ def upsample_times(card_name: str, bf16: bool = False) -> dict:
 
 def block_backward_time(out: dict, card_name: str, s: int, shape,
                         v: dict, y, lib_y, xr, wr, flops: float, xb: int,
-                        yb: int, wb: int, ckb: int) -> None:
+                        yb: int, wb: int, ckb: int,
+                        library_device: bool = True) -> None:
     """Phase 33, beside the bf16 kernels' times at stage ``s``: the bf16
     block backward as one call (``fused_block_backward``: the fold pass,
     dX on its gf, the transform pass and dCK, and the wrapper's work)
     against cuDNN's bf16 dgrad and wgrad in one call (autograd of the
-    collapsed route for x and the weight), device time from the profiler
-    beside CUDA events; its bound counts the products of both kernels and
-    each input (x, y, gy, the weight) read once, dx and dCK written once.
-    Appends a row to out["block_backward"]."""
+    collapsed route for x and the weight; in device time too with
+    ``library_device``), device time from the profiler beside CUDA
+    events; its bound counts the products of both kernels and each input
+    (x, y, gy, the weight) read once, dx and dCK written once. Appends a
+    row to out["block_backward"]."""
     from catgen_torch.kernels import fused_upsample_conv as fuc
     import torch
 
@@ -2277,7 +2323,9 @@ def block_backward_time(out: dict, card_name: str, s: int, shape,
     lib = cuda_ms(library, reps=5, inner=3, warmup=2)
     k2 = cuda_ms(kern, reps=5, inner=3, warmup=2)
     dev, names, src = device_ms(kern, calls=20, warmup=1)
-    lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
+    lib_dev, src_lib = None, "not measured"
+    if library_device:
+        lib_dev, _, src_lib = device_ms(library, calls=20, warmup=1)
     b_ms, b_by = bound_bf16(2 * flops, 2 * xb + 2 * yb + wb + ckb)
     out["block_backward"].append(dict(
         ms=min(k1, k2), plain_ms=p, library_ms=lib, bound_ms=b_ms,
@@ -2286,8 +2334,10 @@ def block_backward_time(out: dict, card_name: str, s: int, shape,
           f"{min(k1, k2):.4f} ms ({k1:.4f} / {k2:.4f}), device {dev:.4f} ms "
           f"({src}, 20 calls; {len(names)} kernels: fold, dX, transform, "
           f"dCK, sums), plain {p:.4f} ms, cuDNN dgrad + wgrad in bf16 "
-          f"(collapsed route, one call) {lib:.4f} ms, device {lib_dev:.4f} "
-          f"ms ({src_lib}), device ratio {dev / lib_dev:.3f}; bound "
+          f"(collapsed route, one call) {lib:.4f} ms, "
+          + (f"device {lib_dev:.4f} ms ({src_lib}), device ratio "
+             f"{dev / lib_dev:.3f}" if lib_dev else
+             f"events ratio {min(k1, k2) / lib:.3f}") + "; bound "
           f"{b_ms:.4f} ms ({b_by}), {b_ms / dev:.3f} of the bound in device "
           f"time; {card_name}")
 
@@ -2434,9 +2484,9 @@ def st_inputs(shape, seed: int, channelwise: bool) -> tuple:
 ST_RAGGED = (TRAIN_B, 32, 32, 3, 60)
 
 
-def st_conv_vs_plain(bf16: bool = False) -> dict:
+def st_conv_vs_plain(bf16: bool = False, shapes=ST_SHAPES) -> dict:
     """The ST-conv kernel against its plain version at D32_st3's prefix,
-    N=640 and 256, with a shared and a per-channel slope, on an f32 image
+    N=640 and 256 (or ``shapes``: phase 37's 16px prefix), with a shared and a per-channel slope, on an f32 image
     (phase 17) or a bf16 one (phase 31): out and z (``output_check``),
     samp bit for bit (the same lerps at the same coordinates, rounded once
     in bf16); every launch twice, bit-identical; without samp and z (the
@@ -2452,7 +2502,8 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
 
     worst = dict.fromkeys(("out", "out_rel", "z", "z_rel", "samp"), 0.0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    shapes = ST_SHAPES + ([ST_RAGGED] if bf16 else [])
+    prefix = shapes
+    shapes = shapes + ([ST_RAGGED] if bf16 and shapes == ST_SHAPES else [])
     for i, shape in enumerate(shapes):
         if not bf16:
             kind = st_conv.f32_kind(torch.zeros(shape[:4], device="cuda"),
@@ -2462,7 +2513,7 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
                                      f"{kind}, not tiled")
         if bf16:
             img = torch.zeros(shape[:4], dtype=torch.bfloat16, device="cuda")
-            want_kind = "mma" if shape in ST_SHAPES else "cuda_cores"
+            want_kind = "mma" if shape in prefix else "cuda_cores"
             kind = st_conv.bf16_kind(img, shape[4])
             warps = 16 if shape[0] < 4 * sms else 4
             print(f"bf16 st_conv at {shape}: {kind} kernel"
@@ -2482,7 +2533,7 @@ def st_conv_vs_plain(bf16: bool = False) -> dict:
                 new = "st_conv_bf16_mma<" if bf16 else "st_conv_f32_tiled<"
                 require(not names or (
                     len(names) == 1 and (new in names[0])
-                    == (shape in ST_SHAPES)),
+                    == (shape in prefix)),
                     f"the {'bf16' if bf16 else 'f32'} st_conv at {shape} "
                     f"launched {names}")
             got, again = st_conv.launch(*args), st_conv.launch(*args)
@@ -2610,7 +2661,8 @@ def generation_steps() -> dict:
     return {k: v[0] for k, v in out.items()}
 
 
-def st_conv_times(card_name: str, bf16: bool = False) -> dict:
+def st_conv_times(card_name: str, bf16: bool = False, cases=None,
+                  banded: bool = True) -> dict:
     """At D32_st3's prefix, on an f32 image (phase 20) or a bf16 one (phase
     33): the ST-conv kernel as the training path runs it (writing samp
     and z) at B=640 and as the sampling path runs it (out alone) at N=256
@@ -2621,14 +2673,17 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
     products at the rate of their type (f32 on the CUDA cores, bf16 on the
     tensor cores) and the sampler's lerps in f32. In f32 also the
     banded kernel (a misaligned copy of the image takes it) beside the
-    tiled one, in the same order of readings."""
+    tiled one, in the same order of readings (``banded``). ``cases``:
+    (shape, samp and z written) pairs in place of the prefix's two
+    (phase 37: 16px, without the banded kernel)."""
     import torch
     import torch.nn.functional as F
     from catgen_torch.kernels import bilinear, st_conv
 
     out = {}
     dtype = "bf16" if bf16 else "f32"
-    for shape, save in ((ST_SHAPES[0], True), (ST_SHAPES[1], False)):
+    for shape, save in cases or ((ST_SHAPES[0], True),
+                                 (ST_SHAPES[1], False)):
         n, h, w, c, f = shape
         img, theta, kernel, bias, alpha = st_inputs(
             shape, 340 if bf16 else 120, False)
@@ -2651,17 +2706,17 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
         lib = cuda_ms(split, inner=10)
         dev, names, src = device_ms(kern, calls=100, warmup=3)
         lib_dev, _, src_lib = device_ms(split, calls=100, warmup=3)
-        banded = {}
-        if not bf16:
+        banded_row = {}
+        if banded and not bf16:
             args_b = (misaligned(img), theta, kernel, bias, alpha)
             kern_b = (lambda args=args_b, save=save:
                       st_conv.launch(*args, save=save))
             b_dev, b_names, b_src = device_ms(kern_b, calls=100, warmup=3)
             dev2, _, _ = device_ms(kern, calls=100, warmup=3)
             b_dev2, _, _ = device_ms(kern_b, calls=100, warmup=3)
-            banded = dict(banded_ms=min(cuda_ms(kern_b, inner=10),
-                                        cuda_ms(kern_b, inner=10)),
-                          banded_device_ms=min(b_dev, b_dev2))
+            banded_row = dict(banded_ms=min(cuda_ms(kern_b, inner=10),
+                                            cuda_ms(kern_b, inner=10)),
+                              banded_device_ms=min(b_dev, b_dev2))
             print(f"f32 st_conv {shape}: the tiled kernel "
                   f"({names[0][:50] if names else '-'}) device {dev:.4f} / "
                   f"{dev2:.4f} ms against the banded kernel "
@@ -2677,7 +2732,7 @@ def st_conv_times(card_name: str, bf16: bool = False) -> dict:
                       else bound(conv + lerps, nbytes))
         row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
                    bound_ms=b_ms, bound_by=b_by, device_ms=dev,
-                   library_device_ms=lib_dev, **banded)
+                   library_device_ms=lib_dev, **banded_row)
         out["train" if save else "sample"] = row
         print(f"{dtype} st_conv {shape} "
               f"({'samp and z written' if save else 'out alone'}): kernel "
@@ -3001,23 +3056,27 @@ def v_step_card_vs_cpu(bank) -> dict:
         (config.v_l1, config.v_l2, config.v_clamp), bn_fed_biases(v))
 
 
-def expected_pretrain(route, steps: int, vizzes: int) -> dict:
+def expected_pretrain(route, steps: int, vizzes: int,
+                      stages: int = 3) -> dict:
     """Upsample-conv launches of ``steps`` autoencoder steps and
     ``vizzes`` reconstructions (16 images, eval): a step runs the decoder
-    forward and backward once, a reconstruction forward once."""
+    (``stages`` upsample-convs) forward and backward once, a
+    reconstruction forward once."""
     from catgen_torch.kernels import fused_upsample_conv
 
     want = dict.fromkeys(fused_upsample_conv.COUNTERS, 0)
     if route is not None:
-        want["BLOCK_LAUNCHES"] = 3 * (steps + vizzes)
-        want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = 3 * steps
+        want["BLOCK_LAUNCHES"] = stages * (steps + vizzes)
+        want["BLOCK_DX_LAUNCHES"] = want["BLOCK_DCK_LAUNCHES"] = \
+            stages * steps
     return want
 
 
-def pretrain_cli_on_card(save: str, route=None) -> dict:
-    """Phase 23: cli.pretrain_g.main on the card on the default route or
-    on ``route`` (the ladder): the epochs, the reconstructions, the
-    decoder checkpoint, the upsample-conv launches."""
+def pretrain_cli_on_card(save: str, route=None, scale: int = 32) -> dict:
+    """Phase 23 (phase 38 at ``scale`` 16: G_enc16 + G16up): cli.
+    pretrain_g.main on the card on the default route or on ``route`` (the
+    ladder): the epochs, the reconstructions, the decoder checkpoint, the
+    upsample-conv launches."""
     from catgen_torch.cli import pretrain_g as pretrain_cli
     from catgen_torch.io import checkpoint
     from catgen_torch.kernels import config as upconfig
@@ -3025,12 +3084,13 @@ def pretrain_cli_on_card(save: str, route=None) -> dict:
     reset_counts()
     with upconfig.using(**(route or {})):
         harness = pretrain_cli.main(PRE_ARGS + ["--device", "cuda",
-                                                "--save", save])
+                                                "--save", save, "--scale",
+                                                str(scale)])
     up, steps = upsample_counts(), harness.state.step
-    want = expected_pretrain(route, steps, 2)
+    want = expected_pretrain(route, steps, 2, 3 if scale == 32 else 2)
     name = "ladder" if route else "default"
-    print(f"pretrain CLI ({name} route): {steps} steps; upsample-conv "
-          f"launches {up}, expected {want}")
+    print(f"{scale}px pretrain CLI ({name} route): {steps} steps; "
+          f"upsample-conv launches {up}, expected {want}")
     require(up == want, "the pretrain path's upsample-conv launches")
     with open(os.path.join(save, "pretrain_metrics.jsonl")) as f:
         epochs = [e for e in map(json.loads, f) if e["event"] == "epoch"]
@@ -3042,8 +3102,8 @@ def pretrain_cli_on_card(save: str, route=None) -> dict:
     require(os.path.getsize(os.path.join(save, "reconstructions",
                                          "epoch_000002.png")) > 0,
             "reconstructions grid")
-    path = os.path.join(save, checkpoint.g_pretrained_filename(3, 32, 32,
-                                                               100))
+    path = os.path.join(save, checkpoint.g_pretrained_filename(
+        3, scale, scale, 100))
     require(checkpoint.load_meta(path)["epoch"] == 3, "pretrained G file")
     return up
 
@@ -3952,7 +4012,7 @@ def bf16_route_counts() -> dict:
 
 
 def expected_bf16_route(route, steps: int, g_evals: int,
-                        d_evals: int) -> dict:
+                        d_evals: int, stages: int = 3) -> dict:
     """``bf16_route_counts`` as the design gives them for ``steps`` bf16
     train steps with augmentation on ``route``, with ``g_evals`` G and
     ``d_evals`` D batches in f32 (the visualization samples in f32): the
@@ -3960,8 +4020,8 @@ def expected_bf16_route(route, steps: int, g_evals: int,
     and ``expected_sampler`` count them in f32."""
     from catgen_torch.kernels import fused_upsample_conv as fuc
 
-    up32, up16 = (expected_upsample(route, 0, g_evals),
-                  expected_upsample(route, steps, 0))
+    up32, up16 = (expected_upsample(route, 0, g_evals, stages),
+                  expected_upsample(route, steps, 0, stages))
     d32, d16 = (expected_sampler(route, 0, d_evals),
                 expected_sampler(route, steps, 0))
     want = dict.fromkeys(bf16_route_counts(), 0)
@@ -4046,12 +4106,15 @@ def bf16_routes_cli(root: str) -> dict:
     return out
 
 
-def bf16_route_step_card_vs_cpu(name: str, route) -> dict:
+def bf16_route_step_card_vs_cpu(name: str, route, pair=None,
+                                image=(32, 32, 3), stages: int = 3) -> dict:
     """Phase 32, second part: one bf16 step at batch 8 with augmentation
     on ``route``, on the CPU (the kernels' bf16 plain versions) and on the
     card (their bf16 instantiations) from the same weights and draws:
     the card's launches as designed for one step, and card against CPU
-    within phase 28's bounds. Returns the comparison and the launches."""
+    within phase 28's bounds. ``pair`` makes (G, D) (default: the
+    flagship pair, seeded) for ``image``; G has ``stages`` upsample-convs.
+    Returns the comparison and the launches."""
     import copy
 
     import torch
@@ -4062,8 +4125,8 @@ def bf16_route_step_card_vs_cpu(name: str, route) -> dict:
 
     config = gan.GanConfig(batch_size=8, augment=True,
                            compute_dtype=torch.bfloat16)
-    g, d = seeded_pair(3, G_GAIN, D_GAIN)
-    reals = torch.rand((4, 32, 32, 3),
+    g, d = pair() if pair else seeded_pair(3, G_GAIN, D_GAIN)
+    reals = torch.rand((4, *image),
                        generator=torch.Generator().manual_seed(4))
     real_cap = optim.clamp_and_penalize
     runs, recorded, counts = {}, None, None
@@ -4098,7 +4161,7 @@ def bf16_route_step_card_vs_cpu(name: str, route) -> dict:
             runs[dev] = (m, grads, _state_tensors(state))
     finally:
         torch.backends.cudnn.deterministic = mode
-    want = expected_bf16_route(route, 1, 0, 0)
+    want = expected_bf16_route(route, 1, 0, 0, stages)
     print(f"bf16 step on the {name} route, on the card: launches "
           f"{ {k: v for k, v in counts.items() if v} }, expected "
           f"{ {k: v for k, v in want.items() if v} }")
@@ -4513,6 +4576,758 @@ def step64_times(card_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the 16px workflow, the rest of the model zoo and the quality evaluation
+# (phases 37-39)
+# ---------------------------------------------------------------------------
+
+IMG16 = (16, 16, 3)
+# the upsample-convs the new Gs give the kernels in a G batch of 640, (N,
+# H, W, Cin, Cout, k): G16up's two stages, then G32up's first (its second
+# is G32up-c's third, and G32up-b's stages are G32up-c's); Cin = 128 with
+# k5 and a k5 conv from a 4x4 image are new; the bf16 forward's TMA boxes
+# of x (w, h, n) hold 8, 2 and 2 images
+NEW_STAGES = [(TRAIN_B, 4, 4, 128, 256, 5), (TRAIN_B, 8, 8, 256, 128, 5),
+              (TRAIN_B, 8, 8, 128, 256, 5)]
+NEW_BOXES = ((4, 4, 8), (8, 8, 2), (8, 8, 2))
+G16UP_STAGES, G32UP_STAGES = NEW_STAGES[:2], NEW_STAGES[2:]
+# the sampler in a 16px D batch of 640: the input ST, and D32_st3's three
+# branch STs stacked (its stem pools the input to 8x8); D16_st3's branches
+# sample 16x16x64 images, TRAIN_SHAPES[1]; the augmentation samples half
+# a batch at the input ST's shape, at its own coordinates
+SAMPLER16_SHAPES = [(TRAIN_B, 16, 16, 3, 16, 16), (TRAIN_B, 8, 8, 64, 24, 8)]
+# the kernels they take: (forward, d_coords, d_img) by dtype
+SAMPLER16_KINDS = {
+    "f32": (("per_quad", "per_pixel", "per_sample"),
+            ("staged", "staged", "gather")),
+    "bf16": (("per_quad", "per_quad", "per_sample"),
+             ("staged", "staged", "gather"))}
+# the ST-conv prefix at 16px, (N, H, W, C, F): 256 pixels a sample, in a
+# training D batch and in a sampling D batch
+ST16_SHAPES = [(TRAIN_B, 16, 16, 3, 64), (N_SAMPLER, 16, 16, 3, 64)]
+# catgen's 16px run: 2 epochs of 5 steps at batch 64, augmented
+TRAIN16_ARGS = ["--fixture", "256", "--scale", "16", "--augment",
+                "--epochs", "2", "--batchSize", "64", "--N_epoch", "160"]
+V16_ARGS = ["--fixture", "256", "--scale", "16", "--epochs", "1",
+            "--batchSize", "32", "--N_epoch", "160"]
+# the V run's overlay bank at catgen's test size (tests/test_v_subsystem.py)
+# in place of the full 1000 x 10000 walk, which phase 22 builds
+V16_BANK = dict(n=8, n_points=500)
+# G16up against D32_st3 on every route of ROUTES16; against D16_st3 on
+# the default route (its kernel shapes are D32_st3's: the prefix at 16x16,
+# the branches at 16x16x64, which phases 8-33 run at 32px)
+PAIRS16 = (("g16up", "default"), ("g16up", "d16_st3"))
+ROUTES16 = (("default", None), ("ladder", LADDER), ("fused-prefix", FUSED))
+STEP16_ROUTES = ROUTES16 + (("per-layer", PER_LAYER),)
+# one step on the card of every other new registry key, at its scale:
+# (G, D, image side); the Gs against D32_st3, the Ds against the default G
+ZOO_STEPS = (("g32up", "d32_st3", 32), ("g32up_b", "d32_st3", 32),
+             ("mlp", "d32_st3", 32), ("g16up", "d16", 16),
+             ("g16up", "d16b", 16), ("g32up_c", "d32", 32),
+             ("g32up_c", "d32b", 32), ("g32up_c", "d32c", 32),
+             ("g32up_c", "d32d", 32), ("g32up_c", "d32e", 32))
+# upsample-conv stages of each G
+G_STAGES_OF = {"g16up": 2, "g32up": 2, "g32up_b": 3, "g32up_c": 3,
+               "mlp": 0}
+QUALITY_SAMPLES = 1024     # catgen's eval_quality default (sample.lua's)
+# the quality report, card against CPU: D scores and V ratings within
+# the CPU parity test's 1e-5 absolute and diversity within its 1e-4
+# relative (tests/test_torch_port_quality.py); NN distances within phase
+# 6's card-against-CPU NN_RTOL: a distance is the square root of ||a||^2
+# + ||b||^2 - 2 a.b from one f32 matmul, whose rounding (cuBLAS's order
+# against the CPU's) scales with the norms, not with the distance (2.7e-5
+# of a distance of 3.9 between fixture images, against 7e-7 of 16 in the
+# CPU test's random images). A value within its tolerance of a histogram
+# edge may fall on either side: at most HIST_MOVES values move between
+# neighbouring bins
+QUALITY_SCORE_ATOL, QUALITY_DIV_RTOL, HIST_MOVES = 1e-5, 1e-4, 3
+
+
+def seeded16(g_name: str, d_name: str, seed: int, image=IMG16):
+    """The registry pair (``g_name``, ``d_name``) at ``image`` with the
+    flagship's seeded weights (``perturb`` at the card-against-CPU
+    gains)."""
+    from catgen_torch import models
+
+    g = models.G_REGISTRY[g_name](image, 100)
+    d = models.D_REGISTRY[d_name](image)
+    perturb(g, d, seed, G_GAIN, D_GAIN)
+    return g, d
+
+
+def new_stages_vs_plain(bf16: bool, shapes) -> dict:
+    """Phase 37: the upsample-conv kernels at the new Gs' ``shapes``
+    against their plain versions (``upsample_vs_plain``: every form, the
+    repeats bit for bit) and against float64 (f32: the forward, dX and
+    dCK, ``F64_TOL`` and ``UP_TIGHT``; bf16: dCK within one unit + 2^-16
+    of float64 rounded once); in bf16 also the block's passes and the
+    forward's kernel: the TMA kernel with the box NEW_BOXES gives, and
+    the cp.async kernel for x off a 16-byte boundary."""
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+
+    for shape in shapes:
+        box = NEW_BOXES[NEW_STAGES.index(shape)]
+        got = fuc.fwd_bf16_box(*shape[:4])
+        print(f"{shape}: the bf16 forward's box of x {got} (designed {box})")
+        require(got == box, f"the bf16 forward's box at {shape}")
+    out = upsample_vs_plain(bf16, shapes)
+    if bf16:
+        out["passes"] = passes_vs_plain(shapes)
+        out["kinds"] = bf16_forward_kinds(
+            shapes, [("x off 16 bytes", shapes[0])])
+        out["vs_float64"] = dck_vs_float64(True, shapes, plant=False)
+    else:
+        out["vs_float64"] = {**fwd_vs_float64(shapes),
+                             **dck_vs_float64(False, shapes),
+                             **dx_vs_float64(shapes)}
+    return out
+
+
+def sampler16(card_name: str) -> dict:
+    """Phase 37: the sampler kernels at the 16px shapes (SAMPLER16_SHAPES,
+    and the augmentation of half a batch at its own coordinates), f32 and
+    bf16: the kernel each takes (SAMPLER16_KINDS), the forward against
+    the plain version (bit for bit where it runs per quad or staged, and
+    in bf16; else within KERNEL_TOL), d_img and d_coords against the plain
+    version's (f32: BWD_ATOL + BWD_RTOL of the largest; bf16: BF16_ULPS
+    unit + BF16_FLOOR of the largest), every kernel twice, the repeats
+    bit for bit. At SAMPLER16_SHAPES each kernel is timed against its
+    plain version and its library call (CUDA events), in device time
+    (the kernel's, one profiled session) and against its bound. Returns
+    the largest errors and the rows by dtype and shape."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch.kernels import bilinear
+
+    out = {}
+    half = (TRAIN_B // 2,) + SAMPLER16_SHAPES[0][1:]
+    cases = ([(shape, False) for shape in SAMPLER16_SHAPES]
+             + [(half, True)])
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        worst = {"fwd": 0.0, "dcoords": 0.0, "dimg": 0.0}
+        rows_out = {}
+        for i, (shape, augment) in enumerate(cases):
+            n, h, w, c, ho, wo = shape
+            kinds = (bilinear.forward_kind(h, w, c, dtype),
+                     bilinear.dcoords_kind(h, w, c, dtype),
+                     bilinear.dimg_kind(h, w, c, dtype))
+            want_kinds = SAMPLER16_KINDS[dname][0 if augment else i]
+            tag = f"{dname} {shape}{' augmentation' if augment else ''}"
+            print(f"sampler kernels at {tag}: forward {kinds[0]}, d_coords "
+                  f"{kinds[1]}, d_img {kinds[2]} (designed "
+                  f"{', '.join(want_kinds)})")
+            require(kinds == want_kinds, f"the sampler kernels at {tag}")
+            img, rows, out_hw = sampler_inputs(shape, 500 + i)
+            gen = torch.Generator().manual_seed(510 + i)
+            g = (torch.rand((n, ho, wo, c), generator=gen) * 2 - 1).cuda()
+            img, g = img.to(dtype), g.to(dtype)
+            rows = augment_rows(img, 520 + i) if augment else rows.to(dtype)
+            fwd = [bilinear.launch(img, rows, out_hw) for _ in range(2)]
+            dimg = [bilinear.launch_dimg(img, rows, g, out_hw)
+                    for _ in range(2)]
+            dcrd = [bilinear.launch_dcoords(img, rows, g, out_hw)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            want_fwd = bilinear.bilinear_sample_rows_plain(img, rows, out_hw)
+            want_img, want_crd = bilinear.bilinear_sample_rows_backward_plain(
+                img, rows, g, out_hw)
+            err = (fwd[0].float() - want_fwd.float()).abs().max().item()
+            exact = torch.equal(fwd[0], want_fwd)
+            bits = dtype == torch.bfloat16 or kinds[0] in BIT_EXACT_FORWARDS
+            print(f"{tag} forward: max_abs_err {err:.3e}, the plain "
+                  f"version's bits: {exact}{' (required)' if bits else ''}; "
+                  f"repeat bit-identical: {torch.equal(*fwd)}")
+            require(exact if bits else err <= KERNEL_TOL,
+                    f"the forward at {tag}")
+            require(torch.equal(*fwd), f"the forward repeats at {tag}")
+            worst["fwd"] = max(worst["fwd"], err)
+            for name, (a, a2), b in (("dimg", dimg, want_img),
+                                     ("dcoords", dcrd, want_crd)):
+                require(a.dtype == b.dtype and a.shape == b.shape,
+                        f"{name} at {tag}: {a.dtype} {tuple(a.shape)}")
+                e = (a.float() - b.float()).abs()
+                top = b.float().abs().max().item()
+                if dtype == torch.bfloat16:
+                    ok = bool((e <= BF16_ULPS * bf16_spacing(b)
+                               + BF16_FLOOR * top).all())
+                    rule = f"{BF16_ULPS} unit + {BF16_FLOOR:g} x max"
+                else:
+                    ok = e.max().item() <= BWD_ATOL + BWD_RTOL * top
+                    rule = f"{BWD_ATOL} + {BWD_RTOL} x max"
+                same = torch.equal(a, a2)
+                print(f"{tag} {name}: max_abs_err {e.max().item():.3e} "
+                      f"(max |plain| {top:.4f}; within {rule}: {ok}); repeat "
+                      f"bit-identical: {same}")
+                require(ok and same, f"{name} at {tag}")
+                worst[name] = max(worst[name], e.max().item())
+            if augment:
+                continue
+            inp = img.permute(0, 3, 1, 2).contiguous()
+            gn = g.permute(0, 3, 1, 2).contiguous()
+            grid = torch.stack([rows[:, 1], rows[:, 0]], dim=-1).reshape(
+                n, ho, wo, 2).contiguous()
+
+            def grid_bwd(mask, gn=gn, inp=inp, grid=grid):
+                return torch.ops.aten.grid_sampler_2d_backward(
+                    gn, inp, grid, 0, 1, True, mask)
+
+            bwd_plain = bilinear.bilinear_sample_rows_backward_plain
+            runs = {
+                "fwd": (lambda: bilinear.launch(img, rows, out_hw),
+                        lambda: bilinear.bilinear_sample_rows_plain(
+                            img, rows, out_hw),
+                        lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                              padding_mode="border",
+                                              align_corners=True)),
+                "dcoords": (lambda: bilinear.launch_dcoords(img, rows, g,
+                                                            out_hw),
+                            lambda: bwd_plain(img, rows, g, out_hw,
+                                              need_img=False),
+                            lambda: grid_bwd([False, True])),
+                "dimg": (lambda: bilinear.launch_dimg(img, rows, g, out_hw),
+                         lambda: bwd_plain(img, rows, g, out_hw,
+                                           need_coords=False),
+                         lambda: grid_bwd([True, False]))}
+            elem = img.element_size()
+            for key, (kern, plain, library) in runs.items():
+                k1, p = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+                lib, k2 = cuda_ms(library, inner=10), cuda_ms(kern, inner=10)
+                dev, lib_dev = device_ms(kern)[0], None
+                b_ms, b_by = sampler_bound(key, shape, elem)
+                rows_out[f"{key} {shape}"] = dict(
+                    kind=kinds[("fwd", "dcoords", "dimg").index(key)],
+                    ms=min(k1, k2), plain_ms=p, library_ms=lib,
+                    device_ms=dev, library_device_ms=lib_dev, bound_ms=b_ms,
+                    bound_by=b_by)
+                print(f"{dname} {key} {shape}: kernel {min(k1, k2):.4f} ms "
+                      f"({k1:.4f} / {k2:.4f}), device {dev:.4f} ms, plain "
+                      f"{p:.4f} ms, {SAMPLER_LIBRARY[key]} {lib:.4f} ms "
+                      f"(CUDA events, median of 20 timings of 10 "
+                      f"back-to-back calls, order kernel-plain-library-"
+                      f"kernel; the kernel's device time from a profiled "
+                      f"session of >= 100 calls), bound "
+                      f"{b_ms:.4f} ms ({b_by}); {card_name}")
+            del runs, inp, gn, grid
+        out[dname] = {"max_abs_err": worst, "rows": rows_out}
+        torch.cuda.empty_cache()
+    return out
+
+
+def base64_block_rows(card_name: str, bf16: bool) -> dict:
+    """Phase 37, for the 64px table: rows 4 and 6 at G64_stack's base
+    stages (G32up-c's, B=256): the block forward with the BatchNorm sums
+    (``upsample2_conv_block_fused``) against its plain version and cuDNN's
+    collapsed route with the input transform and the sums (the transform
+    in PyTorch, cuDNN's collapsed convolution, the bias, the two sums);
+    the block backward in one call (``fused_block_backward``) against its
+    plain version and cuDNN's dgrad and wgrad in one call; each beside its
+    bound (``kernel_row``; the library in CUDA events alone). Returns
+    {"block": [...], "block_backward": [...]} by stage."""
+    import torch
+    from catgen_torch.kernels import fused_upsample_conv as fuc
+    from catgen_torch.kernels.upsample_conv import upsample2_conv
+
+    out = {"block": [], "block_backward": []}
+    dtype = "bf16" if bf16 else "f32"
+    for s in range(3):
+        shape = stage_shape(s, B64)
+        n, h, w, cin, cout, k = shape
+        v = upsample_inputs(shape, 440 + 10 * bf16 + s, bf16)
+        x, wt, b, gy = v["x"], v["weight"], v["bias"], v["gy"]
+        sc, sh, al = v["scale"], v["shift"], v["alpha"]
+        y = fuc.block_plain(x, wt, b, sc, sh, al)
+        xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
+        lib_y = upsample2_conv(xr, wr)
+        args = (x, sc, sh, al, wt, y, gy, v["gs1"], v["gs2"])
+
+        def lib_block(x=x, wt=wt, b=b, sc=sc, sh=sh, al=al):
+            z = upsample2_conv(fuc.block_input(x, sc, sh, al), wt) + b
+            zf = z.float()
+            return z, zf.sum(dim=(0, 1, 2)), (zf * zf).sum(dim=(0, 1, 2))
+
+        kp = (k + 1) // 2
+        flops = 2.0 * n * h * w * 4 * kp * kp * cin * cout
+        elem = x.element_size()
+        xb, yb = x.numel() * elem, gy.numel() * elem
+        wb = 4 * kp * kp * cin * cout * elem
+        ckb = 4 * kp * kp * cin * cout * 4
+        out["block"].append(kernel_row(
+            f"{dtype} block (row 4) G64_stack base stage {s + 1} {shape}",
+            "block_sums",
+            lambda: fuc.upsample2_conv_block_fused(x, wt, b, sc, sh, al),
+            lambda: fuc.block_plain(x, wt, b, sc, sh, al, with_stats=True),
+            lib_block, flops, xb + wb + yb, bf16, card_name, False))
+        out["block_backward"].append(kernel_row(
+            f"{dtype} block backward (row 6, one call) G64_stack base stage "
+            f"{s + 1} {shape}", "block_backward",
+            lambda: fuc.fused_block_backward(*args),
+            lambda: fuc.block_backward_plain(*args),
+            lambda: torch.autograd.grad(lib_y, [xr, wr], gy,
+                                        retain_graph=True),
+            2 * flops, 2 * xb + 2 * yb + wb + ckb, bf16, card_name, False))
+        del v, x, wt, b, gy, y, xr, wr, lib_y, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def expected16(route, steps: int, g_evals: int, d_evals: int,
+               bf16: bool = False, stages: int = 2) -> dict:
+    """``bf16_route_counts`` as the design gives them for ``steps`` 16px
+    train steps with augmentation on ``route`` (None: the default) in f32
+    or bf16, with ``g_evals`` G and ``d_evals`` D batches in f32 (the
+    visualization), for a G of ``stages`` upsample-convs and a D with
+    D*_st3's spatial transformers (``expected_sampler``)."""
+    if bf16:
+        return expected_bf16_route(route or {}, steps, g_evals, d_evals,
+                                   stages)
+    up = expected_upsample(route, steps, g_evals, stages)
+    d = expected_sampler(route, steps, d_evals)
+    want = dict.fromkeys(bf16_route_counts(), 0)
+    want.update({f"up_{k}": v for k, v in up.items()},
+                LAUNCHES=d["fwd"], DCOORDS_LAUNCHES=d["dcoords"],
+                DIMG_LAUNCHES=d["dimg"], st_conv=d["st_conv"])
+    return want
+
+
+# the profiler names of the sampler's backward and the ST-conv kernels, by
+# launch counter, beside phase 35's TRACE_NAMES
+TRACE16_NAMES = {
+    **TRACE_NAMES,
+    "DCOORDS_LAUNCHES": ("dcoords_", "RowsLayout"),
+    "BF16_DCOORDS_LAUNCHES": ("dcoords_", "RowsLayout"),
+    "DIMG_LAUNCHES": ("dimg_", "RowsLayout"),
+    "BF16_DIMG_LAUNCHES": ("dimg_", "RowsLayout"),
+    "st_conv": ("st_conv",), "st_conv_bf16": ("st_conv",)}
+
+
+def train16_on_card(save: str, g_name: str, d_name: str, route,
+                    bf16: bool) -> dict:
+    """Phase 38: catgen's 16px run through the training CLI on the card
+    (TRAIN16_ARGS, ``--G g_name --D d_name``, a profiled second epoch) on
+    ``route`` in f32 or bf16: every launch as ``expected16`` gives it (2
+    visualizations, in f32), finite epochs, the trace naming every kernel
+    the step launches, and the sample CLI reading the checkpoint on the
+    card. Returns the launches, steps and seconds."""
+    from catgen_torch.cli import sample as sample_cli
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.kernels import config as upconfig
+
+    trace = os.path.join(save, "trace")
+    name = (f"{g_name} vs {d_name}, {'bf16' if bf16 else 'f32'} "
+            f"{'default' if route is None else 'kernel'} route {route}")
+    reset_counts()
+    t0 = time.perf_counter()
+    with upconfig.using(**(route or {})):
+        harness = train_cli.main(
+            TRAIN16_ARGS + ["--G", g_name, "--D", d_name, "--device", "cuda",
+                            "--save", save, "--profile", trace]
+            + (["--dtype", "bf16"] if bf16 else []))
+    seconds = time.perf_counter() - t0
+    counts, steps = bf16_route_counts(), harness.state.step
+    want = expected16(route, steps, 2, 4, bf16, G_STAGES_OF[g_name])
+    shown = {k: v for k, v in counts.items() if v or want[k]}
+    print(f"16px training CLI, {name}: {steps} steps, 2 visualizations, "
+          f"{seconds:.1f} s; launches {shown}, expected "
+          f"{ {k: want[k] for k in shown} }")
+    require(steps == 10 and counts == want,
+            f"the 16px training CLI's launches, {name}")
+    with open(os.path.join(save, "train_metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    require(len(epochs) == 2 and all(math.isfinite(e[k]) for e in epochs
+                                     for k in ("loss_d", "loss_g")),
+            f"the 16px run's epochs, {name}")
+    print("  epochs: " + "; ".join(
+        f"loss_d {e['loss_d']:.5f} loss_g {e['loss_g']:.5f} acc_d "
+        f"{e['acc_d']:.4f}" for e in epochs))
+    names = trace_kernels(trace)
+    traced = {k: any(all(p in n for p in TRACE16_NAMES[k]) for n in names)
+              for k, v in expected16(route, 1, 0, 0, bf16,
+                                     G_STAGES_OF[g_name]).items() if v}
+    print(f"  the trace of epoch 2 ({len(names)} kernel names) names "
+          f"{traced}")
+    require(all(traced.values()), "a kernel of the 16px step is not in the "
+                                  "trace")
+    with upconfig.using(**(route or {})):
+        runs = sample_cli.main(["--save", save, "--count", "256",
+                                "--device", "cuda", "--neighbours"])
+    check_finite(runs[0])
+    require(tuple(runs[0]["images"].shape) == (256,) + IMG16
+            and runs[0]["images"].is_cuda, "the 16px samples")
+    print(f"  sample CLI read the 16px checkpoint on the card: 256 images, "
+          f"D scores {runs[0]['scores'].min().item():.4f}..."
+          f"{runs[0]['scores'].max().item():.4f}")
+    return {"launches": counts, "steps": steps, "seconds": seconds,
+            "events": [e["event"] for e in events]}
+
+
+def workflow16_on_card(root: str) -> dict:
+    """Phase 38: cli.train_v --scale 16 (V16, the bank at V16_BANK) in the
+    default route's f32 --save, cli.pretrain_g --scale 16 there and in the
+    ladder route's (``pretrain_cli_on_card``), then ``train16_on_card``
+    for G16up against D32_st3 on each route of ROUTES16 and against
+    D16_st3 on the default route, in f32 and bf16;
+    the first two G16up runs pick up the pretrained G, the default route's
+    V too. Returns the runs' launches by name, and the V run's grid
+    forward launches under "v16"."""
+    from catgen_torch.cli import train_v as train_v_cli
+    from catgen_torch.io import checkpoint
+    from catgen_torch.kernels import bilinear_grid
+    from catgen_torch.train import harness as tharness
+    from catgen_torch.train import synthetic, v_trainer
+
+    runs = {}
+    for g_name, d_name in PAIRS16:
+        for bf16 in (False, True):
+            for rname, route in (ROUTES16 if d_name == "default"
+                                 else ROUTES16[:1]):
+                key = (f"{d_name}_{'bf16' if bf16 else 'f32'}_"
+                       f"{rname.replace('-', '_')}")
+                save = os.path.join(root, key)
+                first = d_name == "default" and not bf16
+                if first and rname == "default":
+                    reset_counts()
+                    bank, tharness.OVERLAY_BANK = (tharness.OVERLAY_BANK,
+                                                   V16_BANK)
+                    try:
+                        v = train_v_cli.main(V16_ARGS + [
+                            "--device", "cuda", "--save", save])
+                    finally:
+                        tharness.OVERLAY_BANK = bank
+                    warps = (sum(v_trainer.warp_batches(*c)
+                                 for c in v.choices)
+                             + v.factory.branches.count(synthetic.WARP))
+                    got = bilinear_grid.launches()["LAUNCHES"]
+                    print(f"16px V run (V16, bank {V16_BANK}): "
+                          f"{v.state.step} steps, {got} grid forward "
+                          f"launches for {warps} warp batches")
+                    require(got == warps and os.path.exists(os.path.join(
+                        save, checkpoint.v_filename(3, 16, 16))),
+                        "the 16px V run")
+                    runs["v16"] = {"grid_launches": got,
+                                   "steps": v.state.step}
+                if first and rname in ("default", "ladder"):
+                    pretrain_cli_on_card(save, route, scale=16)
+                run = train16_on_card(save, g_name, d_name, route, bf16)
+                picked = run.pop("events")[:3]
+                if first and rname in ("default", "ladder"):
+                    print(f"  picked up: {picked}")
+                    require("pretrained_g_loaded" in picked and (
+                        rname != "default" or "v_loaded" in picked),
+                        f"the 16px run did not pick up its files: {picked}")
+                runs[key] = run
+    return runs
+
+
+def steps16_card_vs_cpu() -> dict:
+    """Phase 38: one 16px step at batch 8 (G16up against D32_st3), card
+    against CPU, on each route of STEP16_ROUTES: f32 within phase 9's
+    bounds (``step_card_vs_cpu``), bf16 within phase 28's
+    (``bf16_route_step_card_vs_cpu``); the card's launches as designed."""
+    out = {}
+    for rname, route in STEP16_ROUTES:
+        out[f"f32_{rname}"] = step_card_vs_cpu(
+            route, pair=lambda: seeded16("g16up", "default", 3),
+            image=IMG16, expected=lambda r: expected16(r, 1, 0, 0))
+        out[f"bf16_{rname}"] = bf16_route_step_card_vs_cpu(
+            f"16px {rname}", route or {},
+            pair=lambda: seeded16("g16up", "default", 3), image=IMG16,
+            stages=2)
+    return out
+
+
+def zoo_steps_on_card() -> dict:
+    """Phase 38: one train step at batch 64 with augmentation on the card
+    for each pair of ZOO_STEPS, from seeded weights: finite losses; the
+    Gs' steps on the ladder and on the per-layer route launch their
+    stages' kernels as designed (``expected_upsample``), the Ds' steps on
+    the default route launch the augmentation's sampler forward alone
+    (the conv Ds have no spatial transformer). Returns each step's
+    launches."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import gan
+
+    out = {}
+    for g_name, d_name, side in ZOO_STEPS:
+        image = (side, side, 3)
+        routes = ((("ladder", LADDER), ("per-layer", PER_LAYER))
+                  if d_name == "d32_st3" else (("default", None),))
+        for rname, route in routes:
+            g, d = seeded16(g_name, d_name, 7, image)
+            g, d = g.cuda(), d.cuda()
+            config = gan.GanConfig(batch_size=64, augment=True)
+            state = gan.init_state(g, d, config)
+            reals = torch.rand((32, *image), device="cuda")
+            reset_counts()
+            with upconfig.using(**(route or {})):
+                m = gan.make_train_step(g, d, config)(
+                    state, reals, Draws(torch.Generator("cuda").manual_seed(
+                        8)))
+            torch.cuda.synchronize()
+            up, dk = upsample_counts(), sampler_counts()
+            want_up = expected_upsample(route, 1, 0, G_STAGES_OF[g_name])
+            want_d = (expected_sampler(None, 1, 0) if d_name == "d32_st3"
+                      else {**{k: 0 for k in dk}, "fwd": 1})
+            losses = (float(m.loss_d), float(m.loss_g))
+            print(f"{g_name} vs {d_name} at {side}px, {rname} route: losses "
+                  f"{losses[0]:.5f} / {losses[1]:.5f}; upsample-conv "
+                  f"{ {k: v for k, v in up.items() if v} } (expected "
+                  f"{ {k: v for k, v in want_up.items() if v} }); D's "
+                  f"kernels { {k: v for k, v in dk.items() if v} }")
+            require(all(map(math.isfinite, losses)),
+                    f"{g_name} vs {d_name}: non-finite losses")
+            require(up == want_up and dk == want_d,
+                    f"{g_name} vs {d_name}: the step's launches")
+            out[f"{g_name}_{d_name}_{rname}"] = {
+                "loss_d": losses[0], "loss_g": losses[1],
+                "launches": {**{f"up_{k}": v for k, v in up.items()}, **dk}}
+            del g, d, state
+    return out
+
+
+def step16_times(card_name: str) -> dict:
+    """Phase 38: the 16px step (G16up against D32_st3, batch 640,
+    augmented) in f32 and bf16 on the default and ladder routes, in one
+    run (``bf16_step_times``: median of 10 with min and max, images/s,
+    peak memory, idle share, each port kernel's device time)."""
+    import torch
+
+    out = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for rname, route in (("default", None), ("ladder", LADDER)):
+            out[f"{dname}_{rname}"] = bf16_step_times(
+                card_name, dtype, False, route, f"16px {rname}",
+                pair=lambda: seeded16("g16up", "default", 6), batch=TRAIN_B,
+                image=IMG16)
+            torch.cuda.empty_cache()
+    return out
+
+
+def write_corpus(root: str, n: int, parts: int = 8) -> list:
+    """``n`` fixture images in ``parts`` directories written by as many
+    worker processes (one seed each); returns the directories."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from catgen_torch.data.fixture import write_fixture_dataset
+
+    dirs = [os.path.join(root, f"part{i}") for i in range(parts)]
+    with ProcessPoolExecutor(
+            parts, mp_context=multiprocessing.get_context("spawn")) as ex:
+        list(ex.map(write_fixture_dataset, dirs, [n // parts] * parts,
+                    [64] * parts, range(parts)))
+    return dirs
+
+
+def moved_values(a: list, b: list) -> int:
+    """The fewest values that, each moved to a neighbouring bin, turn the
+    histogram counts ``b`` into ``a`` (-1 if the totals differ)."""
+    carry = moved = 0
+    for x, y in zip(a, b):
+        carry += x - y         # values that crossed the edge after this bin
+        moved += abs(carry)
+    return moved if carry == 0 else -1
+
+
+def reports_agree(card: dict, cpu: dict) -> dict:
+    """The card's quality report against the CPU's, field by field, within
+    QUALITY_SCORE_ATOL, QUALITY_DIV_RTOL, NN_RTOL and HIST_MOVES; returns
+    the largest differences and the histograms' moved values."""
+    import numpy as np
+
+    worst = {}
+
+    def close(key, a, b, atol=0.0, rtol=0.0):
+        err = abs(a - b)
+        worst[key] = max(worst.get(key, 0.0), err)
+        require(err <= atol + rtol * abs(b),
+                f"quality report {key}: card {a!r} against CPU {b!r}")
+
+    for k in ("n_samples", "corpus_size", "image_shape", "finite",
+              "checkpoint", "epoch"):
+        require(card[k] == cpu[k], f"quality report {k}")
+    for k, atol, rtol in (("d_scores_generated", QUALITY_SCORE_ATOL, 0.0),
+                          ("d_scores_real", QUALITY_SCORE_ATOL, 0.0),
+                          ("nn_l2", 0.0, NN_RTOL)):
+        a, b = card[k], cpu[k]
+        moved = moved_values(a["histogram"]["counts"],
+                             b["histogram"]["counts"])
+        worst[f"{k}.moved"] = moved
+        require(a["n"] == b["n"] and 0 <= moved <= HIST_MOVES,
+                f"quality report {k} counts: {a['histogram']['counts']} "
+                f"against {b['histogram']['counts']}")
+        for f in ("mean", "std", "min", "max"):
+            close(k, a[f], b[f], atol, rtol)
+        for p in b["percentiles"]:
+            close(k, a["percentiles"][p], b["percentiles"][p], atol, rtol)
+        for e1, e2 in zip(a["histogram"]["edges"], b["histogram"]["edges"]):
+            close(k, e1, e2, atol, rtol)
+    for k in ("d_fooled_fraction", "nn_copy_fraction"):
+        require(card[k] == cpu[k], f"quality report {k}")
+    for k, v in cpu["diversity"].items():
+        close(f"diversity.{k}", card["diversity"][k], v, 0.0,
+              QUALITY_DIV_RTOL)
+    require(("v_rating" in card) == ("v_rating" in cpu), "V's ratings")
+    for k, v in cpu.get("v_rating", {}).items():
+        close(f"v_rating.{k}", card["v_rating"][k], v, QUALITY_SCORE_ATOL)
+    require(bool(np.isfinite(card["nn_l2"]["mean"])), "NN distances")
+    return worst
+
+
+def quality_on_card(ckpt: str, v_path: str, root: str) -> dict:
+    """Phase 39: cli.eval_quality on phase 8's checkpoint, with phase 22's
+    V in its --save, at QUALITY_SAMPLES samples against a BENCH_CORPUS-
+    image fixture corpus, on the card and on the CPU (the same draws: the
+    port draws on the host from the seed): every field of the card's
+    report against the CPU's (``reports_agree``), each run's wall time;
+    then cli.show_ckpt on the checkpoint, whose output must equal a
+    separate CPU process's."""
+    import contextlib
+    import io
+
+    from catgen_torch.cli import eval_quality as eval_cli
+    from catgen_torch.cli import show_ckpt
+
+    save = os.path.join(root, "save")
+    os.makedirs(save)
+    shutil.copy(v_path, save)
+    t0 = time.perf_counter()
+    dirs = write_corpus(os.path.join(root, "corpus"), BENCH_CORPUS)
+    print(f"{BENCH_CORPUS} fixture images written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    argv = ["--save", save, "--network", ckpt, "--samples",
+            str(QUALITY_SAMPLES), "--dataset", *dirs]
+    reports, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        reports[dev] = eval_cli.main(argv + ["--device", dev, "--out",
+                                             os.path.join(root,
+                                                          f"{dev}.json")])
+        walls[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = sampler_counts()["fwd"]
+            require(launches == 2 * (2 * QUALITY_SAMPLES // 256),
+                    f"D's sampler launches in the card's report: {launches}")
+        print(f"eval_quality on the {dev}: {walls[dev]:.2f} s wall "
+              f"(models rebuilt, corpus decoded, {QUALITY_SAMPLES} samples "
+              f"scored, NN against {BENCH_CORPUS})")
+    worst = reports_agree(reports["cuda"], reports["cpu"])
+    print(f"the card's report equals the CPU's: D scores and V ratings "
+          f"within {QUALITY_SCORE_ATOL}, NN distances within {NN_RTOL} and "
+          f"diversity within {QUALITY_DIV_RTOL} relative, at most "
+          f"{HIST_MOVES} values across a histogram edge; largest "
+          f"differences {worst}")
+    require("v_rating" in reports["cuda"], "V was not picked up")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        show_ckpt.main([ckpt])
+    cpu = subprocess.run(
+        [sys.executable, "-m", "catgen_torch.cli.show_ckpt", ckpt],
+        capture_output=True, text=True, timeout=120, check=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}).stdout
+    print(f"show_ckpt: {len(buf.getvalue().splitlines())} lines, equal to "
+          f"the CPU process's: {buf.getvalue() == cpu}; "
+          f"{buf.getvalue().splitlines()[-1].strip()}")
+    require(buf.getvalue() == cpu, "show_ckpt's output differs")
+    return {"wall_s": walls, "max_diff": worst,
+            "v_rating": reports["cuda"]["v_rating"],
+            "d_fooled_fraction": reports["cuda"]["d_fooled_fraction"]}
+
+
+def add_16px_entries(by_name: dict, base64: dict, new_err: dict,
+                     new_t: dict, s16: dict, st16_err: dict, st16_t: dict,
+                     steps16: dict, runs16: dict, zoo: dict) -> None:
+    """Adds phases 37-38's readings to the kernels line's entries
+    (``by_name``: entry by kernel name): rows 4 and 6 at G64_stack's base
+    stages under ``at_64px``; ``at_16px`` (the 16px models' shapes, the
+    kinds, errors and times there, and the launches in a 16px step and in
+    the 16px CLI runs) and, for the upsample-conv kernels, ``at_g32up``
+    (G32up's first stage, and its step's launches)."""
+    # rows 4 and 6 at G64_stack's base stages, B=256 (phase 37)
+    for dtype, suffix in (("f32", ""), ("bf16", "_bf16")):
+        for key, rows in (("block", base64[dtype]["block"]),
+                          ("block_dx", base64[dtype]["block_backward"]),
+                          ("block_dck", base64[dtype]["block_backward"])):
+            name = dict((k, n) for k, n, *_ in UP_KERNELS)[key] + suffix
+            by_name[name]["at_64px"]["base_stages"] = {
+                "shapes": [str(stage_shape(i, B64)) for i in range(3)],
+                "what": LIBRARY_CALL["block_sums" if key == "block"
+                                     else "block_backward"], "rows": rows}
+    # the 16px models and G32up (phases 37-38): the shapes they give the
+    # kernels, the kinds, errors and times there, and their launches in a
+    # 16px step (phase 38's card-against-CPU steps: the per-layer kernels
+    # on the per-layer route, the block kernels on the ladder) and in the
+    # 16px CLI runs; G32up's in its one step on each route
+    time_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                 "library_device_ms")
+    for dtype, suffix, prefix in (("f32", "", ""), ("bf16", "_bf16", "BF16_")):
+        for key, name, counter, _, _ in UP_KERNELS:
+            block = key.startswith("block")
+            route = "ladder" if block else "per-layer"
+            rows = new_t[dtype][key]
+            for tag, idx, shapes, err, launches in (
+                    ("at_16px", (0, 1), G16UP_STAGES, new_err[dtype]["g16up"],
+                     {"launches_16px_step": steps16[f"{dtype}_{route}"][
+                         "launches"][f"up_{prefix}{counter}"],
+                      "launches_train_16px_ladder": runs16[
+                          f"default_{dtype}_ladder"]["launches"][
+                          f"up_{prefix}{counter}"]}),
+                    ("at_g32up", (2,), G32UP_STAGES, new_err[dtype]["g32up"],
+                     {"launches_g32up_f32_step": zoo[
+                         f"g32up_d32_st3_{route}"]["launches"][
+                         f"up_{counter}"]})):
+                by_name[name + suffix][tag] = {
+                    "shapes": [str(sh) for sh in shapes], **launches,
+                    "kind": ("bf16 forward: " + str(err["kinds"])
+                             if dtype == "bf16" else "3xTF32"),
+                    "max_abs_err": err[key],
+                    "max_rel_err": err[f"{key}_rel"],
+                    "max_rel_err_vs_float64": err["vs_float64"].get(key),
+                    "bound_by": rows[idx[0]]["bound_by"],
+                    **{f"{k}_by_shape": [rows[i][k] for i in idx]
+                       for k in time_keys}}
+        for key, counter in (("fwd", "LAUNCHES"),
+                             ("dcoords", "DCOORDS_LAUNCHES"),
+                             ("dimg", "DIMG_LAUNCHES")):
+            name = {"fwd": "bilinear_sample_rows",
+                    "dcoords": "bilinear_sample_rows_bwd_dcoords",
+                    "dimg": "bilinear_sample_rows_bwd_dimg"}[key] + suffix
+            rows = [s16[dtype]["rows"][f"{key} {sh}"]
+                    for sh in SAMPLER16_SHAPES]
+            by_name[name]["at_16px"] = {
+                "shapes": [str(sh) for sh in SAMPLER16_SHAPES],
+                "kind_by_shape": [r["kind"] for r in rows],
+                "max_abs_err": s16[dtype]["max_abs_err"][key],
+                "launches_16px_step": steps16[f"{dtype}_default"][
+                    "launches"][prefix + counter],
+                "launches_train_16px": runs16[f"default_{dtype}_default"][
+                    "launches"][prefix + counter],
+                "bound_by": rows[0]["bound_by"],
+                **{f"{k}_by_shape": [r[k] for r in rows] for k in time_keys}}
+        st_name = "st_conv_prelu" + suffix
+        st_counter = "st_conv_bf16" if dtype == "bf16" else "st_conv"
+        by_name[st_name]["at_16px"] = {
+            "shape": str(ST16_SHAPES[0]),
+            "max_abs_err": st16_err[dtype]["out"],
+            "max_rel_err": st16_err[dtype]["out_rel"],
+            "z_max_abs_err": st16_err[dtype]["z"],
+            "samp_max_abs_err": st16_err[dtype]["samp"],
+            "launches_16px_step": steps16[f"{dtype}_fused-prefix"][
+                "launches"][st_counter],
+            "launches_train_16px": runs16[f"default_{dtype}_fused_prefix"][
+                "launches"][st_counter],
+            **st16_t[dtype]["train"],
+            "sampling_path": {"shape": str(ST16_SHAPES[1]),
+                              **st16_t[dtype]["sample"]}}
+    by_name["bilinear_sample_grid"]["at_16px"] = {
+        "shape": "V16's warp generator, (16, 16, 3) -> 16x16",
+        "launches_v16_run": runs16["v16"]["grid_launches"]}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -4624,6 +5439,7 @@ def main(argv=None) -> int:
         phase(22, "the V trainer through cli.train_v, batch 32, 2 epochs")
         t0 = time.perf_counter()
         v_harness, v_counts = v_cli_on_card(save)
+        shutil.copy(os.path.join(save, "v_3x32x32.ckpt"), run32.name)
         v_step = v_step_card_vs_cpu(v_harness.bank)
         print(f"phase 22: {time.perf_counter() - t0:.1f} s")
         phase(23, "the G pretrainer through cli.pretrain_g, default and "
@@ -4743,7 +5559,6 @@ def main(argv=None) -> int:
         for r in runs64.values():
             r.pop("events", None)
         print(f"phase 35: {time.perf_counter() - t0:.1f} s")
-    run32.cleanup()
     phase(36, f"one 64px step at batch 8, card against CPU; the 64px step "
               f"at batch {B64} in f32 and bf16 on the default and kernel "
               f"routes")
@@ -4758,6 +5573,62 @@ def main(argv=None) -> int:
         "cli_runs": runs64,
         "steps": {k: {m: v[m] for m in v if m != "kernel_device_ms"}
                   for k, v in t64.items()}}}))
+
+    phase(37, f"the new kernel shapes against their plain versions, f32 "
+              f"and bf16: G16up's and G32up's upsample-convs {NEW_STAGES}, "
+              f"the sampler at {SAMPLER16_SHAPES}, the ST-conv at "
+              f"{ST16_SHAPES}; rows 4 and 6 at G64_stack's base stages, "
+              f"B={B64}")
+    t0 = time.perf_counter()
+    new_err = {dt: {"g16up": new_stages_vs_plain(dt == "bf16", G16UP_STAGES),
+                    "g32up": new_stages_vs_plain(dt == "bf16", G32UP_STAGES)}
+               for dt in ("f32", "bf16")}
+    new_t = {dt: upsample_times(card_name, dt == "bf16", NEW_STAGES,
+                                library_device=False)
+             for dt in ("f32", "bf16")}
+    st16_err = {dt: st_conv_vs_plain(dt == "bf16", ST16_SHAPES)
+                for dt in ("f32", "bf16")}
+    st16_t = {dt: st_conv_times(card_name, dt == "bf16",
+                                ((ST16_SHAPES[0], True),
+                                 (ST16_SHAPES[1], False)), banded=False)
+              for dt in ("f32", "bf16")}
+    s16 = sampler16(card_name)
+    base64 = {dt: base64_block_rows(card_name, dt == "bf16")
+              for dt in ("f32", "bf16")}
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_16_") as root:
+        phase(38, "the 16px workflow through the CLIs (train_v and "
+                  "pretrain_g --scale 16; train --scale 16 --augment, G16up "
+                  "against D32_st3 and D16_st3, default, ladder and "
+                  "fused-prefix routes, f32 and bf16; sample); a 16px step "
+                  "card against CPU on every route; a step of every other "
+                  "new registry key; the 16px step at batch 640")
+        t0 = time.perf_counter()
+        runs16 = workflow16_on_card(root)
+    steps16 = steps16_card_vs_cpu()
+    zoo = zoo_steps_on_card()
+    t16 = step16_times(card_name)
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"workflow_16px": {
+        "card": card_name, "cli_runs": runs16,
+        "steps_card_vs_cpu": {k: {m: v[m] for m in v if m != "launches"}
+                              for k, v in steps16.items()},
+        "zoo_steps": {k: {m: v[m] for m in v if m != "launches"}
+                      for k, v in zoo.items()},
+        "steps": {k: {m: v[m] for m in v if m != "kernel_device_ms"}
+                  for k, v in t16.items()}}}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as root:
+        phase(39, f"cli.eval_quality on phase 8's checkpoint with phase "
+                  f"22's V, {QUALITY_SAMPLES} samples against a "
+                  f"{BENCH_CORPUS}-image corpus, card against CPU; "
+                  f"cli.show_ckpt")
+        t0 = time.perf_counter()
+        quality = quality_on_card(
+            os.path.join(run32.name, "adversarial.ckpt"),
+            os.path.join(run32.name, "v_3x32x32.ckpt"), root)
+        print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+    run32.cleanup()
+    print(json.dumps({"quality": {"card": card_name, **quality}}))
 
     from catgen_torch.kernels import bilinear
 
@@ -5086,6 +5957,8 @@ def main(argv=None) -> int:
     for _, name, counter, _, _ in BF16_PASSES:
         by_name[name]["at_64px"] = {"launches_train_64px": runs64[
             "bf16_kernel"]["launches"][f"up_{counter}"]}
+    add_16px_entries(by_name, base64, new_err, new_t, s16, st16_err, st16_t,
+                     steps16, runs16, zoo)
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

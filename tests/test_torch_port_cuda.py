@@ -207,7 +207,10 @@ UP_SHAPES = [                  # (N, H, W, Cin, Cout, k)
     (3, 5, 3, 17, 70, 5),      # Cout over one tile, ragged
     (1, 3, 4, 65, 33, 7),      # Cin over one tile, k = 7
     (2, 4, 4, 512, 512, 3),    # G32up-c stage 1
-    (2, 16, 16, 256, 128, 5),  # G32up-c stage 3
+    (2, 16, 16, 256, 128, 5),  # G32up-c stage 3; G32up stage 2
+    (3, 4, 4, 128, 256, 5),    # G16up stage 1: k5 from 4x4, Cin 128
+    (2, 8, 8, 256, 128, 5),    # G16up stage 2
+    (2, 8, 8, 128, 256, 5),    # G32up stage 1
 ]
 
 
@@ -696,11 +699,13 @@ def test_dck_repeats_are_bit_identical(f32_cuda, fold, transform):
 # choice between the three d_coords kernels
 # ---------------------------------------------------------------------------
 
-STAGED_SHAPES = [(2, 16, 16, 64, 48, 16), (2, 8, 8, 128, 8, 8)]
+STAGED_SHAPES = [(2, 16, 16, 64, 48, 16), (2, 8, 8, 128, 8, 8),
+                 (2, 8, 8, 64, 24, 8)]     # D32_st3's branches at 16px
 
 
 @pytest.mark.parametrize("hwc, kind", [
     ((16, 16, 64), "staged"), ((8, 8, 128), "staged"), ((7, 1, 32), "staged"),
+    ((8, 8, 64), "staged"),
     ((32, 32, 64), "per_warp"), ((9, 11, 33), "per_warp"),
     ((32, 32, 3), "per_pixel"), ((4, 4, 31), "per_pixel")])
 def test_dcoords_kernel_choice(cuda, hwc, kind):
@@ -739,7 +744,8 @@ def test_staged_dcoords_matches_plain(cuda, shape, layout):
 # the branch shape at full batch, and shapes whose output pixels are not a
 # multiple of the block's range (77 and 117 per sample)
 STAGED_FWD_SHAPES = [(640, 16, 16, 64, 48, 16), (3, 16, 16, 64, 7, 11),
-                     (5, 8, 8, 128, 13, 9)]
+                     (5, 8, 8, 128, 13, 9),
+                     (640, 8, 8, 64, 24, 8)]   # D32_st3's branches at 16px
 
 
 def _misaligned(t):
@@ -973,7 +979,7 @@ def test_dimg_kernel_by_shape(cuda, shape, name, layout):
         grid = rows.permute(0, 2, 1).reshape(shape[0], *out_hw, 2)
         grid = grid.contiguous()
         run = lambda: bilinear_grid.launch_dimg(img, grid, g)  # noqa: E731
-    names = _forward_kernel_names(run)
+    names = _kernel_names_seen(run)
     assert len(names) == 1 and name + "<" in names[0], names
 
 
@@ -993,7 +999,8 @@ GATHER_SHAPES = [(2, 16, 16, 64, 48, 16),   # the branch shape
                  (2, 9, 11, 33, 7, 5),      # odd sizes and C: no float2
                  (2, 32, 32, 31, 8, 8),     # C = 31: four slabs do not fit
                  (2, 32, 32, 64, 32, 32),   # a 32x32x64 image
-                 (1, 9, 7, 32, 48, 48)]     # 2304 output pixels: 3 passes
+                 (1, 9, 7, 32, 48, 48),     # 2304 output pixels: 3 passes
+                 (3, 8, 8, 64, 24, 8)]      # D32_st3's branches at 16px
 
 
 @pytest.mark.parametrize("shape", GATHER_SHAPES)
@@ -1068,6 +1075,7 @@ def test_per_channel_dimg_matches_plain(cuda, layout):
 # ---------------------------------------------------------------------------
 
 QUAD_SHAPES = [(640, 32, 32, 3, 32, 32),    # the input ST at batch 640
+               (640, 16, 16, 3, 16, 16),    # the input ST at 16px
                (3, 32, 32, 1, 32, 32),      # C = 1
                (2, 4, 4, 31, 2, 2),         # C = 31, the widest
                (2, 7, 9, 4, 5, 7),          # odd h and w; P = 35
@@ -1125,7 +1133,7 @@ def test_per_quad_forward_kernel_of_a_view(cuda, view, name, layout):
     img, rows, out_hw = _inputs((2, 32, 32, 3, 32, 32), cuda, seed=32)
     im = _misaligned(img) if view == "image" else img
     crd = _coords(layout, rows, out_hw, 2 if view == "coords" else 0)
-    names = _forward_kernel_names(lambda: _forward(layout, im, crd, out_hw))
+    names = _kernel_names_seen(lambda: _forward(layout, im, crd, out_hw))
     assert len(names) == 1 and name + "<" in names[0], names
 
 
@@ -1546,7 +1554,7 @@ def test_bf16_block_backward_matches_plain(f32_cuda, shape, alpha):
         _bf16_or_f32_close(a, b, name)
 
 
-@pytest.mark.parametrize("shape", [BF16_UP_SHAPES[3], BF16_UP_SHAPES[5]])
+@pytest.mark.parametrize("shape", [UP_SHAPES[3], (2, 8, 8, 128, 64, 3)])
 def test_bf16_upsample_kernels_repeat_and_ignore_alignment(f32_cuda, shape):
     # a bf16 x, g and y 2 bytes off a 16-byte boundary take the 2-byte
     # copies: the same sums in the same order, so the same bits
@@ -1864,7 +1872,7 @@ def test_bf16_per_quad_forward_kernel_of_a_view(cuda, view, name, layout):
                                         seed=43)
     im = _misaligned(img) if view == "image" else img
     crd = _coords(layout, rows, out_hw, 2 if view == "coords" else 0)
-    names = _forward_kernel_names(lambda: _forward(layout, im, crd, out_hw))
+    names = _kernel_names_seen(lambda: _forward(layout, im, crd, out_hw))
     assert len(names) == 1 and name + "<" in names[0], names
 
 
@@ -1966,6 +1974,9 @@ TMA_SHAPES = [                 # (N, H, W, Cin, Cout, k), box (w, h, n)
     ((1, 4, 128, 64, 72, 3), (128, 1, 1)),   # a row of 128; cout ragged
     ((5, 2, 4, 64, 136, 5), (4, 2, 16)),     # odd steps (9); 2 cout tiles
     ((1, 4, 4, 64, 64, 3), (4, 4, 8)),       # one tile past n's end
+    ((3, 4, 4, 128, 256, 5), (4, 4, 8)),     # G16up stage 1, ragged n
+    ((2, 8, 8, 256, 128, 5), (8, 8, 2)),     # G16up stage 2
+    ((2, 8, 8, 128, 256, 5), (8, 8, 2)),     # G32up stage 1
 ]
 CP_ASYNC_SHAPES = [            # no box: the cp.async kernel
     (2, 4, 4, 96, 64, 3),      # cin % 64 != 0
@@ -2137,6 +2148,7 @@ MMA_ST_SHAPES = [               # (N, H, W, C, F)
     (2, 9, 8, 4, 8),            # C = 4 (K = 36 -> 48), F = 8
     (3, 32, 32, 3, 8),          # F = 8
     (2, 7, 8, 3, 136),          # F over one group of 64, ragged pixels
+    (640, 16, 16, 3, 64),       # D32_st3's and D16_st3's prefix at 16px
 ]
 
 
@@ -2197,6 +2209,7 @@ def test_bf16_st_conv_shapes_off_the_tensor_cores(f32_cuda, case):
 
 QUAD_DCOORDS_SHAPES = [
     (640, 32, 32, 3, 32, 32),   # the input ST and the augmentation
+    (640, 16, 16, 3, 16, 16),   # both at 16px
     (1, 32, 32, 3, 32, 32),     # N = 1
     (3, 32, 32, 1, 32, 32),     # C = 1
     (3, 32, 32, 2, 32, 32),     # C = 2
@@ -2364,6 +2377,7 @@ def test_bf16_per_quad_dcoords_of_an_empty_batch(cuda, layout):
 TILED_ST_SHAPES = [             # (N, H, W, C, F)
     (640, 32, 32, 3, 64),       # D32_st3's training shape
     (256, 32, 32, 3, 64),       # and its sampling shape
+    (640, 16, 16, 3, 64),       # the prefix at 16px: 256 pixels a sample
     (1, 32, 32, 3, 64),         # N = 1
     (3, 12, 20, 1, 4),          # C = 1, F = 4
     (3, 12, 10, 2, 128),        # C = 2, F = 128, a ragged last segment
@@ -2409,11 +2423,13 @@ def test_f32_tiled_st_conv_gives_the_banded_bits(f32_cuda, shape,
 
 
 @pytest.mark.parametrize("case, kind", [
-    ("d32_st3", "st_conv_f32_tiled<"), ("misaligned", "st_conv_prelu_kernel<"),
+    ("d32_st3", "st_conv_f32_tiled<"), ("16px", "st_conv_f32_tiled<"),
+    ("misaligned", "st_conv_prelu_kernel<"),
     ("f31", "st_conv_prelu_kernel<"), ("c5", "st_conv_prelu_kernel<"),
     ("hwc_odd", "st_conv_prelu_kernel<")])
 def test_f32_st_conv_kernel_by_shape(f32_cuda, case, kind):
-    shape = {"d32_st3": (2, 32, 32, 3, 64), "misaligned": (2, 32, 32, 3, 64),
+    shape = {"d32_st3": (2, 32, 32, 3, 64), "16px": (2, 16, 16, 3, 64),
+             "misaligned": (2, 32, 32, 3, 64),
              "f31": (2, 12, 16, 3, 31), "c5": (2, 8, 8, 5, 16),
              "hwc_odd": (2, 9, 11, 3, 64)}[case]
     img, *params = _st_inputs(shape, f32_cuda, seed=91)

@@ -33,7 +33,7 @@ def test_every_module_imports_with_jax_and_catgen_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 46
+    assert int(proc.stdout.split()[-1]) >= 54
 
 
 @pytest.mark.parametrize("module", [
@@ -65,6 +65,25 @@ def test_v_and_pretrain_modules_import_alone(module):
     """The V subsystem's and the pretrainer's modules, each in a fresh
     process with jax and catgen blocked, build no kernel at import (the
     warp generator reaches the grid sampler's only when it runs)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['catgen'] = None\n"
+        f"import {module}\n"
+        "from catgen_torch.kernels import build\n"
+        "assert not build.load_library.cache_info().currsize\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "catgen_torch.nn", "catgen_torch.models", "catgen_torch.eval.quality",
+    "catgen_torch.cli.eval_quality", "catgen_torch.cli.show_ckpt"])
+def test_zoo_and_quality_modules_import_alone(module):
+    """The layers' package, the model zoo and the quality evaluation, each
+    in a fresh process with jax and catgen blocked, build no kernel at
+    import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -301,17 +301,21 @@ def test_fixture_and_grids_equal_catgen():
 
 
 def test_registries_hold_only_the_ported_pair():
+    """The port's registries hold exactly catgen's keys (the 64px entries
+    registered by both packages' ``models``), and an unknown key raises
+    KeyError as catgen's dict does."""
+    from catgen import models as cmodels
     from catgen_torch import models
 
-    assert set(models.G_REGISTRY) == {"g32up_c", "default", "g64_stack",
-                                      "refine64"}
-    assert set(models.D_REGISTRY) == {"d32_st3", "default", "d64"}
-    for registry, key in ((models.G_REGISTRY, "g16up"),
-                          (models.D_REGISTRY, "d32")):
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            registry[key]
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        models.create_G((16, 16, 3), 100)
+    for mine, theirs in ((models.G_REGISTRY, cmodels.G_REGISTRY),
+                         (models.D_REGISTRY, cmodels.D_REGISTRY),
+                         (models.V_REGISTRY, cmodels.V_REGISTRY)):
+        assert set(mine) == set(theirs)
+        with pytest.raises(KeyError):
+            mine["g99"]
+    assert type(models.create_G((16, 16, 3), 100)).__name__ == (
+        "FusedDecoderSequential")
+    assert models.create_G((16, 16, 3), 100).seq_name == "G16up"
 
 
 def test_cached_constants_serve_autograd_after_inference():

@@ -1,6 +1,7 @@
-"""The port's G pretrainer (catgen_torch/train/pretrainer.py, the 32px G
-autoencoder of catgen_torch/models/zoo.py) against catgen's on the CPU,
-and the files that tie the three programs together: the V checkpoint and
+"""The port's G pretrainer (catgen_torch/train/pretrainer.py, the 32px and
+16px G autoencoders of catgen_torch/models/zoo.py) against catgen's on
+the CPU, and the files that tie the three programs together: the V
+checkpoint and
 the pretrained G, written by either package and picked up by the other's
 GAN harness with the same weights and the same V ratings.
 
@@ -50,24 +51,28 @@ from torch_port_helpers import (IMG, NOISE_DIM, assert_adam_step_close,
 ATOL = 1e-5
 
 
-def _images(n, seed):
-    return np.random.RandomState(seed).rand(n, *IMG).astype(np.float32)
+IMG16 = (16, 16, 3)
 
 
-def catgen_ae(seed=0, enc_gain=1.0, dec_gain=1.0):
-    """catgen's autoencoder with perturbed weights (the encoder's kernels
-    scaled by ``enc_gain``, the decoder's by ``dec_gain``)."""
-    ae = cmodels.create_G_autoencoder(IMG, NOISE_DIM)
-    variables = np_tree(ae.init(jax.random.PRNGKey(seed), (1,) + IMG))
+def _images(n, seed, img=IMG):
+    return np.random.RandomState(seed).rand(n, *img).astype(np.float32)
+
+
+def catgen_ae(seed=0, enc_gain=1.0, dec_gain=1.0, img=IMG):
+    """catgen's autoencoder at ``img`` with perturbed weights (the
+    encoder's kernels scaled by ``enc_gain``, the decoder's by
+    ``dec_gain``)."""
+    ae = cmodels.create_G_autoencoder(img, NOISE_DIM)
+    variables = np_tree(ae.init(jax.random.PRNGKey(seed), (1,) + img))
     rng = np.random.RandomState(seed)
-    for name, gain in (("00_G_enc32", enc_gain), ("01_G32up_c", dec_gain)):
+    for name, gain in zip(sorted(variables["params"]), (enc_gain, dec_gain)):
         perturb({"params": variables["params"][name],
                  "state": variables["state"][name]}, rng, gain=gain)
     return ae, variables
 
 
-def port_ae(variables):
-    ae = tmodels.create_G_autoencoder(IMG, NOISE_DIM)
+def port_ae(variables, img=IMG):
+    ae = tmodels.create_G_autoencoder(img, NOISE_DIM)
     ae.load_state_dict(catgen_to_state_dict(variables["params"],
                                             variables["state"]), strict=True)
     return ae
@@ -78,12 +83,15 @@ def _sd(variables):
         np_tree(variables["params"]), np_tree(variables["state"])).items()}
 
 
-def test_autoencoder_matches_catgen_in_train_and_eval():
-    cae, variables = catgen_ae(seed=2)
-    tae = port_ae(variables)
+def _autoencoder_matches_catgen(img, seed):
+    """The port's autoencoder at ``img`` against catgen's: train and eval
+    forwards, the BatchNorm statistics the train forward moved, and the
+    reconstruction (eval) after it."""
+    cae, variables = catgen_ae(seed=seed, img=img)
+    tae = port_ae(variables, img)
     assert isinstance(tpre.extract_decoder(tae),
-                      type(tmodels.create_G(IMG, NOISE_DIM)))
-    x = _images(4, 3)
+                      type(tmodels.create_G(img, NOISE_DIM)))
+    x = _images(4, seed + 1, img)
     apply = jax.jit(cae.apply, static_argnames=("train",))
     for train in (False, True):
         want, new_state = apply(variables, jnp.asarray(x), train=train)
@@ -98,15 +106,24 @@ def test_autoencoder_matches_catgen_in_train_and_eval():
         np.testing.assert_allclose(t.numpy(), want[k], rtol=0, atol=ATOL,
                                    err_msg=k)
     moved = {"params": variables["params"], "state": new_state}
+    recon = np.asarray(apply(moved, jnp.asarray(x), train=False)[0])
+    assert np.ptp(recon) > 1e-3        # not a flat image
     np.testing.assert_allclose(
-        tpre.reconstruct(tae, torch.tensor(x)).numpy(),
-        np.asarray(apply(moved, jnp.asarray(x), train=False)[0]),
+        tpre.reconstruct(tae, torch.tensor(x)).numpy(), recon,
         rtol=0, atol=ATOL)
+    return tae
+
+
+def test_autoencoder_matches_catgen_in_train_and_eval():
+    _autoencoder_matches_catgen(IMG, seed=2)
 
 
 def test_16px_autoencoder_is_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmodels.create_G_autoencoder((16, 16, 3), NOISE_DIM)
+    """The 16px autoencoder, G_enc16 (its flatten 4x4x64 after two pools)
+    and G16up, whose reconstruction matches catgen's; its decoder is the
+    16px default G."""
+    tae = _autoencoder_matches_catgen(IMG16, seed=6)
+    assert tpre.decoder_child_name(tae) == "01_G16up"
 
 
 # Gains where both f32 gradients are well conditioned. The BatchNorm
@@ -118,19 +135,20 @@ def test_16px_autoencoder_is_refused():
 ENC_GAIN, DEC_GAIN = 4.0, 1.0
 
 
-def test_pretrain_step_matches_catgen_at_full_width():
-    """One autoencoder step at batch 4, with G_L2 and G_L1 on."""
+def _pretrain_step_matches_catgen(img, n_zero):
+    """One autoencoder step at batch 4 at ``img``, with G_L2 and G_L1 on;
+    ``n_zero`` biases feed a BatchNorm."""
     config = dict(batch_size=4, g_l1=1e-4, g_l2=1e-3)
     cae, variables = catgen_ae(seed=1, enc_gain=ENC_GAIN,
-                               dec_gain=DEC_GAIN)
+                               dec_gain=DEC_GAIN, img=img)
     c_config = cpre.PretrainConfig(**config)
-    state = cpre.init_state(cae, c_config, jax.random.PRNGKey(0), IMG)
+    state = cpre.init_state(cae, c_config, jax.random.PRNGKey(0), img)
     state = state._replace(params=variables["params"],
                            state=variables["state"])
-    tae = port_ae(variables)
+    tae = port_ae(variables, img)
     t_config = tpre.PretrainConfig(**config)
     t_state = tpre.init_state(tae, t_config)
-    x = _images(4, 11)
+    x = _images(4, 11, img)
     # catgen's step compiled, as catgen runs it, with its raw gradients
     # returned beside its results
     traced = []
@@ -154,7 +172,7 @@ def test_pretrain_step_matches_catgen_at_full_width():
                                                      torch.tensor(x))
     np.testing.assert_allclose(float(t_loss), float(c_loss), rtol=1e-5)
     zero = bn_fed_biases(tae)
-    assert len(zero) == 8      # 5 in the encoder, 3 upsample-convs
+    assert len(zero) == n_zero
     assert_grads_close(t_grads[0], c_grads[0], zero=zero)
     before = {k: v.numpy() for k, v in catgen_to_state_dict(
         variables["params"], {}).items()}
@@ -164,6 +182,14 @@ def test_pretrain_step_matches_catgen_at_full_width():
         before, (t_config.g_l1, t_config.g_l2, t_config.g_clamp),
         zero=zero)
     assert t_state.step == int(new.step) == 1
+
+
+def test_pretrain_step_matches_catgen_at_full_width():
+    _pretrain_step_matches_catgen(IMG, 8)  # 5 in the encoder, 3 upsample-convs
+
+
+def test_16px_pretrain_step_matches_catgen():
+    _pretrain_step_matches_catgen(IMG16, 7)  # 5 in G_enc16, 2 in G16up
 
 
 def test_epoch_steps_each_batch_and_counts_the_epoch():

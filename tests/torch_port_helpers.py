@@ -99,6 +99,42 @@ def port_pair(gv, dv):
     return g.eval(), d.eval()
 
 
+def image_shape(name: str):
+    """catgen's scale for a registry model (tests/test_models.py)."""
+    if "64" in name:
+        return (64, 64, 3)
+    if "16" in name:
+        return (16, 16, 3)
+    return (32, 32, 3)
+
+
+REGISTRIES = {"G": (cmodels.G_REGISTRY, tmodels.G_REGISTRY),
+              "D": (cmodels.D_REGISTRY, tmodels.D_REGISTRY),
+              "V": (cmodels.V_REGISTRY, tmodels.V_REGISTRY)}
+
+
+def build_pair(kind: str, name: str, seed: int = 0):
+    """The registry model ``name`` of ``kind`` ("G", "D" or "V") at
+    catgen's scale for it: catgen's model, its variables (``perturb``ed),
+    the port's model holding them (strict load), and the input shape of
+    one sample."""
+    img = image_shape(name)
+    creg, treg = REGISTRIES[kind]
+    if kind == "G" and name == "refine64":
+        args, x_shape = (img,), (32, 32, 3)      # image-to-image stage
+    elif kind == "G":
+        args, x_shape = (img, NOISE_DIM), (NOISE_DIM,)
+    else:
+        args, x_shape = (img,), img
+    cm, tm = creg[name](*args), treg[name](*args)
+    variables = np_tree(cm.init(jax.random.PRNGKey(seed), (1,) + x_shape))
+    variables.setdefault("state", {})
+    perturb(variables, np.random.RandomState(seed))
+    tm.load_state_dict(catgen_to_state_dict(variables["params"],
+                                            variables["state"]), strict=True)
+    return cm, variables, tm, x_shape
+
+
 # ---------------------------------------------------------------------------
 # training parity: JAX's draws handed to the port, gradients captured
 # ---------------------------------------------------------------------------
@@ -259,6 +295,95 @@ def assert_adam_step_close(got, want, raw_grads, before, penalties,
         ambiguous = np.abs(g) <= bound
         assert err[~ambiguous].max(initial=0.0) <= atol, k
         assert err.max() <= 2 * lr + atol, k
+
+
+# One full-width train step against catgen's. Weight gains where both
+# gradients are well conditioned in f32: at D gain 1, D's output barely
+# depends on its input and the input gradient that reaches G is a small
+# remainder of cancelling paths (1e-3 relative differences between two
+# correct f32 implementations); at G gain 2 and above, G's output sigmoid
+# saturates and its gradient loses digits the same way; at D gain 4,
+# Adam's first step (+-lr wherever |g| >> 3e-7) turns gradient rounding
+# into 2*lr parameter differences.
+FULL_G_GAIN, FULL_D_GAIN = 1.0, 2.0
+FULL_ATOL = 1e-4
+
+
+def full_width_step_matches(g_name: str, d_name: str, img, bernoulli: int,
+                            batch: int = 4, g_gain: float = FULL_G_GAIN,
+                            d_gain: float = FULL_D_GAIN) -> None:
+    """One train step of the registry pair (``g_name``, ``d_name``) at
+    ``img`` and ``batch``, with augmentation of the reals: the port's step
+    against catgen's ``make_train_step``, from catgen's initial state
+    (perturbed at ``g_gain`` and ``d_gain``) converted. catgen runs
+    eagerly; its noise, augmentation draws and dropout masks (``bernoulli``
+    of them, the flip included) are recorded and handed to the port in
+    order, and both sides' raw gradients are captured before the
+    optimizer. Losses, acc_d and acc_avg rtol 1e-5; confusion counts and
+    the gate's decision exact; gradients per leaf within 1e-4 of the
+    leaf's largest (``assert_grads_close``); parameters after the step and
+    G's BatchNorm statistics atol ``FULL_ATOL``."""
+    from catgen import optim as copt
+    from catgen.train import gan as cgan
+    from catgen_torch import optim as topt
+    from catgen_torch.train import gan as tgan
+    config = dict(batch_size=batch, noise_dim=NOISE_DIM, augment=True)
+    c_config = cgan.GanConfig(bce="logits", **config)
+    t_config = tgan.GanConfig(bce="logits", **config)
+    cg = cmodels.G_REGISTRY[g_name](img, NOISE_DIM)
+    cd = cmodels.D_REGISTRY[d_name](img)
+    state = cgan.init_state(cg, cd, c_config, jax.random.PRNGKey(0), img)
+    gv = np_tree({"params": state.g_params, "state": state.g_state})
+    dv = np_tree({"params": state.d_params, "state": state.d_state})
+    rng = np.random.RandomState(0)
+    perturb(gv, rng, gain=g_gain)
+    perturb(dv, rng, gain=d_gain)
+    state = state._replace(g_params=gv["params"], g_state=gv["state"],
+                           d_params=dv["params"], d_state=dv["state"])
+
+    tg = tmodels.G_REGISTRY[g_name](img, NOISE_DIM)
+    td = tmodels.D_REGISTRY[d_name](img)
+    tg.load_state_dict(catgen_to_state_dict(gv["params"], gv["state"]))
+    td.load_state_dict(catgen_to_state_dict(dv["params"], dv["state"]))
+    t_state = tgan.init_state(tg, td, t_config)
+
+    reals = np.random.RandomState(1).rand(batch // 2, *img).astype(
+        np.float32)
+    c_grads, t_grads = [], []
+    with record_jax_draws() as draws, \
+            capture_grads(copt, c_grads, catgen_grads_to_port):
+        new, cm = cgan.make_train_step(cg, cd, c_config)(
+            state, jax.numpy.asarray(reals), jax.random.PRNGKey(2))
+    kinds = [k for k, _ in draws]
+    assert kinds.count("normal") == 1
+    assert kinds.count("bernoulli") == bernoulli
+    replay = ReplayDraws(draws)
+    with capture_grads(topt, t_grads, port_grads_to_numpy):
+        tm = tgan.make_train_step(tg, td, t_config)(
+            t_state, torch.tensor(reals), replay)
+    assert not replay.records
+
+    for name in ("loss_d", "loss_g", "acc_d", "acc_avg"):
+        np.testing.assert_allclose(float(getattr(tm, name)),
+                                   float(getattr(cm, name)), rtol=1e-5,
+                                   err_msg=name)
+    for name in ("d_trained", "tp_real", "tn_fake", "fp", "fn"):
+        assert float(getattr(tm, name)) == float(getattr(cm, name)), name
+
+    assert len(c_grads) == len(t_grads) == 2          # D, then G
+    for got, want in zip(t_grads, c_grads):
+        assert_grads_close(got, want)
+
+    for module, params, st in ((tg, new.g_params, new.g_state),
+                               (td, new.d_params, new.d_state)):
+        want = catgen_to_state_dict(np_tree(params), np_tree(st))
+        got = module.state_dict()
+        assert set(got) == set(want)
+        for k in want:     # parameters and G's BN running statistics
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       rtol=0, atol=FULL_ATOL, err_msg=k)
+    assert t_state.step == int(new.step) == 1
+    assert int(t_state.d_opt.step) == int(new.d_opt.step) == 1
 
 
 # ---------------------------------------------------------------------------
