@@ -1,5 +1,15 @@
 """Shared CLI plumbing: dataset flags, the reference's common flags, the
-corpus, and the device (catgen's ``--platform`` becomes ``--device``)."""
+corpus, the device (catgen's ``--platform`` becomes ``--device``) and the
+data-parallel ranks.
+
+``--devices N`` runs N ranks on this host, each a process with one device
+(``cuda:<local rank>``, or the CPU with ``--device cpu``; NCCL wants one
+card per rank, so more ranks than cards are refused). ``--coordinator
+host:port --numProcesses P --processId I`` make this host process I of P,
+in a world of ``P * N`` ranks meeting at rank 0's ``host:port``; a world
+of one (``--devices 1`` with a coordinator) runs the data-parallel path
+in this process. ``--batchSize`` is per rank.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +20,7 @@ import torch
 
 from catgen_torch.data.fixture import write_fixture_dataset
 from catgen_torch.data.loader import ImageDataset
+from catgen_torch.dist import launch, mesh
 
 
 def add_dataset_args(p: argparse.ArgumentParser):
@@ -24,7 +35,7 @@ def add_dataset_args(p: argparse.ArgumentParser):
 
 def add_common_args(p: argparse.ArgumentParser):
     """The reference's common flags (catgen/cli/common.py), with --device
-    for --platform. Multi-host flags are refused: ROADMAP Queue A item 11."""
+    for --platform."""
     p.add_argument("--save", default="logs", help="artifact directory")
     p.add_argument("--scale", type=int, default=32)
     p.add_argument("--colorSpace", default="rgb",
@@ -34,19 +45,68 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--batchSize", type=int, default=32)
     p.add_argument("--N_epoch", type=int, default=1000)
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel size (only 1 is ported)")
+                   help="data-parallel ranks on this host, one device each "
+                        "(cuda:0..N-1, or the CPU with --device cpu)")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator (not ported)")
-    p.add_argument("--numProcesses", type=int, default=None)
-    p.add_argument("--processId", type=int, default=None)
+                   help="host:port of rank 0's rendezvous (multi-host "
+                        "data parallelism)")
+    p.add_argument("--numProcesses", type=int, default=None,
+                   help="hosts (processes of --devices ranks each)")
+    p.add_argument("--processId", type=int, default=None,
+                   help="this host's index among --numProcesses")
     add_device_arg(p)
 
 
-def refuse_multi_host(args) -> None:
-    """Raises for the multi-host flags (ROADMAP Queue A item 11)."""
-    from catgen_torch.train.harness import not_ported
-    if args.coordinator or args.numProcesses:
-        raise not_ported("multi-host data parallelism", "11")
+def world_size(args) -> int:
+    """The data-parallel world of the flags: hosts times local ranks."""
+    return (args.numProcesses or 1) * args.devices
+
+
+def check_dp_flags(args) -> None:
+    """Raises SystemExit for flags that cannot place the ranks: the
+    multi-host flags without a coordinator, a process index outside the
+    hosts, more CUDA ranks than cards."""
+    if not args.coordinator and (args.numProcesses is not None
+                                 or args.processId is not None):
+        raise SystemExit("--numProcesses/--processId need --coordinator "
+                         "host:port")
+    n, i = args.numProcesses or 1, args.processId or 0
+    if not 0 <= i < n:
+        raise SystemExit(f"--processId {i} of --numProcesses {n}")
+    launch.check_devices(args.device, args.devices)
+
+
+def refuse_data_parallel(args, what: str) -> None:
+    """For the CLIs that run on one device: raises SystemExit when the
+    data-parallel flags ask for ranks."""
+    if args.devices != 1 or args.coordinator or args.numProcesses:
+        raise SystemExit(f"{what} runs on one device: --devices, "
+                         f"--coordinator and --numProcesses are the "
+                         f"training CLIs' flags")
+
+
+def run_ranks(args, run):
+    """Runs ``run(args, device)``, the CLI's work, as the flags say: in
+    this process without a group (``--devices 1``, no coordinator), else
+    on ``--devices`` local ranks of the data-parallel group
+    (``dist.launch``; a world of one stays in this process). Returns
+    ``run``'s result where it ran in this process, else None. A rank's
+    SystemExit code (the collapse detector's 42) is the CLI's."""
+    check_dp_flags(args)
+    if args.devices == 1 and not args.coordinator:
+        return run(args, resolve_device(args.device))
+    return launch.launch(
+        _rank, args.devices, args=(run, args, args.devices == 1),
+        device=args.device, coordinator=args.coordinator,
+        num_processes=args.numProcesses or 1,
+        process_id=args.processId or 0)[0]
+
+
+def _rank(local_rank: int, device, run, args, keep: bool):
+    """One rank of ``run_ranks``, the numeric mode set on its device;
+    the result only where it stays in this process (``keep``)."""
+    result = run(args, resolve_device(str(device)))
+    return result if keep else None
 
 
 def add_device_arg(p: argparse.ArgumentParser):
@@ -88,14 +148,20 @@ def build_dataset(args, device: torch.device,
     dirs = args.dataset
     if not dirs:
         fixture_dir = os.path.join(args.save, "fixture")
-        missing = not os.path.isdir(fixture_dir) or not os.listdir(
-            fixture_dir)
-        if missing and create_fixture:
-            n = args.fixture or 64
-            print(f"[data] no --dataset given; writing {n} synthetic cat "
-                  f"faces to {fixture_dir}")
-            write_fixture_dataset(fixture_dir, n=n)
-        elif missing:
+
+        def missing() -> bool:
+            return not os.path.isdir(fixture_dir) or not os.listdir(
+                fixture_dir)
+
+        if create_fixture:
+            if mesh.rank() == 0 and missing():
+                n = args.fixture or 64
+                print(f"[data] no --dataset given; writing {n} synthetic "
+                      f"cat faces to {fixture_dir}")
+                write_fixture_dataset(fixture_dir, n=n)
+            if mesh.is_active():    # the others wait for rank 0's files
+                mesh.barrier()
+        if missing():
             raise SystemExit(
                 f"no --dataset given and no fixture corpus at "
                 f"{fixture_dir}: pass --dataset <dirs> (the training "
@@ -103,4 +169,5 @@ def build_dataset(args, device: torch.device,
         dirs = [fixture_dir]
     return ImageDataset(dirs, scale=args.scale, colorspace=args.colorSpace,
                         seed=args.seed, device=device,
-                        normalize=getattr(args, "normalize", False))
+                        normalize=getattr(args, "normalize", False),
+                        shard_by_process=mesh.process_count() > 1)

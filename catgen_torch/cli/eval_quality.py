@@ -23,7 +23,7 @@ import os
 
 from catgen_torch import models
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
-                                     build_dataset, refuse_multi_host,
+                                     build_dataset, refuse_data_parallel,
                                      resolve_device)
 from catgen_torch.cli.sample import load_gan
 from catgen_torch.eval.quality import quality_report, summarize
@@ -47,7 +47,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    refuse_multi_host(args)
+    refuse_data_parallel(args, "cli.eval_quality")
     device = resolve_device(args.device)
     path = args.network or os.path.join(args.save,
                                         ckpt.adversarial_filename())

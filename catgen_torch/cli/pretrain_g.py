@@ -7,6 +7,9 @@ the same ``--save``.
     python -m catgen_torch.cli.pretrain_g --fixture 256 --epochs 2
     python -m catgen_torch.cli.pretrain_g --device cpu --fixture 16 \\
         --epochs 1 --batchSize 4 --N_epoch 8 --save /tmp/run
+
+``--devices`` and the multi-host flags pretrain data-parallel, as
+``cli.train`` does (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+import torch
+
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
-                                     build_dataset, refuse_multi_host,
-                                     resolve_device)
+                                     build_dataset, run_ranks, world_size)
 from catgen_torch.train import pretrainer
 from catgen_torch.train.harness import HarnessConfig, PretrainHarness
 
@@ -34,15 +38,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> PretrainHarness:
-    """Runs the CLI; returns the harness after training."""
-    args = parse_args(argv)
-    refuse_multi_host(args)
-    device = resolve_device(args.device)
+def main(argv: Optional[List[str]] = None) -> Optional[PretrainHarness]:
+    """Runs the CLI; returns the harness after training where it ran in
+    this process (None when ranks were started)."""
+    return run_ranks(parse_args(argv), run)
+
+
+def run(args, device: torch.device) -> PretrainHarness:
+    """The CLI's work on ``device``: one rank of it under data
+    parallelism."""
     hc = HarnessConfig(save_dir=args.save, n_epoch=args.N_epoch,
                        scale=args.scale, colorspace=args.colorSpace,
                        noise_dim=args.noiseDim, seed=args.seed,
-                       n_devices=args.devices)
+                       n_devices=world_size(args))
     pc = pretrainer.PretrainConfig(batch_size=args.batchSize,
                                    g_l1=args.G_L1, g_l2=args.G_L2,
                                    g_clamp=args.G_clamp)

@@ -16,9 +16,16 @@ other's). A V checkpoint (``cli.train_v``) and a pretrained G
 (``cli.pretrain_g``, ``cli.stack64_warmstart``) in ``--save`` are picked up
 by filename. ``--collapseDetect`` exits with code 42 when the detector
 stops the run, as catgen's does; ``--profile DIR`` writes a
-``torch.profiler`` Chrome trace of the second epoch into DIR. Flags whose
-machinery is not ported yet (data parallelism) raise NotImplementedError
-naming the ROADMAP item; none is silently ignored.
+``torch.profiler`` Chrome trace of the second epoch into DIR.
+
+Data parallelism (``cli/common.py``): ``--devices N`` trains on N ranks of
+this host, ``--batchSize`` each; with ``--coordinator host:port
+--numProcesses P --processId I`` this host is one of P. Only rank 0
+writes the checkpoint, the grids and the metrics:
+
+    python -m catgen_torch.cli.train --device cpu --devices 2 --fixture 16 \\
+        --epochs 1 --batchSize 4 --N_epoch 8 --save /tmp/dp
+    python -m catgen_torch.cli.train --devices 4 --fixture 256 --epochs 5
 """
 
 from __future__ import annotations
@@ -29,8 +36,7 @@ from typing import List, Optional
 import torch
 
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
-                                     build_dataset, refuse_multi_host,
-                                     resolve_device)
+                                     build_dataset, run_ranks, world_size)
 from catgen_torch.models import D_REGISTRY, G_REGISTRY
 from catgen_torch.train import gan
 from catgen_torch.train.harness import GanHarness, HarnessConfig
@@ -97,16 +103,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> GanHarness:
-    """Runs the CLI; returns the harness after training. Exits with code 42
-    when the collapse detector stopped the run."""
-    args = parse_args(argv)
-    refuse_multi_host(args)
-    device = resolve_device(args.device)
+def main(argv: Optional[List[str]] = None) -> Optional[GanHarness]:
+    """Runs the CLI; returns the harness after training where it ran in
+    this process (None when ranks were started). Exits with code 42 when
+    the collapse detector stopped the run."""
+    return run_ranks(parse_args(argv), run)
+
+
+def run(args, device: torch.device) -> GanHarness:
+    """The CLI's work on ``device``: one rank of it under data
+    parallelism."""
     hc = HarnessConfig(save_dir=args.save, save_freq=args.saveFreq,
                        n_epoch=args.N_epoch, scale=args.scale,
                        colorspace=args.colorSpace, noise_dim=args.noiseDim,
-                       seed=args.seed, n_devices=args.devices,
+                       seed=args.seed, n_devices=world_size(args),
                        g_model=args.G, d_model=args.D, epochs=args.epochs,
                        weights_vis_freq=args.weightsVisFreq,
                        vis_freq=max(args.visFreq, 1),

@@ -7,6 +7,9 @@ it.
     python -m catgen_torch.cli.train_v --fixture 256 --epochs 3
     python -m catgen_torch.cli.train_v --device cpu --fixture 16 \\
         --epochs 1 --batchSize 4 --N_epoch 8 --save /tmp/run
+
+``--devices`` and the multi-host flags train V data-parallel, as
+``cli.train`` does (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+import torch
+
 from catgen_torch.cli.common import (add_common_args, add_dataset_args,
-                                     build_dataset, refuse_multi_host,
-                                     resolve_device)
+                                     build_dataset, run_ranks, world_size)
 from catgen_torch.train import v_trainer
 from catgen_torch.train.harness import HarnessConfig, VHarness
 
@@ -33,14 +37,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> VHarness:
-    """Runs the CLI; returns the harness after training."""
-    args = parse_args(argv)
-    refuse_multi_host(args)
-    device = resolve_device(args.device)
+def main(argv: Optional[List[str]] = None) -> Optional[VHarness]:
+    """Runs the CLI; returns the harness after training where it ran in
+    this process (None when ranks were started)."""
+    return run_ranks(parse_args(argv), run)
+
+
+def run(args, device: torch.device) -> VHarness:
+    """The CLI's work on ``device``: one rank of it under data
+    parallelism."""
     hc = HarnessConfig(save_dir=args.save, n_epoch=args.N_epoch,
                        scale=args.scale, colorspace=args.colorSpace,
-                       seed=args.seed, n_devices=args.devices)
+                       seed=args.seed, n_devices=world_size(args))
     vc = v_trainer.VConfig(batch_size=args.batchSize, v_l1=args.V_L1,
                            v_l2=args.V_L2, v_clamp=args.V_clamp)
     dataset = build_dataset(args, device, create_fixture=True)

@@ -21,6 +21,8 @@ packages.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -38,12 +40,14 @@ class RefineStage(nn.Module):
     """(N, H, W, C) image -> (N, 2H, 2W, C) refined image. ``width`` is the
     trunk's width."""
 
-    def __init__(self, channels: int, width: int = 64):
+    def __init__(self, channels: int, width: int = 64,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.channels = channels
         self.trunk = Sequential([
             Conv(channels, width, (3, 3)), PReLU(),
-            UpsampleConv(width, width, (5, 5)), BatchNorm(width), PReLU(),
+            UpsampleConv(width, width, (5, 5)), BatchNorm(width, axis_name),
+            PReLU(),
             Conv(width, width // 2, (3, 3)), PReLU(),
         ], name="trunk")
         self.head = Conv(width // 2 + channels, channels, (3, 3))
@@ -59,23 +63,28 @@ class RefineStage(nn.Module):
             base + weak(0.5, residual.dtype) * torch.tanh(residual), 0.0, 1.0)
 
 
-def create_G_refine64(image: ImageShape, noise_dim: int = 100) -> RefineStage:
+def create_G_refine64(image: ImageShape, noise_dim: int = 100,
+                      axis_name: Optional[str] = None) -> RefineStage:
     """The refinement stage alone (it takes 32x32 images)."""
     del noise_dim
-    return RefineStage(image[2])
+    return RefineStage(image[2], axis_name=axis_name)
 
 
-def create_G64_stack(image: ImageShape, noise_dim: int) -> Sequential:
+def create_G64_stack(image: ImageShape, noise_dim: int,
+                     axis_name: Optional[str] = None) -> Sequential:
     """noise -> G32up-c -> refine -> 64x64 image, one generator."""
     h, w, c = image
     if (h, w) != (64, 64):
         raise ValueError(f"the stacked generator makes 64x64 images, not "
                          f"{h}x{w}")
-    base = create_G_decoder_upsampling32c((32, 32, c), noise_dim)
-    return Sequential([base, RefineStage(c)], name="G64_stack")
+    base = create_G_decoder_upsampling32c((32, 32, c), noise_dim,
+                                          axis_name)
+    return Sequential([base, RefineStage(c, axis_name=axis_name)],
+                      name="G64_stack")
 
 
-def create_D64(image: ImageShape) -> Sequential:
+def create_D64(image: ImageShape,
+               axis_name: Optional[str] = None) -> Sequential:
     """The 64px discriminator: D32e's topology (convs, PReLU, spatial
     dropout, average pools) with one more stride-2 stage."""
     h, w, c = image

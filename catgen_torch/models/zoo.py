@@ -15,12 +15,14 @@ pools floor, as ``MaxPool`` and ``AvgPool`` do here), so every model
 builds at any scale where catgen's does.
 
 Image shapes are (H, W, C); G input is (N, noise_dim); D and V input
-(N, H, W, C).
+(N, H, W, C). Every constructor takes catgen's ``axis_name``
+(``dist.mesh.DATA_AXIS`` under data parallelism), which each of its
+BatchNorms takes: their batch statistics are then synced over the ranks.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 from catgen_torch.core.module import Sequential
 from catgen_torch.kernels.upsample_conv import UpsampleConv
@@ -47,7 +49,8 @@ def _check_size(name: str, image: ImageShape, size: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def create_G_decoder(image: ImageShape, noise_dim: int) -> Sequential:
+def create_G_decoder(image: ImageShape, noise_dim: int,
+                     axis_name: Optional[str] = None) -> Sequential:
     """'mlp': dense 1024 -> PReLU -> dense to the image -> sigmoid."""
     h, w, c = image
     return Sequential([
@@ -57,69 +60,75 @@ def create_G_decoder(image: ImageShape, noise_dim: int) -> Sequential:
     ], name="G_mlp")
 
 
-def create_G_decoder_upsampling16(image: ImageShape,
-                                  noise_dim: int) -> FusedDecoderSequential:
+def create_G_decoder_upsampling16(
+        image: ImageShape, noise_dim: int,
+        axis_name: Optional[str] = None) -> FusedDecoderSequential:
     """'G16up', the default 16px G: a 4x4x128 seed (PReLU after the
     reshape), two k5 upsample-conv stages 256 -> 128, 3x3 output conv."""
     _check_size("G16up", image, 16)
     c = image[2]
     return FusedDecoderSequential([
         Dense(noise_dim, 128 * 4 * 4), Reshape((4, 4, 128)), PReLU(),
-        UpsampleConv(128, 256, (5, 5)), BatchNorm(256), PReLU(),
-        UpsampleConv(256, 128, (5, 5)), BatchNorm(128), PReLU(),
+        UpsampleConv(128, 256, (5, 5)), BatchNorm(256, axis_name), PReLU(),
+        UpsampleConv(256, 128, (5, 5)), BatchNorm(128, axis_name), PReLU(),
         Conv(128, c, (3, 3)), Sigmoid(),
     ], name="G16up")
 
 
-def create_G_decoder_upsampling32(image: ImageShape,
-                                  noise_dim: int) -> FusedDecoderSequential:
+def create_G_decoder_upsampling32(
+        image: ImageShape, noise_dim: int,
+        axis_name: Optional[str] = None) -> FusedDecoderSequential:
     """'G32up': G16up's layers from an 8x8x128 seed, to 32x32."""
     _check_size("G32up", image, 32)
     c = image[2]
     return FusedDecoderSequential([
         Dense(noise_dim, 128 * 8 * 8), Reshape((8, 8, 128)), PReLU(),
-        UpsampleConv(128, 256, (5, 5)), BatchNorm(256), PReLU(),
-        UpsampleConv(256, 128, (5, 5)), BatchNorm(128), PReLU(),
+        UpsampleConv(128, 256, (5, 5)), BatchNorm(256, axis_name), PReLU(),
+        UpsampleConv(256, 128, (5, 5)), BatchNorm(128, axis_name), PReLU(),
         Conv(128, c, (3, 3)), Sigmoid(),
     ], name="G32up")
 
 
-def create_G_decoder_upsampling32b(image: ImageShape,
-                                   noise_dim: int) -> FusedDecoderSequential:
+def create_G_decoder_upsampling32b(
+        image: ImageShape, noise_dim: int,
+        axis_name: Optional[str] = None) -> FusedDecoderSequential:
     """'G32up-b': G32up-c with a BatchNorm on the seed projection and a 5x5
     output conv."""
     _check_size("G32up-b", image, 32)
     c = image[2]
     return FusedDecoderSequential([
-        Dense(noise_dim, 512 * 4 * 4), BatchNorm(512 * 4 * 4), PReLU(),
+        Dense(noise_dim, 512 * 4 * 4), BatchNorm(512 * 4 * 4, axis_name),
+        PReLU(),
         Reshape((4, 4, 512)),
-        UpsampleConv(512, 512, (3, 3)), BatchNorm(512), PReLU(),
-        UpsampleConv(512, 256, (3, 3)), BatchNorm(256), PReLU(),
-        UpsampleConv(256, 128, (5, 5)), BatchNorm(128), PReLU(),
+        UpsampleConv(512, 512, (3, 3)), BatchNorm(512, axis_name), PReLU(),
+        UpsampleConv(512, 256, (3, 3)), BatchNorm(256, axis_name), PReLU(),
+        UpsampleConv(256, 128, (5, 5)), BatchNorm(128, axis_name), PReLU(),
         Conv(128, c, (5, 5)), Sigmoid(),
     ], name="G32up_b")
 
 
-def create_G_decoder_upsampling32c(image: ImageShape,
-                                   noise_dim: int) -> FusedDecoderSequential:
+def create_G_decoder_upsampling32c(
+        image: ImageShape, noise_dim: int,
+        axis_name: Optional[str] = None) -> FusedDecoderSequential:
     """'G32up-c', the default 32px G: 4x4x512 seed projection (no BN), three
     upsample-conv stages 512 -> 256 -> 128, 3x3 output conv, sigmoid."""
     _check_size("G32up-c", image, 32)
     c = image[2]
     return FusedDecoderSequential([
         Dense(noise_dim, 512 * 4 * 4), PReLU(), Reshape((4, 4, 512)),
-        UpsampleConv(512, 512, (3, 3)), BatchNorm(512), PReLU(),
-        UpsampleConv(512, 256, (3, 3)), BatchNorm(256), PReLU(),
-        UpsampleConv(256, 128, (5, 5)), BatchNorm(128), PReLU(),
+        UpsampleConv(512, 512, (3, 3)), BatchNorm(512, axis_name), PReLU(),
+        UpsampleConv(512, 256, (3, 3)), BatchNorm(256, axis_name), PReLU(),
+        UpsampleConv(256, 128, (5, 5)), BatchNorm(128, axis_name), PReLU(),
         Conv(128, c, (3, 3)), Sigmoid(),
     ], name="G32up_c")
 
 
-def create_G(image: ImageShape, noise_dim: int) -> FusedDecoderSequential:
+def create_G(image: ImageShape, noise_dim: int,
+             axis_name: Optional[str] = None) -> FusedDecoderSequential:
     """Default G: G16up at 16px, G32up-c otherwise."""
     if image[0] == 16:
-        return create_G_decoder_upsampling16(image, noise_dim)
-    return create_G_decoder_upsampling32c(image, noise_dim)
+        return create_G_decoder_upsampling16(image, noise_dim, axis_name)
+    return create_G_decoder_upsampling32c(image, noise_dim, axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -127,51 +136,58 @@ def create_G(image: ImageShape, noise_dim: int) -> FusedDecoderSequential:
 # ---------------------------------------------------------------------------
 
 
-def create_G_encoder16(image: ImageShape, noise_dim: int) -> Sequential:
+def create_G_encoder16(image: ImageShape, noise_dim: int,
+                       axis_name: Optional[str] = None) -> Sequential:
     """'G_enc16': two conv-BN-LeakyReLU pairs of 32, a max pool, two of 64
     with a max pool between them, dense 512 with BN, dense to the noise.
     The flatten is 4x4x64 at 16px (two pools; catgen corrects the
     reference's size)."""
     h, w, c = image
     return Sequential([
-        Conv(c, 32, (3, 3)), BatchNorm(32), LeakyReLU(),
-        Conv(32, 32, (3, 3)), BatchNorm(32), LeakyReLU(),
+        Conv(c, 32, (3, 3)), BatchNorm(32, axis_name), LeakyReLU(),
+        Conv(32, 32, (3, 3)), BatchNorm(32, axis_name), LeakyReLU(),
         MaxPool(2),
-        Conv(32, 64, (3, 3)), BatchNorm(64), LeakyReLU(),
+        Conv(32, 64, (3, 3)), BatchNorm(64, axis_name), LeakyReLU(),
         MaxPool(2),
-        Conv(64, 64, (3, 3)), BatchNorm(64), LeakyReLU(),
+        Conv(64, 64, (3, 3)), BatchNorm(64, axis_name), LeakyReLU(),
         Flatten(),
-        Dense((h // 4) * (w // 4) * 64, 512), BatchNorm(512), LeakyReLU(),
+        Dense((h // 4) * (w // 4) * 64, 512), BatchNorm(512, axis_name),
+        LeakyReLU(),
         Dense(512, noise_dim),
     ], name="G_enc16")
 
 
-def create_G_encoder32(image: ImageShape, noise_dim: int) -> Sequential:
+def create_G_encoder32(image: ImageShape, noise_dim: int,
+                       axis_name: Optional[str] = None) -> Sequential:
     """'G_enc32', the pretrainer's encoder: four conv-BN-LeakyReLU stages
     (16, 16, 32, 32 channels, the first three max-pooled), dense 1024 with
     BN, dense to the noise."""
     h, w, c = image
     return Sequential([
-        Conv(c, 16, (3, 3)), BatchNorm(16), LeakyReLU(), MaxPool(2),
-        Conv(16, 16, (3, 3)), BatchNorm(16), LeakyReLU(), MaxPool(2),
-        Conv(16, 32, (3, 3)), BatchNorm(32), LeakyReLU(), MaxPool(2),
-        Conv(32, 32, (3, 3)), BatchNorm(32), LeakyReLU(),
+        Conv(c, 16, (3, 3)), BatchNorm(16, axis_name), LeakyReLU(), MaxPool(2),
+        Conv(16, 16, (3, 3)), BatchNorm(16, axis_name),
+        LeakyReLU(), MaxPool(2),
+        Conv(16, 32, (3, 3)), BatchNorm(32, axis_name),
+        LeakyReLU(), MaxPool(2),
+        Conv(32, 32, (3, 3)), BatchNorm(32, axis_name), LeakyReLU(),
         Flatten(),
-        Dense((h // 8) * (w // 8) * 32, 1024), BatchNorm(1024), LeakyReLU(),
+        Dense((h // 8) * (w // 8) * 32, 1024), BatchNorm(1024, axis_name),
+        LeakyReLU(),
         Dense(1024, noise_dim),
     ], name="G_enc32")
 
 
-def create_G_autoencoder(image: ImageShape, noise_dim: int) -> Sequential:
+def create_G_autoencoder(image: ImageShape, noise_dim: int,
+                         axis_name: Optional[str] = None) -> Sequential:
     """Encoder + decoder, the pretrainer's model: G_enc16 + G16up at 16px,
     G_enc32 + G32up-c otherwise. Child 1, the decoder, is ``create_G``'s
     (so the kernel routes apply to it) and is exported as a standalone
     G."""
     if image[0] == 16:
-        enc = create_G_encoder16(image, noise_dim)
+        enc = create_G_encoder16(image, noise_dim, axis_name)
     else:
-        enc = create_G_encoder32(image, noise_dim)
-    return Sequential([enc, create_G(image, noise_dim)],
+        enc = create_G_encoder32(image, noise_dim, axis_name)
+    return Sequential([enc, create_G(image, noise_dim, axis_name)],
                       name="G_autoencoder")
 
 
@@ -190,7 +206,8 @@ def _head(n_feat: int, widths: Sequence[int]) -> list:
     return layers + [Dense(n_feat, 1), Sigmoid()]
 
 
-def create_D16(image: ImageShape) -> Sequential:
+def create_D16(image: ImageShape,
+               axis_name: Optional[str] = None) -> Sequential:
     """'D16': conv 128, 128 (pool), 256, 1024 (pool), spatial dropout, two
     dense 1024 layers."""
     h, w, c = image
@@ -204,7 +221,8 @@ def create_D16(image: ImageShape) -> Sequential:
     ], name="D16")
 
 
-def create_D16b(image: ImageShape) -> Sequential:
+def create_D16b(image: ImageShape,
+                axis_name: Optional[str] = None) -> Sequential:
     """'D16b': conv 64, 64 (pool), 128, 128 (pool), each followed by a
     spatial dropout, two dense 1024 layers."""
     h, w, c = image
@@ -217,7 +235,8 @@ def create_D16b(image: ImageShape) -> Sequential:
     ], name="D16b")
 
 
-def create_D32(image: ImageShape) -> Sequential:
+def create_D32(image: ImageShape,
+               axis_name: Optional[str] = None) -> Sequential:
     """'D32': conv 64 (avg pool), 128 (max pool, dropout), two 5x5 convs
     of 256 (max pool), spatial dropout, two dense 1024 layers."""
     h, w, c = image
@@ -230,7 +249,8 @@ def create_D32(image: ImageShape) -> Sequential:
     ], name="D32")
 
 
-def create_D32b(image: ImageShape) -> Sequential:
+def create_D32b(image: ImageShape,
+                axis_name: Optional[str] = None) -> Sequential:
     """'D32b': D32 at 128 channels first, 5x5 convs of 256 and 512 (max
     pool) and a third of 512, two dense 1024 layers."""
     h, w, c = image
@@ -244,7 +264,8 @@ def create_D32b(image: ImageShape) -> Sequential:
     ], name="D32b")
 
 
-def create_D32c(image: ImageShape) -> Sequential:
+def create_D32c(image: ImageShape,
+                axis_name: Optional[str] = None) -> Sequential:
     """'D32c': D32b's layout with 5x5 convs of 256, two dense 512
     layers."""
     h, w, c = image
@@ -258,7 +279,8 @@ def create_D32c(image: ImageShape) -> Sequential:
     ], name="D32c")
 
 
-def create_D32d(image: ImageShape) -> Sequential:
+def create_D32d(image: ImageShape,
+                axis_name: Optional[str] = None) -> Sequential:
     """'D32d': 3x3 convs of 128, 128, 256, 256 with three average pools,
     two dense 512 layers."""
     h, w, c = image
@@ -271,7 +293,8 @@ def create_D32d(image: ImageShape) -> Sequential:
     ], name="D32d")
 
 
-def create_D32e(image: ImageShape) -> Sequential:
+def create_D32e(image: ImageShape,
+                axis_name: Optional[str] = None) -> Sequential:
     """'D32e': D32d's convs, each followed by a spatial dropout, dense 1024
     and 512."""
     h, w, c = image
@@ -299,7 +322,8 @@ def _st_prefix(image: ImageShape) -> FusedSTConvPReLU:
                             Conv(image[2], 64, (3, 3)), PReLU())
 
 
-def create_D32_st3(image: ImageShape) -> Sequential:
+def create_D32_st3(image: ImageShape,
+                   axis_name: Optional[str] = None) -> Sequential:
     """The default D: rotation-only ST on the input, conv stem, then a
     4-way branch concat (3 spatial-transformer branches + 1 conv branch),
     dense head."""
@@ -330,7 +354,8 @@ def _st_branch16_tail() -> Sequential:
     ], name="st_tail")
 
 
-def create_D16_st3(image: ImageShape) -> Sequential:
+def create_D16_st3(image: ImageShape,
+                   axis_name: Optional[str] = None) -> Sequential:
     """'D16_st3': D32_st3 without its pools, so the branches see the
     input's (h, w) at 64 channels."""
     h, w, c = image
@@ -350,54 +375,60 @@ def create_D16_st3(image: ImageShape) -> Sequential:
     ], name="D16_st3")
 
 
-def create_D(image: ImageShape) -> Sequential:
+def create_D(image: ImageShape, axis_name: Optional[str] = None) -> Sequential:
     """Default D: D32_st3 at every scale."""
-    return create_D32_st3(image)
+    return create_D32_st3(image, axis_name)
 
 
-def create_V16(image: ImageShape) -> Sequential:
+def create_V16(image: ImageShape,
+               axis_name: Optional[str] = None) -> Sequential:
     """V16: two conv pairs (128, 256) with pools and spatial dropouts, two
     dense 1024 layers with BN and dropout, a 2-way softmax (fake, real)."""
     h, w, c = image
     return Sequential([
         Conv(c, 128, (3, 3)), LeakyReLU(),
-        Conv(128, 128, (3, 3)), BatchNorm(128), LeakyReLU(),
+        Conv(128, 128, (3, 3)), BatchNorm(128, axis_name), LeakyReLU(),
         MaxPool(2), SpatialDropout(0.2),
         Conv(128, 256, (3, 3)), LeakyReLU(),
-        Conv(256, 256, (3, 3)), BatchNorm(256), LeakyReLU(),
+        Conv(256, 256, (3, 3)), BatchNorm(256, axis_name), LeakyReLU(),
         MaxPool(2), SpatialDropout(0.5),
         Flatten(),
-        Dense((h // 4) * (w // 4) * 256, 1024), BatchNorm(1024),
+        Dense((h // 4) * (w // 4) * 256, 1024), BatchNorm(1024, axis_name),
         LeakyReLU(), Dropout(0.5),
-        Dense(1024, 1024), BatchNorm(1024), LeakyReLU(), Dropout(0.5),
+        Dense(1024, 1024), BatchNorm(1024, axis_name),
+        LeakyReLU(), Dropout(0.5),
         Dense(1024, 2), Softmax(),
     ], name="V16")
 
 
-def create_V32(image: ImageShape) -> Sequential:
+def create_V32(image: ImageShape,
+               axis_name: Optional[str] = None) -> Sequential:
     """V32, the default V at 32px: V16's layers with a pool after the
     first conv and an elementwise dropout after the second pool."""
     h, w, c = image
     return Sequential([
         Conv(c, 128, (3, 3)), LeakyReLU(), MaxPool(2),
-        Conv(128, 128, (3, 3)), BatchNorm(128), LeakyReLU(), MaxPool(2),
+        Conv(128, 128, (3, 3)), BatchNorm(128, axis_name),
+        LeakyReLU(), MaxPool(2),
         Dropout(0.5),
         Conv(128, 256, (3, 3)), LeakyReLU(),
-        Conv(256, 256, (3, 3)), BatchNorm(256), LeakyReLU(), MaxPool(2),
+        Conv(256, 256, (3, 3)), BatchNorm(256, axis_name),
+        LeakyReLU(), MaxPool(2),
         SpatialDropout(0.5),
         Flatten(),
-        Dense((h // 8) * (w // 8) * 256, 1024), BatchNorm(1024),
+        Dense((h // 8) * (w // 8) * 256, 1024), BatchNorm(1024, axis_name),
         LeakyReLU(), Dropout(0.5),
-        Dense(1024, 1024), BatchNorm(1024), LeakyReLU(), Dropout(0.5),
+        Dense(1024, 1024), BatchNorm(1024, axis_name),
+        LeakyReLU(), Dropout(0.5),
         Dense(1024, 2), Softmax(),
     ], name="V32")
 
 
-def create_V(image: ImageShape) -> Sequential:
+def create_V(image: ImageShape, axis_name: Optional[str] = None) -> Sequential:
     """Default V: V16 at 16px, V32 otherwise."""
     if image[0] == 16:
-        return create_V16(image)
-    return create_V32(image)
+        return create_V16(image, axis_name)
+    return create_V32(image, axis_name)
 
 
 # ---------------------------------------------------------------------------

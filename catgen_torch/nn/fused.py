@@ -22,8 +22,11 @@ The BatchNorm arithmetic (biased batch variance for normalization;
 running mean and unbiased running variance moved by ``momentum`` in
 place on the ``BatchNorm`` child's buffers, also under ``torch.no_grad``,
 but not in a ``remat`` recompute) follows ``nn.layers.BatchNorm``, so the
-two paths are interchangeable and checkpoints identical. Off the kernel
-route it is the plain ``Sequential``.
+two paths are interchangeable and checkpoints identical; under data
+parallelism (the BatchNorm's ``axis_name``) the block's sums are averaged
+over the ranks, differentiably, before the next stage's transform reads
+them (``sync_moments``). Off the kernel route it is the plain
+``Sequential``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from catgen_torch.kernels import config
 from catgen_torch.kernels.fused_upsample_conv import (
     in_transform, upsample2_conv_block, upsample2_conv_block_fused)
 from catgen_torch.kernels.upsample_conv import UpsampleConv
-from catgen_torch.nn.layers import BatchNorm, PReLU
+from catgen_torch.nn.layers import BatchNorm, PReLU, sync_moments
 
 
 def _is_stage(layers, i) -> bool:
@@ -78,8 +81,9 @@ class FusedDecoderSequential(Sequential):
             if self.training:
                 y, s1, s2 = upsample2_conv_block(x, *pending, weight, bias)
                 count = math.prod(y.shape[:-1])
-                mean = s1 / count
-                var = torch.clamp(s2 / count - mean * mean, min=0.0)
+                mean, mean_sq, count = sync_moments(
+                    s1 / count, s2 / count, count, bn.axis_name)
+                var = torch.clamp(mean_sq - mean * mean, min=0.0)
                 if not crandom.recomputing():   # else the first pass did
                     with torch.no_grad():
                         m = bn.momentum

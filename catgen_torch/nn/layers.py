@@ -42,6 +42,7 @@ from torch import nn
 from catgen_torch.core import initializers
 from catgen_torch.core import random as crandom
 from catgen_torch.core.random import Draws
+from catgen_torch.dist import mesh
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -157,6 +158,17 @@ class SubPixelConv(Conv):
         return y.reshape(n, h * f, w * f, self.out_features)
 
 
+def sync_moments(mean: torch.Tensor, mean_sq: torch.Tensor, n: int,
+                 axis_name: Optional[str]):
+    """(mean, mean_sq, n) over every rank of ``axis_name``: the two means
+    averaged in one differentiable all-reduce, the count times the ranks;
+    unchanged for ``axis_name=None``."""
+    if axis_name is None:
+        return mean, mean_sq, n
+    both = mesh.all_reduce_mean(torch.stack([mean, mean_sq]), axis_name)
+    return both[0], both[1], n * mesh.world_size(axis_name)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over every axis but the last. Eval: ``x*scale + shift``
     with ``scale = gamma*rsqrt(var+eps)`` from the running statistics.
@@ -164,13 +176,19 @@ class BatchNorm(nn.Module):
     mean and the unbiased running variance by ``momentum``, except in the
     recompute of a ``remat`` region, whose first pass moved them. The
     statistics are taken in f32; scale and shift are rounded to x's
-    dtype."""
+    dtype.
+
+    ``axis_name`` (``dist.mesh.DATA_AXIS``): in training the batch mean and
+    mean square are averaged over the data-parallel ranks
+    (``sync_moments``, differentiably: SyncBN, catgen's ``lax.pmean``), and
+    the unbiased running variance counts every rank's rows."""
 
     momentum = 0.1
     eps = 1e-5
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, axis_name: Optional[str] = None):
         super().__init__()
+        self.axis_name = axis_name
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -182,8 +200,10 @@ class BatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=dims)
             mean_sq = (xf * xf).mean(dim=dims)
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             n = math.prod(x.shape[:-1])
+            mean, mean_sq, n = sync_moments(mean, mean_sq, n,
+                                            self.axis_name)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if not crandom.recomputing():   # else the first pass did
                 with torch.no_grad():
                     m = self.momentum

@@ -39,8 +39,15 @@ running statistics alone, so the step equals the one without it bit for
 bit. ``bce=None`` reads ``CATGEN_BCE`` (default ``logits``), as catgen's
 step does.
 
-Not ported: the data-parallel axis (ROADMAP Queue A item 11) and the flat
-optimizer.
+``axis_name`` (``dist.mesh.DATA_AXIS``) makes the step one rank's share of
+a data-parallel step (``dist/dp.py``): each phase's gradients are averaged
+over the ranks in one all-reduce of a flat buffer, the D phase's together
+with the batch accuracy, before the gate reads it, so that every rank
+takes the same gate decision and the replicas stay bit-equal; frozen G
+children are zeroed after the reduction. The models' BatchNorms sync
+their statistics on their own ``axis_name``.
+
+Not ported: catgen's flat optimizer (a TPU op-count workaround).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from catgen_torch.core.module import Sequential
 from catgen_torch.core.random import Draws, remat_contexts
 from catgen_torch.data import color as colorlib
 from catgen_torch.data.ops import augment_batch
+from catgen_torch.dist import mesh
 from catgen_torch.nn.layers import Sigmoid, set_draws
 
 BCE_CHOICES = ("logits", "torch", "clip")
@@ -105,6 +113,7 @@ class GanConfig:
     remat: bool = False            # recompute G's and D's forwards
     bce: Optional[str] = None      # "logits" | "torch" | "clip"; None:
                                    # the CATGEN_BCE default
+    axis_name: Optional[str] = None    # data-parallel axis (DATA_AXIS)
 
     def make_optimizers(self) -> Tuple[optim.Optimizer, optim.Optimizer]:
         """(D's, G's) optimizer."""
@@ -371,13 +380,17 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
         targets = torch.cat([torch.ones(half, device=device),
                              torch.zeros(half, device=device)])
         loss, prob = d_loss_and_prob(inputs, targets)
-        grads = dict(zip(d_params, torch.autograd.grad(
-            loss, list(d_params.values()))))
+        grads = torch.autograd.grad(loss, list(d_params.values()))
 
         # batch confusion / accuracy
         pred_real = prob > 0.5
         is_real = targets > 0.5
         acc = (pred_real == is_real).float().mean()
+        if config.axis_name is not None:
+            # one all-reduce: D's gradients and the gate's accuracy
+            *grads, acc = mesh.all_reduce_mean_flat([*grads, acc],
+                                                    config.axis_name)
+        grads = dict(zip(d_params, grads))
         tp = (pred_real & is_real).sum()
         tn = (~pred_real & ~is_real).sum()
         fp = (pred_real & ~is_real).sum()
@@ -425,6 +438,9 @@ def make_train_step(g: nn.Module, d: nn.Module, config: GanConfig):
             for p in d_params.values():
                 p.requires_grad_(True)
         _restore(d_buffers, saved_d)
+        if config.axis_name is not None:
+            grads = dict(zip(grads, mesh.all_reduce_mean_flat(
+                list(grads.values()), config.axis_name)))
         if frozen:
             grads = {k: torch.zeros_like(v) if is_frozen(k) else v
                      for k, v in grads.items()}

@@ -16,8 +16,17 @@ stops a collapsed run (``collapse.json``, ``adversarial_collapsed.ckpt``).
 ``train`` can trace one epoch with ``torch.profiler``. Each epoch's reals
 reach the device in one copy, and the epoch's metrics come back in one.
 
-Not ported yet, and refused rather than ignored: data parallelism
-(``n_devices > 1``, ROADMAP Queue A item 11).
+Data parallelism: inside a ``dist.mesh`` group (the CLIs' ``--devices``
+and multi-host flags, ``dist/launch.py``) each harness is one rank of
+``hc.n_devices``: its models sync their BatchNorm statistics, its steps
+are ``dist/dp.py``'s, its state is broadcast from rank 0 at start and on
+``resume``, and ``--batchSize`` is per rank. Every rank draws catgen's
+global epoch batch from the same numpy stream and keeps its own rows, as
+catgen's mesh shards them (across hosts each host draws from its own
+slice of the corpus, ``shard_by_process``); each draws its noise, masks
+and augmentation from its own stream. Every rank visualizes, so that the
+streams stay in step, but only rank 0 writes checkpoints, grids, metrics
+and the collapse report, and rank 0's collapse verdict stops every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from catgen_torch import models
 from catgen_torch.core.module import reset_parameters
 from catgen_torch.core.random import Draws
 from catgen_torch.data import color as colorlib
-from catgen_torch.data.loader import ImageDataset
+from catgen_torch.data.loader import ImageDataset, rank_rows
+from catgen_torch.dist import dp, mesh
 from catgen_torch.eval.collapse import (CollapseDetector, per_pixel_std,
                                         sat_fraction)
 from catgen_torch.io.activations import save_activation_grids
@@ -84,10 +94,26 @@ def _acc_window(n_epoch: int, batch_size: int) -> int:
     return int(max(20, min(n_epoch / batch_size, 250)))
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for machinery that is not ported yet, naming its item."""
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue A "
-                               f"item {item}")
+def data_parallel(hc: HarnessConfig) -> bool:
+    """True inside a data-parallel group, whose size must be
+    ``hc.n_devices``; ``n_devices > 1`` outside a group raises."""
+    if mesh.is_active():
+        world = mesh.world_size()
+        if hc.n_devices != world:
+            raise ValueError(f"n_devices={hc.n_devices}, but the process "
+                             f"group has {world} ranks")
+        return True
+    if hc.n_devices > 1:
+        raise ValueError(f"n_devices={hc.n_devices} needs a data-parallel "
+                         f"group: start the ranks with dist.launch (the "
+                         f"CLIs' --devices)")
+    return False
+
+
+def _logger(path: str) -> MetricsLogger:
+    """The JSONL log at ``path`` on rank 0, a silent one elsewhere."""
+    return MetricsLogger(path) if mesh.rank() == 0 else MetricsLogger(
+        None, echo=False)
 
 
 class GanHarness:
@@ -96,25 +122,32 @@ class GanHarness:
     def __init__(self, hc: HarnessConfig, gc: gan.GanConfig,
                  dataset: ImageDataset, device: torch.device,
                  logger: Optional[MetricsLogger] = None):
-        if hc.n_devices > 1:
-            raise not_ported("data parallelism (n_devices > 1)", "11")
         self.hc = hc
+        self.dp = data_parallel(hc)
+        axis = mesh.DATA_AXIS if self.dp else None
+        self.rank0 = mesh.rank() == 0
         self.gc = dataclasses.replace(
-            gc, noise_dim=hc.noise_dim,
+            gc, noise_dim=hc.noise_dim, axis_name=axis,
             acc_window=_acc_window(hc.n_epoch, gc.batch_size))
         self.dataset = dataset
         self.device = device
-        self.logger = logger or MetricsLogger(
+        self.logger = logger or _logger(
             os.path.join(hc.save_dir, "train_metrics.jsonl"))
-        g = models.G_REGISTRY[hc.g_model](hc.image_shape, hc.noise_dim)
-        d = models.D_REGISTRY[hc.d_model](hc.image_shape)
+        g = models.G_REGISTRY[hc.g_model](hc.image_shape, hc.noise_dim,
+                                          axis_name=axis)
+        d = models.D_REGISTRY[hc.d_model](hc.image_shape, axis_name=axis)
         init = torch.Generator().manual_seed(hc.seed)  # same on any device
         reset_parameters(g, init)
         reset_parameters(d, init)
         self.state = gan.init_state(g.to(device), d.to(device), self.gc)
         self._maybe_pickup_pretrained_g()
-        self.epoch_fn = gan.make_train_epoch(self.state.g, self.state.d,
-                                             self.gc)
+        if self.dp:
+            mesh.replicate(self.state)
+            self.epoch_fn = dp.make_dp_train_epoch(
+                self.state.g, self.state.d, self.gc)
+        else:
+            self.epoch_fn = gan.make_train_epoch(self.state.g, self.state.d,
+                                                 self.gc)
         # V is inference-only here: it rates the samples in visualize
         self.v = None
         self._load_v()
@@ -161,6 +194,9 @@ class GanHarness:
         self.logger.log("v_loaded", path=path)
 
     def save(self, path: Optional[str] = None) -> None:
+        """Writes the checkpoint (rank 0 only: the state is replicated)."""
+        if not self.rank0:
+            return
         norm = 0.5 if self.hc.normalize else None
         meta = {"epoch": self.state.epoch,
                 "plot_data": self.plot_data,
@@ -194,22 +230,26 @@ class GanHarness:
             self.state.d_opt = d_optim.init(gan.params_of(self.state.d))
         if meta.get("_reinitialized"):
             self.logger.log("resume_reinit", leaves=meta["_reinitialized"])
+        if self.dp:
+            mesh.replicate(self.state)
         self.logger.log("resumed", path=path, epoch=self.state.epoch)
 
     # -- epoch loop ----------------------------------------------------
 
     def _draws(self) -> Draws:
-        """The epoch's draws, seeded by (seed, epoch): a resumed run draws
-        what the uninterrupted run would have."""
-        gen = torch.Generator(self.device)
-        gen.manual_seed(self.hc.seed * 1_000_003 + self.state.epoch)
-        return Draws(gen)
+        """The epoch's draws, seeded by (seed, epoch) and the rank
+        (``mesh.rank_seed``): a resumed run draws what the uninterrupted
+        run would have."""
+        return Draws(mesh.rank_generator(
+            self.hc.seed * 1_000_003 + self.state.epoch, self.device))
 
     def run_epoch(self) -> dict:
         t0 = time.time()
+        world = mesh.world_size(self.gc.axis_name)
         half = self.gc.batch_size // 2
-        batches = self.dataset.epoch_batches(self.hc.n_epoch, half,
-                                             self.gc.d_iterations)
+        batches = self.dataset.epoch_batches(
+            self.hc.n_epoch, half * world, self.gc.d_iterations,
+            shard=(mesh.rank(), world) if self.dp else None)
         m = self.epoch_fn(self.state, batches, self._draws())
         # one device-to-host fetch for every epoch scalar; the clock stops
         # after it
@@ -219,7 +259,7 @@ class GanHarness:
                                   (m.tp_real, m.tn_fake, m.fp, m.fn))
         ]).tolist()
         dt = time.time() - t0
-        n_seen = batches.shape[0] * batches.shape[1]
+        n_seen = batches.shape[0] * batches.shape[1] * world
         summary = {
             "epoch": self.state.epoch - 1,
             "loss_d": loss_d,
@@ -231,7 +271,8 @@ class GanHarness:
             "imgs_per_sec": round(n_seen / dt, 1),
         }
         self.logger.log("epoch", **summary)
-        print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
+        if self.rank0:
+            print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
         if self.collapse is not None:
             self.collapse.observe_epoch(summary["epoch"], summary["acc_d"],
                                         summary["loss_g"])
@@ -288,13 +329,14 @@ class GanHarness:
             self.logger.log("nan_detected", epoch=epoch)
         base = self.hc.save_dir
         name = f"epoch_{epoch:06d}.png"
-        save_grid(os.path.join(base, "images", name), rgb, epoch=epoch)
-        save_grid(os.path.join(base, "images_good", name), rgb[order[:50]],
-                  epoch=epoch)
-        save_grid(os.path.join(base, "images_bad", name), rgb[order[-50:]],
-                  epoch=epoch)
-        save_grid(os.path.join(base, "images_real", name), rgb_reals,
-                  epoch=epoch)
+        if self.rank0:
+            save_grid(os.path.join(base, "images", name), rgb, epoch=epoch)
+            save_grid(os.path.join(base, "images_good", name),
+                      rgb[order[:50]], epoch=epoch)
+            save_grid(os.path.join(base, "images_bad", name),
+                      rgb[order[-50:]], epoch=epoch)
+            save_grid(os.path.join(base, "images_real", name), rgb_reals,
+                      epoch=epoch)
         fields = {"epoch": epoch,
                   "d_probe_pattern": float(probes[0]),
                   "d_probe_real": float(probes[1]),
@@ -314,7 +356,8 @@ class GanHarness:
                                       fields["sample_sat"],
                                       fields["sample_std"],
                                       fields.get("nn_l2_ratio"))
-        if self.hc.weights_vis_freq and epoch % self.hc.weights_vis_freq == 0:
+        if (self.rank0 and self.hc.weights_vis_freq
+                and epoch % self.hc.weights_vis_freq == 0):
             save_activation_grids(self.state.d, imgs[:1], os.path.join(
                 base, "activations", f"epoch_{epoch:06d}"))
         return fields
@@ -354,9 +397,9 @@ class GanHarness:
         while epochs is None or done < epochs:
             if done == 0 or self.state.epoch % self.hc.vis_freq == 0:
                 self.visualize()
-            if self.collapse is not None and self.collapse.verdict:
+            if self._collapsed():
                 return self._abort_collapsed()
-            if profile_dir and done == profile_at:
+            if profile_dir and done == profile_at and self.rank0:
                 self._profiled_epoch(profile_dir)
             else:
                 self.run_epoch()
@@ -367,9 +410,9 @@ class GanHarness:
         # the final state's samples are not yet observed: check both before
         # the final save writes a possibly degenerate state
         if self.collapse is not None and done > 0:
-            if not self.collapse.verdict:
+            if not self._collapsed():
                 self.visualize()
-            if self.collapse.verdict:
+            if self._collapsed():
                 return self._abort_collapsed()
         # final save, unless the cadence save just wrote this state (a
         # duplicate would rotate the real previous snapshot out of .old)
@@ -377,11 +420,24 @@ class GanHarness:
             self.save()
         return "completed"
 
+    def _collapsed(self) -> bool:
+        """Whether the collapse detector has fired: rank 0's verdict,
+        broadcast, so that every rank stops at the same epoch."""
+        fired = self.collapse is not None and bool(self.collapse.verdict)
+        if self.dp and self.collapse is not None:
+            flag = torch.tensor([float(fired)], device=self.device)
+            mesh.broadcast_([flag])
+            fired = bool(flag.item())
+        return fired
+
     def _abort_collapsed(self) -> str:
         """Stops a collapsed run: writes the detector's report, with
         ``aborted_at_epoch``, to ``collapse.json`` and the state to
         ``adversarial_collapsed.ckpt``. ``adversarial.ckpt`` keeps the last
-        healthy snapshot, from which a run can resume past the collapse."""
+        healthy snapshot, from which a run can resume past the collapse.
+        Only rank 0 writes."""
+        if not self.rank0:
+            return "collapsed"
         report = self.collapse.report()
         report["aborted_at_epoch"] = self.state.epoch
         path = os.path.join(self.hc.save_dir, "collapse.json")
@@ -424,25 +480,30 @@ class VHarness:
     def __init__(self, hc: HarnessConfig, vc: v_trainer.VConfig,
                  dataset: ImageDataset, device: torch.device,
                  logger: Optional[MetricsLogger] = None):
-        if hc.n_devices > 1:
-            raise not_ported("data parallelism (n_devices > 1)", "11")
         self.hc = hc
-        self.vc = vc
+        self.dp = data_parallel(hc)
+        axis = mesh.DATA_AXIS if self.dp else None
+        self.rank0 = mesh.rank() == 0
+        self.vc = vc = dataclasses.replace(vc, axis_name=axis)
         self.dataset = dataset
         self.device = device
-        self.logger = logger or MetricsLogger(
+        self.logger = logger or _logger(
             os.path.join(hc.save_dir, "train_v_metrics.jsonl"))
-        v = models.V_REGISTRY[hc.v_model](hc.image_shape)
+        v = models.V_REGISTRY[hc.v_model](hc.image_shape, axis_name=axis)
         reset_parameters(v, torch.Generator().manual_seed(hc.seed))
         self.state = v_trainer.init_state(v.to(device), vc)
+        if self.dp:
+            mesh.replicate(self.state)
         h, w, _ = hc.image_shape
         t0 = time.time()
         bank = synthetic.build_overlay_bank(h, w, seed=hc.seed,
                                             **OVERLAY_BANK)
         self.bank_seconds = time.time() - t0
         self.bank = torch.from_numpy(bank).to(device)
-        self.epoch_fn = v_trainer.make_train_epoch(
-            self.state.v, vc, self.bank, hc.image_shape)
+        make_epoch = (dp.make_dp_v_epoch if self.dp
+                      else v_trainer.make_train_epoch)
+        self.epoch_fn = make_epoch(self.state.v, vc, self.bank,
+                                   hc.image_shape)
         self.factory = synthetic.SyntheticImageFactory(
             self.bank, hc.image_shape, seed=hc.seed)
         self._np = np.random.RandomState(hc.seed)
@@ -457,6 +518,8 @@ class VHarness:
         return os.path.join(self.hc.save_dir, ckpt.v_filename(c, h, w))
 
     def save(self) -> None:
+        if not self.rank0:          # the state is replicated
+            return
         save_variables(self.state.v, self._ckpt_path(),
                        {"epoch": self.state.epoch})
         self.logger.log("checkpoint_saved", path=self._ckpt_path(),
@@ -465,19 +528,24 @@ class VHarness:
     def run_epoch(self) -> dict:
         """One epoch: 5 real half-batches per step (the V batch's reals and
         4 generator feeds) in one copy, the host's generator choices in
-        catgen's order, the batches in turn, one metrics fetch."""
+        catgen's order, the batches in turn, one metrics fetch. Under data
+        parallelism the half-batches are global, each rank keeps its
+        share of each, the host's choices are every rank's, and the
+        device draws are the rank's own."""
         t0 = time.time()
         half = self.vc.batch_size // 2
         nb = max(self.hc.n_epoch // self.vc.batch_size, 1)
-        staged = self.dataset.postprocess(
-            self.dataset.sample_uint8(nb * 5 * half))
+        raw = rank_rows(self.dataset.sample_uint8(
+            nb * 5 * half * mesh.world_size()), (nb, 5), mesh.rank(),
+            mesh.world_size())
+        staged = self.dataset.postprocess(raw.reshape((-1,) + raw.shape[3:]))
         staged = staged.reshape((nb, 5, half) + tuple(staged.shape[1:]))
         reals, gen_reals = staged[:, 0], staged[:, 1:]
         branches = self._np.randint(0, 4, nb)
         sub_branches = self._np.randint(0, 4, nb)
         submix = self._np.rand(nb) < 0.33
-        gen = torch.Generator(self.device)
-        gen.manual_seed(int(self._np.randint(2 ** 31)))
+        gen = mesh.rank_generator(int(self._np.randint(2 ** 31)),
+                                  self.device)
         self.choices.append((branches, sub_branches, submix))
         m = self.epoch_fn(self.state, reals, gen_reals, branches,
                           sub_branches, submix, Draws(gen))
@@ -489,7 +557,8 @@ class VHarness:
         summary = {"epoch": self.state.epoch - 1, "loss": loss, "acc": acc,
                    "sec": round(dt, 3)}
         self.logger.log("epoch", **summary)
-        print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
+        if self.rank0:
+            print(confusion_summary(int(tp), int(tn), int(fp), int(fn)))
         return summary
 
     def visualize(self) -> dict:
@@ -513,10 +582,10 @@ class VHarness:
         base = self.hc.save_dir
         name = f"epoch_{epoch:06d}.png"
         good, bad = rgb[scores > 0.5], rgb[scores <= 0.5]
-        if len(good):
+        if len(good) and self.rank0:
             save_grid(os.path.join(base, "v_judged_real", name), good,
                       epoch=epoch)
-        if len(bad):
+        if len(bad) and self.rank0:
             save_grid(os.path.join(base, "v_judged_fake", name), bad,
                       epoch=epoch)
         fields = {"epoch": epoch,
@@ -545,18 +614,25 @@ class PretrainHarness:
     def __init__(self, hc: HarnessConfig, pc: pretrainer.PretrainConfig,
                  dataset: ImageDataset, device: torch.device,
                  logger: Optional[MetricsLogger] = None):
-        if hc.n_devices > 1:
-            raise not_ported("data parallelism (n_devices > 1)", "11")
         self.hc = hc
-        self.pc = dataclasses.replace(pc, noise_dim=hc.noise_dim)
+        self.dp = data_parallel(hc)
+        axis = mesh.DATA_AXIS if self.dp else None
+        self.rank0 = mesh.rank() == 0
+        self.pc = dataclasses.replace(pc, noise_dim=hc.noise_dim,
+                                      axis_name=axis)
         self.dataset = dataset
         self.device = device
-        self.logger = logger or MetricsLogger(
+        self.logger = logger or _logger(
             os.path.join(hc.save_dir, "pretrain_metrics.jsonl"))
-        ae = models.create_G_autoencoder(hc.image_shape, hc.noise_dim)
+        ae = models.create_G_autoencoder(hc.image_shape, hc.noise_dim,
+                                         axis_name=axis)
         reset_parameters(ae, torch.Generator().manual_seed(hc.seed))
         self.state = pretrainer.init_state(ae.to(device), self.pc)
-        self.epoch_fn = pretrainer.make_train_epoch(self.state.ae, self.pc)
+        if self.dp:
+            mesh.replicate(self.state)
+        make_epoch = (dp.make_dp_ae_epoch if self.dp
+                      else pretrainer.make_train_epoch)
+        self.epoch_fn = make_epoch(self.state.ae, self.pc)
         self.logger.log("setup", ae_params=_count(self.state.ae),
                         device=str(device))
 
@@ -566,6 +642,8 @@ class PretrainHarness:
             c, h, w, self.hc.noise_dim))
 
     def save(self) -> None:
+        if not self.rank0:          # the state is replicated
+            return
         save_variables(pretrainer.extract_decoder(self.state.ae),
                        self._ckpt_path(), {"epoch": self.state.epoch})
         self.logger.log("checkpoint_saved", path=self._ckpt_path(),
@@ -573,10 +651,14 @@ class PretrainHarness:
 
     def run_epoch(self) -> dict:
         """The step over max(N_epoch / batch, 1) batches of random reals,
-        staged in one copy; one metrics fetch."""
+        staged in one copy; one metrics fetch. Under data parallelism the
+        batches are global and each rank keeps its share of each."""
         t0 = time.time()
         nb = max(self.hc.n_epoch // self.pc.batch_size, 1)
-        imgs = self.dataset.load_random_images(nb * self.pc.batch_size)
+        raw = rank_rows(self.dataset.sample_uint8(
+            nb * self.pc.batch_size * mesh.world_size()), (nb,),
+            mesh.rank(), mesh.world_size())
+        imgs = self.dataset.postprocess(raw.reshape((-1,) + raw.shape[2:]))
         batches = imgs.reshape((nb, self.pc.batch_size)
                                + tuple(imgs.shape[1:]))
         mse = float(self.epoch_fn(self.state, batches).mean())
@@ -595,6 +677,8 @@ class PretrainHarness:
             (-1,) + tuple(originals.shape[1:]))
         with torch.inference_mode():
             rgb = colorlib.colorspace_to_rgb(pairs, self.hc.colorspace)
+        if not self.rank0:
+            return
         save_grid(os.path.join(self.hc.save_dir, "reconstructions",
                                f"epoch_{epoch:06d}.png"),
                   rgb.cpu().numpy(), nrow=8, epoch=epoch)

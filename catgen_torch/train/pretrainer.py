@@ -9,8 +9,9 @@ filename.
 
 The autoencoder draws nothing at random, so the step takes no draws. The
 epoch is a per-batch loop; catgen's scan and flat staging are TPU
-workarounds and are not ported, nor is the data-parallel axis (ROADMAP
-Queue A item 11).
+workarounds and are not ported. ``PretrainConfig.axis_name``
+(``dist.mesh.DATA_AXIS``) averages the gradients over the data-parallel
+ranks in one all-reduce (catgen's ``pmean``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from catgen_torch import optim
+from catgen_torch.dist import mesh
 from catgen_torch.train.gan import params_of
 
 
@@ -34,6 +36,7 @@ class PretrainConfig:
     g_l2: float = 0.0
     g_clamp: float = 5.0
     lr: Optional[float] = None
+    axis_name: Optional[str] = None       # data-parallel axis (DATA_AXIS)
 
     def make_optimizer(self) -> optim.Optimizer:
         return optim.adam() if self.lr is None else optim.adam(lr=self.lr)
@@ -62,8 +65,10 @@ def make_train_step(ae: nn.Module, config: PretrainConfig):
     def step(state: AEState, images: torch.Tensor) -> torch.Tensor:
         ae.train()
         loss = torch.mean(torch.square(ae(images) - images))
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if config.axis_name is not None:
+            grads = mesh.all_reduce_mean_flat(grads, config.axis_name)
+        grads = dict(zip(params, grads))
         values = params_of(ae)
         grads = optim.clamp_and_penalize(grads, values, config.g_l1,
                                          config.g_l2, config.g_clamp)

@@ -10,8 +10,11 @@ in place (V holds its weights) and returns its metrics on the device.
 
 The epoch is a per-batch loop: generate the batch's fakes, then step.
 catgen scans both inside one compiled program and stages the epoch flat,
-TPU workarounds that are not ported. Not ported either: the data-parallel
-axis (ROADMAP Queue A item 11).
+TPU workarounds that are not ported.
+
+``VConfig.axis_name`` (``dist.mesh.DATA_AXIS``) makes the step one rank's
+share of a data-parallel step: the gradients and the batch accuracy are
+averaged over the ranks in one all-reduce (catgen's ``pmean``s).
 
 ``VConfig.compute_dtype`` (f32 or bf16) is the update's activation dtype:
 as catgen's step, it casts the reals and fakes it is handed, after they
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from catgen_torch import optim
+from catgen_torch.dist import mesh
 from catgen_torch.nn.layers import set_draws
 from catgen_torch.train import synthetic
 from catgen_torch.train.gan import bce_clip, params_of
@@ -44,6 +48,7 @@ class VConfig:
     v_clamp: float = 5.0
     lr: Optional[float] = None            # None: torch7 adam's default
     compute_dtype: torch.dtype = torch.float32   # or torch.bfloat16
+    axis_name: Optional[str] = None       # data-parallel axis (DATA_AXIS)
 
     def make_optimizer(self) -> optim.Optimizer:
         return optim.adam() if self.lr is None else optim.adam(lr=self.lr)
@@ -95,8 +100,14 @@ def make_train_step(v: nn.Module, config: VConfig):
         targets = torch.stack([1.0 - t_real, t_real], dim=-1)
         out = v(inputs)
         loss = bce_clip(out, targets)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        pred_real = out.detach()[:, 1] > 0.5
+        is_real = t_real > 0.5
+        acc = (pred_real == is_real).float().mean()
+        if config.axis_name is not None:
+            *grads, acc = mesh.all_reduce_mean_flat([*grads, acc],
+                                                    config.axis_name)
+        grads = dict(zip(params, grads))
         values = params_of(v)
         grads = optim.clamp_and_penalize(grads, values, config.v_l1,
                                          config.v_l2, config.v_clamp)
@@ -106,11 +117,8 @@ def make_train_step(v: nn.Module, config: VConfig):
             for k, p in params.items():
                 p.copy_(new[k])
         state.step += 1
-        pred_real = out.detach()[:, 1] > 0.5
-        is_real = t_real > 0.5
         return VStepMetrics(
-            loss=loss.detach(),
-            acc=(pred_real == is_real).float().mean(),
+            loss=loss.detach(), acc=acc,
             tp_real=(pred_real & is_real).sum(),
             tn_fake=(~pred_real & ~is_real).sum(),
             fp=(pred_real & ~is_real).sum(),

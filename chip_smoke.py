@@ -227,7 +227,25 @@ with a non-zero exit code and no result.
  39. cli.eval_quality on phase 8's checkpoint with phase 22's V, 1024
      samples against a 16384-image corpus, on the card and on the CPU:
      every report field equal within the CPU parity test's tolerances;
-     cli.show_ckpt's output equal to a CPU process's.
+     cli.show_ckpt's output equal to a CPU process's;
+ 40. data parallelism (catgen_torch/dist) and the rest of the loader:
+     (a) the native JPEG decoder builds and fills the cache where a C++
+     compiler and jpeglib.h are present (decoder_used "native"), within
+     catgen's mean-abs 4.0 of PIL, and a corrupt file is refused; (b) in a
+     world of one NCCL rank on cuda:0 the DP GAN step (G32up-c against
+     D32_st3, batch 640, augmented) on the default and ladder routes, f32
+     and bf16, equals the plain step bit for bit, with the plain step's
+     launches plus its all-reduces (dist.dp.all_reduces_per_gan_step);
+     (c) two gloo ranks on the card: catgen's three dryrun_multichip
+     configurations, 3 steps each, the state bit-equal across the ranks,
+     and one f32 DP step at 2 x 320 against the single step at 640 within
+     phase 9's bounds (on weights without a switch within rounding: PReLU
+     slopes 1, ST heads of zero weights, D updated by SGD;
+     ``dp_two_ranks``); (d) cli.train, cli.train_v and cli.pretrain_g
+     through --devices 1 --coordinator --numProcesses 1 --processId 0,
+     one epoch each, and --devices 2 refused on one card; (e) the world of
+     one's DP step beside the plain step in time, f32 and bf16, default
+     route (the cost of the reductions; a finding, no claim).
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -5328,6 +5346,506 @@ def add_16px_entries(by_name: dict, base64: dict, new_err: dict,
         "launches_v16_run": runs16["v16"]["grid_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 40: data parallelism (catgen_torch/dist) and the native decoder
+# ---------------------------------------------------------------------------
+
+DP_ROUTES = (("default", None), ("ladder", LADDER))
+DP_TIMING_REPS = 5
+# the two-rank configurations: catgen's dryrun_multichip three (the
+# default; d_iterations=2 with augmentation, normalized inputs and bf16;
+# G64_stack against D64 with the 32px core frozen), per-rank batches
+DP_CONFIGS = (
+    ("default", "g32up_c", "d32_st3", (32, 32, 3), 64, {}),
+    ("d_iters2+augment+normalize+bf16", "g32up_c", "d32_st3", (32, 32, 3),
+     64, dict(d_iterations=2, augment=True, normalized_inputs=True,
+              bf16=True)),
+    ("64px_stack+G_freeze", "g64_stack", "d64", (64, 64, 3), 16,
+     dict(g_frozen_children=("00_G32up_c",))),
+)
+DP_STEPS = 3
+DP_CLI_ARGS = ["--device", "cuda", "--fixture", "256", "--epochs", "1",
+               "--devices", "1", "--numProcesses", "1", "--processId", "0"]
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def native_decoder(root: str) -> dict:
+    """Phase 40(a): the port's native JPEG decoder builds and fills the
+    loader's cache where a C++ compiler and jpeglib.h are present, decodes
+    the fixture within catgen's mean-abs 4.0 of PIL (tests/test_native.py)
+    and refuses a corrupt file."""
+    import numpy as np
+    from PIL import Image
+
+    from catgen_torch.data import loader, native_decode
+    from catgen_torch.data.fixture import write_fixture_dataset
+
+    corpus = os.path.join(root, "corpus")
+    write_fixture_dataset(corpus, n=64, size=96, seed=2)
+    toolchain = bool(shutil.which(os.environ.get("CXX", "g++"))
+                     or shutil.which("c++")) and any(
+        os.path.exists(os.path.join(d, "jpeglib.h"))
+        for d in ("/usr/include", "/usr/local/include",
+                  "/usr/include/x86_64-linux-gnu"))
+    t0 = time.perf_counter()
+    ds = loader.ImageDataset([corpus], scale=32)
+    ds.slice_uint8(0, 1)
+    seconds = time.perf_counter() - t0
+    print(f"decoder used: {ds.decoder_used}; build error: "
+          f"{ds.decoder_error}; C++ compiler and jpeglib.h present: "
+          f"{toolchain}; cache of {len(ds)} images filled in "
+          f"{seconds:.3f} s")
+    if toolchain:
+        require(ds.decoder_used == "native", "the native decoder did not "
+                "run where a compiler and jpeglib.h are present")
+    out = {"decoder_used": ds.decoder_used, "build_error": ds.decoder_error,
+           "toolchain": toolchain}
+    if ds.decoder_used != "native":
+        return out
+    diffs = []
+    for p in ds.paths[:8]:
+        got, ok = native_decode.decode_batch_checked([p], 64)
+        require(ok.all(), f"the native decoder failed on {p}")
+        ref = np.asarray(Image.open(p).convert("RGB").resize(
+            (64, 64), Image.BILINEAR))
+        diffs.append(float(np.abs(got[0].astype(int)
+                                  - ref.astype(int)).mean()))
+    print(f"native vs PIL at 96 -> 64: mean abs {max(diffs):.3f} at most "
+          f"(bound 4.0)")
+    require(max(diffs) < 4.0, "the native decoder disagrees with PIL")
+    bad = os.path.join(root, "bad")
+    write_fixture_dataset(bad, n=2, size=64, seed=3)
+    with open(os.path.join(bad, "zz_corrupt.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff not a jpeg")
+    try:
+        loader.ImageDataset([bad], scale=32).slice_uint8(0, 1)
+    except ValueError as e:
+        require("failed to decode" in str(e), f"wrong refusal: {e}")
+        print(f"corrupt file refused: {str(e)[:80]}...")
+    else:
+        raise RuntimeError("the loader took a corrupt file")
+    out["pil_mean_abs_max"] = max(diffs)
+    return out
+
+
+def dp_pair(g_name: str, d_name: str, image, axis, seed: int = 3):
+    """(G, D) of the registry built with ``axis`` and holding seeded
+    weights (``seeded_pair``'s for the flagship, else ``perturb``'s)."""
+    from catgen_torch import models
+
+    if (g_name, d_name) == ("g32up_c", "d32_st3"):
+        src = seeded_pair(seed, G_GAIN, D_GAIN)
+    else:
+        src = (models.G_REGISTRY[g_name](image, 100),
+               models.D_REGISTRY[d_name](image))
+        perturb(*src, seed, G_GAIN, D_GAIN)
+    g = models.G_REGISTRY[g_name](image, 100, axis_name=axis)
+    d = models.D_REGISTRY[d_name](image, axis_name=axis)
+    g.load_state_dict(src[0].state_dict())
+    d.load_state_dict(src[1].state_dict())
+    return g, d
+
+
+def dp_launches(route, bf16: bool) -> tuple:
+    """(launches since the last reset, one step's design): phase 5's and
+    15's (``expected_sampler``, ``expected_upsample``) in f32, phase 32's
+    (``expected_bf16_route``) in bf16."""
+    got = bf16_route_counts()
+    if bf16:
+        return got, expected_bf16_route(route, 1, 0, 0)
+    up, d = expected_upsample(route, 1, 0), expected_sampler(route, 1, 0)
+    want = dict.fromkeys(got, 0)
+    want.update({f"up_{k}": v for k, v in up.items()})
+    want.update(LAUNCHES=d["fwd"], DCOORDS_LAUNCHES=d["dcoords"],
+                DIMG_LAUNCHES=d["dimg"], st_conv=d["st_conv"])
+    return got, want
+
+
+def dp_world_of_one(card_name: str) -> dict:
+    """Phase 40(b) and (e): in a world of one NCCL rank on cuda:0 the DP
+    GAN step (G32up-c against D32_st3, batch 640, augmented) on the
+    default and ladder routes, f32 and bf16, equals the plain step bit for
+    bit (every parameter, buffer, optimizer tensor and metric) and
+    launches what the plain step launches, plus its all-reduces; then the
+    DP step's time beside the plain step's on the default route."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.dist import dp, mesh
+    from catgen_torch.kernels import config as upconfig
+    from catgen_torch.train import gan
+
+    out = {}
+    # the CLIs' mode: cuDNN's deterministic algorithms, so that two runs
+    # of one step can agree bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    reals = torch.rand((TRAIN_B // 2, 32, 32, 3),
+                       generator=torch.Generator().manual_seed(4)).cuda()
+    cuda0 = torch.device("cuda", 0)
+    with mesh.session(f"localhost:{free_port()}", device=cuda0,
+                      backend="nccl"):
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            config = gan.GanConfig(batch_size=TRAIN_B, augment=True,
+                                   compute_dtype=dtype)
+            for name, route in DP_ROUTES:
+                key = f"{name}_{'bf16' if bf16 else 'f32'}"
+                runs = {}
+                for is_dp in (False, True):
+                    g, d = dp_pair("g32up_c", "d32_st3", (32, 32, 3),
+                                   mesh.DATA_AXIS if is_dp else None)
+                    state = gan.init_state(g.cuda(), d.cuda(), config)
+                    step = (dp.make_dp_train_step(g, d, config) if is_dp
+                            else gan.make_train_step(g, d, config))
+                    draws = Draws(mesh.rank_generator(5, "cuda"))
+                    reset_counts()
+                    mesh.reset_counts()
+                    with upconfig.using(**(route or {})):
+                        m = step(state, reals, draws)
+                    torch.cuda.synchronize()
+                    got, want = dp_launches(route, bf16)
+                    require(got == want, f"{key} {'DP' if is_dp else 'plain'}"
+                            f" step's launches {got}, expected {want}")
+                    runs[is_dp] = (mesh.state_tensors(state), m, got,
+                                   mesh.ALL_REDUCES)
+                    if is_dp:
+                        reduces = dp.all_reduces_per_gan_step(g, d, config)
+                    del g, d, state
+                (plain, mp, _, _), (dps, md, launches, n) = runs[False], \
+                    runs[True]
+                differ = [k for k in plain if not torch.equal(plain[k],
+                                                              dps[k])]
+                require(not differ, f"{key}: the DP step differs from the "
+                                    f"plain step at {differ[:4]}")
+                for f in mp._fields:
+                    require(torch.equal(getattr(mp, f), getattr(md, f)),
+                            f"{key}: metric {f} differs")
+                require(n == reduces, f"{key}: {n} all-reduces, expected "
+                                      f"{reduces}")
+                print(f"world of one, {key}: the DP step equals the plain "
+                      f"step bit for bit ({len(plain)} state tensors, every "
+                      f"metric); launches {({k: v for k, v in launches.items() if v})}"
+                      f" as the plain step's, plus {n} all-reduces")
+                out[key] = {"bit_equal": True, "all_reduces": n,
+                            "launches": launches}
+        # (e): what the reductions cost in a world of one
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            config = gan.GanConfig(batch_size=TRAIN_B, augment=True,
+                                   compute_dtype=dtype)
+            steps = {}
+            for is_dp in (False, True):
+                g, d = dp_pair("g32up_c", "d32_st3", (32, 32, 3),
+                               mesh.DATA_AXIS if is_dp else None)
+                state = gan.init_state(g.cuda(), d.cuda(), config)
+                fn = (dp.make_dp_train_step(g, d, config) if is_dp
+                      else gan.make_train_step(g, d, config))
+                draws = Draws(mesh.rank_generator(6, "cuda"))
+                steps[is_dp] = (lambda fn=fn, state=state, draws=draws:
+                                fn(state, reals, draws))
+            walls = {False: [], True: []}
+            for _ in range(2):                        # warm-up
+                for is_dp in (False, True):
+                    steps[is_dp]()
+            torch.cuda.synchronize()
+            for i in range(DP_TIMING_REPS):   # plain, DP, DP, plain, ...
+                for is_dp in ((False, True) if i % 2 == 0 else
+                              (True, False)):
+                    t0 = time.perf_counter()
+                    steps[is_dp]()
+                    torch.cuda.synchronize()
+                    walls[is_dp].append((time.perf_counter() - t0) * 1e3)
+            key = "bf16" if bf16 else "f32"
+            plain_ms = statistics.median(walls[False])
+            dp_ms = statistics.median(walls[True])
+            print(f"world of one, default route, {key}, batch {TRAIN_B}: "
+                  f"plain step {plain_ms:.3f} ms, DP step {dp_ms:.3f} ms "
+                  f"(median of {DP_TIMING_REPS}, in turns; the reductions "
+                  f"cost {dp_ms - plain_ms:+.3f} ms); {card_name}")
+            out[f"time_{key}"] = {"plain_ms": plain_ms, "dp_ms": dp_ms,
+                                  "plain_walls": walls[False],
+                                  "dp_walls": walls[True]}
+            del steps
+    return out
+
+
+def dp_rank_main(local_rank: int, device, spec: dict) -> dict:
+    """Phase 40(c), one of two gloo ranks on one card: catgen's three
+    configurations, DP_STEPS steps each with the state bit-equal across
+    the ranks after them (and frozen children bit-equal to their start);
+    then one f32 DP step at 2 x 320 on the single step's weights and
+    draws, split by rank."""
+    import numpy as np
+    import torch
+    from catgen_torch.cli.common import resolve_device
+    from catgen_torch.core.random import Draws
+    from catgen_torch.dist import dp, mesh
+    from catgen_torch.dist.parity import ReplayDraws, split_draws
+    from catgen_torch.train import gan
+
+    # a fresh process: the CLIs' numeric mode (a new process would run
+    # cuDNN's convolutions in TF32, torch's default)
+    resolve_device(str(device))
+    rank, world = mesh.rank(), mesh.world_size()
+    out = {}
+    for label, g_name, d_name, image, batch, kw in DP_CONFIGS:
+        kw = dict(kw)
+        dtype = torch.bfloat16 if kw.pop("bf16", False) else torch.float32
+        config = gan.GanConfig(batch_size=batch, compute_dtype=dtype, **kw)
+        g, d = dp_pair(g_name, d_name, image, mesh.DATA_AXIS)
+        state = gan.init_state(g.to(device), d.to(device), config)
+        mesh.replicate(state)
+        frozen = {k: v.clone() for k, v in g.state_dict().items()
+                  if k.startswith(tuple(f"{c}." for c in
+                                        config.g_frozen_children))}
+        step = dp.make_dp_train_step(g, d, config)
+        rs = np.random.RandomState(rank)
+        for i in range(DP_STEPS):
+            reals = torch.from_numpy(rs.rand(
+                config.d_iterations * batch // 2, *image).astype(
+                    np.float32)).to(device)
+            if config.normalized_inputs:
+                reals = reals * 2.0 - 1.0
+            m = step(state, reals, Draws(mesh.rank_generator(i, device)))
+        torch.cuda.synchronize()
+        nbytes = mesh.assert_replicated(state)
+        now = g.state_dict()
+        require(all(torch.equal(v, now[k]) for k, v in frozen.items()),
+                f"{label}: a frozen G child moved")
+        require(bool(torch.isfinite(m.loss_d)) and bool(
+            torch.isfinite(m.loss_g)), f"{label}: non-finite losses")
+        out[label] = {"replicated_bytes": nbytes, "frozen": len(frozen),
+                      "loss_d": float(m.loss_d), "loss_g": float(m.loss_g),
+                      "step": state.step}
+        del g, d, state, step
+    s = spec["split"]
+    g, d = dp_pair("g32up_c", "d32_st3", (32, 32, 3), mesh.DATA_AXIS)
+    g.load_state_dict(s["g"])
+    d.load_state_dict(s["d"])
+    config = gan.GanConfig(batch_size=TRAIN_B // world, augment=True,
+                           d_optimizer="sgd")
+    state = gan.init_state(g.to(device), d.to(device), config)
+    grads = []
+    step = dp.make_dp_train_step(g, d, config)
+    real_cap = gan.optim.clamp_and_penalize
+
+    def spy(gr, *a, **k):
+        grads.append({n: t.detach().cpu() for n, t in gr.items()})
+        return real_cap(gr, *a, **k)
+
+    gan.optim.clamp_and_penalize = spy
+    try:
+        n = TRAIN_B // 2 // world
+        m = step(state, s["reals"][rank * n:(rank + 1) * n].to(device),
+                 ReplayDraws(split_draws(s["records"], rank, world,
+                                         s["pairs"]), device))
+    finally:
+        gan.optim.clamp_and_penalize = real_cap
+    mesh.assert_replicated(state)
+    out["split"] = {"metrics": {k: v.item() for k, v in m._asdict().items()},
+                    "grads": grads if rank == 0 else None}
+    return out
+
+
+def pool_fed(model) -> set:
+    """The weight and bias names of every layer of ``model`` whose output
+    reaches a max pool directly or through one activation."""
+    from catgen_torch.nn.layers import MaxPool
+
+    out = set()
+    for prefix, seq in model.named_modules():
+        kids = list(seq.named_children())
+        for i, (name, layer) in enumerate(kids):
+            nxt = [m for _, m in kids[i + 1:i + 3]]
+            if hasattr(layer, "weight") and nxt and (
+                    isinstance(nxt[0], MaxPool) or (
+                        len(nxt) == 2 and isinstance(nxt[1], MaxPool)
+                        and not hasattr(nxt[0], "weight"))):
+                base = f"{prefix}.{name}" if prefix else name
+                out |= {f"{base}.weight", f"{base}.bias"}
+    return out
+
+
+def dp_two_ranks() -> dict:
+    """Phase 40(c): two gloo ranks on cuda:0 (``dp_rank_main``), and the
+    single-process f32 step at batch 640 that their 2 x 320 step must
+    match within phase 9's bounds: losses within STEP_LOSS_RTOL, gradients
+    within GRAD_REL of each leaf's largest (+ GRAD_FLOOR of the update's
+    largest). The two steps split the batch differently and so round
+    differently; where an activation sits within rounding of a switch,
+    one of them takes the other side and that element's gradient moves by
+    a part of itself (tests/test_torch_port_dist.py; at 640 images there
+    are hundreds of such elements a step: with catgen's slopes the worst
+    leaves came 1.1-1.5 times the bound, with TF32 left on in the ranks
+    60). So, for this comparison only, the switches are taken away where
+    the weights allow: every PReLU's slope is 1 (G and D smooth but for
+    D's max pool), D's ST heads have zero weights and seeded biases (the
+    grids are not the identity but come from no batched product, so both
+    steps sample at the same coordinates, and no coordinate crosses a
+    pixel edge), and D updates by SGD (Adam's first step would turn a D
+    gradient within rounding of zero into +-lr, and the G phase would
+    differentiate through two different Ds). A max pool's choice between
+    two values within rounding remains: one flip moves a gradient element
+    to its neighbour, which at 640 images changes the weight gradient of
+    the conv feeding the pool by ~1/sqrt(its 163840 terms) ~ 2.5e-3 of the
+    leaf; D's leaves that feed a max pool (``pool_fed``) are held to
+    G64_GRAD_REL, phase 36's bound for the same kind of flip (on an H100:
+    the conv branch's 1.5e-3, every other leaf within phase 9's)."""
+    import torch
+    from catgen_torch.core.random import Draws
+    from catgen_torch.dist import launch
+    from catgen_torch.dist.parity import RecordingDraws, gan_pairs
+    from catgen_torch.train import gan
+
+    world = 2
+    g, d = dp_pair("g32up_c", "d32_st3", (32, 32, 3), None)
+    with torch.no_grad():     # no switch within rounding (see above)
+        for name, p in list(g.named_parameters()) + list(
+                d.named_parameters()):
+            if ".head" in name and name.endswith("weight"):
+                p.zero_()
+            elif name.endswith(".alpha"):
+                p.fill_(1.0)
+    split = {"g": {k: v.clone() for k, v in g.state_dict().items()},
+             "d": {k: v.clone() for k, v in d.state_dict().items()},
+             "reals": torch.rand((TRAIN_B // 2, 32, 32, 3),
+                                 generator=torch.Generator().manual_seed(8))}
+    config = gan.GanConfig(batch_size=TRAIN_B, augment=True,
+                           d_optimizer="sgd")
+    state = gan.init_state(g.cuda(), d.cuda(), config)
+    draws = RecordingDraws(Draws(torch.Generator("cuda").manual_seed(9)))
+    grads = []
+    real_cap = gan.optim.clamp_and_penalize
+
+    def spy(gr, *a, **k):
+        grads.append({n: t.detach().cpu() for n, t in gr.items()})
+        return real_cap(gr, *a, **k)
+
+    mode = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gan.optim.clamp_and_penalize = spy
+    try:
+        m = gan.make_train_step(g, d, config)(state, split["reals"].cuda(),
+                                              draws)
+    finally:
+        gan.optim.clamp_and_penalize = real_cap
+        torch.backends.cudnn.deterministic = mode
+    split["records"] = [(k, t.cpu()) for k, t in draws.records]
+    split["pairs"] = gan_pairs(draws.records, TRAIN_B // 2 // world, world,
+                               100)
+    del g, state
+    t0 = time.perf_counter()
+    ranks = launch.launch(dp_rank_main, world, args=({"split": split},),
+                          devices=["cuda:0"] * world, backend="gloo",
+                          timeout_s=300.0)
+    print(f"two gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s "
+          f"(both processes' start included)")
+    for label, *_ in DP_CONFIGS:
+        require(ranks[0][label] == ranks[1][label],
+                f"{label}: the ranks' results differ")
+        print(f"two ranks, {label}: {DP_STEPS} steps, state bit-equal "
+              f"across the ranks ({ranks[0][label]['replicated_bytes']} "
+              f"bytes), {ranks[0][label]['frozen']} frozen tensors held, "
+              f"loss_d {ranks[0][label]['loss_d']:.6f}")
+    got = ranks[0]["split"]
+    for r in ranks:
+        for name in ("loss_d", "loss_g", "acc_d", "acc_avg"):
+            a, b = r["split"]["metrics"][name], float(getattr(m, name))
+            require(abs(a - b) <= STEP_LOSS_RTOL * abs(b),
+                    f"2 x 320 {name} {a} vs the 640 step's {b}")
+        for name in ("d_trained", "tp_real", "tn_fake", "fp", "fn"):
+            require(r["split"]["metrics"][name] == float(getattr(m, name)),
+                    f"2 x 320 {name} differs")
+    pooled = pool_fed(d)
+    worst, over = {}, []
+    for phase_name, a, b in zip("DG", got["grads"], grads):
+        top = max(v.abs().max().item() for v in b.values())
+        ratios = []
+        for k in b:
+            err = (a[k] - b[k]).abs().max().item()
+            rel = G64_GRAD_REL if phase_name == "D" and k in pooled \
+                else GRAD_REL
+            bound = rel * b[k].abs().max().item() + GRAD_FLOOR * top
+            ratios.append((err / bound, k, err, b[k].abs().max().item()))
+            if err > bound:
+                over.append(f"{phase_name} {k}: {err:.3e} > {bound:.3e}")
+        ratios.sort(reverse=True)
+        print(f"2 x 320 against 640, {phase_name} phase gradients, worst "
+              f"leaves (error over the bound; error; leaf's largest; the "
+              f"update's largest {top:.3e}): " + "; ".join(
+                  f"{k} {r:.3f} {e:.2e} {m:.2e}" for r, k, e, m in
+                  ratios[:6]))
+        worst[phase_name] = ratios[0][0]
+    require(not over, f"2 x 320 gradients beyond phase 9's bounds: {over}")
+    print(f"DP 2 x 320 against the single step at {TRAIN_B}: losses within "
+          f"{STEP_LOSS_RTOL}, worst gradient leaf D {worst['D']:.3f}, G "
+          f"{worst['G']:.3f} of its bound ({GRAD_REL} of the leaf's "
+          f"largest + {GRAD_FLOOR} of the update's)")
+    return {"configs": {label: ranks[0][label]
+                        for label, *_ in DP_CONFIGS},
+            "split_metrics": got["metrics"],
+            "split_worst_over_bound": worst}
+
+
+def dp_clis(root: str) -> dict:
+    """Phase 40(d): cli.train, cli.train_v and cli.pretrain_g on the card
+    through the multi-host flags as a world of one (one epoch each); and
+    --devices 2 refused on a one-card machine."""
+    import torch
+    from catgen_torch.cli import pretrain_g as pretrain_cli
+    from catgen_torch.cli import train as train_cli
+    from catgen_torch.cli import train_v as train_v_cli
+    from catgen_torch.train import harness as tharness
+
+    out = {}
+    for name, cli, extra, ckpt in (
+            ("train", train_cli, ["--batchSize", "64", "--N_epoch", "320",
+                                  "--augment"], "adversarial.ckpt"),
+            ("train_v", train_v_cli, ["--batchSize", "32", "--N_epoch",
+                                      "320"], "v_3x32x32.ckpt"),
+            ("pretrain_g", pretrain_cli, ["--batchSize", "16", "--N_epoch",
+                                          "160"],
+             "g_pretrained_3x32x32_nd100.ckpt")):
+        save = os.path.join(root, name)
+        bank, tharness.OVERLAY_BANK = tharness.OVERLAY_BANK, V16_BANK
+        t0 = time.perf_counter()
+        try:
+            h = cli.main(DP_CLI_ARGS + ["--coordinator",
+                                        f"localhost:{free_port()}",
+                                        "--save", save] + extra)
+        finally:
+            tharness.OVERLAY_BANK = bank
+        seconds = time.perf_counter() - t0
+        require(h.dp and h.hc.n_devices == 1 and h.state.epoch == 2,
+                f"cli.{name}: not a world of one's run")
+        require(not torch.distributed.is_initialized(),
+                f"cli.{name} left its process group")
+        require(os.path.exists(os.path.join(save, ckpt)),
+                f"cli.{name} wrote no {ckpt}")
+        print(f"cli.{name} --devices 1 --coordinator ... --numProcesses 1 "
+              f"--processId 0: one epoch in {seconds:.1f} s, {ckpt} written")
+        out[name] = seconds
+    cards = torch.cuda.device_count()
+    try:
+        train_cli.main(["--device", "cuda", "--devices", str(cards + 1),
+                        "--save", os.path.join(root, "refused")])
+    except SystemExit as e:
+        require("card" in str(e), f"wrong refusal: {e}")
+        print(f"--devices {cards + 1} on {cards} card(s) refused: {e}")
+    else:
+        raise RuntimeError("more ranks than cards were not refused")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -5629,6 +6147,27 @@ def main(argv=None) -> int:
         print(f"phase 39: {time.perf_counter() - t0:.1f} s")
     run32.cleanup()
     print(json.dumps({"quality": {"card": card_name, **quality}}))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        phase(40, "data parallelism: (a) the native decoder; (b) a world of "
+                  "one NCCL rank, the DP GAN step at batch 640 bit for bit "
+                  "against the plain step, default and ladder routes, f32 "
+                  "and bf16; (c) two gloo ranks on the card: catgen's three "
+                  "configurations replicated bit for bit, DP 2 x 320 "
+                  "against the single step at 640; (d) the three training "
+                  "CLIs through the multi-host flags, --devices 2 refused; "
+                  "(e) the reductions' cost in a world of one")
+        t0 = time.perf_counter()
+        decoder = native_decoder(os.path.join(root, "decoder"))
+        world1 = dp_world_of_one(card_name)
+        two = dp_two_ranks()
+        clis = dp_clis(os.path.join(root, "cli"))
+        print(f"phase 40: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"data_parallel": {
+        "card": card_name, "decoder": decoder, "clis_seconds": clis,
+        "world_of_one": {k: {m: v[m] for m in v if m != "launches"}
+                         for k, v in world1.items()},
+        "two_ranks": two}}))
 
     from catgen_torch.kernels import bilinear
 
@@ -5959,6 +6498,24 @@ def main(argv=None) -> int:
             "bf16_kernel"]["launches"][f"up_{counter}"]}
     add_16px_entries(by_name, base64, new_err, new_t, s16, st16_err, st16_t,
                      steps16, runs16, zoo)
+    # phase 40: each kernel's launches in one DP step of a world of one
+    for key, run in world1.items():
+        if key.startswith("time_"):
+            continue
+        bf16 = key.endswith("bf16")
+        names = {"LAUNCHES": "bilinear_sample_rows",
+                 "DCOORDS_LAUNCHES": "bilinear_sample_rows_bwd_dcoords",
+                 "DIMG_LAUNCHES": "bilinear_sample_rows_bwd_dimg",
+                 **{f"up_{counter}": name
+                    for _, name, counter, _, _ in UP_KERNELS}}
+        for counter, name in names.items():
+            if bf16:
+                counter = (counter.replace("up_", "up_BF16_")
+                           if counter.startswith("up_") else f"BF16_{counter}")
+                name += "_bf16"
+            if run["launches"].get(counter):
+                by_name[name]["launches_by_path"][f"dp_step_{key}"] = \
+                    run["launches"][counter]
     print(json.dumps({"kernels": kernels}))
     print(card_name)     # as nvidia-smi gives it: name, power limit
     print(json.dumps({"ok": True, "device": {

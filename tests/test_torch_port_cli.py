@@ -2,13 +2,15 @@
 size: it writes the metrics, the grids and a catgen-format checkpoint that
 catgen loads and the port's sample CLI reads; it resumes from its own
 checkpoint; --collapseDetect, --weightsVisFreq and --profile do their
-work; and it refuses every flag whose machinery is not ported. Then
+work; its data-parallel flags train on two gloo ranks, or a world of
+one, and refuse more CUDA ranks than cards. Then
 the reference's workflow in one --save: cli.train_v, cli.pretrain_g, and
 cli.train picking up both files (the overlay bank at catgen's test size,
 tests/test_v_subsystem.py, in place of the full 1000 x 10000 walk)."""
 
 import json
 import os
+import socket
 
 import jax
 import numpy as np
@@ -98,13 +100,64 @@ def test_resume_continues_from_the_checkpoint(trained, tmp_path):
     assert int(rebuilt.state.d_opt.step) == 0 and rebuilt.state.epoch == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--coordinator", "localhost:1234"],
-    ["--numProcesses", "2"]])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+DP_CHECKPOINTS = {train_cli: "adversarial.ckpt",
+                  train_v_cli: "v_3x32x32.ckpt",
+                  pretrain_cli: "g_pretrained_3x32x32_nd100.ckpt"}
+
+
+@pytest.mark.parametrize("cli,flags", [
+    (train_cli, ["--devices", "2"]),
+    (pretrain_cli, ["--coordinator", "PORT", "--numProcesses", "1",
+                    "--processId", "0"]),
+    (train_v_cli, ["--coordinator", "PORT", "--numProcesses", "1"])],
+    ids=["train-devices2", "pretrain-coordinator", "train_v-coordinator"])
+def test_data_parallel_flags_train(tmp_path, monkeypatch, cli, flags):
+    """--devices 2 --device cpu trains on two gloo ranks started by the
+    CLI (its harness stays in their processes); a coordinator with one
+    process runs a world of one here. Either way one checkpoint, rank
+    0's, is written. (The harnesses' two-rank runs, V's and the
+    pretrainer's too, are tests/test_torch_port_dist.py's.)"""
+    save = str(tmp_path)
+    flags = [f"localhost:{_free_port()}" if f == "PORT" else f
+             for f in flags]
+    monkeypatch.setattr(tharness, "OVERLAY_BANK", dict(n=8, n_points=500))
+    out = cli.main(ARGS + ["--epochs", "1", "--save", save] + flags)
+    devices = 2 if "--devices" in flags else 1
+    if devices > 1:
+        assert out is None
+    else:
+        assert out.dp and out.hc.n_devices == 1 and out.state.epoch == 2
+    assert not torch.distributed.is_initialized()
+    path = os.path.join(save, DP_CHECKPOINTS[cli])
+    meta = tckpt.load_meta(path)
+    assert meta["epoch"] == 2
+    logs = [n for n in os.listdir(save) if n.endswith("_metrics.jsonl")]
+    events = _events(save, logs[0])
+    assert [e["event"] for e in events].count("checkpoint_saved") == 1
+    assert [e["n_devices"] for e in events if e["event"] == "setup"
+            and "n_devices" in e] in ([], [devices])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--devices", "2", "--device", "cuda"], "card"),
+    (["--devices", "2", "--device", "cuda:0"], "pass --device cuda"),
+    (["--numProcesses", "2"], "need --coordinator")])
+def test_data_parallel_flags_refuse(tmp_path, flags, match):
+    """More CUDA ranks than cards (NCCL puts one rank on a card), a card
+    index for several ranks, and the multi-host flags without a
+    coordinator are refused before anything starts."""
+    with pytest.raises(SystemExit, match=match):
         train_cli.main(ARGS + ["--epochs", "1", "--save", str(tmp_path)]
                        + flags)
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flags", [

@@ -33,7 +33,7 @@ def test_every_module_imports_with_jax_and_catgen_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 54
+    assert int(proc.stdout.split()[-1]) >= 60
 
 
 @pytest.mark.parametrize("module", [
@@ -91,6 +91,29 @@ def test_zoo_and_quality_modules_import_alone(module):
         f"import {module}\n"
         "from catgen_torch.kernels import build\n"
         "assert not build.load_library.cache_info().currsize\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "catgen_torch.dist.mesh", "catgen_torch.dist.dp",
+    "catgen_torch.dist.launch", "catgen_torch.data.native_decode"])
+def test_dist_and_loader_modules_import_alone(module):
+    """Data parallelism's modules and the native decoder's binding, each in
+    a fresh process with jax and catgen blocked, start no process group
+    and build neither the kernels nor the decoder at import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['catgen'] = None\n"
+        f"import {module}\n"
+        "import torch.distributed as dist\n"
+        "from catgen_torch.data import native_decode\n"
+        "from catgen_torch.kernels import build\n"
+        "assert not build.load_library.cache_info().currsize\n"
+        "assert not native_decode.load.cache_info().currsize\n"
+        "assert not dist.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -239,6 +239,5 @@ def test_bad_configs_raise():
 def test_port_config_fields_are_catgens():
     ported = {f.name for f in dataclasses.fields(tgan.GanConfig)}
     catgen = {f.name for f in dataclasses.fields(cgan.GanConfig)}
-    # not ported: the DP axis
-    assert catgen - ported == {"axis_name"}
-    assert ported <= catgen
+    # every field, the DP axis (axis_name) included
+    assert ported == catgen

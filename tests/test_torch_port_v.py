@@ -369,6 +369,5 @@ def test_port_config_fields_are_catgens():
     import dataclasses
     ported = {f.name for f in dataclasses.fields(tvt.VConfig)}
     catgen = {f.name for f in dataclasses.fields(cvt.VConfig)}
-    # not ported: the DP axis
-    assert catgen - ported == {"axis_name"}
-    assert ported <= catgen
+    # every field, the DP axis (axis_name) included
+    assert ported == catgen
