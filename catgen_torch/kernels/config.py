@@ -1,5 +1,6 @@
-"""Selection of the kernel routes: the counterpart of the upsample, sampler
-and ST-conv selectors of ``catgen/kernels/config.py``.
+"""Selection of the kernel routes and of the localization pass: the
+counterpart of the upsample, sampler, ST-conv and joint-localization
+selectors of ``catgen/kernels/config.py``.
 
 The same environment variables, with the same names and values, pick the
 same route in both packages:
@@ -11,6 +12,7 @@ same route in both packages:
     CATGEN_SAMPLER_IMPL=auto|xla|mxu                   (default auto)
     CATGEN_SAMPLER_KERNEL=v1|v2|v3|v4                  (default v4)
     CATGEN_ST_CONV=auto|fused|split                    (default auto)
+    CATGEN_JOINT_LOC=1|0                               (default 1)
 
 In the port the words keep catgen's meaning with PyTorch in place of XLA:
 
@@ -39,7 +41,17 @@ In the port the words keep catgen's meaning with PyTorch in place of XLA:
     ``auto`` resolves to ``mxu``, as catgen's does on its accelerator;
   * ``st_conv_impl``, D's ``[input ST -> conv3x3 -> PReLU]`` prefix:
     ``fused`` is the kernel of ``kernels/st_conv.py``, ``split`` the three
-    layers in turn; ``auto`` resolves to ``split``, as catgen's does.
+    layers in turn; ``auto`` resolves to ``split``, as catgen's does;
+  * ``joint_loc``, the localization nets of D*_st3's three transformer
+    branches: on (``"1"``, the default, as catgen's) they run as one pass
+    (one conv on the concatenated first convs, one grouped conv,
+    ``nn/spatial_transformer.py::FusedSTBranches``); any other value runs
+    them one branch at a time.
+
+catgen's ``CATGEN_MAXPOOL_BWD``, ``CATGEN_SMALLCIN_IMPL`` and
+``CATGEN_FLAT_OPT`` are not read: the port runs their defaults (the max
+pools' index backward, the plain small-Cin convolution, the per-leaf
+optimizer), ROADMAP says why.
 
 Selection is process-global. Set it before a run, through the environment
 or the setters; ``using`` sets and restores around a block.
@@ -81,6 +93,7 @@ ladder_bwd = _env_choice("CATGEN_LADDER_BWD", "xla_vjp", _LADDER_BWDS)
 sampler_impl = _env_choice("CATGEN_SAMPLER_IMPL", "auto", _SAMPLER_IMPLS)
 sampler_kernel = _env_choice("CATGEN_SAMPLER_KERNEL", "v4", _SAMPLER_KERNELS)
 st_conv_impl = _env_choice("CATGEN_ST_CONV", "auto", _ST_CONV_IMPLS)
+joint_loc = os.environ.get("CATGEN_JOINT_LOC", "1") == "1"
 
 
 def resolve_upsample_impl() -> str:
@@ -157,13 +170,19 @@ def set_st_conv_impl(name: str) -> None:
     st_conv_impl = name
 
 
+def set_joint_loc(on: bool) -> None:
+    global joint_loc
+    joint_loc = bool(on)
+
+
 _SETTERS = {"upsample_impl": set_upsample_impl,
             "fused_ladder": set_fused_ladder,
             "upsample_bwd": set_upsample_bwd,
             "ladder_bwd": set_ladder_bwd,
             "sampler_impl": set_sampler_impl,
             "sampler_kernel": set_sampler_kernel,
-            "st_conv_impl": set_st_conv_impl}
+            "st_conv_impl": set_st_conv_impl,
+            "joint_loc": set_joint_loc}
 
 
 @contextlib.contextmanager

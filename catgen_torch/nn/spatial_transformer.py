@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from catgen_torch.core.module import Sequential
@@ -34,7 +35,11 @@ from catgen_torch.kernels.bilinear import (affine_grid_rows,
 from catgen_torch.kernels.bilinear_grid import bilinear_sample_grid
 from catgen_torch.kernels.st_conv import st_conv_prelu
 from catgen_torch.nn.layers import (AvgPool, Conv, Dense, Flatten, LeakyReLU,
-                                    linear)
+                                    linear, to_nchw, to_nhwc, weak)
+
+# joint localization passes run (``FusedSTBranches._joint_loc_features``):
+# one per D*_st3 forward under CATGEN_JOINT_LOC on
+JOINT_LOC_PASSES = 0
 
 Flags = Tuple[bool, bool, bool]   # (rotation, scaling, translation)
 
@@ -205,9 +210,18 @@ class FusedSTBranches(nn.Module):
     (coordinate rows (N, 2, n*H*W) for v4, a grid (N, n*H, W, 2) for the
     others), so the sampler runs once; its output is split by rows, H per
     branch. Children ``loc{i}``, ``head{i}``, ``tail{i}`` and
-    ``plain``. The localization nets run one per branch (catgen's
-    ``CATGEN_JOINT_LOC=0`` path; its default joint path is the same
-    arithmetic reassociated)."""
+    ``plain``.
+
+    The branches' localization nets share the input. Under
+    ``CATGEN_JOINT_LOC`` on (the default, as catgen's) they run in one pass,
+    ``_joint_loc_features``: one conv on the first convs' weights
+    concatenated along the outputs, one grouped conv (``groups`` = the
+    number of branches) on the second convs', the pools and activations
+    once at n x 16 channels, then each branch's channel slice through its
+    own Dense. Parameters stay per branch, so the ``state_dict`` keys do
+    not change, and gradients reach each branch's leaves through the
+    concatenations. With the selector off the nets run one branch at a
+    time, as separate ``Sequential``s."""
 
     def __init__(self, tails: Sequence[nn.Module], plain: nn.Module,
                  image: Tuple[int, int, int],
@@ -223,12 +237,95 @@ class FusedSTBranches(nn.Module):
             self.add_module(f"head{i}", AffineParamHead(64, *self.flags))
             self.add_module(f"tail{i}", tail)
         self.plain = plain
+        try:
+            self._layout = self._loc_layout()
+        except NotImplementedError as e:     # raised by the joint pass
+            self._layout = e
+
+    def _loc_layout(self):
+        """The joint pass's structure, derived once from the localization
+        ``Sequential``s (``_localization_net``) rather than hard-coded:
+        their child names of the two convs and the Dense, and the slope.
+        Any other layer pattern raises, so an edit of the nets fails in the
+        joint pass instead of diverging from the per-branch path."""
+        expected = (AvgPool, Conv, LeakyReLU, Conv, LeakyReLU, AvgPool,
+                    Flatten, Dense, LeakyReLU)
+        for i in range(self.n_tails):
+            children = list(getattr(self, f"loc{i}").named_children())
+            classes = tuple(type(m) for _, m in children)
+            if classes != expected:
+                raise NotImplementedError(
+                    f"the joint localization pass expects the layer "
+                    f"pattern {[c.__name__ for c in expected]}, got "
+                    f"{[c.__name__ for c in classes]} in loc{i}; set "
+                    f"CATGEN_JOINT_LOC=0 or update _joint_loc_features")
+            pool1, conv1, act1, conv2, act2, pool2 = (
+                m for _, m in children[:6])
+            if not pool1.window == pool2.window == 2:
+                raise NotImplementedError(
+                    "the joint localization pass assumes 2x2/2 pools")
+            if not (act1.negative_slope == act2.negative_slope
+                    == children[8][1].negative_slope):
+                raise NotImplementedError(
+                    "the joint localization pass assumes one slope")
+            if not (conv1.kernel_size == conv2.kernel_size == (3, 3)
+                    and conv1.padding == conv2.padding == (1, 1)):
+                raise NotImplementedError(
+                    "the joint localization pass assumes 'same' 3x3 convs")
+        names = {k: children[j][0]
+                 for k, j in (("conv1", 1), ("conv2", 3), ("dense", 7))}
+        return names, act1.negative_slope
+
+    def _joint_loc_features(self, x: torch.Tensor):
+        """Every branch's localization features, (N, 64) each, in one
+        pass. In bf16 it rounds where catgen's joint pass rounds: each
+        pool is a sum of four in x's dtype, row by row, then x 0.25; the
+        slope is rounded to x's dtype; the kernels and biases are cast to
+        x's dtype and each bias is added after its conv or product."""
+        global JOINT_LOC_PASSES
+        if isinstance(self._layout, NotImplementedError):
+            raise self._layout
+        JOINT_LOC_PASSES += 1
+        names, neg_slope = self._layout
+        slope = weak(neg_slope, x.dtype)
+        locs = [getattr(self, f"loc{i}") for i in range(self.n_tails)]
+
+        def pool2(v):
+            oh, ow = v.shape[1] // 2, v.shape[2] // 2
+            v = v[:, :2 * oh, :2 * ow]
+            s = v[:, 0::2, 0::2] + v[:, 0::2, 1::2]
+            return ((s + v[:, 1::2, 0::2]) + v[:, 1::2, 1::2]) * 0.25
+
+        def leaky(v):
+            return torch.where(v >= 0, v, slope * v)
+
+        def conv(v, name, groups=1):
+            convs = [getattr(loc, name) for loc in locs]
+            weight = torch.cat([c.weight for c in convs]).to(v.dtype)
+            bias = torch.cat([c.bias for c in convs]).to(v.dtype)
+            y = F.conv2d(to_nchw(v), weight, padding=1, groups=groups)
+            return to_nhwc(y) + bias
+
+        hc = leaky(conv(pool2(x), names["conv1"]))
+        hc = leaky(conv(hc, names["conv2"], groups=self.n_tails))
+        hc = pool2(hc)                                # (N, h/4, w/4, n*16)
+        c_per = hc.shape[-1] // self.n_tails
+        feats = []
+        for i, loc in enumerate(locs):
+            flat = hc[..., i * c_per:(i + 1) * c_per].reshape(x.shape[0], -1)
+            dense = getattr(loc, names["dense"])
+            feats.append(leaky(linear(flat, dense.weight, dense.bias)))
+        return feats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.shape[1]
-        thetas = [affine_matrix(getattr(self, f"head{i}")(
-            getattr(self, f"loc{i}")(x)).float(), *self.flags)
-            for i in range(self.n_tails)]
+        if config.joint_loc:
+            feats = self._joint_loc_features(x)
+        else:
+            feats = [getattr(self, f"loc{i}")(x)
+                     for i in range(self.n_tails)]
+        thetas = [affine_matrix(getattr(self, f"head{i}")(feats[i]).float(),
+                                *self.flags) for i in range(self.n_tails)]
         sampled = sample_affine(x, thetas)
         outs = [getattr(self, f"tail{i}")(sampled[:, i * h:(i + 1) * h])
                 for i in range(self.n_tails)]

@@ -14,8 +14,10 @@ on different scales. Step counters are 0-d int32 tensors on the device,
 so that a step the accuracy gate skips can leave them unchanged without a
 host round trip (``select``).
 
-catgen's flat optimizer (``flat_update``, ``CATGEN_FLAT_OPT``) is a TPU
-op-count workaround with identical updates; it is not ported.
+catgen's flat optimizer (``flat_update``, ``CATGEN_FLAT_OPT``) gives
+updates bit-identical to the per-leaf path and changes only speed; it is
+ROADMAP item 3.1, a multi-tensor update to be measured against the
+port's bench, not yet written.
 """
 
 from __future__ import annotations

@@ -47,7 +47,8 @@ takes the same gate decision and the replicas stay bit-equal; frozen G
 children are zeroed after the reduction. The models' BatchNorms sync
 their statistics on their own ``axis_name``.
 
-Not ported: catgen's flat optimizer (a TPU op-count workaround).
+Not yet ported: catgen's flat optimizer (bit-identical updates, a speed
+choice; ROADMAP item 3.1).
 """
 
 from __future__ import annotations

@@ -246,6 +246,18 @@ with a non-zero exit code and no result.
      one epoch each, and --devices 2 refused on one card; (e) the world of
      one's DP step beside the plain step in time, f32 and bf16, default
      route (the cost of the reductions; a finding, no claim).
+ 41. joint localization (catgen_torch/kernels/config.py, CATGEN_JOINT_LOC,
+     the default) against per-branch localization (CATGEN_JOINT_LOC=0):
+     (a) one step at batch 8 under each, f32 and bf16, card against CPU
+     within phase 9's bounds (f32) and phase 28's (bf16), and on the card
+     joint against per branch; (b) at batch 640, f32 and bf16, the
+     sampler's 5/4/3 launches a step under each, and two joint
+     localization passes a step under joint localization, none per
+     branch; (c) each one's step timed (median of 10 after 3 warm-ups, min
+     and max, one profiled step's device ms, kernels and idle share); (d)
+     row 8 (the grid forward) at V16's warp shape, (16 and 320, 16, 16, 3)
+     -> 16x16, against its plain version (bit for bit) and grid_sample,
+     timed, with its bound.
 
 Each phase off the default route sets the selectors through
 catgen_torch.kernels.config.using and restores them; phases 1-10 and
@@ -1279,16 +1291,30 @@ def step_card_vs_cpu(route=None, pair=None, image=(32, 32, 3),
                                   gd.state_dict().items()},
                                **{f"d.{k}": v.cpu() for k, v in
                                   dd.state_dict().items()}})
-    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out["cuda"]
+    return {**compare_gan_steps(out["cpu"], out["cuda"], g_rel),
+            "launches": d_counts}
+
+
+def compare_gan_steps(cpu: tuple, card: tuple, g_rel: float = GRAD_REL,
+                      what: str = "") -> dict:
+    """Phase 9's comparison of one GAN step's (metrics, raw gradients of
+    the D and the G update, parameters after) on the card against the
+    CPU's: losses within STEP_LOSS_RTOL, the confusion counts exact, each
+    gradient leaf within GRAD_REL (G's ``g_rel``) of its largest plus
+    GRAD_FLOOR of the update's largest, parameters within PARAM_ATOL but
+    for a share of Adam sign flips."""
+    what = f"{what}: " if what else ""
+    (mc, gc, pc), (mg, gg, pg) = cpu, card
     for name in ("loss_d", "loss_g", "acc_d", "acc_avg"):
         a, b = float(getattr(mg, name)), float(getattr(mc, name))
-        print(f"{name}: card {a:.7f} cpu {b:.7f} rel err "
+        print(f"{what}{name}: card {a:.7f} cpu {b:.7f} rel err "
               f"{abs(a - b) / max(abs(b), 1e-30):.2e} "
               f"(tolerance {STEP_LOSS_RTOL})")
-        require(abs(a - b) <= STEP_LOSS_RTOL * abs(b), f"{name} differs")
+        require(abs(a - b) <= STEP_LOSS_RTOL * abs(b),
+                f"{what}{name} differs")
     for name in ("d_trained", "tp_real", "tn_fake", "fp", "fn"):
         require(float(getattr(mg, name)) == float(getattr(mc, name)),
-                f"{name} differs")
+                f"{what}{name} differs")
     worst_grad = 0.0
     for phase_name, a, b, leaf_rel in zip("DG", gg, gc, (GRAD_REL, g_rel)):
         top = max(v.abs().max().item() for v in b.values())
@@ -1296,18 +1322,18 @@ def step_card_vs_cpu(route=None, pair=None, image=(32, 32, 3),
         for k in b:
             err = (a[k] - b[k]).abs().max().item()
             bound = leaf_rel * b[k].abs().max().item() + GRAD_FLOOR * top
-            require(err <= bound, f"{phase_name} gradient {k}: {err:.3e} > "
-                                  f"{bound:.3e}")
+            require(err <= bound, f"{what}{phase_name} gradient {k}: "
+                                  f"{err:.3e} > {bound:.3e}")
             if err > GRAD_FLOOR * top:    # not a rounding-noise leaf
                 rel.append((err / b[k].abs().max().item(), k))
         rel.sort(reverse=True)
         worst_grad = max([worst_grad] + [r for r, _ in rel])
-        print(f"{phase_name} phase gradients, worst leaves (error over the "
-              f"leaf's largest): " + ", ".join(
+        print(f"{what}{phase_name} phase gradients, worst leaves (error "
+              f"over the leaf's largest): " + ", ".join(
                   f"{k} {r:.2e}" for r, k in rel[:3]))
-    print(f"gradients: worst per-leaf error {worst_grad:.2e} of the leaf's "
-          f"largest (tolerance {GRAD_REL}, G's {g_rel}, + {GRAD_FLOOR} of "
-          f"the update's largest)")
+    print(f"{what}gradients: worst per-leaf error {worst_grad:.2e} of the "
+          f"leaf's largest (tolerance {GRAD_REL}, G's {g_rel}, + "
+          f"{GRAD_FLOOR} of the update's largest)")
     n = beyond = 0
     worst = 0.0
     for k, want in pc.items():
@@ -1315,13 +1341,14 @@ def step_card_vs_cpu(route=None, pair=None, image=(32, 32, 3),
         n += err.numel()
         beyond += int((err > PARAM_ATOL).sum())
         worst = max(worst, err.max().item())
-    print(f"parameters after the step: max abs err {worst:.3e}; "
+    print(f"{what}parameters after the step: max abs err {worst:.3e}; "
           f"{beyond} of {n} beyond {PARAM_ATOL} (Adam sign flips; allowed "
           f"{PARAM_FLIP_SHARE:g} of them, each <= {PARAM_FLIP_MAX})")
-    require(worst <= PARAM_FLIP_MAX, "parameters differ by more than 2*lr")
-    require(beyond <= PARAM_FLIP_SHARE * n, "too many parameters differ")
-    return {"grad_rel": worst_grad, "param_abs": worst,
-            "launches": d_counts}
+    require(worst <= PARAM_FLIP_MAX,
+            f"{what}parameters differ by more than 2*lr")
+    require(beyond <= PARAM_FLIP_SHARE * n, f"{what}too many parameters "
+                                            f"differ")
+    return {"grad_rel": worst_grad, "param_abs": worst}
 
 
 def train_times(card_name: str) -> dict:
@@ -3790,7 +3817,7 @@ def require_launches(fn, want: dict, what: str) -> dict:
 def bf16_step_times(card_name: str, dtype, remat: bool,
                     route=None, route_name: str = "",
                     want_kernels=None, pair=None, batch: int = TRAIN_B,
-                    image=(32, 32, 3)) -> dict:
+                    image=(32, 32, 3), count_launches: bool = False) -> dict:
     """One configuration of phases 29 and 33: bench.py's train step (batch
     640, augmentation, logit BCE, Adam) in ``dtype``, with or without
     remat, on the default route or on ``route``: median step of 10,
@@ -3798,7 +3825,10 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     kernel's device time in the profiled step (``device_ms``: name ->
     (ms, launches)); with ``want_kernels`` one more step, whose kernels
     must launch as ``require_launches`` says. ``pair`` makes (G, D)
-    (default: the flagship pair, seeded) for ``image`` at ``batch``."""
+    (default: the flagship pair, seeded) for ``image`` at ``batch``. With
+    ``count_launches``, one more step's launch counts
+    (``bf16_route_counts``) and joint localization passes come back under
+    "launches" and "joint_loc_passes"."""
     import contextlib
 
     import torch
@@ -3837,6 +3867,15 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
         if want_kernels:
             require_launches(lambda: step(state, reals, draws), want_kernels,
                              f"train step {name}")
+        counted = {}
+        if count_launches:
+            from catgen_torch.nn import spatial_transformer as st
+            passes = st.JOINT_LOC_PASSES
+            reset_counts()
+            step(state, reals, draws)
+            torch.cuda.synchronize()
+            counted = {"launches": bf16_route_counts(),
+                       "joint_loc_passes": st.JOINT_LOC_PASSES - passes}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
@@ -3857,7 +3896,8 @@ def bf16_step_times(card_name: str, dtype, remat: bool,
     return {"step_ms": med, "step_min_ms": lo, "step_max_ms": hi,
             "images_per_s": 2 * batch / med * 1e3,
             "peak_bytes": peak, "idle_share": idle,
-            "device_ms": busy / 1e3, "kernel_device_ms": device}
+            "device_ms": busy / 1e3, "kernel_device_ms": device,
+            "kernels_launched": sum(e.count for e in kernels), **counted}
 
 
 def bf16_times(card_name: str, v_generation_ms: float) -> dict:
@@ -5846,6 +5886,199 @@ def dp_clis(root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# joint and per-branch localization (phase 41)
+# ---------------------------------------------------------------------------
+
+# catgen's localization selector: joint (the default), then per branch
+ALTERNATES = (("joint", dict(joint_loc=True)),
+              ("per_branch", dict(joint_loc=False)))
+
+
+def expected_alternate(bf16: bool, steps: int) -> dict:
+    """``bf16_route_counts`` for ``steps`` steps on the default route under
+    either localization: the sampler's 5 forwards, 4 d_coords and 3 d_img
+    a step, in the step's dtype."""
+    want = dict.fromkeys(bf16_route_counts(), 0)
+    prefix = "BF16_" if bf16 else ""
+    for key, n in (("LAUNCHES", 5), ("DCOORDS_LAUNCHES", 4),
+                   ("DIMG_LAUNCHES", 3)):
+        want[prefix + key] = n * steps
+    return want
+
+
+def alternate_steps(device: str = "cuda") -> dict:
+    """Phase 41 (a): one train step at batch 8 with augmentation under each
+    localization, f32 and bf16, on the CPU and on the card from the same
+    weights and draws: card against CPU within phase 9's bounds (f32) and
+    phase 28's (bf16), the card's launches as designed, and on the card
+    joint localization against per branch at the same bounds."""
+    import copy
+
+    import torch
+    from catgen_torch import optim
+    from catgen_torch.core.random import Draws
+    from catgen_torch.kernels import config as kconfig
+    from catgen_torch.nn import spatial_transformer as st
+    from catgen_torch.train import gan
+
+    out = {}
+    real_cap = optim.clamp_and_penalize
+    mode = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tag = "bf16" if bf16 else "f32"
+            config = gan.GanConfig(batch_size=8, augment=True,
+                                   compute_dtype=dtype)
+            g, d = seeded_pair(3, G_GAIN, D_GAIN)
+            reals = torch.rand((4, 32, 32, 3),
+                               generator=torch.Generator().manual_seed(4))
+            recorded, cards = None, {}
+            for name, route in ALTERNATES:
+                runs = {}
+                for dev in ("cpu", device):
+                    gd, dd = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+                    state = gan.init_state(gd, dd, config)
+                    grads = []
+
+                    def spy(gr, *a, **k):
+                        grads.append({n: t.detach().cpu()
+                                      for n, t in gr.items()})
+                        return real_cap(gr, *a, **k)
+
+                    draws = (RecordingDraws(Draws(
+                        torch.Generator().manual_seed(5)))
+                        if recorded is None else
+                        ReplayedDraws(recorded.taken, dev))
+                    optim.clamp_and_penalize = spy
+                    reset_counts()
+                    passes = st.JOINT_LOC_PASSES
+                    try:
+                        with kconfig.using(**route):
+                            m = gan.make_train_step(gd, dd, config)(
+                                state, reals.to(dev), draws)
+                    finally:
+                        optim.clamp_and_penalize = real_cap
+                    if recorded is None:
+                        recorded = draws
+                    runs[dev] = (m, grads, _state_tensors(state))
+                passes = st.JOINT_LOC_PASSES - passes
+                counts = bf16_route_counts()
+                want = expected_alternate(bf16, 1)
+                print(f"{tag} step under {name}: launches on the "
+                      f"{device} {({k: v for k, v in counts.items() if v})}"
+                      f", joint localization passes {passes}")
+                require(device != "cuda" or counts == want,
+                        f"the {tag} {name} step's launches, expected "
+                        f"{({k: v for k, v in want.items() if v})}")
+                require(passes == (2 if route["joint_loc"] else 0),
+                        f"the {tag} {name} step ran {passes} joint "
+                        f"localization passes")
+                what = f"{tag} step under {name}, card vs CPU"
+                cmp = (compare_bf16_steps(runs["cpu"], runs[device], what)
+                       if bf16 else compare_gan_steps(
+                           runs["cpu"], runs[device], what=what))
+                out[f"{tag}_{name}"] = {**cmp, "launches": counts}
+                cards[name] = runs[device]
+            what = f"{tag} step on the card, joint against per branch"
+            out[f"{tag}_joint_vs_per_branch"] = (
+                compare_bf16_steps(cards["per_branch"], cards["joint"], what)
+                if bf16 else compare_gan_steps(cards["per_branch"],
+                                               cards["joint"], what=what))
+    finally:
+        torch.backends.cudnn.deterministic = mode
+    return out
+
+
+def alternate_times(card_name: str) -> dict:
+    """Phase 41 (b) and (c): the train step at batch 640 on the default
+    route under each localization, f32 and bf16 (``bf16_step_times``: median
+    of 10 after 3 warm-ups, min and max, one profiled step's device ms,
+    kernels and idle share), and one more step's launches: the sampler's
+    5/4/3 (``expected_alternate``) and one joint localization pass per D
+    forward, two a step, under joint localization."""
+    import torch
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for name, route in ALTERNATES:
+            r = bf16_step_times(card_name, dtype, False, route=route,
+                                route_name=name, count_launches=True)
+            want = expected_alternate(dtype == torch.bfloat16, 1)
+            got = r.pop("launches")
+            print(f"{tag} step at batch {TRAIN_B} under {name}: "
+                  f"{r['kernels_launched']} kernels in the profiled step, "
+                  f"launches {({k: v for k, v in got.items() if v})}, "
+                  f"joint localization passes {r['joint_loc_passes']}; "
+                  f"{card_name}")
+            require(got == want, f"the {tag} {name} step at batch "
+                                 f"{TRAIN_B}: launches {got}")
+            require(r["joint_loc_passes"] == (
+                2 if route["joint_loc"] else 0),
+                f"the {tag} {name} step at batch {TRAIN_B}: joint "
+                f"localization passes")
+            out[f"{tag}_{name}"] = {k: v for k, v in r.items()
+                                    if k != "kernel_device_ms"}
+    return out
+
+
+# V16's warp generator: the grid forward at (N, 16, 16, 3) -> 16 x 16, at
+# V's half batches
+WARP16_SHAPES = [(n, 16, 16, 3, 16, 16) for n in V_HALVES]
+
+
+def warp16_times(card_name: str) -> dict:
+    """Phase 41 (d): row 8 at V16's warp shape, the grid forward against
+    its plain version (bit for bit) and ``F.grid_sample`` (align_corners,
+    border): CUDA events and device times, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from catgen_torch.kernels import bilinear_grid as bg
+
+    out = {}
+    for i, shape in enumerate(WARP16_SHAPES):
+        n, h, w, c, ho, wo = shape
+        img, rows, _ = sampler_inputs(shape, seed=410 + i)
+        grid = rows.permute(0, 2, 1).reshape(n, ho, wo, 2).contiguous()
+        inp = img.permute(0, 3, 1, 2).contiguous()
+        xy = grid.flip(-1).contiguous()
+        require(torch.equal(bg.launch(img, grid),
+                            bg.bilinear_sample_grid_plain(img, grid)),
+                f"the grid forward at {shape} is not its plain version's "
+                f"bits")
+
+        def kern():
+            return bg.launch(img, grid)
+
+        def plain():
+            return bg.bilinear_sample_grid_plain(img, grid)
+
+        def library():
+            return F.grid_sample(inp, xy, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+        k_dev, lib_dev = sampler_device_line("fwd", "grid", shape, kern,
+                                             library, card_name)
+        p1, k1 = cuda_ms(plain, inner=10), cuda_ms(kern, inner=10)
+        k2, p2 = cuda_ms(kern, inner=10), cuda_ms(plain, inner=10)
+        lib = cuda_ms(library, inner=10)
+        b, by = sampler_bound("fwd", shape)
+        out[str(shape)] = {"ms": min(k1, k2), "device_ms": k_dev,
+                           "plain_ms": min(p1, p2), "library_ms": lib,
+                           "library_device_ms": lib_dev, "bound_ms": b,
+                           "bound_by": by}
+        print(f"row 8 at V16's warp shape {shape}: kernel "
+              f"{min(k1, k2):.4f} ms (device {k_dev:.4f}), plain "
+              f"{min(p1, p2):.4f} ms, grid_sample {lib:.4f} ms (device "
+              f"{lib_dev:.4f}), bound {b:.6f} ms ({by}); CUDA events, "
+              f"median of 20 timings of 10 back-to-back calls, order "
+              f"plain-kernel-kernel-plain-library; {card_name}")
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__).parse_args(argv)
     import torch
@@ -6168,6 +6401,21 @@ def main(argv=None) -> int:
         "world_of_one": {k: {m: v[m] for m in v if m != "launches"}
                          for k, v in world1.items()},
         "two_ranks": two}}))
+    phase(41, "joint against per-branch localization: (a) one step at "
+              "batch 8 under each, f32 and bf16, card against CPU and "
+              "joint against per branch; (b, c) the step at batch "
+              f"{TRAIN_B} under each, launches and times; (d) row 8 at "
+              "V16's warp shape")
+    t0 = time.perf_counter()
+    alt_steps = alternate_steps()
+    alt_times = alternate_times(card_name)
+    warp16 = warp16_times(card_name)
+    print(f"phase 41: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"localization": {
+        "card": card_name,
+        "steps_card_vs_cpu": {k: {m: v[m] for m in v if m != "launches"}
+                              for k, v in alt_steps.items()},
+        "steps": alt_times, "warp16": warp16}}))
 
     from catgen_torch.kernels import bilinear
 

@@ -1,6 +1,6 @@
 """The port stands alone: no module of catgen_torch, and not chip_smoke.py,
-imports jax or the catgen package (the machine with the card runs the
-port without them)."""
+imports jax, the catgen package or catgen's ``tools`` (the machine with
+the card runs the port without them)."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "catgen"}
+FORBIDDEN = {"jax", "jaxlib", "catgen", "tools"}
 
 
 def _port_sources():
@@ -23,6 +23,7 @@ def test_every_module_imports_with_jax_and_catgen_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['catgen'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import importlib, pkgutil, catgen_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    catgen_torch.__path__, 'catgen_torch.')]\n"
@@ -114,6 +115,26 @@ def test_dist_and_loader_modules_import_alone(module):
         "assert not build.load_library.cache_info().currsize\n"
         "assert not native_decode.load.cache_info().currsize\n"
         "assert not dist.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "catgen_torch.tools.slim_ckpt", "catgen_torch.tools.rescue",
+    "catgen_torch.tools.seed_sweep", "catgen_torch.tools.report",
+    "catgen_torch.tools.audit_table"])
+def test_tools_import_alone(module):
+    """The run tools, each in a fresh process with jax, catgen and
+    catgen's tools blocked, build no kernel at import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['catgen'] = None\n"
+        "sys.modules['tools'] = None\n"
+        f"import {module}\n"
+        "from catgen_torch.kernels import build\n"
+        "assert not build.load_library.cache_info().currsize\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

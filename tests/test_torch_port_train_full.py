@@ -18,6 +18,9 @@ the upsample-conv biases in front of BatchNorm); parameters after the step
 and G's BatchNorm statistics atol 1e-4.
 """
 
+from catgen_torch.kernels import config
+from catgen_torch.nn import spatial_transformer as tst
+
 from torch_port_helpers import IMG, full_width_step_matches
 
 
@@ -25,3 +28,16 @@ def test_full_width_step_matches_catgen():
     # augmentation (5 uniform, the flip, 1 normal), then the D phase's
     # noise and D's 7 dropout masks, then the G phase's
     full_width_step_matches("g32up_c", "d32_st3", IMG, bernoulli=15)
+
+
+def test_full_width_step_per_branch_matches_catgen(monkeypatch):
+    """The same step with the transformer branches' localization nets run
+    one branch at a time (``CATGEN_JOINT_LOC=0``) on both sides, at the
+    same weights and tolerances; the default step above runs catgen's
+    joint pass, one per D forward, on both sides."""
+    from catgen.kernels import config as kconfig
+    monkeypatch.setattr(kconfig, "joint_loc", False)
+    passes = tst.JOINT_LOC_PASSES
+    with config.using(joint_loc=False):
+        full_width_step_matches("g32up_c", "d32_st3", IMG, bernoulli=15)
+    assert tst.JOINT_LOC_PASSES == passes
